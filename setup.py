@@ -25,7 +25,10 @@ setup(
     name="deepspeed_tpu",
     version=_version(),
     description="TPU-native training/inference framework with DeepSpeed's capabilities",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
+    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*",
+                                    "deepspeed_tpu_torch", "deepspeed_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these sources at first use
+    package_data={"deepspeed_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy", "pydantic>=2"],
     scripts=["bin/deepspeed_tpu", "bin/ds_report", "bin/ds_bench", "bin/ds_elastic", "bin/ds_doctor"],
