@@ -6,23 +6,30 @@ Run from the repository root on a machine with a Hopper GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``deepspeed_tpu_torch/csrc/``, holds
-each kernel against its plain PyTorch version at the serving shapes and at
-edge shapes, then serves llama3.2-1b at full width and depth with random
-weights through ``init_inference`` → ``generate`` and checks that the run
-went through the kernels. Each phase prints one JSON line; any failed check
-raises, and the script exits non-zero without the final line. It needs one
-card and imports nothing of JAX or of the JAX package.
+each kernel against its plain PyTorch version at the main paths' shapes and
+at edge shapes, then drives the two ported paths at full width with random
+weights, each with the launch counts set to 0 just before it and read just
+after: serving llama3.2-1b (full depth) through ``init_inference`` →
+``generate``, and training gpt2-760m (full depth) through ``initialize`` →
+``train_batch``. It checks that each run went through its kernels and that
+the kernel path agrees with the plain path. Each phase prints one JSON
+line; any failed check raises, and the script exits non-zero without the
+final line. It needs one card and imports nothing of JAX or of the JAX
+package.
 
 The last lines are: the kernels' summary as ``{"kernels": [...]}``, the
 card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-Timing: each time is CUDA-event device time per call, averaged over
+Timing: each kernel time is CUDA-event device time per call, averaged over
 ``ITERS`` back-to-back calls queued behind a device sleep (so host launch
 overhead does not show), with inputs rotated over copies totalling more than
 the 50 MB L2 cache, as the model's per-layer calls find them cold.
 ``bound_ms`` is max(bytes moved / memory bandwidth, operations / peak rate
-for the input type), from the accelerator's published peaks.
+for the input type), from the accelerator's published peaks, counting each
+input read once and each output written once. A training step is timed on
+the host clock from the call to the loss on the host, step by step after
+warm-up steps; the median is reported with every step's time.
 """
 
 import dataclasses
@@ -42,16 +49,48 @@ MODEL = "llama3.2-1b"
 BATCH, PROMPT, GEN = 32, 128, 128          # the serving cell
 SMALL_LAYERS, SMALL_BATCH, SMALL_PROMPT, SMALL_GEN = 2, 4, 32, 16
 PROFILE_STEPS = 4
+TRAIN_MODEL = "gpt2-760m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024            # the training cell: micro batch 8, gas 1
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+# the JAX bench's training recipe (bench.py), on a world of one
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_BATCH, "gradient_accumulation_steps": 1,
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+                "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
+                "gradient_clipping": 1.0, "steps_per_print": 0, "seed": SEED}
+CHECK_FP32 = dict(layers=2, batch=2, gas=2, steps=3)   # the fp32 train check
 
 # tolerances, with their reasons
-# kernel vs plain fp32 on the same inputs: a bf16 output carries its own
-# rounding (2^-9 relative, |o| < ~5 for unit-normal v); fp32 outputs and the
-# fp32 LSE differ only in summation order
-TOL = {torch.bfloat16: {"o": 2e-2, "lse": 1e-3}, torch.float32: {"o": 1e-4, "lse": 1e-4}}
+# kernel vs plain fp32 on the same inputs: a bf16 or fp16 output carries its
+# own rounding (2^-9 or 2^-11 relative, |o| < ~5 for unit-normal v); fp32
+# outputs and the fp32 LSE differ only in summation order
+TOL = {torch.bfloat16: {"o": 2e-2, "lse": 1e-3}, torch.float16: {"o": 2e-2, "lse": 1e-3},
+       torch.float32: {"o": 1e-4, "lse": 1e-4}}
 # llama3.2-1b bf16 logits, kernel path vs plain path on the same weights: the
 # plain path rounds scores and probabilities to bf16, the kernels keep them in
 # fp32, and 16 layers carry the difference to the logits
 LOGIT_RTOL = 5e-2
+# backward kernels vs plain fp32 on the same inputs, as a share of the largest
+# reference gradient floored at 1 (the inputs are unit normal): a bf16 or
+# fp16 output carries its own rounding (2^-9 or 2^-11 of the largest value,
+# 5x margin); fp32 outputs differ only in summation order. The floor keeps a
+# gradient that is zero in exact arithmetic (dQ with a single key:
+# dS = P (dP - delta) = 0) from being held to its own fp32 cancellation noise.
+GRAD_RTOL = {torch.bfloat16: 1e-2, torch.float16: 2.5e-3, torch.float32: 1e-4}
+# gpt2-760m bf16 step, kernel path vs plain path on the same weights and
+# batch: the plain path rounds scores and probabilities to bf16 and 24 layers
+# carry that into the loss and gradients; the kernel path keeps them in fp32.
+# Loss: relative difference. Gradients: per tensor, the L2 norm of the
+# difference over the L2 norm of the plain path's gradient.
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GRAD_RTOL = 1e-1
+# the fp32 2-layer run after three AdamW steps: losses relative, and the
+# params' difference in L2 over all tensors together against the params' L2.
+# Not per tensor: the key bias adds the same amount to every score of a row,
+# so its gradient is zero in exact arithmetic and each path's is rounding
+# noise, which Adam turns into steps; a zero-initialized tensor compared to
+# its own norm measures that noise (3.5e-3 on blocks.0.qkv_b on an H100), not
+# the kernels.
+FP32_RTOL = 1e-4
 
 
 def emit(phase, **fields):
@@ -176,6 +215,70 @@ def check_decode(da, accel, gen, name, B, S, H, KV, Dh, dtype, pos, garbage=Fals
     return row
 
 
+def _pairs(T: int, causal: bool) -> int:
+    return sum(min(i + 1, T) for i in range(T)) if causal else T * T
+
+
+def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal):
+    """Both backward kernels against their plain versions at one shape, then
+    their times beside the bound, the plain versions and
+    scaled_dot_product_attention's backward and forward+backward."""
+    import torch.nn.functional as F
+
+    item = torch.tensor([], dtype=dtype).element_size()
+    per_set = 4 * BH * T * D * item
+    sets = []
+    for _ in range(n_copies(per_set)):
+        q, k, v, do = (torch.randn(BH, T, D, generator=gen, device="cuda") for _ in range(4))
+        q, k, v, do = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+        o, lse = fa.flash_forward(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        sets.append((q, k, v, do, lse, delta))
+    q, k, v, do, lse, delta = sets[0]
+    dq = fa.flash_backward_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, causal)
+    ref = fa.mha_backward_reference(q.float(), k.float(), v.float(), do.float(), lse, delta,
+                                    causal)
+    torch.cuda.synchronize()
+    tol = GRAD_RTOL[dtype]
+    errs, scales = {}, {}
+    for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        errs[n], scales[n] = max_err(g, r), r.abs().max().item()
+        if not torch.isfinite(g).all() or errs[n] > tol * max(1.0, scales[n]):
+            raise AssertionError(f"flash_attention_bwd {name}: {n} err {errs[n]} over "
+                                 f"{tol} x {scales[n]}")
+    pairs = _pairs(T, causal) * BH
+    rows = BH * T
+    dq_bound = bound_ms(accel, 5 * rows * D * item + 8 * rows, 6.0 * D * pairs, dtype)
+    dkv_bound = bound_ms(accel, 6 * rows * D * item + 8 * rows, 8.0 * D * pairs, dtype)
+
+    def sdpa_sets():
+        out = []
+        for q, k, v, do, _, _ in sets:
+            q, k, v = (x.view(1, BH, T, D).detach().requires_grad_() for x in (q, k, v))
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=1.0)
+            out.append((q, k, v, o, do.view(1, BH, T, D)))
+        return out
+
+    lib = sdpa_sets()
+    lib_bwd = lambda q, k, v, o, do: torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+    lib_fwd_bwd = lambda q, k, v, o, do: torch.autograd.grad(
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=1.0), (q, k, v), do)
+    row = {"name": name, "shape": [BH, T, D], "dtype": str(dtype), "causal": causal,
+           "max_abs_err": max(errs.values()), "errs": errs, "ref_max_abs": scales,
+           "rtol": tol,
+           "dq_ms": time_ms(lambda *a: fa.flash_backward_dq(*a, causal), sets),
+           "dkv_ms": time_ms(lambda *a: fa.flash_backward_dkv(*a, causal), sets),
+           "dq_plain_ms": time_ms(lambda *a: fa.mha_backward_dq_reference(*a, causal), sets),
+           "dkv_plain_ms": time_ms(lambda *a: fa.mha_backward_dkv_reference(*a, causal), sets),
+           "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
+           "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+           "library_bwd_ms": time_ms(lib_bwd, lib), "library_fwd_bwd_ms": time_ms(lib_fwd_bwd, lib)}
+    del lib
+    emit("kernel flash_attention_bwd", **row)
+    return row
+
+
 # -------------------------------------------------------------------- slice
 def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
     """llama3.2-1b, bf16, full width and depth: the counted main-path run."""
@@ -188,7 +291,8 @@ def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
     engine.generate(ids[:2, :8], max_new_tokens=2)   # warm-up (library handles)
     torch.cuda.synchronize()
     accel.reset_peak_memory_stats()
-    fa.KERNEL.launches = da.KERNEL.launches = 0
+    fa.KERNEL.reset_launches()
+    da.KERNEL.reset_launches()
     t0 = time.perf_counter()
     out = engine.generate(ids, max_new_tokens=GEN)
     torch.cuda.synchronize()
@@ -243,10 +347,22 @@ def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
     return launches
 
 
-def device_profile(fn):
+def kernel_category(name: str) -> str:
+    """Coarse owner of a device kernel, by its name."""
+    if re.search(r"flash_fwd_kernel|flash_bwd_|decode_kernel", name):
+        return "port attention kernels"
+    if re.search(r"gemm|nvjet|cutlass|xmma|cublas|splitK", name, re.I):
+        return "matmul (cuBLAS)"
+    if "at::native" in name or "Memcpy" in name or "Memset" in name:
+        return "torch elementwise, reduction, copy"
+    return "other"
+
+
+def device_profile(fn, top: int = 6):
     """Run fn() under torch.profiler: host wall ms, device ms summed over
-    kernels, the device's idle share of the wall time, and the top kernels.
-    The profiler's own overhead lengthens the wall time."""
+    kernels, the device's idle share of the wall time, device ms by kernel
+    category, and the top kernels. The profiler's own overhead lengthens the
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -261,9 +377,13 @@ def device_profile(fn):
     rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                   key=dev, reverse=True)
     device_ms = sum(dev(e) for e in rows)
+    by_category = {}
+    for e in rows:
+        cat = kernel_category(e.key)
+        by_category[cat] = by_category.get(cat, 0.0) + dev(e)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "idle_share": max(0.0, 1 - device_ms / wall_ms),
-            "top": [[e.key[:70], dev(e), e.count] for e in rows[:6]]}
+            "idle_share": max(0.0, 1 - device_ms / wall_ms), "by_category": by_category,
+            "top": [[e.key[:70], dev(e), e.count] for e in rows[:top]]}
 
 
 def profile_slice(model, ids, logits, cache):
@@ -304,6 +424,125 @@ def serve_small_fp32(init_inference, LlamaModel, cfg):
         raise AssertionError("fp32 greedy tokens differ between the kernel and plain paths")
 
 
+# -------------------------------------------------------------------- train
+def _grads(model, batch):
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(batch)
+    loss.backward()
+    return loss.detach().float(), {n: p.grad.float() for n, p in model.named_parameters()}
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def train_slice(initialize, GPT2Model, cfg, accel, fa):
+    """gpt2-760m, bf16, full width and depth, through initialize →
+    train_batch: the counted main-path run of this slice."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    c = dataclasses.replace(cfg, remat=False)
+    engine, *_ = initialize(model=GPT2Model(c), config=dict(TRAIN_CONFIG))
+    batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED, device="cuda")
+    losses = [float(engine.train_batch(batch)) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    accel.reset_peak_memory_stats()
+    fa.KERNEL.reset_launches()
+    fa.BWD_KERNEL.reset_launches()
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))   # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"flash_attention_fwd": fa.KERNEL.launches,
+                **fa.BWD_KERNEL.entry_launches}
+    peak_gb = accel.max_memory_allocated() / 1e9
+    step_s = sorted(step_ms)[TRAIN_STEPS // 2] / 1e3              # the median step
+
+    expect = dict.fromkeys(launches, c.n_layer * TRAIN_STEPS)
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} over {TRAIN_STEPS} steps, "
+                             f"expected {expect} ({c.n_layer} per microbatch)")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = c.flops_per_token(TRAIN_SEQ) * tokens
+    emit(f"train {TRAIN_MODEL}", batch=TRAIN_BATCH, seq=TRAIN_SEQ, gas=1, dtype="bfloat16",
+         params=c.num_params(), warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS,
+         step_ms=step_s * 1e3, step_ms_each=step_ms, tokens_per_s=tokens / step_s,
+         mfu=flops / step_s / accel.peak_flops(torch.bfloat16), model_tflop_per_step=flops / 1e12,
+         peak_mem_gb=peak_gb, losses=losses,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         grad_norm=engine.get_global_grad_norm(), lr=engine.get_lr()[0])
+    emit(f"profile train {TRAIN_MODEL}",
+         step=device_profile(lambda: engine.train_batch(batch), top=12))
+    del engine
+    torch.cuda.empty_cache()
+    return launches, batch
+
+
+def train_check_bf16(GPT2Model, cfg, batch):
+    """One bf16 step's loss and every gradient, kernel path against plain
+    path (use_flash_attention off) on the same weights and batch."""
+    c = dataclasses.replace(cfg, remat=False)
+    model = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    model.to(dtype=torch.bfloat16)
+    loss_k, grads_k = _grads(model, batch)
+    model.config = dataclasses.replace(c, use_flash_attention=False)
+    loss_p, grads_p = _grads(model, batch)
+    rel = {n: _rel_l2(grads_k[n], grads_p[n]) for n in grads_k}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    finite = all(torch.isfinite(g).all().item() for g in grads_k.values())
+    emit(f"train check {TRAIN_MODEL} bf16", layers=c.n_layer, loss_kernel=loss_k.item(),
+         loss_plain=loss_p.item(), loss_rel_diff=loss_rel, loss_rtol=TRAIN_LOSS_RTOL,
+         grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst,
+         grad_rel_l2_median=sorted(rel.values())[len(rel) // 2], grad_rtol=TRAIN_GRAD_RTOL)
+    if not finite or loss_rel > TRAIN_LOSS_RTOL or rel[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"bf16 kernel path vs plain path: loss rel {loss_rel}, "
+                             f"grad {worst} rel {rel[worst]}")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def train_check_fp32(initialize, GPT2Model, cfg):
+    """fp32, full width, 2 layers, T=1024, B=2, gas=2: three AdamW steps
+    through the engine on the kernel path and the plain path."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    k = CHECK_FP32
+    c = dataclasses.replace(cfg, n_layer=k["layers"], remat=False, dtype=torch.float32)
+    init = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED + 1))
+    config = {"train_batch_size": k["batch"] * k["gas"], "gradient_accumulation_steps": k["gas"],
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "gradient_clipping": 1.0, "steps_per_print": 0}
+    batch = synthetic_lm_batch(k["batch"] * k["gas"], TRAIN_SEQ, c.vocab_size, seed=SEED + 1,
+                               device="cuda")
+    runs = {}
+    for path, flash in (("kernel", True), ("plain", False)):
+        model = GPT2Model(dataclasses.replace(c, use_flash_attention=flash))
+        engine, *_ = initialize(model=model, config=dict(config),
+                                model_parameters={n: t.clone()
+                                                  for n, t in init.state_dict().items()})
+        losses = [float(engine.train_batch(batch)) for _ in range(k["steps"])]
+        runs[path] = (losses, {n: p.detach().clone() for n, p in model.named_parameters()})
+        del engine
+    (lk, pk), (lp, pp) = runs["kernel"], runs["plain"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    flat = lambda ps: torch.cat([t.flatten() for t in ps.values()])
+    param_rel = _rel_l2(flat(pk), flat(pp))
+    rel = {n: _rel_l2(pk[n], pp[n]) for n in pk}
+    worst = max(rel, key=rel.get)
+    emit(f"train check {TRAIN_MODEL} fp32 {k['layers']}-layer", seq=TRAIN_SEQ, **k,
+         losses_kernel=lk, losses_plain=lp, loss_rel_diff=loss_rel, param_rel_l2=param_rel,
+         rtol=FP32_RTOL, per_tensor_rel_l2_max=rel[worst], per_tensor_rel_l2_worst=worst)
+    if loss_rel > FP32_RTOL or param_rel > FP32_RTOL:
+        raise AssertionError(f"fp32 kernel path vs plain path: loss rel {loss_rel}, "
+                             f"params rel {param_rel}")
+    del runs, pk, pp
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -327,20 +566,33 @@ def main() -> int:
         raise AssertionError(f"compute capability {cap}: the kernels are built for sm_90a")
     accel = deepspeed_tpu_torch.get_accelerator()
 
-    build_s = op_builder.build_all([fa.KERNEL, da.KERNEL])
+    build_s = op_builder.build_all([fa.KERNEL, fa.BWD_KERNEL, da.KERNEL])
     emit("build", seconds=build_s,
-         ptxas={k.name: ptxas_summary(k.build_log) for k in (fa.KERNEL, da.KERNEL)})
+         ptxas={k.name: ptxas_summary(k.build_log)
+                for k in (fa.KERNEL, fa.BWD_KERNEL, da.KERNEL)})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf, f32 = torch.bfloat16, torch.float32
     flash_rows = [check_flash(fa, accel, gen, *case) for case in (
+        ("train", TRAIN_BATCH, TRAIN_SEQ, 16, 96, bf, True),
         ("slice", BATCH, PROMPT, 32, 64, bf, True),
         ("t1", BATCH, 1, 32, 64, bf, True),
         ("t100_ragged", BATCH, 100, 32, 64, bf, True),
         ("noncausal", BATCH, PROMPT, 32, 64, bf, False),
         ("d96", BATCH, PROMPT, 32, 96, bf, True),
         ("d128", BATCH, PROMPT, 32, 128, bf, True),
-        ("fp32", BATCH, PROMPT, 32, 64, f32, True))]
+        ("fp32", BATCH, PROMPT, 32, 64, f32, True),
+        ("fp16", BATCH, PROMPT, 32, 64, torch.float16, True))]
+    BH = TRAIN_BATCH * 16
+    bwd_rows = [check_flash_bwd(fa, accel, gen, *case) for case in (
+        ("train", BH, TRAIN_SEQ, 96, bf, True),
+        ("d64", BH, TRAIN_SEQ, 64, bf, True),
+        ("d128", BH, TRAIN_SEQ, 128, bf, True),
+        ("t1000_ragged", BH, 1000, 96, bf, True),
+        ("t1", BH, 1, 96, bf, True),
+        ("noncausal", BH, TRAIN_SEQ, 96, bf, False),
+        ("fp32", BH, TRAIN_SEQ, 96, f32, True),
+        ("fp16", BH, TRAIN_SEQ, 96, torch.float16, True))]
     S = PROMPT + GEN
     decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("slice_pos255", BATCH, S, 32, 8, 64, bf, S - 1),
@@ -355,23 +607,46 @@ def main() -> int:
                                     bf, 100, garbage=True))
 
     model_cls, presets = resolve_family(MODEL)
-    launches = serve_slice(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL],
-                           accel, fa, da)
+    serve_launches = serve_slice(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL],
+                                 accel, fa, da)
     serve_small_fp32(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL])
 
+    gpt2_cls, gpt2_presets = resolve_family(TRAIN_MODEL)
+    train_launches, batch = train_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
+                                        gpt2_presets[TRAIN_MODEL], accel, fa)
+    train_check_bf16(gpt2_cls, gpt2_presets[TRAIN_MODEL], batch)
+    train_check_fp32(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL])
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    bwd = bwd_rows[0]
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:123",
-         "launches": launches["flash_attention_fwd"],
-         **{k: flash_rows[0][k] for k in keys}},
+         "launches": train_launches["flash_attention_fwd"],
+         **{k: flash_rows[0][k] for k in keys},
+         "launches_by_path": {"serve": serve_launches["flash_attention_fwd"],
+                              "train": train_launches["flash_attention_fwd"]},
+         "at_serving_shape": {k: flash_rows[1][k] for k in keys}},
         {"name": "decode_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
          "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:47",
-         "launches": launches["decode_attention"],
+         "launches": serve_launches["decode_attention"],
          **{k: decode_rows[0][k] for k in keys}},
     ]
+    for entry, replaces in (("dq", "deepspeed_tpu/ops/pallas/flash_attention.py:287"),
+                            ("dkv", "deepspeed_tpu/ops/pallas/flash_attention.py:313")):
+        kernels.append({
+            "name": f"flash_attention_bwd_{entry}", "route": "cuda",
+            "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu", "replaces": replaces,
+            "launches": train_launches[f"flash_attention_bwd_{entry}"],
+            "max_abs_err": max(bwd["errs"][n] for n in (("dq",) if entry == "dq"
+                                                        else ("dk", "dv"))),
+            "ms": bwd[f"{entry}_ms"], "plain_ms": bwd[f"{entry}_plain_ms"],
+            "bound_ms": bwd[f"{entry}_bound_ms"], "bound_by": bwd[f"{entry}_bound_by"],
+            # no single library call computes one of the pair alone; the
+            # pair's yardstick (SDPA backward) is in the kernel phase line
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

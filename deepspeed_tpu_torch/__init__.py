@@ -7,7 +7,8 @@ from ``csrc/`` at first use. Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 
 Ported so far: serving (``init_inference`` → ``InferenceEngine.generate``)
-of the llama family.
+of the llama family, and training on one card (``initialize`` →
+``DeepSpeedEngine.train_batch``) of the GPT-2 family.
 """
 
 from __future__ import annotations
@@ -18,6 +19,32 @@ __version__ = "0.1.0"
 
 from deepspeed_tpu_torch.accelerator import get_accelerator  # noqa: F401
 from deepspeed_tpu_torch.utils.logging import log_dist, logger  # noqa: F401
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, mpu=None, dist_init_required=None,
+               collate_fn=None, config=None, config_params=None, device=None):
+    """Create the training engine. Returns the reference's 4-tuple:
+    (engine, optimizer, training dataloader, lr_scheduler); the dataloader is
+    None (``training_data`` raises until the data loader is ported).
+    ``model`` is an ``nn.Module`` with ``loss(batch)`` (and ``init_params``
+    when its weights are not loaded yet); ``model_parameters`` may be a state
+    dict for it. The engine runs on CUDA unless ``device="cpu"``."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    log_dist(f"deepspeed_tpu_torch {__version__} initialize()", ranks=[0])
+    if config is None:
+        config = config_params
+    if config is None and args is not None and getattr(args, "deepspeed_config", None):
+        config = args.deepspeed_config
+    ds_config = DeepSpeedConfig(config if config is not None else {})
+    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
+                             model_parameters=model_parameters, training_data=training_data,
+                             lr_scheduler=lr_scheduler, mpu=mpu,
+                             dist_init_required=dist_init_required, collate_fn=collate_fn,
+                             config_class=ds_config, device=device)
+    return engine, engine.optimizer, None, engine.lr_scheduler
 
 
 def init_inference(model=None, config=None, **kwargs):

@@ -36,14 +36,33 @@ class CUDA_Accelerator(DeepSpeedAccelerator):
     def device(self, device_index: Optional[int] = None) -> torch.device:
         return torch.device("cuda" if device_index is None else f"cuda:{device_index}")
 
+    def current_device(self) -> int:
+        return torch.cuda.current_device()
+
     def synchronize(self, device_index: Optional[int] = None) -> None:
         torch.cuda.synchronize(device_index)
+
+    def Stream(self, device_index: Optional[int] = None):
+        return torch.cuda.Stream(device_index)
+
+    def current_stream(self, device_index: Optional[int] = None):
+        return torch.cuda.current_stream(device_index)
+
+    def stream(self, stream):
+        return torch.cuda.stream(stream)
+
+    def Event(self, enable_timing: bool = False):
+        return torch.cuda.Event(enable_timing=enable_timing)
+
+    def memory_allocated(self, device_index: Optional[int] = None) -> int:
+        return torch.cuda.memory_allocated(device_index)
 
     def max_memory_allocated(self, device_index: Optional[int] = None) -> int:
         return torch.cuda.max_memory_allocated(device_index)
 
     def reset_peak_memory_stats(self, device_index: Optional[int] = None) -> None:
         torch.cuda.reset_peak_memory_stats(device_index)
+
 
     def _peaks(self):
         name = torch.cuda.get_device_name(0)

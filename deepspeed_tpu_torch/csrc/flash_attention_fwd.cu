@@ -7,7 +7,8 @@
 // and under `causal` that loop stops at the diagonal, which is what the
 // triangular grid bought on the TPU.
 //
-// Layout: q, o (BH, Tq, D); k, v (BH, Tk, D); lse (BH, Tq) fp32. The softmax
+// Layout: q, o (BH, Tq, D); k, v (BH, Tk, D); lse (BH, Tq) fp32; inputs fp32,
+// bf16 or fp16, all arithmetic fp32, o in the input type. The softmax
 // scale is folded into q by the caller. Causal masking is top-left aligned
 // (key j is visible to query i when j <= i), as in the Pallas kernels.
 //
@@ -29,6 +30,7 @@
 // Tensor-core MMA (wgmma) and TMA staging are the next step for speed.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,8 +44,10 @@ constexpr float kNegInf = -1e30f;               // the Pallas kernels' mask valu
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -220,7 +224,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; device: the CUDA ordinal of the tensors.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; device: the CUDA ordinal of the tensors.
 // Returns a cudaError_t (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int bh, int t_q, int t_k, int d, int causal,
@@ -231,6 +235,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(q, k, v, o, lse, bh, t_q, t_k, d, causal, s);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t_q, t_k, d, causal, s);
+  if (dtype == 2) return dispatch_d<__half>(q, k, v, o, lse, bh, t_q, t_k, d, causal, s);
   return cudaErrorInvalidValue;
 }
 

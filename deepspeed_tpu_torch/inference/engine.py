@@ -22,7 +22,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.accelerator import get_accelerator
+from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -96,20 +96,6 @@ def build_generate_parts(module, max_new_tokens: int, do_sample: bool,
         return torch.cat([ids, torch.stack(toks, dim=1).to(ids.dtype)], dim=1)
 
     return prefill, decode
-
-
-def resolve_device(device=None) -> torch.device:
-    """CUDA unless the caller asks for something else; never a silent CPU."""
-    accel = get_accelerator()
-    if device is None:
-        if not accel.is_available():
-            raise RuntimeError("no CUDA device: the port serves on CUDA, and on the CPU "
-                               "only when asked with device='cpu'")
-        return accel.device(torch.cuda.current_device())
-    dev = torch.device(device)
-    if dev.type == "cuda" and not accel.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not available")
-    return dev
 
 
 class InferenceEngine:

@@ -1,1 +1,1 @@
-"""Model families of the port (llama so far)."""
+"""Model families of the port: llama (serving) and GPT-2 (training) so far."""

@@ -49,18 +49,26 @@ class CudaKernel:
 
     ``functions`` maps each exported C function to its ctypes argument
     types; every one returns a ``cudaError_t`` as an int, and the source
-    exports ``<name>_error_string``. ``launches`` counts successful launches
-    made through :meth:`launch` — the wrapper's proof that a run went
-    through the kernel.
+    exports ``<name>_error_string``. ``entry_launches`` counts successful
+    launches made through :meth:`launch`, per exported function, and
+    ``launches`` is their sum — the wrapper's proof that a run went through
+    the kernel.
     """
 
     def __init__(self, name: str, functions: Dict[str, Sequence]):
         self.name = name
         self.source = CSRC_DIR / f"{name}.cu"
         self.functions = dict(functions)
-        self.launches = 0
+        self.entry_launches = dict.fromkeys(self.functions, 0)
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
+
+    @property
+    def launches(self) -> int:
+        return sum(self.entry_launches.values())
+
+    def reset_launches(self) -> None:
+        self.entry_launches = dict.fromkeys(self.functions, 0)
 
     @property
     def library_path(self) -> Path:
@@ -112,7 +120,7 @@ class CudaKernel:
         if rc != 0:
             msg = getattr(lib, f"{self.name}_error_string")(rc).decode()
             raise RuntimeError(f"{self.name}: {fn} failed with CUDA error {rc} ({msg})")
-        self.launches += 1
+        self.entry_launches[fn] += 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> float:

@@ -5,7 +5,9 @@ A config block is a dataclass built from a ds_config dict by
 :meth:`DeepSpeedConfigModel.from_dict`, which accepts each field by its name
 or by the alias in its metadata (``field(..., metadata={"alias": "tp"})``),
 treats ``None`` and ``"auto"`` as "use the default", builds nested blocks
-from dicts, and rejects unknown keys with a did-you-mean hint.
+from dicts (a field whose default factory is a config class, or an optional
+field whose metadata names one as ``"block"``), and rejects unknown keys
+with a did-you-mean hint.
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ class DeepSpeedConfigModel:
             name = aliases.get(key, key)
             if name in kw:
                 raise ValueError(f"{name!r} given twice (by name and by alias)")
-            sub = fields[name].default_factory
+            # a nested block: a field whose default_factory is a config
+            # class, or an optional one naming its class as metadata "block"
+            sub = fields[name].metadata.get("block", fields[name].default_factory)
             if isinstance(value, Mapping) and isinstance(sub, type) \
                     and issubclass(sub, DeepSpeedConfigModel):
                 value = sub.from_dict(value)

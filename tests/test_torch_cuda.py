@@ -8,7 +8,10 @@ has only PyTorch; there, without the repository's JAX conftest:
 
 Tolerances: kernel against its plain version in fp32 on the same inputs; a
 bf16 output carries its own rounding (2e-2), fp32 outputs and the LSE only
-summation order (1e-4, LSE 1e-3).
+summation order (1e-4, LSE 1e-3). Backward gradients are held relative to
+the largest reference gradient, floored at 1 for these unit-normal inputs:
+bf16 1e-2 and fp16 2.5e-3 (the outputs' own rounding is 2^-9 and 2^-11 of
+it), fp32 1e-4 (summation order).
 """
 
 import dataclasses
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
+from deepspeed_tpu_torch.models import gpt2
 from deepspeed_tpu_torch.models.llama import PRESETS, LlamaModel
 from deepspeed_tpu_torch.ops.pallas import decode_attention as tda
 from deepspeed_tpu_torch.ops.pallas import flash_attention as tfa
@@ -84,3 +88,49 @@ def test_generate_kernel_path_matches_plain_path(gen):
     out = eng.generate(ids, max_new_tokens=12)
     assert (tfa.KERNEL.launches - fa0, tda.KERNEL.launches - da0) == (2, 2 * 12)
     assert torch.equal(out, eng_p.generate(ids, max_new_tokens=12))
+
+
+@pytest.mark.parametrize("BH,T,D,causal,dtype,tol", [
+    (32, 200, 96, True, torch.bfloat16, 1e-2), (16, 128, 64, False, torch.float32, 1e-4),
+    (8, 77, 128, True, torch.float32, 1e-4), (16, 130, 64, True, torch.float16, 2.5e-3)])
+def test_flash_backward_kernels_match_plain(gen, BH, T, D, causal, dtype, tol):
+    q, k, v, do = (torch.randn(BH, T, D, generator=gen, device="cuda") for _ in range(4))
+    q, k, v, do = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+    o, lse = tfa.flash_forward(q, k, v, causal)
+    before = dict(tfa.BWD_KERNEL.entry_launches)
+    got = tfa.flash_backward(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    delta = (do.float() * o.float()).sum(-1)
+    ref = tfa.mha_backward_reference(q.float(), k.float(), v.float(), do.float(), lse, delta,
+                                     causal)
+    assert {n: tfa.BWD_KERNEL.entry_launches[n] - before[n] for n in before} == {
+        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+    for name, g, r in zip("qkv", got, ref):
+        err = (g.float() - r).abs().max().item()
+        assert torch.isfinite(g).all() and err <= tol * max(1.0, r.abs().max().item()), \
+            (name, err)
+
+
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.bfloat16, {"bf16": {"enabled": True}}),
+    (torch.float16, {"fp16": {"enabled": True, "initial_scale_power": 8}})])
+def test_train_batch_runs_the_kernels(gen, dtype, precision):
+    """One bf16 or fp16 step of a 2-layer GPT-2 (head dim 64) through
+    initialize → train_batch: each layer launches the forward and both
+    backward kernels once, and the step changes the weights."""
+    cfg = gpt2.GPT2Config(vocab_size=1024, n_positions=128, n_embd=256, n_layer=2, n_head=4,
+                          remat=False, dtype=dtype)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=gpt2.GPT2Model(cfg), config={
+        "train_batch_size": 4, "gradient_clipping": 1.0, **precision,
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}, "steps_per_print": 0})
+    batch = gpt2.synthetic_lm_batch(4, 128, cfg.vocab_size, device="cuda")
+    before_w = engine.module.blocks[0].qkv_w.detach().clone()
+    tfa.KERNEL.reset_launches()
+    tfa.BWD_KERNEL.reset_launches()
+    loss = engine.train_batch(batch)
+    assert torch.isfinite(loss) and engine.global_steps == 1
+    assert (tfa.KERNEL.launches, tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dq"],
+            tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dkv"]) == (2, 2, 2)
+    assert not torch.equal(before_w, engine.module.blocks[0].qkv_w)
+    assert engine.module.wte.dtype == dtype and engine.master[0].dtype == torch.float32
+    assert engine.skipped_steps == 0
