@@ -7,12 +7,14 @@ Run from the repository root on a machine with a Hopper GPU:
 
 It builds the port's CUDA kernels from ``deepspeed_tpu_torch/csrc/``, holds
 each kernel against its plain PyTorch version at the main paths' shapes and
-at edge shapes, then drives the two ported paths at full width with random
+at edge shapes, then drives the three ported paths at full width with random
 weights, each with the launch counts set to 0 just before it and read just
 after: serving llama3.2-1b (full depth) through ``init_inference`` →
-``generate``, and training gpt2-760m (full depth) through ``initialize`` →
-``train_batch``. It checks that each run went through its kernels and that
-the kernel path agrees with the plain path. Each phase prints one JSON
+``generate``, training gpt2-760m (full depth) through ``initialize`` →
+``train_batch``, and training gpt2-1.3b (full depth, 2048 tokens) with the
+ds_config ``sparse_attention`` block through the same entry points. It
+checks that each run went through its kernels and that the kernel path
+agrees with the plain path. Each phase prints one JSON
 line; any failed check raises, and the script exits non-zero without the
 final line. It needs one card and imports nothing of JAX or of the JAX
 package.
@@ -40,6 +42,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -58,6 +61,13 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_BATCH, "gradient_accumul
                 "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
                 "gradient_clipping": 1.0, "steps_per_print": 0, "seed": SEED}
 CHECK_FP32 = dict(layers=2, batch=2, gas=2, steps=3)   # the fp32 train check
+SPARSE_MODEL = "gpt2-1.3b"
+SPARSE_BATCH, SPARSE_SEQ = 4, 2048          # the sparse training cell: micro batch 4, gas 1
+# the reference's documented "fixed" layout (DeepSpeed docs, config-json
+# "Sparse Attention"), unidirectional as a GPT model uses it
+SPARSE_BLOCK = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
+                "num_local_blocks": 4, "num_global_blocks": 1, "attention": "unidirectional",
+                "horizontal_global_attention": False, "num_different_global_patterns": 4}
 
 # tolerances, with their reasons
 # kernel vs plain fp32 on the same inputs: a bf16 or fp16 output carries its
@@ -279,6 +289,134 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal):
     return row
 
 
+def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
+    """The three block-sparse kernels against their plain versions at one
+    shape and layout, then their times beside the bound, the plain versions
+    and scaled_dot_product_attention under the layout's token mask. An
+    unattended key block must get dk = dv = 0 exactly; a dense layout must
+    give the dense flash kernel's output."""
+    import torch.nn.functional as F
+
+    pairs = fa.sparse_pairs(layout, causal, T, "cuda")
+    item = torch.tensor([], dtype=dtype).element_size()
+    per_set = 4 * BH * T * D * item
+    sets = []
+    for _ in range(n_copies(per_set)):
+        q, k, v, do = (torch.randn(BH, T, D, generator=gen, device="cuda") for _ in range(4))
+        q, k, v, do = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+        o, lse = fa.sparse_forward(q, k, v, layout, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        sets.append((q, k, v, do, lse, delta))
+    q, k, v, do, lse, delta = sets[0]
+    o, lse = fa.sparse_forward(q, k, v, layout, causal)
+    dq = fa.sparse_backward_dq(q, k, v, do, lse, delta, layout, causal)
+    dk, dv = fa.sparse_backward_dkv(q, k, v, do, lse, delta, layout, causal)
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    o_ref, lse_ref = fa.sparse_reference_lse(q32, k32, v32, layout, causal)
+    refs = (fa.sparse_backward_dq_reference(q32, k32, v32, do32, lse, delta, layout, causal),
+            *fa.sparse_backward_dkv_reference(q32, k32, v32, do32, lse, delta, layout, causal))
+    torch.cuda.synchronize()
+    tol, gtol = TOL[dtype], GRAD_RTOL[dtype]
+    err_o, err_lse = max_err(o, o_ref), max_err(lse, lse_ref)
+    if not (err_o <= tol["o"] and err_lse <= tol["lse"]) or not torch.isfinite(o).all():
+        raise AssertionError(f"sparse_attention_fwd {name}: o err {err_o}, lse err {err_lse} "
+                             f"over {tol}")
+    errs, scales = {}, {}
+    for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        errs[n], scales[n] = max_err(g, r), r.abs().max().item()
+        if not torch.isfinite(g).all() or errs[n] > gtol * max(1.0, scales[n]):
+            raise AssertionError(f"sparse_attention_bwd {name}: {n} err {errs[n]} over "
+                                 f"{gtol} x {scales[n]}")
+    row = {"name": name, "shape": [BH, T, D], "dtype": str(dtype), "causal": causal,
+           "layout_blocks": pairs.n, "block": pairs.block,
+           "pairs": int(pairs.row_cols_np.size), "visible_per_head": pairs.visible,
+           "max_keys_per_row": int(np.diff(pairs.row_ptr_np).max()),
+           "max_queries_per_col": int(np.diff(pairs.col_ptr_np).max()),
+           "max_abs_err": err_o, "lse_max_abs_err": err_lse, "tol": tol, "grad_errs": errs,
+           "grad_ref_max_abs": scales, "grad_rtol": gtol}
+    empty = np.flatnonzero(np.diff(pairs.col_ptr_np) == 0)
+    if empty.size:      # keys no query attends: exactly zero, never garbage
+        keys = torch.from_numpy(
+            (empty[:, None] * pairs.block + np.arange(pairs.block)).ravel()).cuda()
+        nonzero = int((dk[:, keys] != 0).sum().item() + (dv[:, keys] != 0).sum().item())
+        row["unattended_key_blocks"] = int(empty.size)
+        row["unattended_nonzero_grads"] = nonzero
+        if nonzero:
+            raise AssertionError(f"sparse_attention_bwd_dkv {name}: {nonzero} nonzero dk/dv "
+                                 f"entries in {empty.size} unattended key blocks")
+    dense = np.ones_like(pairs.layout)
+    if np.array_equal(pairs.layout, np.tril(dense) if causal else dense):
+        o_dense, _ = fa.flash_forward(q, k, v, causal)
+        row["vs_dense_flash_max_abs_err"] = max_err(o, o_dense)
+        if row["vs_dense_flash_max_abs_err"] > tol["o"]:
+            raise AssertionError(f"sparse {name}: dense layout differs from the flash kernel "
+                                 f"by {row['vs_dense_flash_max_abs_err']}")
+
+    visible = pairs.visible * BH
+    rows = BH * T
+    for entry, nbytes, ops in (("fwd", per_set + 4 * rows, 4.0 * D * visible),
+                               ("dq", 5 * rows * D * item + 8 * rows, 6.0 * D * visible),
+                               ("dkv", 6 * rows * D * item + 8 * rows, 8.0 * D * visible)):
+        row[f"{entry}_bound_ms"], row[f"{entry}_bound_by"] = bound_ms(accel, nbytes, ops, dtype)
+    row.update(
+        fwd_ms=time_ms(lambda q, k, v, *_: fa.sparse_forward(q, k, v, layout, causal), sets),
+        dq_ms=time_ms(lambda *a: fa.sparse_backward_dq(*a, layout, causal), sets),
+        dkv_ms=time_ms(lambda *a: fa.sparse_backward_dkv(*a, layout, causal), sets),
+        fwd_plain_ms=time_ms(lambda q, k, v, *_: fa.sparse_reference_lse(q, k, v, layout, causal),
+                             sets),
+        dq_plain_ms=time_ms(lambda *a: fa.sparse_backward_dq_reference(*a, layout, causal), sets),
+        dkv_plain_ms=time_ms(lambda *a: fa.sparse_backward_dkv_reference(*a, layout, causal),
+                             sets))
+
+    mask = pairs.mask
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+    lib = []
+    for q, k, v, do, _, _ in sets:
+        q, k, v = (x.view(1, BH, T, D).detach().requires_grad_() for x in (q, k, v))
+        lib.append((q, k, v, sdpa(q, k, v), do.view(1, BH, T, D)))
+    row.update(
+        fwd_library_ms=time_ms(lambda q, k, v, *_: sdpa(q, k, v), lib),
+        library_bwd_ms=time_ms(lambda q, k, v, o, do: torch.autograd.grad(
+            o, (q, k, v), do, retain_graph=True), lib),
+        library_fwd_bwd_ms=time_ms(lambda q, k, v, o, do: torch.autograd.grad(
+            sdpa(q, k, v), (q, k, v), do), lib))
+    del lib, sets
+    emit("kernel sparse_attention", **row)
+    return row
+
+
+def sparse_cases(fa, SparsityConfigs):
+    """(name, BH, T, D, dtype, layout, causal) of every kernel sparse check;
+    the first is the training cell's shape."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention
+
+    bf, BH, T = torch.bfloat16, SPARSE_BATCH * 16, SPARSE_SEQ
+    fixed = lambda block: sparse_self_attention({**SPARSE_BLOCK, "block": block},
+                                                16).get_layout(T)
+    cell = fixed(16)
+    n = T // 16
+    unattended = np.zeros((n, n), dtype=bool)
+    unattended[:, 0] = True
+    unattended[np.arange(0, n, 2), np.arange(0, n, 2)] = True   # odd key blocks: no query
+    return [
+        ("train_fixed16", BH, T, 128, bf, cell, True),
+        ("fixed32", BH, T, 128, bf, fixed(32), True),
+        ("fixed64", BH, T, 128, bf, fixed(64), True),
+        ("fixed128", BH, T, 128, bf, fixed(128), True),
+        ("d64", BH, T, 64, bf, cell, True),
+        ("d96", BH, T, 96, bf, cell, True),
+        ("fp32", BH, T, 128, torch.float32, cell, True),
+        ("fp16", BH, T, 128, torch.float16, cell, True),
+        ("bigbird_noncausal", BH, T, 128, bf,
+         SparsityConfigs.BigBirdSparsityConfig(16, block=16).make_layout(T), False),
+        ("bslongformer", BH, T, 128, bf,
+         SparsityConfigs.BSLongformerSparsityConfig(16, block=16).make_layout(T), True),
+        ("unattended_keys", BH, T, 128, bf, unattended, True),
+        ("dense_layout", BH, T, 128, bf,
+         SparsityConfigs.DenseSparsityConfig(16, block=64).make_layout(T), True),
+    ]
+
+
 # -------------------------------------------------------------------- slice
 def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
     """llama3.2-1b, bf16, full width and depth: the counted main-path run."""
@@ -349,7 +487,7 @@ def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
 
 def kernel_category(name: str) -> str:
     """Coarse owner of a device kernel, by its name."""
-    if re.search(r"flash_fwd_kernel|flash_bwd_|decode_kernel", name):
+    if re.search(r"flash_fwd_kernel|flash_bwd_|decode_kernel|sparse_fwd_|sparse_bwd_", name):
         return "port attention kernels"
     if re.search(r"gemm|nvjet|cutlass|xmma|cublas|splitK", name, re.I):
         return "matmul (cuBLAS)"
@@ -361,8 +499,8 @@ def kernel_category(name: str) -> str:
 def device_profile(fn, top: int = 6):
     """Run fn() under torch.profiler: host wall ms, device ms summed over
     kernels, the device's idle share of the wall time, device ms by kernel
-    category, and the top kernels. The profiler's own overhead lengthens the
-    wall time."""
+    category, the top kernels and the number of host-to-device copies. The
+    profiler's own overhead lengthens the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -381,9 +519,10 @@ def device_profile(fn, top: int = 6):
     for e in rows:
         cat = kernel_category(e.key)
         by_category[cat] = by_category.get(cat, 0.0) + dev(e)
+    htod = sum(e.count for e in prof.key_averages() if "HtoD" in e.key)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": max(0.0, 1 - device_ms / wall_ms), "by_category": by_category,
-            "top": [[e.key[:70], dev(e), e.count] for e in rows[:top]]}
+            "top": [[e.key[:70], dev(e), e.count] for e in rows[:top]], "htod_copies": htod}
 
 
 def profile_slice(model, ids, logits, cache):
@@ -436,41 +575,65 @@ def _rel_l2(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
 
 
-def train_slice(initialize, GPT2Model, cfg, accel, fa):
-    """gpt2-760m, bf16, full width and depth, through initialize →
-    train_batch: the counted main-path run of this slice."""
-    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+def _dense_plain(model):
+    """The dense path's plain version: the model's own flag."""
+    model.config = dataclasses.replace(model.config, use_flash_attention=False)
 
-    c = dataclasses.replace(cfg, remat=False)
-    engine, *_ = initialize(model=GPT2Model(c), config=dict(TRAIN_CONFIG))
-    batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED, device="cuda")
+
+def _sparse_plain(fa, model, block: dict, seq: int):
+    """The sparse path's plain version, swapped in here only (the package has
+    no switch for it): the model's block-sparse attention becomes
+    ``sparse_mha_reference`` under the same layout."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention
+
+    layout = sparse_self_attention(block, model.config.n_head).get_layout(seq)
+    model._sparse_attention = lambda q, k, v: fa.sparse_mha_reference(q, k, v, layout)
+
+
+def _timed_steps(engine, batch, accel, kernels):
+    """TRAIN_WARMUP steps, then the counts of ``kernels`` set to 0 and
+    TRAIN_STEPS timed steps. → (losses, step ms each, peak GB)."""
     losses = [float(engine.train_batch(batch)) for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
     accel.reset_peak_memory_stats()
-    fa.KERNEL.reset_launches()
-    fa.BWD_KERNEL.reset_launches()
+    for kern in kernels:
+        kern.reset_launches()
     step_ms = []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         losses.append(float(engine.train_batch(batch)))   # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"flash_attention_fwd": fa.KERNEL.launches,
-                **fa.BWD_KERNEL.entry_launches}
-    peak_gb = accel.max_memory_allocated() / 1e9
-    step_s = sorted(step_ms)[TRAIN_STEPS // 2] / 1e3              # the median step
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    return losses, step_ms, accel.max_memory_allocated() / 1e9
 
+
+def _train_line(c, batch, seq, step_ms, accel):
+    step_s = sorted(step_ms)[TRAIN_STEPS // 2] / 1e3              # the median step
+    tokens = batch * seq
+    flops = c.flops_per_token(seq) * tokens
+    return dict(batch=batch, seq=seq, gas=1, dtype="bfloat16", params=c.num_params(),
+                warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS, step_ms=step_s * 1e3,
+                step_ms_each=step_ms, tokens_per_s=tokens / step_s,
+                mfu=flops / step_s / accel.peak_flops(torch.bfloat16),
+                model_tflop_per_step=flops / 1e12)
+
+
+def train_slice(initialize, GPT2Model, cfg, accel, fa):
+    """gpt2-760m, bf16, full width and depth, through initialize →
+    train_batch: the counted main-path run of the dense training slice."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    c = dataclasses.replace(cfg, remat=False)
+    engine, *_ = initialize(model=GPT2Model(c), config=dict(TRAIN_CONFIG))
+    batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED, device="cuda")
+    losses, step_ms, peak_gb = _timed_steps(engine, batch, accel, (fa.KERNEL, fa.BWD_KERNEL))
+    launches = {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
     expect = dict.fromkeys(launches, c.n_layer * TRAIN_STEPS)
     if launches != expect:
         raise AssertionError(f"launch counts {launches} over {TRAIN_STEPS} steps, "
                              f"expected {expect} ({c.n_layer} per microbatch)")
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"losses not finite or not falling: {losses}")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = c.flops_per_token(TRAIN_SEQ) * tokens
-    emit(f"train {TRAIN_MODEL}", batch=TRAIN_BATCH, seq=TRAIN_SEQ, gas=1, dtype="bfloat16",
-         params=c.num_params(), warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS,
-         step_ms=step_s * 1e3, step_ms_each=step_ms, tokens_per_s=tokens / step_s,
-         mfu=flops / step_s / accel.peak_flops(torch.bfloat16), model_tflop_per_step=flops / 1e12,
+    emit(f"train {TRAIN_MODEL}", **_train_line(c, TRAIN_BATCH, TRAIN_SEQ, step_ms, accel),
          peak_mem_gb=peak_gb, losses=losses,
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
          grad_norm=engine.get_global_grad_norm(), lr=engine.get_lr()[0])
@@ -481,22 +644,71 @@ def train_slice(initialize, GPT2Model, cfg, accel, fa):
     return launches, batch
 
 
-def train_check_bf16(GPT2Model, cfg, batch):
-    """One bf16 step's loss and every gradient, kernel path against plain
-    path (use_flash_attention off) on the same weights and batch."""
+def train_sparse_slice(initialize, GPT2Model, cfg, accel, fa):
+    """gpt2-1.3b, bf16, full width and depth, 2048 tokens, through
+    initialize(config={..., "sparse_attention": ...}) → train_batch: the
+    counted main-path run of the block-sparse slice. Each step must launch
+    each sparse kernel once per layer and no dense flash kernel."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
     c = dataclasses.replace(cfg, remat=False)
-    model = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    model = GPT2Model(c)
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": SPARSE_BATCH,
+              "sparse_attention": dict(SPARSE_BLOCK)}
+    engine, *_ = initialize(model=model, config=config)
+    if model.config.sparse_attention != SPARSE_BLOCK:
+        raise AssertionError(f"initialize did not carry the block: {model.config.sparse_attention}")
+    batch = synthetic_lm_batch(SPARSE_BATCH, SPARSE_SEQ, c.vocab_size, seed=SEED, device="cuda")
+    losses, step_ms, peak_gb = _timed_steps(engine, batch, accel,
+                                            (fa.KERNEL, fa.BWD_KERNEL, fa.SPARSE_KERNEL))
+    launches = {**fa.SPARSE_KERNEL.entry_launches,
+                "flash_attention_fwd": fa.KERNEL.launches,
+                "flash_attention_bwd": fa.BWD_KERNEL.launches}
+    expect = {**dict.fromkeys(fa.SPARSE_KERNEL.entry_launches, c.n_layer * TRAIN_STEPS),
+              "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} over {TRAIN_STEPS} steps, "
+                             f"expected {expect}")
+    pairs = fa.sparse_pairs(model._sparse.get_layout(SPARSE_SEQ), True, SPARSE_SEQ, "cuda")
+    attn_dense = 12 * c.n_layer * c.n_embd * SPARSE_SEQ * SPARSE_BATCH * SPARSE_SEQ
+    attn_sparse = 12 * c.head_dim * pairs.visible * c.n_head * SPARSE_BATCH * c.n_layer
+    emit(f"train {SPARSE_MODEL} sparse-fixed16",
+         **_train_line(c, SPARSE_BATCH, SPARSE_SEQ, step_ms, accel),
+         sparse_attention=SPARSE_BLOCK, layout_blocks=pairs.n, pairs=int(pairs.row_cols_np.size),
+         visible_pairs_per_head=pairs.visible,
+         attention_tflop_dense_accounting=attn_dense / 1e12,
+         attention_tflop_sparse_pairs=attn_sparse / 1e12,
+         peak_mem_gb=peak_gb, losses=losses,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         grad_norm=engine.get_global_grad_norm(), lr=engine.get_lr()[0])
+    cached = len(fa._PAIRS)
+    prof = device_profile(lambda: engine.train_batch(batch), top=12)
+    emit(f"profile train {SPARSE_MODEL} sparse-fixed16", step=prof,
+         pair_lists_built_in_step=len(fa._PAIRS) - cached)
+    if prof["htod_copies"] or len(fa._PAIRS) != cached:
+        raise AssertionError(f"host-to-device copies in the sparse step: {prof['htod_copies']}, "
+                             f"pair lists built: {len(fa._PAIRS) - cached}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches, batch
+
+
+def train_check_bf16(GPT2Model, cfg, batch, label, to_plain):
+    """One bf16 step's loss and every gradient, kernel path against plain
+    path (``to_plain`` swaps the model's attention) on the same weights and
+    batch."""
+    model = GPT2Model(cfg).init_params(torch.Generator(device="cuda").manual_seed(SEED))
     model.to(dtype=torch.bfloat16)
     loss_k, grads_k = _grads(model, batch)
-    model.config = dataclasses.replace(c, use_flash_attention=False)
+    to_plain(model)
     loss_p, grads_p = _grads(model, batch)
     rel = {n: _rel_l2(grads_k[n], grads_p[n]) for n in grads_k}
     worst = max(rel, key=rel.get)
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
     finite = all(torch.isfinite(g).all().item() for g in grads_k.values())
-    emit(f"train check {TRAIN_MODEL} bf16", layers=c.n_layer, loss_kernel=loss_k.item(),
-         loss_plain=loss_p.item(), loss_rel_diff=loss_rel, loss_rtol=TRAIN_LOSS_RTOL,
-         grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst,
+    emit(f"train check {label} bf16", layers=cfg.n_layer, remat=cfg.remat,
+         loss_kernel=loss_k.item(), loss_plain=loss_p.item(), loss_rel_diff=loss_rel,
+         loss_rtol=TRAIN_LOSS_RTOL, grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst,
          grad_rel_l2_median=sorted(rel.values())[len(rel) // 2], grad_rtol=TRAIN_GRAD_RTOL)
     if not finite or loss_rel > TRAIN_LOSS_RTOL or rel[worst] > TRAIN_GRAD_RTOL:
         raise AssertionError(f"bf16 kernel path vs plain path: loss rel {loss_rel}, "
@@ -505,9 +717,10 @@ def train_check_bf16(GPT2Model, cfg, batch):
     torch.cuda.empty_cache()
 
 
-def train_check_fp32(initialize, GPT2Model, cfg):
-    """fp32, full width, 2 layers, T=1024, B=2, gas=2: three AdamW steps
-    through the engine on the kernel path and the plain path."""
+def train_check_fp32(initialize, GPT2Model, cfg, label, seq, extra_config, to_plain):
+    """fp32, full width, 2 layers, B=2, gas=2: three AdamW steps through the
+    engine on the kernel path and the plain path (``to_plain`` swaps the
+    model's attention before the engine is built)."""
     from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
 
     k = CHECK_FP32
@@ -515,12 +728,14 @@ def train_check_fp32(initialize, GPT2Model, cfg):
     init = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED + 1))
     config = {"train_batch_size": k["batch"] * k["gas"], "gradient_accumulation_steps": k["gas"],
               "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
-              "gradient_clipping": 1.0, "steps_per_print": 0}
-    batch = synthetic_lm_batch(k["batch"] * k["gas"], TRAIN_SEQ, c.vocab_size, seed=SEED + 1,
+              "gradient_clipping": 1.0, "steps_per_print": 0, **extra_config}
+    batch = synthetic_lm_batch(k["batch"] * k["gas"], seq, c.vocab_size, seed=SEED + 1,
                                device="cuda")
     runs = {}
-    for path, flash in (("kernel", True), ("plain", False)):
-        model = GPT2Model(dataclasses.replace(c, use_flash_attention=flash))
+    for path in ("kernel", "plain"):
+        model = GPT2Model(c)
+        if path == "plain":
+            to_plain(model)
         engine, *_ = initialize(model=model, config=dict(config),
                                 model_parameters={n: t.clone()
                                                   for n, t in init.state_dict().items()})
@@ -533,7 +748,7 @@ def train_check_fp32(initialize, GPT2Model, cfg):
     param_rel = _rel_l2(flat(pk), flat(pp))
     rel = {n: _rel_l2(pk[n], pp[n]) for n in pk}
     worst = max(rel, key=rel.get)
-    emit(f"train check {TRAIN_MODEL} fp32 {k['layers']}-layer", seq=TRAIN_SEQ, **k,
+    emit(f"train check {label} fp32 {k['layers']}-layer", seq=seq, **k,
          losses_kernel=lk, losses_plain=lp, loss_rel_diff=loss_rel, param_rel_l2=param_rel,
          rtol=FP32_RTOL, per_tensor_rel_l2_max=rel[worst], per_tensor_rel_l2_worst=worst)
     if loss_rel > FP32_RTOL or param_rel > FP32_RTOL:
@@ -566,10 +781,10 @@ def main() -> int:
         raise AssertionError(f"compute capability {cap}: the kernels are built for sm_90a")
     accel = deepspeed_tpu_torch.get_accelerator()
 
-    build_s = op_builder.build_all([fa.KERNEL, fa.BWD_KERNEL, da.KERNEL])
+    all_kernels = (fa.KERNEL, fa.BWD_KERNEL, da.KERNEL, fa.SPARSE_KERNEL)
+    build_s = op_builder.build_all(all_kernels)
     emit("build", seconds=build_s,
-         ptxas={k.name: ptxas_summary(k.build_log)
-                for k in (fa.KERNEL, fa.BWD_KERNEL, da.KERNEL)})
+         ptxas={k.name: ptxas_summary(k.build_log) for k in all_kernels})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf, f32 = torch.bfloat16, torch.float32
@@ -605,6 +820,9 @@ def main() -> int:
         ("fp32", BATCH, S, 32, 8, 64, f32, S - 1))]
     decode_rows.append(check_decode(da, accel, gen, "garbage_past_pos", BATCH, S, 32, 8, 64,
                                     bf, 100, garbage=True))
+    from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config
+    sparse_rows = [check_sparse(fa, accel, gen, *case)
+                   for case in sparse_cases(fa, sparsity_config)]
 
     model_cls, presets = resolve_family(MODEL)
     serve_launches = serve_slice(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL],
@@ -614,8 +832,23 @@ def main() -> int:
     gpt2_cls, gpt2_presets = resolve_family(TRAIN_MODEL)
     train_launches, batch = train_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
                                         gpt2_presets[TRAIN_MODEL], accel, fa)
-    train_check_bf16(gpt2_cls, gpt2_presets[TRAIN_MODEL], batch)
-    train_check_fp32(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL])
+    train_check_bf16(gpt2_cls, dataclasses.replace(gpt2_presets[TRAIN_MODEL], remat=False),
+                     batch, TRAIN_MODEL, _dense_plain)
+    train_check_fp32(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL],
+                     TRAIN_MODEL, TRAIN_SEQ, {}, _dense_plain)
+
+    sparse_cfg = gpt2_presets[SPARSE_MODEL]
+    sparse_launches, batch = train_sparse_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
+                                                sparse_cfg, accel, fa)
+    sparse_plain = lambda m: _sparse_plain(fa, m, SPARSE_BLOCK, SPARSE_SEQ)
+    # remat "full" on both paths: the plain path's (B*H, T, T) fp32 scores
+    # would not fit next to the model for 24 layers at once
+    train_check_bf16(gpt2_cls, dataclasses.replace(sparse_cfg, sparse_attention=SPARSE_BLOCK,
+                                                   remat="full"),
+                     batch, f"{SPARSE_MODEL} sparse-fixed16", sparse_plain)
+    train_check_fp32(deepspeed_tpu_torch.initialize, gpt2_cls, sparse_cfg,
+                     f"{SPARSE_MODEL} sparse-fixed16", SPARSE_SEQ,
+                     {"sparse_attention": dict(SPARSE_BLOCK)}, sparse_plain)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bwd = bwd_rows[0]
@@ -647,6 +880,23 @@ def main() -> int:
             # no single library call computes one of the pair alone; the
             # pair's yardstick (SDPA backward) is in the kernel phase line
             "library_ms": None})
+    sp = sparse_rows[0]
+    for entry, replaces, err in (
+            ("fwd", "deepspeed_tpu/ops/pallas/flash_attention.py:614", sp["max_abs_err"]),
+            ("dq", "deepspeed_tpu/ops/pallas/flash_attention.py:640", sp["grad_errs"]["dq"]),
+            ("dkv", "deepspeed_tpu/ops/pallas/flash_attention.py:664",
+             max(sp["grad_errs"]["dk"], sp["grad_errs"]["dv"]))):
+        name = f"sparse_attention_{'fwd' if entry == 'fwd' else 'bwd_' + entry}"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu", "replaces": replaces,
+            "launches": sparse_launches[name], "max_abs_err": err,
+            "ms": sp[f"{entry}_ms"], "plain_ms": sp[f"{entry}_plain_ms"],
+            "bound_ms": sp[f"{entry}_bound_ms"], "bound_by": sp[f"{entry}_bound_by"],
+            # SDPA under the layout's token mask computes the forward; no
+            # single call computes dq or dk/dv alone (its backward is in the
+            # kernel phase line)
+            "library_ms": sp["fwd_library_ms"] if entry == "fwd" else None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

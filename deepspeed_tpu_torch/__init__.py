@@ -8,7 +8,8 @@ passes ``device="cpu"``.
 
 Ported so far: serving (``init_inference`` → ``InferenceEngine.generate``)
 of the llama family, and training on one card (``initialize`` →
-``DeepSpeedEngine.train_batch``) of the GPT-2 family.
+``DeepSpeedEngine.train_batch``) of the GPT-2 family, with dense or
+block-sparse (ds_config ``sparse_attention``) attention.
 """
 
 from __future__ import annotations
@@ -39,12 +40,32 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if config is None and args is not None and getattr(args, "deepspeed_config", None):
         config = args.deepspeed_config
     ds_config = DeepSpeedConfig(config if config is not None else {})
+    if ds_config.sparse_attention and model is not None:
+        _apply_sparse_attention(model, ds_config.sparse_attention)
     engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
                              model_parameters=model_parameters, training_data=training_data,
                              lr_scheduler=lr_scheduler, mpu=mpu,
                              dist_init_required=dist_init_required, collate_fn=collate_fn,
                              config_class=ds_config, device=device)
     return engine, engine.optimizer, None, engine.lr_scheduler
+
+
+def _apply_sparse_attention(model, block: dict) -> None:
+    """Copy the ds_config ``sparse_attention`` block into the model's config,
+    which its attention dispatch reads, as the JAX ``initialize`` does."""
+    mcfg = getattr(model, "config", None)
+    if not hasattr(mcfg, "sparse_attention"):
+        log_dist("ds_config sparse_attention set but the model does not support it "
+                 "(no config.sparse_attention field); ignored", ranks=[0])
+        return
+    existing = mcfg.sparse_attention
+    if existing is None:
+        model.config = dataclasses.replace(mcfg, sparse_attention=dict(block))
+        log_dist(f"sparse attention enabled: {block}", ranks=[0])
+    elif dict(existing) != dict(block):
+        raise ValueError("ds_config sparse_attention conflicts with the model's own "
+                         f"config.sparse_attention (model: {existing}, ds_config: {dict(block)}); "
+                         "set only one, or make them identical")
 
 
 def init_inference(model=None, config=None, **kwargs):

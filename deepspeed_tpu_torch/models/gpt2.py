@@ -8,12 +8,14 @@ here :class:`GPT2Model` is an ``nn.Module`` with one :class:`GPT2Block` per
 layer and a Python loop. Weights keep the JAX orientation (``x @ W``), so
 :func:`params_from_jax` copies them exactly.
 
-This slice trains: ``init_params``, ``apply``, ``hidden_states`` and
+This port trains: ``init_params``, ``apply``, ``hidden_states`` and
 ``loss``, with ``remat`` off or "full" (``torch.utils.checkpoint`` per
-block). The variants the JAX model also carries (ALiBi, rotary, parallel
-residual, block-sparse and local attention, sequence parallelism, dropout,
-the "dots"/"attn"/"attn_mlp" remat policies and progressive layer drop)
-raise ``NotImplementedError``; serving GPT-2 (KV cache) is a later slice.
+block), with dense causal attention or, when ``sparse_attention`` is set,
+block-sparse attention (``ops/sparse_attention``). The variants the JAX model
+also carries (ALiBi, rotary, parallel residual, local attention, sequence
+parallelism, dropout, the "dots"/"attn"/"attn_mlp" remat policies and
+progressive layer drop) raise ``NotImplementedError``; serving GPT-2 (KV
+cache) is a later slice.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models.common import causal_attention, chunked_lm_loss, parse_lm_batch
+from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention
+from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import MODES as SPARSE_MODES
 
 
 def _later(what: str) -> NotImplementedError:
@@ -65,6 +69,11 @@ class GPT2Config:
     rotary_theta: float = 10000.0
     rotary_interleaved: bool = False
     parallel_residual: bool = False
+    # block-sparse attention (the ds_config "sparse_attention" block):
+    # {"mode": "fixed"|"variable"|"bigbird"|"bslongformer"|"dense"|
+    # "localslidingwindow", "block": int, ...}, the other keys being keyword
+    # arguments of the mode's SparsityConfig. Overrides flash/einsum
+    # attention when set.
     sparse_attention: Optional[dict] = None
     sequence_parallel: Any = False
     attention_layers: Optional[tuple] = None
@@ -86,17 +95,29 @@ class GPT2Config:
         if self.alibi and self.rotary_pct:
             raise ValueError("alibi and rotary_pct are mutually exclusive "
                              "position mechanisms")
+        if self.sparse_attention is not None:
+            mode = dict(self.sparse_attention).get("mode", "fixed")
+            if mode not in SPARSE_MODES:
+                raise ValueError(f"sparse_attention mode {mode!r} unknown")
+            if self.sequence_parallel:
+                raise NotImplementedError("sparse_attention does not compose with ring/Ulysses "
+                                          "sequence parallelism")
+            if self.alibi:
+                raise NotImplementedError("sparse_attention does not carry ALiBi biases")
         if self.attention_layers is not None:
             self.attention_layers = tuple(self.attention_layers)
             if len(self.attention_layers) != self.n_layer:
                 raise ValueError(f"attention_layers has {len(self.attention_layers)} "
                                  f"entries for n_layer={self.n_layer}")
+            if "local" in self.attention_layers and (self.sparse_attention is not None
+                                                     or self.sequence_parallel):
+                raise NotImplementedError("GPT-Neo local attention does not compose with "
+                                          "sparse_attention or sequence parallelism")
         # what this slice of the port does not carry raises, never silently
         if self.remat in ("dots", "attn", "attn_mlp"):
             raise _later(f"remat={self.remat!r} (saving named activations)")
         for name, on in (("alibi", self.alibi), ("rotary_pct", self.rotary_pct),
                          ("parallel_residual", self.parallel_residual),
-                         ("sparse_attention", self.sparse_attention is not None),
                          ("sequence_parallel", self.sequence_parallel),
                          ("attention_layers", self.attention_layers is not None),
                          ("dropout", self.dropout),
@@ -172,6 +193,7 @@ class GPT2Model(nn.Module):
             self.lm_head = _weight(d, c.vocab_size)
             if c.lm_head_bias:
                 self.lm_head_b = _weight(c.vocab_size)
+        self._sparse = None
 
     # ---------------------------------------------------------------- params
     def init_params(self, generator: torch.Generator) -> "GPT2Model":
@@ -242,11 +264,23 @@ class GPT2Model(nn.Module):
         h = self._layer_norm(x, blk.ln1_g, blk.ln1_b)
         qkv = h @ blk.qkv_w.to(h.dtype) + blk.qkv_b.to(h.dtype)
         q, k, v = (t.reshape(B, T, c.n_head, c.head_dim) for t in qkv.split(D, dim=-1))
-        attn = causal_attention(q, k, v, use_flash=c.use_flash_attention,
-                                sequence_parallel=c.sequence_parallel)
+        if c.sparse_attention is not None:
+            attn = self._sparse_attention(q, k, v)
+        else:
+            attn = causal_attention(q, k, v, use_flash=c.use_flash_attention,
+                                    sequence_parallel=c.sequence_parallel)
         x = x + (attn.reshape(B, T, D) @ blk.proj_w.to(x.dtype) + blk.proj_b.to(x.dtype))
         h = self._layer_norm(x, blk.ln2_g, blk.ln2_b)
         return x + self._mlp(h, blk)
+
+    def _sparse_attention(self, q, k, v):
+        """Causal block-sparse attention of the config's ``sparse_attention``
+        block, its ``SparseSelfAttention`` built at first use: the kernels
+        on CUDA tensors, their plain versions on CPU tensors."""
+        if self._sparse is None:
+            self._sparse = sparse_self_attention(self.config.sparse_attention,
+                                                 self.config.n_head)
+        return self._sparse(q, k, v, causal=True)
 
     def _trunk(self, input_ids):
         x = self._embed(input_ids)

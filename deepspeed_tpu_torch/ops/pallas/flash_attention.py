@@ -1,7 +1,6 @@
 """Flash attention: the CUDA kernels' wrappers and their plain versions.
 
-Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py`` (dense
-attention; the block-sparse kernels come with a later slice). Two CUDA
+Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``. Three CUDA
 sources hold the kernels:
 
 - ``csrc/flash_attention_fwd.cu`` replaces the Pallas ``_fwd_tri_kernel``
@@ -11,18 +10,27 @@ sources hold the kernels:
   :func:`flash_backward_dq`, plain version
   :func:`mha_backward_dq_reference`) and ``_bwd_dkv_tri_kernel`` and
   ``_bwd_dkv_kernel`` (``flash_attention_bwd_dkv``,
-  :func:`flash_backward_dkv`, :func:`mha_backward_dkv_reference`).
+  :func:`flash_backward_dkv`, :func:`mha_backward_dkv_reference`);
+- ``csrc/sparse_attention.cu`` replaces the block-sparse
+  ``_sparse_fwd_kernel`` (entry ``sparse_attention_fwd``, wrapper
+  :func:`sparse_forward`, plain version :func:`sparse_reference_lse`),
+  ``_sparse_bwd_dq_kernel`` (``sparse_attention_bwd_dq``,
+  :func:`sparse_backward_dq`, :func:`sparse_backward_dq_reference`) and
+  ``_sparse_bwd_dkv_kernel`` (``sparse_attention_bwd_dkv``,
+  :func:`sparse_backward_dkv`, :func:`sparse_backward_dkv_reference`); they
+  walk the CSR pair lists of :class:`SparsePairs`.
 
 A CUDA tensor goes to the kernels, or the call raises. A CPU tensor goes to
 the plain versions, which are also what the kernels are checked against on
 the card.
 
-Layout: :func:`flash_attention` takes and returns (B, T, H, D), as the JAX
-function does, and is differentiable: a ``torch.autograd.Function`` whose
-forward is :func:`flash_forward` and whose backward is
-:func:`flash_backward`, both on (B*H, T, D) with the softmax scale folded
-into q. The forward also returns the fp32 log-sum-exp per row, which the
-backward uses to recompute the probabilities.
+Layout: :func:`flash_attention` and :func:`flash_attention_sparse` take and
+return (B, T, H, D), as the JAX functions do, and are differentiable: each
+is a ``torch.autograd.Function`` (:class:`FlashAttentionFunction`,
+:class:`SparseAttentionFunction`) whose forward and backward kernels work on
+(B*H, T, D) with the softmax scale folded into q. The forward also returns
+the fp32 log-sum-exp per row, which the backward uses to recompute the
+probabilities.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import ctypes
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.op_builder import CudaKernel
@@ -59,55 +68,78 @@ def _causal_mask(t_q: int, t_k: int, device) -> torch.Tensor:
     return torch.ones(t_q, t_k, dtype=torch.bool, device=device).tril()
 
 
-def mha_reference(q, k, v, causal: bool = True, scale: Optional[float] = None):
-    """Plain einsum attention on (B, T, H, D), as the JAX ``mha_reference``
-    and the models' non-flash path compute it: scores in the input type,
-    softmax in fp32, probabilities cast back to the input type."""
-    d = q.shape[-1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
+def _dense_mask(q, k, causal: bool):
+    """The causal mask of q against k, or None (every key visible)."""
+    return _causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
+
+
+def _masked_mha(q, k, v, mask, scale: float):
+    """Plain einsum attention on (B, T, H, D) with a (Tq, Tk) bool mask of
+    visible keys (None: all): scores in the input type, softmax in fp32,
+    probabilities cast back to the input type."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    if causal:
-        logits = logits.masked_fill(~_causal_mask(q.shape[1], k.shape[1], q.device), NEG_INF)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def mha_reference_lse(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain version on (B*H, T, D) with the scale already in
-    q: everything in fp32, output cast to q's type. → (o, lse (B*H, T_q))."""
+def mha_reference(q, k, v, causal: bool = True, scale: Optional[float] = None):
+    """Plain einsum attention on (B, T, H, D), as the JAX ``mha_reference``
+    and the models' non-flash path compute it: scores in the input type,
+    softmax in fp32, probabilities cast back to the input type."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _masked_mha(q, k, v, _dense_mask(q, k, causal), scale)
+
+
+def _reference_lse(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     s = torch.matmul(q.float(), k.float().transpose(1, 2))
-    if causal:
-        s = s.masked_fill(~_causal_mask(q.shape[1], k.shape[1], q.device), NEG_INF)
+    if mask is not None:
+        s = s.masked_fill(~mask, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
     o = torch.matmul(torch.exp(s - lse[..., None]), v.float())
     return o.to(q.dtype), lse
 
 
-def _p_ds(q32, k32, v, do32, lse, delta, causal: bool):
+def mha_reference_lse(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain version on (B*H, T, D) with the scale already in
+    q: everything in fp32, output cast to q's type. → (o, lse (B*H, T_q))."""
+    return _reference_lse(q, k, v, _dense_mask(q, k, causal))
+
+
+def _p_ds(q32, k32, v, do32, lse, delta, mask):
     """What ``_bwd_p_ds`` recomputes, in fp32: P = exp(S - lse), exactly
-    zero where the mask hides a key, and dS = P ∘ (dO Vᵀ - Δ)."""
+    zero where the (Tq, Tk) ``mask`` hides a key, and dS = P ∘ (dO Vᵀ - Δ)."""
     p = torch.exp(torch.matmul(q32, k32.transpose(1, 2)) - lse[..., None])
-    if causal:
-        p = torch.where(_causal_mask(q32.shape[1], k32.shape[1], q32.device), p, 0.0)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
     return p, p * (torch.matmul(do32, v.float().transpose(1, 2)) - delta[..., None])
+
+
+def _dq_reference(q, k, v, do, lse, delta, mask):
+    k32 = k.float()
+    _, ds = _p_ds(q.float(), k32, v, do.float(), lse, delta, mask)
+    return torch.matmul(ds, k32).to(q.dtype)
+
+
+def _dkv_reference(q, k, v, do, lse, delta, mask):
+    q32, do32 = q.float(), do.float()
+    p, ds = _p_ds(q32, k.float(), v, do32, lse, delta, mask)
+    dk = torch.matmul(ds.transpose(1, 2), q32)
+    dv = torch.matmul(p.transpose(1, 2), do32)
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def mha_backward_dq_reference(q, k, v, do, lse, delta, causal: bool = True):
     """The dq kernel's plain version: dQ = dS K, in fp32; dq in q's type."""
-    k32 = k.float()
-    _, ds = _p_ds(q.float(), k32, v, do.float(), lse, delta, causal)
-    return torch.matmul(ds, k32).to(q.dtype)
+    return _dq_reference(q, k, v, do, lse, delta, _dense_mask(q, k, causal))
 
 
 def mha_backward_dkv_reference(q, k, v, do, lse, delta, causal: bool = True):
     """The dkv kernel's plain version: dV = Pᵀ dO, dK = dSᵀ Q, in fp32; dk
     and dv in k's and v's types."""
-    q32, do32 = q.float(), do.float()
-    p, ds = _p_ds(q32, k.float(), v, do32, lse, delta, causal)
-    dk = torch.matmul(ds.transpose(1, 2), q32)
-    dv = torch.matmul(p.transpose(1, 2), do32)
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return _dkv_reference(q, k, v, do, lse, delta, _dense_mask(q, k, causal))
 
 
 def mha_backward_reference(q, k, v, do, lse, delta, causal: bool = True):
@@ -119,6 +151,16 @@ def mha_backward_reference(q, k, v, do, lse, delta, causal: bool = True):
     gets zero gradients. → (dq, dk, dv) in q's, k's and v's types."""
     dq = mha_backward_dq_reference(q, k, v, do, lse, delta, causal)
     return (dq, *mha_backward_dkv_reference(q, k, v, do, lse, delta, causal))
+
+
+def _on_cuda(q, what: str) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor (the
+    plain version runs); any other device raises."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, not {q.device}")
+    return True
 
 
 def _check(q, k, v):
@@ -142,10 +184,8 @@ def _check(q, k, v):
 def flash_forward(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B*H, Tq, D) with the softmax scale folded in; k, v (B*H, Tk, D).
     → (o (B*H, Tq, D) in q's type, lse (B*H, Tq) fp32)."""
-    if q.device.type == "cpu":
+    if not _on_cuda(q, "flash_forward"):
         return mha_reference_lse(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_forward runs on CUDA or CPU tensors, not {q.device}")
     _check(q, k, v)
     bh, t_q, d = q.shape
     o = torch.empty_like(q)
@@ -183,10 +223,8 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = True):
     """dq of :func:`flash_forward` (the ``flash_attention_bwd_dq`` kernel on
     a CUDA tensor, its plain version on a CPU tensor). q, k, v, do
     (B*H, T, D); lse and delta = rowsum(dO ∘ O) (B*H, Tq) fp32."""
-    if q.device.type == "cpu":
+    if not _on_cuda(q, "flash_backward"):
         return mha_backward_dq_reference(q, k, v, do, lse, delta, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_backward runs on CUDA or CPU tensors, not {q.device}")
     _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     BWD_KERNEL.launch("flash_attention_bwd_dq", *_bwd_args(q, k, v, do, lse, delta),
@@ -197,10 +235,8 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal: bool = True):
 def flash_backward_dkv(q, k, v, do, lse, delta, causal: bool = True):
     """(dk, dv) of :func:`flash_forward` (the ``flash_attention_bwd_dkv``
     kernel on a CUDA tensor, its plain version on a CPU tensor)."""
-    if q.device.type == "cpu":
+    if not _on_cuda(q, "flash_backward"):
         return mha_backward_dkv_reference(q, k, v, do, lse, delta, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_backward runs on CUDA or CPU tensors, not {q.device}")
     _check_bwd(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     BWD_KERNEL.launch("flash_attention_bwd_dkv", *_bwd_args(q, k, v, do, lse, delta),
@@ -249,3 +285,229 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
     to_bhtd = lambda x, t: x.transpose(1, 2).reshape(b * h, t, d)
     o = FlashAttentionFunction.apply(to_bhtd(q, t_q), to_bhtd(k, t_k), to_bhtd(v, t_k), causal)
     return o.reshape(b, h, t_q, d).transpose(1, 2)
+
+
+# ------------------------------------------------------------ block-sparse
+# csrc/sparse_attention.cu: the forward, dq and dk/dv of block-sparse
+# attention over the CSR pair lists below
+SPARSE_BLOCKS = (16, 32, 64, 128)
+SPARSE_KERNEL = CudaKernel("sparse_attention", {
+    # q, k, v, o, lse, row_ptr, row_cols, bh, t, block, d, causal, dtype, device, stream
+    "sparse_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, do, lse, delta, dq, row_ptr, row_cols, bh, t, block, d, causal, dtype,
+    # device, stream
+    "sparse_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _P),
+    # q, k, v, do, lse, delta, dk, dv, col_ptr, col_rows, bh, t, block, d, causal, dtype,
+    # device, stream
+    "sparse_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _P),
+})
+
+
+class SparsePairs:
+    """The block pairs of one layout at one sequence length, on one device.
+
+    The JAX ``_sparse_pairs`` enumerates the kept (query block, key block)
+    pairs twice, row-major for the forward and dq and column-major for
+    dk/dv, with first/last/valid flags that start and end each run on the
+    sequential TPU grid. Here the two orders are CSR lists, and the run
+    bounds are the pointers: query block ``i`` attends key blocks
+    ``row_cols[row_ptr[i]:row_ptr[i + 1]]`` and key block ``j`` is attended
+    by query blocks ``col_rows[col_ptr[j]:col_ptr[j + 1]]``, both ascending.
+    A key block no query attends has an empty list (JAX's dummy pair), and
+    its dk/dv are written as zeros. Causal drops the pairs above the
+    diagonal; a query block left with no key block raises, as in JAX.
+    """
+
+    def __init__(self, layout, causal: bool, t: int, device):
+        lay = np.asarray(layout, dtype=bool).copy()
+        n = lay.shape[0]
+        if lay.shape != (n, n) or n < 1:
+            raise ValueError(f"layout must be a square (n, n) block map, got {lay.shape}")
+        if t % n:
+            raise ValueError(f"seq {t} not divisible by layout blocks {n}")
+        if causal:
+            lay &= np.tril(np.ones((n, n), dtype=bool))
+        if not lay.any(axis=1).all():
+            empty = np.where(~lay.any(axis=1))[0]
+            raise ValueError(f"sparse layout leaves query blocks {empty.tolist()} "
+                             "with no key blocks (add a local/diagonal pattern)")
+        self.layout, self.n, self.block, self.causal = lay, n, t // n, causal
+        self.device = torch.device(device)
+        ptr = lambda counts: np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        self.row_ptr_np = ptr(lay.sum(axis=1))
+        self.row_cols_np = np.nonzero(lay)[1].astype(np.int32)
+        self.col_ptr_np = ptr(lay.sum(axis=0))
+        self.col_rows_np = np.nonzero(lay.T)[1].astype(np.int32)
+        # the lists go to the device once, here, never per call
+        to_dev = lambda a: torch.from_numpy(a).to(self.device)
+        self.row_ptr, self.row_cols = to_dev(self.row_ptr_np), to_dev(self.row_cols_np)
+        self.col_ptr, self.col_rows = to_dev(self.col_ptr_np), to_dev(self.col_rows_np)
+        diag = int(np.trace(lay)) if causal else 0
+        b = self.block
+        # visible (query, key) token pairs per head: a diagonal block keeps
+        # its lower triangle when causal
+        self.visible = (int(lay.sum()) - diag) * b * b + diag * b * (b + 1) // 2
+        self._mask = None
+
+    @property
+    def mask(self) -> torch.Tensor:
+        """(T, T) bool, True where the key is visible: the layout's
+        token-level expansion, causal-cut when causal."""
+        if self._mask is None:
+            b = self.block
+            m = np.kron(self.layout, np.ones((b, b), dtype=bool))
+            if self.causal:
+                m &= np.tril(np.ones(m.shape, dtype=bool))
+            self._mask = torch.from_numpy(m).to(self.device)
+        return self._mask
+
+
+_PAIRS = {}
+
+
+def sparse_pairs(layout, causal: bool, t: int, device) -> SparsePairs:
+    """The cached :class:`SparsePairs` of (layout, causal, T, device): built
+    and copied to the device at the first call only."""
+    lay = np.asarray(layout, dtype=bool)
+    key = (lay.tobytes(), lay.shape, bool(causal), int(t), str(torch.device(device)))
+    if key not in _PAIRS:
+        _PAIRS[key] = SparsePairs(lay, bool(causal), t, device)
+    return _PAIRS[key]
+
+
+def sparse_reference_lse(q, k, v, layout, causal: bool = True):
+    """The sparse forward kernel's plain version on (B*H, T, D) with the
+    scale in q: the dense plain math under the layout's token-level mask, in
+    fp32; o in q's type. → (o, lse (B*H, T) fp32)."""
+    return _reference_lse(q, k, v, sparse_pairs(layout, causal, q.shape[1], q.device).mask)
+
+
+def sparse_backward_dq_reference(q, k, v, do, lse, delta, layout, causal: bool = True):
+    """The sparse dq kernel's plain version: dQ = dS K under the layout's
+    mask, in fp32; dq in q's type."""
+    return _dq_reference(q, k, v, do, lse, delta,
+                         sparse_pairs(layout, causal, q.shape[1], q.device).mask)
+
+
+def sparse_backward_dkv_reference(q, k, v, do, lse, delta, layout, causal: bool = True):
+    """The sparse dk/dv kernel's plain version: dV = Pᵀ dO, dK = dSᵀ Q under
+    the layout's mask, in fp32; a key no query sees gets exactly zero."""
+    return _dkv_reference(q, k, v, do, lse, delta,
+                          sparse_pairs(layout, causal, q.shape[1], q.device).mask)
+
+
+def sparse_mha_reference(q, k, v, layout, causal: bool = True, scale: Optional[float] = None):
+    """Dense attention on (B, T, H, D) under the token-level expansion of a
+    block layout, as the JAX ``sparse_mha_reference`` computes it: scores in
+    the input type, softmax in fp32, probabilities cast back."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _masked_mha(q, k, v, sparse_pairs(layout, causal, q.shape[1], q.device).mask, scale)
+
+
+def _sparse_check(q, k, v, pairs: SparsePairs):
+    _check(q, k, v)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"sparse attention is self-attention: q has {q.shape[1]} rows, "
+                         f"k {k.shape[1]}")
+    if pairs.block not in SPARSE_BLOCKS:
+        raise ValueError(f"layout block {pairs.block} (T {q.shape[1]} / {pairs.n} blocks) "
+                         f"not in {SPARSE_BLOCKS}")
+
+
+def _sparse_tail(q, pairs: SparsePairs):
+    return (q.shape[0], q.shape[1], pairs.block, q.shape[2], int(pairs.causal),
+            _DTYPE_CODES[q.dtype], q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def sparse_forward(q, k, v, layout, causal: bool = True):
+    """Block-sparse attention on (B*H, T, D) with the softmax scale in q (the
+    ``sparse_attention_fwd`` kernel on a CUDA tensor, its plain version on a
+    CPU tensor). → (o (B*H, T, D) in q's type, lse (B*H, T) fp32)."""
+    pairs = sparse_pairs(layout, causal, q.shape[1], q.device)
+    if not _on_cuda(q, "sparse_forward"):
+        return sparse_reference_lse(q, k, v, layout, causal)
+    _sparse_check(q, k, v, pairs)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    SPARSE_KERNEL.launch("sparse_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), lse.data_ptr(), pairs.row_ptr.data_ptr(),
+                         pairs.row_cols.data_ptr(), *_sparse_tail(q, pairs))
+    return o, lse
+
+
+def sparse_backward_dq(q, k, v, do, lse, delta, layout, causal: bool = True):
+    """dq of :func:`sparse_forward` (the ``sparse_attention_bwd_dq`` kernel on
+    a CUDA tensor, its plain version on a CPU tensor). q, k, v, do
+    (B*H, T, D); lse and delta = rowsum(dO ∘ O) (B*H, T) fp32."""
+    pairs = sparse_pairs(layout, causal, q.shape[1], q.device)
+    if not _on_cuda(q, "sparse_backward_dq"):
+        return sparse_backward_dq_reference(q, k, v, do, lse, delta, layout, causal)
+    _sparse_check(q, k, v, pairs)
+    _check_bwd(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    SPARSE_KERNEL.launch("sparse_attention_bwd_dq", *_bwd_args(q, k, v, do, lse, delta),
+                         dq.data_ptr(), pairs.row_ptr.data_ptr(), pairs.row_cols.data_ptr(),
+                         *_sparse_tail(q, pairs))
+    return dq
+
+
+def sparse_backward_dkv(q, k, v, do, lse, delta, layout, causal: bool = True):
+    """(dk, dv) of :func:`sparse_forward` (the ``sparse_attention_bwd_dkv``
+    kernel on a CUDA tensor, its plain version on a CPU tensor)."""
+    pairs = sparse_pairs(layout, causal, q.shape[1], q.device)
+    if not _on_cuda(q, "sparse_backward_dkv"):
+        return sparse_backward_dkv_reference(q, k, v, do, lse, delta, layout, causal)
+    _sparse_check(q, k, v, pairs)
+    _check_bwd(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    SPARSE_KERNEL.launch("sparse_attention_bwd_dkv", *_bwd_args(q, k, v, do, lse, delta),
+                         dk.data_ptr(), dv.data_ptr(), pairs.col_ptr.data_ptr(),
+                         pairs.col_rows.data_ptr(), *_sparse_tail(q, pairs))
+    return dk, dv
+
+
+class SparseAttentionFunction(torch.autograd.Function):
+    """Block-sparse attention on (B*H, T, D) with the scale in q: forward
+    :func:`sparse_forward`, backward :func:`sparse_backward_dq` and
+    :func:`sparse_backward_dkv`; it saves q, k, v, o and lse, as the JAX
+    ``_sparse_bhtd_fwd`` does, and takes Δ = rowsum(dO ∘ O) in fp32 outside
+    the kernels, as ``_sparse_backward`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, causal: bool):
+        o, lse = sparse_forward(q, k, v, layout, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.layout, ctx.causal = layout, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dq = sparse_backward_dq(q, k, v, do, lse, delta, ctx.layout, ctx.causal)
+        dk, dv = sparse_backward_dkv(q, k, v, do, lse, delta, ctx.layout, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_sparse(q, k, v, layout, causal: bool = True,
+                           scale: Optional[float] = None):
+    """Block-sparse flash attention: q, k, v (B, T, H, D) → (B, T, H, D),
+    ``layout`` an (n, n) 0/1 block map with block size T // n.
+    Differentiable."""
+    b, t, h, d = q.shape
+    n = np.asarray(layout).shape[0]
+    if t % n:
+        raise ValueError(f"seq {t} not divisible by layout blocks {n}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    # the scale is folded into q in q's type, as in JAX; autograd scales dq back
+    q = q * torch.tensor(scale, dtype=q.dtype)
+    to_bhtd = lambda x: x.transpose(1, 2).reshape(b * h, t, d)
+    o = SparseAttentionFunction.apply(to_bhtd(q), to_bhtd(k), to_bhtd(v),
+                                      np.asarray(layout, dtype=bool), bool(causal))
+    return o.reshape(b, h, t, d).transpose(1, 2)

@@ -6,9 +6,10 @@ reference's ``deepspeed/runtime/config.py``), on the port's dataclass base
 the batch triple ``train_batch_size = micro_batch * grad_accum * dp_world``
 is resolved and validated centrally with the reference's rules and errors.
 
-This slice reads ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
+The port reads ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``zero_optimization``, ``data_types``,
-``steps_per_print``, ``wall_clock_breakdown``, ``seed`` and the batch keys.
+``sparse_attention``, ``steps_per_print``, ``wall_clock_breakdown``,
+``seed`` and the batch keys.
 Every other top-level key the JAX package knows raises
 ``NotImplementedError`` naming it when present, rather than being ignored;
 a key neither package knows is rejected with a did-you-mean hint.
@@ -27,10 +28,11 @@ from deepspeed_tpu_torch.runtime.config_utils import (DeepSpeedConfigModel,
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
 from deepspeed_tpu_torch.utils.logging import logger
 
-# the top-level keys this slice reads
+# the top-level keys the port reads
 SUPPORTED_KEYS = frozenset({
     "fp16", "bf16", "bfloat16", "zero_optimization", "data_types", "optimizer",
-    "scheduler", "gradient_clipping", "steps_per_print", "wall_clock_breakdown", "seed",
+    "scheduler", "gradient_clipping", "sparse_attention", "steps_per_print",
+    "wall_clock_breakdown", "seed",
     "train_batch_size", "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
@@ -40,7 +42,7 @@ SUPPORTED_KEYS = frozenset({
 LATER_KEYS = frozenset({
     "comms_logger", "flops_profiler", "activation_checkpointing", "tensorboard", "wandb",
     "csv_monitor", "pipeline", "tpu", "checkpoint", "aio", "elasticity", "hybrid_engine",
-    "gradient_compression", "compression_training", "sparse_attention", "data_efficiency",
+    "gradient_compression", "compression_training", "data_efficiency",
     "autotuning", "resilience", "rewind", "watchdog", "analysis", "telemetry", "profiling",
     "perf", "serving", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
     "memory_breakdown", "dump_state", "eigenvalue", "progressive_layer_drop",
@@ -50,6 +52,14 @@ LATER_KEYS = frozenset({
     "communication_data_type", "nebula", "zero_allow_untested_optimizer",
     "zero_force_ds_cpu_optimizer", "timers",
 })
+
+# the keys of the "sparse_attention" block: every SparsityConfig's keyword
+# arguments and the mode (the JAX package's RAW_BLOCK_KEYS entry)
+SPARSE_ATTENTION_KEYS = frozenset({
+    "mode", "block", "different_layout_per_head", "num_local_blocks", "num_global_blocks",
+    "attention", "horizontal_global_attention", "num_different_global_patterns",
+    "num_random_blocks", "local_window_blocks", "global_block_indices",
+    "global_block_end_indices", "num_sliding_window_blocks"})
 
 # reference keys refused with a pointer
 REJECTED_KEYS = {
@@ -141,6 +151,12 @@ class DeepSpeedConfig:
             self.scheduler_name = sched.get("type")
             self.scheduler_params = sched.get("params", {})
 
+        self.sparse_attention = pd.get("sparse_attention", None)
+        if isinstance(self.sparse_attention, dict):
+            unknown = set(self.sparse_attention) - SPARSE_ATTENTION_KEYS
+            if unknown:
+                raise ValueError("Unknown key(s) in the 'sparse_attention' ds_config block: "
+                                 f"{format_unknown_key_hints(unknown, SPARSE_ATTENTION_KEYS)}")
         self.gradient_clipping = float(pd.get("gradient_clipping", 0.0))
         self.steps_per_print = int(pd.get("steps_per_print", 10))
         self.wall_clock_breakdown = bool(pd.get("wall_clock_breakdown", False))

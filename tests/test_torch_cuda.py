@@ -16,6 +16,7 @@ it), fp32 1e-4 (summation order).
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,6 +25,8 @@ from deepspeed_tpu_torch.models import gpt2
 from deepspeed_tpu_torch.models.llama import PRESETS, LlamaModel
 from deepspeed_tpu_torch.ops.pallas import decode_attention as tda
 from deepspeed_tpu_torch.ops.pallas import flash_attention as tfa
+from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
+                                                      FixedSparsityConfig)
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +137,70 @@ def test_train_batch_runs_the_kernels(gen, dtype, precision):
     assert not torch.equal(before_w, engine.module.blocks[0].qkv_w)
     assert engine.module.wte.dtype == dtype and engine.master[0].dtype == torch.float32
     assert engine.skipped_steps == 0
+
+
+@pytest.mark.parametrize("T,block,D,causal,dtype,tol,gtol", [
+    (512, 16, 128, True, torch.bfloat16, 2e-2, 1e-2),
+    (256, 64, 64, False, torch.float32, 1e-4, 1e-4)])
+def test_sparse_kernels_match_plain(gen, T, block, D, causal, dtype, tol, gtol):
+    """Forward, dq and dk/dv of the block-sparse kernels against their plain
+    versions in fp32 on the same inputs; each entry launches once."""
+    cfg = FixedSparsityConfig(4, block=block, num_local_blocks=4) if causal \
+        else BigBirdSparsityConfig(4, block=block)
+    lay = cfg.make_layout(T)
+    q, k, v, do = (torch.randn(8, T, D, generator=gen, device="cuda") for _ in range(4))
+    q, k, v, do = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+    before = dict(tfa.SPARSE_KERNEL.entry_launches)
+    o, lse = tfa.sparse_forward(q, k, v, lay, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = tfa.sparse_backward_dq(q, k, v, do, lse, delta, lay, causal)
+    dk, dv = tfa.sparse_backward_dkv(q, k, v, do, lse, delta, lay, causal)
+    torch.cuda.synchronize()
+    assert {n: tfa.SPARSE_KERNEL.entry_launches[n] - before[n] for n in before} == dict.fromkeys(
+        before, 1)
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    o_ref, lse_ref = tfa.sparse_reference_lse(q32, k32, v32, lay, causal)
+    assert (o.float() - o_ref).abs().max().item() <= tol
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    refs = (tfa.sparse_backward_dq_reference(q32, k32, v32, do32, lse, delta, lay, causal),
+            *tfa.sparse_backward_dkv_reference(q32, k32, v32, do32, lse, delta, lay, causal))
+    for name, g, r in zip("qkv", (dq, dk, dv), refs):
+        err = (g.float() - r).abs().max().item()
+        assert torch.isfinite(g).all() and err <= gtol * max(1.0, r.abs().max().item()), \
+            (name, err)
+
+
+def test_sparse_unattended_key_block_gets_exactly_zero(gen):
+    """A key block no query attends: its dk and dv are written as zeros."""
+    T, n = 256, 16
+    lay = np.zeros((n, n), dtype=bool)
+    lay[:, 0] = True
+    lay[np.arange(0, n, 2), np.arange(0, n, 2)] = True   # odd key blocks: no query
+    q, k, v, do = (torch.randn(4, T, 64, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = tfa.sparse_forward(q, k, v, lay)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = tfa.sparse_backward_dkv(q, k, v, do, lse, delta, lay)
+    odd = torch.arange(T, device="cuda").view(n, 16)[1::2].flatten()
+    assert torch.count_nonzero(dk[:, odd]).item() == 0
+    assert torch.count_nonzero(dv[:, odd]).item() == 0
+    assert torch.count_nonzero(dv[:, :16]).item() > 0
+
+
+def test_sparse_train_batch_runs_the_kernels(gen):
+    """One bf16 step of a 2-layer GPT-2 (head dim 64) with the ds_config
+    sparse_attention block: each layer launches each sparse kernel once and
+    no dense flash kernel."""
+    cfg = gpt2.GPT2Config(vocab_size=1024, n_positions=256, n_embd=256, n_layer=2, n_head=4,
+                          remat=False, dtype=torch.bfloat16)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=gpt2.GPT2Model(cfg), config={
+        "train_batch_size": 2, "bf16": {"enabled": True}, "steps_per_print": 0,
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+        "sparse_attention": {"mode": "fixed", "block": 16, "num_local_blocks": 4}})
+    batch = gpt2.synthetic_lm_batch(2, 256, cfg.vocab_size, device="cuda")
+    for kern in (tfa.KERNEL, tfa.BWD_KERNEL, tfa.SPARSE_KERNEL):
+        kern.reset_launches()
+    loss = engine.train_batch(batch)
+    assert torch.isfinite(loss) and engine.global_steps == 1
+    assert tfa.SPARSE_KERNEL.entry_launches == dict.fromkeys(tfa.SPARSE_KERNEL.entry_launches, 2)
+    assert tfa.KERNEL.launches == tfa.BWD_KERNEL.launches == 0

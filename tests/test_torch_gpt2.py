@@ -140,11 +140,89 @@ def test_params_from_jax_is_exact_and_counts_match():
 
 @pytest.mark.parametrize("over", [dict(alibi=True), dict(rotary_pct=0.5),
                                   dict(parallel_residual=True), dict(remat="dots"),
-                                  dict(sequence_parallel="ring"), dict(dropout=0.1),
-                                  dict(sparse_attention={"mode": "fixed"})])
+                                  dict(sequence_parallel="ring"), dict(dropout=0.1)])
 def test_variants_of_later_slices_raise(over):
     with pytest.raises(NotImplementedError):
         tgpt2.GPT2Config(**SMALL, **over)
+
+
+# ------------------------------------------------------ block-sparse attention
+SPARSE = {"mode": "fixed", "block": 16, "num_local_blocks": 2, "num_global_blocks": 1}
+
+
+@pytest.mark.parametrize("block,remat", [
+    (SPARSE, False),
+    ({"mode": "bslongformer", "block": 16, "num_sliding_window_blocks": 1,
+      "global_block_indices": [1]}, True)])
+def test_sparse_loss_and_grads_match_jax(block, remat):
+    """The same weights (``params_from_jax``: a sparse model has the dense
+    model's params) through the JAX model's sparse attention (its dense
+    token-level oracle off the TPU) and the port's (the sparse kernels'
+    plain versions on the CPU)."""
+    jcfg, tcfg = _configs(remat=remat, sparse_attention=block)
+    params = _jax_params(jcfg, seed=5)
+    batch = _batch(seed=5)
+    jmodel = jgpt2.GPT2Model(jcfg)
+    jloss, jgrads = jax.value_and_grad(lambda p: jmodel.loss(p, batch))(params)
+    tmodel = tgpt2.params_from_jax(params, tcfg)
+    tloss, tgrads = _torch_loss_and_grads(tmodel, batch)
+    np.testing.assert_allclose(tloss, np.asarray(jloss), **LOSS_TOL)
+    _assert_grads_match(tgrads, jgrads)
+    dense_loss, _ = _torch_loss_and_grads(
+        tgpt2.params_from_jax(params, dataclasses.replace(tcfg, sparse_attention=None)), batch)
+    assert abs(float(dense_loss) - float(tloss)) > 1e-4      # the layout did something
+
+
+def test_sparse_model_masks_distant_tokens():
+    """A local-window-only layout hides far keys: changing a token outside
+    every window of the last query leaves its logits unchanged in both
+    packages; under dense attention it changes them."""
+    over = dict(vocab_size=64, n_embd=32, n_layer=1, remat=False,
+                sparse_attention={"mode": "fixed", "block": 16, "num_local_blocks": 1,
+                                  "num_global_blocks": 0})
+    jcfg, tcfg = _configs(**over)
+    params = _jax_params(jcfg, seed=1)
+    ids = np.random.RandomState(1).randint(0, 64, size=(1, 64)).astype(np.int32)
+    far = ids.copy()
+    far[0, 20] = (far[0, 20] + 1) % 64        # block 1: outside query block 3's window
+    last = {}
+    with torch.no_grad():
+        for name, cfg in (("sparse", tcfg), ("dense", dataclasses.replace(tcfg,
+                                                                          sparse_attention=None))):
+            model = tgpt2.params_from_jax(params, cfg)
+            last[name] = [model.apply(torch.from_numpy(x))[0, -1].numpy() for x in (ids, far)]
+    np.testing.assert_array_equal(*last["sparse"])
+    assert np.abs(last["dense"][0] - last["dense"][1]).max() > 0
+    jmodel = jgpt2.GPT2Model(jcfg)
+    ref = [np.asarray(jmodel.apply(params, jnp.asarray(x)))[0, -1] for x in (ids, far)]
+    np.testing.assert_array_equal(*ref)
+    np.testing.assert_allclose(last["sparse"][0], ref[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("over,exc", [
+    (dict(sparse_attention={"mode": "strided"}), ValueError),
+    (dict(sparse_attention={"mode": "fixed"}, alibi=True), NotImplementedError),
+    (dict(sparse_attention={"mode": "fixed"}, sequence_parallel="ring"), NotImplementedError),
+    (dict(sparse_attention={"mode": "fixed"}, attention_layers=("local", "global")),
+     NotImplementedError)])
+def test_sparse_config_conflicts_raise_like_jax(over, exc):
+    with pytest.raises(exc):
+        jgpt2.GPT2Config(**{**SMALL, **over})
+    with pytest.raises(exc):
+        tgpt2.GPT2Config(**{**SMALL, **over})
+
+
+def test_sparse_block_of_another_mode_raises_like_jax():
+    """The block's keys are the mode's keyword arguments, in both packages."""
+    over = dict(remat=False, sparse_attention={"mode": "fixed", "block": 16,
+                                                "num_random_blocks": 1})
+    jcfg, tcfg = _configs(**over)
+    params = _jax_params(jcfg)
+    ids = _batch()["input_ids"]
+    with pytest.raises(TypeError):
+        jgpt2.GPT2Model(jcfg).apply(params, jnp.asarray(ids))
+    with pytest.raises(TypeError):
+        tgpt2.params_from_jax(params, tcfg).apply(torch.from_numpy(ids))
 
 
 def test_registry_resolves_gpt2_presets():

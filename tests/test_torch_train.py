@@ -320,3 +320,78 @@ def test_deleted_engine_frees_its_state():
     assert ref() is None
     model.loss({"input_ids": torch.zeros(2, 16, dtype=torch.long)}).backward()
     assert model.wte.grad is not None        # its hooks went with it
+
+
+# -------------------------------------------------- sparse_attention block
+SPARSE_BLOCK = {"mode": "fixed", "block": 16, "num_local_blocks": 2, "num_global_blocks": 1}
+
+
+def test_engine_with_sparse_attention_matches_jax():
+    """The ds_config block reaches both models' configs through initialize,
+    and three AdamW steps of the sparse model match the JAX engine's."""
+    cfg = {"train_batch_size": 8, "steps_per_print": 0, "gradient_clipping": 1.0,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+           "sparse_attention": dict(SPARSE_BLOCK)}
+    jeng, teng = _engines(cfg)
+    assert teng.module.config.sparse_attention == SPARSE_BLOCK
+    assert jeng.module.config.sparse_attention == SPARSE_BLOCK
+    batch = {"input_ids": np.random.RandomState(11).randint(
+        0, SMALL["vocab_size"], size=(8, 64)).astype(np.int32)}
+    jl = [float(jeng.train_batch(batch)) for _ in range(3)]
+    tl = [float(teng.train_batch(batch)) for _ in range(3)]
+    np.testing.assert_allclose(tl, jl, rtol=1e-4)
+    assert tl[-1] < tl[0]
+    assert teng.module._sparse is not None          # the sparse path ran
+    # atol 1e-4, a tenth of one AdamW step at lr 1e-3: Adam divides by the
+    # root of the second moment, so an entry whose gradient is rounding noise
+    # in both packages can step by a sizeable share of lr either way (2 of
+    # 65536 entries of blocks.0.fc_w differ by 6.6e-5 with this seed)
+    _assert_params_match(jeng, teng, rtol=1e-4, atol=1e-4)
+
+
+def test_sparse_attention_block_conflicts_raise_like_jax():
+    """A model whose own block differs from the ds_config's raises; the same
+    block is accepted; a model without the field is left alone."""
+    jcfg = jgpt2.GPT2Config(**SMALL, dtype=jnp.float32, sparse_attention={"mode": "dense"})
+    tcfg = tgpt2.GPT2Config(**SMALL, dtype=torch.float32, sparse_attention={"mode": "dense"})
+    cfg = {"train_batch_size": 8, "optimizer": {"type": "Adam", "params": {}},
+           "sparse_attention": dict(SPARSE_BLOCK)}
+    with pytest.raises(ValueError, match="conflicts"):
+        deepspeed_tpu.initialize(model=jgpt2.GPT2Model(jcfg), config=dict(cfg))
+    with pytest.raises(ValueError, match="conflicts"):
+        deepspeed_tpu_torch.initialize(model=tgpt2.GPT2Model(tcfg), config=dict(cfg),
+                                       device="cpu")
+    same = tgpt2.GPT2Model(tgpt2.GPT2Config(**SMALL, dtype=torch.float32,
+                                            sparse_attention=dict(SPARSE_BLOCK)))
+    deepspeed_tpu_torch.initialize(model=same, config=dict(cfg), device="cpu")
+    assert same.config.sparse_attention == SPARSE_BLOCK
+
+    class NoField(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(3))
+            self.config = object()
+
+        def loss(self, batch):
+            return (self.w * batch.float()).sum()
+
+    model = NoField()
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=dict(cfg), device="cpu")
+    assert not hasattr(model.config, "sparse_attention")
+
+
+@pytest.mark.parametrize("block,match", [
+    ({"mode": "fixed", "num_local_block": 4}, "did you mean 'num_local_blocks'"),
+    ({"mode": "bigbird", "num_random_block": 1}, "did you mean 'num_random_blocks'"),
+    ({"blok": 16}, "did you mean 'block'"),
+])
+def test_sparse_attention_block_typo_gets_a_hint_like_jax(block, match):
+    cfg = {"train_batch_size": 8, "sparse_attention": block}
+    with pytest.raises(ValueError, match=match):
+        JConfig(dict(cfg))
+    with pytest.raises(ValueError, match=match):
+        TConfig(dict(cfg))
+    assert TConfig({"train_batch_size": 8, "sparse_attention": dict(SPARSE_BLOCK)}
+                   ).sparse_attention == JConfig({"train_batch_size": 8,
+                                                  "sparse_attention": dict(SPARSE_BLOCK)}
+                                                 ).sparse_attention
