@@ -140,13 +140,34 @@ def bound_ms(accel, nbytes: int, ops: float, dtype) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+_PTX_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}   # mangled template types
+
+
 def ptxas_summary(log: str) -> dict:
     """Most registers and total spill-store bytes over the kernel's
-    template instances, from nvcc's -Xptxas -v report."""
+    template instances, from nvcc's -Xptxas -v report, and for each
+    tensor-core instance (``*_mma_kernel<type, D>``) its registers and
+    spill-store bytes."""
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
-    return {"instances": len(regs), "max_registers": max(regs, default=0),
-            "spill_store_bytes": sum(spills)}
+    mma, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"\d(flash_[a-z_]*?_mma_kernel)I(\w*?)Li(\d+)E", entry.group(1))
+            name = f"{m.group(1)}<{_PTX_TYPES.get(m.group(2), m.group(2))},{m.group(3)}>" \
+                if m else None
+            if name:
+                mma[name] = {"registers": 0, "spill_store_bytes": 0}
+        elif name and (sp := re.search(r"(\d+) bytes spill stores", line)):
+            mma[name]["spill_store_bytes"] = int(sp.group(1))
+        elif name and (rg := re.search(r"Used (\d+) registers", line)):
+            mma[name]["registers"] = int(rg.group(1))
+    out = {"instances": len(regs), "max_registers": max(regs, default=0),
+           "spill_store_bytes": sum(spills)}
+    if mma:
+        out["mma_instances"] = mma
+    return out
 
 
 def max_err(a, b) -> float:
@@ -154,35 +175,51 @@ def max_err(a, b) -> float:
 
 
 # ------------------------------------------------------------------ kernels
-def check_flash(fa, accel, gen, name, B, T, H, D, dtype, causal):
+def _pairs(t_q: int, t_k: int, causal: bool) -> int:
+    """Visible (query, key) pairs of one head, top-left causal."""
+    return sum(min(i + 1, t_k) for i in range(t_q)) if causal else t_q * t_k
+
+
+def check_flash(fa, accel, gen, name, B, T, H, D, dtype, causal, Tk=None):
+    """The forward kernel against its plain version at one shape (Tq = T,
+    Tk = Tk or T), twice on the same inputs (the bits must repeat), then its
+    time beside the bound, the plain version and SDPA."""
     import torch.nn.functional as F
 
+    Tk = Tk or T
     scale = 1.0 / math.sqrt(D)
-    per_set = 4 * B * H * T * D * torch.tensor([], dtype=dtype).element_size()
+    item = torch.tensor([], dtype=dtype).element_size()
+    per_set = 2 * B * H * (T + Tk) * D * item
     sets = []
     for _ in range(n_copies(per_set)):
-        q, k, v = (torch.randn(B * H, T, D, generator=gen, device="cuda") for _ in range(3))
+        q = torch.randn(B * H, T, D, generator=gen, device="cuda")
+        k, v = (torch.randn(B * H, Tk, D, generator=gen, device="cuda") for _ in range(2))
         sets.append(((q * scale).to(dtype), k.to(dtype), v.to(dtype)))
     q, k, v = sets[0]
     o, lse = fa.flash_forward(q, k, v, causal)
+    o2, lse2 = fa.flash_forward(q, k, v, causal)
     o_ref, lse_ref = fa.mha_reference_lse(q.float(), k.float(), v.float(), causal)
     torch.cuda.synchronize()
     err_o, err_lse = max_err(o, o_ref), max_err(lse, lse_ref)
+    repeat = torch.equal(o, o2) and torch.equal(lse, lse2)
     tol = TOL[dtype]
-    if not (err_o <= tol["o"] and err_lse <= tol["lse"]) or not torch.isfinite(o).all():
+    if not (err_o <= tol["o"] and err_lse <= tol["lse"]) or not torch.isfinite(o).all() \
+            or not repeat:
         raise AssertionError(f"flash_attention_fwd {name}: o err {err_o}, lse err {err_lse} "
-                             f"over {tol}")
-    pairs = sum(min(i + 1, T) for i in range(T)) if causal else T * T
+                             f"over {tol}; bitwise repeat {repeat}")
     nbytes = per_set + B * H * T * 4
-    b_ms, b_by = bound_ms(accel, nbytes, 4.0 * D * pairs * B * H, dtype)
+    b_ms, b_by = bound_ms(accel, nbytes, 4.0 * D * _pairs(T, Tk, causal) * B * H, dtype)
     sdpa = lambda q, k, v: F.scaled_dot_product_attention(
-        q.view(B, H, T, D), k.view(B, H, T, D), v.view(B, H, T, D),
+        q.view(B, H, T, D), k.view(B, H, Tk, D), v.view(B, H, Tk, D),
         is_causal=causal, scale=1.0)
-    row = {"name": name, "shape": [B, T, H, D], "dtype": str(dtype), "causal": causal,
-           "max_abs_err": err_o, "lse_max_abs_err": err_lse, "tol": tol,
+    row = {"name": name, "shape": [B, T, H, D], "t_k": Tk, "dtype": str(dtype),
+           "causal": causal, "max_abs_err": err_o, "lse_max_abs_err": err_lse, "tol": tol,
+           "bitwise_repeat": repeat,
            "ms": time_ms(lambda q, k, v: fa.flash_forward(q, k, v, causal), sets),
            "plain_ms": time_ms(lambda q, k, v: fa.mha_reference_lse(q, k, v, causal), sets),
            "library_ms": time_ms(sdpa, sets), "bound_ms": b_ms, "bound_by": b_by}
+    row["tflops"] = 4.0 * D * _pairs(T, Tk, causal) * B * H / row["ms"] / 1e9
+    row["bound_share"] = b_ms / row["ms"]
     emit("kernel flash_attention_fwd", **row)
     return row
 
@@ -225,21 +262,21 @@ def check_decode(da, accel, gen, name, B, S, H, KV, Dh, dtype, pos, garbage=Fals
     return row
 
 
-def _pairs(T: int, causal: bool) -> int:
-    return sum(min(i + 1, T) for i in range(T)) if causal else T * T
-
-
-def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal):
-    """Both backward kernels against their plain versions at one shape, then
-    their times beside the bound, the plain versions and
+def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal, Tk=None):
+    """Both backward kernels against their plain versions at one shape (Tq =
+    T, Tk = Tk or T), the dk/dv kernel twice on the same inputs (the bits
+    must repeat; under causal, keys no query sees must get dk = dv = 0
+    exactly), then their times beside the bound, the plain versions and
     scaled_dot_product_attention's backward and forward+backward."""
     import torch.nn.functional as F
 
+    Tk = Tk or T
     item = torch.tensor([], dtype=dtype).element_size()
-    per_set = 4 * BH * T * D * item
+    per_set = 2 * BH * (T + Tk) * D * item
     sets = []
     for _ in range(n_copies(per_set)):
-        q, k, v, do = (torch.randn(BH, T, D, generator=gen, device="cuda") for _ in range(4))
+        q, do = (torch.randn(BH, T, D, generator=gen, device="cuda") for _ in range(2))
+        k, v = (torch.randn(BH, Tk, D, generator=gen, device="cuda") for _ in range(2))
         q, k, v, do = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
         o, lse = fa.flash_forward(q, k, v, causal)
         delta = (do.float() * o.float()).sum(-1)
@@ -247,6 +284,7 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal):
     q, k, v, do, lse, delta = sets[0]
     dq = fa.flash_backward_dq(q, k, v, do, lse, delta, causal)
     dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, causal)
+    dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, lse, delta, causal)
     ref = fa.mha_backward_reference(q.float(), k.float(), v.float(), do.float(), lse, delta,
                                     causal)
     torch.cuda.synchronize()
@@ -257,26 +295,34 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal):
         if not torch.isfinite(g).all() or errs[n] > tol * max(1.0, scales[n]):
             raise AssertionError(f"flash_attention_bwd {name}: {n} err {errs[n]} over "
                                  f"{tol} x {scales[n]}")
-    pairs = _pairs(T, causal) * BH
-    rows = BH * T
-    dq_bound = bound_ms(accel, 5 * rows * D * item + 8 * rows, 6.0 * D * pairs, dtype)
-    dkv_bound = bound_ms(accel, 6 * rows * D * item + 8 * rows, 8.0 * D * pairs, dtype)
+    repeat = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    unseen = int(torch.count_nonzero(dk[:, T:]).item() + torch.count_nonzero(dv[:, T:]).item()) \
+        if causal and Tk > T else 0
+    if not repeat or unseen:
+        raise AssertionError(f"flash_attention_bwd_dkv {name}: bitwise repeat {repeat}, "
+                             f"{unseen} nonzero dk/dv entries of keys no query sees")
+    pairs = _pairs(T, Tk, causal) * BH
+    rows_q, rows_k = BH * T, BH * Tk
+    dq_bound = bound_ms(accel, (3 * rows_q + 2 * rows_k) * D * item + 8 * rows_q,
+                        6.0 * D * pairs, dtype)
+    dkv_bound = bound_ms(accel, (2 * rows_q + 4 * rows_k) * D * item + 8 * rows_q,
+                         8.0 * D * pairs, dtype)
 
     def sdpa_sets():
         out = []
         for q, k, v, do, _, _ in sets:
-            q, k, v = (x.view(1, BH, T, D).detach().requires_grad_() for x in (q, k, v))
+            q, k, v = (x.view(1, *x.shape).detach().requires_grad_() for x in (q, k, v))
             o = F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=1.0)
-            out.append((q, k, v, o, do.view(1, BH, T, D)))
+            out.append((q, k, v, o, do.view(1, *do.shape)))
         return out
 
     lib = sdpa_sets()
     lib_bwd = lambda q, k, v, o, do: torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
     lib_fwd_bwd = lambda q, k, v, o, do: torch.autograd.grad(
         F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=1.0), (q, k, v), do)
-    row = {"name": name, "shape": [BH, T, D], "dtype": str(dtype), "causal": causal,
+    row = {"name": name, "shape": [BH, T, D], "t_k": Tk, "dtype": str(dtype), "causal": causal,
            "max_abs_err": max(errs.values()), "errs": errs, "ref_max_abs": scales,
-           "rtol": tol,
+           "rtol": tol, "dkv_bitwise_repeat": repeat, "unseen_key_nonzero": unseen,
            "dq_ms": time_ms(lambda *a: fa.flash_backward_dq(*a, causal), sets),
            "dkv_ms": time_ms(lambda *a: fa.flash_backward_dkv(*a, causal), sets),
            "dq_plain_ms": time_ms(lambda *a: fa.mha_backward_dq_reference(*a, causal), sets),
@@ -284,6 +330,8 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal):
            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
            "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
            "library_bwd_ms": time_ms(lib_bwd, lib), "library_fwd_bwd_ms": time_ms(lib_fwd_bwd, lib)}
+    row["dkv_tflops"] = 8.0 * D * pairs / row["dkv_ms"] / 1e9
+    row["dkv_bound_share"] = dkv_bound[0] / row["dkv_ms"]
     del lib
     emit("kernel flash_attention_bwd", **row)
     return row
@@ -487,7 +535,7 @@ def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
 
 def kernel_category(name: str) -> str:
     """Coarse owner of a device kernel, by its name."""
-    if re.search(r"flash_fwd_kernel|flash_bwd_|decode_kernel|sparse_fwd_|sparse_bwd_", name):
+    if re.search(r"flash_fwd_|flash_bwd_|decode_kernel|sparse_fwd_|sparse_bwd_", name):
         return "port attention kernels"
     if re.search(r"gemm|nvjet|cutlass|xmma|cublas|splitK", name, re.I):
         return "matmul (cuBLAS)"
@@ -788,6 +836,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     bf, f32 = torch.bfloat16, torch.float32
+    f16 = torch.float16
+    # the 64-row tiles' edges: T = 1, 63, 64, 65, 127, 200, 1000, Tq != Tk, and
+    # D 64 / 96 / 128 in bf16 and fp16
     flash_rows = [check_flash(fa, accel, gen, *case) for case in (
         ("train", TRAIN_BATCH, TRAIN_SEQ, 16, 96, bf, True),
         ("slice", BATCH, PROMPT, 32, 64, bf, True),
@@ -797,7 +848,12 @@ def main() -> int:
         ("d96", BATCH, PROMPT, 32, 96, bf, True),
         ("d128", BATCH, PROMPT, 32, 128, bf, True),
         ("fp32", BATCH, PROMPT, 32, 64, f32, True),
-        ("fp16", BATCH, PROMPT, 32, 64, torch.float16, True))]
+        ("fp16", BATCH, PROMPT, 32, 64, f16, True),
+        ("fp16_d96", BATCH, PROMPT, 32, 96, f16, True),
+        ("fp16_d128", BATCH, PROMPT, 32, 128, f16, True),
+        *((f"t{t}", 4, t, 16, 96, bf, True) for t in (63, 64, 65, 127, 200, 1000)),
+        ("noncausal_tq100_tk300", 4, 100, 16, 96, bf, False, 300),
+        ("causal_tq64_tk200", 4, 64, 16, 96, bf, True, 200))]
     BH = TRAIN_BATCH * 16
     bwd_rows = [check_flash_bwd(fa, accel, gen, *case) for case in (
         ("train", BH, TRAIN_SEQ, 96, bf, True),
@@ -807,7 +863,12 @@ def main() -> int:
         ("t1", BH, 1, 96, bf, True),
         ("noncausal", BH, TRAIN_SEQ, 96, bf, False),
         ("fp32", BH, TRAIN_SEQ, 96, f32, True),
-        ("fp16", BH, TRAIN_SEQ, 96, torch.float16, True))]
+        ("fp16", BH, TRAIN_SEQ, 96, f16, True),
+        ("fp16_d64", BH, TRAIN_SEQ, 64, f16, True),
+        ("fp16_d128", BH, TRAIN_SEQ, 128, f16, True),
+        *((f"t{t}", 64, t, 96, bf, True) for t in (63, 64, 65, 127, 200)),
+        ("noncausal_tq100_tk300", 64, 100, 96, bf, False, 300),
+        ("causal_tq64_tk200", 64, 64, 96, bf, True, 200))]
     S = PROMPT + GEN
     decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("slice_pos255", BATCH, S, 32, 8, 64, bf, S - 1),

@@ -27,16 +27,20 @@
 //
 // Layout: q, do, dq (BH, Tq, D); k, v, dk, dv (BH, Tk, D); lse, delta (BH, Tq)
 // fp32. The softmax scale is folded into q by the caller. Inputs are fp32,
-// bf16 or fp16; every product and sum is fp32; outputs are written in the
-// input type.
+// bf16 or fp16; every sum is fp32; outputs are written in the input type.
 //
 // What bounds it on the H100: at the training shape (BH = 128, T = 1024,
 // D = 96, bf16, causal) the pair recomputes S and dP in both kernels, seven
 // half-triangle products in all, 7 * 2 * BH * T^2 * D / 2 ~ 90 GFLOP, against
 // ~0.2 GB of inputs and outputs: operations bound (~0.09 ms on the bf16 tensor
-// cores). This first version runs the products on the CUDA cores in fp32 (no
-// mma/wgmma, no TMA), as the forward does, so it is bound in practice by fp32
-// FMA throughput and shared-memory traffic. What the design does about it:
+// cores).
+//
+// dkv, bf16 / fp16: `flash_bwd_dkv_mma_kernel` on the tensor cores (mma.sync,
+// cp.async; see its section below). dq for every type, and dkv for fp32, keep
+// the first design on the CUDA cores: the fp32 checks hold the kernels to 1e-4
+// of an fp32 reference, which neither TF32 nor bf16 tensor-core products can
+// meet. The dtype code selects the instance; nothing falls back at run time.
+// What the CUDA-core design does:
 //   * the CTA's own 64 rows (q and dO, or k and v) are staged once in shared
 //     memory as fp32 and reused against every streamed tile; scores,
 //     probabilities and dS never leave the SM;
@@ -48,11 +52,14 @@
 //     accumulators need no cross-lane reduction; P and dS pass from the score
 //     layout to the column layout through a per-warp scratch in shared memory;
 //   * tiles wholly inside the causal triangle and the sequence skip the mask.
-// Tensor-core MMA (wgmma) and TMA staging are the next step for speed.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -337,6 +344,232 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+
+// ------------------------------------------------- dK, dV on the tensor cores
+// The bf16 / fp16 instance of flash_attention_bwd_dkv: the forward's
+// machinery (hopper_mma.cuh), transposed.
+//   * A warpgroup owns 64 key rows, a warp 16 of them; for D <= 96 the warp's
+//     K and V rows stay in registers as A-fragments for the whole loop (at
+//     D = 128 the two fp32 accumulators alone take 128 registers a thread,
+//     so K and V are re-read from shared memory by ldmatrix per chunk
+//     instead, which keeps the kernel clear of spills).
+//   * The loop walks 64-query tiles from the diagonal (causal) to t_q; Q, dO
+//     and the tile's lse and delta come through a 2-stage cp.async ring.
+//   * Each tile is taken in four 16-query chunks: S^T = K Q^T and
+//     dP^T = V dO^T by mma (Q, dO by ldmatrix), P^T = exp(S^T - lse) and
+//     dS^T = P^T (dP^T - delta) on the fragments, both rounded to the input
+//     type as `_bwd_p_ds` and `p.astype(do.dtype)` do, and reused from
+//     registers as A-fragments for dV += P^T dO and dK += dS^T Q (dO, Q by
+//     ldmatrix.trans), accumulated in fp32 registers. On the diagonal tile a
+//     warp skips the chunks whose queries all precede its keys, and only the
+//     chunk on its diagonal or past t_q evaluates the mask.
+//   * Each output row has one owner and the order of the sums is fixed, so
+//     the bits are the same every run. Key block 0 walks the most query
+//     tiles under causal; blockIdx.y = key block, so it launches first.
+namespace mma {
+
+constexpr int kBlockK = 64;  // own key rows: 4 warps x 16
+constexpr int kBlockQ = 64;  // streamed query tile
+constexpr int kThreads = 128;
+constexpr int kStages = 2;
+
+template <int D>
+struct Plan {
+  static constexpr int kStride = D + 8;  // padded row, in elements
+  static constexpr int kTile = 64 * kStride;
+  // K and V tiles (reused for the epilogue), the Q ring, the dO ring, then
+  // the lse and delta rings (fp32)
+  static constexpr int kHalfs = (2 + 2 * kStages) * kTile;
+  static constexpr int bytes = kHalfs * 2 + 2 * kStages * kBlockQ * 4;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         T* __restrict__ dk, T* __restrict__ dv, int t_q, int t_k, int causal) {
+  using namespace hopper;
+  constexpr int S = Plan<D>::kStride;
+  constexpr int KS = D / 16;  // k-steps over the head dim
+  constexpr int NO = D / 8;   // n-tiles of dK, dV
+  constexpr bool kKVInRegs = D <= 96;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + Plan<D>::kTile;
+  T* sQ = sV + Plan<D>::kTile;
+  T* sDO = sQ + kStages * Plan<D>::kTile;
+  float* sL = reinterpret_cast<float*>(sK + Plan<D>::kHalfs);
+  float* sDl = sL + kStages * kBlockQ;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlockK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int key_w = k0 + warp * 16;  // the warp's first key row
+  const T* qg = q + static_cast<size_t>(bh) * t_q * D;
+  const T* dog = dout + static_cast<size_t>(bh) * t_q * D;
+  const float* lg = lse + static_cast<size_t>(bh) * t_q;
+  const float* dlg = delta + static_cast<size_t>(bh) * t_q;
+
+  // causal: queries before the CTA's first key see none of its keys
+  const int q_first = causal ? k0 : 0;
+  const int n_tiles = q_first < t_q ? (t_q - q_first + kBlockQ - 1) / kBlockQ : 0;
+
+  auto load_q_tile = [&](int tile) {
+    const int st = tile % kStages, qt0 = q_first + tile * kBlockQ;
+    load_tile_async<T, D, kBlockQ, kThreads>(sQ + st * Plan<D>::kTile, qg, qt0, t_q);
+    load_tile_async<T, D, kBlockQ, kThreads>(sDO + st * Plan<D>::kTile, dog, qt0, t_q);
+    const int i = threadIdx.x % kBlockQ;  // threads 0-63 take lse, 64-127 delta
+    const bool in = qt0 + i < t_q;
+    cp_async_4((threadIdx.x < kBlockQ ? sL : sDl) + st * kBlockQ + i,
+               (threadIdx.x < kBlockQ ? lg : dlg) + (in ? qt0 + i : 0), in);
+  };
+
+  load_tile_async<T, D, kBlockK, kThreads>(sK, k + static_cast<size_t>(bh) * t_k * D, k0, t_k);
+  load_tile_async<T, D, kBlockK, kThreads>(sV, v + static_cast<size_t>(bh) * t_k * D, k0, t_k);
+  if (n_tiles > 0) load_q_tile(0);
+  cp_async_commit();
+#pragma unroll
+  for (int st = 1; st < kStages - 1; ++st) {
+    if (st < n_tiles) load_q_tile(st);
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+
+  // the warp's 16 key rows of K and V as A fragments, k-step kk
+  const int a_row = (warp * 16 + (lane & 15)) * S + (lane >> 4) * 8;
+  uint32_t kf[kKVInRegs ? KS : 1][4], vf[kKVInRegs ? KS : 1][4];
+  if constexpr (kKVInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldmatrix_x4(kf[kk], sK + a_row + kk * 16);
+      ldmatrix_x4(vf[kk], sV + a_row + kk * 16);
+    }
+  }
+
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has landed
+    __syncthreads();               // ... for every thread, and tile t - 1 is consumed
+    if (t + kStages - 1 < n_tiles) load_q_tile(t + kStages - 1);
+    cp_async_commit();
+    const int st = t % kStages;
+    const T* qs = sQ + st * Plan<D>::kTile;
+    const T* dos = sDO + st * Plan<D>::kTile;
+    const float* ls = sL + st * kBlockQ;
+    const float* dls = sDl + st * kBlockQ;
+    const int qt0 = q_first + t * kBlockQ;
+    const bool diag = causal && t == 0;  // queries qt0.. against keys k0.., qt0 == k0
+
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {  // 16-query chunks
+      if (diag && ch < warp) continue;  // the chunk's queries all precede the warp's keys
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 16 queries, two n-tiles each
+      float st_[2][4] = {}, dpt[2][4] = {};
+      const int b_row = (ch * 16 + (lane & 7) + ((lane >> 4) << 3)) * S + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t bq[4], bdo[4];
+        ldmatrix_x4(bq, qs + b_row + kk * 16);
+        ldmatrix_x4(bdo, dos + b_row + kk * 16);
+        if constexpr (kKVInRegs) {
+          mma_16816<T>(st_[0], kf[kk], bq[0], bq[1]);
+          mma_16816<T>(st_[1], kf[kk], bq[2], bq[3]);
+          mma_16816<T>(dpt[0], vf[kk], bdo[0], bdo[1]);
+          mma_16816<T>(dpt[1], vf[kk], bdo[2], bdo[3]);
+        } else {
+          uint32_t ka[4], va[4];
+          ldmatrix_x4(ka, sK + a_row + kk * 16);
+          ldmatrix_x4(va, sV + a_row + kk * 16);
+          mma_16816<T>(st_[0], ka, bq[0], bq[1]);
+          mma_16816<T>(st_[1], ka, bq[2], bq[3]);
+          mma_16816<T>(dpt[0], va, bdo[0], bdo[1]);
+          mma_16816<T>(dpt[1], va, bdo[2], bdo[3]);
+        }
+      }
+
+      // P^T and dS^T; element e of n-tile n is key row g + 8 (e / 2),
+      // query column ch * 16 + n * 8 + 2 c + e % 2
+      const bool mask = (diag && ch == warp) || qt0 + ch * 16 + 15 >= t_q;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int qi = ch * 16 + n * 8 + 2 * c;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + qi);
+        const float2 d2 = *reinterpret_cast<const float2*>(dls + qi);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lq = (e & 1) ? l2.y : l2.x;
+          const float dq = (e & 1) ? d2.y : d2.x;
+          float p = exp2_fast((st_[n][e] - lq) * kLog2e);
+          if (mask) {
+            const int query = qt0 + qi + (e & 1);
+            const int key = key_w + g + (e >> 1) * 8;
+            if (query >= t_q || (causal && key > query)) p = 0.f;
+          }
+          st_[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - dq);
+        }
+      }
+      const uint32_t pa[4] = {pack2<T>(st_[0][0], st_[0][1]), pack2<T>(st_[0][2], st_[0][3]),
+                              pack2<T>(st_[1][0], st_[1][1]), pack2<T>(st_[1][2], st_[1][3])};
+      const uint32_t da[4] = {pack2<T>(dpt[0][0], dpt[0][1]), pack2<T>(dpt[0][2], dpt[0][3]),
+                              pack2<T>(dpt[1][0], dpt[1][1]), pack2<T>(dpt[1][2], dpt[1][3])};
+
+      // dV += P^T dO and dK += dS^T Q over the chunk's 16 queries
+      const int t_row = (ch * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + (lane >> 4) * 8;
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, dos + t_row + dp * 16);
+        mma_16816<T>(dv_acc[2 * dp], pa, b[0], b[1]);
+        mma_16816<T>(dv_acc[2 * dp + 1], pa, b[2], b[3]);
+        ldmatrix_x4_trans(b, qs + t_row + dp * 16);
+        mma_16816<T>(dk_acc[2 * dp], da, b[0], b[1]);
+        mma_16816<T>(dk_acc[2 * dp + 1], da, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: dK and dV through the warp's own rows of the K and V tiles
+  // (only this warp ever read them), then 16-byte coalesced stores; keys no
+  // query sees keep their zeros
+  __syncwarp();
+  T* sk = sK + warp * 16 * S;
+  T* sv = sV + warp * 16 * S;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<uint32_t*>(sk + g * S + n * 8 + 2 * c) = pack2<T>(dk_acc[n][0], dk_acc[n][1]);
+    *reinterpret_cast<uint32_t*>(sk + (g + 8) * S + n * 8 + 2 * c) =
+        pack2<T>(dk_acc[n][2], dk_acc[n][3]);
+    *reinterpret_cast<uint32_t*>(sv + g * S + n * 8 + 2 * c) = pack2<T>(dv_acc[n][0], dv_acc[n][1]);
+    *reinterpret_cast<uint32_t*>(sv + (g + 8) * S + n * 8 + 2 * c) =
+        pack2<T>(dv_acc[n][2], dv_acc[n][3]);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int j = 0; j < kChunks / 2; ++j) {  // 16 rows x kChunks chunks over 32 lanes
+    const int i = lane + 32 * j;
+    const int r = i / kChunks, cc = i % kChunks;
+    if (key_w + r < t_k) {
+      const size_t off = (static_cast<size_t>(bh) * t_k + key_w + r) * D + cc * 8;
+      *reinterpret_cast<uint4*>(dk + off) = *reinterpret_cast<const uint4*>(sk + r * S + cc * 8);
+      *reinterpret_cast<uint4*>(dv + off) = *reinterpret_cast<const uint4*>(sv + r * S + cc * 8);
+    }
+  }
+}
+
+}  // namespace mma
+
 // ------------------------------------------------------------------- launch
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
@@ -361,17 +594,31 @@ cudaError_t launch_dq(const Args& a) {
 
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a) {
-  constexpr int smem = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.bh, (a.t_k + kBlockRows - 1) / kBlockRows);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.t_q,
-      a.t_k, a.causal);
-  return cudaGetLastError();
+  if constexpr (!std::is_same_v<T, float>) {
+    constexpr int smem = mma::Plan<D>::bytes;
+    cudaError_t err = cudaFuncSetAttribute(mma::flash_bwd_dkv_mma_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.bh, (a.t_k + mma::kBlockK - 1) / mma::kBlockK);
+    mma::flash_bwd_dkv_mma_kernel<T, D><<<grid, mma::kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+        a.t_q, a.t_k, a.causal);
+    return cudaGetLastError();
+  } else {  // fp32: the CUDA-core kernel
+    constexpr int smem = Smem<D>::bytes;
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.bh, (a.t_k + kBlockRows - 1) / kBlockRows);
+    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+        a.t_q, a.t_k, a.causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, bool kDq>

@@ -5,8 +5,9 @@ are Pallas and XLA compiles them; here each kernel is a CUDA C++ source in
 ``deepspeed_tpu_torch/csrc/`` that ``nvcc`` compiles for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ``ctypes``.
 
-A library is named by a hash of its source and the compiler flags, so an
-edited source rebuilds and an unchanged one is reused. Libraries go to
+A library is named by a hash of its source, every header in its source's
+directory and the compiler flags, so an edited source or header rebuilds
+and an unchanged one is reused. Libraries go to
 ``deepspeed_tpu_torch/build/``. :func:`build_all` starts one ``nvcc`` per
 source at once and waits for all of them; a failed build raises with
 ``nvcc``'s messages.
@@ -55,9 +56,9 @@ class CudaKernel:
     the kernel.
     """
 
-    def __init__(self, name: str, functions: Dict[str, Sequence]):
+    def __init__(self, name: str, functions: Dict[str, Sequence], csrc: Path = CSRC_DIR):
         self.name = name
-        self.source = CSRC_DIR / f"{name}.cu"
+        self.source = Path(csrc) / f"{name}.cu"
         self.functions = dict(functions)
         self.entry_launches = dict.fromkeys(self.functions, 0)
         self.build_log = ""
@@ -72,8 +73,11 @@ class CudaKernel:
 
     @property
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):   # any may be included
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        digest = h.hexdigest()[:16]
         return BUILD_DIR / f"{self.name}-{digest}.so"
 
     def start_build(self) -> Optional[subprocess.Popen]:

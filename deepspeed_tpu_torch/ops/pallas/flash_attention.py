@@ -179,6 +179,17 @@ def _check(q, k, v):
         raise ValueError("empty sequence")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    _check_aligned(q=q, k=k, v=v)
+
+
+def _check_aligned(**tensors):
+    """The kernels stage tiles with 16-byte cp.async copies: each base
+    pointer must be 16-byte aligned, which a view with a storage offset can
+    break."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (data_ptr "
+                             f"{t.data_ptr():#x}, storage offset {t.storage_offset()})")
 
 
 def flash_forward(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -202,6 +213,7 @@ def _check_bwd(q, k, v, do, lse, delta):
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError(f"do must be contiguous and match q {tuple(q.shape)} {q.dtype}; "
                          f"got {tuple(do.shape)} {do.dtype}")
+    _check_aligned(do=do)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != q.shape[:2] or t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != q.device:

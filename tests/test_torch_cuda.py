@@ -11,7 +11,10 @@ bf16 output carries its own rounding (2e-2), fp32 outputs and the LSE only
 summation order (1e-4, LSE 1e-3). Backward gradients are held relative to
 the largest reference gradient, floored at 1 for these unit-normal inputs:
 bf16 1e-2 and fp16 2.5e-3 (the outputs' own rounding is 2^-9 and 2^-11 of
-it), fp32 1e-4 (summation order).
+it), fp32 1e-4 (summation order). The bf16 and fp16 forward and dk/dv
+kernels run on the tensor cores and round P (and dS) to the input type
+before the second products, as the JAX kernels do; the fp32 instances keep
+the CUDA-core code.
 """
 
 import dataclasses
@@ -64,6 +67,71 @@ def test_decode_kernel_matches_plain(gen, kv, pos, dtype, tol):
     v[:, pos + 1:] = float("nan")            # past pos: never read
     out = tda.decode_attention(q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda"))
     assert (out.float() - ref).abs().max().item() <= tol
+
+
+GRAD_TOL = {torch.bfloat16: 1e-2, torch.float16: 2.5e-3}
+
+
+def _flash_fwd_and_dkv(gen, BH, t_q, t_k, D, dtype, causal):
+    """The tensor-core forward and dk/dv kernels against their plain versions
+    in fp32 on the same inputs. → (dk, dv)."""
+    q, do = (torch.randn(BH, t_q, D, generator=gen, device="cuda") for _ in range(2))
+    k, v = (torch.randn(BH, t_k, D, generator=gen, device="cuda") for _ in range(2))
+    q, k, v, do = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+    o, lse = tfa.flash_forward(q, k, v, causal)
+    o_ref, lse_ref = tfa.mha_reference_lse(q.float(), k.float(), v.float(), causal)
+    assert torch.isfinite(o).all()
+    assert (o.float() - o_ref).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = tfa.flash_backward_dkv(q, k, v, do, lse, delta, causal)
+    refs = tfa.mha_backward_dkv_reference(q.float(), k.float(), v.float(), do.float(), lse,
+                                          delta, causal)
+    for name, g, r in zip(("dk", "dv"), (dk, dv), refs):
+        err = (g.float() - r).abs().max().item()
+        assert torch.isfinite(g).all() and err <= GRAD_TOL[dtype] * max(1.0, r.abs().max().item()), \
+            (name, err)
+    return dk, dv
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 200, 1000])
+def test_tensor_core_kernels_at_tile_edges(gen, T):
+    """Ragged and whole 64-row tiles, causal, bf16, head dim 96."""
+    _flash_fwd_and_dkv(gen, 16, T, T, 96, torch.bfloat16, True)
+
+
+@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_kernels_per_head_dim_and_type(gen, D, dtype):
+    _flash_fwd_and_dkv(gen, 8, 200, 200, D, dtype, True)
+
+
+def test_tensor_core_kernels_noncausal_with_more_keys_than_queries(gen):
+    _flash_fwd_and_dkv(gen, 8, 100, 300, 96, torch.bfloat16, False)
+
+
+def test_causal_keys_no_query_sees_get_exact_zeros(gen):
+    """Top-left causal with Tq=64 < Tk=200: keys 64.. are seen by no query,
+    and their dk and dv are exactly 0."""
+    dk, dv = _flash_fwd_and_dkv(gen, 8, 64, 200, 96, torch.bfloat16, True)
+    assert torch.count_nonzero(dk[:, 64:]).item() == 0
+    assert torch.count_nonzero(dv[:, 64:]).item() == 0
+    assert torch.count_nonzero(dv[:, :64]).item() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_tensor_core_kernels_repeat_bitwise(gen, dtype):
+    """One owner per output and a fixed order of sums: two calls on the same
+    inputs give the same bits."""
+    q, k, v, do = (torch.randn(16, 333, 96, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    o, lse = tfa.flash_forward(q, k, v, True)
+    o2, lse2 = tfa.flash_forward(q, k, v, True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = tfa.flash_backward_dkv(q, k, v, do, lse, delta, True)
+    dk2, dv2 = tfa.flash_backward_dkv(q, k, v, do, lse, delta, True)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
 def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(gen):

@@ -93,3 +93,36 @@ def test_kernel_checks_reject_what_it_does_not_take(bad, err):
         k = torch.zeros(2, d, t_k, dtype=dtype).transpose(1, 2)
     with pytest.raises(err):
         tfa._check(q, k, k.clone() if not bad.get("noncontig") else k)
+
+
+def _offset_view(shape, dtype, offset):
+    """A contiguous tensor of ``shape`` that starts ``offset`` elements into
+    its storage."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "do"])
+def test_kernel_checks_reject_a_misaligned_view(name):
+    """cp.async stages 16 bytes at a time: a view whose storage offset moves
+    its start off a 16-byte boundary is refused, before any kernel runs."""
+    shape, dtype = (2, 16, 64), torch.bfloat16
+    t = {n: torch.zeros(shape, dtype=dtype) for n in ("q", "k", "v", "do")}
+    t[name] = _offset_view(shape, dtype, 1)
+    assert t[name].is_contiguous() and t[name].data_ptr() % 16
+    stats = torch.zeros(2, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        if name == "do":
+            tfa._check_bwd(t["q"], t["k"], t["v"], t["do"], stats, stats.clone())
+        else:
+            tfa._check(t["q"], t["k"], t["v"])
+
+
+def test_kernel_checks_take_an_aligned_offset_view():
+    shape, dtype = (2, 16, 64), torch.bfloat16
+    q = _offset_view(shape, dtype, 8)              # 8 bf16 = 16 bytes in
+    assert q.storage_offset() == 8 and q.data_ptr() % 16 == 0
+    k, v, do = (torch.zeros(shape, dtype=dtype) for _ in range(3))
+    stats = torch.zeros(2, 16)
+    tfa._check(q, k, v)
+    tfa._check_bwd(q, k, v, do, stats, stats.clone())
