@@ -223,13 +223,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-// -------------------------------------------------------------------- dK, dV
-template <typename T, int D>
+// ------------------------------------------------------------- dK, dV, fp32
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int t_q, int t_k, int causal) {
+flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int t_q, int t_k,
+                          int causal) {
   constexpr int S = Smem<D>::kStride;
   constexpr int C = D / 32;
   extern __shared__ float4 smem4[];
@@ -244,13 +245,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int k0 = blockIdx.y * kBlockRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const T* qb = q + static_cast<size_t>(bh) * t_q * D;
-  const T* dob = dout + static_cast<size_t>(bh) * t_q * D;
+  const float* qb = q + static_cast<size_t>(bh) * t_q * D;
+  const float* dob = dout + static_cast<size_t>(bh) * t_q * D;
   const float* lseb = lse + static_cast<size_t>(bh) * t_q;
   const float* deltab = delta + static_cast<size_t>(bh) * t_q;
 
-  stage<T, D>(sK, k + static_cast<size_t>(bh) * t_k * D, k0, kBlockRows, t_k, D);
-  stage<T, D>(sV, v + static_cast<size_t>(bh) * t_k * D, k0, kBlockRows, t_k, D);
+  stage<float, D>(sK, k + static_cast<size_t>(bh) * t_k * D, k0, kBlockRows, t_k, D);
+  stage<float, D>(sV, v + static_cast<size_t>(bh) * t_k * D, k0, kBlockRows, t_k, D);
 
   const int key0 = k0 + warp * kRowsPerWarp;  // first key row of this warp
   float acc_k[kRowsPerWarp][C], acc_v[kRowsPerWarp][C];
@@ -267,8 +268,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   // causal: queries before the CTA's first key see none of its keys
   for (int q0 = causal ? k0 : 0; q0 < t_q; q0 += kBlockCols) {
     __syncthreads();  // the previous tile is consumed (and the own rows are staged)
-    stage<T, D>(sQ, qb, q0, kBlockCols, t_q, S);
-    stage<T, D>(sDO, dob, q0, kBlockCols, t_q, S);
+    stage<float, D>(sQ, qb, q0, kBlockCols, t_q, S);
+    stage<float, D>(sDO, dob, q0, kBlockCols, t_q, S);
     __syncthreads();
 
     // S^T = K Q^T and dP^T = V dO^T for this warp's keys; lane i owns query q0 + i.
@@ -338,8 +339,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const size_t o = (static_cast<size_t>(bh) * t_k + key) * D + lane;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      store(dk + o + 32 * c, acc_k[r][c]);
-      store(dv + o + 32 * c, acc_v[r][c]);
+      dk[o + 32 * c] = acc_k[r][c];
+      dv[o + 32 * c] = acc_v[r][c];
     }
   }
 }
@@ -608,15 +609,15 @@ cudaError_t launch_dkv(const Args& a) {
     return cudaGetLastError();
   } else {  // fp32: the CUDA-core kernel
     constexpr int smem = Smem<D>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_fp32_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(a.bh, (a.t_k + kBlockRows - 1) / kBlockRows);
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-        a.t_q, a.t_k, a.causal);
+    flash_bwd_dkv_fp32_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.t_q, a.t_k, a.causal);
     return cudaGetLastError();
   }
 }

@@ -56,9 +56,9 @@ class CudaKernel:
     the kernel.
     """
 
-    def __init__(self, name: str, functions: Dict[str, Sequence], csrc: Path = CSRC_DIR):
+    def __init__(self, name: str, functions: Dict[str, Sequence]):
         self.name = name
-        self.source = Path(csrc) / f"{name}.cu"
+        self.source = CSRC_DIR / f"{name}.cu"
         self.functions = dict(functions)
         self.entry_launches = dict.fromkeys(self.functions, 0)
         self.build_log = ""
