@@ -154,7 +154,8 @@ def ptxas_summary(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d(flash_[a-z_]*?_mma_kernel)I(\w*?)Li(\d+)E", entry.group(1))
+            m = re.search(r"\d((?:flash|sparse)_[a-z_]*?_mma_kernel)I(\w*?)Li(\d+)E",
+                          entry.group(1))
             name = f"{m.group(1)}<{_PTX_TYPES.get(m.group(2), m.group(2))},{m.group(3)}>" \
                 if m else None
             if name:
@@ -249,7 +250,8 @@ def check_decode(da, accel, gen, name, B, S, H, KV, Dh, dtype, pos, garbage=Fals
     if not err <= TOL[dtype]["o"] or not torch.isfinite(out).all():
         raise AssertionError(f"decode_attention {name}: err {err} over {TOL[dtype]['o']}")
     nbytes = (2 * B * n_valid * KV * Dh + 2 * B * H * Dh) * item
-    b_ms, b_by = bound_ms(accel, nbytes, 4.0 * B * H * n_valid * Dh, dtype)
+    ops = 4.0 * B * H * n_valid * Dh
+    b_ms, b_by = bound_ms(accel, nbytes, ops, dtype)
     sdpa = lambda q, k, v, p: F.scaled_dot_product_attention(
         q.view(B, H, 1, Dh), k[:, :n_valid].transpose(1, 2), v[:, :n_valid].transpose(1, 2),
         scale=1.0 / math.sqrt(Dh), enable_gqa=True)
@@ -258,6 +260,9 @@ def check_decode(da, accel, gen, name, B, S, H, KV, Dh, dtype, pos, garbage=Fals
            "ms": time_ms(da.decode_attention, sets),
            "plain_ms": time_ms(da.decode_reference, sets),
            "library_ms": time_ms(sdpa, sets), "bound_ms": b_ms, "bound_by": b_by}
+    row["tflops"] = ops / row["ms"] / 1e9
+    row["gbytes_per_s"] = nbytes / row["ms"] / 1e6
+    row["bound_share"] = b_ms / row["ms"]
     emit("kernel decode_attention", **row)
     return row
 
@@ -330,6 +335,8 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal, Tk=None):
            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
            "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
            "library_bwd_ms": time_ms(lib_bwd, lib), "library_fwd_bwd_ms": time_ms(lib_fwd_bwd, lib)}
+    row["dq_tflops"] = 6.0 * D * pairs / row["dq_ms"] / 1e9
+    row["dq_bound_share"] = dq_bound[0] / row["dq_ms"]
     row["dkv_tflops"] = 8.0 * D * pairs / row["dkv_ms"] / 1e9
     row["dkv_bound_share"] = dkv_bound[0] / row["dkv_ms"]
     del lib
@@ -339,10 +346,12 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal, Tk=None):
 
 def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
     """The three block-sparse kernels against their plain versions at one
-    shape and layout, then their times beside the bound, the plain versions
-    and scaled_dot_product_attention under the layout's token mask. An
-    unattended key block must get dk = dv = 0 exactly; a dense layout must
-    give the dense flash kernel's output."""
+    shape and layout, the backward pair twice on the same inputs (the bits
+    must repeat), then their times beside the bound, the plain versions and
+    scaled_dot_product_attention under the layout's token mask, with the
+    backward schedules' useful shares. An unattended key block must get
+    dk = dv = 0 exactly; a dense layout must give the dense flash kernel's
+    output."""
     import torch.nn.functional as F
 
     pairs = fa.sparse_pairs(layout, causal, T, "cuda")
@@ -359,6 +368,8 @@ def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
     o, lse = fa.sparse_forward(q, k, v, layout, causal)
     dq = fa.sparse_backward_dq(q, k, v, do, lse, delta, layout, causal)
     dk, dv = fa.sparse_backward_dkv(q, k, v, do, lse, delta, layout, causal)
+    dq2 = fa.sparse_backward_dq(q, k, v, do, lse, delta, layout, causal)
+    dk2, dv2 = fa.sparse_backward_dkv(q, k, v, do, lse, delta, layout, causal)
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     o_ref, lse_ref = fa.sparse_reference_lse(q32, k32, v32, layout, causal)
     refs = (fa.sparse_backward_dq_reference(q32, k32, v32, do32, lse, delta, layout, causal),
@@ -375,13 +386,21 @@ def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
         if not torch.isfinite(g).all() or errs[n] > gtol * max(1.0, scales[n]):
             raise AssertionError(f"sparse_attention_bwd {name}: {n} err {errs[n]} over "
                                  f"{gtol} x {scales[n]}")
+    repeat = torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if not repeat:
+        raise AssertionError(f"sparse_attention_bwd {name}: repeated calls differ")
     row = {"name": name, "shape": [BH, T, D], "dtype": str(dtype), "causal": causal,
            "layout_blocks": pairs.n, "block": pairs.block,
            "pairs": int(pairs.row_cols_np.size), "visible_per_head": pairs.visible,
            "max_keys_per_row": int(np.diff(pairs.row_ptr_np).max()),
            "max_queries_per_col": int(np.diff(pairs.col_ptr_np).max()),
+           # the backward CTA schedules: CTAs, the share of warp-chunk slots
+           # that do work, and the most 16-row chunks one CTA streams
+           **{f"{side}_schedule": {"ctas": s.n_cta, "useful_share": s.useful_share,
+                                   "longest_chunks": s.longest}
+              for side, s in (("dq", pairs.dq), ("dkv", pairs.dkv))},
            "max_abs_err": err_o, "lse_max_abs_err": err_lse, "tol": tol, "grad_errs": errs,
-           "grad_ref_max_abs": scales, "grad_rtol": gtol}
+           "grad_ref_max_abs": scales, "grad_rtol": gtol, "bwd_bitwise_repeat": repeat}
     empty = np.flatnonzero(np.diff(pairs.col_ptr_np) == 0)
     if empty.size:      # keys no query attends: exactly zero, never garbage
         keys = torch.from_numpy(
@@ -402,10 +421,11 @@ def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
 
     visible = pairs.visible * BH
     rows = BH * T
-    for entry, nbytes, ops in (("fwd", per_set + 4 * rows, 4.0 * D * visible),
-                               ("dq", 5 * rows * D * item + 8 * rows, 6.0 * D * visible),
-                               ("dkv", 6 * rows * D * item + 8 * rows, 8.0 * D * visible)):
-        row[f"{entry}_bound_ms"], row[f"{entry}_bound_by"] = bound_ms(accel, nbytes, ops, dtype)
+    ops = {"fwd": 4.0 * D * visible, "dq": 6.0 * D * visible, "dkv": 8.0 * D * visible}
+    for entry, nbytes in (("fwd", per_set + 4 * rows), ("dq", 5 * rows * D * item + 8 * rows),
+                          ("dkv", 6 * rows * D * item + 8 * rows)):
+        row[f"{entry}_bound_ms"], row[f"{entry}_bound_by"] = bound_ms(accel, nbytes, ops[entry],
+                                                                      dtype)
     row.update(
         fwd_ms=time_ms(lambda q, k, v, *_: fa.sparse_forward(q, k, v, layout, causal), sets),
         dq_ms=time_ms(lambda *a: fa.sparse_backward_dq(*a, layout, causal), sets),
@@ -415,6 +435,9 @@ def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
         dq_plain_ms=time_ms(lambda *a: fa.sparse_backward_dq_reference(*a, layout, causal), sets),
         dkv_plain_ms=time_ms(lambda *a: fa.sparse_backward_dkv_reference(*a, layout, causal),
                              sets))
+    for entry in ops:   # visible-pair work only
+        row[f"{entry}_tflops"] = ops[entry] / row[f"{entry}_ms"] / 1e9
+        row[f"{entry}_bound_share"] = row[f"{entry}_bound_ms"] / row[f"{entry}_ms"]
 
     mask = pairs.mask
     sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)

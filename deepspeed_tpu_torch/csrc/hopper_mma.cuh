@@ -136,4 +136,28 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* __restrict__ sr
   }
 }
 
+// The gathering variant: a 64-row tile of the same shared layout made of four
+// 16-row chunks, chunk i from rows rows[i] .. rows[i] + 15 of the (t, D)
+// slice. A chunk with rows[i] < 0 is not loaded: its rows keep what they
+// held, so no reader may take them.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void load_chunks_async(T* dst, const T* __restrict__ src,
+                                                  const int (&rows)[4]) {
+  constexpr int kChunks = D / 8;          // 16-byte pieces per row
+  constexpr int kPieces = 16 * kChunks;   // per 16-row chunk
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    if (rows[ch] < 0) continue;
+#pragma unroll
+    for (int i0 = 0; i0 < kPieces; i0 += NT) {
+      const int i = i0 + threadIdx.x;
+      if (kPieces % NT == 0 || i < kPieces) {
+        const int r = i / kChunks, c = i % kChunks;
+        cp_async_16(dst + (ch * 16 + r) * (D + 8) + c * 8,
+                    src + static_cast<size_t>(rows[ch] + r) * D + c * 8, true);
+      }
+    }
+  }
+}
+
 }  // namespace hopper

@@ -17,8 +17,9 @@ sources hold the kernels:
   ``_sparse_bwd_dq_kernel`` (``sparse_attention_bwd_dq``,
   :func:`sparse_backward_dq`, :func:`sparse_backward_dq_reference`) and
   ``_sparse_bwd_dkv_kernel`` (``sparse_attention_bwd_dkv``,
-  :func:`sparse_backward_dkv`, :func:`sparse_backward_dkv_reference`); they
-  walk the CSR pair lists of :class:`SparsePairs`.
+  :func:`sparse_backward_dkv`, :func:`sparse_backward_dkv_reference`); the
+  forward walks the CSR pair lists of :class:`SparsePairs`, the backward
+  kernels its two :class:`SparseSchedule` s.
 
 A CUDA tensor goes to the kernels, or the call raises. A CPU tensor goes to
 the plain versions, which are also what the kernels are checked against on
@@ -300,21 +301,146 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
 
 
 # ------------------------------------------------------------ block-sparse
-# csrc/sparse_attention.cu: the forward, dq and dk/dv of block-sparse
-# attention over the CSR pair lists below
+# csrc/sparse_attention.cu: the forward of block-sparse attention over the
+# CSR pair lists, and dq and dk/dv over the CTA schedules below
 SPARSE_BLOCKS = (16, 32, 64, 128)
 SPARSE_KERNEL = CudaKernel("sparse_attention", {
     # q, k, v, o, lse, row_ptr, row_cols, bh, t, block, d, causal, dtype, device, stream
     "sparse_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q, k, v, do, lse, delta, dq, row_ptr, row_cols, bh, t, block, d, causal, dtype,
-    # device, stream
-    "sparse_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _P),
-    # q, k, v, do, lse, delta, dk, dv, col_ptr, col_rows, bh, t, block, d, causal, dtype,
-    # device, stream
-    "sparse_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _P),
+    # q, k, v, do, lse, delta, dq, own_rows, chunk_ptr, chunks, n_cta, bh, t, d, causal,
+    # dtype, device, stream
+    "sparse_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _P),
+    # q, k, v, do, lse, delta, dk, dv, own_rows, chunk_ptr, chunks, n_cta, bh, t, d, causal,
+    # dtype, device, stream
+    "sparse_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _P),
 })
+
+CTA_WARPS = 4      # warps of a backward CTA; each owns 16 rows, one mma.m16 tile
+CHUNK = 16         # rows of a streamed partner chunk
+
+
+def _group(lists: np.ndarray, size: int) -> list:
+    """Partition the units (rows of ``lists``, a units × partner-blocks bool
+    map) into groups of at most ``size`` that share partners: each group is
+    seeded by the longest list left (the lowest unit on a tie), then grows
+    one unit at a time by the unit that adds the fewest partners to the
+    group's union, preferring the longer list, then the nearer unit.
+    Deterministic; one pass of n × n products per added unit."""
+    n = lists.shape[0]
+    if size == 1:
+        return [[u] for u in range(n)]
+    as_f = lists.astype(np.float32)
+    lens = lists.sum(axis=1).astype(np.int64)
+    units = np.arange(n)
+    left = np.ones(n, dtype=bool)
+    groups = []
+    for seed in np.argsort(-lens, kind="stable"):
+        if not left[seed]:
+            continue
+        left[seed] = False
+        group, union = [int(seed)], lists[seed].copy()
+        while len(group) < size and left.any():
+            growth = lens - (as_f @ union).astype(np.int64)
+            key = (growth * (n + 1) + n - lens) * (n + 1) + np.abs(units - seed)
+            pick = int(np.flatnonzero(left)[np.argmin(key[left])])
+            left[pick] = False
+            group.append(pick)
+            union |= lists[pick]
+        groups.append(group)
+    return groups
+
+
+class SparseSchedule:
+    """Which own rows share a CTA in a sparse backward kernel, and the
+    partner rows it streams: one side of a layout.
+
+    ``lists`` is (n, n) bool, row ``i`` the partner blocks of own block
+    ``i``: the causal-cut layout for dq (own rows are queries, partners
+    keys), its transpose for dk/dv (own keys, partner queries). A CTA owns
+    64 rows, 16 per warp. Its own *units* are ``min(block, 64)`` rows each:
+    ``group = 64 // unit_rows`` layout blocks at block <= 64, and half a
+    block at block 128 (both halves walk the block's list). Units are
+    grouped by :func:`_group`, so the units of a CTA share partners.
+
+    Per CTA ``c``:
+
+    - ``units[c]``: its own units (-1 for an empty slot); slot ``s`` holds
+      rows ``units[c, s] * unit_rows ..`` and is served by warps
+      ``s * unit_rows // 16 ..``;
+    - ``partners[ptr[c]:ptr[c + 1]]``: the ascending union of its units'
+      partner blocks, and ``masks`` beside it: bit ``s`` set when slot ``s``
+      attends that block;
+    - what the kernel reads: ``own_rows[c, w]``, the first own row of warp
+      ``w`` (-1: none), and ``chunks[chunk_ptr[c]:chunk_ptr[c + 1]]``, one
+      int32 per 16-row partner chunk, ``first row | warp mask``, padded with
+      zeros (no warp) to a multiple of four chunks (one 64-row tile). A warp
+      takes a chunk when its bit is set; under causal a chunk that lies
+      wholly past the warp's diagonal (keys after all its queries) carries
+      no bit for that warp, and a chunk with no bit is left out.
+
+    CTAs are ordered by their number of chunks, longest first, which is
+    the order they launch in. ``useful_share`` is the share of warp-chunk
+    slots that do work; ``longest`` the most chunks of one CTA. What the
+    kernel reads is copied to ``device`` once, here.
+    """
+
+    def __init__(self, lists: np.ndarray, block: int, causal: bool, own_is_query: bool,
+                 device):
+        n = lists.shape[0]
+        self.unit_rows = min(block, 64)
+        self.group = 64 // self.unit_rows
+        unit_lists = np.repeat(lists, block // self.unit_rows, axis=0)
+        groups = _group(unit_lists, self.group)
+        slot_of_warp = [w * CHUNK // self.unit_rows for w in range(CTA_WARPS)]
+
+        rows_of = []        # per CTA: the first own row of each warp
+        entries = []        # per CTA: (partner blocks, slot masks)
+        chunk_lists = []
+        for g in groups:
+            slots = g + [-1] * (self.group - len(g))
+            own = []
+            for w, s in enumerate(slot_of_warp):
+                first = slots[s] * self.unit_rows + w * CHUNK % self.unit_rows
+                own.append(first if slots[s] >= 0 else -1)
+            masks = np.zeros(n, dtype=np.int64)
+            for s, u in enumerate(g):
+                masks[unit_lists[u]] |= 1 << s
+            blocks = np.flatnonzero(masks)
+            # (entry, chunk) first partner rows, then each warp's bit
+            p0 = blocks[:, None] * block + np.arange(0, block, CHUNK)[None, :]
+            warps = np.zeros(p0.shape, dtype=np.int64)
+            for w, r in enumerate(own):
+                if r < 0:
+                    continue
+                bit = (masks[blocks][:, None] >> slot_of_warp[w]) & 1
+                if causal:     # the whole chunk past the warp's diagonal
+                    bit = bit & ~((p0 > r) if own_is_query else (p0 < r))
+                warps |= bit << w
+            chunks = (p0 | warps)[warps > 0].tolist()
+            chunks += [0] * (-len(chunks) % CTA_WARPS)
+            rows_of.append(own)
+            entries.append((blocks, masks[blocks]))
+            chunk_lists.append(chunks)
+
+        order = sorted(range(len(groups)), key=lambda c: -len(chunk_lists[c]))
+        ptr = lambda sizes: np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+        self.units = np.array([groups[c] + [-1] * (self.group - len(groups[c]))
+                               for c in order], dtype=np.int32)
+        self.ptr = ptr([len(entries[c][0]) for c in order])
+        self.partners = np.concatenate([entries[c][0] for c in order]).astype(np.int32)
+        self.masks = np.concatenate([entries[c][1] for c in order]).astype(np.int32)
+        self.own_rows_np = np.array([rows_of[c] for c in order], dtype=np.int32)
+        self.chunk_ptr_np = ptr([len(chunk_lists[c]) for c in order])
+        self.chunks_np = np.array([w for c in order for w in chunk_lists[c]], dtype=np.int32)
+        self.n_cta = len(order)
+        used = sum(int((self.chunks_np >> w & 1).sum()) for w in range(CTA_WARPS))
+        self.useful_share = used / (CTA_WARPS * self.chunks_np.size)
+        self.longest = int(np.diff(self.chunk_ptr_np).max())
+        dev = lambda a: torch.from_numpy(a).to(device)
+        self.own_rows, self.chunk_ptr, self.chunks = (
+            dev(self.own_rows_np), dev(self.chunk_ptr_np), dev(self.chunks_np))
 
 
 class SparsePairs:
@@ -330,6 +456,9 @@ class SparsePairs:
     A key block no query attends has an empty list (JAX's dummy pair), and
     its dk/dv are written as zeros. Causal drops the pairs above the
     diagonal; a query block left with no key block raises, as in JAX.
+    The forward kernel walks the row lists, copied to the device; the
+    backward kernels walk ``dq`` and ``dkv``, the :class:`SparseSchedule`
+    of each side. The column lists stay on the host.
     """
 
     def __init__(self, layout, causal: bool, t: int, device):
@@ -355,7 +484,8 @@ class SparsePairs:
         # the lists go to the device once, here, never per call
         to_dev = lambda a: torch.from_numpy(a).to(self.device)
         self.row_ptr, self.row_cols = to_dev(self.row_ptr_np), to_dev(self.row_cols_np)
-        self.col_ptr, self.col_rows = to_dev(self.col_ptr_np), to_dev(self.col_rows_np)
+        self.dq = SparseSchedule(lay, t // n, causal, True, self.device)
+        self.dkv = SparseSchedule(lay.T, t // n, causal, False, self.device)
         diag = int(np.trace(lay)) if causal else 0
         b = self.block
         # visible (query, key) token pairs per head: a diagonal block keeps
@@ -435,6 +565,13 @@ def _sparse_tail(q, pairs: SparsePairs):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def _schedule_args(q, pairs: SparsePairs, sched: SparseSchedule):
+    return (sched.own_rows.data_ptr(), sched.chunk_ptr.data_ptr(), sched.chunks.data_ptr(),
+            sched.n_cta, q.shape[0], q.shape[1], q.shape[2], int(pairs.causal),
+            _DTYPE_CODES[q.dtype], q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
 def sparse_forward(q, k, v, layout, causal: bool = True):
     """Block-sparse attention on (B*H, T, D) with the softmax scale in q (the
     ``sparse_attention_fwd`` kernel on a CUDA tensor, its plain version on a
@@ -462,8 +599,7 @@ def sparse_backward_dq(q, k, v, do, lse, delta, layout, causal: bool = True):
     _check_bwd(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     SPARSE_KERNEL.launch("sparse_attention_bwd_dq", *_bwd_args(q, k, v, do, lse, delta),
-                         dq.data_ptr(), pairs.row_ptr.data_ptr(), pairs.row_cols.data_ptr(),
-                         *_sparse_tail(q, pairs))
+                         dq.data_ptr(), *_schedule_args(q, pairs, pairs.dq))
     return dq
 
 
@@ -477,8 +613,7 @@ def sparse_backward_dkv(q, k, v, do, lse, delta, layout, causal: bool = True):
     _check_bwd(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     SPARSE_KERNEL.launch("sparse_attention_bwd_dkv", *_bwd_args(q, k, v, do, lse, delta),
-                         dk.data_ptr(), dv.data_ptr(), pairs.col_ptr.data_ptr(),
-                         pairs.col_rows.data_ptr(), *_sparse_tail(q, pairs))
+                         dk.data_ptr(), dv.data_ptr(), *_schedule_args(q, pairs, pairs.dkv))
     return dk, dv
 
 

@@ -11,10 +11,10 @@ bf16 output carries its own rounding (2e-2), fp32 outputs and the LSE only
 summation order (1e-4, LSE 1e-3). Backward gradients are held relative to
 the largest reference gradient, floored at 1 for these unit-normal inputs:
 bf16 1e-2 and fp16 2.5e-3 (the outputs' own rounding is 2^-9 and 2^-11 of
-it), fp32 1e-4 (summation order). The bf16 and fp16 forward and dk/dv
-kernels run on the tensor cores and round P (and dS) to the input type
-before the second products, as the JAX kernels do; the fp32 instances keep
-the CUDA-core code.
+it), fp32 1e-4 (summation order). The bf16 and fp16 instances of the
+flash forward, the dense dk/dv and the block-sparse dq and dk/dv run on the
+tensor cores and round P (and dS) to the input type before the second
+products, as the JAX kernels do; the fp32 instances keep the CUDA-core code.
 """
 
 import dataclasses
@@ -253,6 +253,97 @@ def test_sparse_unattended_key_block_gets_exactly_zero(gen):
     assert torch.count_nonzero(dk[:, odd]).item() == 0
     assert torch.count_nonzero(dv[:, odd]).item() == 0
     assert torch.count_nonzero(dv[:, :16]).item() > 0
+
+
+SPARSE_GRAD_TOL = {**GRAD_TOL, torch.float32: 1e-4}
+
+
+def _sparse_backward(gen, lay, T, D, dtype, causal, BH=4):
+    """The sparse forward, dq and dk/dv kernels on one set of inputs, each
+    backward output against its plain version in fp32. → (dq, dk, dv,
+    inputs)."""
+    q, k, v, do = (torch.randn(BH, T, D, generator=gen, device="cuda") for _ in range(4))
+    q, k, v, do = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+    o, lse = tfa.sparse_forward(q, k, v, lay, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    dq = tfa.sparse_backward_dq(*args, lay, causal)
+    dk, dv = tfa.sparse_backward_dkv(*args, lay, causal)
+    torch.cuda.synchronize()
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    refs = (tfa.sparse_backward_dq_reference(q32, k32, v32, do32, lse, delta, lay, causal),
+            *tfa.sparse_backward_dkv_reference(q32, k32, v32, do32, lse, delta, lay, causal))
+    for name, g, r in zip("qkv", (dq, dk, dv), refs):
+        err = (g.float() - r).abs().max().item()
+        assert torch.isfinite(g).all() and \
+            err <= SPARSE_GRAD_TOL[dtype] * max(1.0, r.abs().max().item()), (name, err)
+    return dq, dk, dv, args
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_sparse_tensor_core_backward_matches_plain(gen, block, D, dtype, causal):
+    """The tensor-core dq and dk/dv over their CTA schedules: eight layout
+    blocks of the fixed layout (causal) or BigBird (not causal)."""
+    T = 8 * block
+    cfg = FixedSparsityConfig(4, block=block, num_local_blocks=4) if causal \
+        else BigBirdSparsityConfig(4, block=block)
+    before = dict(tfa.SPARSE_KERNEL.entry_launches)
+    _sparse_backward(gen, cfg.make_layout(T), T, D, dtype, causal)
+    after = tfa.SPARSE_KERNEL.entry_launches
+    assert (after["sparse_attention_bwd_dq"] - before["sparse_attention_bwd_dq"],
+            after["sparse_attention_bwd_dkv"] - before["sparse_attention_bwd_dkv"]) == (1, 1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sparse_backward_warps_of_one_cta_with_disjoint_lists(gen, dtype, causal):
+    """Each query block attends only itself: the four warps of a CTA walk
+    four different chunks, none shared."""
+    n = 16
+    lay = np.eye(n, dtype=bool)
+    pairs = tfa.sparse_pairs(lay, causal, 16 * n, "cuda")
+    assert all(bin(int(m)).count("1") == 1 for m in pairs.dq.masks)
+    _sparse_backward(gen, lay, 16 * n, 64, dtype, causal)
+
+
+@pytest.mark.parametrize("block,dtype", [(16, torch.float16), (32, torch.bfloat16),
+                                         (128, torch.bfloat16), (16, torch.float32)])
+def test_sparse_unattended_keys_per_block_and_type(gen, block, dtype):
+    """Odd key blocks attended by no query: exact zeros in dk and dv, from
+    CTAs that walk no chunk and from warps whose bits are all clear."""
+    n = 8
+    lay = np.zeros((n, n), dtype=bool)
+    lay[:, 0] = True
+    lay[np.arange(0, n, 2), np.arange(0, n, 2)] = True
+    T = n * block
+    _, dk, dv, _ = _sparse_backward(gen, lay, T, 96, dtype, True)
+    odd = torch.arange(T, device="cuda").view(n, block)[1::2].flatten()
+    assert torch.count_nonzero(dk[:, odd]).item() == 0
+    assert torch.count_nonzero(dv[:, odd]).item() == 0
+    assert torch.count_nonzero(dv[:, :block]).item() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_sparse_backward_repeats_bitwise(gen, dtype):
+    """One owner per output row and a fixed order of sums: repeated calls
+    give the same bits."""
+    T = 512
+    lay = FixedSparsityConfig(4, block=16, num_local_blocks=4).make_layout(T)
+    dq, dk, dv, args = _sparse_backward(gen, lay, T, 128, dtype, True)
+    assert torch.equal(dq, tfa.sparse_backward_dq(*args, lay, True))
+    dk2, dv2 = tfa.sparse_backward_dkv(*args, lay, True)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.parametrize("block,D,causal", [(16, 128, True), (128, 96, True), (32, 64, False)])
+def test_sparse_fp32_backward_on_the_cuda_cores(gen, block, D, causal):
+    T = 8 * block
+    cfg = FixedSparsityConfig(4, block=block, num_local_blocks=4) if causal \
+        else BigBirdSparsityConfig(4, block=block)
+    _sparse_backward(gen, cfg.make_layout(T), T, D, torch.float32, causal)
 
 
 def test_sparse_train_batch_runs_the_kernels(gen):

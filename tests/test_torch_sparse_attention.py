@@ -171,6 +171,79 @@ def test_pairs_are_built_once_per_layout_and_length():
     assert tfa.sparse_pairs(lay, True, 128, "cpu").block == 32
 
 
+# ---------------------------------------------------- backward CTA schedules
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", NAMES)
+def test_backward_schedules_select_each_kept_pair_once(name, causal, block):
+    """Both sides' schedules, at the level of layout blocks and at the level
+    the kernels read (16-row slices): every kept pair is selected exactly
+    once, nothing outside the layout is, every own row has one owner."""
+    T = 16 * block
+    p = tfa.SparsePairs(getattr(tsa, name)(num_heads=4, block=block).make_layout(T), causal, T,
+                        "cpu")
+    n, per16 = p.n, block // tfa.CHUNK
+    assert p.visible == p.mask.numpy().sum()
+    for sched, lists, own_is_query in ((p.dq, p.layout, True), (p.dkv, p.layout.T, False)):
+        per_block = block // sched.unit_rows
+        # layout blocks: one set bit of one CTA per (own unit, partner block)
+        selected = np.zeros((n * per_block, n), dtype=int)
+        for c in range(sched.n_cta):
+            for e in range(sched.ptr[c], sched.ptr[c + 1]):
+                for slot, unit in enumerate(sched.units[c]):
+                    if sched.masks[e] >> slot & 1:
+                        selected[unit, sched.partners[e]] += 1
+        np.testing.assert_array_equal(selected, np.repeat(lists, per_block, axis=0))
+        units = np.sort(sched.units[sched.units >= 0])
+        np.testing.assert_array_equal(units, np.arange(n * per_block))
+        # 16-row slices: the chunk words against each warp's own rows
+        owned = np.zeros(n * per16, dtype=int)
+        cover = np.zeros((n * per16, n * per16), dtype=int)
+        assert (np.diff(sched.chunk_ptr_np) % tfa.CTA_WARPS == 0).all()
+        for c in range(sched.n_cta):
+            own = sched.own_rows_np[c]
+            owned[own[own >= 0] // tfa.CHUNK] += 1
+            for word in sched.chunks_np[sched.chunk_ptr_np[c]:sched.chunk_ptr_np[c + 1]]:
+                p0, warps = word & ~15, word & 15
+                assert warps or word == 0      # a chunk with no warp is padding
+                for w in range(tfa.CTA_WARPS):
+                    if warps >> w & 1:
+                        assert own[w] >= 0
+                        cover[own[w] // tfa.CHUNK, p0 // tfa.CHUNK] += 1
+        np.testing.assert_array_equal(owned, 1)
+        expect = np.kron(lists, np.ones((per16, per16), dtype=int))
+        if causal:      # slices wholly past the diagonal are left out
+            tri = np.tril if own_is_query else np.triu
+            expect = tri(expect)
+        np.testing.assert_array_equal(cover, expect)
+
+
+def test_backward_schedules_are_built_once_and_live_on_the_device():
+    lay = tsa.FixedSparsityConfig(2, block=16).make_layout(256)
+    a = tfa.sparse_pairs(lay, True, 256, "cpu")
+    b = tfa.sparse_pairs(lay.copy(), True, 256, "cpu")
+    assert b.dq is a.dq and b.dkv is a.dkv
+    for sched in (a.dq, a.dkv):
+        assert sched.own_rows.shape == (sched.n_cta, tfa.CTA_WARPS)
+        np.testing.assert_array_equal(sched.chunks.numpy(), sched.chunks_np)
+        np.testing.assert_array_equal(sched.chunk_ptr.numpy(), sched.chunk_ptr_np)
+        # longest CTA first: the launch order
+        assert (np.diff(np.diff(sched.chunk_ptr_np)) <= 0).all()
+
+
+def test_training_cell_schedules_group_blocks_that_share_partners():
+    """The gpt2-1.3b cell's layout (fixed, block 16, T 2048, causal): dq
+    groups neighbouring query blocks; dk/dv groups the long global columns
+    together, which consecutive key blocks would not (27% useful)."""
+    block = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
+             "num_local_blocks": 4, "num_global_blocks": 1, "attention": "unidirectional",
+             "horizontal_global_attention": False, "num_different_global_patterns": 4}
+    p = tfa.SparsePairs(tsa.sparse_self_attention(block, 16).get_layout(2048), True, 2048, "cpu")
+    assert p.dq.n_cta == p.dkv.n_cta == 32
+    assert p.dq.useful_share > 0.85 and p.dkv.useful_share > 0.74
+    assert p.dq.longest == 36 and p.dkv.longest == 128
+
+
 # ------------------------------------------------- plain kernels vs Pallas
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("name,T,kw", [
