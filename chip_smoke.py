@@ -14,10 +14,12 @@ after: serving llama3.2-1b (full depth) through ``init_inference`` →
 ``train_batch``, and training gpt2-1.3b (full depth, 2048 tokens) with the
 ds_config ``sparse_attention`` block through the same entry points. It
 checks that each run went through its kernels and that the kernel path
-agrees with the plain path. Each phase prints one JSON
-line; any failed check raises, and the script exits non-zero without the
-final line. It needs one card and imports nothing of JAX or of the JAX
-package.
+agrees with the plain path; it also serves two layers of llama3.2-1b in
+fp16 through the decode kernel, and trains two layers of gpt2-2.7b (head
+dim 80), dense and block-sparse, against the plain path. Each phase prints
+one JSON line; any failed check raises, and the script exits non-zero
+without the final line. It needs one card and imports nothing of JAX or of
+the JAX package.
 
 The last lines are: the kernels' summary as ``{"kernels": [...]}``, the
 card's ``nvidia-smi`` name and power limit, and
@@ -143,29 +145,38 @@ def bound_ms(accel, nbytes: int, ops: float, dtype) -> tuple:
 _PTX_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}   # mangled template types
 
 
+def _instance_name(mangled: str):
+    """``kernel<type,D,...>`` from a mangled kernel entry, else None."""
+    m = re.search(r"\d((?:flash|sparse|decode)_[a-z0-9_]*?kernel)I(.*)", mangled)
+    if not m:
+        return None
+    args = re.findall(r"(13__nv_bfloat16|6__half|Li(\d+)E)", m.group(2).split("EEv")[0])
+    return f"{m.group(1)}<{','.join(_PTX_TYPES.get(a, n) for a, n in args)}>"
+
+
 def ptxas_summary(log: str) -> dict:
     """Most registers and total spill-store bytes over the kernel's
-    template instances, from nvcc's -Xptxas -v report, and for each
+    template instances, from nvcc's -Xptxas -v report; for each
     tensor-core instance (``*_mma_kernel<type, D>``) its registers and
-    spill-store bytes."""
+    spill-store bytes, and every instance that spills, by name."""
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
-    mma, name = {}, None
+    per, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d((?:flash|sparse)_[a-z_]*?_mma_kernel)I(\w*?)Li(\d+)E",
-                          entry.group(1))
-            name = f"{m.group(1)}<{_PTX_TYPES.get(m.group(2), m.group(2))},{m.group(3)}>" \
-                if m else None
+            name = _instance_name(entry.group(1))
             if name:
-                mma[name] = {"registers": 0, "spill_store_bytes": 0}
+                per[name] = {"registers": 0, "spill_store_bytes": 0}
         elif name and (sp := re.search(r"(\d+) bytes spill stores", line)):
-            mma[name]["spill_store_bytes"] = int(sp.group(1))
+            per[name]["spill_store_bytes"] = int(sp.group(1))
         elif name and (rg := re.search(r"Used (\d+) registers", line)):
-            mma[name]["registers"] = int(rg.group(1))
+            per[name]["registers"] = int(rg.group(1))
     out = {"instances": len(regs), "max_registers": max(regs, default=0),
-           "spill_store_bytes": sum(spills)}
+           "spill_store_bytes": sum(spills),
+           "spilling": {n: v["spill_store_bytes"] for n, v in per.items()
+                        if v["spill_store_bytes"]}}
+    mma = {n: v for n, v in per.items() if "_mma_kernel<" in n}
     if mma:
         out["mma_instances"] = mma
     return out
@@ -269,9 +280,9 @@ def check_decode(da, accel, gen, name, B, S, H, KV, Dh, dtype, pos, garbage=Fals
 
 def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal, Tk=None):
     """Both backward kernels against their plain versions at one shape (Tq =
-    T, Tk = Tk or T), the dk/dv kernel twice on the same inputs (the bits
-    must repeat; under causal, keys no query sees must get dk = dv = 0
-    exactly), then their times beside the bound, the plain versions and
+    T, Tk = Tk or T), each twice on the same inputs (the bits must repeat;
+    under causal, keys no query sees must get dk = dv = 0 exactly), then
+    their times beside the bound, the plain versions and
     scaled_dot_product_attention's backward and forward+backward."""
     import torch.nn.functional as F
 
@@ -288,6 +299,7 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal, Tk=None):
         sets.append((q, k, v, do, lse, delta))
     q, k, v, do, lse, delta = sets[0]
     dq = fa.flash_backward_dq(q, k, v, do, lse, delta, causal)
+    dq2 = fa.flash_backward_dq(q, k, v, do, lse, delta, causal)
     dk, dv = fa.flash_backward_dkv(q, k, v, do, lse, delta, causal)
     dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, lse, delta, causal)
     ref = fa.mha_backward_reference(q.float(), k.float(), v.float(), do.float(), lse, delta,
@@ -300,12 +312,14 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal, Tk=None):
         if not torch.isfinite(g).all() or errs[n] > tol * max(1.0, scales[n]):
             raise AssertionError(f"flash_attention_bwd {name}: {n} err {errs[n]} over "
                                  f"{tol} x {scales[n]}")
+    dq_repeat = torch.equal(dq, dq2)
     repeat = torch.equal(dk, dk2) and torch.equal(dv, dv2)
     unseen = int(torch.count_nonzero(dk[:, T:]).item() + torch.count_nonzero(dv[:, T:]).item()) \
         if causal and Tk > T else 0
-    if not repeat or unseen:
-        raise AssertionError(f"flash_attention_bwd_dkv {name}: bitwise repeat {repeat}, "
-                             f"{unseen} nonzero dk/dv entries of keys no query sees")
+    if not (repeat and dq_repeat) or unseen:
+        raise AssertionError(f"flash_attention_bwd {name}: bitwise repeat dq {dq_repeat}, "
+                             f"dk/dv {repeat}; {unseen} nonzero dk/dv entries of keys no "
+                             f"query sees")
     pairs = _pairs(T, Tk, causal) * BH
     rows_q, rows_k = BH * T, BH * Tk
     dq_bound = bound_ms(accel, (3 * rows_q + 2 * rows_k) * D * item + 8 * rows_q,
@@ -327,7 +341,8 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal, Tk=None):
         F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=1.0), (q, k, v), do)
     row = {"name": name, "shape": [BH, T, D], "t_k": Tk, "dtype": str(dtype), "causal": causal,
            "max_abs_err": max(errs.values()), "errs": errs, "ref_max_abs": scales,
-           "rtol": tol, "dkv_bitwise_repeat": repeat, "unseen_key_nonzero": unseen,
+           "rtol": tol, "dq_bitwise_repeat": dq_repeat, "dkv_bitwise_repeat": repeat,
+           "unseen_key_nonzero": unseen,
            "dq_ms": time_ms(lambda *a: fa.flash_backward_dq(*a, causal), sets),
            "dkv_ms": time_ms(lambda *a: fa.flash_backward_dkv(*a, causal), sets),
            "dq_plain_ms": time_ms(lambda *a: fa.mha_backward_dq_reference(*a, causal), sets),
@@ -346,12 +361,12 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal, Tk=None):
 
 def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
     """The three block-sparse kernels against their plain versions at one
-    shape and layout, the backward pair twice on the same inputs (the bits
-    must repeat), then their times beside the bound, the plain versions and
+    shape and layout, each twice on the same inputs (the bits must repeat),
+    then their times beside the bound, the plain versions and
     scaled_dot_product_attention under the layout's token mask, with the
-    backward schedules' useful shares. An unattended key block must get
-    dk = dv = 0 exactly; a dense layout must give the dense flash kernel's
-    output."""
+    schedules' useful shares (the forward walks the dq schedule). An
+    unattended key block must get dk = dv = 0 exactly; a dense layout must
+    give the dense flash kernel's output."""
     import torch.nn.functional as F
 
     pairs = fa.sparse_pairs(layout, causal, T, "cuda")
@@ -366,6 +381,7 @@ def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
         sets.append((q, k, v, do, lse, delta))
     q, k, v, do, lse, delta = sets[0]
     o, lse = fa.sparse_forward(q, k, v, layout, causal)
+    o2, lse2 = fa.sparse_forward(q, k, v, layout, causal)
     dq = fa.sparse_backward_dq(q, k, v, do, lse, delta, layout, causal)
     dk, dv = fa.sparse_backward_dkv(q, k, v, do, lse, delta, layout, causal)
     dq2 = fa.sparse_backward_dq(q, k, v, do, lse, delta, layout, causal)
@@ -377,9 +393,11 @@ def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
     torch.cuda.synchronize()
     tol, gtol = TOL[dtype], GRAD_RTOL[dtype]
     err_o, err_lse = max_err(o, o_ref), max_err(lse, lse_ref)
-    if not (err_o <= tol["o"] and err_lse <= tol["lse"]) or not torch.isfinite(o).all():
+    fwd_repeat = torch.equal(o, o2) and torch.equal(lse, lse2)
+    if not (err_o <= tol["o"] and err_lse <= tol["lse"]) or not torch.isfinite(o).all() \
+            or not fwd_repeat:
         raise AssertionError(f"sparse_attention_fwd {name}: o err {err_o}, lse err {err_lse} "
-                             f"over {tol}")
+                             f"over {tol}; bitwise repeat {fwd_repeat}")
     errs, scales = {}, {}
     for n, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         errs[n], scales[n] = max_err(g, r), r.abs().max().item()
@@ -400,7 +418,8 @@ def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
                                    "longest_chunks": s.longest}
               for side, s in (("dq", pairs.dq), ("dkv", pairs.dkv))},
            "max_abs_err": err_o, "lse_max_abs_err": err_lse, "tol": tol, "grad_errs": errs,
-           "grad_ref_max_abs": scales, "grad_rtol": gtol, "bwd_bitwise_repeat": repeat}
+           "grad_ref_max_abs": scales, "grad_rtol": gtol, "fwd_bitwise_repeat": fwd_repeat,
+           "bwd_bitwise_repeat": repeat}
     empty = np.flatnonzero(np.diff(pairs.col_ptr_np) == 0)
     if empty.size:      # keys no query attends: exactly zero, never garbage
         keys = torch.from_numpy(
@@ -476,6 +495,12 @@ def sparse_cases(fa, SparsityConfigs):
         ("fixed128", BH, T, 128, bf, fixed(128), True),
         ("d64", BH, T, 64, bf, cell, True),
         ("d96", BH, T, 96, bf, cell, True),
+        ("d16", BH, T, 16, bf, cell, True),
+        ("d32", BH, T, 32, bf, cell, True),
+        ("d80", BH, T, 80, bf, cell, True),
+        ("fp16_d80", BH, T, 80, torch.float16, fixed(32), True),
+        ("fp32_d80", BH, T, 80, torch.float32, cell, True),
+        ("fp32_d16", BH, T, 16, torch.float32, fixed(64), True),
         ("fp32", BH, T, 128, torch.float32, cell, True),
         ("fp16", BH, T, 128, torch.float16, cell, True),
         ("bigbird_noncausal", BH, T, 128, bf,
@@ -632,6 +657,49 @@ def serve_small_fp32(init_inference, LlamaModel, cfg):
          tokens_differing=int((out != out_p).sum().item()))
     if not same:
         raise AssertionError("fp32 greedy tokens differ between the kernel and plain paths")
+
+
+def serve_small_fp16(init_inference, LlamaModel, cfg, fa, da):
+    """fp16, full width, 2 layers, through generate with the decode kernel:
+    each layer launches the flash kernel once and the decode kernel once per
+    new token, and the kernel path's logits agree with the plain path's at
+    prefill and at one decode step."""
+    c = dataclasses.replace(cfg, n_layer=SMALL_LAYERS, dtype=torch.float16,
+                            use_flash_decode=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    model = LlamaModel(c).init_params(gen)
+    ids = torch.randint(0, c.vocab_size, (SMALL_BATCH, SMALL_PROMPT), generator=gen,
+                        device="cuda")
+    eng = init_inference(model, {"dtype": "fp16"})
+    plain = LlamaModel(dataclasses.replace(c, use_flash_attention=False, use_flash_decode=False))
+    eng_p = init_inference(plain, {"dtype": "fp16"}, params=model.state_dict())
+    fa.KERNEL.reset_launches()
+    da.KERNEL.reset_launches()
+    out = eng.generate(ids, max_new_tokens=SMALL_GEN)
+    launches = {"flash_attention_fwd": fa.KERNEL.launches, "decode_attention": da.KERNEL.launches}
+    out_p = eng_p.generate(ids, max_new_tokens=SMALL_GEN)
+    expect = {"flash_attention_fwd": SMALL_LAYERS, "decode_attention": SMALL_LAYERS * SMALL_GEN}
+    with torch.inference_mode():
+        logits, cache = model.prefill(ids, model.init_cache(SMALL_BATCH, SMALL_PROMPT + SMALL_GEN))
+        ref, ref_cache = plain.prefill(ids, plain.init_cache(SMALL_BATCH,
+                                                             SMALL_PROMPT + SMALL_GEN))
+        tok = torch.argmax(ref, dim=-1)
+        step_k, _ = model.decode_step(tok, cache)
+        step_p, _ = plain.decode_step(tok, ref_cache)
+    err_prefill, err_step = max_err(logits, ref), max_err(step_k, step_p)
+    scale, step_scale = ref.abs().max().item(), step_p.abs().max().item()
+    emit(f"slice {MODEL} fp16 {SMALL_LAYERS}-layer", batch=SMALL_BATCH, prompt=SMALL_PROMPT,
+         gen=SMALL_GEN, launches=launches, prefill_logits_max_abs_err=err_prefill,
+         decode_logits_max_abs_err=err_step, ref_logits_max_abs=scale, logit_rtol=LOGIT_RTOL,
+         tokens_identical=torch.equal(out, out_p),
+         tokens_differing=int((out != out_p).sum().item()))
+    if launches != expect or tuple(out.shape) != (SMALL_BATCH, SMALL_PROMPT + SMALL_GEN):
+        raise AssertionError(f"fp16 generate: launches {launches}, expected {expect}; "
+                             f"output {tuple(out.shape)}")
+    if not (torch.isfinite(logits).all() and torch.isfinite(step_k).all()) \
+            or err_prefill > LOGIT_RTOL * scale or err_step > LOGIT_RTOL * step_scale:
+        raise AssertionError(f"fp16 kernel path vs plain path: prefill logits err {err_prefill}, "
+                             f"decode logits err {err_step}, |ref| max {scale}")
 
 
 # -------------------------------------------------------------------- train
@@ -829,6 +897,36 @@ def train_check_fp32(initialize, GPT2Model, cfg, label, seq, extra_config, to_pl
     torch.cuda.empty_cache()
 
 
+def check_head_dim_80(initialize, GPT2Model, cfg, fa):
+    """gpt2-2.7b (head dim 80) at full width and 2 layers, dense at
+    TRAIN_SEQ and with the sparse block at SPARSE_SEQ: the bf16 loss and
+    gradients and three fp32 engine steps, kernel path against plain path
+    at the training checks' tolerances. The bf16 kernel path must launch
+    each of its kernels once per layer."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    c = dataclasses.replace(cfg, n_layer=2, remat=False)
+    kernels = (fa.KERNEL, fa.BWD_KERNEL, fa.SPARSE_KERNEL)
+    for label, seq, block in (("dense", TRAIN_SEQ, None),
+                              ("sparse-fixed16", SPARSE_SEQ, SPARSE_BLOCK)):
+        to_plain = _dense_plain if block is None else \
+            (lambda m, seq=seq: _sparse_plain(fa, m, SPARSE_BLOCK, seq))
+        batch = synthetic_lm_batch(2, seq, c.vocab_size, seed=SEED, device="cuda")
+        for kern in kernels:
+            kern.reset_launches()
+        train_check_bf16(GPT2Model, dataclasses.replace(c, sparse_attention=block), batch,
+                         f"gpt2-2.7b head-dim-80 {label}", to_plain)
+        launches = {n: v for kern in kernels for n, v in kern.entry_launches.items() if v}
+        want = dict.fromkeys(fa.SPARSE_KERNEL.entry_launches if block else
+                             ("flash_attention_fwd", "flash_attention_bwd_dq",
+                              "flash_attention_bwd_dkv"), c.n_layer)
+        emit(f"check gpt2-2.7b head-dim-80 {label} launches", launches=launches, expected=want)
+        if launches != want:
+            raise AssertionError(f"head dim 80 {label}: launches {launches}, expected {want}")
+        train_check_fp32(initialize, GPT2Model, cfg, f"gpt2-2.7b head-dim-80 {label}", seq,
+                         {"sparse_attention": dict(block)} if block else {}, to_plain)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -874,6 +972,13 @@ def main() -> int:
         ("fp16", BATCH, PROMPT, 32, 64, f16, True),
         ("fp16_d96", BATCH, PROMPT, 32, 96, f16, True),
         ("fp16_d128", BATCH, PROMPT, 32, 128, f16, True),
+        # the head dims of gpt2-tiny (32), gpt2-2.7b (80) and llama-tiny (16)
+        ("d16", BATCH, PROMPT, 32, 16, bf, True),
+        ("d32", BATCH, PROMPT, 32, 32, bf, True),
+        ("d80", BATCH, PROMPT, 32, 80, bf, True),
+        ("fp16_d80", BATCH, PROMPT, 32, 80, f16, True),
+        ("fp32_d16", BATCH, PROMPT, 32, 16, f32, True),
+        ("fp32_d80", BATCH, PROMPT, 32, 80, f32, False),
         *((f"t{t}", 4, t, 16, 96, bf, True) for t in (63, 64, 65, 127, 200, 1000)),
         ("noncausal_tq100_tk300", 4, 100, 16, 96, bf, False, 300),
         ("causal_tq64_tk200", 4, 64, 16, 96, bf, True, 200))]
@@ -889,6 +994,12 @@ def main() -> int:
         ("fp16", BH, TRAIN_SEQ, 96, f16, True),
         ("fp16_d64", BH, TRAIN_SEQ, 64, f16, True),
         ("fp16_d128", BH, TRAIN_SEQ, 128, f16, True),
+        ("d16", BH, TRAIN_SEQ, 16, bf, True),
+        ("d32", BH, TRAIN_SEQ, 32, bf, True),
+        ("d80", BH, TRAIN_SEQ, 80, bf, True),
+        ("fp16_d80", BH, TRAIN_SEQ, 80, f16, False),
+        ("fp32_d16", 64, 200, 16, f32, True),
+        ("fp32_d80", 64, 200, 80, f32, True),
         *((f"t{t}", 64, t, 96, bf, True) for t in (63, 64, 65, 127, 200)),
         ("noncausal_tq100_tk300", 64, 100, 96, bf, False, 300),
         ("causal_tq64_tk200", 64, 64, 96, bf, True, 200))]
@@ -901,7 +1012,14 @@ def main() -> int:
         ("mha", BATCH, S, 32, 32, 64, bf, 200),
         ("mqa", BATCH, S, 32, 1, 64, bf, 200),
         ("d128", BATCH, S, 32, 8, 128, bf, 200),
-        ("fp32", BATCH, S, 32, 8, 64, f32, S - 1))]
+        ("fp32", BATCH, S, 32, 8, 64, f32, S - 1),
+        ("fp16", BATCH, S, 32, 8, 64, f16, S - 1),
+        ("d16", BATCH, S, 32, 8, 16, bf, 200),
+        ("d32", BATCH, S, 32, 8, 32, bf, 200),
+        ("d80", BATCH, S, 32, 32, 80, bf, 200),
+        ("fp16_d80", BATCH, S, 32, 32, 80, f16, S - 1),
+        ("fp32_d16", BATCH, S, 32, 8, 16, f32, 200),
+        ("fp32_d80", BATCH, S, 32, 32, 80, f32, 200))]
     decode_rows.append(check_decode(da, accel, gen, "garbage_past_pos", BATCH, S, 32, 8, 64,
                                     bf, 100, garbage=True))
     from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config
@@ -912,6 +1030,7 @@ def main() -> int:
     serve_launches = serve_slice(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL],
                                  accel, fa, da)
     serve_small_fp32(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL])
+    serve_small_fp16(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL], fa, da)
 
     gpt2_cls, gpt2_presets = resolve_family(TRAIN_MODEL)
     train_launches, batch = train_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
@@ -933,6 +1052,7 @@ def main() -> int:
     train_check_fp32(deepspeed_tpu_torch.initialize, gpt2_cls, sparse_cfg,
                      f"{SPARSE_MODEL} sparse-fixed16", SPARSE_SEQ,
                      {"sparse_attention": dict(SPARSE_BLOCK)}, sparse_plain)
+    check_head_dim_80(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets["gpt2-2.7b"], fa)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bwd = bwd_rows[0]

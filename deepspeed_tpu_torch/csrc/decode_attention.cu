@@ -6,9 +6,10 @@
 // online softmax in fp32 and grouped-query heads (H % KV == 0).
 //
 // Layout: q, o (B, H, Dh); k, v cache (B, S, KV, Dh), the models' own cache
-// layout; `pos` is an int32 in device memory, read by the kernel, so a decode
-// loop never waits on the host for it. Query head h belongs to KV head
-// h / (H / KV), as in the Pallas kernel's (B, KV, H/KV, Dh) grouping.
+// layout, in fp32, bf16 or fp16; `pos` is an int32 in device memory, read by
+// the kernel, so a decode loop never waits on the host for it. Query head h
+// belongs to KV head h / (H / KV), as in the Pallas kernel's (B, KV, H/KV,
+// Dh) grouping.
 //
 // What bounds it on the H100: bytes. Each step reads the valid cache prefix,
 // 2 * B * (pos+1) * KV * Dh elements (16.8 MB at B=32, S=256, KV=8, Dh=64 in
@@ -23,14 +24,17 @@
 //     max/sum, and merge once at the end through shared memory; the scores
 //     never leave the SM;
 //   * K rows are read as 16-byte vectors (one key per lane), V rows as
-//     coalesced warp-wide reads (one output column per lane).
+//     coalesced warp-wide reads (output columns lane + 32 c per lane).
 // The TPU kernel's 8-row sublane padding of the query group has no
 // counterpart here. The softmax scale is applied to q in fp32 on load.
 // A split over S across CTAs (flash-decoding) is the next step for long caches.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -42,8 +46,10 @@ constexpr float kNegInf = -1e30f;  // the Pallas kernel's mask value
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -63,7 +69,7 @@ __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               const int* __restrict__ pos_ptr, T* __restrict__ o, int h, int kv, int s_len,
               float scale) {
-  constexpr int C = DH / 32;                             // output columns per lane
+  constexpr int C = hopper::lane_cols(DH);               // output columns per lane
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte load
   __shared__ float sQ[G][DH];
   __shared__ float sP[kWarps][G][kTile];
@@ -146,7 +152,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       const T* vr = vb + static_cast<size_t>(j0 + j) * row_stride + lane;
       float vv[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) vv[c] = to_float(vr[32 * c]);
+      for (int c = 0; c < C; ++c)
+        vv[c] = hopper::lane_owns<DH>(lane, c) ? to_float(vr[32 * c]) : 0.f;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = sP[warp][g][j];
@@ -168,7 +175,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int c = 0; c < C; ++c) sAcc[warp][g][lane + 32 * c] = acc[g][c];
+    for (int c = 0; c < C; ++c)
+      if (hopper::lane_owns<DH>(lane, c)) sAcc[warp][g][lane + 32 * c] = acc[g][c];
   __syncthreads();
 
   for (int e = threadIdx.x; e < ng * DH; e += kThreads) {
@@ -213,7 +221,10 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
                         int b, int h, int kv, int s_len, int dh, float scale,
                         cudaStream_t stream) {
   switch (dh) {
+    case 16: return dispatch_g<T, 16>(q, k, v, pos, o, b, h, kv, s_len, scale, stream);
+    case 32: return dispatch_g<T, 32>(q, k, v, pos, o, b, h, kv, s_len, scale, stream);
     case 64: return dispatch_g<T, 64>(q, k, v, pos, o, b, h, kv, s_len, scale, stream);
+    case 80: return dispatch_g<T, 80>(q, k, v, pos, o, b, h, kv, s_len, scale, stream);
     case 96: return dispatch_g<T, 96>(q, k, v, pos, o, b, h, kv, s_len, scale, stream);
     case 128: return dispatch_g<T, 128>(q, k, v, pos, o, b, h, kv, s_len, scale, stream);
     default: return cudaErrorInvalidValue;
@@ -222,7 +233,7 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; device: the CUDA ordinal of the tensors.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; device: the CUDA ordinal of the tensors.
 // Returns a cudaError_t (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k, const void* v, const void* pos,
                                 void* o, int b, int h, int kv, int s_len, int dh, float scale,
@@ -234,6 +245,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v, con
   if (dtype == 0) return dispatch_dh<float>(q, k, v, pos, o, b, h, kv, s_len, dh, scale, s);
   if (dtype == 1)
     return dispatch_dh<__nv_bfloat16>(q, k, v, pos, o, b, h, kv, s_len, dh, scale, s);
+  if (dtype == 2) return dispatch_dh<__half>(q, k, v, pos, o, b, h, kv, s_len, dh, scale, s);
   return cudaErrorInvalidValue;
 }
 

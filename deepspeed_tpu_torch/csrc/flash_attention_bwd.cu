@@ -14,10 +14,10 @@
 // The TPU kernels carry their accumulators in VMEM across the sequential
 // ("arbitrary") grid axis. CUDA blocks run in no order, so the loop over the
 // other axis lives inside the CTA and the accumulators live in registers:
-//   * dq:  one CTA per (bh, 64 query rows); it loops over 32-key tiles from
-//          the first key up to the diagonal (the row-major `_causal_pairs`).
-//   * dkv: one CTA per (bh, 64 key rows); it loops over 32-query tiles from
-//          the diagonal down to the last query (`_causal_pairs_colmajor`).
+//   * dq:  one CTA per (bh, 64 query rows); it loops over key tiles from the
+//          first key up to the diagonal (the row-major `_causal_pairs`).
+//   * dkv: one CTA per (bh, 64 key rows); it loops over query tiles from the
+//          diagonal down to the last query (`_causal_pairs_colmajor`).
 // Each output tile has exactly one owner, so no atomics are needed and the
 // result is the same from run to run. Causal masking is top-left aligned
 // (key j visible to query i when j <= i), as in the Pallas kernels. Masked
@@ -35,20 +35,22 @@
 // ~0.2 GB of inputs and outputs: operations bound (~0.09 ms on the bf16 tensor
 // cores).
 //
-// dkv, bf16 / fp16: `flash_bwd_dkv_mma_kernel` on the tensor cores (mma.sync,
-// cp.async; see its section below). dq for every type, and dkv for fp32, keep
-// the first design on the CUDA cores: the fp32 checks hold the kernels to 1e-4
-// of an fp32 reference, which neither TF32 nor bf16 tensor-core products can
-// meet. The dtype code selects the instance; nothing falls back at run time.
-// What the CUDA-core design does:
+// bf16 / fp16: `flash_bwd_dq_mma_kernel` and `flash_bwd_dkv_mma_kernel` on the
+// tensor cores (mma.sync, cp.async; see their section below). fp32:
+// `flash_bwd_dq_fp32_kernel` and `flash_bwd_dkv_fp32_kernel`, the first
+// design on the CUDA cores, kept because the fp32 checks hold the kernels to
+// 1e-4 of an fp32 reference, which neither TF32 nor bf16 tensor-core products
+// can meet. The dtype code selects the instance; nothing falls back at run
+// time. What the CUDA-core design does:
 //   * the CTA's own 64 rows (q and dO, or k and v) are staged once in shared
-//     memory as fp32 and reused against every streamed tile; scores,
+//     memory and reused against every streamed tile of 32 rows; scores,
 //     probabilities and dS never leave the SM;
 //   * a lane owns one streamed row (a key for dq, a query for dkv) for the two
 //     score products, so a warp's 8 own rows reuse each streamed element read
 //     8 times; streamed rows are padded by 4 floats so per-lane float4 reads
 //     are free of bank conflicts;
-//   * for the accumulating products a lane owns D/32 output columns, so the
+//   * for the accumulating products a lane owns the output columns lane + 32 c
+//     (the upper lanes skip the last when D is 16 or 80), so the
 //     accumulators need no cross-lane reduction; P and dS pass from the score
 //     layout to the column layout through a per-warp scratch in shared memory;
 //   * tiles wholly inside the causal triangle and the sequence skip the mask.
@@ -68,13 +70,6 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kBlockRows = kWarps * kRowsPerWarp;  // 64 own rows per CTA
 constexpr int kBlockCols = 32;                     // streamed rows: one per lane
 constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -99,26 +94,26 @@ struct Smem {
   static constexpr int bytes = (2 * own + 2 * streamed + 2 * scratch) * static_cast<int>(sizeof(float));
 };
 
-// Stage rows [r0, r0 + rows) of a (t, D) slice into shared memory as fp32 with
-// the given row stride; rows past t are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int r0, int rows,
+// Stage rows [r0, r0 + rows) of a (t, D) slice into shared memory with the
+// given row stride; rows past t are zero.
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int r0, int rows,
                                       int t, int stride) {
   for (int e = threadIdx.x; e < rows * D; e += kThreads) {
     const int r = e / D, c = e % D;
-    dst[r * stride + c] = (r0 + r < t) ? to_float(src[static_cast<size_t>(r0 + r) * D + c]) : 0.f;
+    dst[r * stride + c] = (r0 + r < t) ? src[static_cast<size_t>(r0 + r) * D + c] : 0.f;
   }
 }
 
-// ------------------------------------------------------------------------ dQ
-template <typename T, int D>
+// ------------------------------------------------------------------ dQ, fp32
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int t_q, int t_k,
-                    int causal) {
+flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, int t_q, int t_k, int causal) {
   constexpr int S = Smem<D>::kStride;
-  constexpr int C = D / 32;  // output columns per lane
+  constexpr int C = hopper::lane_cols(D);  // output columns per lane
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sDO = sQ + Smem<D>::own;
@@ -130,13 +125,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int q0 = blockIdx.y * kBlockRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const T* qb = q + static_cast<size_t>(bh) * t_q * D;
-  const T* dob = dout + static_cast<size_t>(bh) * t_q * D;
-  const T* kb = k + static_cast<size_t>(bh) * t_k * D;
-  const T* vb = v + static_cast<size_t>(bh) * t_k * D;
+  const float* qb = q + static_cast<size_t>(bh) * t_q * D;
+  const float* dob = dout + static_cast<size_t>(bh) * t_q * D;
+  const float* kb = k + static_cast<size_t>(bh) * t_k * D;
+  const float* vb = v + static_cast<size_t>(bh) * t_k * D;
 
-  stage<T, D>(sQ, qb, q0, kBlockRows, t_q, D);
-  stage<T, D>(sDO, dob, q0, kBlockRows, t_q, D);
+  stage<D>(sQ, qb, q0, kBlockRows, t_q, D);
+  stage<D>(sDO, dob, q0, kBlockRows, t_q, D);
 
   const int row0 = q0 + warp * kRowsPerWarp;  // first query row of this warp
   float lse_r[kRowsPerWarp], delta_r[kRowsPerWarp], acc[kRowsPerWarp][C];
@@ -160,8 +155,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlockCols;
     __syncthreads();  // the previous tile is consumed (and the own rows are staged)
-    stage<T, D>(sK, kb, k0, kBlockCols, t_k, S);
-    stage<T, D>(sV, vb, k0, kBlockCols, t_k, S);
+    stage<D>(sK, kb, k0, kBlockCols, t_k, S);
+    stage<D>(sV, vb, k0, kBlockCols, t_k, S);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T for this warp's rows; lane j owns key k0 + j.
@@ -204,6 +199,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const float* krow = sK + (j + jj) * S + lane;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
+          if (!hopper::lane_owns<D>(lane, c)) continue;
           const float kk = krow[32 * c];
 #pragma unroll
           for (int r = 0; r < kRowsPerWarp; ++r) acc[r][c] = fmaf(lane_of(ds4[r], jj), kk, acc[r][c]);
@@ -217,9 +213,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = row0 + r;
     if (row >= t_q) continue;
-    T* out = dq + (static_cast<size_t>(bh) * t_q + row) * D + lane;
+    float* out = dq + (static_cast<size_t>(bh) * t_q + row) * D + lane;
 #pragma unroll
-    for (int c = 0; c < C; ++c) store(out + 32 * c, acc[r][c]);
+    for (int c = 0; c < C; ++c)
+      if (hopper::lane_owns<D>(lane, c)) out[32 * c] = acc[r][c];
   }
 }
 
@@ -232,7 +229,7 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__
                           float* __restrict__ dk, float* __restrict__ dv, int t_q, int t_k,
                           int causal) {
   constexpr int S = Smem<D>::kStride;
-  constexpr int C = D / 32;
+  constexpr int C = hopper::lane_cols(D);
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
   float* sV = sK + Smem<D>::own;
@@ -250,8 +247,8 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__
   const float* lseb = lse + static_cast<size_t>(bh) * t_q;
   const float* deltab = delta + static_cast<size_t>(bh) * t_q;
 
-  stage<float, D>(sK, k + static_cast<size_t>(bh) * t_k * D, k0, kBlockRows, t_k, D);
-  stage<float, D>(sV, v + static_cast<size_t>(bh) * t_k * D, k0, kBlockRows, t_k, D);
+  stage<D>(sK, k + static_cast<size_t>(bh) * t_k * D, k0, kBlockRows, t_k, D);
+  stage<D>(sV, v + static_cast<size_t>(bh) * t_k * D, k0, kBlockRows, t_k, D);
 
   const int key0 = k0 + warp * kRowsPerWarp;  // first key row of this warp
   float acc_k[kRowsPerWarp][C], acc_v[kRowsPerWarp][C];
@@ -268,8 +265,8 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__
   // causal: queries before the CTA's first key see none of its keys
   for (int q0 = causal ? k0 : 0; q0 < t_q; q0 += kBlockCols) {
     __syncthreads();  // the previous tile is consumed (and the own rows are staged)
-    stage<float, D>(sQ, qb, q0, kBlockCols, t_q, S);
-    stage<float, D>(sDO, dob, q0, kBlockCols, t_q, S);
+    stage<D>(sQ, qb, q0, kBlockCols, t_q, S);
+    stage<D>(sDO, dob, q0, kBlockCols, t_q, S);
     __syncthreads();
 
     // S^T = K Q^T and dP^T = V dO^T for this warp's keys; lane i owns query q0 + i.
@@ -319,6 +316,7 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__
         const float* dorow = sDO + (i + ii) * S + lane;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
+          if (!hopper::lane_owns<D>(lane, c)) continue;
           const float qq = qrow[32 * c];
           const float dd = dorow[32 * c];
 #pragma unroll
@@ -339,6 +337,7 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__
     const size_t o = (static_cast<size_t>(bh) * t_k + key) * D + lane;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
+      if (!hopper::lane_owns<D>(lane, c)) continue;
       dk[o + 32 * c] = acc_k[r][c];
       dv[o + 32 * c] = acc_v[r][c];
     }
@@ -346,9 +345,9 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__
 }
 
 
-// ------------------------------------------------- dK, dV on the tensor cores
-// The bf16 / fp16 instance of flash_attention_bwd_dkv: the forward's
-// machinery (hopper_mma.cuh), transposed.
+// ----------------------------------------------------- on the tensor cores
+// The bf16 / fp16 instances of both entries, on the forward's machinery
+// (hopper_mma.cuh). dK, dV: the forward, transposed.
 //   * A warpgroup owns 64 key rows, a warp 16 of them; for D <= 96 the warp's
 //     K and V rows stay in registers as A-fragments for the whole loop (at
 //     D = 128 the two fp32 accumulators alone take 128 registers a thread,
@@ -369,8 +368,8 @@ flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__
 //     tiles under causal; blockIdx.y = key block, so it launches first.
 namespace mma {
 
-constexpr int kBlockK = 64;  // own key rows: 4 warps x 16
-constexpr int kBlockQ = 64;  // streamed query tile
+constexpr int kBlockK = 64;  // dk/dv: own key rows, 4 warps x 16; dq: streamed key tile
+constexpr int kBlockQ = 64;  // dk/dv: streamed query tile; dq: own query rows
 constexpr int kThreads = 128;
 constexpr int kStages = 2;
 
@@ -382,7 +381,122 @@ struct Plan {
   // the lse and delta rings (fp32)
   static constexpr int kHalfs = (2 + 2 * kStages) * kTile;
   static constexpr int bytes = kHalfs * 2 + 2 * kStages * kBlockQ * 4;
+  // dq: the K and V rings alone; Q and dO are staged in their second
+  // stages, and the epilogue goes through the K ring's first
+  static constexpr int dq_bytes = 2 * kStages * kTile * 2;
 };
+
+// dQ on the tensor cores: `sparse_bwd_dq_mma_kernel`'s loop over contiguous
+// tiles. A warpgroup owns 64 query rows, a warp 16 of them; Q and dO stay in
+// registers as A fragments and each row's lse * log2 e and delta in
+// registers. 64-key tiles of K and V stream from key 0 up to the CTA's
+// diagonal (causal) or to t_k through a 2-stage cp.async ring, rows past t_k
+// zero-filled. Q and dO are staged in the rings' second stages until tile 1
+// lands there, so the CTA holds only the two rings (53 KB at D = 96) and
+// three CTAs fit on an SM where the registers allow it. Each tile is taken
+// in four 16-key chunks by `dq_chunk` (hopper_mma.cuh): S and dP by mma, P
+// and dS on the fragments, dS rounded to the input type, dQ += dS K. A warp
+// skips a chunk wholly past its diagonal or past t_k; only a chunk that
+// crosses either evaluates the mask. Query rows past t_q are zero-filled,
+// neither read as data nor stored. The query blocks with the most keys
+// launch first (causal: the block index is reversed), and the epilogue
+// stores through shared memory, 16 bytes a lane.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        T* __restrict__ dq, int t_q, int t_k, int causal) {
+  using namespace hopper;
+  constexpr int S = Plan<D>::kStride;
+  constexpr int KS = D / 16;  // k-steps over the head dim
+  constexpr int NO = D / 8;   // n-tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + kStages * Plan<D>::kTile;
+  T* sQ = sK + Plan<D>::kTile;   // Q and dO in the rings' stage 1 until tile 1 lands
+  T* sDO = sV + Plan<D>::kTile;
+
+  const int bh = blockIdx.x;
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qb * kBlockQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int row_w = q0 + warp * 16;  // the warp's first query row
+  const T* kg = k + static_cast<size_t>(bh) * t_k * D;
+  const T* vg = v + static_cast<size_t>(bh) * t_k * D;
+
+  int last_key = t_k - 1;
+  if (causal) last_key = min(last_key, min(q0 + kBlockQ, t_q) - 1);
+  const int n_tiles = last_key / kBlockK + 1;
+
+  load_tile_async<T, D, kBlockQ, kThreads>(sQ, q + static_cast<size_t>(bh) * t_q * D, q0, t_q);
+  load_tile_async<T, D, kBlockQ, kThreads>(sDO, dout + static_cast<size_t>(bh) * t_q * D, q0,
+                                           t_q);
+  load_tile_async<T, D, kBlockK, kThreads>(sK, kg, 0, t_k);
+  load_tile_async<T, D, kBlockK, kThreads>(sV, vg, 0, t_k);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp's 16 query rows of Q and dO as A fragments; lse and delta of
+  // its rows g and g + 8
+  uint32_t qf[KS][4], dof[KS][4];
+  const int a_row = (warp * 16 + (lane & 15)) * S + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    ldmatrix_x4(qf[kk], sQ + a_row + kk * 16);
+    ldmatrix_x4(dof[kk], sDO + a_row + kk * 16);
+  }
+  float lq[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_w + g + 8 * i;
+    const size_t r = static_cast<size_t>(bh) * t_q + row;
+    lq[i] = row < t_q ? lse[r] * kLog2e : 0.f;
+    dl[i] = row < t_q ? delta[r] : 0.f;
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  int lim_row[2];  // the last key that rows g and g + 8 see
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lim_row[i] = causal ? min(t_k - 1, row_w + g + 8 * i) : t_k - 1;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t has landed
+    __syncthreads();               // ... for every thread, and tile t - 1 is consumed
+    if (t + 1 < n_tiles) {
+      const int st = (t + 1) % kStages;
+      load_tile_async<T, D, kBlockK, kThreads>(sK + st * Plan<D>::kTile, kg, (t + 1) * kBlockK,
+                                               t_k);
+      load_tile_async<T, D, kBlockK, kThreads>(sV + st * Plan<D>::kTile, vg, (t + 1) * kBlockK,
+                                               t_k);
+    }
+    cp_async_commit();
+    if (row_w >= t_q) continue;  // a warp wholly past the queries
+    const T* ks = sK + (t % kStages) * Plan<D>::kTile;
+    const T* vs = sV + (t % kStages) * Plan<D>::kTile;
+
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {  // 16-key chunks
+      const int key0 = t * kBlockK + ch * 16;
+      if (key0 >= t_k || (causal && key0 > row_w + 15)) continue;  // no key visible
+      const int lim[2] = {lim_row[0] - key0, lim_row[1] - key0};  // as chunk columns
+      const bool mask = key0 + 15 >= t_k || (causal && key0 + 15 > row_w);
+      dq_chunk<T, D>(acc, qf, dof, ks + ch * 16 * S, vs + ch * 16 * S, lq, dl, mask, lim, lane);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the rings
+
+  // epilogue through the warp's own 16 rows of the K ring's first stage
+  if (row_w < t_q)
+    store_rows<T, D>(dq + static_cast<size_t>(bh) * t_q * D, sK + warp * 16 * S, acc, row_w,
+                     min(16, t_q - row_w), lane);
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -581,16 +695,30 @@ struct Args {
 
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a) {
-  constexpr int smem = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.bh, (a.t_q + kBlockRows - 1) / kBlockRows);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.t_q, a.t_k, a.causal);
-  return cudaGetLastError();
+  if constexpr (!std::is_same_v<T, float>) {
+    constexpr int smem = mma::Plan<D>::dq_bytes;
+    cudaError_t err = cudaFuncSetAttribute(mma::flash_bwd_dq_mma_kernel<T, D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.bh, (a.t_q + mma::kBlockQ - 1) / mma::kBlockQ);
+    mma::flash_bwd_dq_mma_kernel<T, D><<<grid, mma::kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.t_q, a.t_k, a.causal);
+    return cudaGetLastError();
+  } else {  // fp32: the CUDA-core kernel
+    constexpr int smem = Smem<D>::bytes;
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_fp32_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.bh, (a.t_q + kBlockRows - 1) / kBlockRows);
+    flash_bwd_dq_fp32_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<float*>(a.dq), a.t_q, a.t_k, a.causal);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int D>
@@ -625,7 +753,10 @@ cudaError_t launch_dkv(const Args& a) {
 template <typename T, bool kDq>
 cudaError_t dispatch_d(const Args& a, int d) {
   switch (d) {
+    case 16: return kDq ? launch_dq<T, 16>(a) : launch_dkv<T, 16>(a);
+    case 32: return kDq ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
     case 64: return kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
+    case 80: return kDq ? launch_dq<T, 80>(a) : launch_dkv<T, 80>(a);
     case 96: return kDq ? launch_dq<T, 96>(a) : launch_dkv<T, 96>(a);
     case 128: return kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
     default: return cudaErrorInvalidValue;

@@ -43,8 +43,8 @@
 // fp32: `flash_fwd_fp32_kernel`, the first design on the CUDA cores, kept
 // because the fp32 checks hold the kernel to 1e-4 of an fp32 reference, which
 // neither TF32 nor bf16 tensor-core products can meet. 8 warps x 8 query rows,
-// a lane owns one key of a 32-key tile for Q K^T and D/32 output columns for
-// P V; tiles staged element by element as fp32 in shared memory.
+// a lane owns one key of a 32-key tile for Q K^T and the output columns
+// lane + 32 c for P V (the upper lanes skip the last when D is 16 or 80); tiles staged element by element as fp32 in shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -316,7 +316,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       float* __restrict__ lse, int t_q, int t_k, int causal) {
   constexpr int KS = Smem<D>::kStride;
-  constexpr int C = D / 32;  // output columns per lane
+  constexpr int C = hopper::lane_cols(D);  // output columns per lane
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sK = sQ + Smem<D>::q;
@@ -412,6 +412,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float* vr = sV + (j + jj) * D + lane;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
+          if (!hopper::lane_owns<D>(lane, c)) continue;
           const float vv = vr[32 * c];
 #pragma unroll
           for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -431,7 +432,8 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
     float* orow = o + q_base + static_cast<size_t>(row) * D + lane;
 #pragma unroll
-    for (int c = 0; c < C; ++c) orow[32 * c] = acc[r][c] / l_safe;
+    for (int c = 0; c < C; ++c)
+      if (hopper::lane_owns<D>(lane, c)) orow[32 * c] = acc[r][c] / l_safe;
     if (lane == 0) lse[static_cast<size_t>(bh) * t_q + row] = m[r] + logf(l_safe);
   }
 }
@@ -465,7 +467,10 @@ template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                        int t_q, int t_k, int d, int causal, cudaStream_t stream) {
   switch (d) {
+    case 16: return launch_d<T, 16>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
+    case 32: return launch_d<T, 32>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
     case 64: return launch_d<T, 64>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
+    case 80: return launch_d<T, 80>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
     case 96: return launch_d<T, 96>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
     case 128: return launch_d<T, 128>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
     default: return cudaErrorInvalidValue;

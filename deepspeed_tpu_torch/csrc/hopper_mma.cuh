@@ -1,7 +1,9 @@
 // Tensor-core and asynchronous-copy helpers shared by the flash-attention
-// kernels: cp.async staging, ldmatrix fragment loads and the
-// mma.sync.m16n8k16 product with fp32 accumulation, for bf16 and fp16
-// inputs. Built for sm_90a with the kernels that include it.
+// kernels: cp.async staging, ldmatrix fragment loads, the mma.sync.m16n8k16
+// product with fp32 accumulation for bf16 and fp16 inputs, the coalesced
+// epilogue store, the dq kernels' per-chunk body and the CUDA-core kernels'
+// column ownership. Built for sm_90a with the kernels that include it. The
+// tensor-core helpers take any head dim D that is a multiple of 16.
 //
 // Fragment layouts of mma.m16n8k16 (row.col), for lane l with g = l / 4 and
 // c = l % 4:
@@ -110,6 +112,16 @@ __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// The CUDA-core kernels give lane l the columns l + 32 c of a D-wide row, for
+// c < lane_cols(D). When D is not a multiple of 32 (16, 80) the last of them
+// lies past the row for the upper lanes, which skip it: lane_owns is false.
+__host__ __device__ constexpr int lane_cols(int d) { return (d + 31) / 32; }
+
+template <int D>
+__device__ __forceinline__ bool lane_owns(int lane, int c) {
+  return D % 32 == 0 || lane + 32 * c < D;
+}
+
 // 2^x (ex2.approx, ~2 ulp); 2^-inf = 0
 __device__ __forceinline__ float exp2_fast(float x) {
   float y;
@@ -157,6 +169,90 @@ __device__ __forceinline__ void load_chunks_async(T* dst, const T* __restrict__ 
                     src + static_cast<size_t>(rows[ch] + r) * D + c * 8, true);
       }
     }
+  }
+}
+
+// Stores a warp's 16 x D fp32 accumulator fragments, rounded to T, through
+// its own 16 rows of a shared tile (row stride D + 8, read by no other warp)
+// as 16-byte coalesced rows of out + (row0 ..) * D; rows n_rows.. are not
+// stored.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* __restrict__ out, T* tile,
+                                           const float (&acc)[D / 8][4], int row0, int n_rows,
+                                           int lane) {
+  constexpr int S = D + 8;
+  const int g = lane / 4, c = lane % 4;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(tile + g * S + n * 8 + 2 * c) = pack2<T>(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(tile + (g + 8) * S + n * 8 + 2 * c) =
+        pack2<T>(acc[n][2], acc[n][3]);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int j = 0; j < kChunks / 2; ++j) {  // 16 rows x kChunks pieces over 32 lanes
+    const int i = lane + 32 * j;
+    const int r = i / kChunks, cc = i % kChunks;
+    if (r < n_rows)
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(row0 + r) * D + cc * 8) =
+          *reinterpret_cast<const uint4*>(tile + r * S + cc * 8);
+  }
+}
+
+// One 16-key chunk of dQ = dS K for a warp's 16 query rows, shared by the
+// dense and the block-sparse dq kernels. ks, vs: the chunk's 16 rows of K and
+// V in a shared tile (row stride D + 8). S = Q K^T and dP = dO V^T by mma
+// (K, V as B fragments by ldmatrix; qf, dof the warp's Q and dO as A
+// fragments), P = exp(S - lse) and dS = P (dP - delta) on the fragments, dS
+// rounded to T as the TPU's `_bwd_p_ds` does and fed from registers to
+// dQ += dS K (K by ldmatrix.trans). lq: the rows' lse * log2 e, dl: their
+// delta, for rows g and g + 8. When `mask`, key column j of the chunk is
+// hidden from row g + 8 i when j > lim[i], and its p is exactly 0.
+template <typename T, int D>
+__device__ __forceinline__ void dq_chunk(float (&acc)[D / 8][4], const uint32_t (&qf)[D / 16][4],
+                                         const uint32_t (&dof)[D / 16][4], const T* ks,
+                                         const T* vs, const float (&lq)[2], const float (&dl)[2],
+                                         bool mask, const int (&lim)[2], int lane) {
+  constexpr int S = D + 8;
+  const int c = lane % 4;
+  // S and dP: 16 queries x 16 keys, two n-tiles each
+  float s[2][4] = {}, dp[2][4] = {};
+  const int b_row = ((lane & 7) + ((lane >> 4) << 3)) * S + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t bk[4], bv[4];
+    ldmatrix_x4(bk, ks + b_row + kk * 16);
+    ldmatrix_x4(bv, vs + b_row + kk * 16);
+    mma_16816<T>(s[0], qf[kk], bk[0], bk[1]);
+    mma_16816<T>(s[1], qf[kk], bk[2], bk[3]);
+    mma_16816<T>(dp[0], dof[kk], bv[0], bv[1]);
+    mma_16816<T>(dp[1], dof[kk], bv[2], bv[3]);
+  }
+
+  // P and dS; element e of n-tile n is query row g + 8 (e / 2), key column
+  // n * 8 + 2 c + e % 2 of the chunk
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = exp2_fast(fmaf(s[n][e], kLog2e, -lq[e >> 1]));
+      if (mask && n * 8 + 2 * c + (e & 1) > lim[e >> 1]) p = 0.f;
+      dp[n][e] = p * (dp[n][e] - dl[e >> 1]);
+    }
+  }
+  const uint32_t da[4] = {pack2<T>(dp[0][0], dp[0][1]), pack2<T>(dp[0][2], dp[0][3]),
+                          pack2<T>(dp[1][0], dp[1][1]), pack2<T>(dp[1][2], dp[1][3])};
+
+  // dQ += dS K over the chunk's 16 keys
+  const int t_row = ((lane & 7) + ((lane >> 3) & 1) * 8) * S + (lane >> 4) * 8;
+#pragma unroll
+  for (int dd = 0; dd < D / 16; ++dd) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, ks + t_row + dd * 16);
+    mma_16816<T>(acc[2 * dd], da, b[0], b[1]);
+    mma_16816<T>(acc[2 * dd + 1], da, b[2], b[3]);
   }
 }
 

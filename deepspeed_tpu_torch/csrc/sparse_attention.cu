@@ -15,7 +15,8 @@
 //
 // Layout of the tensors: q, k, v, o, do, dq, dk, dv (BH, T, D); lse, delta
 // (BH, T) fp32, delta = rowsum(dO * O) from the caller. The softmax scale is
-// folded into q by the caller. Inputs fp32, bf16 or fp16; D = 64, 96 or 128.
+// folded into q by the caller. Inputs fp32, bf16 or fp16; D = 16, 32, 64, 80,
+// 96 or 128.
 // A masked probability is set to exactly 0, never computed from a masked
 // score. Causal masking is top-left (key <= query), as in the TPU kernels.
 //
@@ -25,19 +26,8 @@
 // (28.2) and dk/dv 8 D (37.6), against 0.13-0.20 GB of inputs and outputs
 // each: about 0.04-0.06 ms at the bf16 tensor-core peak or the memory rate.
 //
-// ---------------------------------------------------------------- forward
-// `sparse_fwd_kernel`, all types, CUDA cores. One CTA per (bh, min(block, 64)
-// query rows) walks its query block's CSR list row_cols[row_ptr[i] ..
-// row_ptr[i+1]) (ops/pallas/flash_attention.py `SparsePairs`), 8 rows per
-// warp, streaming 32 key rows per tile, one per lane; products in fp32 on the
-// CUDA cores, own rows staged once as fp32, streamed rows padded by 4 floats
-// for conflict-free float4 reads. Only a tile holding the diagonal block (or
-// the list's ragged end) evaluates the mask; the forward ends with l_safe =
-// (l == 0 ? 1 : l), as the TPU kernel does. At block 16 a CTA owns 16 rows:
-// low reuse, many small CTAs; its redesign is later work.
-//
-// --------------------------------------------------------------- backward
-// Both backward entries walk a CTA schedule built once on the host
+// -------------------------------------------------------------- schedule
+// All three entries walk a CTA schedule built once on the host
 // (`SparseSchedule`): a CTA owns 64 rows, four 16-row slices, each the first
 // row of one warp (own_rows[cta], -1 for none), taken from layout blocks
 // grouped so that they share partners. Its partners stream as a list of
@@ -49,27 +39,43 @@
 // the mask. A warp skips a chunk without its bit (a warp-uniform branch), so
 // a warp whose rows have no partners writes exact zeros. CTAs are ordered
 // longest first, and blockIdx.y is the CTA, so the long ones launch first.
+// The forward and dq walk the query side's schedule (own rows are queries,
+// chunks keys), dk/dv the key side's.
 //
-// bf16 / fp16: `sparse_bwd_dq_mma_kernel` and `sparse_bwd_dkv_mma_kernel` on
-// the tensor cores (mma.sync.m16n8k16, ldmatrix, a 2-stage cp.async ring of
-// gathered 64-row tiles; hopper_mma.cuh), one warp per 16 own rows, the `m16`
-// of the product, so one warp holds one block-16 layout block:
-//   * dq: Q and dO stay in registers as A fragments; per chunk S = Q K^T and
-//     dP = dO V^T by mma (K, V as B by ldmatrix), P = exp(S - lse) and
-//     dS = P (dP - delta) on the fragments, dS rounded to k's type as the
-//     TPU's `_bwd_p_ds` does and fed from registers to dQ += dS K (K by
-//     ldmatrix.trans);
+// bf16 / fp16: `sparse_fwd_mma_kernel`, `sparse_bwd_dq_mma_kernel` and
+// `sparse_bwd_dkv_mma_kernel` on the tensor cores (mma.sync.m16n8k16,
+// ldmatrix, a 2-stage cp.async ring of gathered 64-row tiles;
+// hopper_mma.cuh), one warp per 16 own rows, the `m16` of the product, so one
+// warp holds one block-16 layout block:
+//   * forward: Q stays in registers as A fragments; per tile S = Q K^T by mma
+//     for the chunks that carry the warp's bit (K as B by ldmatrix), the
+//     running max and sum rescaled once per 64-key tile (the rescale touches
+//     all D / 2 accumulator floats of a lane, as much work as a chunk's
+//     product), P rounded to the input type as the TPU's
+//     `_online_softmax_block` does and fed from registers to O += P V (V by
+//     ldmatrix.trans); O / l_safe and lse = m + log(l_safe) at the end, with
+//     l_safe = (l == 0 ? 1 : l) as in the TPU kernel. Q is staged in the K
+//     ring's second stage until tile 1 lands there, so the CTA holds only the
+//     two rings (70 KB at D = 128) and three CTAs fit on an SM;
+//   * dq: Q and dO stay in registers as A fragments; per chunk `dq_chunk`
+//     (hopper_mma.cuh, shared with the dense dq kernel): S = Q K^T and
+//     dP = dO V^T by mma, P = exp(S - lse) and dS = P (dP - delta) on the
+//     fragments, dS rounded to k's type as the TPU's `_bwd_p_ds` does and fed
+//     from registers to dQ += dS K (K by ldmatrix.trans). Q and dO are staged
+//     in the rings' second stages, as the forward stages Q and the dense dq
+//     stages both, so it too holds only the two rings;
 //   * dk/dv: `flash_bwd_dkv_mma_kernel`'s loop over gathered query chunks:
 //     S^T = K Q^T and dP^T = V dO^T, P^T (rounded to do's type, as JAX does)
 //     and dS^T from registers into dV += P^T dO and dK += dS^T Q; the chunk's
 //     lse and delta come by cp.async beside it. K and V stay in registers as A
 //     fragments for D <= 96 and are re-read by ldmatrix at D = 128 (the two
 //     fp32 accumulators take 128 registers a thread there).
-// fp32: `sparse_bwd_dq_kernel` and `sparse_bwd_dkv_kernel`, CUDA cores, kept
-// because the fp32 checks hold the kernels to 1e-4 of an fp32 reference,
-// which neither TF32 nor bf16 products can meet: 8 warps of 8 own rows, two
-// chunks (32 partner rows, one per lane) per streamed tile, all in fp32. The
-// dtype code selects the instance; nothing falls back at run time.
+// fp32: `sparse_fwd_kernel`, `sparse_bwd_dq_kernel` and
+// `sparse_bwd_dkv_kernel`, CUDA cores, kept because the fp32 checks hold the
+// kernels to 1e-4 of an fp32 reference, which neither TF32 nor bf16 products
+// can meet: 8 warps of 8 own rows, two chunks (32 partner rows, one per
+// lane) per streamed tile, all in fp32. The dtype code selects the instance;
+// nothing falls back at run time.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -83,16 +89,7 @@ namespace {
 
 constexpr int kRowsPerWarp = 8;
 constexpr int kTile = 32;        // streamed rows per tile: one per lane
-constexpr int kMaxWarps = 8;
-constexpr int kMaxThreads = kMaxWarps * 32;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -121,85 +118,93 @@ __device__ __forceinline__ int lane_of(int4 v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-// Own rows of a forward CTA: min(block, 64).
-__host__ __device__ __forceinline__ int own_rows(int block) { return block < 64 ? block : 64; }
+// ------------------------------------------------------------------- fp32
+// The schedule's CTA owns four 16-row slices (own_rows[cta]); warp w of 8
+// owns the 8 rows (w % 2) * 8 .. of slice w / 2. A streamed tile is two
+// chunks of the schedule, 32 partner rows, one per lane: lane j's chunk is
+// j / 16, and a lane's row counts for the warp when that chunk's bit for
+// the warp's slice is set.
+constexpr int kCtaRows = 64;
+constexpr int kCtaWarps = kCtaRows / kRowsPerWarp;
+constexpr int kCtaThreads = kCtaWarps * 32;
 
-// Shared-memory sizes in floats. Streamed rows carry 4 floats of padding.
+// Shared-memory sizes in floats: the CTA's own rows (unpadded, read as
+// broadcasts), streamed rows (padded by 4 floats for conflict-free float4
+// reads) and per-warp 8 x 32 scratch blocks.
 template <int D>
 struct Smem {
   static constexpr int kStride = D + 4;
+  static constexpr int own = kCtaRows * D;
   static constexpr int streamed = kTile * kStride;
-  __host__ __device__ static int own(int rows) { return rows * D; }
-  __host__ __device__ static int scratch(int rows) { return rows * kTile; }  // 8 x 32 per warp
-  __host__ __device__ static int fwd_bytes(int rows) {
-    return (own(rows) + streamed + kTile * D + scratch(rows)) * static_cast<int>(sizeof(float));
-  }
-  __host__ __device__ static int dq_bytes(int rows) {
-    return (2 * own(rows) + 2 * streamed + scratch(rows)) * static_cast<int>(sizeof(float));
-  }
-  __host__ __device__ static int dkv_bytes(int rows) {
-    return (2 * own(rows) + 2 * streamed + 2 * scratch(rows)) * static_cast<int>(sizeof(float));
-  }
+  static constexpr int scratch = kCtaRows * kTile;
+  static constexpr int fwd_bytes = (own + streamed + kTile * D + scratch) * 4;
+  static constexpr int dq_bytes = (2 * own + 2 * streamed + scratch) * 4;
+  static constexpr int dkv_bytes = (2 * own + 2 * streamed + 2 * scratch) * 4;
 };
 
-// The global row indices of tile `t` of a CSR list: position p = 32 t + i of
-// the concatenated blocks lies in entry p / block at offset p % block; -1 past
-// the list's end. Threads 0..31 write s_idx; the caller synchronises.
-__device__ __forceinline__ void stage_index(int* s_idx, const int* __restrict__ list, int start,
-                                            int count, int block, int t) {
-  if (threadIdx.x < kTile) {
-    const int p = t * kTile + threadIdx.x;
-    const int e = p / block;
-    s_idx[threadIdx.x] = e < count ? list[start + e] * block + p % block : -1;
-  }
-}
-
-// Rows s_idx[0..32) of a (T, D) slice into shared memory as fp32 with the
-// given row stride; a row of index -1 is zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, const int* s_idx,
-                                           int stride) {
+// Rows s_idx[0..32) of a (T, D) slice into shared memory with the given row
+// stride; a row of index -1 is zero.
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+                                           const int* s_idx, int stride) {
   for (int e = threadIdx.x; e < kTile * D; e += blockDim.x) {
     const int r = e / D, c = e % D;
     const int g = s_idx[r];
-    dst[r * stride + c] = g >= 0 ? to_float(src[static_cast<size_t>(g) * D + c]) : 0.f;
+    dst[r * stride + c] = g >= 0 ? src[static_cast<size_t>(g) * D + c] : 0.f;
   }
 }
 
-// The CTA's own rows [r0, r0 + rows) of a (T, D) slice, unpadded.
-template <typename T, int D>
-__device__ __forceinline__ void stage_own(float* dst, const T* __restrict__ src, int r0, int rows) {
-  const T* s = src + static_cast<size_t>(r0) * D;
-  for (int e = threadIdx.x; e < rows * D; e += blockDim.x) dst[e] = to_float(s[e]);
+// The CTA's four slices of a (T, D) slice, unpadded; a slice of -1 is
+// zero.
+template <int D>
+__device__ __forceinline__ void stage_slices(float* dst, const float* __restrict__ src, int4 own) {
+  for (int e = threadIdx.x; e < kCtaRows * D; e += blockDim.x) {
+    const int r = e / D, c = e % D;
+    const int r0 = lane_of(own, r / 16);
+    dst[e] = r0 >= 0 ? src[static_cast<size_t>(r0 + r % 16) * D + c] : 0.f;
+  }
 }
 
-// ------------------------------------------------------------------ forward
-template <typename T, int D>
-__global__ void __launch_bounds__(kMaxThreads)
-sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ row_ptr,
-                  const int* __restrict__ row_cols, int t, int block, int causal) {
+// Tile t of a CTA's chunk list: threads 0..31 write lane j's partner row (-1
+// for a padding chunk) and its chunk's warp mask; the caller synchronises.
+__device__ __forceinline__ void stage_chunk_index(int* s_idx, int* s_bits,
+                                                  const int* __restrict__ list, int t) {
+  if (threadIdx.x < kTile) {
+    const int word = list[2 * t + threadIdx.x / 16];
+    const int bits = word & 15;
+    s_idx[threadIdx.x] = bits ? (word & ~15) + threadIdx.x % 16 : -1;
+    s_bits[threadIdx.x] = bits;
+  }
+}
+
+// Forward. Own rows are queries, chunks are keys.
+template <int D>
+__global__ void __launch_bounds__(kCtaThreads)
+sparse_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                  const int4* __restrict__ own_rows, const int* __restrict__ chunk_ptr,
+                  const int* __restrict__ chunks, int t, int causal) {
   constexpr int KS = Smem<D>::kStride;
-  constexpr int C = D / 32;  // output columns per lane
-  const int rows = own_rows(block);
+  constexpr int C = hopper::lane_cols(D);  // output columns per lane
   extern __shared__ float4 smem4[];
-  __shared__ int s_idx[kTile];
+  __shared__ int s_idx[kTile], s_bits[kTile];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + Smem<D>::own(rows);
+  float* sK = sQ + Smem<D>::own;
   float* sV = sK + Smem<D>::streamed;
   float* sP = sV + kTile * D;
 
   const int bh = blockIdx.x;
-  const int r0 = blockIdx.y * rows;  // first own (query) row
-  const int qb = r0 / block;         // its layout block
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const size_t base = static_cast<size_t>(bh) * t * D;
-  const int start = row_ptr[qb];
-  const int count = row_ptr[qb + 1] - start;
-  const int n_tiles = (count * block + kTile - 1) / kTile;
+  const int4 own = own_rows[blockIdx.y];
+  const int slice = warp / 2;
+  const int first = lane_of(own, slice);               // the slice's first row, -1: none
+  const int row0 = first + (warp % 2) * kRowsPerWarp;  // the warp's first query row
+  const int* list = chunks + chunk_ptr[blockIdx.y];
+  const int n_tiles = (chunk_ptr[blockIdx.y + 1] - chunk_ptr[blockIdx.y]) / 2;
 
-  stage_own<T, D>(sQ, q + base, r0, rows);
+  stage_slices<D>(sQ, q + base, own);
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][C];
 #pragma unroll
@@ -209,20 +214,22 @@ sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
   }
-  const int row0 = r0 + warp * kRowsPerWarp;  // first query row of this warp
   const float* myQ = sQ + warp * kRowsPerWarp * D;
   float* myP = sP + warp * kRowsPerWarp * kTile;
 
   for (int tt = 0; tt < n_tiles; ++tt) {
     __syncthreads();  // the previous tile is consumed (and Q is staged)
-    stage_index(s_idx, row_cols, start, count, block, tt);
+    stage_chunk_index(s_idx, s_bits, list, tt);
     __syncthreads();
-    stage_rows<T, D>(sK, k + base, s_idx, KS);
-    stage_rows<T, D>(sV, v + base, s_idx, D);
+    stage_rows<D>(sK, k + base, s_idx, KS);
+    stage_rows<D>(sV, v + base, s_idx, D);
     __syncthreads();
 
-    // S = Q K^T for this warp's rows; lane j owns streamed key s_idx[j].
-    const int key = s_idx[lane];
+    const int key = s_idx[lane];  // lane j owns key s_idx[j]
+    const bool take = first >= 0 && ((s_bits[lane] >> slice) & 1);
+    if (!__any_sync(0xffffffffu, take)) continue;  // neither chunk is this warp's
+
+    // S = Q K^T for this warp's rows
     float s[kRowsPerWarp];
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
@@ -235,12 +242,11 @@ sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         s[r] = dot4(*reinterpret_cast<const float4*>(myQ + r * D + c), kv, s[r]);
     }
 
-    // online softmax; only a tile holding the diagonal block or the list's
-    // end evaluates the mask
-    const bool full = __all_sync(0xffffffffu, key >= 0 && (!causal || key / block != qb));
+    // online softmax; only the slice's diagonal chunk evaluates the mask
+    const bool full = __all_sync(0xffffffffu, take && (!causal || key < first));
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const bool valid = full || (key >= 0 && (!causal || key <= row0 + r));
+      const bool valid = full || (take && (!causal || key <= row0 + r));
       const float sr = valid ? s[r] : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(sr));
       const float corr = expf(m[r] - m_new);
@@ -265,6 +271,7 @@ sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
         const float* vr = sV + (j + jj) * D + lane;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
+          if (!hopper::lane_owns<D>(lane, c)) continue;
           const float vv = vr[32 * c];
 #pragma unroll
           for (int r = 0; r < kRowsPerWarp; ++r) acc[r][c] = fmaf(lane_of(pr[r], jj), vv, acc[r][c]);
@@ -274,52 +281,22 @@ sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     __syncwarp();
   }
 
+  if (first < 0) return;
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = row0 + r;
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    T* orow = o + base + static_cast<size_t>(row) * D + lane;
+    float* orow = o + base + static_cast<size_t>(row) * D + lane;
 #pragma unroll
-    for (int c = 0; c < C; ++c) store(orow + 32 * c, acc[r][c] / l_safe);
+    for (int c = 0; c < C; ++c)
+      if (hopper::lane_owns<D>(lane, c)) orow[32 * c] = acc[r][c] / l_safe;
     if (lane == 0) lse[static_cast<size_t>(bh) * t + row] = m[r] + logf(l_safe);
   }
 }
 
-// ------------------------------------------------------- backward, fp32
-// The schedule's CTA owns four 16-row slices (own_rows[cta]); warp w of 8
-// owns the 8 rows (w % 2) * 8 .. of slice w / 2. A streamed tile is two
-// chunks of the schedule, 32 partner rows, one per lane: lane j's chunk is
-// j / 16, and a lane's row counts for the warp when that chunk's bit for
-// the warp's slice is set.
-constexpr int kBwdRows = 64;
-constexpr int kBwdWarps = kBwdRows / kRowsPerWarp;
-constexpr int kBwdThreads = kBwdWarps * 32;
-
-// The CTA's four slices of a (T, D) fp32 slice, unpadded; a slice of -1 is
-// zero.
+// dQ. Own rows are queries, chunks are keys.
 template <int D>
-__device__ __forceinline__ void stage_slices(float* dst, const float* __restrict__ src, int4 own) {
-  for (int e = threadIdx.x; e < kBwdRows * D; e += blockDim.x) {
-    const int r = e / D, c = e % D;
-    const int r0 = lane_of(own, r / 16);
-    dst[e] = r0 >= 0 ? src[static_cast<size_t>(r0 + r % 16) * D + c] : 0.f;
-  }
-}
-
-// Tile t of a CTA's chunk list: threads 0..31 write lane j's partner row (-1
-// for a padding chunk) and its chunk's warp mask; the caller synchronises.
-__device__ __forceinline__ void stage_chunk_index(int* s_idx, int* s_bits,
-                                                  const int* __restrict__ list, int t) {
-  if (threadIdx.x < kTile) {
-    const int word = list[2 * t + threadIdx.x / 16];
-    const int bits = word & 15;
-    s_idx[threadIdx.x] = bits ? (word & ~15) + threadIdx.x % 16 : -1;
-    s_bits[threadIdx.x] = bits;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kCtaThreads)
 sparse_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -327,12 +304,12 @@ sparse_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const int* __restrict__ chunk_ptr, const int* __restrict__ chunks, int t,
                      int causal) {
   constexpr int S = Smem<D>::kStride;
-  constexpr int C = D / 32;
+  constexpr int C = hopper::lane_cols(D);
   extern __shared__ float4 smem4[];
   __shared__ int s_idx[kTile], s_bits[kTile];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sDO = sQ + Smem<D>::own(kBwdRows);
-  float* sK = sDO + Smem<D>::own(kBwdRows);
+  float* sDO = sQ + Smem<D>::own;
+  float* sK = sDO + Smem<D>::own;
   float* sV = sK + Smem<D>::streamed;
   float* sDS = sV + Smem<D>::streamed;
 
@@ -367,8 +344,8 @@ sparse_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     stage_chunk_index(s_idx, s_bits, list, tt);
     __syncthreads();
-    stage_rows<float, D>(sK, k + base, s_idx, S);
-    stage_rows<float, D>(sV, v + base, s_idx, S);
+    stage_rows<D>(sK, k + base, s_idx, S);
+    stage_rows<D>(sV, v + base, s_idx, S);
     __syncthreads();
 
     const int key = s_idx[lane];  // lane j owns key s_idx[j]
@@ -414,6 +391,7 @@ sparse_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float* krow = sK + (j + jj) * S + lane;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
+          if (!hopper::lane_owns<D>(lane, c)) continue;
           const float kk = krow[32 * c];
 #pragma unroll
           for (int r = 0; r < kRowsPerWarp; ++r) acc[r][c] = fmaf(lane_of(ds4[r], jj), kk, acc[r][c]);
@@ -428,12 +406,14 @@ sparse_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     float* out = dq + base + static_cast<size_t>(row0 + r) * D + lane;
 #pragma unroll
-    for (int c = 0; c < C; ++c) out[32 * c] = acc[r][c];
+    for (int c = 0; c < C; ++c)
+      if (hopper::lane_owns<D>(lane, c)) out[32 * c] = acc[r][c];
   }
 }
 
+// dK, dV. Own rows are keys, chunks are queries.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kCtaThreads)
 sparse_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
@@ -441,15 +421,15 @@ sparse_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const int4* __restrict__ own_rows, const int* __restrict__ chunk_ptr,
                       const int* __restrict__ chunks, int t, int causal) {
   constexpr int S = Smem<D>::kStride;
-  constexpr int C = D / 32;
+  constexpr int C = hopper::lane_cols(D);
   extern __shared__ float4 smem4[];
   __shared__ int s_idx[kTile], s_bits[kTile];
   float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + Smem<D>::own(kBwdRows);
-  float* sQ = sV + Smem<D>::own(kBwdRows);
+  float* sV = sK + Smem<D>::own;
+  float* sQ = sV + Smem<D>::own;
   float* sDO = sQ + Smem<D>::streamed;
   float* sP = sDO + Smem<D>::streamed;
-  float* sDS = sP + Smem<D>::scratch(kBwdRows);
+  float* sDS = sP + Smem<D>::scratch;
 
   const int bh = blockIdx.x;
   const int warp = threadIdx.x / 32;
@@ -482,8 +462,8 @@ sparse_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     stage_chunk_index(s_idx, s_bits, list, tt);
     __syncthreads();
-    stage_rows<float, D>(sQ, q + base, s_idx, S);
-    stage_rows<float, D>(sDO, dout + base, s_idx, S);
+    stage_rows<D>(sQ, q + base, s_idx, S);
+    stage_rows<D>(sDO, dout + base, s_idx, S);
     __syncthreads();
 
     const int query = s_idx[lane];  // lane i owns query s_idx[i]
@@ -535,6 +515,7 @@ sparse_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const float* dorow = sDO + (i + ii) * S + lane;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
+          if (!hopper::lane_owns<D>(lane, c)) continue;
           const float qq = qrow[32 * c];
           const float dd = dorow[32 * c];
 #pragma unroll
@@ -554,6 +535,7 @@ sparse_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const size_t off = base + static_cast<size_t>(key0 + r) * D + lane;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
+      if (!hopper::lane_owns<D>(lane, c)) continue;
       dk[off + 32 * c] = acc_k[r][c];
       dv[off + 32 * c] = acc_v[r][c];
     }
@@ -571,10 +553,12 @@ template <int D>
 struct Plan {
   static constexpr int kStride = D + 8;  // padded row, in elements
   static constexpr int kTile = kRows * kStride;
-  // two own tiles (reused for the epilogue) and two rings of streamed tiles;
-  // dk/dv adds the lse and delta rings (fp32)
-  static constexpr int dq_bytes = (2 + 2 * kStages) * kTile * 2;
-  static constexpr int dkv_bytes = dq_bytes + 2 * kStages * kRows * 4;
+  // the forward and dq: the K and V rings alone (Q, and dO for dq, are
+  // staged in the rings' second stages, the epilogue goes through the K
+  // ring's first), as the dense dq; dk/dv: two own tiles, the rings, and
+  // the lse and delta rings (fp32)
+  static constexpr int ring_bytes = (2 * kStages) * kTile * 2;
+  static constexpr int dkv_bytes = ring_bytes + 2 * kTile * 2 + 2 * kStages * kRows * 4;
 };
 
 // A tile's four chunk words as the rows to load: a padding chunk (no warp)
@@ -587,30 +571,183 @@ __device__ __forceinline__ void chunk_rows(int (&rows)[4], int4 words) {
   }
 }
 
-// Stores a warp's 16 x D fp32 accumulator fragments through its own 16 rows
-// of a shared tile (row stride S, read by no other warp) as 16-byte
-// coalesced rows of out + (row0 ..) * D.
+// Forward. Own rows are queries, chunks are keys.
 template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* __restrict__ out, T* tile, const float (&acc)[D / 8][4],
-                                           int row0, int lane) {
+__global__ void __launch_bounds__(kThreads)
+sparse_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      T* __restrict__ o, float* __restrict__ lse,
+                      const int4* __restrict__ own_rows, const int* __restrict__ chunk_ptr,
+                      const int* __restrict__ chunks, int t, int causal) {
   using namespace hopper;
-  constexpr int S = D + 8;
+  constexpr int S = Plan<D>::kStride;
+  constexpr int KS = D / 16;  // k-steps of Q K^T over the head dim
+  constexpr int NO = D / 8;   // n-tiles of the output
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = sK + kStages * Plan<D>::kTile;
+  T* sQ = sK + Plan<D>::kTile;  // Q in the K ring's stage 1 until tile 1 lands there
+
+  const int bh = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
-  __syncwarp();
+  const size_t base = static_cast<size_t>(bh) * t * D;
+  const int4 own4 = own_rows[blockIdx.y];
+  const int own[4] = {own4.x, own4.y, own4.z, own4.w};
+  const int row_w = lane_of(own4, warp);  // the warp's first query row, -1: none
+  const int4* tiles = reinterpret_cast<const int4*>(chunks + chunk_ptr[blockIdx.y]);
+  const int n_tiles = (chunk_ptr[blockIdx.y + 1] - chunk_ptr[blockIdx.y]) / 4;
+  const int4 none = make_int4(0, 0, 0, 0);
+
+  auto load_tile = [&](int st, int4 words) {
+    int rows[4];
+    chunk_rows(rows, words);
+    load_chunks_async<T, D, kThreads>(sK + st * Plan<D>::kTile, k + base, rows);
+    load_chunks_async<T, D, kThreads>(sV + st * Plan<D>::kTile, v + base, rows);
+  };
+
+  // the words of tile t + 1 are read one tile ahead, so the ring's address
+  // arithmetic never waits on them
+  int4 w_next = n_tiles > 1 ? tiles[1] : none;
+  load_chunks_async<T, D, kThreads>(sQ, q + base, own);
+  if (n_tiles > 0) load_tile(0, tiles[0]);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t qf[KS][4];  // the warp's 16 query rows as A fragments
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(tile + g * S + n * 8 + 2 * c) = pack2<T>(acc[n][0], acc[n][1]);
-    *reinterpret_cast<uint32_t*>(tile + (g + 8) * S + n * 8 + 2 * c) =
-        pack2<T>(acc[n][2], acc[n][3]);
+  for (int kk = 0; kk < KS; ++kk)
+    ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8);
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, raw score units
+  float l[2] = {0.f, 0.f};              // this lane's partial row sums
+
+  int4 w_cur = n_tiles > 0 ? tiles[0] : none;
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    cp_async_wait<kStages - 2>();  // tile tt has landed
+    __syncthreads();               // ... for every thread, and tile tt - 1 is consumed
+    if (tt + 1 < n_tiles) load_tile((tt + 1) % kStages, w_next);
+    cp_async_commit();
+    const int4 words = w_cur;
+    w_cur = w_next;
+    w_next = tt + 2 < n_tiles ? tiles[tt + 2] : none;
+    const T* ks = sK + (tt % kStages) * Plan<D>::kTile;
+    const T* vs = sV + (tt % kStages) * Plan<D>::kTile;
+
+    // the chunks of this tile that carry the warp's bit (warp-uniform)
+    bool has[4];
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) has[ch] = (lane_of(words, ch) >> warp) & 1;
+    if (!(has[0] || has[1] || has[2] || has[3])) continue;
+
+    // S = Q K^T: per chunk two n-tiles of 8 keys; one ldmatrix.x4 gives both B
+    float s[4][2][4];
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) s[ch][n][0] = s[ch][n][1] = s[ch][n][2] = s[ch][n][3] = 0.f;
+      if (!has[ch]) continue;
+      const int b_row = (ch * 16 + (lane & 7) + ((lane >> 4) << 3)) * S + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t b[4];
+        ldmatrix_x4(b, ks + b_row + kk * 16);
+        mma_16816<T>(s[ch][0], qf[kk], b[0], b[1]);
+        mma_16816<T>(s[ch][1], qf[kk], b[2], b[3]);
+      }
+      // only the warp's diagonal chunk is masked: element e of n-tile n is
+      // query row g + 8 (e / 2), key column n * 8 + 2 c + e % 2
+      if (causal && (lane_of(words, ch) & ~15) == row_w) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n * 8 + 2 * c + (e & 1) > g + (e >> 1) * 8) s[ch][n][e] = -INFINITY;
+        }
+      }
+    }
+
+    // online softmax on the fragments, rescaled once per tile: a row's
+    // scores lie in one quad
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      if (!has[ch]) continue;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[ch][n][0], s[ch][n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[ch][n][2], s[ch][n][3]));
+      }
+    }
+    float ml[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      ml[i] = (mx[i] == -INFINITY ? 0.f : mx[i]) * kLog2e;  // a row that saw no key yet
+      const float corr = exp2_fast(m[i] * kLog2e - ml[i]);
+      m[i] = mx[i];
+      l[i] *= corr;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * i] *= corr;
+        acc[n][2 * i + 1] *= corr;
+      }
+    }
+
+    // P (a masked score gives exactly 0) and O += P V: P in the input type
+    // from registers, V by ldmatrix.trans
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      if (!has[ch]) continue;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[ch][n][e] = exp2_fast(fmaf(s[ch][n][e], kLog2e, -ml[e >> 1]));
+          l[e >> 1] += s[ch][n][e];
+        }
+      }
+      const uint32_t pa[4] = {
+          pack2<T>(s[ch][0][0], s[ch][0][1]), pack2<T>(s[ch][0][2], s[ch][0][3]),
+          pack2<T>(s[ch][1][0], s[ch][1][1]), pack2<T>(s[ch][1][2], s[ch][1][3])};
+      const int t_row = (ch * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + (lane >> 4) * 8;
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vs + t_row + dd * 16);
+        mma_16816<T>(acc[2 * dd], pa, b[0], b[1]);
+        mma_16816<T>(acc[2 * dd + 1], pa, b[2], b[3]);
+      }
+    }
   }
-  __syncwarp();
-  constexpr int kChunks = D / 8;
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  if (row_w < 0) return;
+
+  // epilogue: O / l_safe through the warp's own 16 rows of the K ring's
+  // first stage, then 16-byte coalesced stores; lse = m + log l_safe
+  float l_safe[2];
 #pragma unroll
-  for (int j = 0; j < kChunks / 2; ++j) {  // 16 rows x kChunks pieces over 32 lanes
-    const int i = lane + 32 * j;
-    const int r = i / kChunks, cc = i % kChunks;
-    *reinterpret_cast<uint4*>(out + static_cast<size_t>(row0 + r) * D + cc * 8) =
-        *reinterpret_cast<const uint4*>(tile + r * S + cc * 8);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l_safe[i] = l[i] == 0.f ? 1.f : l[i];
+    const float inv = 1.f / l_safe[i];
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][2 * i] *= inv;
+      acc[n][2 * i + 1] *= inv;
+    }
+  }
+  store_rows<T, D>(o + base, sK + warp * 16 * S, acc, row_w, 16, lane);
+  if (c == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      lse[static_cast<size_t>(bh) * t + row_w + g + 8 * i] = m[i] + logf(l_safe[i]);
   }
 }
 
@@ -628,14 +765,14 @@ sparse_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int KS = D / 16;  // k-steps over the head dim
   constexpr int NO = D / 8;   // n-tiles of dQ
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sDO = sQ + Plan<D>::kTile;
-  T* sK = sDO + Plan<D>::kTile;
+  T* sK = reinterpret_cast<T*>(smem);
   T* sV = sK + kStages * Plan<D>::kTile;
+  T* sQ = sK + Plan<D>::kTile;  // Q and dO in the rings' stage 1 until tile 1 lands
+  T* sDO = sV + Plan<D>::kTile;
 
   const int bh = blockIdx.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c = lane % 4;
+  const int g = lane / 4;
   const size_t base = static_cast<size_t>(bh) * t * D;
   const int4 own4 = own_rows[blockIdx.y];
   const int own[4] = {own4.x, own4.y, own4.z, own4.w};
@@ -694,57 +831,21 @@ sparse_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* ks = sK + (tt % kStages) * Plan<D>::kTile;
     const T* vs = sV + (tt % kStages) * Plan<D>::kTile;
 
+    // per 16-key chunk; only the warp's diagonal chunk is masked
+    const int lim[2] = {g, g + 8};
 #pragma unroll
-    for (int ch = 0; ch < 4; ++ch) {  // 16-key chunks
+    for (int ch = 0; ch < 4; ++ch) {
       const int word = lane_of(words, ch);
       if (!((word >> warp) & 1)) continue;  // not this warp's chunk
-      const int key0 = word & ~15;
-      // S = Q K^T and dP = dO V^T: 16 queries x 16 keys, two n-tiles each
-      float s[2][4] = {}, dp[2][4] = {};
-      const int b_row = (ch * 16 + (lane & 7) + ((lane >> 4) << 3)) * S + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t bk[4], bv[4];
-        ldmatrix_x4(bk, ks + b_row + kk * 16);
-        ldmatrix_x4(bv, vs + b_row + kk * 16);
-        mma_16816<T>(s[0], qf[kk], bk[0], bk[1]);
-        mma_16816<T>(s[1], qf[kk], bk[2], bk[3]);
-        mma_16816<T>(dp[0], dof[kk], bv[0], bv[1]);
-        mma_16816<T>(dp[1], dof[kk], bv[2], bv[3]);
-      }
-
-      // P and dS; element e of n-tile n is query row g + 8 (e / 2), key
-      // column n * 8 + 2 c + e % 2 of the chunk. Only the warp's diagonal
-      // chunk is masked.
-      const bool mask = causal && key0 == row_w;
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float p = exp2_fast(fmaf(s[n][e], kLog2e, -lq[e >> 1]));
-          if (mask && n * 8 + 2 * c + (e & 1) > g + (e >> 1) * 8) p = 0.f;
-          dp[n][e] = p * (dp[n][e] - dl[e >> 1]);
-        }
-      }
-      const uint32_t da[4] = {pack2<T>(dp[0][0], dp[0][1]), pack2<T>(dp[0][2], dp[0][3]),
-                              pack2<T>(dp[1][0], dp[1][1]), pack2<T>(dp[1][2], dp[1][3])};
-
-      // dQ += dS K over the chunk's 16 keys
-      const int t_row = (ch * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + (lane >> 4) * 8;
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, ks + t_row + dd * 16);
-        mma_16816<T>(acc[2 * dd], da, b[0], b[1]);
-        mma_16816<T>(acc[2 * dd + 1], da, b[2], b[3]);
-      }
+      dq_chunk<T, D>(acc, qf, dof, ks + ch * 16 * S, vs + ch * 16 * S, lq, dl,
+                     causal && (word & ~15) == row_w, lim, lane);
     }
   }
   cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the rings
 
-  // epilogue through the warp's own rows of the Q tile (only this warp read
-  // them)
-  if (row_w >= 0) store_rows<T, D>(dq + base, sQ + warp * 16 * S, acc, row_w, lane);
+  // epilogue through the warp's own 16 rows of the K ring's first stage
+  if (row_w >= 0) store_rows<T, D>(dq + base, sK + warp * 16 * S, acc, row_w, 16, lane);
 }
 
 // dK, dV. Own rows are keys, chunks are queries.
@@ -907,8 +1008,8 @@ sparse_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // epilogue through the warp's own rows of the K and V tiles (only this
   // warp ever read them); keys no query sees keep their zeros
   if (key_w >= 0) {
-    store_rows<T, D>(dk + base, sK + warp * 16 * S, dk_acc, key_w, lane);
-    store_rows<T, D>(dv + base, sV + warp * 16 * S, dv_acc, key_w, lane);
+    store_rows<T, D>(dk + base, sK + warp * 16 * S, dk_acc, key_w, 16, lane);
+    store_rows<T, D>(dv + base, sV + warp * 16 * S, dv_acc, key_w, 16, lane);
   }
 }
 
@@ -918,10 +1019,9 @@ sparse_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *o, *lse_out, *dq, *dk, *dv;
-  const int *ptr, *list;            // forward: the CSR lists
-  const int4* own;                  // backward: the schedule
+  const int4* own;  // the schedule
   const int *chunk_ptr, *chunks;
-  int n_cta, bh, t, block, causal;
+  int n_cta, bh, t, causal;
   cudaStream_t stream;
 };
 
@@ -932,24 +1032,9 @@ cudaError_t prepare(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// blockIdx.y is the schedule's CTA, longest first.
 template <typename T, int D>
-cudaError_t launch_fwd(const Args& a) {
-  const int rows = own_rows(a.block);
-  const dim3 grid(a.bh, a.t / rows);
-  const int threads = rows / kRowsPerWarp * 32;
-  const int smem = Smem<D>::fwd_bytes(rows);
-  cudaError_t err = prepare(sparse_fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
-  sparse_fwd_kernel<T, D><<<grid, threads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), static_cast<float*>(a.lse_out), a.ptr, a.list, a.t, a.block,
-      a.causal);
-  return cudaGetLastError();
-}
-
-// The backward entries: blockIdx.y is the schedule's CTA, longest first.
-template <typename T, int D>
-cudaError_t launch_bwd(Entry entry, const Args& a) {
+cudaError_t launch(Entry entry, const Args& a) {
   const dim3 grid(a.bh, a.n_cta);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -957,24 +1042,36 @@ cudaError_t launch_bwd(Entry entry, const Args& a) {
   const T* dout = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   const float* delta = static_cast<const float*>(a.delta);
+  float* lse_out = static_cast<float*>(a.lse_out);
   cudaError_t err;
   if constexpr (std::is_same_v<T, float>) {  // the CUDA-core instances
-    if (entry == Entry::kDq) {
-      const int smem = Smem<D>::dq_bytes(kBwdRows);
+    if (entry == Entry::kFwd) {
+      constexpr int smem = Smem<D>::fwd_bytes;
+      if ((err = prepare(sparse_fwd_kernel<D>, smem)) != cudaSuccess) return err;
+      sparse_fwd_kernel<D><<<grid, kCtaThreads, smem, a.stream>>>(
+          q, k, v, static_cast<float*>(a.o), lse_out, a.own, a.chunk_ptr, a.chunks, a.t,
+          a.causal);
+    } else if (entry == Entry::kDq) {
+      constexpr int smem = Smem<D>::dq_bytes;
       if ((err = prepare(sparse_bwd_dq_kernel<D>, smem)) != cudaSuccess) return err;
-      sparse_bwd_dq_kernel<D><<<grid, kBwdThreads, smem, a.stream>>>(
+      sparse_bwd_dq_kernel<D><<<grid, kCtaThreads, smem, a.stream>>>(
           q, k, v, dout, lse, delta, static_cast<float*>(a.dq), a.own, a.chunk_ptr, a.chunks,
           a.t, a.causal);
     } else {
-      const int smem = Smem<D>::dkv_bytes(kBwdRows);
+      constexpr int smem = Smem<D>::dkv_bytes;
       if ((err = prepare(sparse_bwd_dkv_kernel<D>, smem)) != cudaSuccess) return err;
-      sparse_bwd_dkv_kernel<D><<<grid, kBwdThreads, smem, a.stream>>>(
+      sparse_bwd_dkv_kernel<D><<<grid, kCtaThreads, smem, a.stream>>>(
           q, k, v, dout, lse, delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
           a.own, a.chunk_ptr, a.chunks, a.t, a.causal);
     }
   } else {  // bf16 / fp16: the tensor cores
-    if (entry == Entry::kDq) {
-      constexpr int smem = mma::Plan<D>::dq_bytes;
+    if (entry == Entry::kFwd) {
+      constexpr int smem = mma::Plan<D>::ring_bytes;
+      if ((err = prepare(mma::sparse_fwd_mma_kernel<T, D>, smem)) != cudaSuccess) return err;
+      mma::sparse_fwd_mma_kernel<T, D><<<grid, mma::kThreads, smem, a.stream>>>(
+          q, k, v, static_cast<T*>(a.o), lse_out, a.own, a.chunk_ptr, a.chunks, a.t, a.causal);
+    } else if (entry == Entry::kDq) {
+      constexpr int smem = mma::Plan<D>::ring_bytes;
       if ((err = prepare(mma::sparse_bwd_dq_mma_kernel<T, D>, smem)) != cudaSuccess) return err;
       mma::sparse_bwd_dq_mma_kernel<T, D><<<grid, mma::kThreads, smem, a.stream>>>(
           q, k, v, dout, lse, delta, static_cast<T*>(a.dq), a.own, a.chunk_ptr, a.chunks, a.t,
@@ -993,21 +1090,18 @@ cudaError_t launch_bwd(Entry entry, const Args& a) {
 template <typename T>
 cudaError_t dispatch_d(Entry entry, const Args& a, int d) {
   switch (d) {
-    case 64: return entry == Entry::kFwd ? launch_fwd<T, 64>(a) : launch_bwd<T, 64>(entry, a);
-    case 96: return entry == Entry::kFwd ? launch_fwd<T, 96>(a) : launch_bwd<T, 96>(entry, a);
-    case 128: return entry == Entry::kFwd ? launch_fwd<T, 128>(a) : launch_bwd<T, 128>(entry, a);
+    case 16: return launch<T, 16>(entry, a);
+    case 32: return launch<T, 32>(entry, a);
+    case 64: return launch<T, 64>(entry, a);
+    case 80: return launch<T, 80>(entry, a);
+    case 96: return launch<T, 96>(entry, a);
+    case 128: return launch<T, 128>(entry, a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int run(Entry entry, const Args& a, int d, int dtype, int device) {
-  if (a.bh < 1 || a.t < 1) return cudaErrorInvalidValue;
-  if (entry == Entry::kFwd) {
-    const bool block_ok = a.block == 16 || a.block == 32 || a.block == 64 || a.block == 128;
-    if (!block_ok || a.t % a.block != 0) return cudaErrorInvalidValue;
-  } else if (a.t % 16 != 0 || a.n_cta < 1) {
-    return cudaErrorInvalidValue;
-  }
+  if (a.bh < 1 || a.t < 1 || a.t % 16 != 0 || a.n_cta < 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);  // this library's runtime has its own current device
   if (err != cudaSuccess) return err;
   if (dtype == 0) return dispatch_d<float>(entry, a, d);
@@ -1016,21 +1110,28 @@ int run(Entry entry, const Args& a, int d, int dtype, int device) {
   return cudaErrorInvalidValue;
 }
 
+Args schedule_args(const void* own_rows, const void* chunk_ptr, const void* chunks, int n_cta,
+                   int bh, int t, int causal, void* stream) {
+  Args a{};
+  a.own = static_cast<const int4*>(own_rows);
+  a.chunk_ptr = static_cast<const int*>(chunk_ptr), a.chunks = static_cast<const int*>(chunks);
+  a.n_cta = n_cta, a.bh = bh, a.t = t, a.causal = causal;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; device: the CUDA ordinal of the
-// tensors. The forward takes the int32 CSR lists, the backward entries the
-// int32 schedule (own_rows (n_cta, 4), chunk_ptr (n_cta + 1), chunks), all on
-// that device. Each returns a cudaError_t (0 = launched).
+// tensors. Each entry takes its side's int32 schedule (own_rows (n_cta, 4),
+// chunk_ptr (n_cta + 1), chunks) on that device: the forward and dq the query
+// side's, dk/dv the key side's. Each returns a cudaError_t (0 = launched).
 extern "C" int sparse_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                    void* lse, const void* row_ptr, const void* row_cols, int bh,
-                                    int t, int block, int d, int causal, int dtype, int device,
-                                    void* stream) {
-  Args a{};
+                                    void* lse, const void* own_rows, const void* chunk_ptr,
+                                    const void* chunks, int n_cta, int bh, int t, int d,
+                                    int causal, int dtype, int device, void* stream) {
+  Args a = schedule_args(own_rows, chunk_ptr, chunks, n_cta, bh, t, causal, stream);
   a.q = q, a.k = k, a.v = v, a.o = o, a.lse_out = lse;
-  a.ptr = static_cast<const int*>(row_ptr), a.list = static_cast<const int*>(row_cols);
-  a.bh = bh, a.t = t, a.block = block, a.causal = causal;
-  a.stream = static_cast<cudaStream_t>(stream);
   return run(Entry::kFwd, a, d, dtype, device);
 }
 
@@ -1039,12 +1140,8 @@ extern "C" int sparse_attention_bwd_dq(const void* q, const void* k, const void*
                                        void* dq, const void* own_rows, const void* chunk_ptr,
                                        const void* chunks, int n_cta, int bh, int t, int d,
                                        int causal, int dtype, int device, void* stream) {
-  Args a{};
+  Args a = schedule_args(own_rows, chunk_ptr, chunks, n_cta, bh, t, causal, stream);
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = lse, a.delta = delta, a.dq = dq;
-  a.own = static_cast<const int4*>(own_rows);
-  a.chunk_ptr = static_cast<const int*>(chunk_ptr), a.chunks = static_cast<const int*>(chunks);
-  a.n_cta = n_cta, a.bh = bh, a.t = t, a.causal = causal;
-  a.stream = static_cast<cudaStream_t>(stream);
   return run(Entry::kDq, a, d, dtype, device);
 }
 
@@ -1054,12 +1151,8 @@ extern "C" int sparse_attention_bwd_dkv(const void* q, const void* k, const void
                                         const void* chunk_ptr, const void* chunks, int n_cta,
                                         int bh, int t, int d, int causal, int dtype, int device,
                                         void* stream) {
-  Args a{};
+  Args a = schedule_args(own_rows, chunk_ptr, chunks, n_cta, bh, t, causal, stream);
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse = lse, a.delta = delta, a.dk = dk, a.dv = dv;
-  a.own = static_cast<const int4*>(own_rows);
-  a.chunk_ptr = static_cast<const int*>(chunk_ptr), a.chunks = static_cast<const int*>(chunks);
-  a.n_cta = n_cta, a.bh = bh, a.t = t, a.causal = causal;
-  a.stream = static_cast<cudaStream_t>(stream);
   return run(Entry::kDkv, a, d, dtype, device);
 }
 

@@ -20,8 +20,8 @@ import torch
 from deepspeed_tpu_torch.ops.op_builder import CudaKernel
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 96, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,8 +49,8 @@ def decode_reference(q, k_cache, v_cache, pos):
 
 def _check(q, k_cache, v_cache, pos):
     if q.dtype not in _DTYPE_CODES or not (q.dtype == k_cache.dtype == v_cache.dtype):
-        raise TypeError(f"decode_attention takes float32 or bfloat16 q/k/v of one type, "
-                        f"got {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+        raise TypeError(f"decode_attention takes float32, bfloat16 or float16 q/k/v of one "
+                        f"type, got {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != q.shape[0] or k_cache.shape[3] != q.shape[2]:
         raise ValueError(f"expected q (B, H, Dh), caches (B, S, KV, Dh); got "

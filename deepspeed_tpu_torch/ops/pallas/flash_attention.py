@@ -18,8 +18,8 @@ sources hold the kernels:
   :func:`sparse_backward_dq`, :func:`sparse_backward_dq_reference`) and
   ``_sparse_bwd_dkv_kernel`` (``sparse_attention_bwd_dkv``,
   :func:`sparse_backward_dkv`, :func:`sparse_backward_dkv_reference`); the
-  forward walks the CSR pair lists of :class:`SparsePairs`, the backward
-  kernels its two :class:`SparseSchedule` s.
+  forward and dq walk the query side's :class:`SparseSchedule` of
+  :class:`SparsePairs`, dk/dv the key side's.
 
 A CUDA tensor goes to the kernels, or the call raises. A CPU tensor goes to
 the plain versions, which are also what the kernels are checked against on
@@ -46,7 +46,7 @@ import torch
 from deepspeed_tpu_torch.ops.op_builder import CudaKernel
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P = ctypes.c_void_p
@@ -301,12 +301,13 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
 
 
 # ------------------------------------------------------------ block-sparse
-# csrc/sparse_attention.cu: the forward of block-sparse attention over the
-# CSR pair lists, and dq and dk/dv over the CTA schedules below
+# csrc/sparse_attention.cu: the forward, dq and dk/dv of block-sparse
+# attention over the CTA schedules below
 SPARSE_BLOCKS = (16, 32, 64, 128)
 SPARSE_KERNEL = CudaKernel("sparse_attention", {
-    # q, k, v, o, lse, row_ptr, row_cols, bh, t, block, d, causal, dtype, device, stream
-    "sparse_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, o, lse, own_rows, chunk_ptr, chunks, n_cta, bh, t, d, causal, dtype, device,
+    # stream
+    "sparse_attention_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, do, lse, delta, dq, own_rows, chunk_ptr, chunks, n_cta, bh, t, d, causal,
     # dtype, device, stream
     "sparse_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -317,7 +318,7 @@ SPARSE_KERNEL = CudaKernel("sparse_attention", {
                                  _I, _I, _I, _P),
 })
 
-CTA_WARPS = 4      # warps of a backward CTA; each owns 16 rows, one mma.m16 tile
+CTA_WARPS = 4      # warps of a sparse CTA; each owns 16 rows, one mma.m16 tile
 CHUNK = 16         # rows of a streamed partner chunk
 
 
@@ -353,12 +354,13 @@ def _group(lists: np.ndarray, size: int) -> list:
 
 
 class SparseSchedule:
-    """Which own rows share a CTA in a sparse backward kernel, and the
-    partner rows it streams: one side of a layout.
+    """Which own rows share a CTA in a sparse kernel, and the partner rows
+    it streams: one side of a layout.
 
     ``lists`` is (n, n) bool, row ``i`` the partner blocks of own block
-    ``i``: the causal-cut layout for dq (own rows are queries, partners
-    keys), its transpose for dk/dv (own keys, partner queries). A CTA owns
+    ``i``: the causal-cut layout for the forward and dq (own rows are
+    queries, partners keys), its transpose for dk/dv (own keys, partner
+    queries). A CTA owns
     64 rows, 16 per warp. Its own *units* are ``min(block, 64)`` rows each:
     ``group = 64 // unit_rows`` layout blocks at block <= 64, and half a
     block at block 128 (both halves walk the block's list). Units are
@@ -449,16 +451,17 @@ class SparsePairs:
     The JAX ``_sparse_pairs`` enumerates the kept (query block, key block)
     pairs twice, row-major for the forward and dq and column-major for
     dk/dv, with first/last/valid flags that start and end each run on the
-    sequential TPU grid. Here the two orders are CSR lists, and the run
-    bounds are the pointers: query block ``i`` attends key blocks
-    ``row_cols[row_ptr[i]:row_ptr[i + 1]]`` and key block ``j`` is attended
-    by query blocks ``col_rows[col_ptr[j]:col_ptr[j + 1]]``, both ascending.
+    sequential TPU grid. Here the two orders are CSR lists (numpy), and the
+    run bounds are the pointers: query block ``i`` attends key blocks
+    ``row_cols_np[row_ptr_np[i]:row_ptr_np[i + 1]]`` and key block ``j`` is
+    attended by query blocks ``col_rows_np[col_ptr_np[j]:col_ptr_np[j + 1]]``,
+    both ascending.
     A key block no query attends has an empty list (JAX's dummy pair), and
     its dk/dv are written as zeros. Causal drops the pairs above the
     diagonal; a query block left with no key block raises, as in JAX.
-    The forward kernel walks the row lists, copied to the device; the
-    backward kernels walk ``dq`` and ``dkv``, the :class:`SparseSchedule`
-    of each side. The column lists stay on the host.
+    The lists stay on the host. The kernels walk ``dq`` (the forward and
+    dq) and ``dkv`` (dk/dv), the :class:`SparseSchedule` of each side,
+    whose tensors are the only ones copied to the device.
     """
 
     def __init__(self, layout, causal: bool, t: int, device):
@@ -481,9 +484,7 @@ class SparsePairs:
         self.row_cols_np = np.nonzero(lay)[1].astype(np.int32)
         self.col_ptr_np = ptr(lay.sum(axis=0))
         self.col_rows_np = np.nonzero(lay.T)[1].astype(np.int32)
-        # the lists go to the device once, here, never per call
-        to_dev = lambda a: torch.from_numpy(a).to(self.device)
-        self.row_ptr, self.row_cols = to_dev(self.row_ptr_np), to_dev(self.row_cols_np)
+        # the schedules go to the device once, here, never per call
         self.dq = SparseSchedule(lay, t // n, causal, True, self.device)
         self.dkv = SparseSchedule(lay.T, t // n, causal, False, self.device)
         diag = int(np.trace(lay)) if causal else 0
@@ -559,12 +560,6 @@ def _sparse_check(q, k, v, pairs: SparsePairs):
                          f"not in {SPARSE_BLOCKS}")
 
 
-def _sparse_tail(q, pairs: SparsePairs):
-    return (q.shape[0], q.shape[1], pairs.block, q.shape[2], int(pairs.causal),
-            _DTYPE_CODES[q.dtype], q.device.index,
-            torch.cuda.current_stream(q.device).cuda_stream)
-
-
 def _schedule_args(q, pairs: SparsePairs, sched: SparseSchedule):
     return (sched.own_rows.data_ptr(), sched.chunk_ptr.data_ptr(), sched.chunks.data_ptr(),
             sched.n_cta, q.shape[0], q.shape[1], q.shape[2], int(pairs.causal),
@@ -583,8 +578,7 @@ def sparse_forward(q, k, v, layout, causal: bool = True):
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     SPARSE_KERNEL.launch("sparse_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         o.data_ptr(), lse.data_ptr(), pairs.row_ptr.data_ptr(),
-                         pairs.row_cols.data_ptr(), *_sparse_tail(q, pairs))
+                         o.data_ptr(), lse.data_ptr(), *_schedule_args(q, pairs, pairs.dq))
     return o, lse
 
 

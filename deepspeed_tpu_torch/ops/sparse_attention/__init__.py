@@ -3,7 +3,7 @@
 Counterpart of ``deepspeed_tpu/ops/sparse_attention/``. The reference's
 Triton block-sparse matmuls and softmax are one fused computation here,
 ``flash_attention_sparse``, whose forward and backward are the CUDA kernels
-of ``csrc/sparse_attention.cu`` walking the layout's CSR pair lists.
+of ``csrc/sparse_attention.cu`` walking the layout's CTA schedules.
 """
 
 from __future__ import annotations

@@ -12,9 +12,11 @@ summation order (1e-4, LSE 1e-3). Backward gradients are held relative to
 the largest reference gradient, floored at 1 for these unit-normal inputs:
 bf16 1e-2 and fp16 2.5e-3 (the outputs' own rounding is 2^-9 and 2^-11 of
 it), fp32 1e-4 (summation order). The bf16 and fp16 instances of the
-flash forward, the dense dk/dv and the block-sparse dq and dk/dv run on the
-tensor cores and round P (and dS) to the input type before the second
-products, as the JAX kernels do; the fp32 instances keep the CUDA-core code.
+flash forward, the dense dq and dk/dv and the block-sparse forward, dq and
+dk/dv run on the tensor cores and round P (and dS) to the input type before
+the second products, as the JAX kernels do; the fp32 instances keep the
+CUDA-core code. Every kernel has instances for head dims 16, 32, 64, 80, 96
+and 128, the head dims of the model presets.
 """
 
 import dataclasses
@@ -56,25 +58,57 @@ def test_flash_kernel_matches_plain(gen, T, causal, dtype, tol):
     assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("D", [16, 32, 80])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp32_flash_forward_per_head_dim(gen, D, causal):
+    """The CUDA-core forward at the head dims of the tiny and 2.7b presets;
+    at 16 and 80 the upper lanes own no column of the last group of 32."""
+    q, k, v = (torch.randn(16, 130, D, generator=gen, device="cuda") for _ in range(3))
+    q = q * D ** -0.5
+    before = tfa.KERNEL.launches
+    o, lse = tfa.flash_forward(q, k, v, causal)
+    o_ref, lse_ref = tfa.mha_reference_lse(q, k, v, causal)
+    assert tfa.KERNEL.launches == before + 1
+    assert (o - o_ref).abs().max().item() <= 1e-4
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
 @pytest.mark.parametrize("kv,pos,dtype,tol", [
     (8, 255, torch.bfloat16, 2e-2), (1, 0, torch.bfloat16, 2e-2),
-    (32, 130, torch.float32, 1e-4)])
+    (32, 130, torch.float32, 1e-4), (8, 200, torch.float16, 2e-2), (1, 0, torch.float16, 2e-2)])
 def test_decode_kernel_matches_plain(gen, kv, pos, dtype, tol):
-    q = torch.randn(4, 32, 64, generator=gen, device="cuda").to(dtype)
-    k, v = (torch.randn(4, 256, kv, 64, generator=gen, device="cuda").to(dtype)
+    _decode_checked(gen, kv, pos, dtype, tol, 64)
+
+
+def _decode_checked(gen, kv, pos, dtype, tol, dh):
+    """The decode kernel against its plain version in fp32 on the same
+    inputs, with NaN in the cache past ``pos``; one launch."""
+    q = torch.randn(4, 32, dh, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(4, 256, kv, dh, generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     ref = tda.decode_reference(q.float(), k.float(), v.float(), pos)
     v[:, pos + 1:] = float("nan")            # past pos: never read
+    before = tda.KERNEL.launches
     out = tda.decode_attention(q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda"))
+    assert tda.KERNEL.launches == before + 1
     assert (out.float() - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dh", [16, 32, 80])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2),
+                                       (torch.float16, 2e-2)])
+def test_decode_kernel_per_head_dim(gen, dh, dtype, tol):
+    """The head dims of the tiny and 2.7b presets; at 16 and 80 the upper
+    lanes own no column of the last group of 32."""
+    _decode_checked(gen, 8, 200, dtype, tol, dh)
 
 
 GRAD_TOL = {torch.bfloat16: 1e-2, torch.float16: 2.5e-3}
 
 
-def _flash_fwd_and_dkv(gen, BH, t_q, t_k, D, dtype, causal):
-    """The tensor-core forward and dk/dv kernels against their plain versions
-    in fp32 on the same inputs. → (dk, dv)."""
+def _flash_kernels(gen, BH, t_q, t_k, D, dtype, causal):
+    """The tensor-core forward, dq and dk/dv kernels against their plain
+    versions in fp32 on the same inputs. → (dk, dv)."""
     q, do = (torch.randn(BH, t_q, D, generator=gen, device="cuda") for _ in range(2))
     k, v = (torch.randn(BH, t_k, D, generator=gen, device="cuda") for _ in range(2))
     q, k, v, do = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
@@ -84,10 +118,11 @@ def _flash_fwd_and_dkv(gen, BH, t_q, t_k, D, dtype, causal):
     assert (o.float() - o_ref).abs().max().item() <= 2e-2
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     delta = (do.float() * o.float()).sum(-1)
+    dq = tfa.flash_backward_dq(q, k, v, do, lse, delta, causal)
     dk, dv = tfa.flash_backward_dkv(q, k, v, do, lse, delta, causal)
-    refs = tfa.mha_backward_dkv_reference(q.float(), k.float(), v.float(), do.float(), lse,
-                                          delta, causal)
-    for name, g, r in zip(("dk", "dv"), (dk, dv), refs):
+    refs = tfa.mha_backward_reference(q.float(), k.float(), v.float(), do.float(), lse, delta,
+                                      causal)
+    for name, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         err = (g.float() - r).abs().max().item()
         assert torch.isfinite(g).all() and err <= GRAD_TOL[dtype] * max(1.0, r.abs().max().item()), \
             (name, err)
@@ -97,23 +132,23 @@ def _flash_fwd_and_dkv(gen, BH, t_q, t_k, D, dtype, causal):
 @pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 200, 1000])
 def test_tensor_core_kernels_at_tile_edges(gen, T):
     """Ragged and whole 64-row tiles, causal, bf16, head dim 96."""
-    _flash_fwd_and_dkv(gen, 16, T, T, 96, torch.bfloat16, True)
+    _flash_kernels(gen, 16, T, T, 96, torch.bfloat16, True)
 
 
-@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("D", [64, 96, 128, 16, 32, 80])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_tensor_core_kernels_per_head_dim_and_type(gen, D, dtype):
-    _flash_fwd_and_dkv(gen, 8, 200, 200, D, dtype, True)
+    _flash_kernels(gen, 8, 200, 200, D, dtype, True)
 
 
 def test_tensor_core_kernels_noncausal_with_more_keys_than_queries(gen):
-    _flash_fwd_and_dkv(gen, 8, 100, 300, 96, torch.bfloat16, False)
+    _flash_kernels(gen, 8, 100, 300, 96, torch.bfloat16, False)
 
 
 def test_causal_keys_no_query_sees_get_exact_zeros(gen):
     """Top-left causal with Tq=64 < Tk=200: keys 64.. are seen by no query,
     and their dk and dv are exactly 0."""
-    dk, dv = _flash_fwd_and_dkv(gen, 8, 64, 200, 96, torch.bfloat16, True)
+    dk, dv = _flash_kernels(gen, 8, 64, 200, 96, torch.bfloat16, True)
     assert torch.count_nonzero(dk[:, 64:]).item() == 0
     assert torch.count_nonzero(dv[:, 64:]).item() == 0
     assert torch.count_nonzero(dv[:, :64]).item() > 0
@@ -129,13 +164,38 @@ def test_tensor_core_kernels_repeat_bitwise(gen, dtype):
     o2, lse2 = tfa.flash_forward(q, k, v, True)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     delta = (do.float() * o.float()).sum(-1)
+    assert torch.equal(tfa.flash_backward_dq(q, k, v, do, lse, delta, True),
+                       tfa.flash_backward_dq(q, k, v, do, lse, delta, True))
     dk, dv = tfa.flash_backward_dkv(q, k, v, do, lse, delta, True)
     dk2, dv2 = tfa.flash_backward_dkv(q, k, v, do, lse, delta, True)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("t_q,t_k,causal", [
+    (1, 1, True), (63, 63, True), (64, 64, True), (65, 65, True), (127, 127, True),
+    (200, 200, True), (1000, 1000, True), (100, 300, False), (64, 200, True),
+    (300, 100, True), (300, 100, False)])
+def test_flash_dq_tensor_core_matches_plain(gen, t_q, t_k, causal, dtype):
+    """The tensor-core dq at the 64-row tiles' edges, with Tq != Tk both ways
+    and top-left causal masking."""
+    q, do = (torch.randn(8, t_q, 96, generator=gen, device="cuda") for _ in range(2))
+    k, v = (torch.randn(8, t_k, 96, generator=gen, device="cuda") for _ in range(2))
+    q, k, v, do = (q * 96 ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+    o, lse = tfa.flash_forward(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    before = tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dq"]
+    dq = tfa.flash_backward_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dq"] == before + 1
+    ref = tfa.mha_backward_dq_reference(q.float(), k.float(), v.float(), do.float(), lse, delta,
+                                        causal)
+    err = (dq.float() - ref).abs().max().item()
+    assert torch.isfinite(dq).all() and err <= GRAD_TOL[dtype] * max(1.0, ref.abs().max().item())
+
+
 def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(gen):
-    q = torch.randn(2, 16, 32, generator=gen, device="cuda")      # head dim 32
+    q = torch.randn(2, 16, 48, generator=gen, device="cuda")      # head dim 48
     with pytest.raises(ValueError):
         tfa.flash_forward(q, q, q)
     with pytest.raises(ValueError):
@@ -163,7 +223,9 @@ def test_generate_kernel_path_matches_plain_path(gen):
 
 @pytest.mark.parametrize("BH,T,D,causal,dtype,tol", [
     (32, 200, 96, True, torch.bfloat16, 1e-2), (16, 128, 64, False, torch.float32, 1e-4),
-    (8, 77, 128, True, torch.float32, 1e-4), (16, 130, 64, True, torch.float16, 2.5e-3)])
+    (8, 77, 128, True, torch.float32, 1e-4), (16, 130, 64, True, torch.float16, 2.5e-3),
+    (16, 130, 80, True, torch.float32, 1e-4), (16, 100, 16, False, torch.float32, 1e-4),
+    (8, 77, 32, True, torch.float32, 1e-4), (16, 130, 80, True, torch.bfloat16, 1e-2)])
 def test_flash_backward_kernels_match_plain(gen, BH, T, D, causal, dtype, tol):
     q, k, v, do = (torch.randn(BH, T, D, generator=gen, device="cuda") for _ in range(4))
     q, k, v, do = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
@@ -180,6 +242,76 @@ def test_flash_backward_kernels_match_plain(gen, BH, T, D, causal, dtype, tol):
         err = (g.float() - r).abs().max().item()
         assert torch.isfinite(g).all() and err <= tol * max(1.0, r.abs().max().item()), \
             (name, err)
+
+
+def test_generate_fp16_runs_the_decode_kernel(gen):
+    """fp16 serving through the decode kernel: every layer launches each
+    kernel, and the logits of one decode step agree with the plain path's
+    (bf16-level tolerance, 2e-2 of the largest)."""
+    cfg = dataclasses.replace(PRESETS["llama-tiny"], n_embd=256, n_head=4, n_kv_head=2,
+                              intermediate_size=512, dtype=torch.float16,
+                              use_flash_decode=True)
+    model = LlamaModel(cfg).init_params(gen)
+    plain = LlamaModel(dataclasses.replace(cfg, use_flash_attention=False,
+                                           use_flash_decode=False))
+    plain.load_state_dict(model.state_dict(), assign=True)
+    eng = deepspeed_tpu_torch.init_inference(model, {"dtype": "fp16"})
+    ids = torch.randint(0, cfg.vocab_size, (3, 20), generator=gen, device="cuda")
+    fa0, da0 = tfa.KERNEL.launches, tda.KERNEL.launches
+    out = eng.generate(ids, max_new_tokens=12)
+    assert (tfa.KERNEL.launches - fa0, tda.KERNEL.launches - da0) == (2, 2 * 12)
+    assert out.shape == (3, 32)
+    with torch.inference_mode():
+        logits, cache = model.prefill(ids, model.init_cache(3, 32))
+        ref, ref_cache = plain.prefill(ids, plain.init_cache(3, 32))
+        tok = torch.argmax(ref, dim=-1)
+        step, _ = model.decode_step(tok, cache)
+        step_ref, _ = plain.decode_step(tok, ref_cache)
+    assert torch.isfinite(step).all()
+    assert (step.float() - step_ref.float()).abs().max().item() <= \
+        2e-2 * step_ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_gpt2_head_dim_80_runs_the_kernels(gen, sparse, dtype, rtol):
+    """GPT-2 at head dim 80 (n_embd 160, 2 heads), the head dim of the
+    gpt2-2.7b preset: dense and with a sparse_attention block, the forward
+    and backward launch the kernels once per layer and agree with the model
+    on its plain path. fp32 differs only in summation order (1e-4); in bf16
+    the loss and gradients carry the inputs' rounding (the bf16 gradient
+    tolerance, 5e-2, relative L2)."""
+    block = {"mode": "fixed", "block": 16, "num_local_blocks": 4} if sparse else None
+    cfg = gpt2.GPT2Config(vocab_size=1024, n_positions=128, n_embd=160, n_layer=2, n_head=2,
+                          remat=False, dtype=dtype, sparse_attention=block)
+    model = gpt2.GPT2Model(cfg).init_params(gen)
+    batch = gpt2.synthetic_lm_batch(2, 128, cfg.vocab_size, device="cuda")
+    for kern in (tfa.KERNEL, tfa.BWD_KERNEL, tfa.SPARSE_KERNEL):
+        kern.reset_launches()
+    loss = model.loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    if sparse:
+        assert tfa.SPARSE_KERNEL.entry_launches == dict.fromkeys(
+            tfa.SPARSE_KERNEL.entry_launches, 2)
+        assert tfa.KERNEL.launches == tfa.BWD_KERNEL.launches == 0
+    else:
+        assert (tfa.KERNEL.launches, tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dq"],
+                tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dkv"]) == (2, 2, 2)
+        assert tfa.SPARSE_KERNEL.launches == 0
+    model.zero_grad(set_to_none=True)
+    if sparse:
+        layout = model._sparse.get_layout(128)
+        model._sparse_attention = lambda q, k, v: tfa.sparse_mha_reference(q, k, v, layout)
+    else:
+        model.config = dataclasses.replace(cfg, use_flash_attention=False)
+    loss_p = model.loss(batch)
+    loss_p.backward()
+    assert torch.isfinite(loss) and abs(loss.item() - loss_p.item()) <= rtol * abs(loss_p.item())
+    for n, p in model.named_parameters():
+        diff = (grads[n] - p.grad.float()).norm().item()
+        assert diff <= rtol * max(p.grad.float().norm().item(), 1e-30), n
 
 
 @pytest.mark.parametrize("dtype,precision", [
@@ -282,7 +414,7 @@ def _sparse_backward(gen, lay, T, D, dtype, causal, BH=4):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("D", [64, 96, 128, 16, 32, 80])
 @pytest.mark.parametrize("block", [16, 32, 64, 128])
 def test_sparse_tensor_core_backward_matches_plain(gen, block, D, dtype, causal):
     """The tensor-core dq and dk/dv over their CTA schedules: eight layout
@@ -297,6 +429,46 @@ def test_sparse_tensor_core_backward_matches_plain(gen, block, D, dtype, causal)
             after["sparse_attention_bwd_dkv"] - before["sparse_attention_bwd_dkv"]) == (1, 1)
 
 
+def _sparse_forward_checked(gen, lay, T, D, dtype, causal, BH=4):
+    """The sparse forward kernel against its plain version in fp32 on the
+    same inputs, twice (the bits must repeat); one launch each."""
+    q, k, v = (torch.randn(BH, T, D, generator=gen, device="cuda") for _ in range(3))
+    q, k, v = (q * D ** -0.5).to(dtype), k.to(dtype), v.to(dtype)
+    before = tfa.SPARSE_KERNEL.entry_launches["sparse_attention_fwd"]
+    o, lse = tfa.sparse_forward(q, k, v, lay, causal)
+    o2, lse2 = tfa.sparse_forward(q, k, v, lay, causal)
+    torch.cuda.synchronize()
+    assert tfa.SPARSE_KERNEL.entry_launches["sparse_attention_fwd"] == before + 2
+    o_ref, lse_ref = tfa.sparse_reference_lse(q.float(), k.float(), v.float(), lay, causal)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert torch.isfinite(o).all() and (o.float() - o_ref).abs().max().item() <= tol
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 96, 128, 16, 32, 80])
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+def test_sparse_tensor_core_forward_matches_plain(gen, block, D, dtype, causal):
+    """The tensor-core sparse forward over the query side's CTA schedule:
+    eight layout blocks of the fixed layout (causal) or BigBird (not
+    causal)."""
+    T = 8 * block
+    cfg = FixedSparsityConfig(4, block=block, num_local_blocks=4) if causal \
+        else BigBirdSparsityConfig(4, block=block)
+    _sparse_forward_checked(gen, cfg.make_layout(T), T, D, dtype, causal)
+
+
+@pytest.mark.parametrize("block,D,causal", [(16, 128, True), (128, 96, True), (32, 64, False),
+                                           (16, 80, True), (32, 16, False), (64, 32, True)])
+def test_sparse_fp32_forward_on_the_cuda_cores(gen, block, D, causal):
+    T = 8 * block
+    cfg = FixedSparsityConfig(4, block=block, num_local_blocks=4) if causal \
+        else BigBirdSparsityConfig(4, block=block)
+    _sparse_forward_checked(gen, cfg.make_layout(T), T, D, torch.float32, causal)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_sparse_backward_warps_of_one_cta_with_disjoint_lists(gen, dtype, causal):
@@ -306,6 +478,7 @@ def test_sparse_backward_warps_of_one_cta_with_disjoint_lists(gen, dtype, causal
     lay = np.eye(n, dtype=bool)
     pairs = tfa.sparse_pairs(lay, causal, 16 * n, "cuda")
     assert all(bin(int(m)).count("1") == 1 for m in pairs.dq.masks)
+    _sparse_forward_checked(gen, lay, 16 * n, 64, dtype, causal)
     _sparse_backward(gen, lay, 16 * n, 64, dtype, causal)
 
 
@@ -338,7 +511,8 @@ def test_sparse_backward_repeats_bitwise(gen, dtype):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
-@pytest.mark.parametrize("block,D,causal", [(16, 128, True), (128, 96, True), (32, 64, False)])
+@pytest.mark.parametrize("block,D,causal", [(16, 128, True), (128, 96, True), (32, 64, False),
+                                           (16, 80, True), (32, 16, False), (64, 32, True)])
 def test_sparse_fp32_backward_on_the_cuda_cores(gen, block, D, causal):
     T = 8 * block
     cfg = FixedSparsityConfig(4, block=block, num_local_blocks=4) if causal \

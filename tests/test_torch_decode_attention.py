@@ -13,7 +13,9 @@ import pytest
 import torch
 
 import deepspeed_tpu.ops.pallas.decode_attention as jda
+from deepspeed_tpu_torch.inference import config as tconfig
 from deepspeed_tpu_torch.ops.pallas import decode_attention as tda
+from deepspeed_tpu_torch.ops.pallas import flash_attention as tfa
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -55,8 +57,8 @@ def test_tensor_pos_matches_int_pos():
 
 @pytest.mark.parametrize("bad,err", [
     (dict(kv=3), ValueError),                       # H % KV != 0
-    (dict(dh=32), ValueError),                      # head dim the kernel lacks
-    (dict(dtype=torch.float16), TypeError),
+    (dict(dh=48), ValueError),                      # head dim the kernel lacks
+    (dict(dtype=torch.float64), TypeError),
     (dict(pos_dtype=torch.int64), ValueError),
 ])
 def test_kernel_checks_reject_what_it_does_not_take(bad, err):
@@ -66,3 +68,26 @@ def test_kernel_checks_reject_what_it_does_not_take(bad, err):
     pos = torch.tensor(3, dtype=bad.get("pos_dtype", torch.int32))
     with pytest.raises(err):
         tda._check(q, k, k.clone(), pos)
+
+
+@pytest.mark.parametrize("name", sorted(tconfig._DTYPES))
+def test_every_serving_dtype_has_a_kernel_instance(name):
+    """Every dtype the inference config accepts has a dtype code in the
+    decode and flash wrappers, so serving in it on the card launches the
+    kernels; the code table is the C dispatch's."""
+    dtype = tconfig.DeepSpeedInferenceConfig(dtype=name).torch_dtype()
+    assert dtype in tda._DTYPE_CODES and dtype in tfa._DTYPE_CODES
+    assert tda._DTYPE_CODES == tfa._DTYPE_CODES
+
+
+@pytest.mark.parametrize("kv", [4, 1])
+def test_fp16_plain_version_matches_jax(kv):
+    """fp16 inputs through both packages' einsum decode (the JAX decode
+    kernel's reference; the port's plain version), which round the scores
+    and probabilities to fp16 alike: held at the bf16 tolerance, 2e-2."""
+    q, k, v = (x.astype(np.float16) for x in _rand(2, 96, 4, kv, 64, seed=3))
+    ref = jda.decode_reference(*map(jnp.asarray, (q, k, v)), jnp.int32(70))
+    out = tda.decode_attention(*map(torch.from_numpy, (q, k, v)), 70)
+    assert out.dtype == torch.float16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, dtype=np.float32),
+                               atol=2e-2, rtol=2e-2)

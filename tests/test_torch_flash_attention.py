@@ -79,7 +79,7 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize("bad,err", [
-    (dict(d=80), ValueError),                       # head dim the kernel lacks
+    (dict(d=48), ValueError),                       # head dim the kernel lacks
     (dict(dtype=torch.float64), TypeError),
     (dict(noncontig=True), ValueError),
     (dict(t_k=0), ValueError),

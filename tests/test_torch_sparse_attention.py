@@ -218,6 +218,46 @@ def test_backward_schedules_select_each_kept_pair_once(name, causal, block):
         np.testing.assert_array_equal(cover, expect)
 
 
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", NAMES)
+def test_query_schedule_expands_to_the_token_mask(name, causal, block):
+    """The forward and dq walk the query side's schedule: its chunks,
+    expanded to (query, key) token pairs, with the causal cut applied only
+    to the chunk on each warp's diagonal (first key row == the warp's first
+    row), are exactly ``SparsePairs.mask``."""
+    T = 16 * block
+    p = tfa.SparsePairs(getattr(tsa, name)(num_heads=4, block=block).make_layout(T), causal, T,
+                        "cpu")
+    sched, c = p.dq, tfa.CHUNK
+    diag = np.tril(np.ones((c, c), dtype=bool))
+    seen = np.zeros((T, T), dtype=int)
+    for cta in range(sched.n_cta):
+        own = sched.own_rows_np[cta]
+        for word in sched.chunks_np[sched.chunk_ptr_np[cta]:sched.chunk_ptr_np[cta + 1]]:
+            key0 = word & ~15
+            for w in range(tfa.CTA_WARPS):
+                if word >> w & 1:
+                    row = own[w]
+                    assert row >= 0 and not (causal and key0 > row)
+                    seen[row:row + c, key0:key0 + c] += diag if causal and key0 == row else 1
+    np.testing.assert_array_equal(seen, p.mask.numpy().astype(int))
+
+
+def test_only_the_schedules_live_on_the_device():
+    """The kernels read only the two schedules, so only their tensors are
+    copied to the device; the CSR lists stay numpy arrays on the host."""
+    lay = tsa.FixedSparsityConfig(2, block=16).make_layout(256)
+    p = tfa.SparsePairs(lay, True, 256, "cpu")
+    assert [n for n, x in vars(p).items() if torch.is_tensor(x)] == []
+    assert not hasattr(p, "row_ptr") and not hasattr(p, "row_cols")
+    assert all(isinstance(getattr(p, n), np.ndarray)
+               for n in ("row_ptr_np", "row_cols_np", "col_ptr_np", "col_rows_np"))
+    for sched in (p.dq, p.dkv):
+        assert sorted(n for n, x in vars(sched).items() if torch.is_tensor(x)) == [
+            "chunk_ptr", "chunks", "own_rows"]
+
+
 def test_backward_schedules_are_built_once_and_live_on_the_device():
     lay = tsa.FixedSparsityConfig(2, block=16).make_layout(256)
     a = tfa.sparse_pairs(lay, True, 256, "cpu")
