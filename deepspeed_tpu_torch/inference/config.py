@@ -5,8 +5,11 @@ Counterpart of ``deepspeed_tpu/inference/config.py``, key-compatible with it
 keys and aliases (``kernel_inject``, ``tp``, ``tm``, ``max_tokens``,
 ``min_tokens``, ``ckpt_config``, ``injection_dict``), unknown keys rejected.
 Blocks this slice does not serve yet (tensor parallelism, MoE, weight
-quantization, checkpoint loading, injection policies, CUDA graphs) raise
-``NotImplementedError`` rather than being ignored.
+quantization, checkpoint loading, injection policies) raise
+``NotImplementedError`` rather than being ignored. ``enable_cuda_graph`` is
+accepted, as the JAX package accepts it: the engine runs the decode loop as
+one captured CUDA graph on the card whatever the key says, as the JAX engine
+always compiles it into one program.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     dtype: str = "bfloat16"
     tensor_parallel: DeepSpeedTPConfig = field(default_factory=DeepSpeedTPConfig,
                                                metadata={"alias": "tp"})
-    enable_cuda_graph: bool = False
+    enable_cuda_graph: bool = False  # accepted; the decode loop is always graphed on the card
     use_triton: bool = False
     zero: dict = field(default_factory=dict)
     triangular_masking: bool = field(default=True, metadata={"alias": "tm"})
@@ -78,8 +81,6 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         for key in ("moe", "quant", "checkpoint", "injection_policy", "injection_policy_tuple"):
             if getattr(self, key):
                 raise _later(f"inference config {key!r}")
-        if self.enable_cuda_graph:
-            raise _later("enable_cuda_graph")
         self.torch_dtype()
 
     @property

@@ -11,6 +11,11 @@ and an unchanged one is reused. Libraries go to
 ``deepspeed_tpu_torch/build/``. :func:`build_all` starts one ``nvcc`` per
 source at once and waits for all of them; a failed build raises with
 ``nvcc``'s messages.
+
+Launch counts: each wrapper counts its launches on its :class:`CudaKernel`.
+A launch captured in a CUDA graph is counted at capture, where it does not
+run; whoever captures the graph takes that count back and credits it per
+replay with :func:`add_launches`, so the counts read what the device ran.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -30,6 +35,9 @@ BUILD_DIR = PACKAGE_DIR / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+_KERNELS: List["CudaKernel"] = []   # every CudaKernel made, for launch_counts
 
 
 def _nvcc() -> str:
@@ -63,6 +71,7 @@ class CudaKernel:
         self.entry_launches = dict.fromkeys(self.functions, 0)
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
+        _KERNELS.append(self)
 
     @property
     def launches(self) -> int:
@@ -144,3 +153,18 @@ def build_all(kernels: Iterable[CudaKernel]) -> float:
     for kern in kernels:
         kern.load()
     return time.perf_counter() - t0
+
+
+LaunchCounts = Dict[Tuple[CudaKernel, str], int]
+
+
+def launch_counts() -> LaunchCounts:
+    """Every kernel's launches so far, per (kernel, C entry)."""
+    return {(kern, fn): n for kern in _KERNELS for fn, n in kern.entry_launches.items()}
+
+
+def add_launches(counts: Mapping[Tuple[CudaKernel, str], int]) -> None:
+    """Add ``counts`` to the kernels' launch counts (a negative count takes
+    launches back)."""
+    for (kern, fn), n in counts.items():
+        kern.entry_launches[fn] += n

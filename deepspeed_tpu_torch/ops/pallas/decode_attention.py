@@ -1,9 +1,12 @@
-"""Decode attention: the CUDA kernel's wrapper and its plain version.
+"""Decode attention: the CUDA kernel's wrapper and its plain versions.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/decode_attention.py``. The kernel
 is ``csrc/decode_attention.cu``; it replaces the Pallas ``_decode_kernel``:
 one new query token per sequence attends over a KV cache whose entries are
-valid through index ``pos``, with grouped-query heads.
+valid through index ``pos``, with grouped-query heads. The kernel splits the
+cache into chunks of :func:`decode_chunk` keys, one CTA each, and the last
+CTA of each (batch row, head group) merges the chunks' partial softmax
+states; :func:`decode_split_reference` is that split in plain PyTorch.
 
 A CUDA tensor goes to the kernel, or the call raises. A CPU tensor goes to
 the plain version, :func:`decode_reference`, which is also the models'
@@ -13,9 +16,11 @@ non-kernel decode path.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops.op_builder import CudaKernel
 
@@ -26,9 +31,55 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL = CudaKernel("decode_attention", {
-    # q, k, v, pos, o, b, h, kv, s, dh, scale, dtype, device, stream
-    "decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P),
+    # q, k, v, pos, o, work, sem, b, h, kv, s, dh, chunk, scale, dtype, device, stream
+    "decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                         _I, _I, _P),
 })
+TILE_KEYS = 64       # the kernel's K/V tile; a chunk is a multiple of it
+# The grid the chunk length aims for: at least one CTA per SM, so between one
+# and two. On the H100 more and shorter chunks were slower at every shape
+# measured (PERF.md, section 6): each costs a partial and its share of the merge.
+CTAS_PER_SM = 1
+# Per device, the merge's semaphores: zero before and after every launch.
+# They grow by replacement; a replaced buffer stays alive for the CUDA graphs
+# captured with it. Launches on one device must not overlap in time (one
+# stream, as the engine runs them).
+_SEMAPHORES: dict = {}
+_RETIRED: list = []
+
+
+def decode_chunk(batch: int, kv_heads: int, capacity: int, n_sm: int) -> int:
+    """Keys per CTA of the split decode kernel: the longest power-of-two
+    multiple of the 64-key tile that still gives the grid ``CTAS_PER_SM``
+    CTAs per SM over (batch row, KV head, chunk), or the whole cache when it
+    has no more. It depends on the cache capacity S, never on ``pos``, so one
+    launch can be captured and replayed at every position; chunks past
+    ``pos`` exit at once."""
+    chunk = TILE_KEYS
+    while chunk < capacity and \
+            batch * kv_heads * -(-capacity // (2 * chunk)) >= CTAS_PER_SM * n_sm:
+        chunk *= 2
+    return chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _semaphores(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 semaphores on ``device``, made outside any
+    CUDA graph capture (a decode loop's warm-up step makes them)."""
+    sem = _SEMAPHORES.get(device.index)
+    if sem is None or sem.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_attention: run it once at this shape before capturing "
+                               "a CUDA graph, so that its semaphores exist")
+        if sem is not None:
+            _RETIRED.append(sem)
+        sem = _SEMAPHORES[device.index] = torch.zeros(max(n, 4096), dtype=torch.int32,
+                                                      device=device)
+    return sem
 
 
 def decode_reference(q, k_cache, v_cache, pos):
@@ -45,6 +96,31 @@ def decode_reference(q, k_cache, v_cache, pos):
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bgrk,bkgd->bgrd", p, v_cache).reshape(B, H, Dh)
+
+
+def decode_split_reference(q, k_cache, v_cache, pos, chunk: int):
+    """The kernel's split in plain PyTorch, fp32: partial softmax states (m,
+    l, unnormalised output) per chunk of ``chunk`` keys, entries past ``pos``
+    masked to -1e30 and their V rows zeroed (never read), then the merge
+    o = sum_c e^(m_c - M) o_c / sum_c e^(m_c - M) l_c. A chunk past ``pos``
+    has m = -1e30 and l = 0, and so exactly zero weight. → (B, H, Dh) in
+    q's type."""
+    B, H, Dh = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    valid = torch.arange(n * chunk, device=q.device) <= pos                   # (n * chunk,)
+    k = F.pad(k_cache.float(), (0, 0, 0, 0, 0, pad))
+    v = F.pad(v_cache.float(), (0, 0, 0, 0, 0, pad)).masked_fill(~valid[:, None, None], 0.0)
+    qg = q.float().reshape(B, KV, H // KV, Dh)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k) / math.sqrt(Dh)
+    s = s.masked_fill(~valid, NEG_INF).reshape(B, KV, H // KV, n, chunk)
+    m = s.amax(dim=-1)                                                        # (B, KV, r, n)
+    p = torch.exp(s - m[..., None]).masked_fill(~valid.reshape(n, chunk), 0.0)
+    part_o = torch.einsum("bgrnk,bnkgd->bgrnd", p, v.reshape(B, n, chunk, KV, Dh))
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    o = (w[..., None] * part_o).sum(dim=3) / (w * p.sum(dim=-1)).sum(dim=-1)[..., None]
+    return o.reshape(B, H, Dh).to(q.dtype)
 
 
 def _check(q, k_cache, v_cache, pos):
@@ -86,9 +162,17 @@ def decode_attention(q, k_cache, v_cache, pos):
     _check(q, k_cache, v_cache, pos)
     B, H, Dh = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
+    chunk = decode_chunk(B, KV, S, _sm_count(q.device.index))
+    n_chunks = -(-S // chunk)
     o = torch.empty_like(q)
+    work, sem = None, None
+    if n_chunks > 1:
+        # the chunks' partials, sized from S: (B * H, chunks, Dh) outputs, then (m, l)
+        work = torch.empty(B * H * n_chunks * (Dh + 2), dtype=torch.float32, device=q.device)
+        sem = _semaphores(q.device, B * H).data_ptr()   # one per (batch row, head group)
     KERNEL.launch("decode_attention", q.data_ptr(), k_cache.data_ptr(),
-                  v_cache.data_ptr(), pos.data_ptr(), o.data_ptr(), B, H, KV, S, Dh,
+                  v_cache.data_ptr(), pos.data_ptr(), o.data_ptr(),
+                  work.data_ptr() if work is not None else None, sem, B, H, KV, S, Dh, chunk,
                   1.0 / math.sqrt(Dh), _DTYPE_CODES[q.dtype], q.device.index,
                   torch.cuda.current_stream(q.device).cuda_stream)
     return o

@@ -3,10 +3,14 @@
 The cases of tests/unit/test_decode_attention.py. On the CPU the port's
 wrapper runs its plain version; the JAX kernel interprets itself off the
 TPU. Both sides are fp32 on the CPU, so the tolerance is 2e-5, as in the JAX
-test. The kernel itself runs only on the card (tests/test_torch_cuda.py
-and chip_smoke.py).
+test. The kernel's split over the cache (``decode_split_reference``, the
+chunk choice) is held against the same JAX kernel. The kernel itself runs
+only on the card (tests/test_torch_cuda.py and chip_smoke.py).
 """
 
+import inspect
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,3 +95,67 @@ def test_fp16_plain_version_matches_jax(kv):
     assert out.dtype == torch.float16
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, dtype=np.float32),
                                atol=2e-2, rtol=2e-2)
+
+
+_jax_decode = jax.jit(jda.decode_attention, static_argnames="block_k")
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-5), (jnp.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dh", tda.HEAD_DIMS)
+@pytest.mark.parametrize("h,kv", [(2, 2), (4, 2), (4, 1)])     # MHA, GQA, MQA
+@pytest.mark.parametrize("pos", [0, 63, 64, 191])               # chunk 64: 0, c-1, c, S-1
+def test_split_reference_matches_jax_kernel_and_plain(pos, h, kv, dh, dtype, tol):
+    """The kernel's split, in plain PyTorch, over three 64-key chunks of a
+    192-entry cache: chunks past pos get exactly zero weight, and the merge
+    gives the JAX kernel's output (fp32 2e-5, the JAX test's tolerance; bf16
+    2e-2: both round their fp32 result to bf16) and the plain version's on
+    the same inputs."""
+    q, k, v = _rand(1, 192, h, kv, dh, seed=dh + 7 * kv + h)
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    ref = np.asarray(_jax_decode(jq, jk, jv, jnp.int32(pos), block_k=64), np.float32)
+    tq, tk, tv = (torch.from_numpy(np.array(x, np.float32)) for x in (jq, jk, jv))
+    if dtype == jnp.bfloat16:
+        tq, tk, tv = (x.to(torch.bfloat16) for x in (tq, tk, tv))
+    out = tda.decode_split_reference(tq, tk, tv, torch.tensor(pos, dtype=torch.int32), 64)
+    assert out.dtype == tq.dtype
+    plain = tda.decode_reference(tq.float(), tk.float(), tv.float(), pos).to(tq.dtype)
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=tol)
+    np.testing.assert_allclose(out.float().numpy(), plain.float().numpy(), atol=tol, rtol=tol)
+
+
+def test_split_reference_never_reads_past_pos():
+    """NaN and +-1e9 past pos change nothing: the split masks the scores and
+    zeroes the V rows there, as the kernel never reads them."""
+    q, k, v = map(torch.from_numpy, _rand(2, 256, 4, 2, 64, seed=4))
+    clean = tda.decode_split_reference(q, k, v, 100, 64)
+    k[:, 101:] = 1e9
+    k[:, 101::2] = -1e9
+    v[:, 101:] = float("nan")
+    assert torch.equal(tda.decode_split_reference(q, k, v, 100, 64), clean)
+
+
+@pytest.mark.parametrize("batch,kv,capacity", [(32, 8, 256), (4, 8, 8192), (1, 8, 32768),
+                                               (1, 1, 8192)])
+def test_decode_chunk_fills_the_card_from_the_capacity(batch, kv, capacity):
+    """On the H100's 132 SMs the grid over (batch row, KV head, chunk) has
+    CTAS_PER_SM to twice that CTAs per SM at the serving shape (B=32, S=256,
+    one chunk) and at the long ones (B=4, S=8192: 8 chunks of 1024), with the
+    longest chunk that keeps it so; the chunk is a multiple of the 64-key
+    tile and a function of the capacity, never of pos. A grid that cannot
+    fill the card (B=1, one KV head) takes the smallest chunk, the tile."""
+    n_sm = 132
+    chunk = tda.decode_chunk(batch, kv, capacity, n_sm)
+    ctas = batch * kv * -(-capacity // chunk)
+    assert chunk % tda.TILE_KEYS == 0
+    assert ctas >= tda.CTAS_PER_SM * n_sm or chunk == tda.TILE_KEYS   # else the tile
+    assert chunk >= capacity or ctas < 2 * tda.CTAS_PER_SM * n_sm
+    assert "pos" not in inspect.signature(tda.decode_chunk).parameters
+    assert {(32, 256): 256, (4, 8192): 1024, (1, 32768): 1024,
+            (1, 8192): 64}[batch, capacity] == chunk
+
+
+def test_decode_chunk_of_a_small_cache_is_one_tile():
+    """A cache shorter than a tile is one chunk: the kernel writes the
+    output itself and launches no merge."""
+    assert tda.decode_chunk(2, 2, 48, 132) == tda.TILE_KEYS
+    assert tda.decode_chunk(1, 1, 64, 132) == tda.TILE_KEYS

@@ -1,7 +1,10 @@
 """The port's inference engine against the JAX package's, on the CPU.
 
 Greedy generation must give identical tokens; sampling is compared by its
-filter rules (the two frameworks draw different random numbers).
+filter rules (the two frameworks draw different random numbers). The
+engine's decode loop over static buffers (``DecodeLoop``, the step a CUDA
+graph captures on the card) runs eagerly here and must give the tokens of
+the ungraphed loop (``build_generate_parts``) and of the JAX engine.
 """
 
 import dataclasses
@@ -128,7 +131,7 @@ def test_config_takes_the_jax_keys_and_rejects_unknown_ones():
 
 @pytest.mark.parametrize("block", [{"tp": {"tp_size": 2}}, {"mp_size": 2},
                                    {"moe": {"ep_size": 2}}, {"quant": {"enabled": True}},
-                                   {"dtype": "int8"}, {"enable_cuda_graph": True}])
+                                   {"dtype": "int8"}])
 def test_config_blocks_of_later_slices_raise(block):
     with pytest.raises(NotImplementedError, match="later slice"):
         tconfig.DeepSpeedInferenceConfig.from_dict(block)
@@ -142,3 +145,103 @@ def test_init_inference_without_cuda_raises_unless_asked_for_cpu():
         deepspeed_tpu_torch.init_inference(model, {"dtype": "float32"})
     eng = deepspeed_tpu_torch.init_inference(model, {"dtype": "float32"}, device="cpu")
     assert eng.device.type == "cpu" and eng.module.wte.dtype == torch.float32
+
+
+def _eager_loop(te, ids, max_new_tokens, seed=0, do_sample=False, temperature=1.0, top_k=0,
+                top_p=1.0, eos_token_id=None):
+    """The ungraphed decode loop of ``build_generate_parts`` on te's model."""
+    prefill, decode = tengine.build_generate_parts(te.module, max_new_tokens, do_sample,
+                                                   temperature, top_k, top_p, eos_token_id)
+    ids = torch.from_numpy(np.asarray(ids)).long()
+    with torch.inference_mode():
+        logits, cache = prefill(ids)
+        return decode(ids, logits, cache, torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("use_flash_decode", [False, True])
+@pytest.mark.parametrize("with_eos", [False, True])
+def test_static_decode_loop_matches_eager_loop_and_jax(use_flash_decode, with_eos):
+    """``generate`` runs the static-buffer step eagerly on the CPU: greedy
+    tokens equal the ungraphed loop's and the JAX engine's, EOS masking
+    included (a token row 0 emits mid-way)."""
+    je, te = _engines(use_flash_decode)
+    ids = _prompt()
+    eos = int(np.asarray(je.generate(ids, max_new_tokens=8))[0, 10]) if with_eos else None
+    out_j = np.asarray(je.generate(ids, max_new_tokens=8, eos_token_id=eos))
+    out_t = te.generate(ids, max_new_tokens=8, eos_token_id=eos)
+    assert torch.equal(out_t, _eager_loop(te, ids, 8, eos_token_id=eos))
+    np.testing.assert_array_equal(out_t.numpy(), out_j)
+    loop, = te._decode_loops.values()
+    assert loop.graph is None                   # the CPU path captures nothing
+    if with_eos:
+        assert (out_t[0, 10:] == eos).all() and loop.done[0]
+
+
+def test_second_generate_with_the_same_key_reuses_its_buffers():
+    """A second call with the same key runs the same loop on the same
+    buffers and gives the same tokens; other keys get loops of their own
+    and do not disturb it."""
+    _, te = _engines(False)
+    ids = _prompt()
+    first = te.generate(ids, max_new_tokens=8)
+    loop, = te._decode_loops.values()
+    buffers = {n: t.data_ptr() for n, t in loop.cache.items()}
+    shorter = te.generate(ids, max_new_tokens=6)
+    one_row = te.generate(ids[:1], max_new_tokens=8)
+    eos = te.generate(ids, max_new_tokens=8, eos_token_id=int(first[0, 10]))
+    again = te.generate(ids, max_new_tokens=8)
+    assert len(te._decode_loops) == 4
+    assert te._decode_loops[(2, 8, 8, False, 1.0, 0, 1.0, None)] is loop
+    assert {n: t.data_ptr() for n, t in loop.cache.items()} == buffers
+    assert torch.equal(again, first)
+    assert torch.equal(shorter, _eager_loop(te, ids, 6))
+    assert torch.equal(one_row, _eager_loop(te, ids[:1], 8))
+    assert torch.equal(eos, _eager_loop(te, ids, 8, eos_token_id=int(first[0, 10])))
+
+
+def test_engine_keeps_the_decode_loops_of_its_most_recent_keys():
+    """Each loop holds a KV cache (and on the card a graph), so the engine
+    keeps ``DECODE_LOOPS_KEPT`` of them: a new key drops the least recently
+    used one, and that key comes back with a new loop and the same
+    tokens."""
+    _, te = _engines(False)
+    ids = _prompt()
+    key = lambda n: (2, 8, n, False, 1.0, 0, 1.0, None)
+    kept = tengine.DECODE_LOOPS_KEPT
+    first = te.generate(ids, max_new_tokens=2)
+    loop = te._decode_loops[key(2)]
+    for n in range(3, 2 + kept):
+        te.generate(ids, max_new_tokens=n)
+    te.generate(ids, max_new_tokens=2)          # key 2 is now the most recent
+    te.generate(ids, max_new_tokens=2 + kept)   # one key too many: key 3 goes
+    assert len(te._decode_loops) == kept and key(3) not in te._decode_loops
+    assert te._decode_loops[key(2)] is loop
+    assert torch.equal(te.generate(ids, max_new_tokens=3), _eager_loop(te, ids, 3))
+    assert key(3) in te._decode_loops and key(4) not in te._decode_loops
+    assert torch.equal(te.generate(ids, max_new_tokens=2), first)
+
+
+@pytest.mark.parametrize("temperature,top_k,top_p", [(1.0, 50, 1.0), (0.7, 0, 0.9)])
+def test_sampled_decode_loop_draws_the_eager_loops_stream(temperature, top_k, top_p):
+    """The static loop's generator is reseeded per call, so a seed gives the
+    draws of the ungraphed loop seeded alike, call after call."""
+    _, te = _engines(False)
+    ids = _prompt()
+    kw = dict(do_sample=True, temperature=temperature, top_k=top_k, top_p=top_p)
+    a = te.generate(ids, max_new_tokens=6, seed=3, **kw)
+    b = te.generate(ids, max_new_tokens=6, seed=3, **kw)
+    assert torch.equal(a, b) and torch.equal(a, _eager_loop(te, ids, 6, seed=3, **kw))
+    assert torch.equal(te.generate(ids, max_new_tokens=6, seed=4, **kw),
+                       _eager_loop(te, ids, 6, seed=4, **kw))
+
+
+def test_enable_cuda_graph_is_accepted_as_in_jax():
+    """The key the JAX config accepts as meaningless on TPU is accepted: the
+    decode loop is one captured graph on the card whatever it says."""
+    j = jconfig.DeepSpeedInferenceConfig(enable_cuda_graph=True)
+    t = tconfig.DeepSpeedInferenceConfig.from_dict({"enable_cuda_graph": True})
+    assert t.enable_cuda_graph is True and j.enable_cuda_graph is True
+    model = tllama.LlamaModel(tllama.PRESETS["llama-tiny"])
+    eng = deepspeed_tpu_torch.init_inference(model, {"dtype": "float32",
+                                                     "enable_cuda_graph": True}, device="cpu")
+    assert eng.generate(_prompt(), max_new_tokens=2).shape == (2, 10)

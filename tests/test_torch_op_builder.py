@@ -62,3 +62,20 @@ def test_a_header_edit_rebuilds_every_kernel_of_the_directory(csrc):
     h = csrc / "hopper_mma.cuh"
     h.write_text(h.read_text().replace("kLog2e", "kLog2E"))
     assert all(_path(n) != before[n] for n in names)
+
+
+def test_launch_counts_cover_every_kernel_and_take_credits():
+    """Every kernel's entries are in ``launch_counts``; ``add_launches``
+    credits (and takes back) launches, as the decode loop does per replay
+    of a captured graph."""
+    from deepspeed_tpu_torch.ops.pallas import decode_attention as tda
+    from deepspeed_tpu_torch.ops.pallas import flash_attention as tfa
+
+    counts = op_builder.launch_counts()
+    for kern in (tda.KERNEL, tfa.KERNEL, tfa.BWD_KERNEL, tfa.SPARSE_KERNEL):
+        assert {(kern, fn) for fn in kern.functions} <= counts.keys()
+    before = tda.KERNEL.launches
+    op_builder.add_launches({(tda.KERNEL, "decode_attention"): 3})
+    assert tda.KERNEL.launches == before + 3
+    op_builder.add_launches({(tda.KERNEL, "decode_attention"): -3})
+    assert tda.KERNEL.launches == before
