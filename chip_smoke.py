@@ -21,10 +21,25 @@ It also serves two layers of llama3.2-1b in fp32 and fp16 and with sampling
 (top-k) through the graphed loop, serves llama3.2-1b at full depth over an
 8192-entry cache (B=4, the path the decode kernel's split over the cache is
 for), and trains two layers of gpt2-2.7b (head dim 80), dense and
-block-sparse, against the plain path. Each phase prints
-one JSON line; any failed check raises, and the script exits non-zero
-without the final line. It needs one card and imports nothing of JAX or of
-the JAX package.
+block-sparse, against the plain path. Then it feeds, saves and resumes
+gpt2-760m at full width and depth (``resume``): a token dataset written with
+the port's indexed-dataset builder into a temporary directory, engine A
+trained through ``initialize(training_data=...)``'s loader, saved with the
+default async save and trained on, engines B and C built from other seeds
+loading the tag and training on through their restored loaders; it holds
+the state after each load to the saved state bit for bit, B's batches to
+A's, and B's losses to A's as closely as to C's, and reports the tag's
+bytes, the save's blocking and commit seconds, the write and read rates
+and the data wait per step. ``curriculum`` trains the same model under the
+legacy ``curriculum_learning`` block, T growing through ragged lengths to
+1024 (the kernel checks hold the forward and both backward kernels against
+their plain versions at each of those lengths), and reports the data wait
+with the host truncation; ``resume ... 2-layer ladder`` truncates a file of the newest of two
+tags (load falls back to the older), loads a corrupt tag by name (nothing
+loads) and a model of another head count (``CheckpointLayoutError``). The
+directory is removed afterwards. Each phase prints one JSON line; any
+failed check raises, and the script exits non-zero without the final line.
+It needs one card and imports nothing of JAX or of the JAX package.
 
 The last lines are: the kernels' summary as ``{"kernels": [...]}``, the
 card's ``nvidia-smi`` name and power limit, and
@@ -44,9 +59,12 @@ warm-up steps; the median is reported with every step's time.
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,6 +88,16 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_BATCH, "gradient_accumul
                 "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
                 "gradient_clipping": 1.0, "steps_per_print": 0, "seed": SEED}
 CHECK_FP32 = dict(layers=2, batch=2, gas=2, steps=3)   # the fp32 train check
+# the resume phase: a token dataset written with the port's indexed-dataset
+# builder, steps before and after the save, and the disk the tag needs
+RESUME_SAMPLES, RESUME_STEPS = 64, 3
+STATE_BYTES_PER_PARAM = 14          # bf16 params, fp32 masters, two fp32 moments
+DISK_MARGIN = 2.5                   # free space wanted per byte of the tag
+# the curriculum phase: the legacy block, T from 64 towards 1024 in 8 steps
+CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 64,
+              "max_difficulty": TRAIN_SEQ, "schedule_type": "fixed_linear",
+              "schedule_config": {"total_curriculum_step": 8, "difficulty_step": 8}}
+CURRICULUM_STEPS = 9
 SPARSE_MODEL = "gpt2-1.3b"
 SPARSE_BATCH, SPARSE_SEQ = 4, 2048          # the sparse training cell: micro batch 4, gas 1
 # the reference's documented "fixed" layout (DeepSpeed docs, config-json
@@ -1181,6 +1209,321 @@ def check_head_dim_80(initialize, GPT2Model, cfg, fa):
                          {"sparse_attention": dict(block)} if block else {}, to_plain)
 
 
+# ------------------------------------------------------ feed, save, resume
+
+def _scratch_dir():
+    """The candidate directory (the temp dir, the checkout) with the most
+    free space, and every candidate's free bytes."""
+    free = {d: shutil.disk_usage(d).free
+            for d in (tempfile.gettempdir(), os.path.dirname(os.path.abspath(__file__)))}
+    best = max(free, key=free.get)
+    return best, free
+
+
+def _token_dataset(tmp: str, vocab: int):
+    """RESUME_SAMPLES rows of TRAIN_SEQ int32 tokens from SEED, written with
+    the port's indexed-dataset builder and read back memory-mapped."""
+    from deepspeed_tpu_torch.runtime.data_pipeline.indexed_dataset import (
+        MMapIndexedDataset, MMapIndexedDatasetBuilder)
+
+    prefix = os.path.join(tmp, "tokens")
+    builder = MMapIndexedDatasetBuilder(prefix, dtype=np.int32)
+    rng = np.random.default_rng(SEED)
+    for _ in range(RESUME_SAMPLES):
+        builder.add_item(rng.integers(0, vocab, size=TRAIN_SEQ, dtype=np.int32))
+    builder.finalize()
+    return MMapIndexedDataset(prefix)
+
+
+def _fed_steps(engine, it, n: int) -> dict:
+    """n steps, each batch taken from the loader's iterator (collate
+    included) and then trained on: the losses, the batches, the data wait
+    and the step time (to the loss on the host), in ms."""
+    out = {"losses": [], "batches": [], "wait_ms": [], "step_ms": []}
+    for _ in range(n):
+        t0 = time.perf_counter()
+        batch = next(it)
+        t1 = time.perf_counter()
+        out["losses"].append(float(engine.train_batch(batch)))
+        out["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        out["wait_ms"].append((t1 - t0) * 1e3)
+        out["batches"].append(batch)
+    return out
+
+
+def _bitwise_equal(a, b) -> bool:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    return torch.equal(a, b)
+
+
+def _checksum(engine) -> float:
+    return sum(p.detach().double().sum().item() for p in engine.module.parameters())
+
+
+def _tree_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _evict_from_page_cache(path: str) -> None:
+    """Drop the tag's clean pages from the page cache, so the next load
+    reads the disk and not memory."""
+    for d, _, fs in os.walk(path):
+        for f in fs:
+            fd = os.open(os.path.join(d, f), os.O_RDONLY)
+            try:
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+
+def _disk_rates(tmp: str, gib: int = 2) -> dict:
+    """What the disk gives without the checkpoint engine: ``gib`` GiB
+    written in 64 MiB chunks and fsynced, then read back after the pages
+    were dropped from the page cache, in GB/s."""
+    path, chunk = os.path.join(tmp, "disk_probe"), np.ones(64 * 2**20, np.uint8)
+    n = gib * 16
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(n):
+            f.write(chunk)
+        f.flush()
+        os.fsync(f.fileno())
+    write_s = time.perf_counter() - t0
+    _evict_from_page_cache(tmp)
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        while f.readinto(chunk):
+            pass
+    read_s = time.perf_counter() - t0
+    os.remove(path)
+    return {"probe_bytes": n * chunk.size, "disk_write_gb_per_s": n * chunk.size / write_s / 1e9,
+            "disk_read_gb_per_s": n * chunk.size / read_s / 1e9}
+
+
+def resume_slice(initialize, GPT2Model, cfg, accel, fa, dataset, tmp):
+    """gpt2-760m, bf16, full width, through initialize(training_data=...):
+    engine A trains RESUME_STEPS steps through its loader, saves (async, the
+    default), trains RESUME_STEPS more; engines B and C, each built from
+    another seed, load the tag and train RESUME_STEPS steps through their
+    own restored loaders. The state right after each load must equal A's at
+    the save bit for bit; B must see A's later batches; B's losses must be
+    as close to A's as to C's (bitwise when B and C are); every step must
+    launch each dense kernel once per layer."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import (flatten_state,
+                                                                       wait_for_pending_saves)
+
+    c = dataclasses.replace(cfg, remat=False)
+    ckpt = os.path.join(tmp, "ckpt")
+    kernels = (fa.KERNEL, fa.BWD_KERNEL)
+    for kern in kernels:
+        kern.reset_launches()
+    a, _, loader, _ = initialize(model=GPT2Model(c), config=dict(TRAIN_CONFIG),
+                                 training_data=dataset)
+    it = iter(loader)
+    first = _fed_steps(a, it, RESUME_STEPS)
+    saved = {k: v.clone() for k, v in flatten_state(a).items()}
+    saved_lr, saved_loader = a.get_lr()[0], a.dataloader.state_dict()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.save_checkpoint(ckpt)
+    blocking_s = time.perf_counter() - t0
+    later = _fed_steps(a, it, RESUME_STEPS)      # while the commit writes
+    sum_a = _checksum(a)
+    wait_for_pending_saves()
+    record = dict(a._last_save)
+    if "error" in record or "commit_s" not in record:
+        raise AssertionError(f"the async save did not commit: {record}")
+    tag_bytes = _tree_bytes(record["path"])
+    del a, it, loader
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for name, seed, cold in (("B", SEED + 1, True), ("C", SEED + 2, False)):
+        engine, _, ld, _ = initialize(model=GPT2Model(c), config={**TRAIN_CONFIG, "seed": seed},
+                                      training_data=dataset)
+        if cold:
+            _evict_from_page_cache(record["path"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path, _ = engine.load_checkpoint(ckpt)
+        load_s = time.perf_counter() - t0
+        restored = flatten_state(engine)
+        differ = sorted(k for k in saved if k not in restored
+                        or not _bitwise_equal(restored[k], saved[k]))
+        if restored.keys() != saved.keys() or differ or engine.get_lr()[0] != saved_lr \
+                or ld.state_dict() != saved_loader or path != record["path"]:
+            raise AssertionError(f"engine {name}: the state after load differs from the saved "
+                                 f"state: {len(differ)} tensors ({differ[:4]}), lr "
+                                 f"{engine.get_lr()[0]} vs {saved_lr}, loader "
+                                 f"{ld.state_dict()} vs {saved_loader}")
+        del restored
+        r = _fed_steps(engine, iter(ld), RESUME_STEPS)
+        if not all(np.array_equal(x, y) for x, y in zip(r["batches"], later["batches"])):
+            raise AssertionError(f"engine {name} did not see engine A's steps "
+                                 f"{RESUME_STEPS + 1}-{2 * RESUME_STEPS} batches")
+        runs[name] = dict(r, load_s=load_s, read_gb_per_s=tag_bytes / load_s / 1e9,
+                          page_cache="evicted" if cold else "warm", checksum=_checksum(engine),
+                          restore_s=engine._last_recovery["restore_s"])
+        del engine, ld
+        torch.cuda.empty_cache()
+    del saved
+
+    steps = 4 * RESUME_STEPS                      # A: 2, B: 1, C: 1 rounds
+    launches = {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
+    expect = dict.fromkeys(launches, c.n_layer * steps)
+    la, lb, lc = later["losses"], runs["B"]["losses"], runs["C"]["losses"]
+    d_ab = max(abs(x - y) for x, y in zip(la, lb))
+    d_bc = max(abs(x - y) for x, y in zip(lb, lc))
+    bc_bitwise = lb == lc and runs["B"]["checksum"] == runs["C"]["checksum"]
+    close = (la == lb and sum_a == runs["B"]["checksum"]) if bc_bitwise else d_ab <= d_bc
+    waits = first["wait_ms"] + later["wait_ms"]
+    step_ms = first["step_ms"] + later["step_ms"]
+    emit(f"resume {TRAIN_MODEL}", layers=c.n_layer, params=c.num_params(),
+         samples=RESUME_SAMPLES, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+         losses_a=first["losses"] + la, losses_b=lb, losses_c=lc,
+         checksum_a=sum_a, checksum_b=runs["B"]["checksum"], checksum_c=runs["C"]["checksum"],
+         b_c_bitwise=bc_bitwise, max_loss_diff_a_b=d_ab, max_loss_diff_b_c=d_bc,
+         state_bitwise_after_load=True, same_batches=True,
+         tag_bytes=tag_bytes, tag_bytes_predicted=STATE_BYTES_PER_PARAM * c.num_params(),
+         state_bytes=record["bytes"], save_blocking_s=blocking_s, commit_s=record["commit_s"],
+         write_s=record["write_s"], write_gb_per_s=record["bytes"] / record["write_s"] / 1e9,
+         load_s={n: r["load_s"] for n, r in runs.items()},
+         restore_s={n: r["restore_s"] for n, r in runs.items()},
+         read_gb_per_s={n: r["read_gb_per_s"] for n, r in runs.items()},
+         page_cache={n: r["page_cache"] for n, r in runs.items()},
+         data_wait_ms_each=waits, data_wait_ms_median=sorted(waits)[len(waits) // 2],
+         step_ms_a_each=step_ms, step_ms_during_commit=later["step_ms"],
+         step_ms_b=runs["B"]["step_ms"], step_ms_c=runs["C"]["step_ms"],
+         launches=launches, launches_expected=expect)
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} over {steps} steps, expected {expect}")
+    if not close or not all(math.isfinite(x) for x in la + lb + lc):
+        raise AssertionError(f"resumed losses: A {la}, B {lb}, C {lc} (B and C bitwise: "
+                             f"{bc_bitwise}; |A-B| {d_ab}, |B-C| {d_bc})")
+    return launches
+
+
+def curriculum_lengths() -> list:
+    """T at each of the curriculum phase's steps, from the port's scheduler."""
+    from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import \
+        CurriculumScheduler
+
+    sched = CurriculumScheduler(CURRICULUM)
+    return [sched.get_difficulty(s) for s in range(1, CURRICULUM_STEPS + 1)]
+
+
+def curriculum_slice(initialize, GPT2Model, cfg, fa, dataset):
+    """gpt2-760m with the legacy curriculum_learning block, CURRICULUM_STEPS
+    steps through the loader: T follows the schedule through ragged lengths
+    up to TRAIN_SEQ, and every step launches each dense kernel once per
+    layer. The data wait counts the host truncation too: it runs inside
+    train_batch, so it is timed again apart from the step on the same
+    batch."""
+    from deepspeed_tpu_torch.runtime.data_pipeline.data_sampling import apply_seqlen_curriculum
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+
+    c = dataclasses.replace(cfg, remat=False)
+    engine, _, loader, _ = initialize(
+        model=GPT2Model(c), config={**TRAIN_CONFIG, "curriculum_learning": dict(CURRICULUM)},
+        training_data=dataset)
+    it = iter(RepeatingLoader(loader))
+    kernels = (fa.KERNEL, fa.BWD_KERNEL)
+    for kern in kernels:
+        kern.reset_launches()
+    counts = lambda: {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
+    steps, seen = [], counts()
+    for _ in range(CURRICULUM_STEPS):
+        r = _fed_steps(engine, it, 1)
+        now = counts()
+        t = engine.curriculum_scheduler.get_current_difficulty()
+        t0 = time.perf_counter()
+        apply_seqlen_curriculum(r["batches"][0], t)
+        cut_ms = (time.perf_counter() - t0) * 1e3
+        steps.append({"T": t, "step_ms": r["step_ms"][0],
+                      "data_wait_ms": r["wait_ms"][0] + cut_ms, "next_ms": r["wait_ms"][0],
+                      "truncate_ms": cut_ms, "loss": r["losses"][0],
+                      "launches": {k: now[k] - seen[k] for k in now}})
+        seen = now
+    want_t = curriculum_lengths()
+    emit(f"curriculum {TRAIN_MODEL}", schedule=CURRICULUM, steps=steps, expected_T=want_t)
+    bad = [s for s in steps if s["launches"] != dict.fromkeys(s["launches"], c.n_layer)]
+    if [s["T"] for s in steps] != want_t or bad \
+            or not all(math.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"curriculum steps: T {[s['T'] for s in steps]} (want {want_t}), "
+                             f"steps with other launch counts: {bad}")
+    del engine, loader, it
+    torch.cuda.empty_cache()
+    return seen
+
+
+def resume_ladder(initialize, GPT2Model, cfg, dataset, tmp):
+    """Two full-width layers, two tags: a truncated file in the newest tag
+    makes load restore the older one; an explicit tag that fails
+    verification loads nothing; a model with another head count raises
+    CheckpointLayoutError."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import (CheckpointLayoutError,
+                                                                       wait_for_pending_saves)
+
+    c = dataclasses.replace(cfg, n_layer=2, remat=False)
+    ckpt = os.path.join(tmp, "ladder")
+    engine, _, loader, _ = initialize(model=GPT2Model(c), config=dict(TRAIN_CONFIG),
+                                      training_data=dataset)
+    it = iter(loader)
+    for _ in range(2):
+        engine.train_batch(data_iter=it)
+        engine.save_checkpoint(ckpt)
+    wait_for_pending_saves()
+    del engine, loader, it
+    victim = os.path.join(ckpt, "global_step2", "state", "params.pt")
+    os.truncate(victim, os.path.getsize(victim) // 2)
+    fresh, *_ = initialize(model=GPT2Model(c), config={**TRAIN_CONFIG, "seed": SEED + 3},
+                           training_data=dataset)
+    path, _ = fresh.load_checkpoint(ckpt)
+    restored = (os.path.basename(path or ""), fresh.global_steps)
+    explicit = fresh.load_checkpoint(ckpt, tag="global_step2")
+    other, *_ = initialize(model=GPT2Model(dataclasses.replace(c, n_head=12)),
+                           config=dict(TRAIN_CONFIG))
+    try:
+        other.load_checkpoint(ckpt)
+        layout_error = None
+    except CheckpointLayoutError as e:
+        layout_error = str(e)[:160]
+    emit(f"resume {TRAIN_MODEL} 2-layer ladder", truncated="global_step2/state/params.pt",
+         restored=restored, explicit_corrupt_tag=list(explicit), layout_error=layout_error)
+    if restored != ("global_step1", 1) or explicit != (None, {}) or layout_error is None:
+        raise AssertionError(f"ladder: restored {restored}, explicit {explicit}, "
+                             f"layout error {layout_error}")
+    del fresh, other
+    torch.cuda.empty_cache()
+
+
+def data_and_checkpoint_slices(initialize, GPT2Model, cfg, accel, fa):
+    """The resume, curriculum and ladder phases over one token dataset in a
+    temporary directory on the disk with the most room, removed afterwards.
+    Where no candidate holds DISK_MARGIN times the tag, depth is cut to the
+    most layers that fit."""
+    need = lambda n: STATE_BYTES_PER_PARAM * dataclasses.replace(cfg, n_layer=n).num_params()
+    root, free = _scratch_dir()
+    layers = cfg.n_layer
+    while layers > 2 and DISK_MARGIN * need(layers) > free[root]:
+        layers -= 1
+    tmp = tempfile.mkdtemp(prefix="ds_resume_", dir=root)
+    try:
+        emit("disk", free_bytes=free, chosen=root, tag_bytes_predicted=need(layers),
+             layers=layers, depth_cut=layers != cfg.n_layer, **_disk_rates(tmp))
+        dataset = _token_dataset(tmp, cfg.vocab_size)
+        c = dataclasses.replace(cfg, n_layer=layers)
+        resume = resume_slice(initialize, GPT2Model, c, accel, fa, dataset, tmp)
+        curriculum = curriculum_slice(initialize, GPT2Model, cfg, fa, dataset)
+        resume_ladder(initialize, GPT2Model, cfg, dataset, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return resume, curriculum
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -1213,7 +1556,8 @@ def main() -> int:
     bf, f32 = torch.bfloat16, torch.float32
     f16 = torch.float16
     # the 64-row tiles' edges: T = 1, 63, 64, 65, 127, 200, 1000, Tq != Tk, and
-    # D 64 / 96 / 128 in bf16 and fp16
+    # D 64 / 96 / 128 in bf16 and fp16; the curriculum phase's lengths below 1024
+    ragged = sorted(set(curriculum_lengths()) - {TRAIN_SEQ})
     flash_rows = [check_flash(fa, accel, gen, *case) for case in (
         ("train", TRAIN_BATCH, TRAIN_SEQ, 16, 96, bf, True),
         ("slice", BATCH, PROMPT, 32, 64, bf, True),
@@ -1236,6 +1580,8 @@ def main() -> int:
         *((f"t{t}", 4, t, 16, 96, bf, True) for t in (63, 64, 65, 127, 200, 1000)),
         ("noncausal_tq100_tk300", 4, 100, 16, 96, bf, False, 300),
         ("causal_tq64_tk200", 4, 64, 16, 96, bf, True, 200),
+        # the curriculum phase's ragged lengths at the training cell's B, H, D
+        *((f"curriculum_t{t}", TRAIN_BATCH, t, 16, 96, bf, True) for t in ragged),
         # the long serving path's prefill, one row (the plain version's
         # (H, T, T) fp32 scores take 8 GB)
         ("long_prefill", 1, LONG_PROMPT, 32, 64, bf, True))]
@@ -1259,7 +1605,8 @@ def main() -> int:
         ("fp32_d80", 64, 200, 80, f32, True),
         *((f"t{t}", 64, t, 96, bf, True) for t in (63, 64, 65, 127, 200)),
         ("noncausal_tq100_tk300", 64, 100, 96, bf, False, 300),
-        ("causal_tq64_tk200", 64, 64, 96, bf, True, 200))]
+        ("causal_tq64_tk200", 64, 64, 96, bf, True, 200),
+        *((f"curriculum_t{t}", BH, t, 96, bf, True) for t in ragged))]
     S = PROMPT + GEN
     decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("slice_pos255", BATCH, S, 32, 8, 64, bf, S - 1),
@@ -1325,6 +1672,8 @@ def main() -> int:
                      f"{SPARSE_MODEL} sparse-fixed16", SPARSE_SEQ,
                      {"sparse_attention": dict(SPARSE_BLOCK)}, sparse_plain)
     check_head_dim_80(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets["gpt2-2.7b"], fa)
+    resume_launches, curriculum_launches = data_and_checkpoint_slices(
+        deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bwd = bwd_rows[0]
@@ -1335,7 +1684,9 @@ def main() -> int:
          "launches": train_launches["flash_attention_fwd"],
          **{k: flash_rows[0][k] for k in keys},
          "launches_by_path": {"serve": serve_launches["flash_attention_fwd"],
-                              "train": train_launches["flash_attention_fwd"]},
+                              "train": train_launches["flash_attention_fwd"],
+                              "resume": resume_launches["flash_attention_fwd"],
+                              "curriculum": curriculum_launches["flash_attention_fwd"]},
          "at_serving_shape": {k: flash_rows[1][k] for k in keys}},
         {"name": "decode_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
@@ -1350,6 +1701,9 @@ def main() -> int:
             "name": f"flash_attention_bwd_{entry}", "route": "cuda",
             "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu", "replaces": replaces,
             "launches": train_launches[f"flash_attention_bwd_{entry}"],
+            "launches_by_path": {p: n[f"flash_attention_bwd_{entry}"] for p, n in (
+                ("train", train_launches), ("resume", resume_launches),
+                ("curriculum", curriculum_launches))},
             "max_abs_err": max(bwd["errs"][n] for n in (("dq",) if entry == "dq"
                                                         else ("dk", "dv"))),
             "ms": bwd[f"{entry}_ms"], "plain_ms": bwd[f"{entry}_plain_ms"],

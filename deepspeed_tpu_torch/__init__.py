@@ -9,7 +9,9 @@ passes ``device="cpu"``.
 Ported so far: serving (``init_inference`` → ``InferenceEngine.generate``)
 of the llama family, and training on one card (``initialize`` →
 ``DeepSpeedEngine.train_batch``) of the GPT-2 family, with dense or
-block-sparse (ds_config ``sparse_attention``) attention.
+block-sparse (ds_config ``sparse_attention``) attention, fed by the data
+loader and the curriculum pipeline and saved to and resumed from verified
+checkpoints.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                collate_fn=None, config=None, config_params=None, device=None):
     """Create the training engine. Returns the reference's 4-tuple:
     (engine, optimizer, training dataloader, lr_scheduler); the dataloader is
-    None (``training_data`` raises until the data loader is ported).
+    the engine's loader over ``training_data`` (None without it).
     ``model`` is an ``nn.Module`` with ``loss(batch)`` (and ``init_params``
     when its weights are not loaded yet); ``model_parameters`` may be a state
     dict for it. The engine runs on CUDA unless ``device="cpu"``."""
@@ -47,7 +49,7 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              lr_scheduler=lr_scheduler, mpu=mpu,
                              dist_init_required=dist_init_required, collate_fn=collate_fn,
                              config_class=ds_config, device=device)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
 def _apply_sparse_attention(model, block: dict) -> None:

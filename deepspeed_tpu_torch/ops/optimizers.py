@@ -11,7 +11,10 @@ per-tensor trust ratio — rather than calling ``torch.optim``.
 Each factory returns an :class:`Optimizer`: ``init(params)`` → state, and
 ``update(grads, state, params, lr)`` → new state, which updates ``params``
 and the state's tensors in place. Moments are fp32 whatever the params'
-type.
+type. Every state has ``state_dict()`` (its counters and its per-parameter
+tensor lists, as a checkpoint saves them) and ``load_state_dict(sd)``,
+which copies the saved tensors into its own in place and returns the state
+with the saved counters.
 """
 
 from __future__ import annotations
@@ -39,10 +42,45 @@ def _zeros_like(params: Tensors) -> List[torch.Tensor]:
     return [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
 
 
+def _state_dict(state) -> dict:
+    """A state's fields: counters as ints, tensor lists as new lists of the
+    same tensors, absent lists as None."""
+    return {k: (list(v) if isinstance(v, list) else v) for k, v in state._asdict().items()}
+
+
+@torch.no_grad()
+def _load_state_dict(state, sd: dict):
+    """Copy ``sd``'s tensors into ``state``'s in place (same shapes); return
+    ``state`` with ``sd``'s counters."""
+    if set(sd) != set(state._fields):
+        raise ValueError(f"optimizer state has fields {sorted(state._fields)}, "
+                         f"the saved one {sorted(sd)}")
+    counters = {}
+    for k, mine in state._asdict().items():
+        theirs = sd[k]
+        if isinstance(mine, list):
+            if theirs is None or len(theirs) != len(mine):
+                raise ValueError(f"optimizer state {k}: {len(mine)} tensors, saved "
+                                 f"{None if theirs is None else len(theirs)}")
+            for dst, src in zip(mine, theirs):
+                if dst.shape != src.shape:
+                    raise ValueError(f"optimizer state {k}: shape {tuple(dst.shape)}, "
+                                     f"saved {tuple(src.shape)}")
+                dst.copy_(src)
+        elif mine is None:
+            if theirs is not None:
+                raise ValueError(f"optimizer state {k} is None here but was saved")
+        else:
+            counters[k] = int(theirs)
+    return state._replace(**counters)
+
+
 class AdamState(NamedTuple):
     count: int
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
+    state_dict = _state_dict
+    load_state_dict = _load_state_dict
 
 
 def adam_bias_corrections(count: int, b1: float, b2: float, bias_correction: bool = True):
@@ -123,6 +161,8 @@ def fused_lamb(lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,
 
 class LionState(NamedTuple):
     mu: List[torch.Tensor]
+    state_dict = _state_dict
+    load_state_dict = _load_state_dict
 
 
 def lion(lr: float = 1e-4, betas=(0.9, 0.99), weight_decay: float = 0.0) -> Optimizer:
@@ -148,6 +188,8 @@ def lion(lr: float = 1e-4, betas=(0.9, 0.99), weight_decay: float = 0.0) -> Opti
 
 class AdagradState(NamedTuple):
     accum: List[torch.Tensor]
+    state_dict = _state_dict
+    load_state_dict = _load_state_dict
 
 
 def adagrad(lr: float = 1e-2, eps: float = 1e-10, weight_decay: float = 0.0,
@@ -175,6 +217,8 @@ def adagrad(lr: float = 1e-2, eps: float = 1e-10, weight_decay: float = 0.0,
 
 class SGDState(NamedTuple):
     mu: Optional[List[torch.Tensor]]
+    state_dict = _state_dict
+    load_state_dict = _load_state_dict
 
 
 def sgd(lr: float = 1e-3, momentum: float = 0.0, weight_decay: float = 0.0,

@@ -8,11 +8,15 @@ is resolved and validated centrally with the reference's rules and errors.
 
 The port reads ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``zero_optimization``, ``data_types``,
-``sparse_attention``, ``steps_per_print``, ``wall_clock_breakdown``,
-``seed`` and the batch keys.
+``sparse_attention``, ``checkpoint``, ``resilience``, ``data_efficiency``,
+``curriculum_learning``, ``dataloader_drop_last``, ``steps_per_print``,
+``wall_clock_breakdown``, ``seed`` and the batch keys.
 Every other top-level key the JAX package knows raises
-``NotImplementedError`` naming it when present, rather than being ignored;
-a key neither package knows is rejected with a did-you-mean hint.
+``NotImplementedError`` naming it when present, rather than being ignored,
+and so do the parts of a read block that belong to a later slice
+(``resilience.sentinel``, an enabled ``resilience.chaos``, random-LTD's
+``data_efficiency.data_routing``); a key neither package knows is rejected
+with a did-you-mean hint.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from deepspeed_tpu_torch.utils.logging import logger
 SUPPORTED_KEYS = frozenset({
     "fp16", "bf16", "bfloat16", "zero_optimization", "data_types", "optimizer",
     "scheduler", "gradient_clipping", "sparse_attention", "steps_per_print",
-    "wall_clock_breakdown", "seed",
+    "wall_clock_breakdown", "seed", "checkpoint", "resilience", "data_efficiency",
+    "curriculum_learning", "dataloader_drop_last",
     "train_batch_size", "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
@@ -41,12 +46,11 @@ SUPPORTED_KEYS = frozenset({
 # and ADVISORY_NOOP_KEYS): each is a later slice of the port
 LATER_KEYS = frozenset({
     "comms_logger", "flops_profiler", "activation_checkpointing", "tensorboard", "wandb",
-    "csv_monitor", "pipeline", "tpu", "checkpoint", "aio", "elasticity", "hybrid_engine",
-    "gradient_compression", "compression_training", "data_efficiency",
-    "autotuning", "resilience", "rewind", "watchdog", "analysis", "telemetry", "profiling",
+    "csv_monitor", "pipeline", "tpu", "aio", "elasticity", "hybrid_engine",
+    "gradient_compression", "compression_training",
+    "autotuning", "rewind", "watchdog", "analysis", "telemetry", "profiling",
     "perf", "serving", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
     "memory_breakdown", "dump_state", "eigenvalue", "progressive_layer_drop",
-    "curriculum_learning", "dataloader_drop_last",
     "sparse_gradients", "prescale_gradients", "gradient_predivide_factor",
     "disable_allgather", "graph_harvesting", "use_data_before_expert_parallel",
     "communication_data_type", "nebula", "zero_allow_untested_optimizer",
@@ -60,6 +64,18 @@ SPARSE_ATTENTION_KEYS = frozenset({
     "attention", "horizontal_global_attention", "num_different_global_patterns",
     "num_random_blocks", "local_window_blocks", "global_block_indices",
     "global_block_end_indices", "num_sliding_window_blocks"})
+
+# the raw-dict blocks the data pipeline reads permissively, with their
+# accepted keys one level deep (the JAX package's RAW_BLOCK_KEYS entries);
+# a dotted name is a nested block
+RAW_BLOCK_KEYS = {
+    "data_efficiency": frozenset({"enabled", "seed", "data_sampling", "data_routing"}),
+    "data_efficiency.data_sampling": frozenset({
+        "enabled", "num_epochs", "num_workers", "pin_memory", "curriculum_learning"}),
+    "curriculum_learning": frozenset({
+        "enabled", "curriculum_type", "min_difficulty", "max_difficulty",
+        "schedule_type", "schedule_config"}),
+}
 
 # reference keys refused with a pointer
 REJECTED_KEYS = {
@@ -104,6 +120,72 @@ class BF16Config(DeepSpeedConfigModel):
 @dataclasses.dataclass
 class DataTypesConfig(DeepSpeedConfigModel):
     grad_accum_dtype: Optional[str] = None
+
+
+@dataclasses.dataclass
+class CheckpointConfig(DeepSpeedConfigModel):
+    """The checkpoint block. The engine saves one rank's tag in the default
+    format, so the keys for many ranks or another format parse at the
+    values that ask for nothing more; any other value is a later slice of
+    the port and raises."""
+    tag_validation: str = "Warn"      # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    parallel_write: dict = dataclasses.field(default_factory=dict)
+    # write the state on a background thread; save_checkpoint blocks only
+    # for the copy to host memory
+    async_save: bool = True
+
+    def __post_init__(self):
+        later = (
+            (self.tag_validation.lower() not in ("ignore", "warn"),
+             f"tag_validation={self.tag_validation!r} (a tag checked across ranks)"),
+            (self.load_universal, "load_universal=true (the universal checkpoint format)"),
+            (self.use_node_local_storage, "use_node_local_storage=true (per-node storage)"),
+            (any(self.parallel_write.values()),
+             f"parallel_write={self.parallel_write} (writes split across pipeline stages)"))
+        for asked, what in later:
+            if asked:
+                raise NotImplementedError(f"ds_config checkpoint.{what}: later slice of "
+                                          f"the port")
+
+
+@dataclasses.dataclass
+class ResilienceRetryConfig(DeepSpeedConfigModel):
+    """Retry policy of the checkpoint engine's filesystem I/O."""
+    enabled: bool = True
+    max_attempts: int = 4
+    base_delay: float = 0.05
+    multiplier: float = 2.0
+    max_delay: float = 2.0
+    deadline: float = 30.0
+    jitter: float = 0.25
+
+    def __post_init__(self):
+        _check_min(self, max_attempts=(1, False), base_delay=(0.0, False),
+                   multiplier=(1.0, False), max_delay=(0.0, False), deadline=(0.0, True),
+                   jitter=(0.0, False))
+        if self.jitter > 1.0:
+            raise ValueError(f"ResilienceRetryConfig.jitter must be <= 1.0, got {self.jitter}")
+
+
+@dataclasses.dataclass
+class ResilienceConfig(DeepSpeedConfigModel):
+    """Verified checkpoints and the restore policy. ``sentinel`` and an
+    enabled ``chaos`` are later slices of the port and raise."""
+    verify_on_load: bool = True
+    fallback_to_last_good: bool = True
+    retry: ResilienceRetryConfig = dataclasses.field(default_factory=ResilienceRetryConfig)
+    sentinel: Optional[dict] = None
+    chaos: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.sentinel is not None:
+            raise NotImplementedError("ds_config resilience.sentinel (the bad-step "
+                                      "sentinel): later slice of the port")
+        if isinstance(self.chaos, dict) and self.chaos.get("enabled"):
+            raise NotImplementedError("ds_config resilience.chaos with enabled=true (the "
+                                      "fault injector): later slice of the port")
 
 
 # data_types.grad_accum_dtype → the type gradients are accumulated in
@@ -157,6 +239,14 @@ class DeepSpeedConfig:
             if unknown:
                 raise ValueError("Unknown key(s) in the 'sparse_attention' ds_config block: "
                                  f"{format_unknown_key_hints(unknown, SPARSE_ATTENTION_KEYS)}")
+        self.checkpoint_config = CheckpointConfig.from_dict(pd.get("checkpoint", {}))
+        self.resilience = ResilienceConfig.from_dict(pd.get("resilience", {}))
+        self.data_efficiency_config = pd.get("data_efficiency", {})
+        if isinstance(self.data_efficiency_config, dict) \
+                and "data_routing" in self.data_efficiency_config:
+            raise NotImplementedError("ds_config data_efficiency.data_routing (random-LTD): "
+                                      "later slice of the port")
+        self.dataloader_drop_last = pd.get("dataloader_drop_last", None)
         self.gradient_clipping = float(pd.get("gradient_clipping", 0.0))
         self.steps_per_print = int(pd.get("steps_per_print", 10))
         self.wall_clock_breakdown = bool(pd.get("wall_clock_breakdown", False))
@@ -175,6 +265,14 @@ class DeepSpeedConfig:
         if unknown:
             raise ValueError("Unknown top-level ds_config key(s): "
                              f"{format_unknown_key_hints(unknown, SUPPORTED_KEYS | LATER_KEYS)}")
+        for name, accepted in RAW_BLOCK_KEYS.items():
+            head, _, tail = name.partition(".")
+            block = pd.get(head)
+            if tail and isinstance(block, dict):
+                block = block.get(tail)
+            if isinstance(block, dict) and set(block) - accepted:
+                raise ValueError(f"Unknown key(s) in the {name!r} ds_config block: "
+                                 f"{format_unknown_key_hints(set(block) - accepted, accepted)}")
 
     # --------------------------------------------------------------- batch math
     def _configure_train_batch_size(self, world_size: Optional[int]):

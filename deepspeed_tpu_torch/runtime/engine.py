@@ -22,10 +22,18 @@ each parameter moves its gradient into an fp32 buffer (or
 are freed after the step. The tied GPT-2 embedding is one parameter, so
 autograd sums its two contributions before the hook sees them.
 
+``training_data`` becomes the engine's resumable ``DeepSpeedDataLoader``
+(``deepspeed_io``), with the metric curriculum sampler when the ds_config
+``data_efficiency`` block names analyzer index files; the seqlen curriculum
+(the legacy ``curriculum_learning`` block or a ``seqlen`` metric) truncates
+each batch on the host before it goes to the card. ``save_checkpoint`` and
+``load_checkpoint`` write and verify the JAX package's tag layout
+(``runtime/checkpoint_engine/engine.py``).
+
 The engine runs on CUDA unless it is given ``device="cpu"``; without a card
 it raises. One process only: ZeRO placement and communication over
-``torch.distributed``, checkpoints, the data loader, offload and the
-observability blocks are later slices and raise when configured.
+``torch.distributed``, offload and the observability blocks are later
+slices and raise when configured.
 """
 
 from __future__ import annotations
@@ -40,10 +48,14 @@ import torch
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.ops.optimizers import Optimizer, build_optimizer
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import CurriculumScheduler
+from deepspeed_tpu_torch.runtime.data_pipeline.data_sampling import (apply_seqlen_curriculum,
+                                                                     curriculum_config_from_ds)
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, grads_finite
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedule, build_lr_schedule
 from deepspeed_tpu_torch.runtime.utils import get_grad_norm
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                                              STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER, NoopTimer,
                                              SynchronizedWallClockTimer, ThroughputTimer)
@@ -91,8 +103,6 @@ class DeepSpeedEngine:
                          "communication over torch.distributed)")
         if mpu is not None:
             raise _later("model parallelism (mpu)")
-        if training_data is not None:
-            raise _later("the data loader (training_data)")
         self.dp_world_size = self.mp_world_size = 1
         self._config._configure_train_batch_size(self.dp_world_size)
 
@@ -116,8 +126,9 @@ class DeepSpeedEngine:
             # the JAX engine draws them from PRNGKey(seed)
             model.init_params(torch.Generator(device=self.device).manual_seed(self._config.seed))
         model.to(device=self.device)
-        self._params: List[torch.nn.Parameter] = [p for p in model.parameters()
-                                                  if p.requires_grad]
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        self._param_names: List[str] = [n for n, _ in named]
+        self._params: List[torch.nn.Parameter] = [p for _, p in named]
         if not self._params:
             raise ValueError("the model has no trainable parameters")
         # fp32 master copy whenever the compute type is not fp32, taken before
@@ -169,6 +180,20 @@ class DeepSpeedEngine:
             sync_every_step=self.wall_clock_breakdown,
             synchronize=functools.partial(torch.cuda.synchronize, self.device) if on_card
             else (lambda: None))
+        self._last_save = None
+        self._last_recovery = None
+
+        # ---- data: the loader and the curricula --------------------------
+        self.collate_fn = collate_fn
+        self._data_sampler = None
+        self._pending_sampler_state = None
+        self.dataloader = None
+        if training_data is not None:
+            self.dataloader = self.deepspeed_io(training_data, route="train")
+        self.curriculum_scheduler = None
+        cl_cfg = curriculum_config_from_ds(self._config._param_dict)
+        if cl_cfg.get("enabled"):
+            self.curriculum_scheduler = CurriculumScheduler(cl_cfg)
         log_dist(f"engine ready: dtype={self.train_dtype}, zero={self.zero_stage}, "
                  f"device={self.device}, micro_batch={self.train_micro_batch_size_per_gpu()}, "
                  f"gas={self._config.gradient_accumulation_steps}", ranks=[0])
@@ -301,6 +326,9 @@ class DeepSpeedEngine:
             if data_iter is None:
                 raise ValueError("train_batch needs a batch or data_iter")
             batch = next(data_iter)
+        if self.curriculum_scheduler is not None:
+            difficulty = self.curriculum_scheduler.update_difficulty(self._global_step + 1)
+            batch = apply_seqlen_curriculum(batch, difficulty)
         batch = self._to_device(batch)
         self.timers(TRAIN_BATCH_TIMER).start()
         self.tput_timer.start()
@@ -310,6 +338,7 @@ class DeepSpeedEngine:
             self._backward(loss)
             losses.append(loss.detach().float())
         mean_loss = torch.stack(losses).mean()
+        self.micro_steps += gas
         self._apply_grads(mean_loss, gas)
         self.timers(TRAIN_BATCH_TIMER).stop()
         self.tput_timer.stop(global_step=True)
@@ -396,8 +425,94 @@ class DeepSpeedEngine:
         """The params in the compute type, on the host."""
         return {k: v.detach().cpu() for k, v in self.module.state_dict().items()}
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise _later("checkpoints (save_checkpoint)")
+    @property
+    def training_dataloader(self):
+        return self.dataloader
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise _later("checkpoints (load_checkpoint)")
+    # ------------------------------------------------------------ curricula
+    def curriculum_learning_enabled(self) -> bool:
+        return self.curriculum_scheduler is not None
+
+    def set_custom_curriculum_learning_schedule(self, schedule_func_dict):
+        """Install a custom difficulty function ({'get_difficulty': fn(step)})."""
+        if self.curriculum_scheduler is None:
+            raise ValueError("curriculum learning is not enabled in this config")
+        fn = schedule_func_dict["get_difficulty"] \
+            if isinstance(schedule_func_dict, dict) else schedule_func_dict
+        self.curriculum_scheduler.set_custom_get_difficulty(fn)
+
+    # ------------------------------------------------------------ dataloader
+    def _file_based_curriculum(self):
+        """The data_efficiency block's metric curriculum with analyzer index
+        files (the sampler's; the seqlen truncation has none), or None."""
+        de = self._config.data_efficiency_config or {}
+        ds = de.get("data_sampling", {})
+        cl = ds.get("curriculum_learning", {})
+        file_based = {n: m for n, m in cl.get("curriculum_metrics", {}).items()
+                      if "index_to_sample_path" in m
+                      or m.get("clustering_type") == "single_cluster"}
+        if de.get("enabled", True) and ds.get("enabled", True) and cl.get("enabled") \
+                and file_based:
+            return de, cl, file_based
+        return None
+
+    def deepspeed_io(self, dataset, batch_size=None, route=None, data_sampler=None,
+                     **kwargs):
+        """A ``DeepSpeedDataLoader`` over ``dataset``.
+
+        Only ``route="train"`` builds the metric curriculum sampler and makes
+        it the engine's checkpointed state, so an eval loader built first
+        cannot bind the curriculum to the wrong dataset. A sampler passed in
+        also binds on ``route=None``; ``route="eval"`` keeps even that one
+        local to its loader. The engine's own ``training_data`` loader is
+        built with ``route="train"``."""
+        bs = batch_size or self.train_batch_size()
+        if data_sampler is None and route == "train" and self._data_sampler is None:
+            found = self._file_based_curriculum()
+            if found:
+                from deepspeed_tpu_torch.runtime.data_pipeline.data_sampler import \
+                    DeepSpeedDataSampler
+
+                de, cl, file_based = found
+                cfg = dict(de)
+                cfg["data_sampling"] = dict(de["data_sampling"])
+                cfg["data_sampling"]["curriculum_learning"] = {
+                    **cl, "curriculum_metrics": file_based}
+                data_sampler = DeepSpeedDataSampler(cfg, len(dataset), bs)
+                if self._pending_sampler_state:
+                    data_sampler.load_state_dict(self._pending_sampler_state)
+                    self._pending_sampler_state = None
+        elif (route is None and data_sampler is None and self._data_sampler is None
+              and (self._pending_sampler_state is not None
+                   or self._file_based_curriculum() is not None)):
+            logger.warning(
+                "a metric-based curriculum is configured but this loader was built with "
+                "route=None, which does NOT engage the curriculum sampler; pass "
+                "route='train' on the training loader (or route='eval' to silence this "
+                "for eval loaders)")
+        if data_sampler is not None and route in (None, "train") and self._data_sampler is None:
+            self._data_sampler = data_sampler
+        dl_kwargs = {}
+        if self._config.dataloader_drop_last is not None:
+            dl_kwargs["drop_last"] = bool(self._config.dataloader_drop_last)
+        return DeepSpeedDataLoader(dataset, batch_size=bs, collate_fn=self.collate_fn,
+                                   data_sampler=data_sampler, **dl_kwargs)
+
+    # ------------------------------------------------------------ checkpoint
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        exclude_frozen_parameters=False):
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import \
+            save_engine_checkpoint
+
+        return save_engine_checkpoint(self, save_dir, tag=tag, client_state=client_state,
+                                      save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True, load_lr_scheduler_states=True,
+                        load_module_only=False, custom_load_fn=None):
+        from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import \
+            load_engine_checkpoint
+
+        return load_engine_checkpoint(self, load_dir, tag=tag,
+                                      load_optimizer_states=load_optimizer_states,
+                                      load_module_only=load_module_only)

@@ -8,7 +8,8 @@ it never drops below ``min_scale``. The JAX package keeps this state on the
 device so its compiled step never waits on the host; the port's eager
 engine reads the step's overflow verdict on the host (one sync per fp16
 step, as the reference does), so the state is a small tuple of Python
-numbers and the transition a pure function.
+numbers and the transition a pure function. ``state_dict`` and
+``load_state_dict`` carry it through a checkpoint.
 """
 
 from __future__ import annotations
@@ -29,6 +30,14 @@ class LossScaleState(NamedTuple):
     good_steps: int   # clean steps since the last overflow or raise
     hysteresis: int   # overflows still tolerated before halving
     overflows: int    # total skipped steps
+
+    def state_dict(self) -> dict:
+        return self._asdict()
+
+    def load_state_dict(self, sd: dict) -> "LossScaleState":
+        """A state with ``sd``'s values (the state is immutable)."""
+        return LossScaleState(scale=float(sd["scale"]), good_steps=int(sd["good_steps"]),
+                              hysteresis=int(sd["hysteresis"]), overflows=int(sd["overflows"]))
 
 
 def make_state(init_scale: float) -> LossScaleState:

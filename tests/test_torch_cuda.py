@@ -18,10 +18,14 @@ type before the second products, as the JAX kernels do; the fp32 instances
 keep the CUDA-core code. Decode splits the cache over CTAs; the engine's
 decode loop is a captured CUDA graph, held here against the eager loop.
 Every kernel has instances for head dims 16, 32, 64, 80, 96 and 128, the
-head dims of the model presets.
+head dims of the model presets. The last tests feed a small bf16 GPT-2
+through its data loader, save and resume it (the state after a load equal
+to the saved state bit for bit, the losses equal to the uninterrupted
+run's) and run the seqlen curriculum through the kernels at ragged lengths.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -636,3 +640,106 @@ def test_sparse_train_batch_runs_the_kernels(gen):
     assert torch.isfinite(loss) and engine.global_steps == 1
     assert tfa.SPARSE_KERNEL.entry_launches == dict.fromkeys(tfa.SPARSE_KERNEL.entry_launches, 2)
     assert tfa.KERNEL.launches == tfa.BWD_KERNEL.launches == 0
+
+
+# ------------------------------------------- feed, save and resume on the card
+RESUME_CONFIG = {"train_batch_size": 4, "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+                 "steps_per_print": 0}
+
+
+def _resume_model():
+    return gpt2.GPT2Model(gpt2.GPT2Config(vocab_size=1024, n_positions=128, n_embd=256,
+                                          n_layer=2, n_head=4, remat=False))
+
+
+def _token_rows(n=24, T=128):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 1024, size=T, dtype=np.int32) for _ in range(n)]
+
+
+def _bits(t):
+    return t.reshape(-1).view(torch.uint8) if t.is_floating_point() else t
+
+
+def test_checkpoint_resume_on_the_card_is_bitwise(gen, tmp_path):
+    """bf16 with fp32 masters: two engines built from other seeds load a tag
+    saved mid-run; each holds the saved state bit for bit and continues
+    with the uninterrupted run's losses through its own restored loader."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import flatten_state
+
+    data = _token_rows()
+    a, _, loader, _ = deepspeed_tpu_torch.initialize(model=_resume_model(),
+                                                     config=dict(RESUME_CONFIG),
+                                                     training_data=data)
+    it = iter(loader)
+    for _ in range(2):
+        a.train_batch(data_iter=it)
+    saved = {k: v.clone() for k, v in flatten_state(a).items()}
+    a.save_checkpoint(str(tmp_path))
+    control = [float(a.train_batch(data_iter=it)) for _ in range(2)]
+    for seed in (1, 2):
+        e, _, ld, _ = deepspeed_tpu_torch.initialize(model=_resume_model(),
+                                                     config={**RESUME_CONFIG, "seed": seed},
+                                                     training_data=data)
+        path, _ = e.load_checkpoint(str(tmp_path))
+        assert path.endswith("global_step2") and e.device.type == "cuda"
+        restored = flatten_state(e)
+        assert restored.keys() == saved.keys()
+        for k, v in saved.items():
+            # the tensors live on the card, the step counters are host numbers
+            assert restored[k].device == v.device and torch.equal(_bits(restored[k]), _bits(v)), k
+        ite = iter(ld)
+        assert [float(e.train_batch(data_iter=ite)) for _ in range(2)] == control
+
+
+def test_async_save_on_the_card_writes_latest_last(gen, tmp_path):
+    """The save blocks for the copy to the host only; the files it commits
+    hold the state at the call, though the next step ran meanwhile; the
+    commit marker, client_state.json, the manifest and latest land in
+    that order."""
+    from deepspeed_tpu_torch.resilience.manifest import verify_tag
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import (read_state,
+                                                                       wait_for_pending_saves)
+
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=_resume_model(), config=dict(RESUME_CONFIG), training_data=_token_rows())
+    it = iter(loader)
+    engine.train_batch(data_iter=it)
+    want = {n: p.detach().clone() for n, p in engine.module.named_parameters()}
+    engine.save_checkpoint(str(tmp_path))
+    engine.train_batch(data_iter=it)
+    wait_for_pending_saves()
+    rec = engine._last_save
+    assert "error" not in rec and rec["blocking_s"] < rec["commit_s"]
+    tag = tmp_path / "global_step1"
+    assert (tmp_path / "latest").read_text() == "global_step1" and verify_tag(str(tag))[0]
+    got = read_state(str(tag), ("params",), "cuda")
+    for n, p in want.items():
+        assert torch.equal(_bits(got[f"params/{n}"]), _bits(p)), n
+    times = [os.stat(p).st_mtime_ns for p in (tag / "state" / "_CHECKPOINT_METADATA",
+                                               tag / "client_state.json", tag / "manifest.json",
+                                               tmp_path / "latest")]
+    assert times == sorted(times)
+
+
+def test_seqlen_curriculum_runs_the_kernels_at_every_length(gen):
+    """The legacy curriculum_learning block cuts T on the host: 40, 72, 96,
+    then 128 tokens, ragged against the kernels' 64-row tiles; each step
+    launches every dense kernel once per layer."""
+    config = {**RESUME_CONFIG, "curriculum_learning": {
+        "enabled": True, "curriculum_type": "seqlen", "min_difficulty": 16,
+        "max_difficulty": 128, "schedule_type": "fixed_linear",
+        "schedule_config": {"total_curriculum_step": 4, "difficulty_step": 8}}}
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(model=_resume_model(), config=config,
+                                                          training_data=_token_rows())
+    it = iter(loader)
+    lengths = []
+    for _ in range(5):
+        tfa.KERNEL.reset_launches()
+        tfa.BWD_KERNEL.reset_launches()
+        assert torch.isfinite(engine.train_batch(data_iter=it))
+        lengths.append(engine.curriculum_scheduler.get_current_difficulty())
+        assert (tfa.KERNEL.launches, tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dq"],
+                tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dkv"]) == (2, 2, 2)
+    assert lengths == [40, 72, 96, 128, 128]
