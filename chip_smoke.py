@@ -21,7 +21,15 @@ It also serves two layers of llama3.2-1b in fp32 and fp16 and with sampling
 (top-k) through the graphed loop, serves llama3.2-1b at full depth over an
 8192-entry cache (B=4, the path the decode kernel's split over the cache is
 for), and trains two layers of gpt2-2.7b (head dim 80), dense and
-block-sparse, against the plain path. Then it feeds, saves and resumes
+block-sparse, against the plain path. ``train gpt2-760m zero<stage>``
+trains the dense training cell over a NCCL process group of one at ZeRO
+stages 0-3 (every collective of the stage runs, a copy on the card at a
+world of one), reports each stage's steps, collectives per step (the
+``CommsLogger``, on one extra step) and stage-3 gathers, copies each
+stage's whole state to the host as a save does and holds the card's peak
+above the state to the largest unit, holds every stage's losses to stage
+0's and three fp32 steps of two layers at stage 3 to stage 0's, and
+destroys the group. Then it feeds, saves and resumes
 gpt2-760m at full width and depth (``resume``): a token dataset written with
 the port's indexed-dataset builder into a temporary directory, engine A
 trained through ``initialize(training_data=...)``'s loader, saved with the
@@ -88,6 +96,9 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_BATCH, "gradient_accumul
                 "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
                 "gradient_clipping": 1.0, "steps_per_print": 0, "seed": SEED}
 CHECK_FP32 = dict(layers=2, batch=2, gas=2, steps=3)   # the fp32 train check
+# the ZeRO phase: the training cell's recipe at each stage, over a NCCL
+# process group of one
+ZERO_STAGES = (0, 1, 2, 3)
 # the resume phase: a token dataset written with the port's indexed-dataset
 # builder, steps before and after the save, and the disk the tag needs
 RESUME_SAMPLES, RESUME_STEPS = 64, 3
@@ -1179,6 +1190,153 @@ def train_check_fp32(initialize, GPT2Model, cfg, label, seq, extra_config, to_pl
     torch.cuda.empty_cache()
 
 
+
+# --------------------------------------------------------------------- ZeRO
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _counted_step(comm, engine, batch) -> tuple:
+    """One step with the CommsLogger on: (its ms, {op: calls and bytes})."""
+    from deepspeed_tpu_torch.comm import comm as comm_module
+
+    comm.configure(enabled=True)
+    try:
+        t0 = time.perf_counter()
+        float(engine.train_batch(batch))
+        step_ms = (time.perf_counter() - t0) * 1e3
+        totals = comm_module.comms_logger.totals()
+    finally:
+        comm.configure(enabled=False)
+    return step_ms, {op: {"calls": v["calls"], "bytes": v["bytes"]} for op, v in totals.items()}
+
+
+def _state_to_host(engine) -> dict:
+    """A save's gather: the engine's whole state copied to the host, and
+    the card's peak above the state while it ran, held to the largest
+    unit's fp32 buffer (the state is gathered one unit at a time)."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import flatten_state
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = flatten_state(engine)
+    seconds = time.perf_counter() - t0
+    above = torch.cuda.max_memory_allocated() - before
+    unit = 4 * max(u.length for u in engine._plan.units)
+    host = sum(t.numel() * t.element_size() for t in state.values())
+    del state
+    if above > unit + 2 ** 20:
+        raise AssertionError(f"the state's gather held {above} B above the state, more than "
+                             f"the largest unit's {unit} B")
+    return {"to_host_s": seconds, "to_host_gb": host / 1e9,
+            "to_host_peak_above_state_gb": above / 1e9, "largest_unit_fp32_gb": unit / 1e9}
+
+
+def zero_check_fp32(initialize, GPT2Model, cfg):
+    """fp32, full width, 2 layers, B=2, gas=2: three AdamW steps at ZeRO
+    stage 3 against stage 0 on the same weights and batch, held as
+    train_check_fp32 holds the kernel path to the plain path."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    k = CHECK_FP32
+    c = dataclasses.replace(cfg, n_layer=k["layers"], remat=False, dtype=torch.float32)
+    init = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED + 1))
+    config = {"train_batch_size": k["batch"] * k["gas"], "gradient_accumulation_steps": k["gas"],
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "gradient_clipping": 1.0, "steps_per_print": 0}
+    batch = synthetic_lm_batch(k["batch"] * k["gas"], TRAIN_SEQ, c.vocab_size, seed=SEED + 1,
+                               device="cuda")
+    runs = {}
+    for stage in (0, 3):
+        engine, *_ = initialize(model=GPT2Model(c),
+                                config={**config, "zero_optimization": {"stage": stage}},
+                                model_parameters={n: t.clone()
+                                                  for n, t in init.state_dict().items()})
+        losses = [float(engine.train_batch(batch)) for _ in range(k["steps"])]
+        runs[stage] = (losses, {n: t.cuda() for n, t in engine.module_state_dict().items()})
+        del engine
+    (l0, p0), (l3, p3) = runs[0], runs[3]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l3, l0))
+    flat = lambda ps: torch.cat([ps[n].flatten() for n in sorted(ps)])
+    param_rel = _rel_l2(flat(p3), flat(p0))
+    emit(f"train check {TRAIN_MODEL} zero3 fp32 {k['layers']}-layer", **k, seq=TRAIN_SEQ,
+         losses_stage0=l0, losses_stage3=l3, loss_rel_diff=loss_rel, param_rel_l2=param_rel,
+         rtol=FP32_RTOL)
+    if loss_rel > FP32_RTOL or param_rel > FP32_RTOL:
+        raise AssertionError(f"fp32 stage 3 vs stage 0: loss rel {loss_rel}, params rel "
+                             f"{param_rel}")
+    del runs, p0, p3, init
+    torch.cuda.empty_cache()
+
+
+def zero_slice(initialize, GPT2Model, cfg, accel, fa):
+    """gpt2-760m, bf16 with fp32 masters, full width and depth, through
+    initialize → train_batch over a NCCL process group of one (every
+    collective of the stage runs), at ZeRO stages 0-3: each stage's steps,
+    collectives per step (CommsLogger, on one extra step), stage-3 gathers,
+    peak memory and kernel launches; the losses held to stage 0's."""
+    import gc
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+    from deepspeed_tpu_torch.runtime.zero.partition import partition_report
+
+    comm.init_distributed(init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1,
+                          timeout=600)
+    try:
+        backend = comm.get_backend()
+        if backend != "nccl" or comm.get_world_size() != 1:
+            raise AssertionError(f"process group {backend} of {comm.get_world_size()}")
+        c = dataclasses.replace(cfg, remat=False)
+        batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED,
+                                   device="cuda")
+        losses, launches = {}, {}
+        for stage in ZERO_STAGES:
+            config = {**TRAIN_CONFIG, "zero_optimization": {"stage": stage}}
+            engine, *_ = initialize(model=GPT2Model(c), config=config)
+            losses[stage], step_ms, peak_gb = _timed_steps(engine, batch, accel,
+                                                           (fa.KERNEL, fa.BWD_KERNEL))
+            launches[stage] = {"flash_attention_fwd": fa.KERNEL.launches,
+                               **fa.BWD_KERNEL.entry_launches}
+            expect = dict.fromkeys(launches[stage], c.n_layer * TRAIN_STEPS)
+            if launches[stage] != expect:
+                raise AssertionError(f"stage {stage}: launch counts {launches[stage]} over "
+                                     f"{TRAIN_STEPS} steps, expected {expect}")
+            gathers = engine._zero.gathers / (TRAIN_WARMUP + TRAIN_STEPS)
+            logged_ms, collectives = _counted_step(comm, engine, batch)
+            save = _state_to_host(engine)
+            emit(f"train {TRAIN_MODEL} zero{stage}", backend=backend,
+                 world=comm.get_world_size(), zero_stage=stage,
+                 partition=partition_report(engine._plan), units=len(engine._plan.units),
+                 **_train_line(c, TRAIN_BATCH, TRAIN_SEQ, step_ms, accel),
+                 peak_mem_gb=peak_gb, losses=losses[stage],
+                 launches_per_step={k: v / TRAIN_STEPS for k, v in launches[stage].items()},
+                 collectives_per_step=collectives,
+                 collective_bytes_per_step=sum(v["bytes"] for v in collectives.values()),
+                 logged_step_ms=logged_ms, stage3_gathers_per_step=gathers, **save,
+                 grad_norm=engine.get_global_grad_norm(), lr=engine.get_lr()[0])
+            emit(f"profile train {TRAIN_MODEL} zero{stage}",
+                 step=device_profile(lambda: engine.train_batch(batch), top=12))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        rel = {s: max(abs(a - b) / abs(b) for a, b in zip(losses[s], losses[0]))
+               for s in ZERO_STAGES}
+        emit(f"check {TRAIN_MODEL} zero losses", loss_rel_to_stage0=rel, rtol=TRAIN_LOSS_RTOL)
+        if max(rel.values()) > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"ZeRO stage losses vs stage 0: {rel}")
+        zero_check_fp32(initialize, GPT2Model, cfg)
+    finally:
+        comm.destroy_process_group()
+    return launches
+
+
 def check_head_dim_80(initialize, GPT2Model, cfg, fa):
     """gpt2-2.7b (head dim 80) at full width and 2 layers, dense at
     TRAIN_SEQ and with the sparse block at SPARSE_SEQ: the bf16 loss and
@@ -1658,6 +1816,8 @@ def main() -> int:
                      batch, TRAIN_MODEL, _dense_plain)
     train_check_fp32(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL],
                      TRAIN_MODEL, TRAIN_SEQ, {}, _dense_plain)
+    zero_launches = zero_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
+                               gpt2_presets[TRAIN_MODEL], accel, fa)
 
     sparse_cfg = gpt2_presets[SPARSE_MODEL]
     sparse_launches, batch = train_sparse_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
@@ -1686,7 +1846,9 @@ def main() -> int:
          "launches_by_path": {"serve": serve_launches["flash_attention_fwd"],
                               "train": train_launches["flash_attention_fwd"],
                               "resume": resume_launches["flash_attention_fwd"],
-                              "curriculum": curriculum_launches["flash_attention_fwd"]},
+                              "curriculum": curriculum_launches["flash_attention_fwd"],
+                              **{f"zero{s}": n["flash_attention_fwd"]
+                                 for s, n in zero_launches.items()}},
          "at_serving_shape": {k: flash_rows[1][k] for k in keys}},
         {"name": "decode_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
@@ -1703,7 +1865,8 @@ def main() -> int:
             "launches": train_launches[f"flash_attention_bwd_{entry}"],
             "launches_by_path": {p: n[f"flash_attention_bwd_{entry}"] for p, n in (
                 ("train", train_launches), ("resume", resume_launches),
-                ("curriculum", curriculum_launches))},
+                ("curriculum", curriculum_launches),
+                *((f"zero{s}", z) for s, z in zero_launches.items()))},
             "max_abs_err": max(bwd["errs"][n] for n in (("dq",) if entry == "dq"
                                                         else ("dk", "dv"))),
             "ms": bwd[f"{entry}_ms"], "plain_ms": bwd[f"{entry}_plain_ms"],

@@ -7,11 +7,12 @@ from ``csrc/`` at first use. Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 
 Ported so far: serving (``init_inference`` → ``InferenceEngine.generate``)
-of the llama family, and training on one card (``initialize`` →
+of the llama family, and training (``initialize`` →
 ``DeepSpeedEngine.train_batch``) of the GPT-2 family, with dense or
 block-sparse (ds_config ``sparse_attention``) attention, fed by the data
-loader and the curriculum pipeline and saved to and resumed from verified
-checkpoints.
+loader and the curriculum pipeline, saved to and resumed from verified
+checkpoints, on one process or over a ``torch.distributed`` world
+(``comm``, ``init_distributed``) with ZeRO stages 0–3.
 """
 
 from __future__ import annotations
@@ -20,8 +21,12 @@ import dataclasses
 
 __version__ = "0.1.0"
 
+import os
+
 from deepspeed_tpu_torch.accelerator import get_accelerator  # noqa: F401
 from deepspeed_tpu_torch.utils.logging import log_dist, logger  # noqa: F401
+from deepspeed_tpu_torch import comm  # noqa: F401,E402
+from deepspeed_tpu_torch.comm import init_distributed  # noqa: F401,E402
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
@@ -32,7 +37,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     the engine's loader over ``training_data`` (None without it).
     ``model`` is an ``nn.Module`` with ``loss(batch)`` (and ``init_params``
     when its weights are not loaded yet); ``model_parameters`` may be a state
-    dict for it. The engine runs on CUDA unless ``device="cpu"``."""
+    dict for it. The engine runs on CUDA unless ``device="cpu"``.
+
+    ``dist_init_required`` True (or None under torchrun, whose ``RANK`` and
+    ``WORLD_SIZE`` are set) joins the process group first
+    (``comm.init_distributed``: NCCL on CUDA, gloo for ``device="cpu"``);
+    the engine trains over whatever group is initialized."""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
@@ -42,6 +52,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     if config is None and args is not None and getattr(args, "deepspeed_config", None):
         config = args.deepspeed_config
     ds_config = DeepSpeedConfig(config if config is not None else {})
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if dist_init_required or (dist_init_required is None and launched):
+        comm.init_distributed(device=device)
     if ds_config.sparse_attention and model is not None:
         _apply_sparse_attention(model, ds_config.sparse_attention)
     engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,

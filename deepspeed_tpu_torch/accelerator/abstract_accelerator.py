@@ -3,7 +3,8 @@
 Counterpart of ``deepspeed_tpu/accelerator/abstract_accelerator.py``, cut to
 what the port uses: the device, streams and events (the JAX package has
 none: XLA schedules the device itself), synchronisation, memory
-statistics, and the card's peak rates for roofline bounds.
+statistics, the collective backend's name, and the card's peak rates for
+roofline bounds.
 """
 
 from __future__ import annotations
@@ -57,6 +58,11 @@ class DeepSpeedAccelerator(abc.ABC):
 
     @abc.abstractmethod
     def reset_peak_memory_stats(self, device_index: Optional[int] = None) -> None: ...
+
+    # ------------------------------------------------------------ collectives
+    @abc.abstractmethod
+    def communication_backend_name(self) -> str:
+        """The ``torch.distributed`` backend of this device's collectives."""
 
     # ----------------------------------------------------------------- perf
     @abc.abstractmethod

@@ -63,6 +63,8 @@ class CUDA_Accelerator(DeepSpeedAccelerator):
     def reset_peak_memory_stats(self, device_index: Optional[int] = None) -> None:
         torch.cuda.reset_peak_memory_stats(device_index)
 
+    def communication_backend_name(self) -> str:
+        return "nccl"
 
     def _peaks(self):
         name = torch.cuda.get_device_name(0)

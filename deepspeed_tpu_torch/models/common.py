@@ -106,6 +106,14 @@ def parse_lm_batch(batch):
     return batch, batch, None
 
 
+def lm_loss_tokens(batch) -> Optional[torch.Tensor]:
+    """The weight ``chunked_lm_loss`` divides by for ``batch``: the loss
+    mask's sum over the shifted targets (0-d fp32), or None without a mask
+    (every target counts the same)."""
+    _, _, mask = parse_lm_batch(batch)
+    return None if mask is None else mask[:, 1:].float().sum()
+
+
 def chunked_lm_loss(x, head, targets, loss_mask=None, bias=None, remat=True):
     """Mean next-token NLL with the vocab projection computed in sequence
     chunks, as the JAX ``chunked_lm_loss`` does (same chunk length).

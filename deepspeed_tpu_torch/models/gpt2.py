@@ -16,10 +16,18 @@ also carries (ALiBi, rotary, parallel residual, local attention, sequence
 parallelism, dropout, the "dots"/"attn"/"attn_mlp" remat policies and
 progressive layer drop) raise ``NotImplementedError``; serving GPT-2 (KV
 cache) is a later slice.
+
+Each module computes with its own parameters through ``_gathered(module)``:
+the module itself, or, when the engine trains under ZeRO stage 3 and has
+set ``param_gatherer``, the parameters gathered just before the module runs
+and released after it (``runtime/zero/state.py``). The embedding and the
+head are the model's own parameters and gather twice a forward; a block
+under ``remat`` gathers again when it is recomputed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Mapping, Optional
@@ -30,7 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.models.common import causal_attention, chunked_lm_loss, parse_lm_batch
+from deepspeed_tpu_torch.models.common import (causal_attention, chunked_lm_loss,
+                                                lm_loss_tokens, parse_lm_batch)
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import MODES as SPARSE_MODES
 
@@ -165,7 +174,8 @@ def _weight(*shape) -> nn.Parameter:
 
 
 class GPT2Block(nn.Module):
-    """One layer's weights (the computation lives on GPT2Model)."""
+    """One layer's weights (the computation lives on GPT2Model, which
+    gathers them around each use)."""
 
     def __init__(self, c: GPT2Config):
         super().__init__()
@@ -194,6 +204,8 @@ class GPT2Model(nn.Module):
             if c.lm_head_bias:
                 self.lm_head_b = _weight(c.vocab_size)
         self._sparse = None
+        # set by the engine under ZeRO stage 3: gather(module) / release(module)
+        self.param_gatherer = None
 
     # ---------------------------------------------------------------- params
     def init_params(self, generator: torch.Generator) -> "GPT2Model":
@@ -237,18 +249,31 @@ class GPT2Model(nn.Module):
         y = (x32 - mu) * torch.rsqrt(var + eps)
         return (y * g + b).to(x.dtype)
 
+    @contextlib.contextmanager
+    def _gathered(self, module: nn.Module):
+        """``module``'s own parameters to compute with (attribute access)."""
+        gatherer = self.param_gatherer
+        if gatherer is None:
+            yield module
+            return
+        try:
+            yield gatherer.gather(module)
+        finally:
+            gatherer.release(module)
+
     def _embed(self, input_ids):
         """Token + learned position embedding, with BLOOM's optional
         post-embedding layernorm."""
         c = self.config
         T = input_ids.shape[1]
-        x = self.wte.to(c.dtype)[input_ids] + self.wpe.to(c.dtype)[:T]
-        if c.embed_layernorm:
-            x = self._layer_norm(x, self.emb_ln_g, self.emb_ln_b)
+        with self._gathered(self) as top:
+            x = top.wte.to(c.dtype)[input_ids] + top.wpe.to(c.dtype)[:T]
+            if c.embed_layernorm:
+                x = self._layer_norm(x, top.emb_ln_g, top.emb_ln_b)
         return x
 
-    def _mlp(self, h, blk: GPT2Block):
-        h = h @ blk.fc_w.to(h.dtype) + blk.fc_b.to(h.dtype)
+    def _mlp(self, h, w):
+        h = h @ w.fc_w.to(h.dtype) + w.fc_b.to(h.dtype)
         act = self.config.activation
         if act == "relu":
             h = F.relu(h)
@@ -256,22 +281,23 @@ class GPT2Model(nn.Module):
             h = h * torch.sigmoid(1.702 * h)
         else:
             h = F.gelu(h, approximate="tanh" if act == "gelu_new" else "none")
-        return h @ blk.fc2_w.to(h.dtype) + blk.fc2_b.to(h.dtype)
+        return h @ w.fc2_w.to(h.dtype) + w.fc2_b.to(h.dtype)
 
     def _block(self, x, blk: GPT2Block):
         c = self.config
         B, T, D = x.shape
-        h = self._layer_norm(x, blk.ln1_g, blk.ln1_b)
-        qkv = h @ blk.qkv_w.to(h.dtype) + blk.qkv_b.to(h.dtype)
-        q, k, v = (t.reshape(B, T, c.n_head, c.head_dim) for t in qkv.split(D, dim=-1))
-        if c.sparse_attention is not None:
-            attn = self._sparse_attention(q, k, v)
-        else:
-            attn = causal_attention(q, k, v, use_flash=c.use_flash_attention,
-                                    sequence_parallel=c.sequence_parallel)
-        x = x + (attn.reshape(B, T, D) @ blk.proj_w.to(x.dtype) + blk.proj_b.to(x.dtype))
-        h = self._layer_norm(x, blk.ln2_g, blk.ln2_b)
-        return x + self._mlp(h, blk)
+        with self._gathered(blk) as w:
+            h = self._layer_norm(x, w.ln1_g, w.ln1_b)
+            qkv = h @ w.qkv_w.to(h.dtype) + w.qkv_b.to(h.dtype)
+            q, k, v = (t.reshape(B, T, c.n_head, c.head_dim) for t in qkv.split(D, dim=-1))
+            if c.sparse_attention is not None:
+                attn = self._sparse_attention(q, k, v)
+            else:
+                attn = causal_attention(q, k, v, use_flash=c.use_flash_attention,
+                                        sequence_parallel=c.sequence_parallel)
+            x = x + (attn.reshape(B, T, D) @ w.proj_w.to(x.dtype) + w.proj_b.to(x.dtype))
+            h = self._layer_norm(x, w.ln2_g, w.ln2_b)
+            return x + self._mlp(h, w)
 
     def _sparse_attention(self, q, k, v):
         """Causal block-sparse attention of the config's ``sparse_attention``
@@ -282,29 +308,38 @@ class GPT2Model(nn.Module):
                                                  self.config.n_head)
         return self._sparse(q, k, v, causal=True)
 
-    def _trunk(self, input_ids):
+    def _blocks(self, input_ids):
+        """Embedding and every block: (B, T) → (B, T, D) before the final
+        layer norm."""
         x = self._embed(input_ids)
         remat = self.config.remat in (True, "full")
         for blk in self.blocks:
             x = checkpoint(self._block, x, blk, use_reentrant=False) if remat \
                 else self._block(x, blk)
-        return self._layer_norm(x, self.lnf_g, self.lnf_b)
+        return x
 
-    def _head(self, dtype):
-        head = self.wte.t() if self.config.tie_embeddings else self.lm_head
+    def _head(self, top, dtype):
+        head = top.wte.t() if self.config.tie_embeddings else top.lm_head
         return head.to(dtype)
+
+    def _head_bias(self, top):
+        c = self.config
+        return top.lm_head_b if not c.tie_embeddings and c.lm_head_bias else None
 
     def hidden_states(self, input_ids):
         """Transformer trunk only: (B, T) → final hidden (B, T, D)."""
-        return self._trunk(input_ids)
+        x = self._blocks(input_ids)
+        with self._gathered(self) as top:
+            return self._layer_norm(x, top.lnf_g, top.lnf_b)
 
     def apply(self, input_ids):
         """input_ids (B, T) → logits (B, T, V) fp32."""
-        x = self._trunk(input_ids)
-        logits = (x @ self._head(x.dtype)).float()
-        if not self.config.tie_embeddings and self.config.lm_head_bias:
-            logits = logits + self.lm_head_b.float()
-        return logits
+        x = self._blocks(input_ids)
+        with self._gathered(self) as top:
+            x = self._layer_norm(x, top.lnf_g, top.lnf_b)
+            logits = (x @ self._head(top, x.dtype)).float()
+            bias = self._head_bias(top)
+            return logits if bias is None else logits + bias.float()
 
     forward = apply
 
@@ -313,13 +348,19 @@ class GPT2Model(nn.Module):
         or a bare (B, T) tensor → mean next-token cross entropy (fp32). The
         vocab projection runs in sequence chunks, so the (B, T, V) fp32
         logits are never held at once."""
-        c = self.config
         ids, labels, mask = parse_lm_batch(batch)
-        x = self._trunk(ids)[:, :-1]                                 # (B, T-1, D)
-        bias = self.lm_head_b if not c.tie_embeddings and c.lm_head_bias else None
-        return chunked_lm_loss(x, self._head(x.dtype), labels[:, 1:],
-                               mask[:, 1:] if mask is not None else None,
-                               bias=bias, remat=c.remat_loss_chunks)
+        x = self._blocks(ids)
+        with self._gathered(self) as top:
+            x = self._layer_norm(x, top.lnf_g, top.lnf_b)[:, :-1]       # (B, T-1, D)
+            return chunked_lm_loss(x, self._head(top, x.dtype), labels[:, 1:],
+                                   mask[:, 1:] if mask is not None else None,
+                                   bias=self._head_bias(top),
+                                   remat=self.config.remat_loss_chunks)
+
+    def loss_tokens(self, batch):
+        """What :meth:`loss` averages over: the masked target count, or None
+        without a mask (the engine weights ranks' losses by it)."""
+        return lm_loss_tokens(batch)
 
 
 def synthetic_lm_batch(batch_size: int, seq_len: int, vocab_size: int, seed: int = 0,

@@ -11,7 +11,12 @@ per-tensor trust ratio — rather than calling ``torch.optim``.
 Each factory returns an :class:`Optimizer`: ``init(params)`` → state, and
 ``update(grads, state, params, lr)`` → new state, which updates ``params``
 and the state's tensors in place. Moments are fp32 whatever the params'
-type. Every state has ``state_dict()`` (its counters and its per-parameter
+type. The engine passes one flat tensor per ZeRO unit, its rank's part of
+a module's parameters laid end to end (``runtime/zero/partition.py``):
+every rule but LAMB's is elementwise and runs on it unchanged, so an
+element's update is the one it gets in its own tensor. LAMB
+(``per_tensor``) also takes the units' ``segments`` and the group, and
+sums each parameter's squares over the ranks before its trust ratio. Every state has ``state_dict()`` (its counters and its per-parameter
 tensor lists, as a checkpoint saves them) and ``load_state_dict(sd)``,
 which copies the saved tensors into its own in place and returns the state
 with the saved counters.
@@ -24,6 +29,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.utils.logging import logger
 
 Tensors = Sequence[torch.Tensor]
@@ -33,9 +39,12 @@ Tensors = Sequence[torch.Tensor]
 class Optimizer:
     """``init(params)`` → state; ``update(grads, state, params, lr=...)`` →
     state, updating ``params`` in place. ``lr`` defaults to the factory's;
-    the engine passes its schedule's value every step."""
+    the engine passes its schedule's value every step. ``per_tensor``: the
+    rule needs whole-tensor reductions, so over flat ZeRO units its
+    ``update`` takes ``segments``, ``num_params`` and ``group``."""
     init: Callable[[Tensors], Any]
     update: Callable[..., Any]
+    per_tensor: bool = False
 
 
 def _zeros_like(params: Tensors) -> List[torch.Tensor]:
@@ -138,25 +147,47 @@ def fused_lamb(lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,
     def init(params):
         return AdamState(count=0, mu=_zeros_like(params), nu=_zeros_like(params))
 
+    def direction(p, m, v, g, bc1, bc2):
+        g = g.float()
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).add_(torch.square(g), alpha=1 - b2)
+        u = (m / bc1).div_(torch.sqrt(v / bc2).add_(eps))
+        if weight_decay != 0.0:
+            u.add_(p, alpha=weight_decay)
+        return u
+
+    def trust_ratio(w_norm, u_norm):
+        return torch.where((w_norm > 0) & (u_norm > 0),
+                           torch.clamp(w_norm / u_norm, min_coeff, max_coeff),
+                           torch.ones_like(w_norm))
+
     @torch.no_grad()
-    def update(grads, state, params, lr=lr):
+    def update(grads, state, params, lr=lr, segments=None, num_params=None, group=None):
+        """``segments``: (param index, tensor index, start, end) of each
+        parameter's elements in ``params`` (flat ZeRO units); the squares of
+        a parameter are summed over ``group`` before its norm."""
         count = state.count + 1
         bc1, bc2 = adam_bias_corrections(count, b1, b2, bias_correction)
-        for p, m, v, g in zip(params, state.mu, state.nu, grads):
-            g = g.float()
-            m.mul_(b1).add_(g, alpha=1 - b1)
-            v.mul_(b2).add_(torch.square(g), alpha=1 - b2)
-            u = (m / bc1).div_(torch.sqrt(v / bc2).add_(eps))
-            if weight_decay != 0.0:
-                u.add_(p, alpha=weight_decay)
-            w_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
-            trust = torch.where((w_norm > 0) & (u_norm > 0),
-                                torch.clamp(w_norm / u_norm, min_coeff, max_coeff),
-                                torch.ones_like(w_norm))
-            p.sub_(lr * trust * u)
+        if segments is None:
+            for p, m, v, g in zip(params, state.mu, state.nu, grads):
+                u = direction(p, m, v, g, bc1, bc2)
+                trust = trust_ratio(torch.linalg.vector_norm(p), torch.linalg.vector_norm(u))
+                p.sub_(lr * trust * u)
+            return state._replace(count=count)
+        us = [direction(p, m, v, g, bc1, bc2)
+              for p, m, v, g in zip(params, state.mu, state.nu, grads)]
+        sq = torch.zeros(2, num_params, dtype=torch.float32, device=params[0].device)
+        for i, k, s, e in segments:
+            sq[0, i] += params[k][s:e].square().sum()
+            sq[1, i] += us[k][s:e].square().sum()
+        if group is not None:
+            comm.all_reduce(sq, group=group)
+        trust = trust_ratio(*torch.sqrt(sq))
+        for i, k, s, e in segments:
+            params[k][s:e].sub_(lr * trust[i] * us[k][s:e])
         return state._replace(count=count)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, per_tensor=True)
 
 
 class LionState(NamedTuple):

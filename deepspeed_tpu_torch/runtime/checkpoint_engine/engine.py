@@ -24,6 +24,19 @@ for the copy of the state to host memory; a daemon thread writes the rest.
 Loads, the next save and the exit wait for it. Load verifies each candidate
 tag's manifest and falls back to the newest good one. The rewind tiers,
 emergency tags, the chaos injector and elastic resizes are later slices.
+
+Over many processes a tag stays world-agnostic, as the JAX orbax tag is:
+every rank takes part in gathering the whole tensors from the ZeRO
+partitions, one unit of one tensor list at a time (before
+``save_checkpoint`` returns, async or not); rank 0 copies each unit to the
+host before the next is gathered, the other ranks keep nothing, and rank 0
+alone writes, after a barrier, the files a world of one writes at any
+stage, without padding. The tag is rank 0's
+(``checkpoint.tag_validation`` warns or fails when the ranks asked for
+different ones). A load waits for rank 0's pending commit behind a
+barrier; each rank reads the whole tensors on the host and moves its
+partition to the card a unit at a time, at any world size and stage, and
+all ranks must pick the same candidate tag.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.resilience.fsio import (atomic_write_bytes, atomic_write_text,
                                                  fsync_dir)
 from deepspeed_tpu_torch.resilience.manifest import (COMMIT_MARKER, MANIFEST_NAME,
@@ -48,6 +62,7 @@ from deepspeed_tpu_torch.resilience.manifest import (COMMIT_MARKER, MANIFEST_NAM
                                                      candidate_tags, verify_tag,
                                                      write_manifest)
 from deepspeed_tpu_torch.resilience.retry import NO_RETRY, RetryPolicy, retry
+from deepspeed_tpu_torch.runtime.zero.state import PARAMS
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 # the top-level fields of the flat state, one file each
@@ -135,35 +150,66 @@ def _retry_policy(engine) -> RetryPolicy:
 
 
 # ----------------------------------------------------------- the flat state
-def flatten_state(engine) -> Dict[str, torch.Tensor]:
-    """The engine's training state under flat keys, as live tensors (the
-    counters as new 0-d tensors)."""
-    names = engine._param_names
-    flat = {"step": torch.tensor(engine._global_step, dtype=torch.int64)}
+def _state_spec(engine):
+    """Every key of the flat state, once, in order: ``(key, whole shape,
+    source)``, the source ``(tensors, i)`` for parameter ``i`` of a
+    ZeRO-laid-out source (``to_host``'s), else a function that gives the
+    value."""
+    z, plan = engine._zero, engine._plan
+    index = {p.name: i for i, p in enumerate(plan.params)}
+    spec = [("step", (), lambda: torch.tensor(engine._global_step, dtype=torch.int64))]
     for name, p in engine.module.named_parameters():
-        flat[f"params/{name}"] = p.detach()
-    if engine.master is not None:
-        for name, m in zip(names, engine.master):
-            flat[f"master/{name}"] = m
+        if name in index:
+            spec.append((f"params/{name}", plan.params[index[name]].shape,
+                         (PARAMS, index[name])))
+        else:
+            spec.append((f"params/{name}", tuple(p.shape), lambda p=p: p.detach()))
+    if engine._keep_master:
+        spec += [(f"master/{p.name}", p.shape, (z.fp32, i)) for i, p in enumerate(plan.params)]
     for field, v in engine.opt_state.state_dict().items():
         if isinstance(v, list):
-            for name, t in zip(names, v):
-                flat[f"opt_state/{field}/{name}"] = t
+            spec += [(f"opt_state/{field}/{p.name}", p.shape, (v, i))
+                     for i, p in enumerate(plan.params)]
         elif v is not None:
-            flat[f"opt_state/{field}"] = torch.tensor(v, dtype=torch.int64)
+            spec.append((f"opt_state/{field}", (),
+                         lambda v=v: torch.tensor(v, dtype=torch.int64)))
     if engine.scaler_state is not None:
         for field, v in engine.scaler_state.state_dict().items():
-            flat[f"scaler/{field}"] = torch.tensor(
-                v, dtype=torch.float64 if isinstance(v, float) else torch.int64)
-    flat["skipped_steps"] = torch.tensor(engine._skipped_steps, dtype=torch.int64)
-    return flat
+            spec.append((f"scaler/{field}", (), lambda v=v: torch.tensor(
+                v, dtype=torch.float64 if isinstance(v, float) else torch.int64)))
+    spec.append(("skipped_steps", (),
+                 lambda: torch.tensor(engine._skipped_steps, dtype=torch.int64)))
+    return spec
 
 
-def host_snapshot(flat: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Contiguous host copies of every tensor, each its own storage (a view
-    saved as is would drag its whole storage into the file). A copy from
-    the card waits for it, so the next step cannot change what is saved."""
-    return {k: v.detach().to("cpu", copy=True).contiguous() for k, v in flat.items()}
+def flatten_state(engine, keep: bool = True) -> Dict[str, torch.Tensor]:
+    """The engine's training state under flat keys, as whole tensors on the
+    host, each its own storage (a copy from the card waits for it, so the
+    next step cannot change what is saved). Every rank must call it: under
+    ZeRO stages 1-3 it gathers the partitions, one unit of one source at a
+    time, so the card holds one gathered unit at most beyond the state.
+    ``keep=False`` (a rank that does not write) takes part in the gathers
+    and keeps nothing."""
+    spec = _state_spec(engine)
+    sources = {}                        # id(source) -> (source, {param index: key})
+    for key, _, get in spec:
+        if isinstance(get, tuple):
+            sources.setdefault(id(get[0]), (get[0], {}))[1][get[1]] = key
+    whole = {}
+    for source, keys in sources.values():
+        for i, t in enumerate(engine._zero.to_host(source, keep)):
+            if i in keys:
+                whole[keys[i]] = t
+    if not keep:
+        return {}
+    return {key: whole[key] if isinstance(get, tuple)
+            else get().to("cpu", copy=True).contiguous() for key, _, get in spec}
+
+
+def state_shapes(engine) -> Dict[str, tuple]:
+    """The keys of :func:`flatten_state` and their whole shapes, without a
+    collective."""
+    return {key: tuple(shape) for key, shape, _ in _state_spec(engine)}
 
 
 def _field(key: str) -> str:
@@ -260,6 +306,21 @@ def capture_host_meta(engine) -> dict:
     }
 
 
+def agreed_tag(engine, tag: str) -> str:
+    """Rank 0's tag, on every rank. Under ``checkpoint.tag_validation``
+    Warn (Fail) a rank that asked for another tag logs (raises)."""
+    if comm.get_world_size() == 1:
+        return tag
+    tags = [str(t) for t in comm.allgather_host(np.array(str(tag)))]
+    cfg = engine._config
+    if len(set(tags)) > 1 and cfg.checkpoint_tag_validation_enabled:
+        msg = f"checkpoint tags differ across ranks: {tags}; rank 0's {tags[0]!r} is used"
+        if cfg.checkpoint_tag_validation_fail:
+            raise ValueError(msg)
+        logger.warning(msg)
+    return tags[0]
+
+
 def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
                            client_state: Optional[dict] = None,
                            save_latest: bool = True) -> bool:
@@ -269,14 +330,21 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     state (``write_s``) and to commit the whole tag (``commit_s``, from the
     call to ``latest``), or the error."""
     t0 = time.perf_counter()
-    tag = tag or f"global_step{engine.global_steps}"
+    tag = agreed_tag(engine, tag or f"global_step{engine.global_steps}")
     path = _ckpt_dir(save_dir, tag)
     policy = _retry_policy(engine)
+    writer = comm.get_rank() == 0
 
     # one save in flight at a time; and an overwritten tag's old manifest
     # would fail the new files, so it goes first (until the new one lands,
     # the tag falls back to the marker-and-client-state acceptance)
     wait_for_pending_saves()
+    if not writer:
+        flatten_state(engine, keep=False)   # this rank's part of the gathers
+        comm.barrier()
+        engine._last_save = {"tag": tag, "path": path, "bytes": 0, "writer": False,
+                             "blocking_s": time.perf_counter() - t0}
+        return True
     stale_manifest = os.path.join(path, MANIFEST_NAME)
     if os.path.exists(stale_manifest):
         def drop_stale():
@@ -286,7 +354,8 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
                 pass
         retry(drop_stale, policy, op="manifest")
 
-    host = host_snapshot(flatten_state(engine))
+    host = flatten_state(engine)
+    comm.barrier()                          # every rank's gathers are done
     host_meta = capture_host_meta(engine)
     manifest_files = {}
     sampler_sd = host_meta["data_sampler"]
@@ -311,7 +380,7 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         "data_loader": host_meta["data_loader"],
     }
     manifest_files["client_state.json"] = json.dumps(meta, default=str).encode("utf-8")
-    record = {"tag": tag, "path": path,
+    record = {"tag": tag, "path": path, "writer": True,
               "bytes": sum(v.numel() * v.element_size() for v in host.values())}
 
     def commit():
@@ -358,21 +427,22 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
 def _check_restored(engine, flat: Mapping[str, torch.Tensor], fields) -> None:
     """Every key the engine's state has in ``fields`` is in ``flat`` with
     the live shape (a scaler saved by another recipe may be absent)."""
-    live = flatten_state(engine)
+    live = state_shapes(engine)
     want = {k for k in live if _field(k) in fields and _field(k) != "scaler"}
     missing = sorted(want - set(flat))
     if missing:
         raise KeyError(f"checkpoint state lacks {len(missing)} key(s), e.g. {missing[:3]}")
     for k in want:
-        if tuple(flat[k].shape) != tuple(live[k].shape):
+        if tuple(flat[k].shape) != tuple(live[k]):
             raise ValueError(f"checkpoint {k} has shape {tuple(flat[k].shape)}, the "
-                             f"engine's is {tuple(live[k].shape)}")
+                             f"engine's is {tuple(live[k])}")
 
 
 @torch.no_grad()
 def apply_flat_state(engine, flat: Mapping[str, torch.Tensor], load_module_only: bool = False,
                      load_optimizer_states: bool = True) -> None:
-    """Copy a flat state into the engine's tensors in place.
+    """Copy a flat state of whole tensors into the engine's tensors in
+    place; under ZeRO stages 1-3 each rank keeps its partition.
 
     ``load_optimizer_states=False`` takes the params and the masters only;
     the optimizer state, the loss scale and the step counters stay the
@@ -380,18 +450,24 @@ def apply_flat_state(engine, flat: Mapping[str, torch.Tensor], load_module_only:
     only and refreshes the fp32 masters from them (the reference's
     ``refresh_fp32_params``), so the next step updates the loaded weights;
     the JAX package keeps its live masters there."""
-    for name, p in engine.module.named_parameters():
-        p.copy_(flat[f"params/{name}"])
     names = engine._param_names
-    if engine.master is not None:
-        for name, m, p in zip(names, engine.master, engine._params):
-            m.copy_(p if load_module_only else flat[f"master/{name}"])
+    trained = set(names)
+    for name, p in engine.module.named_parameters():
+        if name not in trained:
+            p.copy_(flat[f"params/{name}"])
+    params = [flat[f"params/{n}"] for n in names]
+    masters = params if load_module_only or not engine._keep_master \
+        else [flat[f"master/{n}"] for n in names]
+    z = engine._zero
+    z.load(PARAMS, params)
+    z.load(z.fp32, masters)
     if load_module_only or not load_optimizer_states:
         return
     sd = {}
     for field, v in engine.opt_state.state_dict().items():
         if isinstance(v, list):
-            sd[field] = [flat[f"opt_state/{field}/{n}"] for n in names]
+            z.load(v, [flat[f"opt_state/{field}/{n}"] for n in names])   # in place
+            sd[field] = v
         elif v is None:
             sd[field] = None
         else:
@@ -454,6 +530,7 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     explicit ``tag`` is a contract: no fallback. ``engine._last_recovery``
     records the tier, the step and the seconds the restore took."""
     wait_for_pending_saves()
+    comm.barrier()                          # rank 0's commit has landed
     engine._last_recovery = None
     res = engine._config.resilience
     candidates = candidate_tags(load_dir, preferred=tag)
@@ -489,7 +566,7 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         try:
             if not os.path.isfile(os.path.join(path, COMMIT_MARKER)):
                 raise FileNotFoundError("no committed state/")
-            flat = read_state(path, fields, engine.device)
+            flat = read_state(path, fields, "cpu")
             _check_restored(engine, flat, fields)
             meta = {}
             meta_path = os.path.join(path, "client_state.json")
@@ -508,6 +585,12 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
             continue
         break
     else:
+        cand = None
+    chosen = comm.broadcast_object_list([cand])[0]
+    if chosen != cand:
+        raise RuntimeError(f"rank {comm.get_rank()} would restore {cand!r} from {load_dir}, "
+                           f"rank 0 {chosen!r}: the ranks see different checkpoints")
+    if cand is None:
         logger.warning(f"no restorable checkpoint in {load_dir} (tried {candidates}); "
                        "nothing loaded")
         return None, {}

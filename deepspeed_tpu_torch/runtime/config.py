@@ -7,7 +7,7 @@ the batch triple ``train_batch_size = micro_batch * grad_accum * dp_world``
 is resolved and validated centrally with the reference's rules and errors.
 
 The port reads ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
-``gradient_clipping``, ``zero_optimization``, ``data_types``,
+``gradient_clipping``, ``zero_optimization``, ``comms_logger``, ``data_types``,
 ``sparse_attention``, ``checkpoint``, ``resilience``, ``data_efficiency``,
 ``curriculum_learning``, ``dataloader_drop_last``, ``steps_per_print``,
 ``wall_clock_breakdown``, ``seed`` and the batch keys.
@@ -34,7 +34,7 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 # the top-level keys the port reads
 SUPPORTED_KEYS = frozenset({
-    "fp16", "bf16", "bfloat16", "zero_optimization", "data_types", "optimizer",
+    "fp16", "bf16", "bfloat16", "zero_optimization", "comms_logger", "data_types", "optimizer",
     "scheduler", "gradient_clipping", "sparse_attention", "steps_per_print",
     "wall_clock_breakdown", "seed", "checkpoint", "resilience", "data_efficiency",
     "curriculum_learning", "dataloader_drop_last",
@@ -45,7 +45,7 @@ SUPPORTED_KEYS = frozenset({
 # the other top-level keys the JAX package accepts (its KNOWN_TOP_LEVEL_KEYS
 # and ADVISORY_NOOP_KEYS): each is a later slice of the port
 LATER_KEYS = frozenset({
-    "comms_logger", "flops_profiler", "activation_checkpointing", "tensorboard", "wandb",
+    "flops_profiler", "activation_checkpointing", "tensorboard", "wandb",
     "csv_monitor", "pipeline", "tpu", "aio", "elasticity", "hybrid_engine",
     "gradient_compression", "compression_training",
     "autotuning", "rewind", "watchdog", "analysis", "telemetry", "profiling",
@@ -123,11 +123,24 @@ class DataTypesConfig(DeepSpeedConfigModel):
 
 
 @dataclasses.dataclass
+class CommsLoggerConfig(DeepSpeedConfigModel):
+    """The comms_logger block: a CommsLogger records every collective's
+    latency and size (``comm.configure``)."""
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
 class CheckpointConfig(DeepSpeedConfigModel):
-    """The checkpoint block. The engine saves one rank's tag in the default
-    format, so the keys for many ranks or another format parse at the
-    values that ask for nothing more; any other value is a later slice of
-    the port and raises."""
+    """The checkpoint block. A tag is world-agnostic: rank 0 writes the
+    whole tensors and the other ranks write nothing, so
+    ``use_node_local_storage`` parses and changes nothing, as in the JAX
+    package. ``tag_validation`` checks that every rank asked for the same
+    tag (Warn logs a mismatch, Fail raises; rank 0's tag is used). The
+    universal format and pipeline-split writes are later slices and raise."""
     tag_validation: str = "Warn"      # Ignore | Warn | Fail
     load_universal: bool = False
     use_node_local_storage: bool = False
@@ -137,11 +150,11 @@ class CheckpointConfig(DeepSpeedConfigModel):
     async_save: bool = True
 
     def __post_init__(self):
+        if self.tag_validation.lower() not in ("ignore", "warn", "fail"):
+            raise ValueError(f"checkpoint.tag_validation={self.tag_validation!r} not in "
+                             "('Ignore', 'Warn', 'Fail')")
         later = (
-            (self.tag_validation.lower() not in ("ignore", "warn"),
-             f"tag_validation={self.tag_validation!r} (a tag checked across ranks)"),
             (self.load_universal, "load_universal=true (the universal checkpoint format)"),
-            (self.use_node_local_storage, "use_node_local_storage=true (per-node storage)"),
             (any(self.parallel_write.values()),
              f"parallel_write={self.parallel_write} (writes split across pipeline stages)"))
         for asked, what in later:
@@ -213,6 +226,7 @@ class DeepSpeedConfig:
         if self.fp16.enabled and self.bf16.enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get("zero_optimization", {}))
+        self.comms_config = CommsLoggerConfig.from_dict(pd.get("comms_logger", {}))
         self.data_types_config = DataTypesConfig.from_dict(pd.get("data_types", {}))
         if self.data_types_config.grad_accum_dtype not in GRAD_ACCUM_DTYPES:
             raise ValueError(f"data_types.grad_accum_dtype="
@@ -240,6 +254,10 @@ class DeepSpeedConfig:
                 raise ValueError("Unknown key(s) in the 'sparse_attention' ds_config block: "
                                  f"{format_unknown_key_hints(unknown, SPARSE_ATTENTION_KEYS)}")
         self.checkpoint_config = CheckpointConfig.from_dict(pd.get("checkpoint", {}))
+        self.checkpoint_tag_validation_enabled = \
+            self.checkpoint_config.tag_validation.lower() != "ignore"
+        self.checkpoint_tag_validation_fail = \
+            self.checkpoint_config.tag_validation.lower() == "fail"
         self.resilience = ResilienceConfig.from_dict(pd.get("resilience", {}))
         self.data_efficiency_config = pd.get("data_efficiency", {})
         if isinstance(self.data_efficiency_config, dict) \

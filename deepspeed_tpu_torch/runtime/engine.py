@@ -1,26 +1,44 @@
-"""DeepSpeedEngine — the training engine, single-device path.
+"""DeepSpeedEngine — the training engine, over one or many processes.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py``. The JAX engine is
 functional: all training state lives in one ``TrainState`` pytree and one
-compiled program advances it. Here the state is the model's own parameters
-(in the compute type, on the card), an fp32 master copy of them whenever the
-compute type is not fp32, the optimizer's fp32 state, the loss scaler's
-state and the step counters; PyTorch runs the step eagerly.
+compiled program advances it over a device mesh. Here each process holds
+its rank's share of the state on its card (the model's parameters in the
+compute type, the fp32 copy the optimizer updates, which a checkpoint saves
+as the masters when the compute type is not fp32, the optimizer's fp32
+state, the loss scaler's state, the step counters) and
+PyTorch runs the step eagerly, with the collectives of its ZeRO stage
+issued over ``torch.distributed``.
 
-``train_batch(batch)`` splits the global batch into gradient-accumulation
-microbatches, runs each one's forward and backward, and applies the
-optimizer once, as the JAX ``_apply_grads`` does: finite check (fp16), the
-unscaled global norm taken from the scaled grads, clip coefficient
-min(1, clip / (norm + 1e-6)), the optimizer update on the masters, the copy
-back to the compute type; on overflow params and optimizer state are kept,
-the step counter advances and the loss scale backs off. The reference's
+``train_batch(batch)`` takes this rank's rows of the global batch (the
+loader gives rank ``r`` rows ``r::world``), splits them into
+gradient-accumulation microbatches, runs each one's forward and backward,
+and applies the optimizer once, as the JAX ``_apply_grads`` does: the
+gradients averaged over the microbatches and the ranks and moved to their
+ZeRO placement, finite check (fp16; the group's verdict), the unscaled
+global norm from the scaled grads, clip coefficient min(1, clip / (norm +
+1e-6)), the optimizer update on one fp32 tensor per unit (one module's
+masters, flat: the whole unit at stage 0, the rank's shard at stages 1–3),
+the copy back to the compute type; on overflow params and
+optimizer state are kept, the step counter advances and the loss scale
+backs off. It returns the world's mean loss on every rank: with a
+``loss_mask`` whose token count differs between ranks, each rank's loss
+and gradients are weighted by its share of the microbatch's tokens, so the
+result is the JAX engine's loss over the global batch. The reference's
 three-call API (``forward`` / ``backward`` / ``step``) runs the same pieces.
 
-Gradients never accumulate in the compute type: a post-accumulate hook on
-each parameter moves its gradient into an fp32 buffer (or
-``data_types.grad_accum_dtype``) as soon as autograd has it, and the buffers
-are freed after the step. The tied GPT-2 embedding is one parameter, so
-autograd sums its two contributions before the hook sees them.
+ZeRO (``runtime/zero/``): ``partition.py`` plans where each parameter's
+state sits at the configured stage, in one flat unit per module;
+``state.py`` holds the units' buffers and issues the collectives:
+gradients all-reduced (stage 0) or reduce-scattered (stage 1) at the
+accumulation boundary, or reduce-scattered unit by unit during each
+backward (stages 2, 3); updated shards all-gathered (1, 2), and under
+stage 3 each module's parameters gathered just before it runs, in forward
+and again in backward. Gradients never accumulate in the compute type: a
+post-accumulate hook moves each one into its unit's fp32 buffer (or
+``data_types.grad_accum_dtype``) as soon as autograd has it. The tied GPT-2
+embedding is one parameter, so its two contributions are summed before
+they reach the buffer.
 
 ``training_data`` becomes the engine's resumable ``DeepSpeedDataLoader``
 (``deepspeed_io``), with the metric curriculum sampler when the ds_config
@@ -28,12 +46,15 @@ autograd sums its two contributions before the hook sees them.
 (the legacy ``curriculum_learning`` block or a ``seqlen`` metric) truncates
 each batch on the host before it goes to the card. ``save_checkpoint`` and
 ``load_checkpoint`` write and verify the JAX package's tag layout
-(``runtime/checkpoint_engine/engine.py``).
+(``runtime/checkpoint_engine/engine.py``), the same whole tensors at every
+world size and stage.
 
 The engine runs on CUDA unless it is given ``device="cpu"``; without a card
-it raises. One process only: ZeRO placement and communication over
-``torch.distributed``, offload and the observability blocks are later
-slices and raise when configured.
+it raises. Its process group is the default one when one is initialized
+(NCCL for a CUDA engine, gloo for a CPU one; any other pairing raises), and
+without one it is a world of one that issues no collective. Model
+parallelism, offload and the observability blocks are later slices and
+raise when configured.
 """
 
 from __future__ import annotations
@@ -45,8 +66,10 @@ from typing import Any, List, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.ops.optimizers import Optimizer, build_optimizer
+from deepspeed_tpu_torch.parallel.topology import ParallelGrid
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import CurriculumScheduler
 from deepspeed_tpu_torch.runtime.data_pipeline.data_sampling import (apply_seqlen_curriculum,
@@ -55,6 +78,8 @@ from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, grads_finite
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedule, build_lr_schedule
 from deepspeed_tpu_torch.runtime.utils import get_grad_norm
+from deepspeed_tpu_torch.runtime.zero.partition import partition_report, plan_partition
+from deepspeed_tpu_torch.runtime.zero.state import PARAMS, ZeroState
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                                              STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER, NoopTimer,
@@ -63,19 +88,6 @@ from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOB
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what}: later slice of the port")
-
-
-def _grad_hook(acc: List[Optional[torch.Tensor]], i: int, dtype: torch.dtype):
-    """A post-accumulate hook for parameter ``i``: move its fresh gradient
-    into ``acc[i]`` (in ``dtype``) and free ``param.grad``. It holds the
-    buffer list, not the engine, so a deleted engine frees its state."""
-    def hook(p):
-        g, p.grad = p.grad, None
-        if acc[i] is None:
-            acc[i] = g if g.dtype == dtype else g.to(dtype)
-        else:
-            acc[i].add_(g)
-    return hook
 
 
 class StepMetrics(NamedTuple):
@@ -95,22 +107,27 @@ class DeepSpeedEngine:
             config_class = DeepSpeedConfig(config if config is not None else {})
         self._config = config_class
 
-        # ---- world: one process ------------------------------------------
-        world = torch.distributed.get_world_size() if (
-            torch.distributed.is_available() and torch.distributed.is_initialized()) else 1
-        if world > 1:
-            raise _later(f"training over {world} processes (ZeRO placement and "
-                         "communication over torch.distributed)")
+        # ---- world ----------------------------------------------------
         if mpu is not None:
             raise _later("model parallelism (mpu)")
-        self.dp_world_size = self.mp_world_size = 1
+        self.device = resolve_device(device)
+        self.grid = ParallelGrid()
+        self._group = self.grid.get_data_parallel_group()   # None: no process group
+        if self._group is not None:
+            want = "gloo" if self.device.type == "cpu" else "nccl"
+            if comm.get_backend() != want:
+                raise RuntimeError(f"a {comm.get_backend()} process group for an engine on "
+                                   f"{self.device}: the port runs {want} there")
+        self.global_rank = self.grid.get_data_parallel_rank()
+        self.dp_world_size = self.grid.get_data_parallel_world_size()
+        self.mp_world_size = self.grid.get_model_parallel_world_size()
         self._config._configure_train_batch_size(self.dp_world_size)
+        comm.configure(self._config)
 
         # ---- model protocol ----------------------------------------------
         if not (isinstance(model, torch.nn.Module) and hasattr(model, "loss")):
             raise ValueError("model must be an nn.Module with .loss(batch)")
         self.module = model
-        self.device = resolve_device(device)
         self.train_dtype = self._config.train_dtype
         self.fp16_enabled = self._config.fp16.enabled
         self.bf16_enabled = self._config.bf16.enabled
@@ -126,22 +143,39 @@ class DeepSpeedEngine:
             # the JAX engine draws them from PRNGKey(seed)
             model.init_params(torch.Generator(device=self.device).manual_seed(self._config.seed))
         model.to(device=self.device)
+        owner = {id(p): (mname, m) for mname, m in model.named_modules()
+                 for p in m.parameters(recurse=False)}
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self._param_names: List[str] = [n for n, _ in named]
         self._params: List[torch.nn.Parameter] = [p for _, p in named]
         if not self._params:
             raise ValueError("the model has no trainable parameters")
-        # fp32 master copy whenever the compute type is not fp32, taken before
-        # the params are cast so it keeps the fp32 values
+        self._plan = plan_partition(
+            [(n, tuple(p.shape), owner[id(p)][0]) for n, p in named], self.zero_stage,
+            self.dp_world_size, self._config.zero_config.param_persistence_threshold)
+        # the fp32 values, taken before the params are cast and laid out
+        # in units; every rank starts from rank 0's
+        fp32_values = [p.detach() for p in self._params]
+        # the optimizer updates an fp32 copy (ZeroState.fp32), which a
+        # checkpoint saves as the masters when the compute type is not fp32
         self._keep_master = self.train_dtype != torch.float32 and (
             self.fp16_enabled or self._config.bf16.master_weights)
-        self.master = ([p.detach().float().clone() for p in self._params]
-                       if self._keep_master else None)
         model.to(dtype=self.train_dtype)
+        self._zero = ZeroState(self._plan, self._params, [owner[id(p)][1] for p in self._params],
+                               fp32_values, self.train_dtype, self._config.grad_accum_dtype,
+                               self.device, self._group, self.global_rank)
+        del fp32_values
+        if any(u.partitioned for u in self._plan.units):
+            if not hasattr(model, "param_gatherer"):
+                raise NotImplementedError(f"ZeRO stage 3 on {type(model).__name__}: the model "
+                                          "must gather its modules' parameters "
+                                          "(param_gatherer)")
+            model.param_gatherer = self._zero
+        log_dist(partition_report(self._plan), ranks=[0])
 
         # ---- optimizer, schedule, loss scaler ----------------------------
         self.optimizer = self._configure_optimizer(optimizer)
-        self.opt_state = self.optimizer.init(self._targets())
+        self.opt_state = self.optimizer.init(self._zero.fp32)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
         self.loss_scaler = None
         self.scaler_state = None
@@ -156,13 +190,13 @@ class DeepSpeedEngine:
                                    "consecutive_hysteresis": f.consecutive_hysteresis})
             self.scaler_state = self.loss_scaler.initial_state()
 
-        # ---- gradient accumulation ---------------------------------------
-        self._grad_acc: List[Optional[torch.Tensor]] = [None] * len(self._params)
-        hooks = [p.register_post_accumulate_grad_hook(
-            _grad_hook(self._grad_acc, i, self._config.grad_accum_dtype))
-            for i, p in enumerate(self._params)]
+        # ---- gradient accumulation: hooks into the units' buffers --------
+        hooks = [p.register_post_accumulate_grad_hook(self._zero.grad_hook(i))
+                 for i, p in enumerate(self._params)
+                 if not self._plan.params[i].partitioned]
         # the model outlives the engine: its hooks go with the engine
         weakref.finalize(self, lambda: [h.remove() for h in hooks])
+        self._pending_weight = None
 
         # ---- counters and timers -----------------------------------------
         self._global_step = 0
@@ -195,7 +229,8 @@ class DeepSpeedEngine:
         if cl_cfg.get("enabled"):
             self.curriculum_scheduler = CurriculumScheduler(cl_cfg)
         log_dist(f"engine ready: dtype={self.train_dtype}, zero={self.zero_stage}, "
-                 f"device={self.device}, micro_batch={self.train_micro_batch_size_per_gpu()}, "
+                 f"device={self.device}, dp={self.dp_world_size}, "
+                 f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
                  f"gas={self._config.gradient_accumulation_steps}", ranks=[0])
 
     # ------------------------------------------------------------- plumbing
@@ -228,10 +263,6 @@ class DeepSpeedEngine:
             return float(self.lr_scheduler.lr_at(step))
         return self._base_lr()
 
-    def _targets(self) -> List[torch.Tensor]:
-        """What the optimizer updates: the fp32 masters, else the params."""
-        return self.master if self.master is not None else [p.data for p in self._params]
-
     def _scale(self) -> float:
         return self.scaler_state.scale if self.scaler_state is not None else 1.0
 
@@ -261,25 +292,48 @@ class DeepSpeedEngine:
             else:
                 yield take(batch, i)
 
+    def _forward(self, batch):
+        with self._zero.forward_context():
+            return self.module.loss(batch)
+
     def _backward(self, loss) -> None:
         (loss.float() * self._scale()).backward()
+        self._zero.end_backward()
+
+    def _token_weights(self, microbatches) -> Optional[torch.Tensor]:
+        """Each microbatch's weight, world × this rank's share of its valid
+        target tokens over the world's (the model's ``loss_tokens``), when
+        a loss mask makes the shares differ; None otherwise. Ranks average
+        their gradients, so the weighted losses make the global token mean."""
+        count = getattr(self.module, "loss_tokens", None)
+        if self.dp_world_size == 1 or count is None:
+            return None
+        local = [count(mb) for mb in microbatches]
+        if any(c is None for c in local):
+            return None
+        local = torch.stack(local).float()
+        total = comm.all_reduce(local.clone(), group=self._group)
+        return self.dp_world_size * local.clamp(min=1.0) / total.clamp(min=1.0)
+
+    def _world_mean(self, loss: torch.Tensor) -> torch.Tensor:
+        if self._group is None:
+            return loss
+        return comm.all_reduce(loss.clone(), op=comm.ReduceOp.AVG, group=self._group)
 
     @torch.no_grad()
     def _apply_grads(self, loss, gas: int) -> StepMetrics:
-        """The optimizer phase: mean over microbatches, finite check, unscale
-        and clip, update the masters, copy back, scale bookkeeping."""
-        acc_dtype = self._config.grad_accum_dtype
-        grads = [g if g is not None else torch.zeros(p.shape, dtype=acc_dtype, device=p.device)
-                 for g, p in zip(self._grad_acc, self._params)]
-        self._grad_acc[:] = [None] * len(self._params)
-        if gas > 1:
-            for g in grads:
-                g.div_(gas)
+        """The optimizer phase: the mean over microbatches and ranks at the
+        ZeRO placement, finite check, unscale and clip, update the fp32
+        copy, refresh the params, scale bookkeeping."""
+        z = self._zero
+        grads = z.reduced_grads(gas)
+        group = self._group if z.sharded else None        # the grads' sharding
         scale = self._scale()
         # the one host sync of a step, and only with fp16 loss scaling
-        finite = bool(grads_finite(grads).item()) if self.loss_scaler is not None else True
+        finite = bool(grads_finite(grads, self._group).item()) \
+            if self.loss_scaler is not None else True
         inv_scale = 1.0 / scale
-        grad_norm = get_grad_norm(grads) * inv_scale          # unscaled global norm
+        grad_norm = get_grad_norm(grads, group=group) * inv_scale   # unscaled global norm
         coef = torch.full((), inv_scale, dtype=torch.float32, device=grad_norm.device)
         clip = self._config.gradient_clipping
         if clip > 0:
@@ -288,10 +342,11 @@ class DeepSpeedEngine:
             g.mul_(coef)
         lr = self._lr_at(self._global_step)
         if finite:
-            self.opt_state = self.optimizer.update(grads, self.opt_state, self._targets(), lr=lr)
-            if self.master is not None:
-                for p, m in zip(self._params, self.master):
-                    p.copy_(m)
+            flat = {"segments": z.segments(), "num_params": len(self._params),
+                    "group": group} if self.optimizer.per_tensor else {}
+            self.opt_state = self.optimizer.update(grads, self.opt_state, z.fp32, lr=lr,
+                                                   **flat)
+            z.refresh_params()
         del grads
         if self.loss_scaler is not None:
             self.scaler_state = self.loss_scaler.update(self.scaler_state, finite)
@@ -319,8 +374,9 @@ class DeepSpeedEngine:
 
     # ----------------------------------------------------------- public API
     def train_batch(self, batch=None, data_iter=None) -> torch.Tensor:
-        """Consume one global batch (all microbatches) and take one step.
-        Returns the mean loss over the microbatches (a 0-d fp32 tensor)."""
+        """Consume this rank's rows of one global batch (all microbatches)
+        and take one step. Returns the world's mean loss over the
+        microbatches (a 0-d fp32 tensor, the same on every rank)."""
         gas = self._config.gradient_accumulation_steps
         if batch is None:
             if data_iter is None:
@@ -332,12 +388,16 @@ class DeepSpeedEngine:
         batch = self._to_device(batch)
         self.timers(TRAIN_BATCH_TIMER).start()
         self.tput_timer.start()
+        microbatches = list(self._split(batch, gas))
+        weights = self._token_weights(microbatches)
         losses = []
-        for mb in self._split(batch, gas):
-            loss = self.module.loss(mb)
+        for i, mb in enumerate(microbatches):
+            loss = self._forward(mb)
+            if weights is not None:
+                loss = loss * weights[i]
             self._backward(loss)
             losses.append(loss.detach().float())
-        mean_loss = torch.stack(losses).mean()
+        mean_loss = self._world_mean(torch.stack(losses).mean())
         self.micro_steps += gas
         self._apply_grads(mean_loss, gas)
         self.timers(TRAIN_BATCH_TIMER).stop()
@@ -345,9 +405,12 @@ class DeepSpeedEngine:
         return mean_loss
 
     def forward(self, batch):
-        """The loss of one microbatch, with its autograd graph."""
+        """The loss of one microbatch (this rank's), with its autograd graph."""
         self.timers(FORWARD_GLOBAL_TIMER).start()
-        loss = self.module.loss(self._to_device(batch))
+        batch = self._to_device(batch)
+        weights = self._token_weights([batch])
+        self._pending_weight = None if weights is None else weights[0]
+        loss = self._forward(batch)
         self.timers(FORWARD_GLOBAL_TIMER).stop()
         return loss
 
@@ -355,8 +418,11 @@ class DeepSpeedEngine:
 
     def backward(self, loss, allreduce_gradients=True, release_loss=False):
         """Backpropagate one microbatch's (scaled) loss into the fp32
-        accumulation buffers."""
+        accumulation buffers, weighted by the microbatch's token share."""
         self.timers(BACKWARD_GLOBAL_TIMER).start()
+        if self._pending_weight is not None:
+            loss = loss * self._pending_weight
+            self._pending_weight = None
         self._backward(loss)
         self._micro_loss = loss.detach().float()
         self.micro_steps += 1
@@ -377,7 +443,8 @@ class DeepSpeedEngine:
         if self._micro_loss is None:
             raise RuntimeError("step() called with no accumulated gradients")
         self.timers(STEP_GLOBAL_TIMER).start()
-        self._apply_grads(self._micro_loss, self._config.gradient_accumulation_steps)
+        self._apply_grads(self._world_mean(self._micro_loss),
+                          self._config.gradient_accumulation_steps)
         self._micro_loss = None
         self.timers(STEP_GLOBAL_TIMER).stop()
 
@@ -422,8 +489,12 @@ class DeepSpeedEngine:
         return self.mp_world_size
 
     def module_state_dict(self) -> dict:
-        """The params in the compute type, on the host."""
-        return {k: v.detach().cpu() for k, v in self.module.state_dict().items()}
+        """The params in the compute type, whole, on the host (a collective
+        under ZeRO stage 3)."""
+        sd = {k: v.detach().cpu() for k, v in self.module.state_dict().items()}
+        if self.zero_stage >= 3:
+            sd.update(zip(self._param_names, self._zero.to_host(PARAMS)))
+        return sd
 
     @property
     def training_dataloader(self):

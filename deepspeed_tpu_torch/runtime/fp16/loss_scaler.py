@@ -18,6 +18,8 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from deepspeed_tpu_torch import comm
+
 INITIAL_LOSS_SCALE = "init_scale"
 SCALE_WINDOW = "scale_window"
 DELAYED_SHIFT = "delayed_shift"
@@ -44,12 +46,17 @@ def make_state(init_scale: float) -> LossScaleState:
     return LossScaleState(scale=float(init_scale), good_steps=0, hysteresis=1, overflows=0)
 
 
-def grads_finite(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+def grads_finite(grads: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """0-d bool tensor on the grads' device: every element of every gradient
-    is finite. One fused reduction per tensor; nothing waits on the host."""
-    if not grads:
-        return torch.tensor(True)
-    return torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    is finite. One fused reduction per tensor; nothing waits on the host.
+    Over a process ``group`` the verdict is the group's (a MAX all-reduce of
+    the overflow flag), so a step skipped on one rank is skipped on all."""
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all() if grads \
+        else torch.tensor(True)
+    if group is None:
+        return finite
+    overflow = comm.all_reduce((~finite).float(), op=comm.ReduceOp.MAX, group=group)
+    return overflow == 0
 
 
 class DynamicLossScaler:

@@ -1,1 +1,1 @@
-"""ZeRO configuration (placement over more than one process is a later slice)."""
+"""ZeRO: the configuration, the partition plan and the engine's per-unit state."""

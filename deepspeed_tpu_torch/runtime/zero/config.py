@@ -5,11 +5,12 @@ compatible with the reference's ``deepspeed/runtime/zero/config.py``), on
 the port's dataclass base: the same keys, aliases and bounds, unknown keys
 rejected.
 
-On a world of one process every ZeRO placement is whole, as on a
-one-device JAX mesh, so stages 0–3 are accepted there and change nothing.
-What needs more than this slice raises ``NotImplementedError``: a stage
-above 0 across more than one process (checked by the engine, which knows
-the world), host or NVMe offload, and the quantized-ZeRO keys.
+Stages 0–3 take effect (``partition.py`` places the state, the engine's
+``runtime/zero/state.py`` runs the collectives), and stage 3 reads
+``stage3_param_persistence_threshold``. The bucket, prefetch and live-
+parameter keys parse and bound nothing yet: the engine issues one
+collective per unit (a module's parameters, flat). Host or NVMe offload, MiCS and the quantized-ZeRO
+keys raise ``NotImplementedError`` (later slices).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ OFFLOAD_DEVICES = ("none", "cpu", "nvme")
 
 
 def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: later slice of the port (comm and offload)")
+    return NotImplementedError(f"{what}: later slice of the port")
 
 
 def _check_min(block, **bounds):

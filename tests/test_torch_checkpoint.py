@@ -450,8 +450,9 @@ def test_consolidated_fp32_params_match_jax_and_the_masters(runs, tmp_path):
     eng.save_checkpoint(str(tmp_path / "bf16"))
     tck.wait_for_pending_saves()
     tree = tcons.consolidated_fp32_params(str(tmp_path / "bf16"))
-    for name, m in zip(eng._param_names, eng.master):
-        assert np.array_equal(tree[name], m.numpy()), name
+    masters = tck.flatten_state(eng)
+    for name in eng._param_names:
+        assert np.array_equal(tree[name], masters[f"master/{name}"].numpy()), name
 
 
 # ---------------------------------------------------- config and counters
@@ -487,14 +488,19 @@ def test_checkpoint_and_data_blocks_parse_like_jax_and_later_blocks_raise():
                           "chaos"),
                          ({"data_efficiency": {"data_routing": {"enabled": True}}},
                           "random-LTD"),
-                         ({"checkpoint": {"tag_validation": "Fail"}}, "tag_validation"),
                          ({"checkpoint": {"load_universal": True}}, "load_universal"),
-                         ({"checkpoint": {"use_node_local_storage": True}},
-                          "use_node_local_storage"),
                          ({"checkpoint": {"parallel_write": {"pipeline_stage": True}}},
                           "parallel_write")):
         with pytest.raises(NotImplementedError, match=match):
             TConfig({"train_batch_size": 8, **later})
+    # the keys for many ranks parse as in the JAX package (tags are written
+    # by rank 0 alone, so node-local storage changes nothing)
+    for ranks in ({"tag_validation": "Fail"}, {"use_node_local_storage": True}):
+        cfg = {"train_batch_size": 8, "checkpoint": ranks}
+        j, t = JConfig(copy.deepcopy(cfg)), TConfig(copy.deepcopy(cfg))
+        for f in ("tag_validation", "use_node_local_storage"):
+            assert getattr(t.checkpoint_config, f) == getattr(j.checkpoint_config, f), f
+        assert t.checkpoint_tag_validation_fail == j.checkpoint_tag_validation_fail
     for typo, match in (({"checkpoint": {"async_sav": True}}, "did you mean 'async_save'"),
                         ({"resilience": {"retry": {"max_atempts": 2}}},
                          "did you mean 'max_attempts'"),

@@ -22,6 +22,10 @@ head dims of the model presets. The last tests feed a small bf16 GPT-2
 through its data loader, save and resume it (the state after a load equal
 to the saved state bit for bit, the losses equal to the uninterrupted
 run's) and run the seqlen curriculum through the kernels at ragged lengths.
+The ZeRO tests train it over a NCCL process group of one (the card's
+machine has one card, and NCCL takes no two ranks on one device) at stages
+0–3: the same losses (bf16 1%, fp32 1e-5) and kernel launches at every
+stage, and a tag saved at stage 3 restored bit for bit at stage 1.
 """
 
 import dataclasses
@@ -438,7 +442,8 @@ def test_train_batch_runs_the_kernels(gen, dtype, precision):
     assert (tfa.KERNEL.launches, tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dq"],
             tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dkv"]) == (2, 2, 2)
     assert not torch.equal(before_w, engine.module.blocks[0].qkv_w)
-    assert engine.module.wte.dtype == dtype and engine.master[0].dtype == torch.float32
+    assert engine.module.wte.dtype == dtype
+    assert all(t.dtype == torch.float32 for t in engine._zero.fp32)
     assert engine.skipped_steps == 0
 
 
@@ -743,3 +748,116 @@ def test_seqlen_curriculum_runs_the_kernels_at_every_length(gen):
         assert (tfa.KERNEL.launches, tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dq"],
                 tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dkv"]) == (2, 2, 2)
     assert lengths == [40, 72, 96, 128, 128]
+
+
+# ------------------------------------------------------------------ ZeRO
+ZERO_CONFIG = {"train_batch_size": 4, "gradient_clipping": 1.0, "steps_per_print": 0,
+               "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+
+
+@pytest.fixture
+def nccl_world(gen):
+    """A NCCL process group of one, destroyed after the test."""
+    import socket
+
+    from deepspeed_tpu_torch import comm
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    comm.init_distributed(init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+                          timeout=120)
+    yield comm
+    comm.destroy_process_group()
+
+
+def _zero_engine(stage, dtype, extra=None):
+    cfg = gpt2.GPT2Config(vocab_size=1024, n_positions=128, n_embd=256, n_layer=2, n_head=4,
+                          remat=False, dtype=dtype)
+    config = {**ZERO_CONFIG, "zero_optimization": {
+        "stage": stage, "stage3_param_persistence_threshold": 1000}, **(extra or {})}
+    if dtype == torch.bfloat16:
+        config["bf16"] = {"enabled": True}
+    engine, *_ = deepspeed_tpu_torch.initialize(model=gpt2.GPT2Model(cfg), config=config)
+    return engine
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+def test_zero_stages_train_alike_over_nccl(nccl_world, dtype, rtol):
+    """Stages 0-3 from the same seed and batch: the losses of stage 0,
+    two launches of each dense kernel per step, and under stage 3 the
+    gathers (a forward's 4 and a backward's 2 for 2 layers)."""
+    assert nccl_world.get_backend() == "nccl"
+    batch = gpt2.synthetic_lm_batch(4, 128, 1024, device="cuda")
+    losses = {}
+    for stage in range(4):
+        engine = _zero_engine(stage, dtype)
+        tfa.KERNEL.reset_launches()
+        tfa.BWD_KERNEL.reset_launches()
+        losses[stage] = [float(engine.train_batch(batch)) for _ in range(3)]
+        assert (tfa.KERNEL.launches, tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dq"],
+                tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dkv"]) == (6, 6, 6)
+        assert engine._zero.gathers == (18 if stage == 3 else 0)
+        assert engine.module_state_dict()["wte"].shape == (1024, 256)
+    for stage in (1, 2, 3):
+        np.testing.assert_allclose(losses[stage], losses[0], rtol=rtol, err_msg=str(stage))
+
+
+def test_zero_stage3_tag_restores_at_stage1_over_nccl(nccl_world, tmp_path):
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import flatten_state
+
+    batch = gpt2.synthetic_lm_batch(4, 128, 1024, device="cuda")
+    a = _zero_engine(3, torch.bfloat16, {"checkpoint": {"async_save": False}})
+    a.train_batch(batch)
+    saved = {k: v.clone() for k, v in flatten_state(a).items()}
+    a.save_checkpoint(str(tmp_path))
+    b = _zero_engine(1, torch.bfloat16, {"seed": 5})
+    path, _ = b.load_checkpoint(str(tmp_path))
+    assert path.endswith("global_step1")
+    restored = flatten_state(b)
+    assert restored.keys() == saved.keys()
+    for k, v in saved.items():
+        assert torch.equal(_bits(restored[k]), _bits(v)), k
+
+
+def test_zero_stage3_state_gathers_one_unit_at_a_time_over_nccl(nccl_world):
+    """The whole state of a stage-3 engine comes to the host one unit at a
+    time: the card's peak during ``flatten_state`` is the state plus the
+    largest unit's fp32 buffer at most."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import flatten_state
+
+    engine = _zero_engine(3, torch.bfloat16)
+    engine.train_batch(gpt2.synthetic_lm_batch(4, 128, 1024, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    state = flatten_state(engine)
+    above = torch.cuda.max_memory_allocated() - before
+    assert all(t.device.type == "cpu" for t in state.values())
+    assert 0 < above <= 4 * max(u.length for u in engine._plan.units) + 2 ** 20, above
+
+
+def test_comm_collectives_over_nccl(nccl_world):
+    """Every collective of ``comm`` on card tensors over NCCL: at a world of
+    one each returns its input (or the group's one slot of it)."""
+    comm = nccl_world
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    for op in ("sum", "avg", "max", "min", "product"):
+        assert torch.equal(comm.all_reduce(x.clone(), op=op), x), op
+    assert torch.equal(comm.all_gather_into_tensor(torch.empty_like(x), x), x)
+    assert torch.equal(comm.reduce_scatter_tensor(torch.empty_like(x), x, op="avg"), x)
+    assert torch.equal(comm.all_to_all_single(torch.empty_like(x), x), x)
+    assert torch.equal(comm.broadcast(x.clone(), src=0), x)
+    assert torch.equal(comm.reduce(x.clone(), dst=0), x)
+    assert torch.equal(comm.all_gather([torch.empty_like(x)], x)[0], x)
+    assert torch.equal(comm.gather(x, [torch.empty_like(x)], dst=0)[0], x)
+    assert torch.equal(comm.scatter(torch.empty_like(x), [x], src=0), x)
+    a, b = comm.all_gather_coalesced([x, x[:3]])
+    assert torch.equal(a, x) and torch.equal(b, x[:3])
+    assert all(torch.equal(t, x) for t in comm.all_reduce_coalesced([x.clone(), x.clone()]))
+    assert torch.equal(comm.ppermute(x, [(0, 0)]), x)
+    assert comm.broadcast_object_list(["tag"]) == ["tag"]
+    comm.barrier()
+    comm.monitored_barrier(timeout=60)
+    assert (comm.get_rank(), comm.get_world_size(), comm.get_backend()) == (0, 1, "nccl")
+    assert deepspeed_tpu_torch.get_accelerator().communication_backend_name() == "nccl"
