@@ -117,6 +117,24 @@ SPARSE_BLOCK = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
                 "num_local_blocks": 4, "num_global_blocks": 1, "attention": "unidirectional",
                 "horizontal_global_attention": False, "num_different_global_patterns": 4}
 
+# the offload phases: gpt2-2.7b and gpt2-6.7b at 4 x 2048 with remat (the
+# presets' own), bf16 with fp32 masters, ZeRO stage 1 without a process group
+OFFLOAD_MODEL, CAPACITY_MODEL = "gpt2-2.7b", "gpt2-6.7b"
+OFFLOAD_BATCH, OFFLOAD_SEQ = 4, 2048
+OFFLOAD_CONFIG = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": OFFLOAD_BATCH}
+OFFLOAD_KNOBS = ("DS_TPU_OFFLOAD_MASTER", "DS_TPU_FORCE_STREAMED_OFFLOAD",
+                 "DS_TPU_OFFLOAD_CHUNK_BYTES", "DS_TPU_OFFLOAD_OVERLAP")
+HOST_BYTES_PER_PARAM = 12           # fp32 master and two fp32 moments in host memory
+HOST_MARGIN = 6e9                   # host memory left for the run beside that state
+MIN_CAPACITY_LAYERS = 21            # 18 B/param on the card still exceeds 80 GB here
+# the NVMe phases: gpt2-2.7b's width at 4 layers; the swap through 8 I/O threads
+NVME_LAYERS, NVME_WARMUP, NVME_STEPS = 4, 1, 2
+NVME_AIO = {"block_size": 1 << 20, "thread_count": 8}
+AIO_COUNTS = ("direct_chunks", "buffered_chunks", "direct_bytes", "buffered_bytes")
+NVME_FP32 = dict(layers=2, batch=2, seq=1024, steps=3)
+NVME_LOSS_RTOL = 1e-2               # bf16: the Infinity engine keeps the top-level weights
+                                    # in fp32 where the engine rounds them to bf16
+
 # tolerances, with their reasons
 # kernel vs plain fp32 on the same inputs: a bf16 or fp16 output carries its
 # own rounding (2^-9 or 2^-11 relative, |o| < ~5 for unit-normal v); fp32
@@ -153,6 +171,9 @@ TRAIN_GRAD_RTOL = 1e-1
 # its own norm measures that noise (3.5e-3 on blocks.0.qkv_b on an H100), not
 # the kernels.
 FP32_RTOL = 1e-4
+# the fp32 2-layer NVMe runs against the engine in memory: the same model
+# path, AdamW on the host (fused multiply-adds of the CPU) against the card's
+FP32_NVME_RTOL = 1e-5
 
 
 def emit(phase, **fields):
@@ -873,11 +894,13 @@ def device_profile(fn, top: int = 6, count: str = None):
         cat = kernel_category(e.key)
         by_category[cat] = by_category.get(cat, 0.0) + dev(e)
     htod = sum(e.count for e in prof.key_averages() if "HtoD" in e.key)
+    memcpy_ms = {d: sum(dev(e) for e in rows if f"Memcpy {d}" in e.key) for d in ("HtoD", "DtoH")}
     graph_keys = {e.key: e.count for e in prof.key_averages() if "Graph" in e.key}
     graphs = sum(n for key, n in graph_keys.items() if key.startswith("cudaGraphLaunch"))
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "idle_share": max(0.0, 1 - device_ms / wall_ms), "by_category": by_category,
            "top": [[e.key[:70], dev(e), e.count] for e in rows[:top]], "htod_copies": htod,
+           "memcpy_ms": memcpy_ms,
            "graph_launches": graphs, "graph_events": graph_keys}
     if count:
         out["kernels_matching"] = {count: sum(e.count for e in rows if re.search(count, e.key))}
@@ -1682,6 +1705,448 @@ def data_and_checkpoint_slices(initialize, GPT2Model, cfg, accel, fa):
     return resume, curriculum
 
 
+# ------------------------------------------------- offload and ZeRO-Infinity
+def _pcie_rates(nbytes: int = 1 << 30) -> dict:
+    """What the host link gives without the engine: ``copy_`` of ``nbytes``
+    between a pinned host tensor and the card, each way, in GB/s of device
+    time (CUDA events, the mean of three copies after one)."""
+    from deepspeed_tpu_torch.ops.aio import host_zeros
+
+    host = host_zeros(nbytes, torch.uint8, pin=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = {"probe_bytes": nbytes}
+    for name, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        dst.copy_(src, non_blocking=True)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            dst.copy_(src, non_blocking=True)
+        end.record()
+        end.synchronize()
+        out[f"pinned_{name}_gb_per_s"] = 3 * nbytes / (start.elapsed_time(end) / 1e3) / 1e9
+    del host, dev
+    return out
+
+
+def _offload_engine(initialize, GPT2Model, c, zero, knobs=(), config=None):
+    """An engine of ``c`` through ``initialize``, its weights drawn from the
+    config's seed straight into their placement, the offload knobs set only
+    while it is built; and its init seconds and the card's peak during
+    init."""
+    for k in OFFLOAD_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.update(dict(knobs))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine, *_ = initialize(model=GPT2Model(c), config={**(config or OFFLOAD_CONFIG),
+                                                            "zero_optimization": zero})
+        torch.cuda.synchronize()
+        init = {"init_s": time.perf_counter() - t0,
+                "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        for k in OFFLOAD_KNOBS:
+            os.environ.pop(k, None)
+    return engine, init
+
+
+def _host_state_bytes(engine) -> int:
+    """The bytes of the engine's state in host memory, every tensor of it
+    held to be pinned."""
+    z = engine._zero
+    host = [t for v in engine.opt_state._asdict().values() if isinstance(v, list) for t in v]
+    host += [t for t in z.fp32 if t is not None] + list(z.parts.values())
+    host = [t for t in host if t.device.type == "cpu"]
+    if not all(t.is_pinned() for t in host):
+        raise AssertionError("offloaded host state that is not pinned")
+    return sum(t.numel() * t.element_size() for t in host)
+
+
+def _dense_launches(fa) -> dict:
+    return {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
+
+
+def _check_remat_launches(fa, layers: int, steps: int, label: str) -> dict:
+    """Each step under remat launches the forward kernel twice per layer (the
+    forward and its recompute) and each backward kernel once."""
+    launches = _dense_launches(fa)
+    expect = {"flash_attention_fwd": 2 * layers * steps,
+              **dict.fromkeys(fa.BWD_KERNEL.entry_launches, layers * steps)}
+    if launches != expect:
+        raise AssertionError(f"{label}: launch counts {launches} over {steps} steps, "
+                             f"expected {expect}")
+    return launches
+
+
+def _offload_row(engine, c, batch, step_ms, prof, accel) -> dict:
+    """A training line with the host link's bytes and rates: bytes of the
+    last update each way, their GB/s over the profiled step's copy time,
+    and the step split into copy and compute device time."""
+    off = engine._offload
+    h2d, d2h = (off.h2d_bytes, off.d2h_bytes) if off is not None else (0, 0)
+    copy = prof["memcpy_ms"]
+    compute_ms = prof["device_ms"] - copy["HtoD"] - copy["DtoH"]
+    return dict(_train_line(c, OFFLOAD_BATCH, OFFLOAD_SEQ, step_ms, accel), remat=c.remat,
+                layers=c.n_layer, h2d_gb_per_step=h2d / 1e9, d2h_gb_per_step=d2h / 1e9,
+                h2d_gb_per_s=h2d / max(copy["HtoD"], 1e-9) / 1e6,
+                d2h_gb_per_s=d2h / max(copy["DtoH"], 1e-9) / 1e6,
+                profiled_step={"wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                               "compute_ms": compute_ms, "memcpy_ms": copy,
+                               "idle_share": prof["idle_share"],
+                               "by_category": prof["by_category"]})
+
+
+def offload_slice(initialize, GPT2Model, cfg, accel, fa):
+    """gpt2-2.7b, full preset, 4 x 2048, through initialize → train_batch:
+    (a) no offload, (b) ``offload_optimizer: cpu`` under the auto policy
+    (the master stays on the card, the moments stream in whole),
+    (b_streamed) the same placement through the streamed update, (c) the
+    master on the host, streamed unit by unit, serially, (d) as (c) with
+    ``stream_overlap``. Each offloaded run must give (a)'s losses and
+    params bit for bit; each run's steps, peaks, host state, host-link bytes and rates and
+    a profiled step are reported beside a pinned ``copy_``'s rates."""
+    import gc
+
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    c = cfg
+    batch = synthetic_lm_batch(OFFLOAD_BATCH, OFFLOAD_SEQ, c.vocab_size, seed=SEED,
+                               device="cuda")
+    pcie = _pcie_rates()
+    emit("host link", **pcie)
+    cpu, host = {"device": "cpu"}, {"DS_TPU_OFFLOAD_MASTER": "host",
+                                     "DS_TPU_FORCE_STREAMED_OFFLOAD": "1"}
+    variants = (("a", {"stage": 1}, {}, None),
+                ("b", {"stage": 1, "offload_optimizer": cpu}, {}, (False, False, False)),
+                # (b)'s placement through the streamed update: what the whole
+                # stream-in gains for Adam
+                ("b_streamed", {"stage": 1, "offload_optimizer": cpu},
+                 {"DS_TPU_OFFLOAD_MASTER": "hbm", "DS_TPU_FORCE_STREAMED_OFFLOAD": "1"},
+                 (False, True, False)),
+                ("c", {"stage": 1, "offload_optimizer": cpu}, host, (True, True, False)),
+                ("d", {"stage": 1, "offload_optimizer": {**cpu, "stream_overlap": True}}, host,
+                 (True, True, True)))
+    ref, launches = None, {}
+    for name, zero, knobs, policy in variants:
+        engine, init = _offload_engine(initialize, GPT2Model, c, zero, knobs)
+        off = engine._offload
+        got = None if off is None else (off.master_host, off.streamed, off.overlap)
+        if got != policy:
+            raise AssertionError(f"offload ({name}): policy (master on host, streamed, "
+                                 f"overlap) {got}, expected {policy}")
+        host_gb = _host_state_bytes(engine) / 1e9
+        losses, step_ms, peak_gb = _timed_steps(engine, batch, accel, (fa.KERNEL, fa.BWD_KERNEL))
+        launches[name] = _check_remat_launches(fa, c.n_layer, TRAIN_STEPS, f"offload ({name})")
+        params = {k: v.cpu() for k, v in engine.module_state_dict().items()}
+        prof = device_profile(lambda: engine.train_batch(batch), top=8)
+        if ref is None:
+            ref, same = (losses, params), None
+        else:
+            differ = sorted(k for k in params if not _bitwise_equal(params[k], ref[1][k]))
+            same = losses == ref[0] and not differ
+        row = dict(zero=zero, knobs=dict(knobs),
+                   policy=dict(zip(("master_on_host", "streamed", "stream_overlap"), got or ())),
+                   **_offload_row(engine, c, batch, step_ms, prof, accel), **init,
+                   peak_mem_gb=peak_gb, host_state_gb=host_gb, losses=losses,
+                   bitwise_equal_to_a=same, launches=launches[name])
+        del engine, params, off
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(f"offload {OFFLOAD_MODEL} ({name})", **row, host_memory_after=_host_memory())
+        if same is False:
+            raise AssertionError(f"offload ({name}) differs from (a): losses {losses} vs "
+                                 f"{ref[0]}, {len(differ)} params differ ({differ[:4]})")
+    return launches
+
+
+def _meminfo(path: str = "/proc/meminfo") -> dict:
+    """A /proc file of ``key: value kB`` lines in bytes (/proc/meminfo:
+    what ``free`` reads; /proc/self/status: this process's memory)."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            parts = value.split()
+            if len(parts) == 2 and parts[1] == "kB":
+                out[key] = int(parts[0]) * 1024
+    return out
+
+
+def _host_memory() -> dict:
+    """The host's available memory and this process's resident and pinned
+    memory, in GB."""
+    mine = _meminfo("/proc/self/status")
+    return {"available_gb": _meminfo()["MemAvailable"] / 1e9,
+            "process_rss_gb": mine.get("VmRSS", 0) / 1e9,
+            "process_pinned_gb": mine.get("VmPin", 0) / 1e9,
+            "process_locked_gb": mine.get("VmLck", 0) / 1e9}
+
+
+def _settle_host_memory(timeout_s: float = 60.0) -> float:
+    """Wait until the host's available memory stops rising (the kernel
+    counts freed pinned pages as available again some seconds after the
+    free); the seconds waited."""
+    t0 = time.perf_counter()
+    seen = [_meminfo()["MemAvailable"]]
+    while time.perf_counter() - t0 < timeout_s:
+        time.sleep(1.0)
+        seen.append(_meminfo()["MemAvailable"])
+        if len(seen) > 3 and seen[-1] - seen[-4] < 5e8:
+            break
+    return time.perf_counter() - t0
+
+
+def capacity_slice(initialize, GPT2Model, cfg, accel, fa):
+    """gpt2-6.7b at full width, 4 x 2048, ``offload_optimizer: cpu`` under
+    the auto policy (the master on the host, the update streamed unit by
+    unit), built through zero.Init's path: trains with a finite, falling
+    loss through K1/K2. The depth is the preset's, or, when the host cannot
+    hold its fp32 master and moments beside the process, the most layers
+    that fit and never fewer than MIN_CAPACITY_LAYERS (set from
+    /proc/meminfo here and printed)."""
+    import gc
+
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    gc.collect()
+    waited = _settle_host_memory()
+    mem = _meminfo()
+    params = lambda n: dataclasses.replace(cfg, n_layer=n).num_params()
+    layers = cfg.n_layer
+    while layers >= MIN_CAPACITY_LAYERS and \
+            HOST_BYTES_PER_PARAM * params(layers) + HOST_MARGIN > mem["MemAvailable"]:
+        layers -= 1
+    emit("host memory", mem_total_gb=mem["MemTotal"] / 1e9, settle_s=waited,
+         mem_available_gb=mem["MemAvailable"] / 1e9, margin_gb=HOST_MARGIN / 1e9,
+         model=CAPACITY_MODEL, layers=layers, depth_cut=layers != cfg.n_layer,
+         host_state_gb_needed=HOST_BYTES_PER_PARAM * params(layers) / 1e9,
+         card_state_gb_without_offload=18 * params(layers) / 1e9)
+    if layers < MIN_CAPACITY_LAYERS:
+        raise AssertionError(f"host memory {mem['MemAvailable'] / 1e9:.1f} GB available holds "
+                             f"fewer than {MIN_CAPACITY_LAYERS} layers of {CAPACITY_MODEL}")
+    c = dataclasses.replace(cfg, n_layer=layers)
+    batch = synthetic_lm_batch(OFFLOAD_BATCH, OFFLOAD_SEQ, c.vocab_size, seed=SEED,
+                               device="cuda")
+    engine, init = _offload_engine(initialize, GPT2Model, c,
+                                   {"stage": 1, "offload_optimizer": {"device": "cpu"}})
+    off = engine._offload
+    if not (off.master_host and off.streamed and not off.overlap):
+        raise AssertionError(f"{CAPACITY_MODEL}: the auto policy did not put the master on "
+                             f"the host and stream the update: {vars(off)}")
+    host_gb = _host_state_bytes(engine) / 1e9
+    losses, step_ms, peak_gb = _timed_steps(engine, batch, accel, (fa.KERNEL, fa.BWD_KERNEL))
+    launches = _check_remat_launches(fa, c.n_layer, TRAIN_STEPS, f"offload {CAPACITY_MODEL}")
+    prof = device_profile(lambda: engine.train_batch(batch), top=8)
+    emit(f"offload {CAPACITY_MODEL}", **_offload_row(engine, c, batch, step_ms, prof, accel),
+         **init, peak_mem_gb=peak_gb, host_state_gb=host_gb, losses=losses,
+         launches=launches, params_on_card_gb=2 * c.num_params() / 1e9)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _nvme_swapper(engine):
+    opt = getattr(engine, "_nvme_optimizer", None) or engine.optimizer
+    return opt.swapper
+
+
+def nvme_slice(initialize, GPT2Model, cfg, accel, fa, tmp):
+    """gpt2-2.7b's width at NVME_LAYERS layers, 4 x 2048, bf16: (e)
+    ``offload_optimizer: nvme`` through the engine and (f) ``offload_param:
+    nvme`` (the ZeRO-Infinity engine), each from the same seed as the
+    engine without offload, whose losses they must give within
+    NVME_LOSS_RTOL; the disk's bytes and rates per step."""
+    import gc
+
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    c = dataclasses.replace(cfg, n_layer=NVME_LAYERS)
+    batch = synthetic_lm_batch(OFFLOAD_BATCH, OFFLOAD_SEQ, c.vocab_size, seed=SEED,
+                               device="cuda")
+    config = {**OFFLOAD_CONFIG, "aio": dict(NVME_AIO)}
+    runs, launches = {}, {}
+    for name, zero in (("memory", {"stage": 1}),
+                       ("e", {"stage": 1, "offload_optimizer": {
+                           "device": "nvme", "nvme_path": os.path.join(tmp, "e")}}),
+                       ("f", {"stage": 3, "offload_param": {
+                           "device": "nvme", "nvme_path": os.path.join(tmp, "f")}})):
+        engine, init = _offload_engine(initialize, GPT2Model, c, zero, config=config)
+        losses = [float(engine.train_batch(batch)) for _ in range(NVME_WARMUP)]
+        sw = None if name == "memory" else _nvme_swapper(engine)
+        before = dict(sw.stats()) if sw else {}
+        for kern in (fa.KERNEL, fa.BWD_KERNEL):
+            kern.reset_launches()
+        step_s = []
+        for _ in range(NVME_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            step_s.append(time.perf_counter() - t0)
+        launches[name] = _check_remat_launches(fa, c.n_layer, NVME_STEPS, f"nvme ({name})")
+        row = {"zero": zero, "layers": c.n_layer, "params": c.num_params(), **init,
+               "losses": losses, "step_s_each": step_s, "step_s": sorted(step_s)[len(step_s) // 2],
+               "tokens_per_s": OFFLOAD_BATCH * OFFLOAD_SEQ / sorted(step_s)[len(step_s) // 2]}
+        if sw:
+            after = sw.stats()
+            read = (after["swap_in_bytes"] - before["swap_in_bytes"]) / NVME_STEPS
+            wrote = (after["swap_out_bytes"] - before["swap_out_bytes"]) / NVME_STEPS
+            moved = {k: (after[k] - before[k]) / NVME_STEPS for k in AIO_COUNTS}
+            row.update(disk_read_gb_per_step=read / 1e9, disk_write_gb_per_step=wrote / 1e9,
+                       disk_gb_per_s=(read + wrote) / row["step_s"] / 1e9,
+                       aio_per_step=moved,
+                       state_on_disk_gb=(engine._nvme_optimizer if name == "e"
+                                         else engine.optimizer).state_bytes() / 1e9)
+        runs[name] = row
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        if name != "memory":
+            shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+    ref = runs["memory"]["losses"]
+    rel = {n: max(abs(a - b) / abs(b) for a, b in zip(runs[n]["losses"], ref)) for n in "ef"}
+    for name, row in runs.items():
+        emit(f"nvme {OFFLOAD_MODEL} {NVME_LAYERS}-layer ({name})", **row,
+             loss_rel_to_memory=rel.get(name), rtol=NVME_LOSS_RTOL, launches=launches[name])
+    if max(rel.values()) > NVME_LOSS_RTOL or not all(
+            math.isfinite(x) for r in runs.values() for x in r["losses"]):
+        raise AssertionError(f"NVMe runs against the engine in memory: loss rel {rel}")
+    # the rates above are the disk's only if no chunk went through the page cache
+    buffered = {n: runs[n]["aio_per_step"]["buffered_chunks"] for n in "ef"}
+    if any(buffered.values()):
+        raise AssertionError(f"NVMe runs: chunks through the page cache per step {buffered}; "
+                             "the swap files must be read and written with O_DIRECT")
+    return launches
+
+
+def nvme_check_fp32(initialize, GPT2Model, cfg, tmp):
+    """fp32, gpt2-2.7b's width, 2 layers: (e) and (f) against the engine in
+    memory from the same seed, losses and params within FP32_NVME_RTOL (the
+    params in L2 over all tensors together, as train_check_fp32 holds
+    them)."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    k = NVME_FP32
+    c = dataclasses.replace(cfg, n_layer=k["layers"], remat=False, dtype=torch.float32)
+    config = {"train_batch_size": k["batch"], "steps_per_print": 0, "gradient_clipping": 1.0,
+              "seed": SEED + 1, "aio": dict(NVME_AIO),
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+    batch = synthetic_lm_batch(k["batch"], k["seq"], c.vocab_size, seed=SEED + 1, device="cuda")
+    runs = {}
+    for name, zero in (("memory", {"stage": 1}),
+                       ("e", {"stage": 1, "offload_optimizer": {
+                           "device": "nvme", "nvme_path": os.path.join(tmp, "e32")}}),
+                       ("f", {"stage": 3, "offload_param": {
+                           "device": "nvme", "nvme_path": os.path.join(tmp, "f32")}})):
+        engine, _ = _offload_engine(initialize, GPT2Model, c, zero, config=config)
+        losses = [float(engine.train_batch(batch)) for _ in range(k["steps"])]
+        if name == "f":
+            tree = engine.gather_params()
+            params = {n: v for n, v in tree.items() if n != "blocks"}
+            params.update({f"blocks.{l}.{key}": v[l] for key, v in tree["blocks"].items()
+                           for l in range(c.n_layer)})
+        else:
+            params = {n: v.cpu() for n, v in engine.module_state_dict().items()}
+        runs[name] = (losses, params)
+        del engine
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(tmp, f"{name}32"), ignore_errors=True)
+    (l0, p0) = runs["memory"]
+    flat = lambda ps: torch.cat([ps[n].double().flatten() for n in sorted(p0)])
+    out = {}
+    for name in "ef":
+        ln, pn = runs[name]
+        out[name] = {"losses": ln,
+                     "loss_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(ln, l0)),
+                     "param_rel_l2": _rel_l2(flat(pn), flat(p0))}
+    emit(f"nvme check {OFFLOAD_MODEL} fp32 {k['layers']}-layer", **k, losses_memory=l0,
+         runs=out, rtol=FP32_NVME_RTOL)
+    bad = {n: r for n, r in out.items()
+           if r["loss_rel_diff"] > FP32_NVME_RTOL or r["param_rel_l2"] > FP32_NVME_RTOL}
+    if bad:
+        raise AssertionError(f"fp32 NVMe runs against the engine in memory: {bad}")
+
+
+def resume_offload(initialize, GPT2Model, cfg, tmp):
+    """At the NVMe phase's model: (c) (the master on the host, streamed)
+    trains two steps and saves; an engine without offload, the NVMe
+    engine (e) and the ZeRO-Infinity engine (f) load the tag, and the state
+    each restores must equal the saved state bit for bit."""
+    import gc
+
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import (flatten_state,
+                                                                       wait_for_pending_saves)
+
+    c = dataclasses.replace(cfg, n_layer=NVME_LAYERS)
+    batch = synthetic_lm_batch(OFFLOAD_BATCH, OFFLOAD_SEQ, c.vocab_size, seed=SEED,
+                               device="cuda")
+    ckpt = os.path.join(tmp, "ckpt")
+    src, _ = _offload_engine(initialize, GPT2Model, c, {"stage": 1, "offload_optimizer": {
+        "device": "cpu"}}, {"DS_TPU_OFFLOAD_MASTER": "host", "DS_TPU_FORCE_STREAMED_OFFLOAD": "1"})
+    for _ in range(2):
+        src.train_batch(batch)
+    saved = flatten_state(src)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src.save_checkpoint(ckpt)
+    blocking_s = time.perf_counter() - t0
+    wait_for_pending_saves()
+    record = dict(src._last_save)
+    if "error" in record or "commit_s" not in record:
+        raise AssertionError(f"the save did not commit: {record}")
+    del src
+    gc.collect()
+    loads = {}
+    for name, zero in (("memory", {"stage": 1}),
+                       ("e", {"stage": 1, "offload_optimizer": {
+                           "device": "nvme", "nvme_path": os.path.join(tmp, "resume_e")}}),
+                       ("f", {"stage": 3, "offload_param": {
+                           "device": "nvme", "nvme_path": os.path.join(tmp, "resume_f")}})):
+        engine, _ = _offload_engine(initialize, GPT2Model, c, zero,
+                                    config={**OFFLOAD_CONFIG, "aio": dict(NVME_AIO)})
+        _evict_from_page_cache(record["path"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.load_checkpoint(ckpt)
+        load_s = time.perf_counter() - t0
+        restored = flatten_state(engine)
+        differ = sorted(k for k in saved if k not in restored
+                        or not _bitwise_equal(restored[k], saved[k]))
+        loads[name] = {"load_s": load_s, "tensors_differing": len(differ)}
+        if restored.keys() != saved.keys() or differ:
+            raise AssertionError(f"offloaded tag loaded into ({name}): {len(differ)} tensors "
+                                 f"differ ({differ[:4]})")
+        del engine, restored
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(tmp, f"resume_{name}"), ignore_errors=True)
+    emit(f"resume offload {OFFLOAD_MODEL} {NVME_LAYERS}-layer", saved_by="(c)",
+         tag_bytes=_tree_bytes(record["path"]), save_blocking_s=blocking_s,
+         commit_s=record["commit_s"], loads=loads, state_bitwise_after_load=True)
+
+
+def offload_slices(initialize, GPT2Model, presets, accel, fa):
+    """The offload, capacity, NVMe and offloaded-resume phases; the NVMe
+    ones in a temporary directory on the disk with the most room, removed
+    afterwards."""
+    launches = {"offload": offload_slice(initialize, GPT2Model, presets[OFFLOAD_MODEL], accel,
+                                         fa),
+                "capacity": capacity_slice(initialize, GPT2Model, presets[CAPACITY_MODEL],
+                                           accel, fa)}
+    root, free = _scratch_dir()
+    tmp = tempfile.mkdtemp(prefix="ds_nvme_", dir=root)
+    try:
+        emit("disk nvme", free_bytes=free, chosen=root, **_disk_rates(tmp))
+        launches["nvme"] = nvme_slice(initialize, GPT2Model, presets[OFFLOAD_MODEL], accel, fa,
+                                      tmp)
+        nvme_check_fp32(initialize, GPT2Model, presets[OFFLOAD_MODEL], tmp)
+        resume_offload(initialize, GPT2Model, presets[OFFLOAD_MODEL], tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -1740,6 +2205,10 @@ def main() -> int:
         ("causal_tq64_tk200", 4, 64, 16, 96, bf, True, 200),
         # the curriculum phase's ragged lengths at the training cell's B, H, D
         *((f"curriculum_t{t}", TRAIN_BATCH, t, 16, 96, bf, True) for t in ragged),
+        # the offload phases' shapes: gpt2-2.7b (D=80) and gpt2-6.7b (D=128),
+        # 32 heads, at their B x T
+        ("offload_d80", OFFLOAD_BATCH, OFFLOAD_SEQ, 32, 80, bf, True),
+        ("capacity_d128", OFFLOAD_BATCH, OFFLOAD_SEQ, 32, 128, bf, True),
         # the long serving path's prefill, one row (the plain version's
         # (H, T, T) fp32 scores take 8 GB)
         ("long_prefill", 1, LONG_PROMPT, 32, 64, bf, True))]
@@ -1764,7 +2233,9 @@ def main() -> int:
         *((f"t{t}", 64, t, 96, bf, True) for t in (63, 64, 65, 127, 200)),
         ("noncausal_tq100_tk300", 64, 100, 96, bf, False, 300),
         ("causal_tq64_tk200", 64, 64, 96, bf, True, 200),
-        *((f"curriculum_t{t}", BH, t, 96, bf, True) for t in ragged))]
+        *((f"curriculum_t{t}", BH, t, 96, bf, True) for t in ragged),
+        ("offload_d80", OFFLOAD_BATCH * 32, OFFLOAD_SEQ, 80, bf, True),
+        ("capacity_d128", OFFLOAD_BATCH * 32, OFFLOAD_SEQ, 128, bf, True))]
     S = PROMPT + GEN
     decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("slice_pos255", BATCH, S, 32, 8, 64, bf, S - 1),
@@ -1834,6 +2305,12 @@ def main() -> int:
     check_head_dim_80(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets["gpt2-2.7b"], fa)
     resume_launches, curriculum_launches = data_and_checkpoint_slices(
         deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa)
+    offload_launches = offload_slices(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets,
+                                      accel, fa)
+    # launches per offload path: the five gpt2-2.7b runs, gpt2-6.7b, the NVMe runs
+    by_offload = {f"offload_{k}": v for k, v in offload_launches["offload"].items()}
+    by_offload["offload_capacity"] = offload_launches["capacity"]
+    by_offload.update({f"nvme_{k}": v for k, v in offload_launches["nvme"].items()})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bwd = bwd_rows[0]
@@ -1848,7 +2325,8 @@ def main() -> int:
                               "resume": resume_launches["flash_attention_fwd"],
                               "curriculum": curriculum_launches["flash_attention_fwd"],
                               **{f"zero{s}": n["flash_attention_fwd"]
-                                 for s, n in zero_launches.items()}},
+                                 for s, n in zero_launches.items()},
+                              **{p: n["flash_attention_fwd"] for p, n in by_offload.items()}},
          "at_serving_shape": {k: flash_rows[1][k] for k in keys}},
         {"name": "decode_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
@@ -1866,7 +2344,8 @@ def main() -> int:
             "launches_by_path": {p: n[f"flash_attention_bwd_{entry}"] for p, n in (
                 ("train", train_launches), ("resume", resume_launches),
                 ("curriculum", curriculum_launches),
-                *((f"zero{s}", z) for s, z in zero_launches.items()))},
+                *((f"zero{s}", z) for s, z in zero_launches.items()),
+                *by_offload.items())},
             "max_abs_err": max(bwd["errs"][n] for n in (("dq",) if entry == "dq"
                                                         else ("dk", "dv"))),
             "ms": bwd[f"{entry}_ms"], "plain_ms": bwd[f"{entry}_plain_ms"],

@@ -12,7 +12,10 @@ of the llama family, and training (``initialize`` →
 block-sparse (ds_config ``sparse_attention``) attention, fed by the data
 loader and the curriculum pipeline, saved to and resumed from verified
 checkpoints, on one process or over a ``torch.distributed`` world
-(``comm``, ``init_distributed``) with ZeRO stages 0–3.
+(``comm``, ``init_distributed``) with ZeRO stages 0–3, with the state built
+in its placement (``zero.Init``) and offloaded to host memory or NVMe
+(ZeRO-Offload; ``offload_param: nvme`` returns the layerwise
+``ZeroInfinityEngine``).
 """
 
 from __future__ import annotations
@@ -57,6 +60,22 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         comm.init_distributed(device=device)
     if ds_config.sparse_attention and model is not None:
         _apply_sparse_attention(model, ds_config.sparse_attention)
+    off_param = ds_config.zero_config.offload_param
+    if off_param is not None and off_param.device == "nvme":
+        # ZeRO-Infinity's parameter offload is its own layerwise engine
+        from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+        from deepspeed_tpu_torch.runtime.zero.infinity import ZeroInfinityEngine
+
+        if optimizer is not None or lr_scheduler is not None:
+            raise ValueError("offload_param=nvme (layerwise ZeRO-Infinity) builds its own "
+                             "NVMe-swapped optimizer; pass optimizer/scheduler via ds_config, "
+                             "not as objects")
+        if model_parameters is not None:
+            model.load_state_dict(model_parameters, assign=True)
+        zengine = ZeroInfinityEngine(model, ds_config, device=device)
+        loader = None if training_data is None else DeepSpeedDataLoader(
+            training_data, batch_size=zengine.train_batch_size(), collate_fn=collate_fn)
+        return zengine, zengine.optimizer, loader, zengine.lr_scheduler
     engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
                              model_parameters=model_parameters, training_data=training_data,
                              lr_scheduler=lr_scheduler, mpu=mpu,

@@ -8,8 +8,10 @@ here :class:`GPT2Model` is an ``nn.Module`` with one :class:`GPT2Block` per
 layer and a Python loop. Weights keep the JAX orientation (``x @ W``), so
 :func:`params_from_jax` copies them exactly.
 
-This port trains: ``init_params``, ``apply``, ``hidden_states`` and
-``loss``, with ``remat`` off or "full" (``torch.utils.checkpoint`` per
+This port trains: ``init_params`` (and ``param_chunks``, the same draws a
+piece at a time), ``apply``, ``hidden_states`` and ``loss`` (and its stages
+``embed_stage``, ``_block`` and ``loss_stage``, which the ZeRO-Infinity
+engine runs one at a time), with ``remat`` off or "full" (``torch.utils.checkpoint`` per
 block), with dense causal attention or, when ``sparse_attention`` is set,
 block-sparse attention (``ops/sparse_attention``). The variants the JAX model
 also carries (ALiBi, rotary, parallel residual, local attention, sequence
@@ -162,6 +164,9 @@ PRESETS = {
     "gpt2-6.7b": GPT2Config(n_embd=4096, n_layer=32, n_head=32, n_positions=2048),
 }
 
+# elements per piece of a random initial tensor (``GPT2Model.param_chunks``)
+INIT_CHUNK = 1 << 24
+
 # per-layer weights, in the JAX package's ``blocks`` naming
 BLOCK_KEYS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
               "ln2_g", "ln2_b", "fc_w", "fc_b", "fc2_w", "fc2_b")
@@ -208,35 +213,61 @@ class GPT2Model(nn.Module):
         self.param_gatherer = None
 
     # ---------------------------------------------------------------- params
-    def init_params(self, generator: torch.Generator) -> "GPT2Model":
-        """Random fp32 weights drawn from ``generator`` on its device, with
-        the JAX package's distribution: normal 0.02 (positions 0.01), the
-        residual projections scaled by 1/sqrt(2L), unit gains, zero biases.
-        Returns self."""
+    def param_chunks(self, generator: torch.Generator, chunk: Optional[int] = None):
+        """The random fp32 initial values, as ``(name, start, values)``:
+        elements ``[start, start + len(values))`` of the flattened
+        parameter, at most ``chunk`` (``INIT_CHUNK``) at a time, drawn from ``generator`` on
+        its device with the JAX package's distribution (normal 0.02,
+        positions 0.01, the residual projections scaled by 1/sqrt(2L), unit
+        gains, zero biases). Each tensor is drawn in ``chunk``-element
+        pieces one after another, the tensors in the order wte, wpe, each
+        layer's, the head's; ``init_params`` assembles the same pieces, so a
+        build that keeps only some of them (``runtime/zero/init.py``) holds
+        the same values as the whole tree."""
         c = self.config
         d, l = c.n_embd, c.n_layer
         dev = generator.device
         proj = 0.02 / math.sqrt(2 * l)
-        norm = lambda shape, scale: torch.randn(shape, generator=generator,
-                                                device=dev).mul_(scale)
-        ones = lambda n: torch.ones(n, device=dev)
-        zeros = lambda n: torch.zeros(n, device=dev)
-        sd = {"wte": norm((c.vocab_size, d), 0.02), "wpe": norm((c.n_positions, d), 0.01),
-              "lnf_g": ones(d), "lnf_b": zeros(d)}
-        for n in range(l):
-            blk = {"ln1_g": ones(d), "ln1_b": zeros(d),
-                   "qkv_w": norm((d, 3 * d), 0.02), "qkv_b": zeros(3 * d),
-                   "proj_w": norm((d, d), proj), "proj_b": zeros(d),
-                   "ln2_g": ones(d), "ln2_b": zeros(d),
-                   "fc_w": norm((d, 4 * d), 0.02), "fc_b": zeros(4 * d),
-                   "fc2_w": norm((4 * d, d), proj), "fc2_b": zeros(d)}
-            sd.update({f"blocks.{n}.{k}": w for k, w in blk.items()})
+        chunk = chunk or INIT_CHUNK
+
+        def pieces(name, shape, scale=None, fill=0.0):
+            n = math.prod(shape)
+            for start in range(0, n, chunk):
+                m = min(chunk, n - start)
+                yield name, start, (torch.randn(m, generator=generator, device=dev).mul_(scale)
+                                    if scale is not None
+                                    else torch.full((m,), fill, device=dev))
+
+        yield from pieces("wte", (c.vocab_size, d), 0.02)
+        yield from pieces("wpe", (c.n_positions, d), 0.01)
+        yield from pieces("lnf_g", (d,), fill=1.0)
+        yield from pieces("lnf_b", (d,))
         if c.embed_layernorm:
-            sd.update(emb_ln_g=ones(d), emb_ln_b=zeros(d))
+            yield from pieces("emb_ln_g", (d,), fill=1.0)
+            yield from pieces("emb_ln_b", (d,))
+        for n in range(l):
+            for key, shape, scale, fill in (
+                    ("ln1_g", (d,), None, 1.0), ("ln1_b", (d,), None, 0.0),
+                    ("qkv_w", (d, 3 * d), 0.02, 0.0), ("qkv_b", (3 * d,), None, 0.0),
+                    ("proj_w", (d, d), proj, 0.0), ("proj_b", (d,), None, 0.0),
+                    ("ln2_g", (d,), None, 1.0), ("ln2_b", (d,), None, 0.0),
+                    ("fc_w", (d, 4 * d), 0.02, 0.0), ("fc_b", (4 * d,), None, 0.0),
+                    ("fc2_w", (4 * d, d), proj, 0.0), ("fc2_b", (d,), None, 0.0)):
+                yield from pieces(f"blocks.{n}.{key}", shape, scale, fill)
         if not c.tie_embeddings:
-            sd["lm_head"] = norm((d, c.vocab_size), 0.02)
+            yield from pieces("lm_head", (d, c.vocab_size), 0.02)
             if c.lm_head_bias:
-                sd["lm_head_b"] = zeros(c.vocab_size)
+                yield from pieces("lm_head_b", (c.vocab_size,))
+
+    def init_params(self, generator: torch.Generator) -> "GPT2Model":
+        """Random fp32 weights from ``generator`` on its device: the whole
+        tree of ``param_chunks``. Returns self."""
+        shapes = {n: p.shape for n, p in self.named_parameters()}
+        sd = {}
+        for name, start, values in self.param_chunks(generator):
+            if name not in sd:
+                sd[name] = torch.empty(shapes[name], device=values.device)
+            sd[name].view(-1)[start:start + values.numel()] = values
         self.load_state_dict(sd, assign=True)
         return self
 
@@ -261,16 +292,20 @@ class GPT2Model(nn.Module):
         finally:
             gatherer.release(module)
 
-    def _embed(self, input_ids):
+    def embed_stage(self, top, input_ids):
         """Token + learned position embedding, with BLOOM's optional
-        post-embedding layernorm."""
+        post-embedding layernorm, from the top-level weights ``top`` (the
+        model, its gathered weights, or any object with those attributes)."""
         c = self.config
         T = input_ids.shape[1]
-        with self._gathered(self) as top:
-            x = top.wte.to(c.dtype)[input_ids] + top.wpe.to(c.dtype)[:T]
-            if c.embed_layernorm:
-                x = self._layer_norm(x, top.emb_ln_g, top.emb_ln_b)
+        x = top.wte.to(c.dtype)[input_ids] + top.wpe.to(c.dtype)[:T]
+        if c.embed_layernorm:
+            x = self._layer_norm(x, top.emb_ln_g, top.emb_ln_b)
         return x
+
+    def _embed(self, input_ids):
+        with self._gathered(self) as top:
+            return self.embed_stage(top, input_ids)
 
     def _mlp(self, h, w):
         h = h @ w.fc_w.to(h.dtype) + w.fc_b.to(h.dtype)
@@ -343,19 +378,26 @@ class GPT2Model(nn.Module):
 
     forward = apply
 
+    def loss_stage(self, top, x, batch):
+        """The final layer norm and the chunked LM loss of the trunk's
+        output ``x`` (B, T, D) against ``batch``'s targets, from the
+        top-level weights ``top`` (the JAX pipeline's
+        ``_last_stage_loss_fn``)."""
+        _, labels, mask = parse_lm_batch(batch)
+        x = self._layer_norm(x, top.lnf_g, top.lnf_b)[:, :-1]             # (B, T-1, D)
+        return chunked_lm_loss(x, self._head(top, x.dtype), labels[:, 1:],
+                               mask[:, 1:] if mask is not None else None,
+                               bias=self._head_bias(top), remat=self.config.remat_loss_chunks)
+
     def loss(self, batch):
         """batch: dict with input_ids (B, T) [+ optional labels/loss_mask]
         or a bare (B, T) tensor → mean next-token cross entropy (fp32). The
         vocab projection runs in sequence chunks, so the (B, T, V) fp32
         logits are never held at once."""
-        ids, labels, mask = parse_lm_batch(batch)
+        ids, _, _ = parse_lm_batch(batch)
         x = self._blocks(ids)
         with self._gathered(self) as top:
-            x = self._layer_norm(x, top.lnf_g, top.lnf_b)[:, :-1]       # (B, T-1, D)
-            return chunked_lm_loss(x, self._head(top, x.dtype), labels[:, 1:],
-                                   mask[:, 1:] if mask is not None else None,
-                                   bias=self._head_bias(top),
-                                   remat=self.config.remat_loss_chunks)
+            return self.loss_stage(top, x, batch)
 
     def loss_tokens(self, batch):
         """What :meth:`loss` averages over: the masked target count, or None

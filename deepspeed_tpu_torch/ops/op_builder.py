@@ -12,6 +12,9 @@ and an unchanged one is reused. Libraries go to
 source at once and waits for all of them; a failed build raises with
 ``nvcc``'s messages.
 
+Host libraries (:class:`HostLibrary`, the NVMe swap's ``csrc/aio/``) are
+C++ for the CPU, built the same way with ``g++`` and loaded with ctypes.
+
 Launch counts: each wrapper counts its launches on its :class:`CudaKernel`.
 A launch captured in a CUDA graph is counted at capture, where it does not
 run; whoever captures the graph takes that count back and credits it per
@@ -25,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
@@ -35,6 +39,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 _KERNELS: List["CudaKernel"] = []   # every CudaKernel made, for launch_counts
@@ -168,3 +173,44 @@ def add_launches(counts: Mapping[Tuple[CudaKernel, str], int]) -> None:
     launches back)."""
     for (kern, fn), n in counts.items():
         kern.entry_launches[fn] += n
+
+
+class HostLibrary:
+    """A C++ source for the host, ``csrc/<relative path>``, built with g++
+    into ``build/<stem>-<hash>.so`` at first :meth:`load` and bound with
+    ctypes. ``functions`` maps each C function to ``(restype, argtypes)``.
+    A failed build raises with g++'s messages."""
+
+    def __init__(self, relative: str, functions: Dict[str, Tuple[object, Sequence]]):
+        self.source = CSRC_DIR / relative
+        self.functions = dict(functions)
+        self._lib: Optional[ctypes.CDLL] = None
+        self._lock = threading.Lock()
+
+    @property
+    def library_path(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(GXX_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                path = self.library_path
+                if not path.exists():
+                    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                    out = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(self.source)],
+                                         capture_output=True, text=True)
+                    if out.returncode != 0:
+                        tmp.unlink(missing_ok=True)
+                        raise RuntimeError(f"g++ failed to build {self.source} (exit "
+                                           f"{out.returncode}):\n{out.stdout}{out.stderr}")
+                    os.replace(tmp, path)
+                lib = ctypes.CDLL(str(path))
+                for fn, (restype, argtypes) in self.functions.items():
+                    f = getattr(lib, fn)
+                    f.restype = restype
+                    f.argtypes = list(argtypes)
+                self._lib = lib
+            return self._lib

@@ -41,10 +41,15 @@ class Optimizer:
     state, updating ``params`` in place. ``lr`` defaults to the factory's;
     the engine passes its schedule's value every step. ``per_tensor``: the
     rule needs whole-tensor reductions, so over flat ZeRO units its
-    ``update`` takes ``segments``, ``num_params`` and ``group``."""
+    ``update`` takes ``segments``, ``num_params`` and ``group``. ``hyper``:
+    an Adam rule's hyperparameters (``b1``, ``b2``, ``eps``,
+    ``weight_decay``, ``adam_w_mode``, ``bias_correction``), which the
+    offloaded update streams ``adam_leaf_update`` with; None for the
+    others."""
     init: Callable[[Tensors], Any]
     update: Callable[..., Any]
     per_tensor: bool = False
+    hyper: Optional[dict] = None
 
 
 def _zeros_like(params: Tensors) -> List[torch.Tensor]:
@@ -67,6 +72,8 @@ def _load_state_dict(state, sd: dict):
     counters = {}
     for k, mine in state._asdict().items():
         theirs = sd[k]
+        if theirs is mine:              # already in place
+            continue
         if isinstance(mine, list):
             if theirs is None or len(theirs) != len(mine):
                 raise ValueError(f"optimizer state {k}: {len(mine)} tensors, saved "
@@ -134,7 +141,9 @@ def fused_adam(lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
             adam_leaf_update(p, m, v, g, lr, b1, b2, eps, weight_decay, adam_w_mode, bc1, bc2)
         return state._replace(count=count)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, hyper=dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                                              adam_w_mode=adam_w_mode,
+                                              bias_correction=bias_correction))
 
 
 def fused_lamb(lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,

@@ -25,6 +25,11 @@ Loads, the next save and the exit wait for it. Load verifies each candidate
 tag's manifest and falls back to the newest good one. The rewind tiers,
 emergency tags, the chaos injector and elastic resizes are later slices.
 
+State under ZeRO-Offload is read and written where it lives (the card,
+host memory, the NVMe optimizer's files), one unit at a time; a tag does not
+record where the state lived, so a tag saved with offload loads without it
+and the other way round.
+
 Over many processes a tag stays world-agnostic, as the JAX orbax tag is:
 every rank takes part in gathering the whole tensors from the ZeRO
 partitions, one unit of one tensor list at a time (before
@@ -167,7 +172,7 @@ def _state_spec(engine):
     if engine._keep_master:
         spec += [(f"master/{p.name}", p.shape, (z.fp32, i)) for i, p in enumerate(plan.params)]
     for field, v in engine.opt_state.state_dict().items():
-        if isinstance(v, list):
+        if _per_unit(v):
             spec += [(f"opt_state/{field}/{p.name}", p.shape, (v, i))
                      for i, p in enumerate(plan.params)]
         elif v is not None:
@@ -182,6 +187,12 @@ def _state_spec(engine):
     return spec
 
 
+def _per_unit(v) -> bool:
+    """An optimizer-state field laid out as ZeroState.fp32: a list of
+    tensors, or the NVMe files' per-unit view (``SwapUnits``)."""
+    return isinstance(v, list) or hasattr(v, "write_unit")
+
+
 def flatten_state(engine, keep: bool = True) -> Dict[str, torch.Tensor]:
     """The engine's training state under flat keys, as whole tensors on the
     host, each its own storage (a copy from the card waits for it, so the
@@ -189,7 +200,10 @@ def flatten_state(engine, keep: bool = True) -> Dict[str, torch.Tensor]:
     ZeRO stages 1-3 it gathers the partitions, one unit of one source at a
     time, so the card holds one gathered unit at most beyond the state.
     ``keep=False`` (a rank that does not write) takes part in the gathers
-    and keeps nothing."""
+    and keeps nothing. An engine with a layout of its own (ZeRO-Infinity's)
+    gives the same keys through its ``flat_state``."""
+    if hasattr(engine, "flat_state"):
+        return engine.flat_state() if keep else {}
     spec = _state_spec(engine)
     sources = {}                        # id(source) -> (source, {param index: key})
     for key, _, get in spec:
@@ -209,6 +223,8 @@ def flatten_state(engine, keep: bool = True) -> Dict[str, torch.Tensor]:
 def state_shapes(engine) -> Dict[str, tuple]:
     """The keys of :func:`flatten_state` and their whole shapes, without a
     collective."""
+    if hasattr(engine, "flat_state_shapes"):
+        return engine.flat_state_shapes()
     return {key: tuple(shape) for key, shape, _ in _state_spec(engine)}
 
 
@@ -450,6 +466,9 @@ def apply_flat_state(engine, flat: Mapping[str, torch.Tensor], load_module_only:
     only and refreshes the fp32 masters from them (the reference's
     ``refresh_fp32_params``), so the next step updates the loaded weights;
     the JAX package keeps its live masters there."""
+    if hasattr(engine, "apply_flat_state"):
+        engine.apply_flat_state(flat, load_module_only, load_optimizer_states)
+        return
     names = engine._param_names
     trained = set(names)
     for name, p in engine.module.named_parameters():
@@ -465,7 +484,7 @@ def apply_flat_state(engine, flat: Mapping[str, torch.Tensor], load_module_only:
         return
     sd = {}
     for field, v in engine.opt_state.state_dict().items():
-        if isinstance(v, list):
+        if _per_unit(v):
             z.load(v, [flat[f"opt_state/{field}/{n}"] for n in names])   # in place
             sd[field] = v
         elif v is None:
@@ -478,6 +497,8 @@ def apply_flat_state(engine, flat: Mapping[str, torch.Tensor], load_module_only:
             {k[len("scaler/"):]: v.item() for k, v in flat.items() if _field(k) == "scaler"})
     engine._global_step = int(flat["step"])
     engine._skipped_steps = int(flat["skipped_steps"])
+    if getattr(engine, "_nvme_optimizer", None) is not None:
+        engine._nvme_optimizer.step_count = engine.opt_state.count
 
 
 def apply_restored_meta(engine, meta: dict) -> None:

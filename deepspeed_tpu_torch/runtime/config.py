@@ -7,7 +7,7 @@ the batch triple ``train_batch_size = micro_batch * grad_accum * dp_world``
 is resolved and validated centrally with the reference's rules and errors.
 
 The port reads ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
-``gradient_clipping``, ``zero_optimization``, ``comms_logger``, ``data_types``,
+``gradient_clipping``, ``zero_optimization``, ``aio``, ``comms_logger``, ``data_types``,
 ``sparse_attention``, ``checkpoint``, ``resilience``, ``data_efficiency``,
 ``curriculum_learning``, ``dataloader_drop_last``, ``steps_per_print``,
 ``wall_clock_breakdown``, ``seed`` and the batch keys.
@@ -34,7 +34,8 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 # the top-level keys the port reads
 SUPPORTED_KEYS = frozenset({
-    "fp16", "bf16", "bfloat16", "zero_optimization", "comms_logger", "data_types", "optimizer",
+    "fp16", "bf16", "bfloat16", "zero_optimization", "aio", "comms_logger", "data_types",
+    "optimizer",
     "scheduler", "gradient_clipping", "sparse_attention", "steps_per_print",
     "wall_clock_breakdown", "seed", "checkpoint", "resilience", "data_efficiency",
     "curriculum_learning", "dataloader_drop_last",
@@ -46,7 +47,7 @@ SUPPORTED_KEYS = frozenset({
 # and ADVISORY_NOOP_KEYS): each is a later slice of the port
 LATER_KEYS = frozenset({
     "flops_profiler", "activation_checkpointing", "tensorboard", "wandb",
-    "csv_monitor", "pipeline", "tpu", "aio", "elasticity", "hybrid_engine",
+    "csv_monitor", "pipeline", "tpu", "elasticity", "hybrid_engine",
     "gradient_compression", "compression_training",
     "autotuning", "rewind", "watchdog", "analysis", "telemetry", "profiling",
     "perf", "serving", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
@@ -120,6 +121,19 @@ class BF16Config(DeepSpeedConfigModel):
 @dataclasses.dataclass
 class DataTypesConfig(DeepSpeedConfigModel):
     grad_accum_dtype: Optional[str] = None
+
+
+@dataclasses.dataclass
+class AioConfig(DeepSpeedConfigModel):
+    """The aio block: the NVMe swap's I/O handle (``ops/aio.py``). A request
+    is split into ``block_size`` chunks that ``thread_count`` threads read or
+    write; ``queue_depth``, ``single_submit`` and ``overlap_events`` parse
+    for the reference's config and change nothing, as in the JAX package."""
+    block_size: int = 1048576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
 
 
 @dataclasses.dataclass
@@ -226,6 +240,7 @@ class DeepSpeedConfig:
         if self.fp16.enabled and self.bf16.enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")
         self.zero_config = DeepSpeedZeroConfig.from_dict(pd.get("zero_optimization", {}))
+        self.aio_config = AioConfig.from_dict(pd.get("aio", {}))
         self.comms_config = CommsLoggerConfig.from_dict(pd.get("comms_logger", {}))
         self.data_types_config = DataTypesConfig.from_dict(pd.get("data_types", {}))
         if self.data_types_config.grad_accum_dtype not in GRAD_ACCUM_DTYPES:

@@ -49,17 +49,41 @@ each batch on the host before it goes to the card. ``save_checkpoint`` and
 (``runtime/checkpoint_engine/engine.py``), the same whole tensors at every
 world size and stage.
 
+ZeRO-Offload and ZeRO-Infinity (the ``offload_optimizer`` and
+``offload_param`` blocks): the state is built unit by unit straight into
+its placement (``runtime/zero/init.py``, the engine's ``zero.Init``), so a
+model whose state does not fit on the card is never whole on it.
+``offload_optimizer: cpu`` keeps the optimizer state in pinned host memory,
+and the fp32 master too when the card cannot hold it next to the params
+and gradients (the JAX engine's capacity policy, on the card's memory and
+the port's fp32 gradients); the card still does the math, on the whole
+state at once when it fits or streamed unit by unit in chunks
+(``runtime/zero/offload.py``). ``offload_param: cpu`` keeps the
+compute-type params in pinned host memory, each unit brought to the card
+just before its module runs. ``offload_optimizer: nvme`` keeps the master
+and the Adam moments in files (``runtime/swap_tensor/``), stepped on the
+host after the gradients come to it unit by unit; ``offload_param: nvme``
+is ``runtime/zero/infinity.py``'s engine, which ``initialize`` returns.
+The JAX package's knobs ``DS_TPU_OFFLOAD_MASTER``,
+``DS_TPU_FORCE_STREAMED_OFFLOAD``, ``DS_TPU_OFFLOAD_CHUNK_BYTES`` and
+``DS_TPU_OFFLOAD_OVERLAP`` (or the block's ``stream_overlap``) keep their
+meanings. On ``device="cpu"`` the host is the same memory; the offload path
+still runs, as copies between CPU tensors.
+
 The engine runs on CUDA unless it is given ``device="cpu"``; without a card
 it raises. Its process group is the default one when one is initialized
 (NCCL for a CUDA engine, gloo for a CPU one; any other pairing raises), and
 without one it is a world of one that issues no collective. Model
-parallelism, offload and the observability blocks are later slices and
-raise when configured.
+parallelism and the observability blocks are later slices and raise when
+configured.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import os
+import tempfile
 import weakref
 from typing import Any, List, Mapping, NamedTuple, Optional
 
@@ -68,7 +92,7 @@ import torch
 
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import resolve_device
-from deepspeed_tpu_torch.ops.optimizers import Optimizer, build_optimizer
+from deepspeed_tpu_torch.ops.optimizers import AdamState, Optimizer, build_optimizer
 from deepspeed_tpu_torch.parallel.topology import ParallelGrid
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import CurriculumScheduler
@@ -78,8 +102,11 @@ from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, grads_finite
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedule, build_lr_schedule
 from deepspeed_tpu_torch.runtime.utils import get_grad_norm
-from deepspeed_tpu_torch.runtime.zero.partition import partition_report, plan_partition
-from deepspeed_tpu_torch.runtime.zero.state import PARAMS, ZeroState
+from deepspeed_tpu_torch.runtime.zero.init import build_state, trainable
+from deepspeed_tpu_torch.runtime.zero.offload import (CHUNK_BYTES, HostOffload, env_flag,
+                                                      host_opt_state)
+from deepspeed_tpu_torch.runtime.zero.partition import partition_report
+from deepspeed_tpu_torch.runtime.zero.state import PARAMS
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                                              STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER, NoopTimer,
@@ -88,6 +115,14 @@ from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOB
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what}: later slice of the port")
+
+
+def _resolve_stream_overlap(off_opt) -> bool:
+    """Double-buffered streaming of the offloaded update: the
+    ``stream_overlap`` field when set, else the ``DS_TPU_OFFLOAD_OVERLAP``
+    environment knob (also without an offload_optimizer block)."""
+    cfg = off_opt.stream_overlap if off_opt is not None else None
+    return env_flag("DS_TPU_OFFLOAD_OVERLAP") if cfg is None else bool(cfg)
 
 
 class StepMetrics(NamedTuple):
@@ -133,49 +168,55 @@ class DeepSpeedEngine:
         self.bf16_enabled = self._config.bf16.enabled
         self.zero_stage = self._config.zero_optimization_stage
 
-        # ---- state -------------------------------------------------------
+        # ---- state, built in its placement -------------------------------
         if model_parameters is not None:
             if not isinstance(model_parameters, Mapping):
                 raise ValueError("model_parameters must be a state dict for the model")
             model.load_state_dict(model_parameters, assign=True)
-        if any(p.is_meta for p in model.parameters()):
-            # no weights given: random weights from the config's seed, as
-            # the JAX engine draws them from PRNGKey(seed)
-            model.init_params(torch.Generator(device=self.device).manual_seed(self._config.seed))
-        model.to(device=self.device)
-        owner = {id(p): (mname, m) for mname, m in model.named_modules()
-                 for p in m.parameters(recurse=False)}
-        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        self._param_names: List[str] = [n for n, _ in named]
-        self._params: List[torch.nn.Parameter] = [p for _, p in named]
-        if not self._params:
-            raise ValueError("the model has no trainable parameters")
-        self._plan = plan_partition(
-            [(n, tuple(p.shape), owner[id(p)][0]) for n, p in named], self.zero_stage,
-            self.dp_world_size, self._config.zero_config.param_persistence_threshold)
-        # the fp32 values, taken before the params are cast and laid out
-        # in units; every rank starts from rank 0's
-        fp32_values = [p.detach() for p in self._params]
+        named = trainable(model)
+        self._param_names: List[str] = [n for n, _, _, _ in named]
         # the optimizer updates an fp32 copy (ZeroState.fp32), which a
         # checkpoint saves as the masters when the compute type is not fp32
         self._keep_master = self.train_dtype != torch.float32 and (
             self.fp16_enabled or self._config.bf16.master_weights)
-        model.to(dtype=self.train_dtype)
-        self._zero = ZeroState(self._plan, self._params, [owner[id(p)][1] for p in self._params],
-                               fp32_values, self.train_dtype, self._config.grad_accum_dtype,
-                               self.device, self._group, self.global_rank)
-        del fp32_values
-        if any(u.partitioned for u in self._plan.units):
+        placement = self._offload_placement(model)
+        if self.device.type == "cpu" and (placement["fp32_host"] or placement["param_host"]):
+            log_dist("offload on a CPU engine: the host is the same memory; the offload "
+                     "path runs as copies between CPU tensors", ranks=[0])
+        self._zero = build_state(
+            model, self.zero_stage, self._config.zero_config.param_persistence_threshold,
+            self.train_dtype, self.device, self._config.grad_accum_dtype,
+            generator=torch.Generator(device=self.device).manual_seed(self._config.seed),
+            group=self._group, rank=self.global_rank, world=self.dp_world_size, **placement)
+        self._plan = self._zero.plan
+        self._params: List[torch.nn.Parameter] = self._zero.params
+        if any(self._zero.fetched):
             if not hasattr(model, "param_gatherer"):
-                raise NotImplementedError(f"ZeRO stage 3 on {type(model).__name__}: the model "
-                                          "must gather its modules' parameters "
-                                          "(param_gatherer)")
+                raise NotImplementedError(f"ZeRO stage 3 or offload_param on "
+                                          f"{type(model).__name__}: the model must gather "
+                                          "its modules' parameters (param_gatherer)")
             model.param_gatherer = self._zero
         log_dist(partition_report(self._plan), ranks=[0])
 
         # ---- optimizer, schedule, loss scaler ----------------------------
         self.optimizer = self._configure_optimizer(optimizer)
-        self.opt_state = self.optimizer.init(self._zero.fp32)
+        self._offload = None
+        if self._nvme_optimizer is not None:
+            from deepspeed_tpu_torch.runtime.swap_tensor.optimizer_swapper import SwapUnits
+
+            units = self._nvme_names
+            self._zero.fp32 = SwapUnits(self._nvme_optimizer, units, "w")
+            self.opt_state = AdamState(count=0, mu=SwapUnits(self._nvme_optimizer, units, "m"),
+                                       nu=SwapUnits(self._nvme_optimizer, units, "v"))
+        elif self._host_offload_opt:
+            self.opt_state = host_opt_state(self.optimizer, [t.numel() for t in self._zero.fp32],
+                                            pin=self.device.type == "cuda")
+            self._offload = HostOffload(self._zero, self._offload_master_host,
+                                        self._offload_streamed(), self._stream_overlap,
+                                        int(os.environ.get("DS_TPU_OFFLOAD_CHUNK_BYTES",
+                                                           CHUNK_BYTES)))
+        else:
+            self.opt_state = self.optimizer.init(self._zero.fp32)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
         self.loss_scaler = None
         self.scaler_state = None
@@ -193,7 +234,7 @@ class DeepSpeedEngine:
         # ---- gradient accumulation: hooks into the units' buffers --------
         hooks = [p.register_post_accumulate_grad_hook(self._zero.grad_hook(i))
                  for i, p in enumerate(self._params)
-                 if not self._plan.params[i].partitioned]
+                 if not self._zero.fetched[self._plan.params[i].unit]]
         # the model outlives the engine: its hooks go with the engine
         weakref.finalize(self, lambda: [h.remove() for h in hooks])
         self._pending_weight = None
@@ -232,6 +273,95 @@ class DeepSpeedEngine:
                  f"device={self.device}, dp={self.dp_world_size}, "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
                  f"gas={self._config.gradient_accumulation_steps}", ranks=[0])
+
+    # -------------------------------------------------------------- offload
+    def _hbm_bytes(self) -> int:
+        """The card's memory; 16 GiB on a CPU engine (the JAX engine's
+        figure when it cannot read the device's)."""
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_properties(self.device).total_memory
+        return 16 << 30
+
+    def _offload_placement(self, model) -> dict:
+        """The ZeRO-Offload policy (the JAX engine's, on the card's memory
+        and the port's own resident bytes): where the fp32 master and the
+        compute-type params live, and the NVMe optimizer when asked for."""
+        zc = self._config.zero_config
+        off_opt, off_param = zc.offload_optimizer, zc.offload_param
+        if off_param is not None and off_param.device == "nvme":
+            raise ValueError("offload_param to nvme is the ZeRO-Infinity engine "
+                             "(runtime/zero/infinity.py): build it through initialize")
+        self._host_offload_opt = bool(off_opt and off_opt.device == "cpu")
+        self._host_offload_param = bool(off_param and off_param.device == "cpu")
+        self._stream_overlap = _resolve_stream_overlap(off_opt)
+        made = getattr(model, "param_gatherer", None)
+        self._numel = sum(p.numel for p in made.plan.params) if hasattr(made, "plan") \
+            else sum(p.numel() for _, p, _, _ in trainable(model))
+        # Moments only: the fp32 master stays on the card when it fits there
+        # next to the compute-type params and the gradients, and only the
+        # moments stream (the reference's offload_optimizer.ratio role,
+        # decided by capacity); DS_TPU_OFFLOAD_MASTER=host|hbm overrides
+        self._offload_master_host = self._host_offload_opt
+        if self._host_offload_opt:
+            mode = os.environ.get("DS_TPU_OFFLOAD_MASTER", "auto").lower()
+            if mode in ("hbm", "device", "resident"):
+                self._offload_master_host = False
+            elif mode in ("host", "pinned", "cpu"):
+                self._offload_master_host = True
+            else:
+                n, shards, stage = self._numel, self.dp_world_size, self.zero_stage
+                resident = (4 * n / shards
+                            + self.train_dtype.itemsize * n / (shards if stage >= 3 else 1)
+                            + self._config.grad_accum_dtype.itemsize * n
+                            / (shards if stage >= 2 else 1))
+                self._offload_master_host = resident > 0.55 * self._hbm_bytes()
+            if not self._offload_master_host:
+                log_dist("ZeRO-Offload: fp32 master stays on the card; streaming moments "
+                         "only (DS_TPU_OFFLOAD_MASTER=host to force full offload)", ranks=[0])
+        self._nvme_optimizer = None
+        fp32_sink = None
+        if off_opt is not None and off_opt.device == "nvme":
+            from deepspeed_tpu_torch.runtime.swap_tensor.optimizer_swapper import \
+                SwappedOptimizer
+
+            if self.fp16_enabled:
+                raise ValueError("NVMe optimizer offload supports bf16/fp32 only (fp16 dynamic "
+                                 "loss scaling would need the state back on overflow)")
+            folder = off_opt.nvme_path or os.path.join(tempfile.gettempdir(),
+                                                       "ds_tpu_nvme_swap")
+            if self.dp_world_size > 1:
+                folder = os.path.join(folder, f"rank{self.global_rank}")
+            self._nvme_optimizer = SwappedOptimizer(
+                swap_folder=folder, optimizer_name=self._config.optimizer_name or "adamw",
+                optimizer_params=dict(self._config.optimizer_params or {}),
+                aio_config=dataclasses.asdict(self._config.aio_config),
+                buffer_count=off_opt.buffer_count)
+            fp32_sink = lambda u, t: self._nvme_optimizer.add_tensor(f"unit{u:05d}", t)
+        return dict(fp32_host=self._host_offload_opt and self._offload_master_host,
+                    param_host=self._host_offload_param, pin=self.device.type == "cuda",
+                    fp32_sink=fp32_sink)
+
+    @property
+    def _nvme_names(self) -> List[str]:
+        return [f"unit{u:05d}" for u in range(len(self._plan.units))]
+
+    def _offload_streamed(self) -> bool:
+        """Whole-state stream-in when the fp32 state fits on the card next to
+        the model; streamed unit by unit in chunks otherwise (the only way a
+        model whose optimizer state exceeds the card steps at all)."""
+        if env_flag("DS_TPU_FORCE_STREAMED_OFFLOAD"):
+            return True
+        n, shards = self._numel, self.dp_world_size
+        # master + mu + nu = 12 bytes/param streamed, or mu + nu = 8 when the
+        # master stays on the card (which also shrinks the room they stream into)
+        stream_bytes = (12 if self._offload_master_host else 8) * n / shards
+        budget = self._hbm_bytes() - (0 if self._offload_master_host else 4 * n / shards)
+        streamed = stream_bytes > 0.6 * budget
+        if streamed:
+            log_dist(f"ZeRO-Offload: streamed optimizer update ({stream_bytes / 2**30:.1f}G "
+                     f"streamed fp32/device vs {budget / 2**30:.1f}G free on the card)",
+                     ranks=[0])
+        return streamed
 
     # ------------------------------------------------------------- plumbing
     def _configure_optimizer(self, client) -> Optimizer:
@@ -324,7 +454,8 @@ class DeepSpeedEngine:
     def _apply_grads(self, loss, gas: int) -> StepMetrics:
         """The optimizer phase: the mean over microbatches and ranks at the
         ZeRO placement, finite check, unscale and clip, update the fp32
-        copy, refresh the params, scale bookkeeping."""
+        copy (on the card, streamed through it from host memory, or on the
+        host from the NVMe files), refresh the params, scale bookkeeping."""
         z = self._zero
         grads = z.reduced_grads(gas)
         group = self._group if z.sharded else None        # the grads' sharding
@@ -334,19 +465,26 @@ class DeepSpeedEngine:
             if self.loss_scaler is not None else True
         inv_scale = 1.0 / scale
         grad_norm = get_grad_norm(grads, group=group) * inv_scale   # unscaled global norm
-        coef = torch.full((), inv_scale, dtype=torch.float32, device=grad_norm.device)
-        clip = self._config.gradient_clipping
-        if clip > 0:
-            coef = coef * torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
-        for g in grads:
-            g.mul_(coef)
         lr = self._lr_at(self._global_step)
-        if finite:
-            flat = {"segments": z.segments(), "num_params": len(self._params),
-                    "group": group} if self.optimizer.per_tensor else {}
-            self.opt_state = self.optimizer.update(grads, self.opt_state, z.fp32, lr=lr,
-                                                   **flat)
-            z.refresh_params()
+        clip = self._config.gradient_clipping
+        if self._nvme_optimizer is not None:           # fp16 is refused: always finite
+            self._step_nvme(grads, float(grad_norm), lr)
+        else:
+            coef = torch.full((), inv_scale, dtype=torch.float32, device=grad_norm.device)
+            if clip > 0:
+                coef = coef * torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
+            for g in grads:
+                g.mul_(coef)
+            if finite:
+                flat = {"segments": z.segments(), "num_params": len(self._params),
+                        "group": group} if self.optimizer.per_tensor else {}
+                if self._offload is not None:          # the state in host memory
+                    self.opt_state = self._offload.update(self.optimizer, grads,
+                                                          self.opt_state, lr, **flat)
+                else:
+                    self.opt_state = self.optimizer.update(grads, self.opt_state, z.fp32,
+                                                           lr=lr, **flat)
+                    z.refresh_params()
         del grads
         if self.loss_scaler is not None:
             self.scaler_state = self.loss_scaler.update(self.scaler_state, finite)
@@ -358,6 +496,20 @@ class DeepSpeedEngine:
         self._last_metrics = metrics
         self._post_step(metrics)
         return metrics
+
+    def _step_nvme(self, grads, grad_norm: float, lr: float) -> None:
+        """The NVMe optimizer's step (the JAX ``_train_batch_nvme``): each
+        unit's gradient to the host as its window comes, clipped there by
+        the JAX rule (scaled by clip / (norm + 1e-6) when the norm exceeds
+        it), AdamW on the host, and each unit's new params back to the card
+        while its window is in memory."""
+        clip = self._config.gradient_clipping
+        scale = clip / (grad_norm + 1e-6) if clip > 0 and grad_norm > clip else 1.0
+        names = self._nvme_names
+        unit = {n: u for u, n in enumerate(names)}
+        self._nvme_optimizer.step(dict(zip(names, grads)), lr=lr, grad_scale=scale,
+                                  on_update=lambda n, w: self._zero.store_params(unit[n], w))
+        self.opt_state = self.opt_state._replace(count=self._nvme_optimizer.step_count)
 
     def _post_step(self, metrics: StepMetrics) -> None:
         if self.lr_scheduler is not None:
@@ -492,7 +644,7 @@ class DeepSpeedEngine:
         """The params in the compute type, whole, on the host (a collective
         under ZeRO stage 3)."""
         sd = {k: v.detach().cpu() for k, v in self.module.state_dict().items()}
-        if self.zero_stage >= 3:
+        if any(self._zero.fetched):
             sd.update(zip(self._param_names, self._zero.to_host(PARAMS)))
         return sd
 

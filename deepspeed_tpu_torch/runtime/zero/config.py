@@ -9,8 +9,12 @@ Stages 0–3 take effect (``partition.py`` places the state, the engine's
 ``runtime/zero/state.py`` runs the collectives), and stage 3 reads
 ``stage3_param_persistence_threshold``. The bucket, prefetch and live-
 parameter keys parse and bound nothing yet: the engine issues one
-collective per unit (a module's parameters, flat). Host or NVMe offload, MiCS and the quantized-ZeRO
-keys raise ``NotImplementedError`` (later slices).
+collective per unit (a module's parameters, flat). ``offload_optimizer``
+and ``offload_param`` take ``cpu`` and ``nvme`` (``runtime/zero/offload.py``,
+``runtime/swap_tensor/``, ``runtime/zero/infinity.py``); the deprecated
+``cpu_offload`` and ``cpu_offload_param`` become those blocks, and
+``cpu_offload_use_pin_memory`` only warns, as in the JAX package. MiCS and
+the quantized-ZeRO keys raise ``NotImplementedError`` (later slices).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from dataclasses import field
 from typing import Optional
 
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigModel
+from deepspeed_tpu_torch.utils.logging import logger
 
 OFFLOAD_DEVICES = ("none", "cpu", "nvme")
 
@@ -48,8 +53,6 @@ class DeepSpeedZeroOffloadParamConfig(DeepSpeedConfigModel):
         if self.device not in OFFLOAD_DEVICES:
             raise ValueError(f"offload_param.device {self.device!r} not in {OFFLOAD_DEVICES}")
         _check_min(self, buffer_count=0, buffer_size=0, max_in_cpu=0)
-        if self.device != "none":
-            raise _later(f"offload_param to {self.device}")
 
 
 @dataclasses.dataclass
@@ -71,8 +74,6 @@ class DeepSpeedZeroOffloadOptimizerConfig(DeepSpeedConfigModel):
         _check_min(self, buffer_count=0, ratio=0.0)
         if self.ratio > 1.0:
             raise ValueError(f"offload_optimizer.ratio must be <= 1, got {self.ratio}")
-        if self.device != "none":
-            raise _later(f"offload_optimizer to {self.device}")
 
 
 @dataclasses.dataclass
@@ -131,10 +132,22 @@ class DeepSpeedZeroConfig(DeepSpeedConfigModel):
                    prefetch_bucket_size=0, param_persistence_threshold=0,
                    model_persistence_threshold=0, max_live_parameters=0,
                    max_reuse_distance=0, mics_shard_size=-1)
-        if self.cpu_offload:
-            raise _later("offload_optimizer to cpu (cpu_offload)")
-        if self.cpu_offload_param:
-            raise _later("offload_param to cpu (cpu_offload_param)")
+        # the deprecated spellings, as the JAX package maps them
+        for old, new, block in (
+                ("cpu_offload", "offload_optimizer", DeepSpeedZeroOffloadOptimizerConfig),
+                ("cpu_offload_param", "offload_param", DeepSpeedZeroOffloadParamConfig),
+                ("cpu_offload_use_pin_memory", None, None)):
+            value = getattr(self, old)
+            if value is None:
+                continue
+            logger.warning(f"Config parameter {old} is deprecated. "
+                           + (f"Use {new} instead." if new else ""))
+            if new is None:
+                continue
+            if getattr(self, new) is not None:
+                raise ValueError(f"Cannot provide deprecated parameter '{old}' and its "
+                                 f"replacement '{new}' together")
+            setattr(self, new, block(device="cpu") if value else None)
         if self.zero_quantized_weights or self.zero_quantized_gradients \
                 or self.zero_hpz_partition_size > 1:
             raise _later("quantized ZeRO (zero_quantized_* / zero_hpz_partition_size)")

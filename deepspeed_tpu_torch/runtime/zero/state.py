@@ -29,20 +29,28 @@ group.
 Parameters: each parameter of a whole unit is a view of that unit's flat
 compute-type buffer, refreshed after each applied step from the updated
 fp32 values: a cast copy at stage 0, an all-gather of the cast shards
-at stages 1–3. A stage-3 unit's parameters hold no storage: the rank keeps
-its shard of the unit in the compute type, and ``gather(module)`` runs an
-all-gather just before the module computes (an autograd Function whose
-backward adds the gradients into the unit's buffer), ``release(module)``
-after. Autograd would keep the gathered buffer alive until backward
-wherever an op saves a weight, so while the engine runs a forward,
-``saved_tensor_hooks`` replaces every saved view of a live gathered buffer
-with a token, and backward gathers the unit again when it unpacks one
-(keeping the last unit gathered in backward until another is asked for).
+at stages 1–3. A *fetched* unit's parameters hold no storage: the rank
+keeps its part of the unit in the compute type (its shard at stage 3; the
+whole unit, in host memory, under ``offload_param``), and
+``gather(module)`` brings the unit whole to the card just before the
+module computes (a copy from the host and, where partitioned, an
+all-gather; an autograd Function whose backward adds the gradients into
+the unit's buffer), ``release(module)`` after. Autograd would keep the
+gathered buffer alive until backward wherever an op saves a weight, so
+while the engine runs a forward, ``saved_tensor_hooks`` replaces every
+saved view of a live gathered buffer with a token, and backward gathers
+the unit again when it unpacks one (keeping the last unit gathered in
+backward until another is asked for).
 A block under activation checkpointing gathers again when it is recomputed.
 
 Checkpoints: ``to_host`` copies whole per-parameter tensors to the host
 one unit at a time, gathering each partitioned unit; ``load`` gives each
-rank its part of whole tensors, one unit at a time.
+rank its part of whole tensors, one unit at a time. Both first wait for
+the card when state lives in host memory (``host_sync``).
+
+The buffers are built unit by unit from chunks of the parameters' values
+in their final placement, the rank's parts only (``runtime/zero/init.py``
+draws them).
 
 Without a process group (one process, nothing initialized) the same
 buffers are used and no collective is issued; with one, every collective
@@ -53,17 +61,21 @@ from __future__ import annotations
 
 import contextlib
 import types
-from typing import Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.ops.aio import host_zeros
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPlan
 
 # a source of whole tensors: the compute-type params, or per-unit tensors
 # laid out as ZeroState.fp32 (the masters, an optimizer moment, gradients)
 PARAMS = "params"
 Source = Union[str, Sequence[torch.Tensor]]
+# (param index, first element, fp32 values): a piece of one parameter's
+# flattened values, as ZeroState is built from
+Chunk = Tuple[int, int, torch.Tensor]
 
 
 class _Token(NamedTuple):
@@ -94,13 +106,33 @@ class _Gather(torch.autograd.Function):
 class ZeroState:
     """Per-unit buffers of one engine's parameters, gradients and the fp32
     values its optimizer updates, over the process group ``group`` (None:
-    no collectives). ``fp32_values``: the whole fp32 value of each of
-    ``params``; every rank starts from rank 0's."""
+    no collectives).
+
+    The buffers are built from ``chunks``, ``(param index, start, fp32
+    tensor)`` triples giving elements ``[start, start + numel)`` of a
+    parameter's flattened values, on any device and in any order: each
+    unit's buffers are allocated in their final placement at the unit's
+    first chunk, and each chunk is written into the parts of them this rank
+    keeps and then dropped, so beyond the state the build holds one chunk
+    (``runtime/zero/init.py``). With ``broadcast`` every chunk is first
+    broadcast from rank 0, so every rank starts from rank 0's values. Every
+    kept element must arrive.
+
+    Placement: ``fp32_host`` keeps ``fp32`` in host memory (ZeRO-Offload's
+    master on the host); ``param_host`` keeps the compute-type params in
+    host memory (``offload_param``), every unit then fetched to the card
+    before its module runs, as a stage-3 unit is gathered (at stage 3 the
+    persistent unit stays on the card). Host tensors are pinned when
+    ``pin``. ``fp32_sink(u, tensor)``, when given, takes each unit's fp32
+    part as soon as it is complete in place of keeping it (the NVMe
+    optimizer's files), and ``fp32`` then holds None."""
 
     def __init__(self, plan: ZeroPlan, params: Sequence[torch.nn.Parameter],
-                 owners: Sequence[torch.nn.Module], fp32_values: Sequence[torch.Tensor],
+                 owners: Sequence[torch.nn.Module], chunks: Iterable[Chunk],
                  dtype: torch.dtype, grad_dtype: torch.dtype, device: torch.device,
-                 group=None, rank: int = 0):
+                 group=None, rank: int = 0, *, broadcast: bool = True, fp32_host: bool = False,
+                 param_host: bool = False, pin: bool = False,
+                 fp32_sink: Optional[Callable[[int, torch.Tensor], None]] = None):
         self.plan = plan
         self.params = list(params)
         self.stage = plan.stage
@@ -114,37 +146,94 @@ class ZeroState:
         self._grads: Dict[int, torch.Tensor] = {}        # unit -> whole gradient buffer
         self._shard_grads: Dict[int, torch.Tensor] = {}  # unit -> reduced shard (stages 2, 3)
         self._arrived: Dict[int, int] = {}      # unit -> gradient deliveries this backward
-        self._due: Dict[int, int] = {}          # stage-3 unit -> its gathers this forward
+        self._due: Dict[int, int] = {}          # fetched unit -> its gathers this forward
         self._forwarding = False
         self._live: Dict[int, tuple] = {}       # storage ptr -> (unit, buffer)
         self._bwd: Optional[tuple] = None       # (unit, buffer) gathered in backward
-        self._unit_of: Dict[int, int] = {}      # id(module) -> stage-3 unit
+        self._unit_of: Dict[int, int] = {}      # id(module) -> fetched unit
         self._names: Dict[int, List[str]] = {}  # id(module) -> its direct param names
         for m in {id(m): m for m in owners}.values():
             self._names[id(m)] = [n for n, p in m.named_parameters(recurse=False)
                                   if p.requires_grad]
+        # a unit is fetched (gathered before its module runs) when its
+        # compute-type params are partitioned or in host memory
+        self.fetched = [u.partitioned or (param_host and u.name != "persistent")
+                        for u in plan.units]
+        self.host_state = fp32_host or param_host
 
-        self.fp32: List[torch.Tensor] = []      # the optimizer's target, per unit
+        self.fp32: List[Optional[torch.Tensor]] = [None] * len(plan.units)
         self.whole: Dict[int, torch.Tensor] = {}   # compute-type buffer of a whole unit
-        self.parts: Dict[int, torch.Tensor] = {}   # compute-type shard of a stage-3 unit
+        self.parts: Dict[int, torch.Tensor] = {}   # compute-type part of a fetched unit
+
+        def zeros(n, dt, on_host):
+            return host_zeros(n, dt, pin) if on_host else torch.zeros(n, dtype=dt, device=device)
+
+        def kept(u):
+            """(start, end) of the unit's elements this rank keeps in fp32
+            and in the compute type."""
+            unit = plan.units[u]
+            shard = (rank * unit.shard, (rank + 1) * unit.shard)
+            return (shard if self.sharded else (0, unit.length),
+                    shard if unit.partitioned else (0, unit.length))
+
+        def overlap(a, b):
+            return max(0, min(a[1], b[1]) - max(a[0], b[0]))
+
+        want = [[sum(overlap((plan.params[i].offset, plan.params[i].offset
+                              + plan.params[i].numel), r) for i in unit.params)
+                 for r in kept(u)] for u, unit in enumerate(plan.units)]
+        got = [[0, 0] for _ in plan.units]
+        sunk = set()
         with torch.no_grad():
-            for u, unit in enumerate(plan.units):
-                buf = torch.zeros(unit.length, dtype=torch.float32, device=device)
-                for i in unit.params:
-                    self._view(buf, i).copy_(fp32_values[i])
-                if group is not None:
-                    comm.broadcast(buf, src=0, group=group)
-                self.fp32.append((self._shard(buf, u) if self.sharded else buf).clone())
-                if unit.partitioned:
-                    self.parts[u] = self._shard(buf, u).to(dtype, copy=True)
-                    for i in unit.params:
-                        self.params[i].data = torch.empty(0, dtype=dtype, device=device)
-                        self._unit_of[id(owners[i])] = u
+            for i, start, t in chunks:
+                p = plan.params[i]
+                u = p.unit
+                t = t.detach().reshape(-1).to(device, torch.float32)
+                if broadcast and group is not None:
+                    t = t.contiguous()
+                    comm.broadcast(t, src=0, group=group)
+                (f_lo, f_hi), (c_lo, c_hi) = kept(u)
+                if u not in self.whole and u not in self.parts:
+                    self.fp32[u] = zeros(f_hi - f_lo, torch.float32, fp32_host)
+                    buf = zeros(c_hi - c_lo, dtype, param_host and self.fetched[u])
+                    (self.parts if self.fetched[u] else self.whole)[u] = buf
+                lo = p.offset + start
+                hi = lo + t.numel()
+                for j, (dst, (k_lo, k_hi)) in enumerate(zip(
+                        (self.fp32[u], self.parts.get(u, self.whole.get(u))), kept(u))):
+                    a, b = max(lo, k_lo), min(hi, k_hi)
+                    if a < b and not (j == 0 and u in sunk):
+                        dst[a - k_lo:b - k_lo].copy_(t[a - lo:b - lo])
+                        got[u][j] += b - a
+                if fp32_sink is not None and u not in sunk and got[u][0] == want[u][0]:
+                    fp32_sink(u, self.fp32[u])
+                    self.fp32[u] = None
+                    sunk.add(u)
+                del t
+        for u, unit in enumerate(plan.units):
+            if got[u] != want[u]:
+                raise ValueError(f"ZeRO unit {unit.name!r}: {got[u]} of {want[u]} kept "
+                                 "(fp32, compute-type) elements arrived from the chunks")
+            for i in unit.params:
+                if self.fetched[u]:
+                    self.params[i].data = torch.empty(0, dtype=dtype, device=device)
+                    self._unit_of[id(owners[i])] = u
                 else:
-                    self.whole[u] = buf.to(dtype, copy=True)
-                    for i in unit.params:
-                        self.params[i].data = self._view(self.whole[u], i)
-                del buf
+                    self.params[i].data = self._view(self.whole[u], i)
+
+    def local_chunks(self) -> Iterable[Chunk]:
+        """The compute-type values this rank holds, as chunks: each
+        parameter's part of the unit's kept range (a stage-3 shard, or the
+        whole), for another state built from the same plan."""
+        for u, unit in enumerate(self.plan.units):
+            buf = self.parts[u] if self.fetched[u] else self.whole[u]
+            base = self.rank * unit.shard if unit.partitioned else 0
+            for i in unit.params:
+                p = self.plan.params[i]
+                a = max(p.offset, base)
+                b = min(p.offset + p.numel, base + buf.numel())
+                if a < b:
+                    yield i, a - p.offset, buf[a - base:b - base]
 
     # ------------------------------------------------------------- layout
     def _view(self, unit_buf: torch.Tensor, i: int) -> torch.Tensor:
@@ -197,7 +286,7 @@ class ZeroState:
             return
         n = self._arrived[u] = self._arrived.get(u, 0) + 1
         unit = self.plan.units[u]
-        if n >= (self._due.get(u, 0) if unit.partitioned else len(unit.params)):
+        if n >= (self._due.get(u, 0) if self.fetched[u] else len(unit.params)):
             self._reduce(u)
 
     def _reduce(self, u: int) -> None:
@@ -250,26 +339,62 @@ class ZeroState:
         return out
 
     # ---------------------------------------------------- after the update
+    def param_slot(self, u: int) -> Optional[torch.Tensor]:
+        """The tensor holding unit ``u``'s compute-type params laid out as
+        ``fp32[u]`` (on the card or the host), when there is one: the update
+        may write the new params into it element for element. None when
+        they must be gathered over the group (:meth:`store_params`)."""
+        if self.fetched[u] and self.plan.units[u].partitioned:
+            return self.parts[u]
+        if self.sharded and self.group is not None:
+            return None
+        return self.parts[u] if self.fetched[u] else self.whole[u]
+
     @torch.no_grad()
-    def refresh_params(self) -> None:
-        """The compute-type params from the updated fp32 values."""
-        for u, unit in enumerate(self.plan.units):
-            if unit.partitioned:
-                self.parts[u].copy_(self.fp32[u])
-            elif not self.sharded or self.group is None:
-                self.whole[u].copy_(self.fp32[u])
-            else:
-                comm.all_gather_into_tensor(self.whole[u], self.fp32[u].to(self.dtype),
-                                            group=self.group)
+    def store_params(self, u: int, values: torch.Tensor) -> None:
+        """Unit ``u``'s compute-type params from ``values``, laid out as
+        ``fp32[u]`` (fp32 or the compute type, on any device): cast on the
+        card, then copied into place or gathered over the group."""
+        values = values.to(self.device)
+        slot = self.param_slot(u)
+        if slot is not None and slot.device == values.device:
+            slot.copy_(values)                    # the cast fused into the copy
+            return
+        values = values.to(self.dtype)
+        if slot is not None:
+            slot.copy_(values, non_blocking=True)
+            return
+        whole = self.whole[u] if not self.fetched[u] else torch.empty(
+            self.plan.units[u].length, dtype=self.dtype, device=self.device)
+        comm.all_gather_into_tensor(whole, values, group=self.group)
+        if self.fetched[u]:
+            self.parts[u].copy_(whole, non_blocking=True)
+
+    def refresh_params(self, fp32: Optional[Sequence[torch.Tensor]] = None) -> None:
+        """The compute-type params from the updated fp32 values (``fp32``,
+        laid out as :attr:`fp32`; the state's own by default)."""
+        for u, values in enumerate(self.fp32 if fp32 is None else fp32):
+            self.store_params(u, values)
+
+    def host_sync(self) -> None:
+        """Wait for the card before the host reads or writes host-resident
+        state (a checkpoint, a load): the update's copies to the host run
+        on their own stream and the host does not wait for them."""
+        if self.host_state and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------- stage 3: gather
     def _gather(self, u: int, live: bool) -> torch.Tensor:
+        """Fetched unit ``u``'s compute-type params, whole, on the card:
+        copied from the host and, where partitioned, all-gathered."""
         unit = self.plan.units[u]
+        src = self.parts[u]
         buf = torch.empty(unit.length, dtype=self.dtype, device=self.device)
-        if self.group is None:
-            buf.copy_(self.parts[u])
+        if not unit.partitioned or self.group is None:
+            buf.copy_(src, non_blocking=True)
         else:
-            comm.all_gather_into_tensor(buf, self.parts[u], group=self.group)
+            comm.all_gather_into_tensor(buf, src.to(self.device, non_blocking=True),
+                                        group=self.group)
         self.gathers += 1
         if live:
             self._live[buf.untyped_storage().data_ptr()] = (u, buf)
@@ -338,11 +463,12 @@ class ZeroState:
         partitioned (a collective)."""
         unit = self.plan.units[u]
         if isinstance(source, str):
-            return self._gather(u, live=False) if unit.partitioned else self.whole[u]
+            return self._gather(u, live=False) if self.fetched[u] else self.whole[u]
         part = source[u]
         if not self.sharded or self.group is None:
             return part
-        buf = torch.empty(unit.length, dtype=part.dtype, device=part.device)
+        part = part.to(self.device)               # a host part (offload) gathers on the card
+        buf = torch.empty(unit.length, dtype=part.dtype, device=self.device)
         comm.all_gather_into_tensor(buf, part, group=self.group)
         return buf
 
@@ -350,7 +476,9 @@ class ZeroState:
         """Whole per-parameter host copies of ``source`` (``PARAMS``, or a
         list laid out as ``fp32``), gathered one unit at a time: beyond the
         state, the device holds one unit's buffer at most. Every rank calls
-        it; ``keep=False`` takes part in the gathers and keeps nothing."""
+        it; ``keep=False`` takes part in the gathers and keeps nothing.
+        ``source[u]`` may read the unit from elsewhere (the NVMe files)."""
+        self.host_sync()
         out: List[Optional[torch.Tensor]] = [None] * len(self.params)
         for u, unit in enumerate(self.plan.units):
             buf = self._whole_unit(source, u)
@@ -364,15 +492,21 @@ class ZeroState:
     def load(self, source: Source, tensors: Sequence[torch.Tensor]) -> None:
         """Whole per-parameter ``tensors`` (on any device; a checkpoint's
         are on the host) into ``source``, each rank taking its part, one
-        unit at a time."""
+        unit at a time; a source with ``write_unit(u, tensor)`` (the NVMe
+        files) takes each unit's part through it."""
+        self.host_sync()
         for u, unit in enumerate(self.plan.units):
             if isinstance(source, str):
-                dst = self.parts[u] if unit.partitioned else self.whole[u]
+                dst = self.parts[u] if self.fetched[u] else self.whole[u]
                 part = unit.partitioned
             else:
-                dst, part = source[u], self.sharded
-            buf = torch.zeros(unit.length, dtype=dst.dtype,
-                              device=tensors[unit.params[0]].device)
+                dst, part = (None if hasattr(source, "write_unit") else source[u]), self.sharded
+            dtype = torch.float32 if dst is None else dst.dtype
+            buf = torch.zeros(unit.length, dtype=dtype, device=tensors[unit.params[0]].device)
             for i in unit.params:
                 self._view(buf, i).copy_(tensors[i])
-            dst.copy_(self._shard(buf, u) if part else buf)
+            value = self._shard(buf, u) if part else buf
+            if dst is None:
+                source.write_unit(u, value)
+            else:
+                dst.copy_(value)

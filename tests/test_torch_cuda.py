@@ -25,7 +25,12 @@ run's) and run the seqlen curriculum through the kernels at ragged lengths.
 The ZeRO tests train it over a NCCL process group of one (the card's
 machine has one card, and NCCL takes no two ranks on one device) at stages
 0–3: the same losses (bf16 1%, fp32 1e-5) and kernel launches at every
-stage, and a tag saved at stage 3 restored bit for bit at stage 1.
+stage, and a tag saved at stage 3 restored bit for bit at stage 1. The
+offload tests keep the optimizer state (and the params) in pinned host
+memory: every host tensor is pinned, the streamed and whole-state updates
+give the in-card update's losses and params bit for bit (the same
+elementwise ops on the same values), and the aio handle reads a swap file
+straight into a pinned tensor.
 """
 
 import dataclasses
@@ -861,3 +866,65 @@ def test_comm_collectives_over_nccl(nccl_world):
     comm.monitored_barrier(timeout=60)
     assert (comm.get_rank(), comm.get_world_size(), comm.get_backend()) == (0, 1, "nccl")
     assert deepspeed_tpu_torch.get_accelerator().communication_backend_name() == "nccl"
+
+
+# ---------------------------------------------------------------- offload
+OFFLOAD_CONFIG = {"train_batch_size": 4, "steps_per_print": 0, "gradient_clipping": 1.0,
+                  "bf16": {"enabled": True},
+                  "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+
+
+def _offload_run(monkeypatch, zero, knobs):
+    for k in ("DS_TPU_OFFLOAD_MASTER", "DS_TPU_FORCE_STREAMED_OFFLOAD",
+              "DS_TPU_OFFLOAD_CHUNK_BYTES"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in knobs.items():
+        monkeypatch.setenv(k, v)
+    cfg = gpt2.GPT2Config(vocab_size=1024, n_positions=128, n_embd=256, n_layer=2, n_head=4,
+                          remat=False)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=gpt2.GPT2Model(cfg), config={**OFFLOAD_CONFIG, "zero_optimization": zero})
+    batch = gpt2.synthetic_lm_batch(4, 128, 1024, device="cuda")
+    losses = [float(engine.train_batch(batch)) for _ in range(3)]
+    return engine, losses, {k: v.clone() for k, v in engine.module_state_dict().items()}
+
+
+@pytest.mark.parametrize("zero,knobs", [
+    ({"stage": 1, "offload_optimizer": {"device": "cpu"}}, {}),
+    ({"stage": 1, "offload_optimizer": {"device": "cpu"}},
+     {"DS_TPU_FORCE_STREAMED_OFFLOAD": "1", "DS_TPU_OFFLOAD_MASTER": "host",
+      "DS_TPU_OFFLOAD_CHUNK_BYTES": str(1 << 20)}),
+    ({"stage": 1, "offload_optimizer": {"device": "cpu", "stream_overlap": True}},
+     {"DS_TPU_FORCE_STREAMED_OFFLOAD": "1", "DS_TPU_OFFLOAD_MASTER": "host",
+      "DS_TPU_OFFLOAD_CHUNK_BYTES": str(1 << 20)}),
+    ({"stage": 3, "stage3_param_persistence_threshold": 1000,
+      "offload_param": {"device": "cpu"}, "offload_optimizer": {"device": "cpu"}},
+     {"DS_TPU_FORCE_STREAMED_OFFLOAD": "1", "DS_TPU_OFFLOAD_MASTER": "host",
+      "DS_TPU_OFFLOAD_CHUNK_BYTES": str(1 << 20)}),
+])
+def test_offloaded_update_equals_the_in_card_update(gen, monkeypatch, zero, knobs):
+    _, ref_losses, ref = _offload_run(monkeypatch, {"stage": zero["stage"],
+                                                    "stage3_param_persistence_threshold": 1000},
+                                      {})
+    engine, losses, params = _offload_run(monkeypatch, zero, knobs)
+    z = engine._zero
+    host = list(engine.opt_state.mu) + list(engine.opt_state.nu) + \
+        (list(z.fp32) if engine._offload.master_host else []) + \
+        [z.parts[u] for u in z.parts if "offload_param" in zero]
+    assert host and all(t.device.type == "cpu" and t.is_pinned() for t in host)
+    assert losses == ref_losses
+    for k, v in ref.items():
+        assert torch.equal(params[k], v), k
+
+
+def test_aio_reads_into_a_pinned_tensor(gen, tmp_path):
+    from deepspeed_tpu_torch.ops.aio import AsyncIOHandle, host_zeros
+
+    src = host_zeros(1 << 22).random_(0, 255)
+    dst = host_zeros(1 << 22, pin=True)
+    assert dst.is_pinned() and dst.data_ptr() % 4096 == 0
+    h = AsyncIOHandle(block_size=1 << 20, thread_count=4)
+    h.sync_pwrite(src, str(tmp_path / "swap.bin"))
+    h.async_pread(dst, str(tmp_path / "swap.bin"))
+    h.wait()
+    assert torch.equal(dst.to("cuda", non_blocking=True).cpu(), src)

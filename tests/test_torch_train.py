@@ -190,9 +190,11 @@ def test_config_blocks_parse_like_jax_and_later_blocks_raise():
     assert t.train_dtype == torch.float16 and t.grad_accum_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="telemetry"):
         TConfig({"train_batch_size": 8, "telemetry": {"enabled": True}})
-    with pytest.raises(NotImplementedError):
-        TConfig({"train_batch_size": 8, "zero_optimization": {
-            "stage": 2, "offload_optimizer": {"device": "cpu"}}})
+    with pytest.raises(NotImplementedError, match="MiCS"):
+        TConfig({"train_batch_size": 8, "zero_optimization": {"stage": 2, "mics_shard_size": 2}})
+    offload = TConfig({"train_batch_size": 8, "zero_optimization": {
+        "stage": 2, "offload_optimizer": {"device": "cpu"}}})
+    assert offload.zero_config.offload_optimizer.device == "cpu"
     with pytest.raises(ValueError, match="gradient_clipping"):
         TConfig({"train_batch_size": 8, "gradient_cliping": 1.0})
     with pytest.raises(ValueError, match="did you mean"):
