@@ -29,7 +29,15 @@ world of one), reports each stage's steps, collectives per step (the
 stage's whole state to the host as a save does and holds the card's peak
 above the state to the largest unit, holds every stage's losses to stage
 0's and three fp32 steps of two layers at stage 3 to stage 0's, and
-destroys the group. Then it feeds, saves and resumes
+destroys the group. ``launch gpt2-760m`` starts the stage-1 recipe from the
+command line (``python -m deepspeed_tpu_torch.launcher.runner --num_gpus
+1`` on a user script written to a temporary directory), holds the
+launched process's environment, launches and losses to the in-process
+stage-1 run and saves a tag; ``serve gpt2-760m`` serves that tag through
+``init_inference(config={"checkpoint": ...})`` (params bit for bit, the
+graphed ``generate`` against the ungraphed loop and the plain path, K1 per
+prefill and K3 per decode step at one query head per KV head), then
+removes it. Then it feeds, saves and resumes
 gpt2-760m at full width and depth (``resume``): a token dataset written with
 the port's indexed-dataset builder into a temporary directory, engine A
 trained through ``initialize(training_data=...)``'s loader, saved with the
@@ -688,15 +696,15 @@ def _replay_ms(loop, logits, cache, steps):
     return start.elapsed_time(end) / steps
 
 
-def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
-    """llama3.2-1b, bf16, full width and depth: the counted main-path run,
-    through the graphed decode loop, beside the ungraphed loop."""
-    c = dataclasses.replace(cfg, use_flash_decode=True)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    model = LlamaModel(c).init_params(gen)
-    engine = init_inference(model, {"dtype": "bfloat16", "max_out_tokens": PROMPT + GEN})
-    ids = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
-
+def _served_cell(engine, ids, accel, fa, da, label, **fields):
+    """The serving cell's counted main-path run on ``engine`` (its model
+    serves with the kernels, bf16): the graphed ``generate`` of GEN greedy
+    tokens on ``ids``, the ungraphed loop's tokens, and prefill and one
+    decode step against the plain path on the same weights; emits the
+    ``label`` line with ``fields``. → (the second generate's launches, its
+    decode loop, the decode step's logits and cache)."""
+    model = engine.module
+    c = model.config
     engine.generate(ids[:2, :8], max_new_tokens=2)   # warm-up (library handles)
     torch.cuda.synchronize()
     accel.reset_peak_memory_stats()
@@ -713,7 +721,8 @@ def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
 
     # the same weights through the plain versions, selected by the model's own
     # flags (use_flash_attention / use_flash_decode off), not as a fallback
-    plain = LlamaModel(dataclasses.replace(c, use_flash_attention=False, use_flash_decode=False))
+    plain = type(model)(dataclasses.replace(c, use_flash_attention=False,
+                                            use_flash_decode=False))
     plain.load_state_dict(model.state_dict(), assign=True)
     with torch.inference_mode():
         prefill_med, logits, cache = _prefill_ms(model, ids, PROMPT + GEN)
@@ -730,7 +739,9 @@ def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
                              f"decode logits err {err_step}, |ref| max {scale}")
     decode_s = gen_s - prefill_med / 1e3
     eager_decode_s = eager_s - prefill_med / 1e3
-    emit(f"slice {MODEL}", batch=BATCH, prompt=PROMPT, gen=GEN, dtype="bfloat16",
+    emit(label, **fields, batch=BATCH, prompt=PROMPT, gen=GEN, dtype="bfloat16",
+         heads=c.n_head,
+         kv_heads=getattr(c, "n_kv_head", c.n_head), head_dim=c.head_dim,
          launches=launches, first_call_launches=first_launches, generate_s=gen_s,
          first_generate_s=first_s,
          capture_s=loop.capture_s, prefill_ms=prefill_med,
@@ -742,9 +753,21 @@ def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
          decode_logits_max_abs_err=err_step, ref_logits_max_abs=scale,
          logit_rtol=LOGIT_RTOL,
          top1_agree=(logits.argmax(-1) == ref.argmax(-1)).float().mean().item())
+    return launches, loop, step_k, cache
+
+
+def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
+    """llama3.2-1b, bf16, full width and depth: the counted main-path run,
+    through the graphed decode loop, beside the ungraphed loop."""
+    c = dataclasses.replace(cfg, use_flash_decode=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = LlamaModel(c).init_params(gen)
+    engine = init_inference(model, {"dtype": "bfloat16", "max_out_tokens": PROMPT + GEN})
+    ids = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
+    launches, loop, logits, cache = _served_cell(engine, ids, accel, fa, da, f"slice {MODEL}")
     with torch.inference_mode():
-        profile_slice(model, engine, loop, ids, step_k, cache, c.n_layer)
-    del engine, model, plain, cache, ref_cache, loop
+        profile_slice(model, engine, loop, ids, logits, cache, c.n_layer)
+    del engine, model, loop, cache
     torch.cuda.empty_cache()
     return launches
 
@@ -872,7 +895,7 @@ def kernel_category(name: str) -> str:
 def device_profile(fn, top: int = 6, count: str = None):
     """Run fn() under torch.profiler: host wall ms, device ms summed over
     kernels, the device's idle share of the wall time, device ms by kernel
-    category, the top kernels, the number of host-to-device copies and of
+    category, the device kernels run, the top kernels, the number of host-to-device copies and of
     CUDA graph launches; with ``count``, the number of device kernels whose
     name matches it. The profiler's own overhead lengthens the wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -899,12 +922,22 @@ def device_profile(fn, top: int = 6, count: str = None):
     graphs = sum(n for key, n in graph_keys.items() if key.startswith("cudaGraphLaunch"))
     out = {"wall_ms": wall_ms, "device_ms": device_ms,
            "idle_share": max(0.0, 1 - device_ms / wall_ms), "by_category": by_category,
+           "kernels": sum(e.count for e in rows),
            "top": [[e.key[:70], dev(e), e.count] for e in rows[:top]], "htod_copies": htod,
            "memcpy_ms": memcpy_ms,
            "graph_launches": graphs, "graph_events": graph_keys}
     if count:
         out["kernels_matching"] = {count: sum(e.count for e in rows if re.search(count, e.key))}
     return out
+
+
+def _replays_profile(model, loop, ids):
+    """PROFILE_STEPS replays of the captured decode step, from a fresh
+    prefill of ``ids`` into the loop's buffers, under the profiler."""
+    logits, cache = model.prefill(ids, loop.cache)
+    loop.load(logits, cache, 0)
+    return device_profile(lambda: [loop.graph.replay() for _ in range(PROFILE_STEPS)],
+                          count=r"decode_split_")
 
 
 def profile_slice(model, engine, loop, ids, logits, cache, n_layer):
@@ -925,14 +958,8 @@ def profile_slice(model, engine, loop, ids, logits, cache, n_layer):
             step_logits, state = model.decode_step(tok, state)
             tok = torch.argmax(step_logits, dim=-1)
 
-    def replays():
-        for _ in range(PROFILE_STEPS):
-            loop.graph.replay()
-
     prefill = device_profile(lambda: model.prefill(ids, model.init_cache(BATCH, PROMPT + GEN)))
-    graphed_logits, graphed_cache = model.prefill(ids, loop.cache)
-    loop.load(graphed_logits, graphed_cache, 0)
-    graphed = device_profile(replays, count=r"decode_split_")
+    graphed = _replays_profile(model, loop, ids)
     eager = device_profile(decode, count=r"decode_split_")
     whole = device_profile(lambda: engine.generate(ids, max_new_tokens=GEN), top=0,
                            count=r"decode_split_")
@@ -1303,7 +1330,8 @@ def zero_slice(initialize, GPT2Model, cfg, accel, fa):
     initialize → train_batch over a NCCL process group of one (every
     collective of the stage runs), at ZeRO stages 0-3: each stage's steps,
     collectives per step (CommsLogger, on one extra step), stage-3 gathers,
-    peak memory and kernel launches; the losses held to stage 0's."""
+    peak memory and kernel launches; the losses held to stage 0's. →
+    (launches, losses and median step ms, each by stage)."""
     import gc
 
     from deepspeed_tpu_torch import comm
@@ -1319,7 +1347,7 @@ def zero_slice(initialize, GPT2Model, cfg, accel, fa):
         c = dataclasses.replace(cfg, remat=False)
         batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED,
                                    device="cuda")
-        losses, launches = {}, {}
+        losses, launches, step_med = {}, {}, {}
         for stage in ZERO_STAGES:
             config = {**TRAIN_CONFIG, "zero_optimization": {"stage": stage}}
             engine, *_ = initialize(model=GPT2Model(c), config=config)
@@ -1331,6 +1359,7 @@ def zero_slice(initialize, GPT2Model, cfg, accel, fa):
             if launches[stage] != expect:
                 raise AssertionError(f"stage {stage}: launch counts {launches[stage]} over "
                                      f"{TRAIN_STEPS} steps, expected {expect}")
+            step_med[stage] = sorted(step_ms)[TRAIN_STEPS // 2]
             gathers = engine._zero.gathers / (TRAIN_WARMUP + TRAIN_STEPS)
             logged_ms, collectives = _counted_step(comm, engine, batch)
             save = _state_to_host(engine)
@@ -1357,7 +1386,208 @@ def zero_slice(initialize, GPT2Model, cfg, accel, fa):
         zero_check_fp32(initialize, GPT2Model, cfg)
     finally:
         comm.destroy_process_group()
+    return launches, losses, step_med
+
+
+# ------------------------------------------------------- launch and serve
+# the user's script of the launch phase: written into the run's scratch
+# directory and started by the port's launcher, one process per GPU
+LAUNCHED_SCRIPT = """\
+import argparse, dataclasses, json, os, time
+
+import torch
+
+import deepspeed_tpu_torch
+from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.models.gpt2 import PRESETS, GPT2Model, synthetic_lm_batch
+from deepspeed_tpu_torch.ops.pallas import flash_attention as fa
+from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import wait_for_pending_saves
+
+parser = argparse.ArgumentParser()
+deepspeed_tpu_torch.add_config_arguments(parser)
+for name in ("model", "save_dir", "prefix"):
+    parser.add_argument("--" + name)
+for name in ("batch", "seq", "warmup", "steps", "seed"):
+    parser.add_argument("--" + name, type=int)
+args = parser.parse_args()
+deepspeed_tpu_torch.get_accelerator().set_device(int(os.environ["LOCAL_RANK"]))
+cfg = dataclasses.replace(PRESETS[args.model], remat=False)
+engine, *_ = deepspeed_tpu_torch.initialize(args=args, model=GPT2Model(cfg))
+batch = synthetic_lm_batch(args.batch, args.seq, cfg.vocab_size, seed=args.seed, device="cuda")
+losses = [float(engine.train_batch(batch)) for _ in range(args.warmup)]
+fa.KERNEL.reset_launches()
+fa.BWD_KERNEL.reset_launches()
+step_ms = []
+for _ in range(args.steps):
+    t0 = time.perf_counter()
+    losses.append(float(engine.train_batch(batch)))
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+launches = {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
+t0 = time.perf_counter()
+engine.save_checkpoint(args.save_dir)
+wait_for_pending_saves()
+save_s = time.perf_counter() - t0
+seen = {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE",
+                                      "CUDA_VISIBLE_DEVICES", "MASTER_ADDR", "MASTER_PORT")}
+print(args.prefix + json.dumps({
+    "env": seen, "backend": comm.get_backend(), "world": comm.get_world_size(),
+    "device": str(engine.device), "losses": losses, "step_ms_each": step_ms,
+    "launches": launches, "save_s": save_s,
+    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+comm.destroy_process_group()
+"""
+LAUNCHED_PREFIX = "launched run: "
+LAUNCH_TIMEOUT_S = 400
+
+
+def _run_launcher(cmd, env, timeout: float):
+    """Run the launcher in a session of its own: (exit code, stdout,
+    stderr, seconds). On the timeout its whole group gets SIGTERM (its
+    launch.py forwards it to the children), then SIGKILL, and this
+    raises."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGTERM)
+        try:
+            out, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, err = proc.communicate()
+        raise AssertionError(f"the launched run did not end in {timeout} s:\n{out[-4000:]}\n"
+                             f"{err[-4000:]}")
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def launch_slice(cfg, zero1_losses, zero1_step_ms, tmp):
+    """The dense training cell's recipe (ZeRO stage 1, bf16, 8 x 1024)
+    started from the command line: ``python -m
+    deepspeed_tpu_torch.launcher.runner --num_gpus 1`` runs a user script
+    (``add_config_arguments``, ``set_device(LOCAL_RANK)``, ``initialize``
+    joining a NCCL group of one from the launcher's environment), which
+    takes TRAIN_WARMUP and TRAIN_STEPS steps and saves a tag. Held: exit 0,
+    the environment it saw, 24 launches of K1 and of each K2 entry per
+    step, and its losses within TRAIN_LOSS_RTOL of the in-process stage-1
+    run on the same batch. → (its launches, the save dir)."""
+    script = os.path.join(tmp, "train_gpt2.py")
+    with open(script, "w") as f:
+        f.write(LAUNCHED_SCRIPT)
+    ds_config = os.path.join(tmp, "ds_config.json")
+    with open(ds_config, "w") as f:
+        json.dump(TRAIN_CONFIG, f)
+    save_dir = os.path.join(tmp, "launched_run")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
+    cmd = [sys.executable, "-m", "deepspeed_tpu_torch.launcher.runner", "--num_gpus", "1",
+           "--master_port", str(_free_port()), script, "--deepspeed_config", ds_config,
+           "--model", TRAIN_MODEL, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+           "--warmup", str(TRAIN_WARMUP), "--steps", str(TRAIN_STEPS), "--seed", str(SEED),
+           "--save_dir", save_dir, "--prefix", LAUNCHED_PREFIX]
+    rc, out, err, wall_s = _run_launcher(cmd, env, LAUNCH_TIMEOUT_S)
+    lines = [ln for ln in out.splitlines() if ln.startswith(LAUNCHED_PREFIX)]
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"the launched run exited {rc} with {len(lines)} result lines:\n"
+                             f"{out[-4000:]}\n{err[-4000:]}")
+    got = json.loads(lines[0][len(LAUNCHED_PREFIX):])
+    env_seen = got["env"]
+    if {k: env_seen[k] for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "CUDA_VISIBLE_DEVICES")} \
+            != {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "CUDA_VISIBLE_DEVICES": "0"} \
+            or got["backend"] != "nccl" or got["world"] != 1:
+        raise AssertionError(f"the launched process saw {env_seen}, {got['backend']} of "
+                             f"{got['world']}")
+    n_layer = cfg.n_layer
+    expect = dict.fromkeys(got["launches"], n_layer * TRAIN_STEPS)
+    if got["launches"] != expect or len(expect) != 3:
+        raise AssertionError(f"launched run: launch counts {got['launches']} over "
+                             f"{TRAIN_STEPS} steps, expected {expect}")
+    losses = got["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, zero1_losses))
+    if len(losses) != len(zero1_losses) or not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"launched losses {losses} against the in-process stage-1 run's "
+                             f"{zero1_losses}: rel {rel}")
+    step_ms = sorted(got["step_ms_each"])[TRAIN_STEPS // 2]
+    emit(f"launch {TRAIN_MODEL}", cmd=" ".join(cmd[1:4] + ["..."]), exit_code=rc,
+         env=env_seen, backend=got["backend"], world=got["world"], device=got["device"],
+         losses=losses, losses_in_process_zero1=zero1_losses, loss_rel_diff=rel,
+         losses_bitwise_equal=losses == zero1_losses, rtol=TRAIN_LOSS_RTOL,
+         step_ms=step_ms, step_ms_each=got["step_ms_each"],
+         step_ms_in_process_zero1=zero1_step_ms,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in got["launches"].items()},
+         save_s=got["save_s"], peak_mem_gb=got["peak_mem_gb"], wall_s=wall_s,
+         tag_bytes=_tree_bytes(save_dir))
+    return got["launches"], save_dir
+
+
+def serve_gpt2_slice(init_inference, GPT2Model, cfg, accel, fa, da, save_dir):
+    """gpt2-760m served from the launched run's tag through
+    ``init_inference(config={"checkpoint": save_dir})``, bf16, with the
+    decode kernel: the served params equal the tag's bit for bit; the
+    counted graphed ``generate`` (B=32, prompt 128, 128 new, greedy; 24 K1
+    per prefill, 24 K3 per decode step at KV = H = 16) gives the ungraphed
+    loop's tokens; prefill and one decode step agree with the plain path on
+    the same weights within LOGIT_RTOL of the largest logit."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import read_state
+
+    c = dataclasses.replace(cfg, use_flash_decode=True, remat=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = init_inference(GPT2Model(c), config={"checkpoint": save_dir, "dtype": "bfloat16",
+                                                   "max_out_tokens": PROMPT + GEN})
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with open(os.path.join(save_dir, "latest")) as f:
+        tag_dir = os.path.join(save_dir, f.read().strip())
+    tag = read_state(tag_dir, ("params",), "cpu")
+    model = engine.module
+    served = dict(model.named_parameters())
+    if set(tag) != {f"params/{n}" for n in served} or not all(
+            torch.equal(p.cpu(), tag[f"params/{n}"].to(torch.bfloat16))
+            for n, p in served.items()):
+        raise AssertionError("the served params differ from the tag's")
+    tag_dtypes = sorted({str(t.dtype) for t in tag.values()})
+    del tag
+    model_gb = sum(p.numel() * p.element_size() for p in served.values()) / 1e9
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
+    launches, loop, _, _ = _served_cell(engine, ids, accel, fa, da, f"serve {TRAIN_MODEL}",
+                                        checkpoint=save_dir, tag_params_dtypes=tag_dtypes,
+                                        params_bitwise_equal_to_tag=True, model_gb=model_gb,
+                                        load_s=load_s)
+    # where a prefill and a graphed decode step spend the device's time
+    with torch.inference_mode():
+        emit(f"profile serve {TRAIN_MODEL}", decode_steps=PROFILE_STEPS,
+             prefill=device_profile(lambda: model.prefill(ids, model.init_cache(
+                 BATCH, PROMPT + GEN))),
+             decode_graphed=_replays_profile(model, loop, ids))
+    del engine, model, served, loop
+    torch.cuda.empty_cache()
     return launches
+
+
+def launch_and_serve_slices(init_inference, GPT2Model, cfg, accel, fa, da, zero1_losses,
+                            zero1_step_ms):
+    """Launch, train and save (``launch_slice``), then serve the tag
+    (``serve_gpt2_slice``), in a temporary directory on the disk with the
+    most room, removed afterwards. → (the launched run's launches, the
+    served run's)."""
+    root, _ = _scratch_dir()
+    tmp = tempfile.mkdtemp(prefix="ds_launch_", dir=root)
+    t0 = time.perf_counter()
+    try:
+        launched, save_dir = launch_slice(cfg, zero1_losses, zero1_step_ms, tmp)
+        served = serve_gpt2_slice(init_inference, GPT2Model, cfg, accel, fa, da, save_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(f"launch and serve {TRAIN_MODEL} seconds", seconds=time.perf_counter() - t0)
+    return launched, served
 
 
 def check_head_dim_80(initialize, GPT2Model, cfg, fa):
@@ -2255,6 +2485,10 @@ def main() -> int:
         ("fp32_d80", BATCH, S, 32, 32, 80, f32, 200))]
     decode_rows.append(check_decode(da, accel, gen, "garbage_past_pos", BATCH, S, 32, 8, 64,
                                     bf, 100, garbage=True))
+    # gpt2-760m's serving shape: one query head per KV head (MHA), head dim 96
+    gpt2_decode_rows = [check_decode(da, accel, gen, *case) for case in (
+        ("gpt2_mha_d96", BATCH, S, 16, 16, 96, bf, S - 1),
+        ("gpt2_mha_d96_fp16", BATCH, S, 16, 16, 96, f16, S - 1))]
     # the long caches the split is for, its chunks' edges, and the other types
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     long_chunk = da.decode_chunk(LONG_BATCH, 8, LONG_S, n_sm)
@@ -2287,8 +2521,11 @@ def main() -> int:
                      batch, TRAIN_MODEL, _dense_plain)
     train_check_fp32(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL],
                      TRAIN_MODEL, TRAIN_SEQ, {}, _dense_plain)
-    zero_launches = zero_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
-                               gpt2_presets[TRAIN_MODEL], accel, fa)
+    zero_launches, zero_losses, zero_step_ms = zero_slice(
+        deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa)
+    launch_launches, serve_gpt2_launches = launch_and_serve_slices(
+        deepspeed_tpu_torch.init_inference, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa, da,
+        zero_losses[1], zero_step_ms[1])
 
     sparse_cfg = gpt2_presets[SPARSE_MODEL]
     sparse_launches, batch = train_sparse_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
@@ -2321,7 +2558,9 @@ def main() -> int:
          "launches": train_launches["flash_attention_fwd"],
          **{k: flash_rows[0][k] for k in keys},
          "launches_by_path": {"serve": serve_launches["flash_attention_fwd"],
+                              "serve_gpt2": serve_gpt2_launches["flash_attention_fwd"],
                               "train": train_launches["flash_attention_fwd"],
+                              "launch": launch_launches["flash_attention_fwd"],
                               "resume": resume_launches["flash_attention_fwd"],
                               "curriculum": curriculum_launches["flash_attention_fwd"],
                               **{f"zero{s}": n["flash_attention_fwd"]
@@ -2333,7 +2572,10 @@ def main() -> int:
          "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:47",
          "launches": serve_launches["decode_attention"],
          **{k: decode_rows[0][k] for k in keys},
-         "at_long_shape": {k: long_rows[0][k] for k in keys}},
+         "launches_by_path": {"serve": serve_launches["decode_attention"],
+                              "serve_gpt2": serve_gpt2_launches["decode_attention"]},
+         "at_long_shape": {k: long_rows[0][k] for k in keys},
+         "at_gpt2_mha_shape": {k: gpt2_decode_rows[0][k] for k in keys}},
     ]
     for entry, replaces in (("dq", "deepspeed_tpu/ops/pallas/flash_attention.py:287"),
                             ("dkv", "deepspeed_tpu/ops/pallas/flash_attention.py:313")):
@@ -2342,7 +2584,8 @@ def main() -> int:
             "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu", "replaces": replaces,
             "launches": train_launches[f"flash_attention_bwd_{entry}"],
             "launches_by_path": {p: n[f"flash_attention_bwd_{entry}"] for p, n in (
-                ("train", train_launches), ("resume", resume_launches),
+                ("train", train_launches), ("launch", launch_launches),
+                ("resume", resume_launches),
                 ("curriculum", curriculum_launches),
                 *((f"zero{s}", z) for s, z in zero_launches.items()),
                 *by_offload.items())},

@@ -7,7 +7,8 @@ from ``csrc/`` at first use. Entry points run on CUDA unless the caller
 passes ``device="cpu"``.
 
 Ported so far: serving (``init_inference`` → ``InferenceEngine.generate``)
-of the llama family, and training (``initialize`` →
+of the llama and GPT-2 families, from random or given weights or from a
+training tag (``config={"checkpoint": save_dir}``), and training (``initialize`` →
 ``DeepSpeedEngine.train_batch``) of the GPT-2 family, with dense or
 block-sparse (ds_config ``sparse_attention``) attention, fed by the data
 loader and the curriculum pipeline, saved to and resumed from verified
@@ -15,7 +16,11 @@ checkpoints, on one process or over a ``torch.distributed`` world
 (``comm``, ``init_distributed``) with ZeRO stages 0–3, with the state built
 in its placement (``zero.Init``) and offloaded to host memory or NVMe
 (ZeRO-Offload; ``offload_param: nvme`` returns the layerwise
-``ZeroInfinityEngine``).
+``ZeroInfinityEngine``). A run over many processes starts from the command
+line: ``python -m deepspeed_tpu_torch.launcher.runner [--hostfile H]
+script.py --deepspeed_config ds.json`` spawns one process per GPU, and the
+script takes ``add_config_arguments`` and calls
+``get_accelerator().set_device(local_rank)``.
 """
 
 from __future__ import annotations
@@ -106,7 +111,10 @@ def init_inference(model=None, config=None, **kwargs):
     """Create an InferenceEngine. ``config`` is a dict of ds_config inference
     keys or a DeepSpeedInferenceConfig; extra keyword arguments other than
     ``params`` (a state dict for ``model``) and ``device`` are merged into
-    it, as in the JAX package."""
+    it, as in the JAX package. ``checkpoint`` (a training save dir, or one
+    of its tag dirs; ``checkpoint_config={"tag": ...}`` picks a tag) serves
+    that tag's params; ``params`` takes precedence over it. A Megatron
+    ``checkpoint_config.type`` raises (model import is a later slice)."""
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
 
@@ -121,3 +129,18 @@ def init_inference(model=None, config=None, **kwargs):
     else:
         config = DeepSpeedInferenceConfig.from_dict({**config, **kwargs})
     return InferenceEngine(model, config, **engine_kwargs)
+
+
+def add_config_arguments(parser):
+    """Add the DeepSpeed arguments to an argparse parser: ``--deepspeed``,
+    ``--deepspeed_config`` (the ds_config json that ``initialize(args=...)``
+    reads) and ``--local_rank`` (launchers set ``LOCAL_RANK`` in the
+    environment as well)."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag, parity only)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to the ds_config json")
+    group.add_argument("--local_rank", type=int, default=-1,
+                       help="local rank passed by launchers (also LOCAL_RANK in the environment)")
+    return parser

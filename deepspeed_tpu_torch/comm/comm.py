@@ -72,9 +72,11 @@ comms_logger = None
 __all__ = ["ReduceOp", "CommsLogger", "init_distributed", "is_initialized", "get_rank",
            "get_world_size", "get_local_rank", "get_world_group", "get_backend", "new_group",
            "get_global_rank", "destroy_process_group", "configure", "log_summary",
-           "all_reduce", "all_gather_into_tensor", "all_gather", "reduce_scatter_tensor",
+           "all_reduce", "all_gather_into_tensor", "all_gather", "reduce_scatter",
+           "reduce_scatter_tensor",
            "all_to_all_single", "all_to_all", "broadcast", "reduce", "gather", "scatter",
-           "barrier", "monitored_barrier", "all_gather_coalesced", "all_reduce_coalesced",
+           "barrier", "monitored_barrier", "set_default_barrier_timeout",
+           "clear_config_barrier_timeout", "all_gather_coalesced", "all_reduce_coalesced",
            "ppermute", "send", "recv", "allgather_host", "broadcast_object_list"]
 
 
@@ -367,6 +369,32 @@ def reduce_scatter_tensor(output, tensor, op=ReduceOp.SUM, group=None, async_op=
 
 
 @timed_op()
+def reduce_scatter(tensor, group=None, op=ReduceOp.SUM, scatter_dimension: int = 0,
+                   tiled: bool = True, log_name="reduce_scatter") -> torch.Tensor:
+    """The functional reduce-scatter (JAX ``psum_scatter``): the reduction
+    of every rank's whole ``tensor``, split along ``scatter_dimension`` into
+    one shard per rank; returns this rank's shard as a new tensor. With
+    ``tiled=False`` that dimension must equal the group size and is
+    dropped from the shard. The JAX eager form takes the group's inputs
+    stacked on a leading dimension, bookkeeping of its single controller
+    that a process per rank has no use for."""
+    world = get_world_size(group)
+    dim = scatter_dimension % tensor.dim()
+    if tensor.shape[dim] % world:
+        raise ValueError(f"reduce_scatter: dimension {dim} of {tuple(tensor.shape)} does not "
+                         f"split into {world} shards")
+    if not tiled and tensor.shape[dim] != world:
+        raise ValueError(f"reduce_scatter(tiled=False): dimension {dim} of "
+                         f"{tuple(tensor.shape)} must equal the group size {world}")
+    moved = tensor.movedim(dim, 0).contiguous()
+    out = moved.new_empty(moved.shape[0] // world, *moved.shape[1:])
+    dist.reduce_scatter_tensor(out, moved, op=_torch_op(op), group=group)
+    _average(out, op, group, False)
+    out = out.movedim(0, dim)
+    return out if tiled else out.squeeze(dim)
+
+
+@timed_op()
 def all_to_all_single(output, tensor, output_split_sizes=None, input_split_sizes=None,
                       group=None, async_op=False):
     """Chunk j of ``tensor`` (dim 0) goes to rank j; chunk i of ``output``
@@ -422,15 +450,41 @@ def barrier(group=None, log_name="barrier") -> None:
         dist.barrier(group=group, **_barrier_kwargs(group))
 
 
+_default_barrier_timeout: Optional[float] = None
+_default_barrier_timeout_source: Optional[str] = None
+
+
+def set_default_barrier_timeout(timeout: Optional[float], source: str = "manual") -> None:
+    """The deadline of ``monitored_barrier`` calls that pass none (None:
+    no deadline). ``source`` "config" marks a default an engine installed
+    from its config; :func:`clear_config_barrier_timeout` removes only
+    such a one, never a manual install."""
+    global _default_barrier_timeout, _default_barrier_timeout_source
+    if timeout is not None and timeout <= 0:
+        raise ValueError(f"barrier timeout must be positive, got {timeout!r}")
+    _default_barrier_timeout = timeout
+    _default_barrier_timeout_source = None if timeout is None else source
+
+
+def clear_config_barrier_timeout() -> None:
+    """Remove a barrier default installed with ``source="config"``; a
+    manual one stays."""
+    global _default_barrier_timeout, _default_barrier_timeout_source
+    if _default_barrier_timeout_source == "config":
+        _default_barrier_timeout = None
+        _default_barrier_timeout_source = None
+
+
 def monitored_barrier(group=None, timeout=None, wait_all_ranks=False,
                       log_name="monitored_barrier") -> None:
-    """A barrier that raises after ``timeout`` seconds instead of hanging.
-    gloo names the ranks that did not arrive (``wait_all_ranks``); NCCL,
-    which has no monitored barrier, waits on its barrier's work handle with
-    the deadline."""
+    """A barrier that raises after ``timeout`` seconds (else the default of
+    :func:`set_default_barrier_timeout`) instead of hanging. gloo names the
+    ranks that did not arrive (``wait_all_ranks``); NCCL, which has no
+    monitored barrier, waits on its barrier's work handle with the
+    deadline."""
     if not is_initialized():
         return
-    timeout = _seconds(timeout)
+    timeout = _seconds(_default_barrier_timeout if timeout is None else timeout)
     if get_backend(group) == "gloo":
         kwargs = {"timeout": timeout} if timeout is not None else {}
         dist.monitored_barrier(group=group, wait_all_ranks=wait_all_ranks, **kwargs)

@@ -4,9 +4,11 @@ Counterpart of ``deepspeed_tpu/inference/config.py``, key-compatible with it
 (and so with the reference's ``deepspeed/inference/config.py``): the same
 keys and aliases (``kernel_inject``, ``tp``, ``tm``, ``max_tokens``,
 ``min_tokens``, ``ckpt_config``, ``injection_dict``), unknown keys rejected.
-Blocks this slice does not serve yet (tensor parallelism, MoE, weight
-quantization, checkpoint loading, injection policies) raise
-``NotImplementedError`` rather than being ignored. ``enable_cuda_graph`` is
+``checkpoint`` (a training save dir or tag dir) with ``checkpoint_config``
+``{"tag": ...}`` serves a training tag. Blocks this slice does not serve
+yet (tensor parallelism, MoE, weight quantization, injection policies, a
+Megatron ``checkpoint_config.type``) raise ``NotImplementedError`` rather
+than being ignored. ``enable_cuda_graph`` is
 accepted, as the JAX package accepts it: the engine runs the decode loop as
 one captured CUDA graph on the card whatever the key says, as the JAX engine
 always compiles it into one program.
@@ -78,9 +80,13 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         if self.mp_size != 1:
             logger.warning("Config parameter mp_size is deprecated. Use tensor_parallel instead.")
             self.tensor_parallel = DeepSpeedTPConfig(tp_size=self.mp_size)
-        for key in ("moe", "quant", "checkpoint", "injection_policy", "injection_policy_tuple"):
+        for key in ("moe", "quant", "injection_policy", "injection_policy_tuple"):
             if getattr(self, key):
                 raise _later(f"inference config {key!r}")
+        kind = str(self.checkpoint_config.get("type", "")).lower().replace("-", "").replace("_", "")
+        if kind in ("megatron", "megatronmoe"):
+            raise _later(f"serving a {self.checkpoint_config['type']!r} checkpoint "
+                         "(model import)")
         self.torch_dtype()
 
     @property

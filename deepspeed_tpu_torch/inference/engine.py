@@ -24,6 +24,9 @@ Model protocol: ``init_cache(B, max_len)``, ``prefill(ids, cache)`` →
 (logits, cache), ``decode_step(token, cache)`` → (logits, cache),
 ``apply(ids)`` → logits, and ``init_params(generator)``.
 
+Weights come from ``params`` (a state dict), else from the training tag of
+the config's ``checkpoint`` (``load_inference_params``: only the tag's
+params, in the serving dtype, on the device), else seed-0 random weights.
 This slice has no tensor parallelism, weight quantization or
 telemetry-observed path; the config rejects those.
 """
@@ -219,6 +222,15 @@ class InferenceEngine:
         self.module = model
         self.dtype = self._config.torch_dtype()
         self.device = resolve_device(device)
+        if params is None and self._config.checkpoint:
+            # a training tag's params, straight into the serving dtype and
+            # device: the model's own stay on meta until then
+            from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import \
+                load_inference_params
+
+            params = load_inference_params(self._config.checkpoint, model, self.dtype,
+                                           self.device,
+                                           tag=self._config.checkpoint_config.get("tag"))
         if params is not None:
             model.load_state_dict(params, assign=True)
         if any(p.is_meta for p in model.parameters()):

@@ -1,4 +1,4 @@
-"""GPT-2 family decoder, training path.
+"""GPT-2 family decoder: training and serving.
 
 Counterpart of ``deepspeed_tpu/models/gpt2.py``: pre-LN blocks with fused
 qkv, learned positions, GELU MLP, tied (or separate) LM head, layer norms in
@@ -13,11 +13,14 @@ piece at a time), ``apply``, ``hidden_states`` and ``loss`` (and its stages
 ``embed_stage``, ``_block`` and ``loss_stage``, which the ZeRO-Infinity
 engine runs one at a time), with ``remat`` off or "full" (``torch.utils.checkpoint`` per
 block), with dense causal attention or, when ``sparse_attention`` is set,
-block-sparse attention (``ops/sparse_attention``). The variants the JAX model
-also carries (ALiBi, rotary, parallel residual, local attention, sequence
-parallelism, dropout, the "dots"/"attn"/"attn_mlp" remat policies and
-progressive layer drop) raise ``NotImplementedError``; serving GPT-2 (KV
-cache) is a later slice.
+block-sparse attention (``ops/sparse_attention``). It serves over a KV cache:
+``init_cache``, ``prefill`` (the flash kernel, causal) and ``decode_step``
+(the decode kernel with ``use_flash_decode``, one query head per KV head),
+each step graph-safe: the position stays on the device. A sparse-trained
+model is not served (``init_cache`` raises, as in JAX). The variants the
+JAX model also carries (ALiBi, rotary, parallel residual, local attention,
+sequence parallelism, dropout, the "dots"/"attn"/"attn_mlp" remat policies
+and progressive layer drop) raise ``NotImplementedError``.
 
 Each module computes with its own parameters through ``_gathered(module)``:
 the module itself, or, when the engine trains under ZeRO stage 3 and has
@@ -32,7 +35,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -40,8 +43,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.models.common import (causal_attention, chunked_lm_loss,
-                                                lm_loss_tokens, parse_lm_batch)
+from deepspeed_tpu_torch.models.common import (cached_decode_attention, causal_attention,
+                                                chunked_lm_loss, lm_loss_tokens,
+                                                local_causal_attention, parse_lm_batch)
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import MODES as SPARSE_MODES
 
@@ -71,7 +75,9 @@ class GPT2Config:
     use_flash_attention: bool = True
     # the TPU kernel's tile edge; the CUDA kernels use fixed tiles
     flash_block: Optional[int] = None
-    use_flash_decode: bool = False   # serving (later slice)
+    # the decode-attention kernel in decode_step; off selects the grouped
+    # einsum, as in JAX
+    use_flash_decode: bool = False
     tie_embeddings: bool = True
     lm_head_bias: bool = False       # GPT-J style bias on the (untied) head
     alibi: bool = False
@@ -292,20 +298,23 @@ class GPT2Model(nn.Module):
         finally:
             gatherer.release(module)
 
-    def embed_stage(self, top, input_ids):
+    def embed_stage(self, top, input_ids, positions=None):
         """Token + learned position embedding, with BLOOM's optional
         post-embedding layernorm, from the top-level weights ``top`` (the
-        model, its gathered weights, or any object with those attributes)."""
+        model, its gathered weights, or any object with those attributes).
+        ``positions``: the positions' indices as a device tensor, in place
+        of 0..T-1."""
         c = self.config
-        T = input_ids.shape[1]
-        x = top.wte.to(c.dtype)[input_ids] + top.wpe.to(c.dtype)[:T]
+        wpe = top.wpe.to(c.dtype)
+        pos = wpe[:input_ids.shape[1]] if positions is None else wpe.index_select(0, positions)
+        x = top.wte.to(c.dtype)[input_ids] + pos
         if c.embed_layernorm:
             x = self._layer_norm(x, top.emb_ln_g, top.emb_ln_b)
         return x
 
-    def _embed(self, input_ids):
+    def _embed(self, input_ids, positions=None):
         with self._gathered(self) as top:
-            return self.embed_stage(top, input_ids)
+            return self.embed_stage(top, input_ids, positions)
 
     def _mlp(self, h, w):
         h = h @ w.fc_w.to(h.dtype) + w.fc_b.to(h.dtype)
@@ -318,21 +327,31 @@ class GPT2Model(nn.Module):
             h = F.gelu(h, approximate="tanh" if act == "gelu_new" else "none")
         return h @ w.fc2_w.to(h.dtype) + w.fc2_b.to(h.dtype)
 
-    def _block(self, x, blk: GPT2Block):
+    def _block_qkv(self, x, w):
+        """One block's q, k, v (B, T, H, Dh) for ``x`` from its weights ``w``."""
         c = self.config
         B, T, D = x.shape
+        h = self._layer_norm(x, w.ln1_g, w.ln1_b)
+        qkv = h @ w.qkv_w.to(h.dtype) + w.qkv_b.to(h.dtype)
+        return tuple(t.reshape(B, T, c.n_head, c.head_dim) for t in qkv.split(D, dim=-1))
+
+    def _block_finish(self, x, w, attn):
+        """The attention's projection and residual, then the MLP's."""
+        B, T, D = x.shape
+        x = x + (attn.reshape(B, T, D) @ w.proj_w.to(x.dtype) + w.proj_b.to(x.dtype))
+        h = self._layer_norm(x, w.ln2_g, w.ln2_b)
+        return x + self._mlp(h, w)
+
+    def _block(self, x, blk: GPT2Block):
+        c = self.config
         with self._gathered(blk) as w:
-            h = self._layer_norm(x, w.ln1_g, w.ln1_b)
-            qkv = h @ w.qkv_w.to(h.dtype) + w.qkv_b.to(h.dtype)
-            q, k, v = (t.reshape(B, T, c.n_head, c.head_dim) for t in qkv.split(D, dim=-1))
+            q, k, v = self._block_qkv(x, w)
             if c.sparse_attention is not None:
                 attn = self._sparse_attention(q, k, v)
             else:
                 attn = causal_attention(q, k, v, use_flash=c.use_flash_attention,
                                         sequence_parallel=c.sequence_parallel)
-            x = x + (attn.reshape(B, T, D) @ w.proj_w.to(x.dtype) + w.proj_b.to(x.dtype))
-            h = self._layer_norm(x, w.ln2_g, w.ln2_b)
-            return x + self._mlp(h, w)
+            return self._block_finish(x, w, attn)
 
     def _sparse_attention(self, q, k, v):
         """Causal block-sparse attention of the config's ``sparse_attention``
@@ -367,14 +386,17 @@ class GPT2Model(nn.Module):
         with self._gathered(self) as top:
             return self._layer_norm(x, top.lnf_g, top.lnf_b)
 
-    def apply(self, input_ids):
-        """input_ids (B, T) → logits (B, T, V) fp32."""
-        x = self._blocks(input_ids)
+    def _lm_logits(self, x):
+        """The final layer norm and the head: hidden (..., D) → fp32 logits."""
         with self._gathered(self) as top:
             x = self._layer_norm(x, top.lnf_g, top.lnf_b)
             logits = (x @ self._head(top, x.dtype)).float()
             bias = self._head_bias(top)
             return logits if bias is None else logits + bias.float()
+
+    def apply(self, input_ids):
+        """input_ids (B, T) → logits (B, T, V) fp32."""
+        return self._lm_logits(self._blocks(input_ids))
 
     forward = apply
 
@@ -403,6 +425,71 @@ class GPT2Model(nn.Module):
         """What :meth:`loss` averages over: the masked target count, or None
         without a mask (the engine weights ranks' losses by it)."""
         return lm_loss_tokens(batch)
+
+    # ------------------------------------------------------------- inference
+    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
+        """KV cache: (L, B, max_len, H, Dh) per k and v, plus the next write
+        position ``pos`` as a 0-d int32 tensor on the device."""
+        c = self.config
+        if c.sparse_attention is not None:
+            # prefill and decode attend densely over the cache; serving a
+            # sparse-trained model that way would silently mismatch the
+            # trained attention distribution
+            raise NotImplementedError(
+                "KV-cache generation does not apply sparse_attention "
+                "layouts; serve with sparse_attention=None only if the "
+                "model was also trained dense")
+        dev = self.wte.device
+        shape = (c.n_layer, batch_size, max_len, c.n_head, c.head_dim)
+        return {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=c.dtype, device=dev),
+                "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def prefill(self, input_ids, cache):
+        """Process the prompt, fill the cache, return last-position logits.
+        The cache's tensors are written in place (JAX builds new ones):
+        slots [0, T) of every layer; the rest is left as it is."""
+        c = self.config
+        T = input_ids.shape[1]
+        x = self._embed(input_ids)
+        for n, blk in enumerate(self.blocks):
+            with self._gathered(blk) as w:
+                q, k, v = self._block_qkv(x, w)
+                attn = local_causal_attention(q, k, v, c.use_flash_attention)
+                x = self._block_finish(x, w, attn)
+            cache["k"][n, :, :T] = k
+            cache["v"][n, :, :T] = v
+        logits = self._lm_logits(x[:, -1])
+        pos = torch.full((), T, dtype=torch.int32, device=x.device)
+        return logits, {"k": cache["k"], "v": cache["v"], "pos": pos}
+
+    def _decode_embed(self, token, pos):
+        """(B,) tokens at the 0-d device position ``pos`` → (B, 1, D); the
+        learned position is an ``index_select`` by the device tensor, so a
+        captured step reads the position of its replay."""
+        return self._embed(token[:, None], pos.view(1).long())
+
+    def decode_step(self, token, cache):
+        """One token for every sequence: (B,) → logits (B, V), cache
+        advanced. Slot ``pos`` is written in place before attending, and the
+        position stays on the device: no step waits on the host."""
+        c = self.config
+        pos = cache["pos"]
+        slot = pos.view(1).long()
+        x = self._decode_embed(token, pos)                   # (B, 1, D)
+        for n, blk in enumerate(self.blocks):
+            with self._gathered(blk) as w:
+                q, k, v = self._block_qkv(x, w)              # (B, 1, H, Dh)
+                k_l, v_l = cache["k"][n], cache["v"][n]
+                k_l.index_copy_(1, slot, k.to(k_l.dtype))
+                v_l.index_copy_(1, slot, v.to(v_l.dtype))
+                # q is a view of the fused qkv projection; the decode
+                # kernel takes contiguous rows
+                attn = cached_decode_attention(q[:, 0].contiguous(), k_l, v_l, pos,
+                                               c.use_flash_decode)
+                x = self._block_finish(x, w, attn[:, None])
+        logits = self._lm_logits(x[:, 0])
+        return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
 
 def synthetic_lm_batch(batch_size: int, seq_len: int, vocab_size: int, seed: int = 0,

@@ -168,6 +168,16 @@ def launch_counts() -> LaunchCounts:
     return {(kern, fn): n for kern in _KERNELS for fn, n in kern.entry_launches.items()}
 
 
+def builders() -> Dict[str, object]:
+    """The port's libraries by name, as the accelerator's op builders
+    name them: each CUDA source's :class:`CudaKernel` and the aio
+    :class:`HostLibrary` (``"async_io"``, the JAX registry's name)."""
+    from deepspeed_tpu_torch.ops import aio
+    from deepspeed_tpu_torch.ops.pallas import decode_attention, flash_attention  # noqa: F401
+
+    return {**{kern.name: kern for kern in _KERNELS}, "async_io": aio.LIBRARY}
+
+
 def add_launches(counts: Mapping[Tuple[CudaKernel, str], int]) -> None:
     """Add ``counts`` to the kernels' launch counts (a negative count takes
     launches back)."""

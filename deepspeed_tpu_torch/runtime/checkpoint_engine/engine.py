@@ -634,6 +634,44 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     return path, meta.get("client_state", {})
 
 
+def load_inference_params(load_dir: str, model, dtype: torch.dtype, device,
+                          tag: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """Only the ``params`` field of a training tag, as ``model``'s state
+    dict: floating tensors in the serving ``dtype``, all on ``device``.
+
+    ``load_dir``: a training save dir (the tag by ``tag`` or its ``latest``
+    file), or a tag dir itself. Every engine's tag holds whole
+    ``params/<name>`` tensors (a save gathers the ZeRO partitions, and
+    ZeRO-Infinity hands over its ``flat_state``), so a tag of any stage or
+    placement serves the same model. Raises on a missing tag, and on params
+    that are not ``model``'s names and shapes."""
+    wait_for_pending_saves()
+    if os.path.isdir(os.path.join(load_dir, STATE_DIR)):
+        path = os.path.abspath(load_dir)          # a tag dir directly
+    else:
+        if tag is None:
+            latest = os.path.join(os.path.abspath(load_dir), "latest")
+            if not os.path.isfile(latest):
+                raise FileNotFoundError(f"no 'latest' file in {load_dir}; pass tag= or a tag dir")
+            with open(latest) as f:
+                tag = f.read().strip()
+        path = _ckpt_dir(load_dir, tag)
+    if not os.path.isdir(path):
+        raise FileNotFoundError(f"checkpoint {path} not found")
+    params = {key[len("params/"):]: t
+              for key, t in read_state(path, ("params",), "cpu").items()}
+    want = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    got = {n: tuple(t.shape) for n, t in params.items()}
+    if got != want:
+        raise ValueError(f"checkpoint {path} does not hold the model's params: missing "
+                         f"{sorted(want.keys() - got.keys())}, unexpected "
+                         f"{sorted(got.keys() - want.keys())}, other shapes "
+                         f"{sorted(n for n in want.keys() & got.keys() if want[n] != got[n])}")
+    log_dist(f"loaded serving params from {path}", ranks=[0])
+    return {n: t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype)
+            for n, t in params.items()}
+
+
 # ------------------------------------------------------- JAX tags carried
 def _to_torch(a) -> torch.Tensor:
     a = np.asarray(a)

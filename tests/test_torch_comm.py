@@ -10,6 +10,14 @@ package has no eager form (``scatter``, ``send``/``recv``, the host-side
 objects, the bitwise ops) the result is held to numpy's. ``ppermute`` is
 held to ``jax.lax.ppermute`` inside a ``shard_map``.
 
+The functional ``reduce_scatter`` (each rank's whole tensor in, this
+rank's shard of the sum out) is held to numpy's sum-then-split of the
+ranks' inputs, along each dimension; ``monitored_barrier`` without a
+timeout takes the default of ``set_default_barrier_timeout``, whose
+manual-versus-config source rule is the JAX package's; the benchmark's
+rows (``comm/benchmark.py``) on the two ranks, and its message sizes and
+bus factors for groups of 2, 4 and 8, are the JAX tool's.
+
 Also: ``ProcessTopology`` and ``_busbw_factor`` against the JAX package's
 in this process, the ``CommsLogger`` records against the JAX logger's on
 the same calls, its counts and sizes on the ranks (the engine's collectives
@@ -42,7 +50,8 @@ def _inputs():
     rng = np.random.RandomState(11)
     return {"x": rng.randn(WORLD, *X_SHAPE).astype(np.float32),
             "y": rng.randn(WORLD, 6).astype(np.float32),
-            "bits": rng.randint(0, 256, size=(WORLD, 5)).astype(np.int64)}
+            "bits": rng.randint(0, 256, size=(WORLD, 5)).astype(np.int64),
+            "z": rng.randn(WORLD, 4, 6).astype(np.float32)}
 
 
 def _fp16_batch():
@@ -97,6 +106,45 @@ def _collectives(rank, inp):
     comm.barrier()
     comm.monitored_barrier(timeout=10, wait_all_ranks=True)
     out["rank"] = (comm.get_rank(), comm.get_world_size(), comm.get_local_rank())
+    return out
+
+
+REDUCE_SCATTER_CASES = {"dim0": dict(scatter_dimension=0), "dim1": dict(scatter_dimension=1),
+                        "dim_last_avg": dict(scatter_dimension=-1, op="avg")}
+SWEEP = dict(min_bytes=1 << 10, max_bytes=1 << 12, trials=1, warmups=1)
+
+
+def _functional(rank, inp):
+    """The functional reduce_scatter, the barrier's default deadline as the
+    barrier passes it on, and the benchmark's rows."""
+    import torch.distributed as tdist
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm.benchmark import run_sweep
+
+    z = torch.from_numpy(inp["z"][rank])
+    out = {name: comm.reduce_scatter(z, **kw).numpy()
+           for name, kw in REDUCE_SCATTER_CASES.items()}
+    out["untiled"] = comm.reduce_scatter(z[:WORLD], tiled=False).numpy()
+    seen = []
+    real = tdist.monitored_barrier
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("timeout"))
+        return real(*args, **kwargs)
+
+    tdist.monitored_barrier = spy
+    try:
+        comm.set_default_barrier_timeout(30)
+        comm.monitored_barrier()
+        comm.monitored_barrier(timeout=20)
+        comm.set_default_barrier_timeout(None)
+        comm.monitored_barrier()
+    finally:
+        tdist.monitored_barrier = real
+    out["barrier_timeouts"] = [None if t is None else t.total_seconds() for t in seen]
+    out["sweep"] = [row for op in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
+                    for row in run_sweep(op, dtype=torch.float32, device="cpu", **SWEEP)]
     return out
 
 
@@ -169,7 +217,8 @@ def _ranks(rank, world, out_dir, inp, np_fp16_params):
     from deepspeed_tpu_torch.parallel.topology import ParallelGrid
 
     grid = ParallelGrid()
-    return {"collectives": _collectives(rank, inp), "logged": _logged(rank),
+    return {"collectives": _collectives(rank, inp), "functional": _functional(rank, inp),
+            "logged": _logged(rank),
             "log_dist": _log_dist_records(rank), "fp16": _fp16_overflow(rank, np_fp16_params),
             "grid": (grid.get_data_parallel_world_size(), grid.get_data_parallel_rank(),
                      grid.get_model_parallel_world_size())}
@@ -283,6 +332,89 @@ def test_collectives_without_a_jax_eager_form_match_numpy(runs):
         assert c["broadcast_object_list"] == [{"from": 1}, "rank1"]
         assert c["global_rank"] == 1 and c["rank"] == (rank, WORLD, rank)
     np.testing.assert_array_equal(runs["ranks"][1]["collectives"]["recv"], x[0])
+
+
+def test_functional_reduce_scatter_is_the_sum_split(runs):
+    total = runs["inputs"]["z"].sum(0)                       # (4, 6)
+    for rank, got in enumerate(runs["ranks"]):
+        f = got["functional"]
+        np.testing.assert_allclose(f["dim0"], np.split(total, WORLD, 0)[rank], rtol=1e-6)
+        np.testing.assert_allclose(f["dim1"], np.split(total, WORLD, 1)[rank], rtol=1e-6)
+        np.testing.assert_allclose(f["dim_last_avg"], np.split(total / WORLD, WORLD, 1)[rank],
+                                   rtol=1e-6)
+        np.testing.assert_allclose(f["untiled"], total[rank], rtol=1e-6)
+
+
+def test_monitored_barrier_takes_the_default_timeout(runs):
+    for got in runs["ranks"]:
+        assert got["functional"]["barrier_timeouts"] == [30.0, 20.0, None]
+
+
+def test_barrier_timeout_source_rule_matches_jax():
+    """A manual default survives an engine's clear, a config one does not;
+    a non-positive one is refused: the same state as the JAX module's
+    after each call."""
+    from deepspeed_tpu.comm import comm as jcomm
+
+    from deepspeed_tpu_torch.comm import comm as tcomm
+
+    steps = [("set", 5.0, "manual"), ("clear",), ("set", 7.0, "config"), ("clear",),
+             ("set", 3.0, "config"), ("set", None, "manual"), ("clear",), ("set", -1.0, "manual")]
+    try:
+        for step in steps:
+            states = []
+            for mod in (jcomm, tcomm):
+                try:
+                    if step[0] == "set":
+                        mod.set_default_barrier_timeout(step[1], source=step[2])
+                    else:
+                        mod.clear_config_barrier_timeout()
+                    err = None
+                except ValueError as e:
+                    err = str(e)
+                states.append((mod._default_barrier_timeout,
+                               mod._default_barrier_timeout_source, err))
+            assert states[0] == states[1], step
+    finally:
+        for mod in (jcomm, tcomm):
+            mod.set_default_barrier_timeout(None)
+
+
+def test_benchmark_rows_and_bus_factors_match_jax(runs, monkeypatch):
+    """The JAX tool over meshes of 2, 4 and 8 of the conftest's CPU devices:
+    its rows' ops and bytes are the port's message sizes, and its bus
+    factor is the port's; the two gloo ranks' rows are the 2-device ones.
+    The JAX tool takes its world from ``jax.device_count()`` (all 8), so
+    here it reads the size of the mesh it runs over instead."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from deepspeed_tpu.comm import benchmark as jbench
+    from deepspeed_tpu.comm import comm as jcomm
+
+    from deepspeed_tpu_torch.comm import benchmark as tbench
+
+    ops = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
+    for n in (2, 4, 8):
+        jcomm.init_distributed(mesh=Mesh(np.array(jax.devices()[:n]), ("data",)),
+                               verbose=False)
+        monkeypatch.setattr(jcomm, "get_world_size", lambda group=None, n=n: n)
+        rows = [r for op in ops for r in jbench.run_sweep(op, dtype=jnp.float32, **SWEEP)]
+        sizes = tbench.message_sizes(SWEEP["min_bytes"], SWEEP["max_bytes"], 4, n)
+        assert [(r["op"], r["bytes"]) for r in rows] == \
+            [(op, b) for op in ops for _, b in sizes], n
+        for op in ops:
+            assert tbench._bus_factor(op, n) == jbench._bus_factor(op, n), (op, n)
+        if n == WORLD:
+            for got in runs["ranks"]:
+                sweep = got["functional"]["sweep"]
+                assert [(r["op"], r["bytes"]) for r in sweep] == \
+                    [(r["op"], r["bytes"]) for r in rows]
+                for r in sweep:
+                    assert r["latency_us"] > 0
+                    assert r["busbw_gbps"] == pytest.approx(
+                        r["algbw_gbps"] * jbench._bus_factor(r["op"], n))
 
 
 def test_process_topology_and_busbw_match_jax():

@@ -118,6 +118,13 @@ def test_decode_kernel_per_head_dim(gen, dh, dtype, tol):
     _decode_checked(gen, 8, 200, dtype, tol, dh)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_decode_kernel_mha_head_dim_96(gen, dtype):
+    """gpt2's serving layout: one query head per KV head (most rows of the
+    tensor-core tile are padding) at head dim 96, cache full to its end."""
+    _decode_checked(gen, 32, 255, dtype, 2e-2, 96)
+
+
 @pytest.mark.parametrize("B,S,kv,at", [
     (4, 8192, 8, "end"), (4, 8192, 8, "chunk_last"), (4, 8192, 8, "chunk_first"),
     (4, 8192, 8, 0), (1, 32768, 8, 20000), (4, 8192, 1, 5000)])
@@ -866,6 +873,61 @@ def test_comm_collectives_over_nccl(nccl_world):
     comm.monitored_barrier(timeout=60)
     assert (comm.get_rank(), comm.get_world_size(), comm.get_backend()) == (0, 1, "nccl")
     assert deepspeed_tpu_torch.get_accelerator().communication_backend_name() == "nccl"
+
+
+def test_functional_reduce_scatter_and_barrier_default_over_nccl(nccl_world):
+    comm = nccl_world
+    x = torch.arange(24, dtype=torch.float32, device="cuda").view(4, 6)
+    assert torch.equal(comm.reduce_scatter(x), x)
+    assert torch.equal(comm.reduce_scatter(x, scatter_dimension=1, op="avg"), x)
+    comm.set_default_barrier_timeout(60)
+    try:
+        comm.monitored_barrier()
+    finally:
+        comm.set_default_barrier_timeout(None)
+
+
+def test_accelerator_answers_from_the_card(gen):
+    accel = deepspeed_tpu_torch.get_accelerator()
+    accel.set_device(0)
+    assert accel.current_device() == 0 and accel.device_count() >= 1
+    assert accel.global_device_count() == accel.device_count()
+    total, free = accel.total_memory(), accel.available_memory()
+    assert 0 < free <= total == torch.cuda.get_device_properties(0).total_memory
+    assert "allocated_bytes.all.current" in accel.memory_stats()
+    assert accel.is_bf16_supported() and accel.is_fp16_supported()
+    assert accel.on_accelerator(torch.ones(1, device="cuda"))
+    assert accel.create_op_builder("decode_attention") is tda.KERNEL
+    assert tda.KERNEL.library_path.exists()
+
+
+def test_serve_a_training_tag_on_the_card(gen, tmp_path):
+    """A 2-layer bf16 gpt2 trained a step and saved, served through
+    ``init_inference(checkpoint=...)``: the tag's params bit for bit; the
+    graphed generate launches the flash kernel once per layer and the
+    decode kernel once per layer and step (the warm-up's step too) and
+    gives the eager loop's tokens."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import read_state
+
+    cfg = gpt2.GPT2Config(vocab_size=1024, n_positions=256, n_embd=256, n_layer=2, n_head=4,
+                          remat=False)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=gpt2.GPT2Model(cfg), config={
+        "train_batch_size": 4, "steps_per_print": 0, "bf16": {"enabled": True},
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+        "checkpoint": {"async_save": False}})
+    engine.train_batch(gpt2.synthetic_lm_batch(4, 128, 1024, device="cuda"))
+    engine.save_checkpoint(str(tmp_path))
+    served = deepspeed_tpu_torch.init_inference(
+        gpt2.GPT2Model(dataclasses.replace(cfg, use_flash_decode=True)),
+        config={"checkpoint": str(tmp_path), "dtype": "bfloat16", "max_out_tokens": 256})
+    tag = read_state(str(tmp_path / "global_step1"), ("params",), "cpu")
+    for name, p in served.module.named_parameters():
+        assert torch.equal(p.cpu(), tag[f"params/{name}"].to(torch.bfloat16)), name
+    ids = torch.randint(0, 1024, (3, 100), generator=gen, device="cuda")
+    fa0, da0 = tfa.KERNEL.launches, tda.KERNEL.launches
+    out = served.generate(ids, max_new_tokens=40)
+    assert (tfa.KERNEL.launches - fa0, tda.KERNEL.launches - da0) == (2, 2 * 41)
+    assert torch.equal(out, _eager_loop(served, ids, 40))
 
 
 # ---------------------------------------------------------------- offload
