@@ -53,9 +53,22 @@ their plain versions at each of those lengths), and reports the data wait
 with the host truncation; ``resume ... 2-layer ladder`` truncates a file of the newest of two
 tags (load falls back to the older), loads a corrupt tag by name (nothing
 loads) and a model of another head count (``CheckpointLayoutError``). The
-directory is removed afterwards. Each phase prints one JSON line; any
-failed check raises, and the script exits non-zero without the final line.
-It needs one card and imports nothing of JAX or of the JAX package.
+directory is removed afterwards. Then the llama and BERT families train:
+``train llama3.2-1b`` (the full preset, 4 x 2048, remat "full": 32 K1 and
+16 of each K2 entry a step) at ZeRO stage 1, ``... zero3`` at stage 3, and
+``offload llama3.2-1b`` with the optimizer state, the master and the params
+in pinned host memory from a ``zero.Init`` build, their losses held to
+stage 1's; the 2-layer kernel-vs-plain checks; ``serve llama3.2-1b from its
+tag`` serves the stage-1 run's tag (params bit for bit, 16 K1 per
+``generate`` and 16 K3 per decode step). ``train bert-large seq128`` (64 x
+128) and ``seq512`` (16 x 512) train masked-LM with LAMB in fp16 under
+dynamic loss scaling, each step launching 24 K1 and 24 of each K2 entry,
+non-causal; ``train check bert-large ...`` holds 2 layers to the plain
+path, and a step with an ``attention_mask`` launches no kernel (the plain
+masked path, as in JAX). Each phase prints one JSON line with the seconds
+since the start (``at_s``); any failed check raises, and the script exits
+non-zero without the final line. It needs one card and imports nothing of
+JAX or of the JAX package.
 
 The last lines are: the kernels' summary as ``{"kernels": [...]}``, the
 card's ``nvidia-smi`` name and power limit, and
@@ -129,6 +142,10 @@ SPARSE_BLOCK = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
 # presets' own), bf16 with fp32 masters, ZeRO stage 1 without a process group
 OFFLOAD_MODEL, CAPACITY_MODEL = "gpt2-2.7b", "gpt2-6.7b"
 OFFLOAD_BATCH, OFFLOAD_SEQ = 4, 2048
+# the five gpt2-2.7b offload runs at half the preset's depth (full width):
+# the script's time limit stays while it grows, and each run's placement
+# and policy are the same at 16 layers as at 32
+OFFLOAD_LAYERS = 16
 OFFLOAD_CONFIG = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": OFFLOAD_BATCH}
 OFFLOAD_KNOBS = ("DS_TPU_OFFLOAD_MASTER", "DS_TPU_FORCE_STREAMED_OFFLOAD",
                  "DS_TPU_OFFLOAD_CHUNK_BYTES", "DS_TPU_OFFLOAD_OVERLAP")
@@ -142,6 +159,20 @@ AIO_COUNTS = ("direct_chunks", "buffered_chunks", "direct_bytes", "buffered_byte
 NVME_FP32 = dict(layers=2, batch=2, seq=1024, steps=3)
 NVME_LOSS_RTOL = 1e-2               # bf16: the Infinity engine keeps the top-level weights
                                     # in fp32 where the engine rounds them to bf16
+
+# the llama and BERT training phases: llama3.2-1b at 4 x 2048 with the
+# training recipe; bert-large with the reference's BERT pretraining recipe
+# (LAMB, fp16 with dynamic loss scaling, clipping 1.0) at its two sequence
+# lengths, (batch, seq, max_predictions_per_seq) each
+LLAMA_BATCH, LLAMA_SEQ = 4, 2048
+BERT_MODEL = "bert-large"
+BERT_SHAPES = ((64, 128, 20), (16, 512, 80))
+BERT_CONFIG = {"train_micro_batch_size_per_gpu": 64, "gradient_accumulation_steps": 1,
+               "optimizer": {"type": "Lamb", "params": {"lr": 1e-3, "weight_decay": 0.01,
+                                                        "bias_correction": False,
+                                                        "max_coeff": 0.3, "min_coeff": 0.01}},
+               "fp16": {"enabled": True, "loss_scale": 0}, "zero_optimization": {"stage": 1},
+               "gradient_clipping": 1.0, "steps_per_print": 0, "seed": SEED}
 
 # tolerances, with their reasons
 # kernel vs plain fp32 on the same inputs: a bf16 or fp16 output carries its
@@ -184,8 +215,11 @@ FP32_RTOL = 1e-4
 FP32_NVME_RTOL = 1e-5
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _T0, **fields}), flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1090,14 +1124,15 @@ def _timed_steps(engine, batch, accel, kernels):
     return losses, step_ms, accel.max_memory_allocated() / 1e9
 
 
-def _train_line(c, batch, seq, step_ms, accel):
+def _train_line(c, batch, seq, step_ms, accel, dtype=torch.bfloat16):
     step_s = sorted(step_ms)[TRAIN_STEPS // 2] / 1e3              # the median step
     tokens = batch * seq
     flops = c.flops_per_token(seq) * tokens
-    return dict(batch=batch, seq=seq, gas=1, dtype="bfloat16", params=c.num_params(),
+    return dict(batch=batch, seq=seq, gas=1, dtype=str(dtype).split(".")[-1],
+                params=c.num_params(),
                 warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS, step_ms=step_s * 1e3,
                 step_ms_each=step_ms, tokens_per_s=tokens / step_s,
-                mfu=flops / step_s / accel.peak_flops(torch.bfloat16),
+                mfu=flops / step_s / accel.peak_flops(dtype),
                 model_tflop_per_step=flops / 1e12)
 
 
@@ -1199,20 +1234,22 @@ def train_check_bf16(GPT2Model, cfg, batch, label, to_plain):
     torch.cuda.empty_cache()
 
 
-def train_check_fp32(initialize, GPT2Model, cfg, label, seq, extra_config, to_plain):
+def train_check_fp32(initialize, GPT2Model, cfg, label, seq, extra_config, to_plain,
+                     make_batch=None):
     """fp32, full width, 2 layers, B=2, gas=2: three AdamW steps through the
     engine on the kernel path and the plain path (``to_plain`` swaps the
-    model's attention before the engine is built)."""
+    model's attention before the engine is built); ``make_batch(rows, seq,
+    vocab, seed, device)`` makes the batch (token rows by default)."""
     from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
 
+    make_batch = make_batch or synthetic_lm_batch
     k = CHECK_FP32
     c = dataclasses.replace(cfg, n_layer=k["layers"], remat=False, dtype=torch.float32)
     init = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED + 1))
     config = {"train_batch_size": k["batch"] * k["gas"], "gradient_accumulation_steps": k["gas"],
               "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
               "gradient_clipping": 1.0, "steps_per_print": 0, **extra_config}
-    batch = synthetic_lm_batch(k["batch"] * k["gas"], seq, c.vocab_size, seed=SEED + 1,
-                               device="cuda")
+    batch = make_batch(k["batch"] * k["gas"], seq, c.vocab_size, seed=SEED + 1, device="cuda")
     runs = {}
     for path in ("kernel", "plain"):
         model = GPT2Model(c)
@@ -1525,20 +1562,21 @@ def launch_slice(cfg, zero1_losses, zero1_step_ms, tmp):
     return got["launches"], save_dir
 
 
-def serve_gpt2_slice(init_inference, GPT2Model, cfg, accel, fa, da, save_dir):
-    """gpt2-760m served from the launched run's tag through
-    ``init_inference(config={"checkpoint": save_dir})``, bf16, with the
-    decode kernel: the served params equal the tag's bit for bit; the
-    counted graphed ``generate`` (B=32, prompt 128, 128 new, greedy; 24 K1
-    per prefill, 24 K3 per decode step at KV = H = 16) gives the ungraphed
-    loop's tokens; prefill and one decode step agree with the plain path on
-    the same weights within LOGIT_RTOL of the largest logit."""
+def serve_tag_slice(init_inference, model_cls, cfg, accel, fa, da, save_dir, label):
+    """A training tag served through ``init_inference(config={"checkpoint":
+    save_dir})``, bf16, with the decode kernel (gpt2-760m from the launched
+    run's tag, llama3.2-1b from its stage-1 run's): the served params equal
+    the tag's bit for bit; the counted graphed ``generate`` (B=32, prompt
+    128, 128 new, greedy; one K1 per layer per prefill, one K3 per layer
+    per decode step) gives the ungraphed loop's tokens; prefill and one
+    decode step agree with the plain path on the same weights within
+    LOGIT_RTOL of the largest logit."""
     from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import read_state
 
     c = dataclasses.replace(cfg, use_flash_decode=True, remat=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    engine = init_inference(GPT2Model(c), config={"checkpoint": save_dir, "dtype": "bfloat16",
+    engine = init_inference(model_cls(c), config={"checkpoint": save_dir, "dtype": "bfloat16",
                                                    "max_out_tokens": PROMPT + GEN})
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
@@ -1557,13 +1595,13 @@ def serve_gpt2_slice(init_inference, GPT2Model, cfg, accel, fa, da, save_dir):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     ids = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
-    launches, loop, _, _ = _served_cell(engine, ids, accel, fa, da, f"serve {TRAIN_MODEL}",
+    launches, loop, _, _ = _served_cell(engine, ids, accel, fa, da, label,
                                         checkpoint=save_dir, tag_params_dtypes=tag_dtypes,
                                         params_bitwise_equal_to_tag=True, model_gb=model_gb,
                                         load_s=load_s)
     # where a prefill and a graphed decode step spend the device's time
     with torch.inference_mode():
-        emit(f"profile serve {TRAIN_MODEL}", decode_steps=PROFILE_STEPS,
+        emit(f"profile {label}", decode_steps=PROFILE_STEPS,
              prefill=device_profile(lambda: model.prefill(ids, model.init_cache(
                  BATCH, PROMPT + GEN))),
              decode_graphed=_replays_profile(model, loop, ids))
@@ -1575,7 +1613,7 @@ def serve_gpt2_slice(init_inference, GPT2Model, cfg, accel, fa, da, save_dir):
 def launch_and_serve_slices(init_inference, GPT2Model, cfg, accel, fa, da, zero1_losses,
                             zero1_step_ms):
     """Launch, train and save (``launch_slice``), then serve the tag
-    (``serve_gpt2_slice``), in a temporary directory on the disk with the
+    (``serve_tag_slice``), in a temporary directory on the disk with the
     most room, removed afterwards. → (the launched run's launches, the
     served run's)."""
     root, _ = _scratch_dir()
@@ -1583,7 +1621,8 @@ def launch_and_serve_slices(init_inference, GPT2Model, cfg, accel, fa, da, zero1
     t0 = time.perf_counter()
     try:
         launched, save_dir = launch_slice(cfg, zero1_losses, zero1_step_ms, tmp)
-        served = serve_gpt2_slice(init_inference, GPT2Model, cfg, accel, fa, da, save_dir)
+        served = serve_tag_slice(init_inference, GPT2Model, cfg, accel, fa, da, save_dir,
+                                 f"serve {TRAIN_MODEL}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit(f"launch and serve {TRAIN_MODEL} seconds", seconds=time.perf_counter() - t0)
@@ -2028,7 +2067,8 @@ def _offload_row(engine, c, batch, step_ms, prof, accel) -> dict:
 
 
 def offload_slice(initialize, GPT2Model, cfg, accel, fa):
-    """gpt2-2.7b, full preset, 4 x 2048, through initialize → train_batch:
+    """gpt2-2.7b, full width at OFFLOAD_LAYERS, 4 x 2048, through
+    initialize → train_batch:
     (a) no offload, (b) ``offload_optimizer: cpu`` under the auto policy
     (the master stays on the card, the moments stream in whole),
     (b_streamed) the same placement through the streamed update, (c) the
@@ -2040,7 +2080,7 @@ def offload_slice(initialize, GPT2Model, cfg, accel, fa):
 
     from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
 
-    c = cfg
+    c = dataclasses.replace(cfg, n_layer=OFFLOAD_LAYERS)
     batch = synthetic_lm_batch(OFFLOAD_BATCH, OFFLOAD_SEQ, c.vocab_size, seed=SEED,
                                device="cuda")
     pcie = _pcie_rates()
@@ -2377,6 +2417,216 @@ def offload_slices(initialize, GPT2Model, presets, accel, fa):
     return launches
 
 
+# ------------------------------------------------- llama and BERT training
+def _held_to(losses, ref, label) -> dict:
+    """``losses`` against the reference run's: the largest relative
+    difference, held to TRAIN_LOSS_RTOL, and whether they are equal bit for
+    bit."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    if rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{label}: losses {losses} vs the stage-1 run's {ref} "
+                             f"(rel {rel})")
+    return {"loss_rel_to_stage1": rel, "losses_bitwise_equal_to_stage1": losses == ref}
+
+
+def _llama_run(engine_fn, c, batch, accel, fa, label, **fields) -> tuple:
+    """One llama3.2-1b run: the engine ``engine_fn()`` builds (its init
+    seconds and peak), warm-up and timed steps, K1 twice and each K2 entry
+    once per layer and step (remat), and its line. → (engine, losses,
+    launches, line)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = engine_fn()
+    torch.cuda.synchronize()
+    init = {"init_s": time.perf_counter() - t0,
+            "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    losses, step_ms, peak_gb = _timed_steps(engine, batch, accel, (fa.KERNEL, fa.BWD_KERNEL))
+    launches = _check_remat_launches(fa, c.n_layer, TRAIN_STEPS, label)
+    line = dict(**_train_line(c, LLAMA_BATCH, LLAMA_SEQ, step_ms, accel), remat=c.remat,
+                layers=c.n_layer, heads=c.n_head, kv_heads=c.n_kv_head, **init,
+                peak_mem_gb=peak_gb, losses=losses,
+                launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+                grad_norm=engine.get_global_grad_norm(), lr=engine.get_lr()[0], **fields)
+    return engine, losses, launches, line
+
+
+def llama_train_slices(initialize, init_inference, LlamaModel, cfg, accel, fa, da):
+    """llama3.2-1b, the full preset (16 layers, d 2048, 32 query heads over
+    8 KV heads, V 128256, tied, llama3 rope scaling, remat "full"), B=4 x
+    T=2048, through initialize → train_batch with the training recipe:
+    ZeRO stage 1 (its tag saved), stage 3, and stage 3 with the optimizer
+    state and the params in pinned host memory from a ``zero.Init`` build
+    (the fp32 master on the host too); the stage-3 and offloaded losses
+    held to stage 1's. Then the 2-layer kernel-vs-plain checks, and the tag
+    served through ``init_inference(config={"checkpoint": ...})``. →
+    launches by path."""
+    import gc
+
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+    from deepspeed_tpu_torch.runtime import zero
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import wait_for_pending_saves
+
+    c = cfg
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": LLAMA_BATCH}
+    batch = synthetic_lm_batch(LLAMA_BATCH, LLAMA_SEQ, c.vocab_size, seed=SEED, device="cuda")
+    root, free = _scratch_dir()
+    tmp = tempfile.mkdtemp(prefix="ds_llama_", dir=root)
+    launches = {}
+    try:
+        label = f"train {MODEL}"
+        engine, ref, launches["train_llama"], line = _llama_run(
+            lambda: initialize(model=LlamaModel(c), config=dict(config))[0], c, batch, accel,
+            fa, label)
+        emit(label, **line)
+        emit(f"profile {label}", step=device_profile(lambda: engine.train_batch(batch), top=12))
+        save_dir = os.path.join(tmp, "tag")
+        t0 = time.perf_counter()
+        engine.save_checkpoint(save_dir)
+        blocking = time.perf_counter() - t0
+        wait_for_pending_saves()
+        emit(f"save {MODEL}", blocking_s=blocking, commit_s=time.perf_counter() - t0,
+             tag_bytes=_tree_bytes(save_dir), dir=root, free_bytes=free[root])
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        label = f"train {MODEL} zero3"
+        zero3 = {**config, "zero_optimization": {"stage": 3}}
+        engine, losses, launches["train_llama_zero3"], line = _llama_run(
+            lambda: initialize(model=LlamaModel(c), config=zero3)[0], c, batch, accel, fa,
+            label)
+        gathers = engine._zero.gathers / (TRAIN_WARMUP + TRAIN_STEPS)
+        emit(label, **line, zero_stage=3, units=len(engine._plan.units),
+             stage3_gathers_per_step=gathers, **_held_to(losses, ref, label))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        label = f"offload {MODEL}"
+        cpu = {"device": "cpu"}
+        offload = {**config, "zero_optimization": {"stage": 3, "offload_optimizer": cpu,
+                                                   "offload_param": cpu}}
+
+        def build():
+            model = LlamaModel(c)
+            with zero.Init(config=offload):
+                zero.materialize(model, torch.Generator(device="cuda").manual_seed(SEED))
+            return initialize(model=model, config=offload)[0]
+
+        os.environ["DS_TPU_OFFLOAD_MASTER"] = "host"
+        try:
+            engine, losses, launches["offload_llama"], line = _llama_run(
+                build, c, batch, accel, fa, label)
+        finally:
+            os.environ.pop("DS_TPU_OFFLOAD_MASTER", None)
+        off = engine._offload
+        emit(label, **line, zero=offload["zero_optimization"],
+             policy={"master_on_host": off.master_host, "streamed": off.streamed,
+                     "stream_overlap": off.overlap},
+             host_state_gb=_host_state_bytes(engine) / 1e9,
+             h2d_gb_per_update=off.h2d_bytes / 1e9, d2h_gb_per_update=off.d2h_bytes / 1e9,
+             stage3_gathers_per_step=engine._zero.gathers / (TRAIN_WARMUP + TRAIN_STEPS),
+             **_held_to(losses, ref, label), host_memory_after=_host_memory())
+        if not off.master_host:
+            raise AssertionError(f"{label}: the fp32 master stayed on the card")
+        del engine, off
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        small = dataclasses.replace(c, n_layer=2, remat=False)
+        train_check_bf16(LlamaModel, small, batch, MODEL, _dense_plain)
+        train_check_fp32(initialize, LlamaModel, c, MODEL, LLAMA_SEQ, {}, _dense_plain)
+
+        launches["serve_llama_tag"] = serve_tag_slice(init_inference, LlamaModel, c, accel, fa,
+                                                      da, save_dir, f"serve {MODEL} from its tag")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def _bert_batch(rows, seq, vocab, seed, device, maxp=None):
+    from deepspeed_tpu_torch.models.bert import synthetic_mlm_batch
+
+    return synthetic_mlm_batch(rows, seq, vocab, seed=seed, max_predictions=maxp, device=device)
+
+
+def train_check_bert_mask(BertModel, cfg, batch, fa):
+    """One bf16 step of 2 layers with an ``attention_mask`` (each row's
+    last eighth padded): attention takes the plain masked path, as in JAX,
+    so no K1 launches, and the loss and gradients equal the plain path's
+    bit for bit."""
+    keep = torch.arange(batch["input_ids"].shape[1], device="cuda") \
+        < batch["input_ids"].shape[1] * 7 // 8
+    masked = {**batch, "attention_mask": keep[None].expand_as(batch["input_ids"])}
+    model = BertModel(cfg).init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    model.to(dtype=torch.bfloat16)
+    fa.KERNEL.reset_launches()
+    fa.BWD_KERNEL.reset_launches()
+    loss_k, grads_k = _grads(model, masked)
+    launches = _dense_launches(fa)
+    _dense_plain(model)
+    loss_p, grads_p = _grads(model, masked)
+    same = torch.equal(loss_k, loss_p) and all(torch.equal(grads_k[n], grads_p[n])
+                                                for n in grads_k)
+    emit(f"train check {BERT_MODEL} attention_mask", layers=cfg.n_layer, launches=launches,
+         loss=loss_k.item(), bitwise_equal_to_plain=same)
+    if any(launches.values()) or not same or not torch.isfinite(loss_k):
+        raise AssertionError(f"masked BERT step: launches {launches}, equal to the plain "
+                             f"path {same}, loss {loss_k.item()}")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def bert_train_slices(initialize, BertModel, cfg, accel, fa):
+    """bert-large masked-LM pretraining, full preset (24 layers, d 1024, 16
+    heads), through initialize → train_batch with the reference's BERT
+    recipe (LAMB, fp16 with dynamic loss scaling, clipping 1.0), no remat,
+    at B=64 x T=128 (20 predictions a row) and B=16 x T=512 (80): each step
+    launches K1 and each K2 entry once per layer, non-causal. Then the
+    2-layer kernel-vs-plain checks and a masked step. → launches by path."""
+    import gc
+
+    launches = {}
+    for batch_size, seq, maxp in BERT_SHAPES:
+        c = dataclasses.replace(cfg, max_predictions_per_seq=maxp, dtype=torch.float16,
+                                remat=False)
+        config = {**BERT_CONFIG, "train_micro_batch_size_per_gpu": batch_size}
+        engine, *_ = initialize(model=BertModel(c), config=config)
+        batch = _bert_batch(batch_size, seq, c.vocab_size, SEED, "cuda", maxp)
+        label = f"train {BERT_MODEL} seq{seq}"
+        losses, step_ms, peak_gb = _timed_steps(engine, batch, accel,
+                                                (fa.KERNEL, fa.BWD_KERNEL))
+        launches[f"train_bert_s{seq}"] = got = _dense_launches(fa)
+        expect = dict.fromkeys(got, c.n_layer * TRAIN_STEPS)
+        if got != expect:
+            raise AssertionError(f"{label}: launch counts {got} over {TRAIN_STEPS} steps, "
+                                 f"expected {expect}")
+        labels = int((batch["labels"] != -100).sum().item())
+        emit(label, **_train_line(c, batch_size, seq, step_ms, accel, torch.float16),
+             max_predictions_per_seq=maxp, labels_per_step=labels, causal=False,
+             flops_per_token_gathered=c.flops_per_token(seq),
+             flops_per_token_full_head=dataclasses.replace(
+                 c, max_predictions_per_seq=None).flops_per_token(seq),
+             peak_mem_gb=peak_gb, losses=losses, skipped_steps=engine.skipped_steps,
+             loss_scale=engine.get_loss_scale(),
+             launches_per_step={k: v / TRAIN_STEPS for k, v in got.items()},
+             grad_norm=engine.get_global_grad_norm(), lr=engine.get_lr()[0])
+        emit(f"profile {label}", step=device_profile(lambda: engine.train_batch(batch), top=12))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rows, seq, maxp = BERT_SHAPES[0]
+    small = dataclasses.replace(cfg, n_layer=2, max_predictions_per_seq=maxp)
+    batch = _bert_batch(rows, seq, cfg.vocab_size, SEED, "cuda", maxp)
+    train_check_bf16(BertModel, small, batch, BERT_MODEL, _dense_plain)
+    train_check_fp32(initialize, BertModel, small, BERT_MODEL, seq, {}, _dense_plain,
+                     make_batch=lambda *a, **kw: _bert_batch(*a, **kw, maxp=maxp))
+    train_check_bert_mask(BertModel, small, batch, fa)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -2466,6 +2716,17 @@ def main() -> int:
         *((f"curriculum_t{t}", BH, t, 96, bf, True) for t in ragged),
         ("offload_d80", OFFLOAD_BATCH * 32, OFFLOAD_SEQ, 80, bf, True),
         ("capacity_d128", OFFLOAD_BATCH * 32, OFFLOAD_SEQ, 128, bf, True))]
+    # the llama and BERT training phases' shapes: causal at llama3.2-1b's
+    # 4 x 2048 (32 heads of 64 after the KV heads' repeat), non-causal at
+    # bert-large's 64 x 128 and 16 x 512 (16 heads of 64), bf16 and fp16
+    model_fwd = {row["name"]: row for row in (check_flash(fa, accel, gen, *case) for case in (
+        ("llama_train", LLAMA_BATCH, LLAMA_SEQ, 32, 64, bf, True),
+        *((f"bert_s{t}{suffix}", b, t, 16, 64, dt, False)
+          for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
+    model_bwd = {row["name"]: row for row in (check_flash_bwd(fa, accel, gen, *case) for case in (
+        ("llama_train", LLAMA_BATCH * 32, LLAMA_SEQ, 64, bf, True),
+        *((f"bert_s{t}{suffix}", b * 16, t, 64, dt, False)
+          for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
     S = PROMPT + GEN
     decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("slice_pos255", BATCH, S, 32, 8, 64, bf, S - 1),
@@ -2548,6 +2809,14 @@ def main() -> int:
     by_offload = {f"offload_{k}": v for k, v in offload_launches["offload"].items()}
     by_offload["offload_capacity"] = offload_launches["capacity"]
     by_offload.update({f"nvme_{k}": v for k, v in offload_launches["nvme"].items()})
+    # the llama and BERT training phases, and llama3.2-1b served from its tag
+    model_launches = llama_train_slices(deepspeed_tpu_torch.initialize,
+                                        deepspeed_tpu_torch.init_inference, model_cls,
+                                        presets[MODEL], accel, fa, da)
+    bert_cls, bert_presets = resolve_family(BERT_MODEL)
+    model_launches.update(bert_train_slices(deepspeed_tpu_torch.initialize, bert_cls,
+                                            bert_presets[BERT_MODEL], accel, fa))
+    trained = {p: n for p, n in model_launches.items() if p != "serve_llama_tag"}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bwd = bwd_rows[0]
@@ -2565,15 +2834,20 @@ def main() -> int:
                               "curriculum": curriculum_launches["flash_attention_fwd"],
                               **{f"zero{s}": n["flash_attention_fwd"]
                                  for s, n in zero_launches.items()},
-                              **{p: n["flash_attention_fwd"] for p, n in by_offload.items()}},
-         "at_serving_shape": {k: flash_rows[1][k] for k in keys}},
+                              **{p: n["flash_attention_fwd"] for p, n in by_offload.items()},
+                              **{p: n["flash_attention_fwd"]
+                                 for p, n in model_launches.items()}},
+         "at_serving_shape": {k: flash_rows[1][k] for k in keys},
+         "at_model_shapes": {name: {k: row[k] for k in keys} for name, row in model_fwd.items()}},
         {"name": "decode_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
          "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:47",
          "launches": serve_launches["decode_attention"],
          **{k: decode_rows[0][k] for k in keys},
          "launches_by_path": {"serve": serve_launches["decode_attention"],
-                              "serve_gpt2": serve_gpt2_launches["decode_attention"]},
+                              "serve_gpt2": serve_gpt2_launches["decode_attention"],
+                              "serve_llama_tag":
+                                  model_launches["serve_llama_tag"]["decode_attention"]},
          "at_long_shape": {k: long_rows[0][k] for k in keys},
          "at_gpt2_mha_shape": {k: gpt2_decode_rows[0][k] for k in keys}},
     ]
@@ -2588,7 +2862,12 @@ def main() -> int:
                 ("resume", resume_launches),
                 ("curriculum", curriculum_launches),
                 *((f"zero{s}", z) for s, z in zero_launches.items()),
-                *by_offload.items())},
+                *by_offload.items(), *trained.items())},
+            "at_model_shapes": {name: {
+                "max_abs_err": max(row["errs"][n] for n in (("dq",) if entry == "dq"
+                                                            else ("dk", "dv"))),
+                **{k: row[f"{entry}_{k}"] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_pair_bwd_ms": row["library_bwd_ms"]} for name, row in model_bwd.items()},
             "max_abs_err": max(bwd["errs"][n] for n in (("dq",) if entry == "dq"
                                                         else ("dk", "dv"))),
             "ms": bwd[f"{entry}_ms"], "plain_ms": bwd[f"{entry}_plain_ms"],

@@ -22,7 +22,9 @@ raises on any other.
 
 Model protocol: ``init_cache(B, max_len)``, ``prefill(ids, cache)`` →
 (logits, cache), ``decode_step(token, cache)`` → (logits, cache),
-``apply(ids)`` → logits, and ``init_params(generator)``.
+``apply(ids)`` → logits, and ``init_params(generator)``. A model without a
+KV cache (BERT) serves ``forward`` only: ``generate`` raises
+``AttributeError``, as the JAX engine does.
 
 Weights come from ``params`` (a state dict), else from the training tag of
 the config's ``checkpoint`` (``load_inference_params``: only the tag's

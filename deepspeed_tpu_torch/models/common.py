@@ -1,20 +1,32 @@
-"""Shared model building blocks: RoPE, the attention dispatch and the LM loss.
+"""Shared model building blocks: RoPE, the attention dispatch, the LM loss,
+and what every model needs to train under the engine.
 
-Counterpart of ``deepspeed_tpu/models/common.py`` for what the llama serving
-path and the GPT-2 training path use. The attention dispatch has no
-fallback: ``use_flash`` / ``use_flash_decode`` choose the kernel wrapper
-(which launches the CUDA kernel for a CUDA tensor and runs its plain version
-for a CPU tensor), otherwise the plain einsum path runs, as the JAX
-package's flags select. Where the JAX dispatch catches a failing flash
-kernel and falls back to einsum, the port raises.
+Counterpart of ``deepspeed_tpu/models/common.py`` for what the llama, GPT-2
+and BERT paths use. The attention dispatch has no fallback: ``use_flash`` /
+``use_flash_decode`` choose the kernel wrapper (which launches the CUDA
+kernel for a CUDA tensor and runs its plain version for a CPU tensor),
+otherwise the plain einsum path runs, as the JAX package's flags select. A
+``key_padding_mask`` always takes the plain path, as in JAX (the kernels
+carry no mask). Where the JAX dispatch catches a failing flash kernel and
+falls back to einsum, the port raises.
+
+:class:`GatheredModule` is the base of the models the engine trains: each
+module computes with its own parameters through ``_gathered(module)``,
+which ZeRO stage 3 and ``offload_param`` redirect to gathered copies
+(``param_gatherer``). :func:`meta_weight`, :func:`init_pieces` and
+:func:`assemble` are the models' shared parameter plumbing: parameters that
+hold no memory until filled, random initial values drawn a piece at a time
+(``param_chunks``), and the whole tree assembled from those pieces.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.ops.pallas.decode_attention import decode_attention, decode_reference
@@ -23,6 +35,85 @@ from deepspeed_tpu_torch.ops.pallas.flash_attention import flash_attention, mha_
 # logits-buffer budget: chunk length chosen so the (B, chunk, V) fp32 buffer
 # stays around 256MB (the JAX package's value)
 _CHUNK_ELEMS = 64 * 1024 * 1024
+
+# elements per piece of a random initial tensor (``param_chunks``)
+INIT_CHUNK = 1 << 24
+
+
+def meta_weight(*shape) -> nn.Parameter:
+    """A trainable parameter on the meta device: a model holds no memory
+    until init_params, params_from_jax or load_state_dict(assign=True) fills
+    it."""
+    return nn.Parameter(torch.empty(*shape, device="meta"))
+
+
+def init_pieces(generator: torch.Generator, chunk: Optional[int] = None):
+    """``pieces(name, shape, scale=None, fill=0.0)``: the ``(name, start,
+    values)`` pieces of one random initial tensor, at most ``chunk``
+    (``INIT_CHUNK``) elements each, in order: normal draws from
+    ``generator`` times ``scale`` on its device, or ``fill`` without a
+    scale."""
+    dev = generator.device
+    chunk = chunk or INIT_CHUNK
+
+    def pieces(name, shape, scale=None, fill=0.0):
+        n = math.prod(shape)
+        for start in range(0, n, chunk):
+            m = min(chunk, n - start)
+            yield name, start, (torch.randn(m, generator=generator, device=dev).mul_(scale)
+                                if scale is not None
+                                else torch.full((m,), fill, device=dev))
+
+    return pieces
+
+
+def assemble(model: nn.Module, chunks) -> nn.Module:
+    """``model`` holding the whole tensors of its ``param_chunks`` pieces
+    ``chunks``. Returns the model."""
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+    sd = {}
+    for name, start, values in chunks:
+        if name not in sd:
+            sd[name] = torch.empty(shapes[name], device=values.device)
+        sd[name].view(-1)[start:start + values.numel()] = values
+    model.load_state_dict(sd, assign=True)
+    return model
+
+
+class GatheredModule(nn.Module):
+    """A model whose modules compute with their own parameters through
+    :meth:`_gathered`: the module itself, or, when the engine trains under
+    ZeRO stage 3 or ``offload_param`` and has set ``param_gatherer``, the
+    parameters gathered just before the module runs and released after it
+    (``runtime/zero/state.py``). A model's top-level parameters gather once
+    for each use (a tied embedding twice a forward); a block under ``remat``
+    gathers again when it is recomputed."""
+
+    def __init__(self):
+        super().__init__()
+        # set by the engine: gather(module) / release(module)
+        self.param_gatherer = None
+
+    @contextlib.contextmanager
+    def _gathered(self, module: nn.Module):
+        """``module``'s own parameters to compute with (attribute access)."""
+        gatherer = self.param_gatherer
+        if gatherer is None:
+            yield module
+            return
+        try:
+            yield gatherer.gather(module)
+        finally:
+            gatherer.release(module)
+
+
+def layer_norm(x, g, b, eps: float = 1e-5):
+    """Layer norm over the last axis in fp32, cast back to ``x``'s type."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * g + b).to(x.dtype)
 
 
 def _scaled_inv_freq(inv_freq, scaling: Optional[dict]):
@@ -70,12 +161,17 @@ def apply_rope(x, cos, sin):
     return out.to(x.dtype)
 
 
-def local_causal_attention(q, k, v, use_flash: bool = True):
-    """Causal self-attention on (B, T, H, Dh) with equal head counts: the
-    flash kernel when ``use_flash``, else the plain einsum."""
-    if use_flash:
-        return flash_attention(q, k, v, causal=True)
-    return mha_reference(q, k, v, causal=True)
+def local_causal_attention(q, k, v, use_flash: bool = True, causal: bool = True,
+                           key_padding_mask=None):
+    """Self-attention on (B, T, H, Dh) with equal head counts: the flash
+    kernel when ``use_flash``, else the plain einsum. Causal by default;
+    ``causal=False`` is the encoder (BERT) path. ``key_padding_mask``:
+    optional (B, T), nonzero = attend; a masked call takes the plain path,
+    as the JAX dispatch sends it to the einsum (the kernels carry no
+    mask)."""
+    if use_flash and key_padding_mask is None:
+        return flash_attention(q, k, v, causal=causal)
+    return mha_reference(q, k, v, causal=causal, key_padding_mask=key_padding_mask)
 
 
 def cached_decode_attention(q, k_cache, v_cache, pos, use_flash_decode: bool = False):

@@ -22,17 +22,13 @@ JAX model also carries (ALiBi, rotary, parallel residual, local attention,
 sequence parallelism, dropout, the "dots"/"attn"/"attn_mlp" remat policies
 and progressive layer drop) raise ``NotImplementedError``.
 
-Each module computes with its own parameters through ``_gathered(module)``:
-the module itself, or, when the engine trains under ZeRO stage 3 and has
-set ``param_gatherer``, the parameters gathered just before the module runs
-and released after it (``runtime/zero/state.py``). The embedding and the
-head are the model's own parameters and gather twice a forward; a block
-under ``remat`` gathers again when it is recomputed.
+Each module computes with its own parameters through ``_gathered(module)``
+(``models/common.py``'s :class:`GatheredModule`): the embedding and the head
+are the model's own parameters and gather twice a forward.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Mapping, Optional
@@ -43,9 +39,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.models.common import (cached_decode_attention, causal_attention,
-                                                chunked_lm_loss, lm_loss_tokens,
-                                                local_causal_attention, parse_lm_batch)
+from deepspeed_tpu_torch.models.common import (INIT_CHUNK, GatheredModule, assemble,
+                                                cached_decode_attention, causal_attention,
+                                                chunked_lm_loss, init_pieces, layer_norm,
+                                                lm_loss_tokens, local_causal_attention, meta_weight,
+                                                parse_lm_batch)
 from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import MODES as SPARSE_MODES
 
@@ -170,18 +168,9 @@ PRESETS = {
     "gpt2-6.7b": GPT2Config(n_embd=4096, n_layer=32, n_head=32, n_positions=2048),
 }
 
-# elements per piece of a random initial tensor (``GPT2Model.param_chunks``)
-INIT_CHUNK = 1 << 24
-
 # per-layer weights, in the JAX package's ``blocks`` naming
 BLOCK_KEYS = ("ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
               "ln2_g", "ln2_b", "fc_w", "fc_b", "fc2_w", "fc2_b")
-
-
-def _weight(*shape) -> nn.Parameter:
-    # allocated on the meta device: a model holds no memory until
-    # init_params, params_from_jax or load_state_dict(assign=True) fills it
-    return nn.Parameter(torch.empty(*shape, device="meta"))
 
 
 class GPT2Block(nn.Module):
@@ -191,32 +180,30 @@ class GPT2Block(nn.Module):
     def __init__(self, c: GPT2Config):
         super().__init__()
         d = c.n_embd
-        self.ln1_g, self.ln1_b = _weight(d), _weight(d)
-        self.qkv_w, self.qkv_b = _weight(d, 3 * d), _weight(3 * d)
-        self.proj_w, self.proj_b = _weight(d, d), _weight(d)
-        self.ln2_g, self.ln2_b = _weight(d), _weight(d)
-        self.fc_w, self.fc_b = _weight(d, 4 * d), _weight(4 * d)
-        self.fc2_w, self.fc2_b = _weight(4 * d, d), _weight(d)
+        self.ln1_g, self.ln1_b = meta_weight(d), meta_weight(d)
+        self.qkv_w, self.qkv_b = meta_weight(d, 3 * d), meta_weight(3 * d)
+        self.proj_w, self.proj_b = meta_weight(d, d), meta_weight(d)
+        self.ln2_g, self.ln2_b = meta_weight(d), meta_weight(d)
+        self.fc_w, self.fc_b = meta_weight(d, 4 * d), meta_weight(4 * d)
+        self.fc2_w, self.fc2_b = meta_weight(4 * d, d), meta_weight(d)
 
 
-class GPT2Model(nn.Module):
+class GPT2Model(GatheredModule):
     def __init__(self, config: GPT2Config):
         super().__init__()
         c = self.config = config
         d = c.n_embd
-        self.wte = _weight(c.vocab_size, d)
-        self.wpe = _weight(c.n_positions, d)
+        self.wte = meta_weight(c.vocab_size, d)
+        self.wpe = meta_weight(c.n_positions, d)
         if c.embed_layernorm:
-            self.emb_ln_g, self.emb_ln_b = _weight(d), _weight(d)
+            self.emb_ln_g, self.emb_ln_b = meta_weight(d), meta_weight(d)
         self.blocks = nn.ModuleList(GPT2Block(c) for _ in range(c.n_layer))
-        self.lnf_g, self.lnf_b = _weight(d), _weight(d)
+        self.lnf_g, self.lnf_b = meta_weight(d), meta_weight(d)
         if not c.tie_embeddings:
-            self.lm_head = _weight(d, c.vocab_size)
+            self.lm_head = meta_weight(d, c.vocab_size)
             if c.lm_head_bias:
-                self.lm_head_b = _weight(c.vocab_size)
+                self.lm_head_b = meta_weight(c.vocab_size)
         self._sparse = None
-        # set by the engine under ZeRO stage 3: gather(module) / release(module)
-        self.param_gatherer = None
 
     # ---------------------------------------------------------------- params
     def param_chunks(self, generator: torch.Generator, chunk: Optional[int] = None):
@@ -232,17 +219,8 @@ class GPT2Model(nn.Module):
         the same values as the whole tree."""
         c = self.config
         d, l = c.n_embd, c.n_layer
-        dev = generator.device
         proj = 0.02 / math.sqrt(2 * l)
-        chunk = chunk or INIT_CHUNK
-
-        def pieces(name, shape, scale=None, fill=0.0):
-            n = math.prod(shape)
-            for start in range(0, n, chunk):
-                m = min(chunk, n - start)
-                yield name, start, (torch.randn(m, generator=generator, device=dev).mul_(scale)
-                                    if scale is not None
-                                    else torch.full((m,), fill, device=dev))
+        pieces = init_pieces(generator, chunk or INIT_CHUNK)
 
         yield from pieces("wte", (c.vocab_size, d), 0.02)
         yield from pieces("wpe", (c.n_positions, d), 0.01)
@@ -268,35 +246,10 @@ class GPT2Model(nn.Module):
     def init_params(self, generator: torch.Generator) -> "GPT2Model":
         """Random fp32 weights from ``generator`` on its device: the whole
         tree of ``param_chunks``. Returns self."""
-        shapes = {n: p.shape for n, p in self.named_parameters()}
-        sd = {}
-        for name, start, values in self.param_chunks(generator):
-            if name not in sd:
-                sd[name] = torch.empty(shapes[name], device=values.device)
-            sd[name].view(-1)[start:start + values.numel()] = values
-        self.load_state_dict(sd, assign=True)
-        return self
+        return assemble(self, self.param_chunks(generator))
 
     # --------------------------------------------------------------- compute
-    @staticmethod
-    def _layer_norm(x, g, b, eps: float = 1e-5):
-        x32 = x.float()
-        mu = x32.mean(dim=-1, keepdim=True)
-        var = x32.var(dim=-1, keepdim=True, unbiased=False)
-        y = (x32 - mu) * torch.rsqrt(var + eps)
-        return (y * g + b).to(x.dtype)
-
-    @contextlib.contextmanager
-    def _gathered(self, module: nn.Module):
-        """``module``'s own parameters to compute with (attribute access)."""
-        gatherer = self.param_gatherer
-        if gatherer is None:
-            yield module
-            return
-        try:
-            yield gatherer.gather(module)
-        finally:
-            gatherer.release(module)
+    _layer_norm = staticmethod(layer_norm)
 
     def embed_stage(self, top, input_ids, positions=None):
         """Token + learned position embedding, with BLOOM's optional

@@ -1,28 +1,28 @@
 """Model-family registry: a preset name → (model class, preset table).
 
 Counterpart of ``deepspeed_tpu/models/registry.py`` ``resolve_family``. The
-port has the llama family (serving) and the GPT-2 family (training) so far;
-the JAX registry's synthetic-batch builders and TPU head relayouts have no
-counterpart here (the port runs the canonical presets).
+port has the llama, GPT-2 and BERT families so far; ``gpt2-moe-*`` is a
+later slice. The JAX registry's synthetic-batch builders and TPU head
+relayouts have no counterpart here (the port runs the canonical presets).
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Any, Callable, Dict, Tuple
+
+# name prefix → (module of deepspeed_tpu_torch.models, model class)
+_FAMILIES = {"llama": ("llama", "LlamaModel"), "bert": ("bert", "BertModel"),
+             "gpt2": ("gpt2", "GPT2Model")}
 
 
 def resolve_family(model_name: str) -> Tuple[Callable, Dict[str, Any]]:
     """→ (model_cls, PRESETS) for ``model_name``."""
-    if model_name.startswith("llama"):
-        from deepspeed_tpu_torch.models.llama import PRESETS, LlamaModel
-
-        if model_name not in PRESETS:
-            raise KeyError(f"unknown llama preset {model_name!r}; have {sorted(PRESETS)}")
-        return LlamaModel, PRESETS
-    if model_name.startswith("gpt2"):
-        from deepspeed_tpu_torch.models.gpt2 import PRESETS, GPT2Model
-
-        if model_name not in PRESETS:
-            raise KeyError(f"unknown gpt2 preset {model_name!r}; have {sorted(PRESETS)}")
-        return GPT2Model, PRESETS
-    raise NotImplementedError(f"model family of {model_name!r}: later slice of the port")
+    family = next((f for f in _FAMILIES if model_name.startswith(f)), None)
+    if family is None or model_name.startswith("gpt2-moe"):
+        raise NotImplementedError(f"model family of {model_name!r}: later slice of the port")
+    module, cls = _FAMILIES[family]
+    mod = importlib.import_module(f"deepspeed_tpu_torch.models.{module}")
+    if model_name not in mod.PRESETS:
+        raise KeyError(f"unknown {family} preset {model_name!r}; have {sorted(mod.PRESETS)}")
+    return getattr(mod, cls), mod.PRESETS

@@ -75,8 +75,8 @@ def _dense_mask(q, k, causal: bool):
 
 
 def _masked_mha(q, k, v, mask, scale: float):
-    """Plain einsum attention on (B, T, H, D) with a (Tq, Tk) bool mask of
-    visible keys (None: all): scores in the input type, softmax in fp32,
+    """Plain einsum attention on (B, T, H, D) with a bool mask of visible
+    keys broadcast to (B, H, Tq, Tk) (None: all): scores in the input type, softmax in fp32,
     probabilities cast back to the input type."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if mask is not None:
@@ -85,13 +85,19 @@ def _masked_mha(q, k, v, mask, scale: float):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def mha_reference(q, k, v, causal: bool = True, scale: Optional[float] = None):
+def mha_reference(q, k, v, causal: bool = True, scale: Optional[float] = None,
+                  key_padding_mask=None):
     """Plain einsum attention on (B, T, H, D), as the JAX ``mha_reference``
     and the models' non-flash path compute it: scores in the input type,
-    softmax in fp32, probabilities cast back to the input type."""
+    softmax in fp32, probabilities cast back to the input type.
+    ``key_padding_mask``: optional (B, Tk), nonzero = attend."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _masked_mha(q, k, v, _dense_mask(q, k, causal), scale)
+    mask = _dense_mask(q, k, causal)
+    if key_padding_mask is not None:
+        keep = key_padding_mask.to(device=q.device, dtype=torch.bool)[:, None, None, :]
+        mask = keep if mask is None else keep & mask
+    return _masked_mha(q, k, v, mask, scale)
 
 
 def _reference_lse(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:

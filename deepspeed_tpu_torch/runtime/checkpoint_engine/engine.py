@@ -685,7 +685,8 @@ def state_from_jax(flat_numpy: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
     under ``_flatten_state`` keys) in the port's flat layout, for
     :func:`apply_flat_state`. Layer-stacked leaves (``.../blocks/<key>``, L
     first) become one entry per layer (``.../blocks.<n>.<key>``), as
-    ``models.gpt2.params_from_jax`` maps the params; the other keys keep
+    every model's ``params_from_jax`` maps the params (GPT-2, llama and
+    BERT tags alike); the other keys keep
     their names with ``.`` for ``/``. The JAX engine's ``rng`` has no
     counterpart and is dropped. The copy is exact."""
     out = {}

@@ -36,9 +36,19 @@ backward (stages 2, 3); updated shards all-gathered (1, 2), and under
 stage 3 each module's parameters gathered just before it runs, in forward
 and again in backward. Gradients never accumulate in the compute type: a
 post-accumulate hook moves each one into its unit's fp32 buffer (or
-``data_types.grad_accum_dtype``) as soon as autograd has it. The tied GPT-2
-embedding is one parameter, so its two contributions are summed before
-they reach the buffer.
+``data_types.grad_accum_dtype``) as soon as autograd has it. A tied
+embedding (GPT-2's and llama3.2-1b's head, BERT's MLM decoder) is one
+parameter, so its two contributions are summed before they reach the
+buffer.
+
+The model protocol (``models/``: GPT-2, llama, BERT): an ``nn.Module``
+with ``loss(batch)``; ``loss_tokens(batch)``, what the loss averages over
+when ranks may hold different counts (None: every row the same);
+``param_chunks(generator)`` or ``init_params(generator)``, its random
+initial values, when its weights are not loaded; and ``param_gatherer``,
+the attribute ZeRO stage 3 and ``offload_param`` set to gather each
+module's parameters around its use (``models/common.py``
+``GatheredModule``).
 
 ``training_data`` becomes the engine's resumable ``DeepSpeedDataLoader``
 (``deepspeed_io``), with the metric curriculum sampler when the ds_config
@@ -103,10 +113,10 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, grads
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedule, build_lr_schedule
 from deepspeed_tpu_torch.runtime.utils import get_grad_norm
 from deepspeed_tpu_torch.runtime.zero.init import build_state, trainable
-from deepspeed_tpu_torch.runtime.zero.offload import (CHUNK_BYTES, HostOffload, env_flag,
-                                                      host_opt_state)
+from deepspeed_tpu_torch.runtime.zero.offload import CHUNK_BYTES, HostOffload, host_opt_state
 from deepspeed_tpu_torch.runtime.zero.partition import partition_report
 from deepspeed_tpu_torch.runtime.zero.state import PARAMS
+from deepspeed_tpu_torch.utils import env_flag
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                                              STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER, NoopTimer,
@@ -161,7 +171,8 @@ class DeepSpeedEngine:
 
         # ---- model protocol ----------------------------------------------
         if not (isinstance(model, torch.nn.Module) and hasattr(model, "loss")):
-            raise ValueError("model must be an nn.Module with .loss(batch)")
+            raise ValueError("model must be an nn.Module with .loss(batch) (the model "
+                             "protocol: loss, loss_tokens, param_chunks, param_gatherer)")
         self.module = model
         self.train_dtype = self._config.train_dtype
         self.fp16_enabled = self._config.fp16.enabled
@@ -194,7 +205,8 @@ class DeepSpeedEngine:
             if not hasattr(model, "param_gatherer"):
                 raise NotImplementedError(f"ZeRO stage 3 or offload_param on "
                                           f"{type(model).__name__}: the model must gather "
-                                          "its modules' parameters (param_gatherer)")
+                                          "its modules' parameters (param_gatherer, as "
+                                          "models/common.py GatheredModule does)")
             model.param_gatherer = self._zero
         log_dist(partition_report(self._plan), ranks=[0])
 

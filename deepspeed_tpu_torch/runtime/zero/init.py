@@ -4,7 +4,8 @@ Counterpart of ``deepspeed_tpu/runtime/zero/init.py`` (the reference's
 ``zero/partition_parameters.py`` ``Init``). There, ``materialize`` jits the
 init function with the ZeRO-3 plan's output shardings, so XLA allocates
 each parameter in its shard. Here a model's parameters are random draws a
-piece at a time (``GPT2Model.param_chunks``), and ``ZeroState`` is built
+piece at a time (the model's ``param_chunks``: GPT-2's, llama's, BERT's),
+and ``ZeroState`` is built
 from those pieces unit by unit: each rank draws every piece in the same
 order from the same seed (so the values equal the whole-tree build's) and
 keeps only its part of each unit, in the unit's placement: the rank's shard

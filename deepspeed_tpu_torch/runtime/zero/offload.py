@@ -39,7 +39,6 @@ parameters, flat; the rank's part of it):
 from __future__ import annotations
 
 import contextlib
-import os
 from typing import List, Optional
 
 import torch
@@ -48,12 +47,6 @@ from deepspeed_tpu_torch.ops.aio import host_zeros
 from deepspeed_tpu_torch.ops.optimizers import Optimizer, adam_bias_corrections, adam_leaf_update
 
 CHUNK_BYTES = 256 << 20          # DS_TPU_OFFLOAD_CHUNK_BYTES default, fp32 bytes per chunk
-
-
-def env_flag(name: str) -> bool:
-    """A boolean environment knob: unset, empty, "0", "false", "no" and
-    "off" are off (the JAX package's ``utils.env_flag``)."""
-    return os.environ.get(name, "").strip().lower() not in ("", "0", "false", "no", "off")
 
 
 def host_opt_state(optimizer: Optimizer, numels: List[int], pin: bool):

@@ -30,7 +30,11 @@ offload tests keep the optimizer state (and the params) in pinned host
 memory: every host tensor is pinned, the streamed and whole-state updates
 give the in-card update's losses and params bit for bit (the same
 elementwise ops on the same values), and the aio handle reads a swap file
-straight into a pinned tensor.
+straight into a pinned tensor. The last tests run the flash kernels at
+llama3.2-1b's training shape (causal) and bert-large's (non-causal, bf16
+and fp16), a BERT step through the non-causal kernels (and, with an
+attention_mask, through none), a BERT fp16 LAMB run through the engine,
+and a grouped-KV llama step under remat.
 """
 
 import dataclasses
@@ -990,3 +994,85 @@ def test_aio_reads_into_a_pinned_tensor(gen, tmp_path):
     h.async_pread(dst, str(tmp_path / "swap.bin"))
     h.wait()
     assert torch.equal(dst.to("cuda", non_blocking=True).cpu(), src)
+
+
+# ------------------------------------------------- llama and BERT training
+@pytest.mark.parametrize("BH,T,causal,dtype", [
+    (128, 2048, True, torch.bfloat16),       # llama3.2-1b, 4 x 2048, 32 heads
+    (1024, 128, False, torch.bfloat16), (1024, 128, False, torch.float16),   # bert-large
+    (256, 512, False, torch.bfloat16), (256, 512, False, torch.float16)])
+def test_flash_kernels_at_the_llama_and_bert_training_shapes(gen, BH, T, causal, dtype):
+    _flash_kernels(gen, BH, T, T, 64, dtype, causal)
+
+
+def _model_step(model, batch):
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(batch)
+    loss.backward()
+    return loss.detach().float(), {n: p.grad.float() for n, p in model.named_parameters()}
+
+
+def _kernel_vs_plain(model, batch):
+    """One step's loss and gradients on the kernel path, its launches, and
+    the plain path's on the same weights (the model's own flag)."""
+    tfa.KERNEL.reset_launches()
+    tfa.BWD_KERNEL.reset_launches()
+    loss_k, grads_k = _model_step(model, batch)
+    launches = (tfa.KERNEL.launches, tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dq"],
+                tfa.BWD_KERNEL.entry_launches["flash_attention_bwd_dkv"])
+    model.config = dataclasses.replace(model.config, use_flash_attention=False)
+    loss_p, grads_p = _model_step(model, batch)
+    model.config = dataclasses.replace(model.config, use_flash_attention=True)
+    rel = {n: ((grads_k[n] - grads_p[n]).norm() / grads_p[n].norm().clamp_min(1e-30)).item()
+           for n in grads_k}
+    return launches, abs(loss_k.item() - loss_p.item()) / loss_p.item(), max(rel.values())
+
+
+def test_bert_step_runs_the_noncausal_kernels(gen):
+    """A 2-layer bf16 BERT: each layer launches K1 and each K2 entry once,
+    non-causal (the plain path, bidirectional, agrees: loss 1%, gradients
+    10% in L2); with an attention_mask no kernel runs and the two paths
+    are the same path."""
+    from deepspeed_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=1024, n_positions=128, n_embd=256, n_layer=2, n_head=4,
+                          max_predictions_per_seq=20)
+    model = bert.BertModel(cfg).init_params(gen).to(torch.bfloat16)
+    batch = bert.synthetic_mlm_batch(8, 128, cfg.vocab_size, max_predictions=20, device="cuda")
+    launches, loss_rel, grad_rel = _kernel_vs_plain(model, batch)
+    assert launches == (2, 2, 2) and loss_rel <= 1e-2 and grad_rel <= 1e-1
+    masked = {**batch, "attention_mask": torch.ones_like(batch["input_ids"])}
+    masked["attention_mask"][:, 100:] = 0
+    launches, loss_rel, grad_rel = _kernel_vs_plain(model, masked)
+    assert launches == (0, 0, 0) and loss_rel == 0.0 and grad_rel == 0.0
+
+
+def test_bert_fp16_train_batch_runs_the_kernels(gen):
+    from deepspeed_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=1024, n_positions=128, n_embd=256, n_layer=2, n_head=4,
+                          dtype=torch.float16)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=bert.BertModel(cfg), config={
+        "train_batch_size": 8, "gradient_clipping": 1.0, "steps_per_print": 0,
+        "fp16": {"enabled": True, "initial_scale_power": 8},
+        "optimizer": {"type": "Lamb", "params": {"lr": 1e-3, "weight_decay": 0.01}}})
+    batch = bert.synthetic_mlm_batch(8, 128, cfg.vocab_size, device="cuda")
+    tfa.KERNEL.reset_launches()
+    tfa.BWD_KERNEL.reset_launches()
+    losses = [float(engine.train_batch(batch)) for _ in range(3)]
+    assert (tfa.KERNEL.launches, tfa.BWD_KERNEL.launches) == (6, 12)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0] and engine.skipped_steps == 0
+
+
+def test_llama_grouped_kv_step_runs_the_kernels(gen):
+    """A 2-layer bf16 llama with 4 query heads per KV head under remat:
+    K1 twice per layer (the forward and its recompute), each K2 entry
+    once, and the plain path agrees (loss 1%, gradients 10% in L2)."""
+    from deepspeed_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig(vocab_size=1024, n_positions=256, n_embd=256, n_layer=2, n_head=8,
+                      n_kv_head=2, intermediate_size=512, tie_embeddings=True, remat="full")
+    model = LlamaModel(cfg).init_params(gen).to(torch.bfloat16)
+    batch = gpt2.synthetic_lm_batch(4, 256, cfg.vocab_size, device="cuda")
+    launches, loss_rel, grad_rel = _kernel_vs_plain(model, batch)
+    assert launches == (4, 2, 2) and loss_rel <= 1e-2 and grad_rel <= 1e-1
