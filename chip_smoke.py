@@ -65,7 +65,16 @@ tag`` serves the stage-1 run's tag (params bit for bit, 16 K1 per
 dynamic loss scaling, each step launching 24 K1 and 24 of each K2 entry,
 non-causal; ``train check bert-large ...`` holds 2 layers to the plain
 path, and a step with an ``attention_mask`` launches no kernel (the plain
-masked path, as in JAX). Each phase prints one JSON line with the seconds
+masked path, as in JAX). Then the MoE family: ``train gpt2-moe-125m`` (the
+gpt2-125m trunk, 12 layers, an 8-expert top-1 bank on every odd block,
+12 x 1024, remat per dense/MoE pair: 24 K1 and 12 of each K2 entry a step)
+at ZeRO stage 1 with its routing (``l_aux``, the share of tokens dropped,
+the largest expert load over the mean) and a profile with the gate,
+dispatch, experts and combine as ranges of their own, its tag saved;
+``... zero3`` over a NCCL group of one, its losses held to stage 1's; the
+2-layer kernel-vs-plain checks (with the share of tokens the two bf16
+paths route to other experts); ``serve gpt2-moe-125m from its tag`` (12 K1
+per ``generate``, 12 K3 per decode step). Each phase prints one JSON line with the seconds
 since the start (``at_s``); any failed check raises, and the script exits
 non-zero without the final line. It needs one card and imports nothing of
 JAX or of the JAX package.
@@ -173,6 +182,18 @@ BERT_CONFIG = {"train_micro_batch_size_per_gpu": 64, "gradient_accumulation_step
                                                         "max_coeff": 0.3, "min_coeff": 0.01}},
                "fp16": {"enabled": True, "loss_scale": 0}, "zero_optimization": {"stage": 1},
                "gradient_clipping": 1.0, "steps_per_print": 0, "seed": SEED}
+
+# the MoE training phases: gpt2-moe-125m at the JAX bench's 12 x 1024 with
+# the training recipe, the expert axis 1 (one card)
+MOE_MODEL = "gpt2-moe-125m"
+MOE_BATCH, MOE_SEQ = 12, 1024
+MOE_CONFIG = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": MOE_BATCH,
+              "tpu": {"expert": 1}}
+# the MoE layer's profiler ranges (forward and remat recompute) and the
+# backward nodes of its expert products and gathers
+MOE_RANGES = {"gate": r"^moe_gate$", "dispatch": r"^moe_dispatch$",
+              "experts": r"^moe_experts$", "combine": r"^moe_combine$",
+              "bmm backward": r"BmmBackward0$", "gather backward": r"IndexBackward0$"}
 
 # tolerances, with their reasons
 # kernel vs plain fp32 on the same inputs: a bf16 or fp16 output carries its
@@ -758,13 +779,43 @@ def _served_cell(engine, ids, accel, fa, da, label, **fields):
     plain = type(model)(dataclasses.replace(c, use_flash_attention=False,
                                             use_flash_decode=False))
     plain.load_state_dict(model.state_dict(), assign=True)
+    # a MoE model's plain path routes as the kernel path did (train_check_bf16)
+    moe = [layer.moe_layer for layer in getattr(model, "moe", ())]
+    routing = {}
     with torch.inference_mode():
+        for layer in moe:
+            layer.record = True
         prefill_med, logits, cache = _prefill_ms(model, ids, PROMPT + GEN)
+        routes = [layer.routing for layer in moe]
+        for layer in moe:
+            layer.record = False
         replay_ms = _replay_ms(loop, logits, cache, GEN)
+        if moe:
+            for layer in plain.moe:
+                layer.moe_layer.record = True
+            free, _ = plain.prefill(ids, plain.init_cache(BATCH, PROMPT + GEN))
+            plain_routes = [layer.moe_layer.routing for layer in plain.moe]
+            for layer in plain.moe:
+                layer.moe_layer.record = False
+            _pin_routing(plain, routes)
         ref, ref_cache = plain.prefill(ids, plain.init_cache(BATCH, PROMPT + GEN))
         tok = torch.argmax(logits, dim=-1)
+        for layer in moe:
+            layer.record = True
         step_k, _ = model.decode_step(tok, cache)
+        for layer in moe:
+            layer.record = False
+        if moe:
+            _pin_routing(plain, [layer.routing for layer in moe])
         step_p, _ = plain.decode_step(tok, ref_cache)
+    if moe:
+        routing = {"routing_pinned": True, "prefill_unpinned_logits_max_abs_err":
+                   max_err(logits, free),
+                   "prefill_routed_differently_share": sum(
+                       (a["experts"] != b["experts"]).float().mean().item()
+                       for a, b in zip(routes, plain_routes)) / len(routes),
+                   "prefill_dropped_share": sum((r["weights"] == 0).float().mean().item()
+                                                for r in routes) / len(routes)}
     scale = ref.abs().max().item()
     err_prefill, err_step = max_err(logits, ref), max_err(step_k, step_p)
     if not (torch.isfinite(logits).all() and torch.isfinite(step_k).all()) \
@@ -786,7 +837,7 @@ def _served_cell(engine, ids, accel, fa, da, label, **fields):
          peak_mem_gb=peak_gb, prefill_logits_max_abs_err=err_prefill,
          decode_logits_max_abs_err=err_step, ref_logits_max_abs=scale,
          logit_rtol=LOGIT_RTOL,
-         top1_agree=(logits.argmax(-1) == ref.argmax(-1)).float().mean().item())
+         top1_agree=(logits.argmax(-1) == ref.argmax(-1)).float().mean().item(), **routing)
     return launches, loop, step_k, cache
 
 
@@ -926,14 +977,19 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def device_profile(fn, top: int = 6, count: str = None):
+def device_profile(fn, top: int = 6, count: str = None, ranges: dict = None):
     """Run fn() under torch.profiler: host wall ms, device ms summed over
     kernels, the device's idle share of the wall time, device ms by kernel
     category, the device kernels run, the top kernels, the number of host-to-device copies and of
     CUDA graph launches; with ``count``, the number of device kernels whose
-    name matches it. The profiler's own overhead lengthens the wall time."""
+    name matches it; with ``ranges`` ({label: regex}), the device ms of the
+    kernels run under the host events (profiler ranges, autograd nodes)
+    whose name matches each regex. The profiler's own overhead lengthens
+    the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
+    annotation = lambda e: getattr(e, "is_user_annotation", False) or any(
+        re.search(rx, e.key) for rx in (ranges or {}).values())
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -943,7 +999,9 @@ def device_profile(fn, top: int = 6, count: str = None):
     from torch.autograd import DeviceType
 
     dev = lambda e: e.self_device_time_total / 1e3     # us → ms
-    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    # kernels only: a profiler range also shows as a device-side annotation
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not annotation(e)),
                   key=dev, reverse=True)
     device_ms = sum(dev(e) for e in rows)
     by_category = {}
@@ -962,6 +1020,11 @@ def device_profile(fn, top: int = 6, count: str = None):
            "graph_launches": graphs, "graph_events": graph_keys}
     if count:
         out["kernels_matching"] = {count: sum(e.count for e in rows if re.search(count, e.key))}
+    if ranges:
+        host = [e for e in prof.key_averages() if e.device_type != DeviceType.CUDA]
+        out["by_range"] = {label: sum(e.device_time_total / 1e3 for e in host
+                                      if re.search(rx, e.key))
+                           for label, rx in ranges.items()}
     return out
 
 
@@ -1081,10 +1144,13 @@ def serve_small_fp16(init_inference, LlamaModel, cfg, fa, da):
 
 # -------------------------------------------------------------------- train
 def _grads(model, batch):
+    """One loss and its gradients, by name; a weight the loss does not use
+    (a MoE model's odd-block MLP) has none and is left out."""
     model.zero_grad(set_to_none=True)
     loss = model.loss(batch)
     loss.backward()
-    return loss.detach().float(), {n: p.grad.float() for n, p in model.named_parameters()}
+    return loss.detach().float(), {n: p.grad.float() for n, p in model.named_parameters()
+                                   if p.grad is not None}
 
 
 def _rel_l2(a, b) -> float:
@@ -1210,15 +1276,49 @@ def train_sparse_slice(initialize, GPT2Model, cfg, accel, fa):
     return launches, batch
 
 
+def _pin_routing(model, routes) -> None:
+    """Each MoE layer of ``model`` routes as ``routes`` (another path's
+    recorded routing; ``MOELayer.pinned``)."""
+    for layer, r in zip(model.moe, routes):
+        layer.moe_layer.pinned = r
+
+
 def train_check_bf16(GPT2Model, cfg, batch, label, to_plain):
     """One bf16 step's loss and every gradient, kernel path against plain
     path (``to_plain`` swaps the model's attention) on the same weights and
-    batch."""
+    batch. A MoE model's plain path is held with its routing pinned to the
+    kernel path's (``_pin_routing``): top-k routing is discontinuous, and a
+    token the two paths' bf16 roundings send to other experts moves the
+    gate's gradient by far more than the kernels do; the share of such
+    tokens and the unpinned gradients' differences are reported."""
     model = GPT2Model(cfg).init_params(torch.Generator(device="cuda").manual_seed(SEED))
     model.to(dtype=torch.bfloat16)
+    moe = [layer.moe_layer for layer in getattr(model, "moe", ())]
+    for layer in moe:
+        layer.record = True
     loss_k, grads_k = _grads(model, batch)
+    routes = [layer.routing for layer in moe]
     to_plain(model)
     loss_p, grads_p = _grads(model, batch)
+    routing = {}
+    if moe:
+        # the share of tokens the two paths' bf16 roundings send elsewhere,
+        # the unpinned differences, then the plain path on the kernel
+        # path's routing
+        other = [(r["experts"] != layer.routing["experts"]).float().mean().item()
+                 for r, layer in zip(routes, moe)]
+        free = {n: _rel_l2(grads_k[n], grads_p[n]) for n in grads_k}
+        worst_free = max(free, key=free.get)
+        routing = {"routed_differently_share": sum(other) / len(other),
+                   "routed_differently_by_layer": other,
+                   "unpinned_loss_rel_diff": abs(loss_k.item() - loss_p.item()) / abs(
+                       loss_p.item()),
+                   "unpinned_grad_rel_l2_max": free[worst_free],
+                   "unpinned_grad_rel_l2_worst": worst_free, "routing_pinned": True}
+        for layer in moe:
+            layer.record = False
+        _pin_routing(model, routes)
+        loss_p, grads_p = _grads(model, batch)
     rel = {n: _rel_l2(grads_k[n], grads_p[n]) for n in grads_k}
     worst = max(rel, key=rel.get)
     loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -1226,7 +1326,8 @@ def train_check_bf16(GPT2Model, cfg, batch, label, to_plain):
     emit(f"train check {label} bf16", layers=cfg.n_layer, remat=cfg.remat,
          loss_kernel=loss_k.item(), loss_plain=loss_p.item(), loss_rel_diff=loss_rel,
          loss_rtol=TRAIN_LOSS_RTOL, grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst,
-         grad_rel_l2_median=sorted(rel.values())[len(rel) // 2], grad_rtol=TRAIN_GRAD_RTOL)
+         grad_rel_l2_median=sorted(rel.values())[len(rel) // 2], grad_rtol=TRAIN_GRAD_RTOL,
+         **routing)
     if not finite or loss_rel > TRAIN_LOSS_RTOL or rel[worst] > TRAIN_GRAD_RTOL:
         raise AssertionError(f"bf16 kernel path vs plain path: loss rel {loss_rel}, "
                              f"grad {worst} rel {rel[worst]}")
@@ -1571,7 +1672,7 @@ def serve_tag_slice(init_inference, model_cls, cfg, accel, fa, da, save_dir, lab
     per decode step) gives the ungraphed loop's tokens; prefill and one
     decode step agree with the plain path on the same weights within
     LOGIT_RTOL of the largest logit."""
-    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import read_state
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import read_state, unstack_layers
 
     c = dataclasses.replace(cfg, use_flash_decode=True, remat=False)
     torch.cuda.synchronize()
@@ -1582,7 +1683,8 @@ def serve_tag_slice(init_inference, model_cls, cfg, accel, fa, da, save_dir, lab
     load_s = time.perf_counter() - t0
     with open(os.path.join(save_dir, "latest")) as f:
         tag_dir = os.path.join(save_dir, f.read().strip())
-    tag = read_state(tag_dir, ("params",), "cpu")
+    # a MoE tag holds its layers stacked, as the JAX tree
+    tag = unstack_layers(read_state(tag_dir, ("params",), "cpu"), engine.module)
     model = engine.module
     served = dict(model.named_parameters())
     if set(tag) != {f"params/{n}" for n in served} or not all(
@@ -2429,11 +2531,11 @@ def _held_to(losses, ref, label) -> dict:
     return {"loss_rel_to_stage1": rel, "losses_bitwise_equal_to_stage1": losses == ref}
 
 
-def _llama_run(engine_fn, c, batch, accel, fa, label, **fields) -> tuple:
-    """One llama3.2-1b run: the engine ``engine_fn()`` builds (its init
-    seconds and peak), warm-up and timed steps, K1 twice and each K2 entry
-    once per layer and step (remat), and its line. → (engine, losses,
-    launches, line)."""
+def _remat_run(engine_fn, c, batch, accel, fa, label, **fields) -> tuple:
+    """One run under remat (llama3.2-1b's, gpt2-moe-125m's): the engine
+    ``engine_fn()`` builds (its init seconds and peak), warm-up and timed
+    steps, K1 twice and each K2 entry once per layer and step, and its
+    line. → (engine, losses, launches, line)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2443,8 +2545,10 @@ def _llama_run(engine_fn, c, batch, accel, fa, label, **fields) -> tuple:
             "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     losses, step_ms, peak_gb = _timed_steps(engine, batch, accel, (fa.KERNEL, fa.BWD_KERNEL))
     launches = _check_remat_launches(fa, c.n_layer, TRAIN_STEPS, label)
-    line = dict(**_train_line(c, LLAMA_BATCH, LLAMA_SEQ, step_ms, accel), remat=c.remat,
-                layers=c.n_layer, heads=c.n_head, kv_heads=c.n_kv_head, **init,
+    rows, seq = batch["input_ids"].shape
+    line = dict(**_train_line(c, rows, seq, step_ms, accel), remat=c.remat,
+                layers=c.n_layer, heads=c.n_head, kv_heads=getattr(c, "n_kv_head", c.n_head),
+                **init,
                 peak_mem_gb=peak_gb, losses=losses,
                 launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
                 grad_norm=engine.get_global_grad_norm(), lr=engine.get_lr()[0], **fields)
@@ -2475,7 +2579,7 @@ def llama_train_slices(initialize, init_inference, LlamaModel, cfg, accel, fa, d
     launches = {}
     try:
         label = f"train {MODEL}"
-        engine, ref, launches["train_llama"], line = _llama_run(
+        engine, ref, launches["train_llama"], line = _remat_run(
             lambda: initialize(model=LlamaModel(c), config=dict(config))[0], c, batch, accel,
             fa, label)
         emit(label, **line)
@@ -2493,7 +2597,7 @@ def llama_train_slices(initialize, init_inference, LlamaModel, cfg, accel, fa, d
 
         label = f"train {MODEL} zero3"
         zero3 = {**config, "zero_optimization": {"stage": 3}}
-        engine, losses, launches["train_llama_zero3"], line = _llama_run(
+        engine, losses, launches["train_llama_zero3"], line = _remat_run(
             lambda: initialize(model=LlamaModel(c), config=zero3)[0], c, batch, accel, fa,
             label)
         gathers = engine._zero.gathers / (TRAIN_WARMUP + TRAIN_STEPS)
@@ -2516,7 +2620,7 @@ def llama_train_slices(initialize, init_inference, LlamaModel, cfg, accel, fa, d
 
         os.environ["DS_TPU_OFFLOAD_MASTER"] = "host"
         try:
-            engine, losses, launches["offload_llama"], line = _llama_run(
+            engine, losses, launches["offload_llama"], line = _remat_run(
                 build, c, batch, accel, fa, label)
         finally:
             os.environ.pop("DS_TPU_OFFLOAD_MASTER", None)
@@ -2627,6 +2731,104 @@ def bert_train_slices(initialize, BertModel, cfg, accel, fa):
     return launches
 
 
+def _moe_routing(model, n_experts: int) -> dict:
+    """The recorded routing of each MoE layer's last call: ``l_aux``, the
+    share of routed tokens dropped (weight 0), and the largest expert's
+    routed load over the mean."""
+    l_aux, dropped, load = [], [], []
+    for layer in model.moe:
+        r = layer.moe_layer.routing
+        counts = (r["experts"].long()[..., None] == torch.arange(
+            n_experts, device=r["experts"].device)).sum(dim=(0, 1)).float()
+        l_aux.append(r["l_aux"].item())
+        dropped.append((r["weights"] == 0).float().mean().item())
+        load.append((counts.max() / counts.mean()).item())
+    return {"l_aux_mean": sum(l_aux) / len(l_aux), "l_aux_by_layer": l_aux,
+            "dropped_share": sum(dropped) / len(dropped), "dropped_share_by_layer": dropped,
+            "max_load_over_mean": max(load), "max_load_over_mean_by_layer": load,
+            "capacity": model.moe[0].moe_layer.routing["capacity"]}
+
+
+def moe_train_slices(initialize, init_inference, MoECls, cfg, accel, fa, da):
+    """gpt2-moe-125m (the registry's MoEGPT2 on the gpt2-125m preset: 12
+    layers, d 768, 12 heads, V 50257, tied; 8 experts, top-1, capacity
+    factor 1.25, aux coefficient 0.01; remat "full" per pair), B=12 x
+    T=1024, through initialize → train_batch with the training recipe at
+    ZeRO stage 1 (its routing, a profile, its tag saved) and at stage 3
+    over a NCCL group of one (held to stage 1's losses); the 2-layer
+    kernel-vs-plain checks; the tag served through
+    ``init_inference(config={"checkpoint": ...})``. → launches by path."""
+    import gc
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import wait_for_pending_saves
+
+    c = cfg
+    batch = synthetic_lm_batch(MOE_BATCH, MOE_SEQ, c.vocab_size, seed=SEED, device="cuda")
+    root, free = _scratch_dir()
+    tmp = tempfile.mkdtemp(prefix="ds_moe_", dir=root)
+    launches = {}
+    try:
+        label = f"train {MOE_MODEL}"
+        engine, ref, launches["train_moe"], line = _remat_run(
+            lambda: initialize(model=MoECls(c), config=dict(MOE_CONFIG))[0], c, batch, accel,
+            fa, label)
+        model = engine.module
+        for layer in model.moe:
+            layer.moe_layer.record = True
+        engine.train_batch(batch)                  # one more step, its routing kept
+        routing = _moe_routing(model, model.num_experts)
+        for layer in model.moe:
+            layer.moe_layer.record = False
+        n_params = sum(math.prod(p.shape) for p in engine._plan.params)
+        emit(label, **line, experts=model.num_experts, top_k=model.moe[0].gate.k,
+             capacity_factor=model.moe[0].gate.capacity_factor,
+             params_with_experts=n_params,
+             flops_accounting="dense-equivalent: one routed expert per token",
+             **routing)
+        emit(f"profile {label}",
+             step=device_profile(lambda: engine.train_batch(batch), top=12, ranges=MOE_RANGES))
+        save_dir = os.path.join(tmp, "tag")
+        t0 = time.perf_counter()
+        engine.save_checkpoint(save_dir)
+        blocking = time.perf_counter() - t0
+        wait_for_pending_saves()
+        emit(f"save {MOE_MODEL}", blocking_s=blocking, commit_s=time.perf_counter() - t0,
+             tag_bytes=_tree_bytes(save_dir), dir=root, free_bytes=free[root])
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        label = f"train {MOE_MODEL} zero3"
+        comm.init_distributed(init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                              world_size=1, timeout=600)
+        try:
+            zero3 = {**MOE_CONFIG, "zero_optimization": {"stage": 3}}
+            engine, losses, launches["train_moe_zero3"], line = _remat_run(
+                lambda: initialize(model=MoECls(c), config=zero3)[0], c, batch, accel, fa,
+                label)
+            gathers = engine._zero.gathers / (TRAIN_WARMUP + TRAIN_STEPS)
+            emit(label, **line, backend=comm.get_backend(), world=comm.get_world_size(),
+                 zero_stage=3, units=len(engine._plan.units), stage3_gathers_per_step=gathers,
+                 **_held_to(losses, ref, label))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            comm.destroy_process_group()
+
+        small = dataclasses.replace(c, n_layer=2, remat=False)
+        train_check_bf16(MoECls, small, batch, MOE_MODEL, _dense_plain)
+        train_check_fp32(initialize, MoECls, c, MOE_MODEL, MOE_SEQ, {}, _dense_plain)
+
+        launches["serve_moe_tag"] = serve_tag_slice(init_inference, MoECls, c, accel, fa, da,
+                                                    save_dir, f"serve {MOE_MODEL} from its tag")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -2721,10 +2923,12 @@ def main() -> int:
     # bert-large's 64 x 128 and 16 x 512 (16 heads of 64), bf16 and fp16
     model_fwd = {row["name"]: row for row in (check_flash(fa, accel, gen, *case) for case in (
         ("llama_train", LLAMA_BATCH, LLAMA_SEQ, 32, 64, bf, True),
+        ("moe_train", MOE_BATCH, MOE_SEQ, 12, 64, bf, True),
         *((f"bert_s{t}{suffix}", b, t, 16, 64, dt, False)
           for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
     model_bwd = {row["name"]: row for row in (check_flash_bwd(fa, accel, gen, *case) for case in (
         ("llama_train", LLAMA_BATCH * 32, LLAMA_SEQ, 64, bf, True),
+        ("moe_train", MOE_BATCH * 12, MOE_SEQ, 64, bf, True),
         *((f"bert_s{t}{suffix}", b * 16, t, 64, dt, False)
           for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
     S = PROMPT + GEN
@@ -2750,6 +2954,9 @@ def main() -> int:
     gpt2_decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("gpt2_mha_d96", BATCH, S, 16, 16, 96, bf, S - 1),
         ("gpt2_mha_d96_fp16", BATCH, S, 16, 16, 96, f16, S - 1))]
+    # gpt2-moe-125m's serving shape: 12 heads of 64, one per KV head
+    moe_decode_row = check_decode(da, accel, gen, "moe_mha_d64", BATCH, S, 12, 12, 64, bf,
+                                  S - 1)
     # the long caches the split is for, its chunks' edges, and the other types
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     long_chunk = da.decode_chunk(LONG_BATCH, 8, LONG_S, n_sm)
@@ -2816,7 +3023,12 @@ def main() -> int:
     bert_cls, bert_presets = resolve_family(BERT_MODEL)
     model_launches.update(bert_train_slices(deepspeed_tpu_torch.initialize, bert_cls,
                                             bert_presets[BERT_MODEL], accel, fa))
-    trained = {p: n for p, n in model_launches.items() if p != "serve_llama_tag"}
+    moe_cls, moe_presets = resolve_family(MOE_MODEL)
+    model_launches.update(moe_train_slices(deepspeed_tpu_torch.initialize,
+                                           deepspeed_tpu_torch.init_inference, moe_cls,
+                                           moe_presets[MOE_MODEL], accel, fa, da))
+    served = ("serve_llama_tag", "serve_moe_tag")
+    trained = {p: n for p, n in model_launches.items() if p not in served}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bwd = bwd_rows[0]
@@ -2846,10 +3058,10 @@ def main() -> int:
          **{k: decode_rows[0][k] for k in keys},
          "launches_by_path": {"serve": serve_launches["decode_attention"],
                               "serve_gpt2": serve_gpt2_launches["decode_attention"],
-                              "serve_llama_tag":
-                                  model_launches["serve_llama_tag"]["decode_attention"]},
+                              **{p: model_launches[p]["decode_attention"] for p in served}},
          "at_long_shape": {k: long_rows[0][k] for k in keys},
-         "at_gpt2_mha_shape": {k: gpt2_decode_rows[0][k] for k in keys}},
+         "at_gpt2_mha_shape": {k: gpt2_decode_rows[0][k] for k in keys},
+         "at_moe_serving_shape": {k: moe_decode_row[k] for k in keys}},
     ]
     for entry, replaces in (("dq", "deepspeed_tpu/ops/pallas/flash_attention.py:287"),
                             ("dkv", "deepspeed_tpu/ops/pallas/flash_attention.py:313")):

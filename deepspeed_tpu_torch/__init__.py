@@ -9,7 +9,9 @@ passes ``device="cpu"``.
 Ported so far: serving (``init_inference`` → ``InferenceEngine.generate``)
 of the llama and GPT-2 families, from random or given weights or from a
 training tag (``config={"checkpoint": save_dir}``), and training (``initialize`` →
-``DeepSpeedEngine.train_batch``) of the GPT-2 family, with dense or
+``DeepSpeedEngine.train_batch``) of the GPT-2, llama and BERT families
+and of MoE GPT-2 (``moe/``, expert parallelism over the ds_config ``tpu``
+block's ``expert`` axis), with dense or
 block-sparse (ds_config ``sparse_attention``) attention, fed by the data
 loader and the curriculum pipeline, saved to and resumed from verified
 checkpoints, on one process or over a ``torch.distributed`` world
@@ -71,6 +73,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
         from deepspeed_tpu_torch.runtime.zero.infinity import ZeroInfinityEngine
 
+        if hasattr(model, "expert_module_names"):
+            raise NotImplementedError("ZeRO-Infinity (offload_param nvme) of a MoE model: "
+                                      "later slice of the port")
         if optimizer is not None or lr_scheduler is not None:
             raise ValueError("offload_param=nvme (layerwise ZeRO-Infinity) builds its own "
                              "NVMe-swapped optimizer; pass optimizer/scheduler via ds_config, "

@@ -5,10 +5,11 @@ Counterpart of ``deepspeed_tpu/inference/config.py``, key-compatible with it
 keys and aliases (``kernel_inject``, ``tp``, ``tm``, ``max_tokens``,
 ``min_tokens``, ``ckpt_config``, ``injection_dict``), unknown keys rejected.
 ``checkpoint`` (a training save dir or tag dir) with ``checkpoint_config``
-``{"tag": ...}`` serves a training tag. Blocks this slice does not serve
-yet (tensor parallelism, MoE, weight quantization, injection policies, a
-Megatron ``checkpoint_config.type``) raise ``NotImplementedError`` rather
-than being ignored. ``enable_cuda_graph`` is
+``{"tag": ...}`` serves a training tag. The ``moe`` block is read with
+``ep_size`` 1 (a MoE model served in one process). Blocks this slice does
+not serve yet (tensor parallelism, expert parallelism, weight quantization,
+injection policies, a Megatron ``checkpoint_config.type``) raise
+``NotImplementedError`` rather than being ignored. ``enable_cuda_graph`` is
 accepted, as the JAX package accepts it: the engine runs the decode loop as
 one captured CUDA graph on the card whatever the key says, as the JAX engine
 always compiles it into one program.
@@ -49,6 +50,20 @@ class DeepSpeedTPConfig(DeepSpeedConfigModel):
 
 
 @dataclasses.dataclass
+class DeepSpeedMoEConfig(DeepSpeedConfigModel):
+    enabled: bool = True
+    ep_size: int = 1
+    moe_experts: list = field(default_factory=lambda: [1])
+    type: str = "standard"
+
+    def __post_init__(self):
+        if self.ep_size < 1:
+            raise ValueError(f"moe.ep_size must be >= 1, got {self.ep_size}")
+        if self.enabled and self.ep_size > 1:
+            raise _later("expert-parallel serving (moe.ep_size > 1)")
+
+
+@dataclasses.dataclass
 class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     replace_with_kernel_inject: bool = field(default=False, metadata={"alias": "kernel_inject"})
     dtype: str = "bfloat16"
@@ -58,7 +73,7 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     use_triton: bool = False
     zero: dict = field(default_factory=dict)
     triangular_masking: bool = field(default=True, metadata={"alias": "tm"})
-    moe: dict = field(default_factory=dict)
+    moe: DeepSpeedMoEConfig = field(default_factory=DeepSpeedMoEConfig)
     quant: dict = field(default_factory=dict)
     checkpoint: Optional[str] = None
     base_dir: str = ""
@@ -80,7 +95,7 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         if self.mp_size != 1:
             logger.warning("Config parameter mp_size is deprecated. Use tensor_parallel instead.")
             self.tensor_parallel = DeepSpeedTPConfig(tp_size=self.mp_size)
-        for key in ("moe", "quant", "injection_policy", "injection_policy_tuple"):
+        for key in ("quant", "injection_policy", "injection_policy_tuple"):
             if getattr(self, key):
                 raise _later(f"inference config {key!r}")
         kind = str(self.checkpoint_config.get("type", "")).lower().replace("-", "").replace("_", "")
@@ -88,6 +103,10 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
             raise _later(f"serving a {self.checkpoint_config['type']!r} checkpoint "
                          "(model import)")
         self.torch_dtype()
+
+    @property
+    def ep_size(self) -> int:
+        return self.moe.ep_size if self.moe.enabled else 1
 
     @property
     def tp_size(self) -> int:

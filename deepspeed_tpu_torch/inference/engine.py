@@ -29,8 +29,10 @@ KV cache (BERT) serves ``forward`` only: ``generate`` raises
 Weights come from ``params`` (a state dict), else from the training tag of
 the config's ``checkpoint`` (``load_inference_params``: only the tag's
 params, in the serving dtype, on the device), else seed-0 random weights.
-This slice has no tensor parallelism, weight quantization or
-telemetry-observed path; the config rejects those.
+A MoE model (``MoEGPT2``) serves in one process, every expert on the
+card (``ep_world_size`` 1): its gates route each call's tokens alone, with
+the eval capacity factor. This slice has no tensor or expert parallelism,
+weight quantization or telemetry-observed path; the config rejects those.
 """
 
 from __future__ import annotations
@@ -222,6 +224,12 @@ class InferenceEngine:
                  params: Optional[Mapping[str, Any]] = None, device=None):
         self._config = config or DeepSpeedInferenceConfig()
         self.module = model
+        if getattr(model, "ep_size", 1) > 1:
+            raise NotImplementedError("serving a model of expert-parallel size "
+                                      f"{model.ep_size}: later slice of the port")
+        if hasattr(model, "expert_groups"):
+            model.expert_groups = None          # one process routes its own tokens
+        self.ep_world_size = self._config.ep_size
         self.dtype = self._config.torch_dtype()
         self.device = resolve_device(device)
         if params is None and self._config.checkpoint:

@@ -1,1 +1,2 @@
-"""Model families of the port: llama (serving) and GPT-2 (training) so far."""
+"""Model families of the port: GPT-2, MoE GPT-2, llama and BERT, trained and
+served (BERT serves its logits only)."""

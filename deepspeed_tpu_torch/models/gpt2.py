@@ -295,6 +295,11 @@ class GPT2Model(GatheredModule):
         h = self._layer_norm(x, w.ln2_g, w.ln2_b)
         return x + self._mlp(h, w)
 
+    def _layer_finish(self, n: int, x, w, attn):
+        """Layer ``n``'s finish after its attention in the serving walk
+        (``MoEGPT2`` runs its odd layers' MLP through the expert bank)."""
+        return self._block_finish(x, w, attn)
+
     def _block(self, x, blk: GPT2Block):
         c = self.config
         with self._gathered(blk) as w:
@@ -409,7 +414,7 @@ class GPT2Model(GatheredModule):
             with self._gathered(blk) as w:
                 q, k, v = self._block_qkv(x, w)
                 attn = local_causal_attention(q, k, v, c.use_flash_attention)
-                x = self._block_finish(x, w, attn)
+                x = self._layer_finish(n, x, w, attn)
             cache["k"][n, :, :T] = k
             cache["v"][n, :, :T] = v
         logits = self._lm_logits(x[:, -1])
@@ -440,7 +445,7 @@ class GPT2Model(GatheredModule):
                 # kernel takes contiguous rows
                 attn = cached_decode_attention(q[:, 0].contiguous(), k_l, v_l, pos,
                                                c.use_flash_decode)
-                x = self._block_finish(x, w, attn[:, None])
+                x = self._layer_finish(n, x, w, attn[:, None])
         logits = self._lm_logits(x[:, 0])
         return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 

@@ -4,10 +4,13 @@ Counterpart of ``deepspeed_tpu/parallel/topology.py`` (the reference's
 ``deepspeed/runtime/pipe/topology.py``). :class:`ProcessTopology` is the
 same integer math over named axes. The JAX package's ``ParallelGrid`` reads
 axis sizes from a device mesh; here the grid is built over
-``torch.distributed`` process groups, and the port so far has one axis,
-``data``: every rank holds the whole model and ZeRO partitions state over
-the data-parallel group. Pipe, tensor, sequence and expert groups are later
-slices of the port.
+``torch.distributed`` process groups with two axes, ``data`` and
+``expert`` inside it (the JAX axis order: rank ``d * ep + x``). The batch
+is split over both, as ``expert`` is one of the JAX package's
+data-parallel axes, so the data-parallel group is the whole world and ZeRO
+partitions state over it; the ranks that share ``d`` split the experts of
+a MoE layer between them (``utils/groups.py``). Pipe, tensor and sequence
+groups are later slices of the port.
 """
 
 from __future__ import annotations
@@ -17,8 +20,10 @@ from collections import namedtuple
 from typing import List, Sequence
 
 from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.utils import groups
 
 DATA_AXIS = "data"
+EXPERT_AXIS = "expert"
 
 
 class ProcessTopology:
@@ -88,21 +93,40 @@ class ProcessTopology:
 
 class ParallelGrid:
     """The data-parallel part of the reference's ``PipelineParallelGrid``
-    over process groups: one ``data`` axis over the world."""
+    over process groups: the world as ``data`` x ``expert``, the expert
+    axis of size ``ep_size`` (which must divide the world)."""
 
-    def __init__(self):
-        self.topo = ProcessTopology([DATA_AXIS], [comm.get_world_size()])
+    def __init__(self, ep_size: int = 1):
+        world = comm.get_world_size()
+        if ep_size < 1 or world % ep_size:
+            raise ValueError(f"world {world} not divisible by the expert axis {ep_size}")
+        self.topo = ProcessTopology([DATA_AXIS, EXPERT_AXIS], [world // ep_size, ep_size])
         self.global_rank = comm.get_rank()
         self._dp_group = comm.get_world_group()
+        self.expert_groups = groups.initialize(ep_size)
 
     def get_data_parallel_world_size(self) -> int:
-        return self.topo.get_dim(DATA_AXIS)
+        return self.topo.world_size()
 
     def get_data_parallel_rank(self) -> int:
-        return self.topo.get_coord(self.global_rank).data
+        return self.global_rank
 
     def get_data_parallel_group(self):
         return self._dp_group
+
+    def get_expert_parallel_world_size(self) -> int:
+        return self.topo.get_dim(EXPERT_AXIS)
+
+    def get_expert_parallel_rank(self) -> int:
+        return self.topo.get_coord(self.global_rank).expert
+
+    def get_expert_parallel_group(self):
+        """The ranks that share this rank's ``data`` coordinate (None for one)."""
+        return self.expert_groups.ep_group
+
+    def get_expert_data_parallel_group(self):
+        """The ranks that share this rank's ``expert`` coordinate (None for one)."""
+        return self.expert_groups.edp_group
 
     def get_model_parallel_world_size(self) -> int:
         return 1

@@ -13,7 +13,12 @@ Counterpart of ``deepspeed_tpu/runtime/checkpoint_engine/engine.py``, with
 The state is flat, under the keys of the JAX module's ``_flatten_state``:
 ``step``, ``params/<name>``, ``master/<name>``, ``opt_state/<field>[/<name>]``,
 ``scaler/<field>`` and ``skipped_steps``, with ``<name>`` the module's
-parameter name. Each top-level field is one file, so ``load_module_only``
+parameter name, except that a model's ``stacked_modules`` (MoE GPT-2's
+``moe``) are held stacked over their layers as the JAX tree holds them:
+``moe.experts.wi`` (n_moe, E, D, H) for ``moe.<p>.experts.wi`` (the whole
+E experts, gathered over the expert-parallel group at a save and sliced
+again at a load, so a tag of one expert-parallel size loads at another).
+Each top-level field is one file, so ``load_module_only``
 reads only ``params.pt``. The files are written into a temp directory in the
 tag, each fsynced, the commit marker last, and the directory is then renamed
 to ``state``; the sidecars, the manifest and ``latest`` follow in that order,
@@ -96,12 +101,13 @@ def is_emergency_tag(tag_dir: str) -> bool:
 
 def world_signature(engine) -> dict:
     """The placement world a state was saved under, in the JAX package's
-    fields. The port's world is data parallel only: its mesh is one
-    ``data`` axis."""
+    fields: the ``data`` axis, and ``expert`` inside it when above 1."""
     dev = getattr(engine, "device", None)
     count = torch.cuda.device_count() if dev is not None and dev.type == "cuda" else 1
+    ep = int(getattr(engine, "ep_world_size", 1))
+    mesh = [("data", int(engine.dp_world_size) // ep)] + ([("expert", ep)] if ep > 1 else [])
     return {"dp_world_size": int(engine.dp_world_size), "device_count": int(count),
-            "mesh_shape": [("data", int(engine.dp_world_size))]}
+            "mesh_shape": mesh}
 
 
 # model-config facts recorded with a checkpoint and checked on load: the
@@ -155,6 +161,57 @@ def _retry_policy(engine) -> RetryPolicy:
 
 
 # ----------------------------------------------------------- the flat state
+def _layer_key(key: str, prefixes):
+    """``'params/moe.3.experts.wi'`` → (``'params/moe.experts.wi'``, 3) for a
+    stacked module list ``moe`` among ``prefixes``; None for another key."""
+    head, _, name = key.rpartition("/")
+    parts = name.split(".", 2)
+    if len(parts) == 3 and parts[0] in prefixes and parts[1].isdigit():
+        return f"{head}/{parts[0]}.{parts[2]}", int(parts[1])
+    return None
+
+
+def stack_layers(flat: Mapping, module) -> dict:
+    """``flat`` with the per-layer keys of ``module``'s ``stacked_modules``
+    stacked over their layers (in layer order, at the first layer's place);
+    the other keys as they are. Values may be tensors or shapes."""
+    prefixes = tuple(getattr(module, "stacked_modules", ()))
+    if not prefixes:
+        return dict(flat)
+    layers: Dict[str, dict] = {}
+    out = {}
+    for key, v in flat.items():
+        hit = _layer_key(key, prefixes)
+        if hit is None:
+            out[key] = v
+            continue
+        if hit[0] not in layers:
+            out[hit[0]] = None
+            layers[hit[0]] = {}
+        layers[hit[0]][hit[1]] = v
+    for key, by_layer in layers.items():
+        vals = [by_layer[n] for n in range(len(by_layer))]
+        out[key] = torch.stack(vals) if torch.is_tensor(vals[0]) \
+            else (len(vals),) + tuple(vals[0])
+    return out
+
+
+def unstack_layers(flat: Mapping, module) -> dict:
+    """The inverse of :func:`stack_layers`: a stacked key of ``module``'s
+    ``stacked_modules`` becomes one key per layer."""
+    prefixes = tuple(getattr(module, "stacked_modules", ()))
+    out = {}
+    for key, v in flat.items():
+        head, _, name = key.rpartition("/")
+        first, _, rest = name.partition(".")
+        if first in prefixes and rest and not rest.split(".")[0].isdigit():
+            for n in range(v.shape[0]):
+                out[f"{head}/{first}.{n}.{rest}"] = v[n]
+        else:
+            out[key] = v
+    return out
+
+
 def _state_spec(engine):
     """Every key of the flat state, once, in order: ``(key, whole shape,
     source)``, the source ``(tensors, i)`` for parameter ``i`` of a
@@ -165,15 +222,15 @@ def _state_spec(engine):
     spec = [("step", (), lambda: torch.tensor(engine._global_step, dtype=torch.int64))]
     for name, p in engine.module.named_parameters():
         if name in index:
-            spec.append((f"params/{name}", plan.params[index[name]].shape,
-                         (PARAMS, index[name])))
+            spec.append((f"params/{name}", z.whole_shape(index[name]), (PARAMS, index[name])))
         else:
             spec.append((f"params/{name}", tuple(p.shape), lambda p=p: p.detach()))
     if engine._keep_master:
-        spec += [(f"master/{p.name}", p.shape, (z.fp32, i)) for i, p in enumerate(plan.params)]
+        spec += [(f"master/{p.name}", z.whole_shape(i), (z.fp32, i))
+                 for i, p in enumerate(plan.params)]
     for field, v in engine.opt_state.state_dict().items():
         if _per_unit(v):
-            spec += [(f"opt_state/{field}/{p.name}", p.shape, (v, i))
+            spec += [(f"opt_state/{field}/{p.name}", z.whole_shape(i), (v, i))
                      for i, p in enumerate(plan.params)]
         elif v is not None:
             spec.append((f"opt_state/{field}", (),
@@ -216,8 +273,9 @@ def flatten_state(engine, keep: bool = True) -> Dict[str, torch.Tensor]:
                 whole[keys[i]] = t
     if not keep:
         return {}
-    return {key: whole[key] if isinstance(get, tuple)
-            else get().to("cpu", copy=True).contiguous() for key, _, get in spec}
+    return stack_layers({key: whole[key] if isinstance(get, tuple)
+                         else get().to("cpu", copy=True).contiguous() for key, _, get in spec},
+                        engine.module)
 
 
 def state_shapes(engine) -> Dict[str, tuple]:
@@ -225,7 +283,8 @@ def state_shapes(engine) -> Dict[str, tuple]:
     collective."""
     if hasattr(engine, "flat_state_shapes"):
         return engine.flat_state_shapes()
-    return {key: tuple(shape) for key, shape, _ in _state_spec(engine)}
+    return stack_layers({key: tuple(shape) for key, shape, _ in _state_spec(engine)},
+                        engine.module)
 
 
 def _field(key: str) -> str:
@@ -469,6 +528,7 @@ def apply_flat_state(engine, flat: Mapping[str, torch.Tensor], load_module_only:
     if hasattr(engine, "apply_flat_state"):
         engine.apply_flat_state(flat, load_module_only, load_optimizer_states)
         return
+    flat = unstack_layers(flat, engine.module)
     names = engine._param_names
     trained = set(names)
     for name, p in engine.module.named_parameters():
@@ -658,8 +718,8 @@ def load_inference_params(load_dir: str, model, dtype: torch.dtype, device,
         path = _ckpt_dir(load_dir, tag)
     if not os.path.isdir(path):
         raise FileNotFoundError(f"checkpoint {path} not found")
-    params = {key[len("params/"):]: t
-              for key, t in read_state(path, ("params",), "cpu").items()}
+    params = {key[len("params/"):]: t for key, t in
+              unstack_layers(read_state(path, ("params",), "cpu"), model).items()}
     want = {n: tuple(p.shape) for n, p in model.named_parameters()}
     got = {n: tuple(t.shape) for n, t in params.items()}
     if got != want:
@@ -686,8 +746,9 @@ def state_from_jax(flat_numpy: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
     :func:`apply_flat_state`. Layer-stacked leaves (``.../blocks/<key>``, L
     first) become one entry per layer (``.../blocks.<n>.<key>``), as
     every model's ``params_from_jax`` maps the params (GPT-2, llama and
-    BERT tags alike); the other keys keep
-    their names with ``.`` for ``/``. The JAX engine's ``rng`` has no
+    BERT tags alike); the other keys keep their names with ``.`` for
+    ``/``, so a MoE tag's ``moe/...`` leaves stay stacked, as the port's
+    tags hold them. The JAX engine's ``rng`` has no
     counterpart and is dropped. The copy is exact."""
     out = {}
     for key, leaf in flat_numpy.items():

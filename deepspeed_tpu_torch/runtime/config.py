@@ -10,7 +10,8 @@ The port reads ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``zero_optimization``, ``aio``, ``comms_logger``, ``data_types``,
 ``sparse_attention``, ``checkpoint``, ``resilience``, ``data_efficiency``,
 ``curriculum_learning``, ``dataloader_drop_last``, ``steps_per_print``,
-``wall_clock_breakdown``, ``seed`` and the batch keys.
+``wall_clock_breakdown``, ``seed``, the ``tpu`` block's ``data`` and
+``expert`` axes, and the batch keys.
 Every other top-level key the JAX package knows raises
 ``NotImplementedError`` naming it when present, rather than being ignored,
 and so do the parts of a read block that belong to a later slice
@@ -38,7 +39,7 @@ SUPPORTED_KEYS = frozenset({
     "optimizer",
     "scheduler", "gradient_clipping", "sparse_attention", "steps_per_print",
     "wall_clock_breakdown", "seed", "checkpoint", "resilience", "data_efficiency",
-    "curriculum_learning", "dataloader_drop_last",
+    "curriculum_learning", "dataloader_drop_last", "tpu",
     "train_batch_size", "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
@@ -47,7 +48,7 @@ SUPPORTED_KEYS = frozenset({
 # and ADVISORY_NOOP_KEYS): each is a later slice of the port
 LATER_KEYS = frozenset({
     "flops_profiler", "activation_checkpointing", "tensorboard", "wandb",
-    "csv_monitor", "pipeline", "tpu", "elasticity", "hybrid_engine",
+    "csv_monitor", "pipeline", "elasticity", "hybrid_engine",
     "gradient_compression", "compression_training",
     "autotuning", "rewind", "watchdog", "analysis", "telemetry", "profiling",
     "perf", "serving", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
@@ -215,6 +216,45 @@ class ResilienceConfig(DeepSpeedConfigModel):
                                       "fault injector): later slice of the port")
 
 
+@dataclasses.dataclass
+class TPUMeshConfig(DeepSpeedConfigModel):
+    """The ``tpu`` block: the logical axes over the ranks (the JAX
+    package's mesh axes). The port reads ``data`` (-1: what the other axes
+    leave) and ``expert``, the MoE layers' expert-parallel size, which must
+    divide the world. ``dcn_data_parallel`` places the JAX mesh's data axis
+    over the slower links between TPU slices; on CUDA the rank order is
+    the launcher's, and the key parses and changes nothing. ``pipe``,
+    ``seq``, ``tensor``, ``mics`` and ``ici`` above 1 are later slices."""
+    pipe: int = 1
+    data: int = -1
+    mics: int = 1
+    ici: int = 1
+    expert: int = 1
+    seq: int = 1
+    tensor: int = 1
+    dcn_data_parallel: bool = True
+
+    def __post_init__(self):
+        _check_min(self, pipe=(1, False), mics=(1, False), ici=(1, False),
+                   expert=(1, False), seq=(1, False), tensor=(1, False))
+        if self.data != -1 and self.data < 1:
+            raise ValueError(f"TPUMeshConfig.data must be -1 or >= 1, got {self.data}")
+        for axis in ("pipe", "seq", "tensor", "mics", "ici"):
+            if getattr(self, axis) > 1:
+                raise NotImplementedError(f"ds_config tpu.{axis}={getattr(self, axis)}: later "
+                                          "slice of the port")
+
+    def expert_size(self, world: int) -> int:
+        """The expert axis over ``world`` ranks, checked as the JAX mesh
+        build checks its dims."""
+        if world % self.expert:
+            raise ValueError(f"world {world} not divisible by tpu.expert={self.expert}")
+        if self.data != -1 and self.data * self.expert != world:
+            raise ValueError(f"tpu mesh data={self.data} x expert={self.expert} needs "
+                             f"{self.data * self.expert} ranks but {world} are present")
+        return self.expert
+
+
 # data_types.grad_accum_dtype → the type gradients are accumulated in
 GRAD_ACCUM_DTYPES = {None: torch.float32, "fp32": torch.float32, "float32": torch.float32,
                      "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -269,6 +309,7 @@ class DeepSpeedConfig:
                 raise ValueError("Unknown key(s) in the 'sparse_attention' ds_config block: "
                                  f"{format_unknown_key_hints(unknown, SPARSE_ATTENTION_KEYS)}")
         self.checkpoint_config = CheckpointConfig.from_dict(pd.get("checkpoint", {}))
+        self.mesh_config = TPUMeshConfig.from_dict(pd.get("tpu", {}))
         self.checkpoint_tag_validation_enabled = \
             self.checkpoint_config.tag_validation.lower() != "ignore"
         self.checkpoint_tag_validation_fail = \

@@ -41,9 +41,22 @@ embedding (GPT-2's and llama3.2-1b's head, BERT's MLM decoder) is one
 parameter, so its two contributions are summed before they reach the
 buffer.
 
-The model protocol (``models/``: GPT-2, llama, BERT): an ``nn.Module``
-with ``loss(batch)``; ``loss_tokens(batch)``, what the loss averages over
-when ranks may hold different counts (None: every row the same);
+Expert parallelism (the ds_config ``tpu`` block's ``expert`` axis, inside
+``data``: ``parallel/topology.py``, ``utils/groups.py``): the batch is
+split over every rank as before; a MoE model's layers route over the
+global micro-batch and split their experts over the ranks that share a
+``data`` coordinate (``moe/sharded_moe.py``), and each bank of this rank's
+experts is a ZeRO unit of its own, whole on the rank (``runtime/zero/``).
+The gradient norm counts each such unit once: its squares summed over the
+expert-parallel group, the others' over the world.
+
+The model protocol (``models/``: GPT-2, MoE GPT-2, llama, BERT): an
+``nn.Module`` with ``loss(batch)``, which may also take ``generator`` (a
+``torch.Generator`` seeded from the seed, the step and the microbatch, as
+the JAX engine passes its ``rng``) and ``loss_weight`` (the weight the
+engine gives the rank's loss, below); ``loss_tokens(batch)``, what the
+loss averages over when ranks may hold different counts (None: every row
+the same); ``expert_module_names()`` and ``expert_groups`` on a MoE model;
 ``param_chunks(generator)`` or ``init_params(generator)``, its random
 initial values, when its weights are not loaded; and ``param_gatherer``,
 the attribute ZeRO stage 3 and ``offload_param`` set to gather each
@@ -92,6 +105,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import os
 import tempfile
 import weakref
@@ -115,7 +129,7 @@ from deepspeed_tpu_torch.runtime.utils import get_grad_norm
 from deepspeed_tpu_torch.runtime.zero.init import build_state, trainable
 from deepspeed_tpu_torch.runtime.zero.offload import CHUNK_BYTES, HostOffload, host_opt_state
 from deepspeed_tpu_torch.runtime.zero.partition import partition_report
-from deepspeed_tpu_torch.runtime.zero.state import PARAMS
+from deepspeed_tpu_torch.runtime.zero.state import PARAMS, ZeroState
 from deepspeed_tpu_torch.utils import env_flag
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
@@ -156,7 +170,7 @@ class DeepSpeedEngine:
         if mpu is not None:
             raise _later("model parallelism (mpu)")
         self.device = resolve_device(device)
-        self.grid = ParallelGrid()
+        self.grid = ParallelGrid(self._config.mesh_config.expert_size(comm.get_world_size()))
         self._group = self.grid.get_data_parallel_group()   # None: no process group
         if self._group is not None:
             want = "gloo" if self.device.type == "cpu" else "nccl"
@@ -166,6 +180,7 @@ class DeepSpeedEngine:
         self.global_rank = self.grid.get_data_parallel_rank()
         self.dp_world_size = self.grid.get_data_parallel_world_size()
         self.mp_world_size = self.grid.get_model_parallel_world_size()
+        self.ep_world_size = self.grid.get_expert_parallel_world_size()
         self._config._configure_train_batch_size(self.dp_world_size)
         comm.configure(self._config)
 
@@ -174,6 +189,7 @@ class DeepSpeedEngine:
             raise ValueError("model must be an nn.Module with .loss(batch) (the model "
                              "protocol: loss, loss_tokens, param_chunks, param_gatherer)")
         self.module = model
+        self._check_experts(model)
         self.train_dtype = self._config.train_dtype
         self.fp16_enabled = self._config.fp16.enabled
         self.bf16_enabled = self._config.bf16.enabled
@@ -198,7 +214,8 @@ class DeepSpeedEngine:
             model, self.zero_stage, self._config.zero_config.param_persistence_threshold,
             self.train_dtype, self.device, self._config.grad_accum_dtype,
             generator=torch.Generator(device=self.device).manual_seed(self._config.seed),
-            group=self._group, rank=self.global_rank, world=self.dp_world_size, **placement)
+            group=self._group, rank=self.global_rank, world=self.dp_world_size,
+            expert_groups=self.grid.expert_groups, **placement)
         self._plan = self._zero.plan
         self._params: List[torch.nn.Parameter] = self._zero.params
         if any(self._zero.fetched):
@@ -212,6 +229,9 @@ class DeepSpeedEngine:
 
         # ---- optimizer, schedule, loss scaler ----------------------------
         self.optimizer = self._configure_optimizer(optimizer)
+        self._expert_units = [u for u, unit in enumerate(self._plan.units) if unit.ep > 1]
+        if self._expert_units and self.optimizer.per_tensor:
+            raise _later("a per-tensor optimizer (LAMB) with expert parallelism")
         self._offload = None
         if self._nvme_optimizer is not None:
             from deepspeed_tpu_torch.runtime.swap_tensor.optimizer_swapper import SwapUnits
@@ -285,6 +305,26 @@ class DeepSpeedEngine:
                  f"device={self.device}, dp={self.dp_world_size}, "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
                  f"gas={self._config.gradient_accumulation_steps}", ranks=[0])
+
+    def _check_experts(self, model) -> None:
+        """A MoE model: its expert-parallel size and coordinate must be the
+        grid's, and it routes over the engine's groups. Offload, zero.Init
+        and ZeRO-Infinity of a MoE model are later slices."""
+        loss_args = inspect.signature(model.loss).parameters
+        self._loss_kwargs = {k for k in ("generator", "loss_weight") if k in loss_args}
+        if not hasattr(model, "expert_module_names"):
+            return
+        ep = self.grid.get_expert_parallel_world_size()
+        if model.ep_size != ep or model.ep_rank != self.grid.get_expert_parallel_rank():
+            raise ValueError(f"the model holds experts {model.ep_rank} of {model.ep_size}-way "
+                             f"expert parallelism, the engine's grid has tpu.expert={ep} and "
+                             f"this rank at {self.grid.get_expert_parallel_rank()}")
+        zc = self._config.zero_config
+        if zc.offload_optimizer is not None or zc.offload_param is not None:
+            raise _later("offload of a MoE model")
+        if isinstance(getattr(model, "param_gatherer", None), ZeroState):
+            raise _later("zero.Init of a MoE model")
+        model.expert_groups = self.grid.expert_groups
 
     # -------------------------------------------------------------- offload
     def _hbm_bytes(self) -> int:
@@ -434,9 +474,17 @@ class DeepSpeedEngine:
             else:
                 yield take(batch, i)
 
-    def _forward(self, batch):
+    def _forward(self, batch, weight=None, micro: int = 0):
+        """The model's loss of one microbatch, given the generator and the
+        token weight where its ``loss`` takes them."""
+        kwargs = {}
+        if "generator" in self._loss_kwargs:
+            kwargs["generator"] = torch.Generator(device=self.device).manual_seed(
+                (self._config.seed * 1_000_003 + self._global_step) * 1_009 + micro)
+        if weight is not None and "loss_weight" in self._loss_kwargs:
+            kwargs["loss_weight"] = weight
         with self._zero.forward_context():
-            return self.module.loss(batch)
+            return self.module.loss(batch, **kwargs)
 
     def _backward(self, loss) -> None:
         (loss.float() * self._scale()).backward()
@@ -476,7 +524,7 @@ class DeepSpeedEngine:
         finite = bool(grads_finite(grads, self._group).item()) \
             if self.loss_scaler is not None else True
         inv_scale = 1.0 / scale
-        grad_norm = get_grad_norm(grads, group=group) * inv_scale   # unscaled global norm
+        grad_norm = self._grad_norm(grads, group) * inv_scale   # unscaled global norm
         lr = self._lr_at(self._global_step)
         clip = self._config.gradient_clipping
         if self._nvme_optimizer is not None:           # fp16 is refused: always finite
@@ -508,6 +556,23 @@ class DeepSpeedEngine:
         self._last_metrics = metrics
         self._post_step(metrics)
         return metrics
+
+    def _grad_norm(self, grads, group) -> torch.Tensor:
+        """The global L2 norm: each expert unit (whole on each of the ranks
+        that hold its experts) counted once, its squares summed over the
+        expert-parallel group; the other units' over ``group``."""
+        if not self._expert_units:
+            return get_grad_norm(grads, group=group)
+        ex = set(self._expert_units)
+        sq = lambda ts: torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32).square()
+                                     for g in ts]).sum()
+        dense = sq([g for u, g in enumerate(grads) if u not in ex])
+        experts = sq([grads[u] for u in self._expert_units])
+        if group is not None:
+            comm.all_reduce(dense, group=group)
+        if self.grid.get_expert_parallel_group() is not None:
+            comm.all_reduce(experts, group=self.grid.get_expert_parallel_group())
+        return (dense + experts).sqrt()
 
     def _step_nvme(self, grads, grad_norm: float, lr: float) -> None:
         """The NVMe optimizer's step (the JAX ``_train_batch_nvme``): each
@@ -556,7 +621,7 @@ class DeepSpeedEngine:
         weights = self._token_weights(microbatches)
         losses = []
         for i, mb in enumerate(microbatches):
-            loss = self._forward(mb)
+            loss = self._forward(mb, None if weights is None else weights[i], i)
             if weights is not None:
                 loss = loss * weights[i]
             self._backward(loss)
@@ -574,7 +639,8 @@ class DeepSpeedEngine:
         batch = self._to_device(batch)
         weights = self._token_weights([batch])
         self._pending_weight = None if weights is None else weights[0]
-        loss = self._forward(batch)
+        loss = self._forward(batch, self._pending_weight,
+                             self.micro_steps % self._config.gradient_accumulation_steps)
         self.timers(FORWARD_GLOBAL_TIMER).stop()
         return loss
 

@@ -63,7 +63,7 @@ def _rebind_meta(model: torch.nn.Module, device, dtype) -> None:
 def build_state(model: torch.nn.Module, stage: int, persistence_threshold: int,
                 dtype: torch.dtype, device: torch.device, grad_dtype=torch.float32,
                 generator: Optional[torch.Generator] = None, group=None, rank: int = 0,
-                world: int = 1, **placement) -> ZeroState:
+                world: int = 1, expert_groups=None, **placement) -> ZeroState:
     """``model``'s ZeroState at ``stage`` over ``group``, built unit by unit
     in its placement (``placement``: ZeroState's ``fp32_host``,
     ``param_host``, ``pin`` and ``fp32_sink``).
@@ -72,7 +72,9 @@ def build_state(model: torch.nn.Module, stage: int, persistence_threshold: int,
     ``materialize`` of the model (the parts this rank holds; the plans must
     agree), from ``generator`` when the model's weights are not loaded (on
     the meta device), or from the model's weights (broadcast from rank 0).
-    Parameters not trained keep their values, moved to ``device``."""
+    Parameters not trained keep their values, moved to ``device``. With
+    ``expert_groups`` of an expert axis above 1, the modules the model's
+    ``expert_module_names`` names are expert units."""
     named = trainable(model)
     if not named:
         raise ValueError("the model has no trainable parameters")
@@ -80,8 +82,10 @@ def build_state(model: torch.nn.Module, stage: int, persistence_threshold: int,
     made = made if isinstance(made, ZeroState) else None
     shapes = {n: (tuple(made.plan.params[i].shape) if made is not None else tuple(p.shape))
               for i, (n, p, _, _) in enumerate(named)}
+    ep = 1 if expert_groups is None else expert_groups.ep_size
+    experts = getattr(model, "expert_module_names", list)() if ep > 1 else ()
     plan = plan_partition([(n, shapes[n], owner) for n, _, owner, _ in named], stage, world,
-                          persistence_threshold)
+                          persistence_threshold, expert_owners=experts, ep=ep)
     index = {n: i for i, (n, _, _, _) in enumerate(named)}
     meta = any(p.is_meta for p in model.parameters())
     if meta and made is None and not hasattr(model, "param_chunks"):
@@ -108,7 +112,8 @@ def build_state(model: torch.nn.Module, stage: int, persistence_threshold: int,
             p.data = p.data.to(device, dtype if p.is_floating_point() else p.dtype)
     named = trainable(model)
     return ZeroState(plan, [p for _, p, _, _ in named], [m for _, _, _, m in named], chunks,
-                     dtype, grad_dtype, device, group, rank, broadcast=broadcast, **placement)
+                     dtype, grad_dtype, device, group, rank, broadcast=broadcast,
+                     expert_groups=expert_groups, **placement)
 
 
 def _trained_chunks(model, generator, index, shapes) -> Iterator[Chunk]:
@@ -182,6 +187,8 @@ class Init(contextlib.AbstractContextManager):
         if not self.enabled:
             return init_fn(*args, **kwargs)
         model = init_fn if isinstance(init_fn, torch.nn.Module) else init_fn.__self__
+        if hasattr(model, "expert_module_names"):
+            raise NotImplementedError("zero.Init of a MoE model: later slice of the port")
         generator = args[0] if args else kwargs["generator"]
         device = resolve_device(self.device)
         grid = ParallelGrid()

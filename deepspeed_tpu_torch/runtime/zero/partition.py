@@ -26,6 +26,14 @@ plan's ``min_size``); every other unit's are gathered before its module
 runs. Padding is zero and stays zero: no gradient reaches it, so no
 optimizer moves it, and no checkpoint holds it.
 
+Expert units: with an expert axis above 1 (``ep``), each MoE layer's
+bank of this rank's ``E / ep`` experts is one unit that stays whole on its
+rank at every stage and is never gathered, as the JAX plan leaves a tensor
+already sharded over a data-parallel axis (the expert-stacked weights).
+Its gradient is summed over the ranks that hold the same experts and
+divided by the world (``state.py``). At ``ep`` 1 the bank is an ordinary
+unit, partitioned over the world as the JAX plan shards it over ``data``.
+
 Where the two plans differ: the threshold is held against each layer's
 tensor here, as the reference holds it against each parameter, where the
 JAX package holds it against the layer-stacked tensor; and a tensor none of
@@ -66,6 +74,8 @@ class Unit:
     length: int               # padded length, a multiple of ALIGN * world
     shard: int                # length // world: what each rank owns
     partitioned: bool         # gathered before use (stage 3)
+    sharded: bool = False     # fp32 masters, optimizer state and gradients (stage >= 1)
+    ep: int = 1               # > 1: an expert unit, whole on its rank, this rank's E / ep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +95,8 @@ class ZeroPlan:
         within rank ``rank``'s shard of its unit."""
         out = []
         for i, p in enumerate(self.params):
-            s = rank * self.units[p.unit].shard
+            # an expert unit is this rank's whole
+            s = rank * self.units[p.unit].shard if self.units[p.unit].ep == 1 else 0
             lo, hi = max(p.offset, s), min(p.offset + p.numel, s + self.units[p.unit].shard)
             if lo < hi:
                 out.append((i, p.unit, lo - s, hi - s))
@@ -93,9 +104,12 @@ class ZeroPlan:
 
 
 def plan_partition(params: Sequence[Tuple[str, Sequence[int], str]], stage: int, world: int,
-                   persistence_threshold: int = 100_000) -> ZeroPlan:
+                   persistence_threshold: int = 100_000, expert_owners=(),
+                   ep: int = 1) -> ZeroPlan:
     """The placement of ``params``, (name, shape, owning module's name)
-    triples in the engine's order, at ZeRO ``stage`` over ``world`` ranks."""
+    triples in the engine's order, at ZeRO ``stage`` over ``world`` ranks;
+    the modules ``expert_owners`` hold this rank's experts of an expert
+    axis of ``ep`` (expert units when ``ep`` > 1)."""
     if not 0 <= stage <= 3:
         raise ValueError(f"ZeRO stage must be 0..3, got {stage}")
     if world < 1:
@@ -106,28 +120,34 @@ def plan_partition(params: Sequence[Tuple[str, Sequence[int], str]], stage: int,
         for d in shape:
             n *= int(d)
         numels.append(n)
-    persistent = [i for i, n in enumerate(numels) if stage == 3 and n < persistence_threshold]
+    experts = set(expert_owners) if ep > 1 else set()
+    persistent = [i for i, n in enumerate(numels) if stage == 3 and n < persistence_threshold
+                  and params[i][2] not in experts]
     groups = [("persistent", persistent, False)] if persistent else []
     by_module = {}
     for i, (_, _, owner) in enumerate(params):
-        if stage < 3 or numels[i] >= persistence_threshold:
+        if i not in persistent:
             by_module.setdefault(owner, []).append(i)
-    groups += [(owner, idx, stage == 3) for owner, idx in by_module.items()]
+    groups += [(owner, idx, stage == 3 and owner not in experts)
+               for owner, idx in by_module.items()]
 
     placements: List[Optional[ParamPlacement]] = [None] * len(params)
     units = []
     for u, (name, idx, partitioned) in enumerate(groups):
+        expert = name in experts
+        sharded = stage >= 1 and not expert
         off = 0
         for i in idx:
             pname, shape, _ = params[i]
             placements[i] = ParamPlacement(
                 name=pname, shape=tuple(int(d) for d in shape), numel=numels[i], unit=u,
-                offset=off, partitioned=partitioned, master_partitioned=stage >= 1,
-                grad_partitioned=stage >= 2)
+                offset=off, partitioned=partitioned, master_partitioned=sharded,
+                grad_partitioned=sharded and stage >= 2)
             off = _round_up(off + numels[i], ALIGN)
-        length = _round_up(max(off, 1), ALIGN * world)
+        length = _round_up(max(off, 1), ALIGN * (1 if expert else world))
         units.append(Unit(name=name, params=tuple(idx), length=length,
-                          shard=length // world, partitioned=partitioned))
+                          shard=length if expert else length // world, partitioned=partitioned,
+                          sharded=sharded, ep=ep if expert else 1))
     return ZeroPlan(stage=stage, world=world, params=tuple(placements), units=tuple(units))
 
 
@@ -141,6 +161,10 @@ def partition_report(plan: ZeroPlan) -> str:
     msg = (f"ZeRO stage {plan.stage}: {total / 1e6:.1f}M params, {what[plan.stage]}; "
            f"{100.0 * sharded / max(1, total):.1f}% of the params partitioned over "
            f"{plan.world} rank(s) in {len(plan.units)} unit(s)")
+    experts = [u for u in plan.units if u.ep > 1]
+    if experts:
+        msg += (f"; {len(experts)} expert unit(s) of {experts[0].ep}-way expert parallelism "
+                "whole on each rank")
     if plan.world == 1 and plan.stage > 0:
         msg += (" (a world of one: each partition is the whole, and the collectives "
                 "still run)")

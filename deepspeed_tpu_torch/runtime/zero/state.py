@@ -43,9 +43,19 @@ the unit again when it unpacks one (keeping the last unit gathered in
 backward until another is asked for).
 A block under activation checkpointing gathers again when it is recomputed.
 
+Expert units (``partition.py``; an expert axis above 1): the unit of this
+rank's experts of a MoE layer stays whole on the rank at every stage, as
+its fp32 values and optimizer state do. Its gradient is summed over the
+expert-data-parallel group (the ranks holding the same experts) and
+divided by the world, the gradient of the world's mean loss: each owner's
+experts already received, through the dispatch all-to-all's backward, the
+gradients of every token its expert-parallel group routed to them.
+
 Checkpoints: ``to_host`` copies whole per-parameter tensors to the host
-one unit at a time, gathering each partitioned unit; ``load`` gives each
-rank its part of whole tensors, one unit at a time. Both first wait for
+one unit at a time, gathering each partitioned unit (an expert unit over
+the expert-parallel group, its experts concatenated in order); ``load``
+gives each rank its part of whole tensors, one unit at a time (its slice
+of the experts of an expert unit). Both first wait for
 the card when state lives in host memory (``host_sync``).
 
 The buffers are built unit by unit from chunks of the parameters' values
@@ -125,15 +135,19 @@ class ZeroState:
     persistent unit stays on the card). Host tensors are pinned when
     ``pin``. ``fp32_sink(u, tensor)``, when given, takes each unit's fp32
     part as soon as it is complete in place of keeping it (the NVMe
-    optimizer's files), and ``fp32`` then holds None."""
+    optimizer's files), and ``fp32`` then holds None. ``expert_groups``:
+    the engine's ``utils.groups.ExpertGroups``, for a plan with expert
+    units."""
 
     def __init__(self, plan: ZeroPlan, params: Sequence[torch.nn.Parameter],
                  owners: Sequence[torch.nn.Module], chunks: Iterable[Chunk],
                  dtype: torch.dtype, grad_dtype: torch.dtype, device: torch.device,
                  group=None, rank: int = 0, *, broadcast: bool = True, fp32_host: bool = False,
                  param_host: bool = False, pin: bool = False,
-                 fp32_sink: Optional[Callable[[int, torch.Tensor], None]] = None):
+                 fp32_sink: Optional[Callable[[int, torch.Tensor], None]] = None,
+                 expert_groups=None):
         self.plan = plan
+        self.expert_groups = expert_groups
         self.params = list(params)
         self.stage = plan.stage
         self.sharded = self.stage >= 1
@@ -173,7 +187,7 @@ class ZeroState:
             and in the compute type."""
             unit = plan.units[u]
             shard = (rank * unit.shard, (rank + 1) * unit.shard)
-            return (shard if self.sharded else (0, unit.length),
+            return (shard if unit.sharded else (0, unit.length),
                     shard if unit.partitioned else (0, unit.length))
 
         def overlap(a, b):
@@ -190,8 +204,14 @@ class ZeroState:
                 u = p.unit
                 t = t.detach().reshape(-1).to(device, torch.float32)
                 if broadcast and group is not None:
+                    # an expert unit's values are this rank's experts: from
+                    # the first rank that holds the same ones
                     t = t.contiguous()
-                    comm.broadcast(t, src=0, group=group)
+                    if plan.units[u].ep == 1:
+                        comm.broadcast(t, src=0, group=group)
+                    elif expert_groups.edp_group is not None:
+                        comm.broadcast(t, src=expert_groups.edp_ranks[0],
+                                       group=expert_groups.edp_group)
                 (f_lo, f_hi), (c_lo, c_hi) = kept(u)
                 if u not in self.whole and u not in self.parts:
                     self.fp32[u] = zeros(f_hi - f_lo, torch.float32, fp32_host)
@@ -247,6 +267,13 @@ class ZeroState:
         n = self.plan.units[u].shard
         return unit_buf[self.rank * n:(self.rank + 1) * n]
 
+    def whole_shape(self, i: int) -> tuple:
+        """Parameter ``i``'s whole shape: an expert unit's parameters hold
+        this rank's E / ep of the experts on dim 0."""
+        p = self.plan.params[i]
+        ep = self.plan.units[p.unit].ep
+        return p.shape if ep == 1 else (p.shape[0] * ep,) + tuple(p.shape[1:])
+
     def segments(self):
         """(param index, unit, start, end) of each parameter's elements in
         ``fp32[unit]``."""
@@ -289,11 +316,21 @@ class ZeroState:
         if n >= (self._due.get(u, 0) if self.fetched[u] else len(unit.params)):
             self._reduce(u)
 
+    def _reduce_expert(self, buf: torch.Tensor) -> torch.Tensor:
+        """An expert unit's gradient: the sum over the ranks that hold the
+        same experts, over the world."""
+        if self.expert_groups.edp_group is not None:
+            comm.all_reduce(buf, group=self.expert_groups.edp_group)
+        return buf.div_(self.plan.world)
+
     def _reduce(self, u: int) -> None:
         """Unit ``u``'s buffer, averaged over the group, added into the
-        rank's gradient shard; the buffer freed."""
+        rank's gradient shard; the buffer freed. An expert unit's is
+        reduced whole (:meth:`_reduce_expert`)."""
         buf = self._grads.pop(u)
-        if self.group is None:
+        if self.plan.units[u].ep > 1:
+            part = self._reduce_expert(buf)
+        elif self.group is None:
             part = buf
         else:
             part = torch.empty(self.plan.units[u].shard, dtype=buf.dtype, device=self.device)
@@ -327,7 +364,9 @@ class ZeroState:
                 g = self._grads.pop(u, None)
                 if g is None:
                     g = torch.zeros(unit.length, dtype=self.grad_dtype, device=self.device)
-                if self.group is not None:
+                if unit.ep > 1:
+                    self._reduce_expert(g)
+                elif self.group is not None:
                     comm.all_reduce(g, op=comm.ReduceOp.AVG, group=self.group)
             else:
                 g = self._shard_grads.pop(u, None)
@@ -346,7 +385,7 @@ class ZeroState:
         they must be gathered over the group (:meth:`store_params`)."""
         if self.fetched[u] and self.plan.units[u].partitioned:
             return self.parts[u]
-        if self.sharded and self.group is not None:
+        if self.plan.units[u].sharded and self.group is not None:
             return None
         return self.parts[u] if self.fetched[u] else self.whole[u]
 
@@ -462,10 +501,18 @@ class ZeroState:
         """Unit ``u``'s whole flat buffer of ``source``, gathered where it is
         partitioned (a collective)."""
         unit = self.plan.units[u]
+        if unit.ep > 1:
+            part = self.whole[u] if isinstance(source, str) else source[u]
+            if self.expert_groups.ep_group is None:
+                return part
+            buf = torch.empty(unit.ep * unit.length, dtype=part.dtype, device=self.device)
+            comm.all_gather_into_tensor(buf, part.to(self.device),
+                                        group=self.expert_groups.ep_group)
+            return buf
         if isinstance(source, str):
             return self._gather(u, live=False) if self.fetched[u] else self.whole[u]
         part = source[u]
-        if not self.sharded or self.group is None:
+        if not unit.sharded or self.group is None:
             return part
         part = part.to(self.device)               # a host part (offload) gathers on the card
         buf = torch.empty(unit.length, dtype=part.dtype, device=self.device)
@@ -483,9 +530,13 @@ class ZeroState:
         for u, unit in enumerate(self.plan.units):
             buf = self._whole_unit(source, u)
             if keep:
+                # an expert unit's buffer is the ep ranks' parts in order
+                n = buf.numel() // unit.length
                 for i in unit.params:
-                    out[i] = self._view(buf, i).to("cpu", copy=True)
-            del buf
+                    out[i] = (self._view(buf, i) if n == 1 else torch.cat(
+                        [self._view(buf[j * unit.length:], i) for j in range(n)])).to(
+                            "cpu", copy=True)
+            del buf                 # before the next unit's gather
         return out
 
     @torch.no_grad()
@@ -500,11 +551,15 @@ class ZeroState:
                 dst = self.parts[u] if self.fetched[u] else self.whole[u]
                 part = unit.partitioned
             else:
-                dst, part = (None if hasattr(source, "write_unit") else source[u]), self.sharded
+                dst, part = (None if hasattr(source, "write_unit") else source[u]), unit.sharded
             dtype = torch.float32 if dst is None else dst.dtype
             buf = torch.zeros(unit.length, dtype=dtype, device=tensors[unit.params[0]].device)
             for i in unit.params:
-                self._view(buf, i).copy_(tensors[i])
+                t = tensors[i]
+                if unit.ep > 1:                     # this rank's experts
+                    n = self.plan.params[i].shape[0]
+                    t = t.narrow(0, self.expert_groups.ep_rank * n, n)
+                self._view(buf, i).copy_(t)
             value = self._shard(buf, u) if part else buf
             if dst is None:
                 source.write_unit(u, value)

@@ -16,7 +16,8 @@ rows carrying several times the odd rows' labels) is what the port is
 held to at 1e-4, in one process and over two spawned gloo ranks at ZeRO
 stages 1 and 3, whose label counts differ. A BERT model given to
 ``init_inference`` serves its logits and refuses ``generate``, as the JAX
-engine does; the registry resolves ``bert-*`` and refuses ``gpt2-moe-*``.
+engine does; the registry resolves ``bert-*`` and ``gpt2-moe-*`` (MoEGPT2
+with 8 experts on the dense preset) and refuses a family not yet ported.
 The JAX engine's flat state (what its tag holds) continues in the port
 through ``state_from_jax``, and a tag the port trains serves bit for bit.
 
@@ -270,8 +271,14 @@ def test_registry_resolves_bert_and_refuses_gpt2_moe():
     c = presets["bert-large"]
     assert (c.n_embd, c.n_layer, c.n_head, c.head_dim, c.layer_norm_eps) == \
         (1024, 24, 16, 64, 1e-12)
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.models.gpt2_moe import MoEGPT2
+
+    moe_cls, moe_presets = resolve_family("gpt2-moe-125m")
+    assert moe_cls.func is MoEGPT2 and moe_cls.keywords == {"num_experts": 8, "ep_size": 1}
+    assert moe_presets == {"gpt2-moe-125m": gpt2.PRESETS["gpt2-125m"]}
     with pytest.raises(NotImplementedError, match="later slice"):
-        resolve_family("gpt2-moe-125m")
+        resolve_family("clip-vit-b16")
     with pytest.raises(KeyError):
         resolve_family("bert-huge")
 

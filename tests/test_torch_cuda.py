@@ -34,7 +34,10 @@ straight into a pinned tensor. The last tests run the flash kernels at
 llama3.2-1b's training shape (causal) and bert-large's (non-causal, bf16
 and fp16), a BERT step through the non-causal kernels (and, with an
 attention_mask, through none), a BERT fp16 LAMB run through the engine,
-and a grouped-KV llama step under remat.
+and a grouped-KV llama step under remat. The MoE tests run the flash
+kernels at gpt2-moe-125m's training shape, a MoE GPT-2 step under remat
+per pair through the kernels against the plain path, and its graphed
+decode loop (the gate captured with the step) against the eager loop.
 """
 
 import dataclasses
@@ -1006,10 +1009,13 @@ def test_flash_kernels_at_the_llama_and_bert_training_shapes(gen, BH, T, causal,
 
 
 def _model_step(model, batch):
+    """One loss and the gradients by name (a weight the loss does not use,
+    a MoE model's odd-block MLP, has none and is left out)."""
     model.zero_grad(set_to_none=True)
     loss = model.loss(batch)
     loss.backward()
-    return loss.detach().float(), {n: p.grad.float() for n, p in model.named_parameters()}
+    return loss.detach().float(), {n: p.grad.float() for n, p in model.named_parameters()
+                                   if p.grad is not None}
 
 
 def _kernel_vs_plain(model, batch):
@@ -1076,3 +1082,51 @@ def test_llama_grouped_kv_step_runs_the_kernels(gen):
     batch = gpt2.synthetic_lm_batch(4, 256, cfg.vocab_size, device="cuda")
     launches, loss_rel, grad_rel = _kernel_vs_plain(model, batch)
     assert launches == (4, 2, 2) and loss_rel <= 1e-2 and grad_rel <= 1e-1
+
+
+# ------------------------------------------------------------------- MoE
+def _moe_model(gen, dtype, **over):
+    from deepspeed_tpu_torch.models.gpt2_moe import MoEGPT2
+
+    cfg = gpt2.GPT2Config(vocab_size=1024, n_positions=256, n_embd=256, n_layer=4, n_head=4,
+                          dtype=dtype, **over)
+    return MoEGPT2(cfg, num_experts=8).init_params(gen).to(dtype)
+
+
+def test_flash_kernels_at_the_moe_training_shape(gen):
+    _flash_kernels(gen, 12 * 12, 1024, 1024, 64, torch.bfloat16, True)   # gpt2-moe-125m
+
+
+def test_moe_step_runs_the_kernels(gen):
+    """A 4-layer bf16 MoE GPT-2 (two dense/MoE pairs, 8 experts, top-1)
+    under remat per pair: K1 twice per layer, each K2 entry once, the
+    plain path agreeing (loss 1%, gradients 10% in L2) when it routes as
+    the kernel path did (``MOELayer.pinned``: a token the two roundings
+    send to another expert moves the gate's gradient by more than the
+    kernels do), and the odd blocks' MLP weights without a gradient."""
+    model = _moe_model(gen, torch.bfloat16, remat="full")
+    batch = gpt2.synthetic_lm_batch(4, 256, 1024, device="cuda")
+    layers = [layer.moe_layer for layer in model.moe]
+    for layer in layers:
+        layer.record = True
+    _model_step(model, batch)
+    for layer in layers:
+        layer.record, layer.pinned = False, layer.routing
+    launches, loss_rel, grad_rel = _kernel_vs_plain(model, batch)
+    assert launches == (8, 4, 4) and loss_rel <= 1e-2 and grad_rel <= 1e-1
+    for layer in layers:
+        layer.pinned = None
+    _, grads = _model_step(model, batch)
+    assert not {n for n in grads if n.startswith(("blocks.1.fc", "blocks.3.fc"))}
+
+
+def test_moe_graphed_decode_equals_the_eager_loop(gen):
+    """The MoE decode step (gate, dispatch, experts, combine) captured in
+    the decode graph gives the eager loop's greedy tokens."""
+    model = _moe_model(gen, torch.bfloat16, use_flash_decode=True)
+    eng = deepspeed_tpu_torch.init_inference(model, {"dtype": "bfloat16",
+                                                     "max_out_tokens": 256})
+    ids = torch.randint(0, 1024, (16, 40), generator=gen, device="cuda")
+    out = eng.generate(ids, max_new_tokens=24)
+    again = eng.generate(ids, max_new_tokens=24)
+    assert torch.equal(out, again) and torch.equal(out, _eager_loop(eng, ids, 24))
