@@ -74,7 +74,17 @@ dispatch, experts and combine as ranges of their own, its tag saved;
 ``... zero3`` over a NCCL group of one, its losses held to stage 1's; the
 2-layer kernel-vs-plain checks (with the share of tokens the two bf16
 paths route to other experts); ``serve gpt2-moe-125m from its tag`` (12 K1
-per ``generate``, 12 K3 per decode step). Each phase prints one JSON line with the seconds
+per ``generate``, 12 K3 per decode step). Last, ``serve sd1.5`` serves the
+stable-diffusion stack at its published widths in bf16 through
+``init_inference``: CLIP ViT-L/14's text tower encodes 2 prompts and their
+unconditional rows (12 causal K1 at T = 77), SD-1.5's UNet runs 4 guided
+steps on a 64 x 64 latent through ``engine.forward(sample, t, context)`` (32
+K1 a forward: head dims 40, 80 and 160, self-attention and cross-attention
+over 77 keys), the VAE decodes the latents (K1 at head dim 512) and its
+engine round-trips one 512 x 512 image; the K1 calls by shape, the outputs
+against the same models with the plain attention, ms per forward and a
+profile of one UNet forward; ``check sd1.5 fp32 2-block`` holds two UNet
+blocks, a two-block VAE and two CLIP layers in fp32 to the plain path. Each phase prints one JSON line with the seconds
 since the start (``at_s``); any failed check raises, and the script exits
 non-zero without the final line. It needs one card and imports nothing of
 JAX or of the JAX package.
@@ -94,6 +104,7 @@ the host clock from the call to the loss on the host, step by step after
 warm-up steps; the median is reported with every step's time.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -151,18 +162,23 @@ SPARSE_BLOCK = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
 # presets' own), bf16 with fp32 masters, ZeRO stage 1 without a process group
 OFFLOAD_MODEL, CAPACITY_MODEL = "gpt2-2.7b", "gpt2-6.7b"
 OFFLOAD_BATCH, OFFLOAD_SEQ = 4, 2048
-# the five gpt2-2.7b offload runs at half the preset's depth (full width):
-# the script's time limit stays while it grows, and each run's placement
-# and policy are the same at 16 layers as at 32
-OFFLOAD_LAYERS = 16
+# the five gpt2-2.7b offload runs at a quarter of the preset's depth (full
+# width): the script's time limit stays while it grows, and each run's
+# placement and policy are the same at 8 layers as at 32
+OFFLOAD_LAYERS = 8
 OFFLOAD_CONFIG = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": OFFLOAD_BATCH}
 OFFLOAD_KNOBS = ("DS_TPU_OFFLOAD_MASTER", "DS_TPU_FORCE_STREAMED_OFFLOAD",
                  "DS_TPU_OFFLOAD_CHUNK_BYTES", "DS_TPU_OFFLOAD_OVERLAP")
 HOST_BYTES_PER_PARAM = 12           # fp32 master and two fp32 moments in host memory
 HOST_MARGIN = 6e9                   # host memory left for the run beside that state
-MIN_CAPACITY_LAYERS = 21            # 18 B/param on the card still exceeds 80 GB here
-# the NVMe phases: gpt2-2.7b's width at 4 layers; the swap through 8 I/O threads
-NVME_LAYERS, NVME_WARMUP, NVME_STEPS = 4, 1, 2
+# gpt2-6.7b at the fewest layers whose 18 B/param (bf16 params, fp32
+# master, moments and gradients) exceed the card's 85.5 GB (80 GiB): the
+# model the card cannot hold, in the least time
+CAPACITY_LAYERS = 23
+# the NVMe phases: gpt2-2.7b's width at 2 layers (the script's time limit
+# stays while it grows; the swap's placement and policy are the same at 2
+# layers as at 4); the swap through 8 I/O threads
+NVME_LAYERS, NVME_WARMUP, NVME_STEPS = 2, 1, 2
 NVME_AIO = {"block_size": 1 << 20, "thread_count": 8}
 AIO_COUNTS = ("direct_chunks", "buffered_chunks", "direct_bytes", "buffered_bytes")
 NVME_FP32 = dict(layers=2, batch=2, seq=1024, steps=3)
@@ -194,6 +210,22 @@ MOE_CONFIG = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": MOE_BATCH,
 MOE_RANGES = {"gate": r"^moe_gate$", "dispatch": r"^moe_dispatch$",
               "experts": r"^moe_experts$", "combine": r"^moe_combine$",
               "bmm backward": r"BmmBackward0$", "gather backward": r"IndexBackward0$"}
+
+# the stable-diffusion serving phase: SD-1.5's UNet and VAE
+# (runwayml/stable-diffusion-v1-5 unet/ and vae/config.json, the JAX
+# package's defaults) and CLIP ViT-L/14's text tower
+# (openai/clip-vit-large-patch14), bf16 with seed-0 random weights through
+# init_inference. One request: SD_PROMPTS prompts with classifier-free
+# guidance (a conditional and an unconditional row each), SD_STEPS UNet steps
+# on a 64 x 64 latent (512 x 512 images), the VAE's decode of the latents, and
+# the VAE engine's round trip of one image. The update between steps stands
+# in for a scheduler (the JAX package has none).
+SD_PROMPTS, SD_STEPS, SD_LATENT, SD_TOKENS = 2, 4, 64, 77
+SD_GUIDANCE, SD_STEP_SIZE = 7.5, 0.1
+SD_TIMED = 5                        # timed forwards of each model, after the request
+CLIP_L14 = dict(vocab_size=49408, n_positions=77, n_embd=768, n_layer=12, n_head=12,
+                activation="quick_gelu", remat=False)
+CLIP_BOS, CLIP_EOS = 49406, 49407   # the tokenizer's; SD-1.5 pads with EOS
 
 # tolerances, with their reasons
 # kernel vs plain fp32 on the same inputs: a bf16 or fp16 output carries its
@@ -231,6 +263,12 @@ TRAIN_GRAD_RTOL = 1e-1
 # its own norm measures that noise (3.5e-3 on blocks.0.qkv_b on an H100), not
 # the kernels.
 FP32_RTOL = 1e-4
+# SD-1.5's bf16 outputs (CLIP's hidden states, the UNet's noise prediction,
+# the VAE's images), kernel path vs the same model with the plain attention,
+# as a share of the output's largest |value|: the plain path rounds scores
+# and probabilities to bf16, the kernel keeps them in fp32. The fp32 2-block
+# models are held to FP32_RTOL of their largest |value|.
+SD_RTOL = 5e-2
 # the fp32 2-layer NVMe runs against the engine in memory: the same model
 # path, AdamW on the host (fused multiply-adds of the CPU) against the card's
 FP32_NVME_RTOL = 1e-5
@@ -291,7 +329,8 @@ def _instance_name(mangled: str):
 def ptxas_summary(log: str) -> dict:
     """Most registers and total spill-store bytes over the kernel's
     template instances, from nvcc's -Xptxas -v report; for each
-    tensor-core instance (``*_mma_kernel<type, D>``) its registers and
+    tensor-core instance (``*_mma_kernel<type, D>``, the forward's
+    ``flash_fwd_wide_kernel<type, 512>``) its registers and
     spill-store bytes, and every instance that spills, by name."""
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
@@ -310,7 +349,7 @@ def ptxas_summary(log: str) -> dict:
            "spill_store_bytes": sum(spills),
            "spilling": {n: v["spill_store_bytes"] for n, v in per.items()
                         if v["spill_store_bytes"]}}
-    mma = {n: v for n, v in per.items() if "_mma_kernel<" in n}
+    mma = {n: v for n, v in per.items() if re.search(r"_(mma|wide)_kernel<", n)}
     if mma:
         out["mma_instances"] = mma
     return out
@@ -324,6 +363,14 @@ def max_err(a, b) -> float:
 def _pairs(t_q: int, t_k: int, causal: bool) -> int:
     """Visible (query, key) pairs of one head, top-left causal."""
     return sum(min(i + 1, t_k) for i in range(t_q)) if causal else t_q * t_k
+
+
+def sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend PyTorch's SDPA dispatch picks for these inputs (its
+    flash backend refuses head dims past 256)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0, causal, scale=1.0)).name
 
 
 def check_flash(fa, accel, gen, name, B, T, H, D, dtype, causal, Tk=None):
@@ -360,7 +407,8 @@ def check_flash(fa, accel, gen, name, B, T, H, D, dtype, causal, Tk=None):
         is_causal=causal, scale=1.0)
     row = {"name": name, "shape": [B, T, H, D], "t_k": Tk, "dtype": str(dtype),
            "causal": causal, "max_abs_err": err_o, "lse_max_abs_err": err_lse, "tol": tol,
-           "bitwise_repeat": repeat,
+           "bitwise_repeat": repeat, "library_backend": sdpa_backend(
+               q.view(B, H, T, D), k.view(B, H, Tk, D), v.view(B, H, Tk, D), causal),
            "ms": time_ms(lambda q, k, v: fa.flash_forward(q, k, v, causal), sets),
            "plain_ms": time_ms(lambda q, k, v: fa.mha_reference_lse(q, k, v, causal), sets),
            "library_ms": time_ms(sdpa, sets), "bound_ms": b_ms, "bound_by": b_by}
@@ -967,11 +1015,17 @@ def serve_sampled(init_inference, LlamaModel, cfg, da):
 
 
 def kernel_category(name: str) -> str:
-    """Coarse owner of a device kernel, by its name."""
+    """Coarse owner of a device kernel, by its name: the port's attention
+    kernels, the convolutions (cuDNN, their layout transforms included),
+    cuBLAS products, the group norms' statistics, the other torch kernels."""
     if re.search(r"flash_fwd_|flash_bwd_|decode_|sparse_fwd_|sparse_bwd_", name):
         return "port attention kernels"
+    if re.search(r"fprop|dgrad|conv|cudnn|implicit|nchwToNhwc|nhwcToNchw", name, re.I):
+        return "convolutions (cuDNN)"
     if re.search(r"gemm|nvjet|cutlass|xmma|cublas|splitK", name, re.I):
         return "matmul (cuBLAS)"
+    if re.search(r"Moments|GroupNorm|ComputeFusedParams", name):
+        return "norms (statistics)"
     if "at::native" in name or "Memcpy" in name or "Memset" in name:
         return "torch elementwise, reduction, copy"
     return "other"
@@ -2270,13 +2324,12 @@ def _settle_host_memory(timeout_s: float = 60.0) -> float:
 
 
 def capacity_slice(initialize, GPT2Model, cfg, accel, fa):
-    """gpt2-6.7b at full width, 4 x 2048, ``offload_optimizer: cpu`` under
-    the auto policy (the master on the host, the update streamed unit by
-    unit), built through zero.Init's path: trains with a finite, falling
-    loss through K1/K2. The depth is the preset's, or, when the host cannot
-    hold its fp32 master and moments beside the process, the most layers
-    that fit and never fewer than MIN_CAPACITY_LAYERS (set from
-    /proc/meminfo here and printed)."""
+    """gpt2-6.7b at full width and CAPACITY_LAYERS, 4 x 2048,
+    ``offload_optimizer: cpu`` under the auto policy (the master on the
+    host, the update streamed unit by unit), built through zero.Init's path:
+    trains with a finite, falling loss through K1/K2. Fails when the host
+    cannot hold its fp32 master and moments beside the process
+    (/proc/meminfo, printed)."""
     import gc
 
     from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
@@ -2284,20 +2337,17 @@ def capacity_slice(initialize, GPT2Model, cfg, accel, fa):
     gc.collect()
     waited = _settle_host_memory()
     mem = _meminfo()
-    params = lambda n: dataclasses.replace(cfg, n_layer=n).num_params()
-    layers = cfg.n_layer
-    while layers >= MIN_CAPACITY_LAYERS and \
-            HOST_BYTES_PER_PARAM * params(layers) + HOST_MARGIN > mem["MemAvailable"]:
-        layers -= 1
+    c = dataclasses.replace(cfg, n_layer=CAPACITY_LAYERS)
+    host_need = HOST_BYTES_PER_PARAM * c.num_params()
     emit("host memory", mem_total_gb=mem["MemTotal"] / 1e9, settle_s=waited,
          mem_available_gb=mem["MemAvailable"] / 1e9, margin_gb=HOST_MARGIN / 1e9,
-         model=CAPACITY_MODEL, layers=layers, depth_cut=layers != cfg.n_layer,
-         host_state_gb_needed=HOST_BYTES_PER_PARAM * params(layers) / 1e9,
-         card_state_gb_without_offload=18 * params(layers) / 1e9)
-    if layers < MIN_CAPACITY_LAYERS:
-        raise AssertionError(f"host memory {mem['MemAvailable'] / 1e9:.1f} GB available holds "
-                             f"fewer than {MIN_CAPACITY_LAYERS} layers of {CAPACITY_MODEL}")
-    c = dataclasses.replace(cfg, n_layer=layers)
+         model=CAPACITY_MODEL, layers=c.n_layer, host_state_gb_needed=host_need / 1e9,
+         card_state_gb_without_offload=18 * c.num_params() / 1e9)
+    if host_need + HOST_MARGIN > mem["MemAvailable"]:
+        raise AssertionError(f"host memory {mem['MemAvailable'] / 1e9:.1f} GB available cannot "
+                             f"hold {c.n_layer} layers of {CAPACITY_MODEL}")
+    if 18 * c.num_params() <= accel.total_memory():
+        raise AssertionError(f"{c.n_layer} layers of {CAPACITY_MODEL} would fit the card")
     batch = synthetic_lm_batch(OFFLOAD_BATCH, OFFLOAD_SEQ, c.vocab_size, seed=SEED,
                                device="cuda")
     engine, init = _offload_engine(initialize, GPT2Model, c,
@@ -2829,6 +2879,230 @@ def moe_train_slices(initialize, init_inference, MoECls, cfg, accel, fa, da):
     return launches
 
 
+
+# --------------------------------------------------------- stable diffusion
+@contextlib.contextmanager
+def _sd_plain(fa, clip):
+    """The stable-diffusion models with their plain attention, swapped in
+    here only: the UNet's and the VAE's attention dispatch becomes
+    ``mha_reference`` (the package has no switch for it), the CLIP tower
+    ``clip`` runs its config's plain path."""
+    from deepspeed_tpu_torch.models import diffusion
+
+    real, config = diffusion.local_causal_attention, clip.config
+    diffusion.local_causal_attention = \
+        lambda q, k, v, use_flash=True, causal=True: fa.mha_reference(q, k, v, causal=causal)
+    _dense_plain(clip)
+    try:
+        yield
+    finally:
+        diffusion.local_causal_attention, clip.config = real, config
+
+
+@contextlib.contextmanager
+def _k1_calls(fa):
+    """Counts the forward wrapper's calls by (head dim, causal, Tq, Tk) while
+    held, each passed on unchanged: one launch each on the card."""
+    real = fa.flash_forward
+    seen = {}
+
+    def probe(q, k, v, causal=True):
+        key = (q.shape[-1], bool(causal), q.shape[1], k.shape[1])
+        seen[key] = seen.get(key, 0) + 1
+        return real(q, k, v, causal)
+
+    fa.flash_forward = probe
+    try:
+        yield seen
+    finally:
+        fa.flash_forward = real
+
+
+def _median_ms(fn, n: int = SD_TIMED) -> tuple:
+    """Host ms of fn() to the device's end, n times → (median, each)."""
+    each = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        each.append((time.perf_counter() - t0) * 1e3)
+    return sorted(each)[n // 2], each
+
+
+def _rel_max(out, ref) -> float:
+    """Largest |out - ref| over the largest |ref|."""
+    return max_err(out, ref) / ref.float().abs().max().clamp_min(1e-30).item()
+
+
+def sd_expected_launches() -> dict:
+    """K1 launches of the served request by (head dim, causal, Tq, Tk):
+    CLIP's 12 causal layers at T = 77; per UNet forward, self and cross
+    (77 keys) in 5 transformers at each of 64 x 64 (D 40) and 32 x 32
+    (D 80), 5 at 16 x 16 and the mid block's at 8 x 8 (D 160); the VAE's
+    mid attention (D 512, T 4096) in the decode and in the round trip's
+    encode and decode."""
+    out = {(64, True, SD_TOKENS, SD_TOKENS): CLIP_L14["n_layer"],
+           (512, False, 4096, 4096): 3}
+    for d, side, n in ((40, 64, 5), (80, 32, 5), (160, 16, 5), (160, 8, 1)):
+        t = side * side
+        out[(d, False, t, t)] = n * SD_STEPS
+        out[(d, False, t, SD_TOKENS)] = n * SD_STEPS
+    return out
+
+
+def sd_serve_slice(init_inference, accel, fa, kernels):
+    """``serve sd1.5``: the request of SD_PROMPTS prompts through the three
+    engines at full width in bf16, every kernel count set to 0 just before
+    and read just after (K1 per call by shape, against
+    ``sd_expected_launches``); the outputs' shapes, finiteness and
+    agreement with the plain attention; then ms per CLIP forward, per UNet
+    forward and per VAE decode (median of SD_TIMED), the peak memory and a
+    profile of one UNet forward. → the K1 calls by shape."""
+    from deepspeed_tpu_torch.models import diffusion
+    from deepspeed_tpu_torch.models.clip import CLIPTextEncoder
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    bf = torch.bfloat16
+    t_build = time.perf_counter()
+    clip = init_inference(CLIPTextEncoder(GPT2Config(**CLIP_L14, dtype=bf),
+                                          eos_token_id=CLIP_EOS), config={"dtype": "bf16"})
+    unet = init_inference(diffusion.UNet2DConditionModel(diffusion.UNetConfig(dtype=bf)),
+                          config={"dtype": "bf16"})
+    vae = init_inference(diffusion.AutoencoderKL(diffusion.VAEConfig(dtype=bf)),
+                         config={"dtype": "bf16"})
+    build_s = time.perf_counter() - t_build
+    params = {n: sum(p.numel() for p in e.module.parameters())
+              for n, e in (("clip", clip), ("unet", unet), ("vae", vae))}
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = 2 * SD_PROMPTS              # the prompts, then their unconditional rows
+    ids = torch.randint(0, CLIP_BOS, (rows, SD_TOKENS), generator=gen, device="cuda")
+    ids[:, 0] = CLIP_BOS
+    ids[:SD_PROMPTS, 20:] = CLIP_EOS   # 19-token prompts, padded with EOS
+    ids[SD_PROMPTS:, 1:] = CLIP_EOS    # the empty prompt
+    latent0 = torch.randn(SD_PROMPTS, 4, SD_LATENT, SD_LATENT, generator=gen, device="cuda")
+    image = torch.rand(1, 3, 8 * SD_LATENT, 8 * SD_LATENT, generator=gen, device="cuda") * 2 - 1
+    steps = [int(t) for t in torch.linspace(999, 0, SD_STEPS).round()]
+
+    def decode(latent):
+        with torch.inference_mode():
+            return vae.module.decode(latent)
+
+    def request():
+        ctx = clip.forward(ids)
+        latent, first = latent0, None
+        for t in steps:
+            eps = unet.forward(torch.cat([latent, latent]), torch.tensor(t, device="cuda"), ctx)
+            first = eps if first is None else first
+            cond, uncond = eps.float().chunk(2)
+            latent = latent - SD_STEP_SIZE * (uncond + SD_GUIDANCE * (cond - uncond))
+        return ctx, first, latent, decode(latent), vae.forward(image)
+
+    torch.cuda.synchronize()
+    accel.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.reset_launches()
+    with _k1_calls(fa) as calls:
+        t0 = time.perf_counter()
+        ctx, eps0, latent, images, round_trip = request()
+        torch.cuda.synchronize()
+        request_s = time.perf_counter() - t0
+    launches = {n: v for kern in kernels for n, v in kern.entry_launches.items() if v}
+    peak_gb = accel.max_memory_allocated() / 1e9
+    want = sd_expected_launches()
+    shapes = {"context": (ctx, (rows, SD_TOKENS, 768)),
+              "noise_prediction": (eps0, (rows, 4, SD_LATENT, SD_LATENT)),
+              "latent": (latent, (SD_PROMPTS, 4, SD_LATENT, SD_LATENT)),
+              "images": (images, (SD_PROMPTS, 3, 8 * SD_LATENT, 8 * SD_LATENT)),
+              "round_trip": (round_trip, tuple(image.shape))}
+    bad = {n: list(t.shape) for n, (t, shape) in shapes.items()
+           if tuple(t.shape) != shape or not torch.isfinite(t.float()).all()}
+
+    # the same models with the plain attention, on the same inputs
+    x0, t0_dev = torch.cat([latent0, latent0]), torch.tensor(steps[0], device="cuda")
+    with _sd_plain(fa, clip.module):
+        plain = {"context": clip.forward(ids), "noise_prediction": unet.forward(x0, t0_dev, ctx),
+                 "images": decode(latent), "round_trip": vae.forward(image)}
+    errs = {n: _rel_max(shapes[n][0], ref) for n, ref in plain.items()}
+
+    clip_ms, clip_each = _median_ms(lambda: clip.forward(ids))
+    unet_ms, unet_each = _median_ms(lambda: unet.forward(x0, t0_dev, ctx))
+    decode_ms, decode_each = _median_ms(lambda: decode(latent))
+    prof = device_profile(lambda: unet.forward(x0, t0_dev, ctx), top=8)
+    emit("serve sd1.5", params=params, prompts=SD_PROMPTS, rows=rows, steps=SD_STEPS,
+         latent=[SD_LATENT, SD_LATENT], tokens=SD_TOKENS, build_s=build_s,
+         request_s=request_s, launches=launches,
+         k1_calls=[[*key, n] for key, n in sorted(calls.items())],
+         k1_expected=[[*key, n] for key, n in sorted(want.items())],
+         rel_err_vs_plain=errs, rtol=SD_RTOL, bad_outputs=bad,
+         clip_forward_ms=clip_ms, clip_forward_ms_each=clip_each,
+         unet_forward_ms=unet_ms, unet_forward_ms_each=unet_each,
+         vae_decode_ms=decode_ms, vae_decode_ms_each=decode_each,
+         peak_gb=peak_gb, unet_profile=prof)
+    if calls != want or launches != {"flash_attention_fwd": sum(want.values())}:
+        raise AssertionError(f"serve sd1.5: K1 calls {calls} (expected {want}), "
+                             f"launches {launches}")
+    if bad or max(errs.values()) > SD_RTOL:
+        raise AssertionError(f"serve sd1.5: bad outputs {bad}; kernel vs plain {errs}")
+    return calls
+
+
+def sd_check_fp32(init_inference, fa):
+    """fp32 on the card: SD-1.5's first two UNet blocks (320 and 640
+    channels, both with cross-attention: head dims 40 and 80, 77 context
+    keys), a VAE of two blocks (128, 512: its mid attention at head dim 512)
+    and two CLIP layers, each through init_inference, held to the same
+    model with the plain attention within FP32_RTOL of the largest
+    |value|."""
+    from deepspeed_tpu_torch.models import diffusion
+    from deepspeed_tpu_torch.models.clip import CLIPTextEncoder
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    f32 = torch.float32
+    two = ("CrossAttnDownBlock2D",) * 2
+    unet = init_inference(diffusion.UNet2DConditionModel(diffusion.UNetConfig(
+        block_out_channels=(320, 640), down_block_types=two,
+        up_block_types=("CrossAttnUpBlock2D",) * 2, dtype=f32)), config={"dtype": "fp32"})
+    vae = init_inference(diffusion.AutoencoderKL(diffusion.VAEConfig(
+        block_out_channels=(128, 512), dtype=f32)), config={"dtype": "fp32"})
+    clip = init_inference(CLIPTextEncoder(GPT2Config(**{**CLIP_L14, "n_layer": 2}, dtype=f32)),
+                          config={"dtype": "fp32"})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.randn(2, 4, SD_LATENT, SD_LATENT, generator=gen, device="cuda")
+    ctx = torch.randn(2, SD_TOKENS, 768, generator=gen, device="cuda")
+    img = torch.rand(1, 3, 128, 128, generator=gen, device="cuda") * 2 - 1
+    ids = torch.randint(0, CLIP_EOS + 1, (2, SD_TOKENS), generator=gen, device="cuda")
+    t = torch.tensor([10, 500], device="cuda")
+    fa.KERNEL.reset_launches()
+    outs = {"unet": unet.forward(x, t, ctx), "vae": vae.forward(img), "clip": clip.forward(ids)}
+    launches = fa.KERNEL.launches
+    with _sd_plain(fa, clip.module):
+        refs = {"unet": unet.forward(x, t, ctx), "vae": vae.forward(img),
+                "clip": clip.forward(ids)}
+    errs = {n: _rel_max(outs[n], refs[n]) for n in outs}
+    # UNet: 11 transformers (2 + 2 down, the mid's, 3 + 3 up), two K1 each;
+    # VAE: the encoder's and the decoder's mid attention; CLIP: 2 layers
+    want = 2 * 11 + 2 + 2
+    emit("check sd1.5 fp32 2-block", rel_err_vs_plain=errs, rtol=FP32_RTOL,
+         launches=launches, expected_launches=want)
+    if launches != want or max(errs.values()) > FP32_RTOL or not all(
+            torch.isfinite(o).all() for o in outs.values()):
+        raise AssertionError(f"sd1.5 fp32 2-block: kernel vs plain {errs}, launches "
+                             f"{launches} (expected {want})")
+
+
+def sd_slices(init_inference, accel, fa, kernels):
+    """The stable-diffusion phases: the served request at full width, then
+    the fp32 2-block checks. → the request's K1 calls by shape."""
+    t0 = time.perf_counter()
+    calls = sd_serve_slice(init_inference, accel, fa, kernels)
+    sd_check_fp32(init_inference, fa)
+    torch.cuda.empty_cache()
+    emit("sd1.5 seconds", seconds=time.perf_counter() - t0)
+    return calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -2855,6 +3129,7 @@ def main() -> int:
     all_kernels = (fa.KERNEL, fa.BWD_KERNEL, da.KERNEL, fa.SPARSE_KERNEL)
     build_s = op_builder.build_all(all_kernels)
     emit("build", seconds=build_s,
+         seconds_by_kernel={k.name: k.build_seconds for k in all_kernels},
          ptxas={k.name: ptxas_summary(k.build_log) for k in all_kernels})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2931,6 +3206,31 @@ def main() -> int:
         ("moe_train", MOE_BATCH * 12, MOE_SEQ, 64, bf, True),
         *((f"bert_s{t}{suffix}", b * 16, t, 64, dt, False)
           for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
+    # SD-1.5's shapes: the UNet's self-attention (T = H W) and cross-attention
+    # (77 context keys) at head dims 40, 80 and 160 over a 64 x 64 latent with
+    # classifier-free guidance (B = 4, 8 heads), the VAE's mid attention at
+    # head dim 512 (the decode's B = 2, the round trip's B = 1), CLIP's causal
+    # T = 77; bf16, and one fp16 and one fp32 row per new head dim
+    sd_fwd = {row["name"]: row for row in (check_flash(fa, accel, gen, *case) for case in (
+        ("sd_unet_self_d40", 4, 4096, 8, 40, bf, False),
+        ("sd_unet_cross_d40", 4, 4096, 8, 40, bf, False, SD_TOKENS),
+        ("sd_unet_self_d80", 4, 1024, 8, 80, bf, False),
+        ("sd_unet_cross_d80", 4, 1024, 8, 80, bf, False, SD_TOKENS),
+        ("sd_unet_self_d160", 4, 256, 8, 160, bf, False),
+        ("sd_unet_cross_d160", 4, 256, 8, 160, bf, False, SD_TOKENS),
+        ("sd_unet_mid_self_d160", 4, 64, 8, 160, bf, False),
+        ("sd_unet_mid_cross_d160", 4, 64, 8, 160, bf, False, SD_TOKENS),
+        ("sd_vae_decode_d512", SD_PROMPTS, 4096, 1, 512, bf, False),
+        ("sd_vae_round_trip_d512", 1, 4096, 1, 512, bf, False),
+        ("sd_clip_d64", 2 * SD_PROMPTS, SD_TOKENS, 12, 64, bf, True),
+        ("sd_unet_self_d40_fp16", 4, 4096, 8, 40, f16, False),
+        ("sd_unet_self_d160_fp16", 4, 256, 8, 160, f16, False),
+        ("sd_vae_decode_d512_fp16", SD_PROMPTS, 4096, 1, 512, f16, False),
+        ("sd_unet_self_d40_fp32", 4, 4096, 8, 40, f32, False),
+        ("sd_unet_self_d160_fp32", 4, 256, 8, 160, f32, False),
+        ("sd_vae_decode_d512_fp32", SD_PROMPTS, 4096, 1, 512, f32, False),
+        # the forward-only head dims at tile edges, causal, with Tq != Tk
+        *((f"sd_edges_d{d}_tq65_tk7", 2, 65, 2, d, bf, True, 7) for d in (40, 160, 512))))}
     S = PROMPT + GEN
     decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("slice_pos255", BATCH, S, 32, 8, 64, bf, S - 1),
@@ -3029,6 +3329,9 @@ def main() -> int:
                                            moe_presets[MOE_MODEL], accel, fa, da))
     served = ("serve_llama_tag", "serve_moe_tag")
     trained = {p: n for p, n in model_launches.items() if p not in served}
+    # SD-1.5 served at full width: CLIP, the UNet and the VAE
+    sd_calls = sd_slices(deepspeed_tpu_torch.init_inference, accel, fa, all_kernels)
+    sd_launches = sum(sd_calls.values())
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bwd = bwd_rows[0]
@@ -3048,7 +3351,8 @@ def main() -> int:
                                  for s, n in zero_launches.items()},
                               **{p: n["flash_attention_fwd"] for p, n in by_offload.items()},
                               **{p: n["flash_attention_fwd"]
-                                 for p, n in model_launches.items()}},
+                                 for p, n in model_launches.items()},
+                              "serve_sd15": sd_launches},
          "at_serving_shape": {k: flash_rows[1][k] for k in keys},
          "at_model_shapes": {name: {k: row[k] for k in keys} for name, row in model_fwd.items()}},
         {"name": "decode_attention", "route": "cuda",
@@ -3104,6 +3408,23 @@ def main() -> int:
             # single call computes dq or dk/dv alone (its backward is in the
             # kernel phase line)
             "library_ms": sp["fwd_library_ms"] if entry == "fwd" else None})
+    # the forward's instances on the SD-1.5 path, each timed at its largest
+    # shape there, with its launches in the served request
+    k1a, k1b = (f"deepspeed_tpu/ops/pallas/flash_attention.py:{n}" for n in (123, 153))
+    sd_instances = (("causal, head dim 64 (CLIP)", "sd_clip_d64", 64, k1a),
+                    ("head dim 40 (UNet 64 x 64)", "sd_unet_self_d40", 40, k1b),
+                    ("head dim 80 (UNet 32 x 32)", "sd_unet_self_d80", 80, k1b),
+                    ("head dim 160 (UNet 16 x 16, 8 x 8)", "sd_unet_self_d160", 160, k1b),
+                    ("head dim 512 (VAE mid attention)", "sd_vae_decode_d512", 512, k1b))
+    kernels += [{"name": f"flash_attention_fwd [sd1.5 {label}]", "route": "cuda",
+                 "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
+                 "replaces": replaces,
+                 "launches": sum(n for (dim, *_), n in sd_calls.items() if dim == d),
+                 **{k: sd_fwd[row][k] for k in keys},
+                 "library_backend": sd_fwd[row]["library_backend"],
+                 "at_sd_shapes": {name: {k: r[k] for k in (*keys, "library_backend")}
+                                  for name, r in sd_fwd.items() if f"_d{d}" in name}}
+                for label, row, d, replaces in sd_instances]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,7 +22,11 @@ in its placement (``zero.Init``) and offloaded to host memory or NVMe
 line: ``python -m deepspeed_tpu_torch.launcher.runner [--hostfile H]
 script.py --deepspeed_config ds.json`` spawns one process per GPU, and the
 script takes ``add_config_arguments`` and calls
-``get_accelerator().set_device(local_rank)``.
+``get_accelerator().set_device(local_rank)``. The stable-diffusion stack
+(``models/clip.py``, ``models/diffusion.py``: the CLIP text tower, the UNet
+and the VAE, loaded from HF and diffusers by ``module_inject/hf.py``) serves
+through ``init_inference`` → ``InferenceEngine.forward(sample, timestep,
+context)``.
 """
 
 from __future__ import annotations

@@ -23,8 +23,11 @@ raises on any other.
 Model protocol: ``init_cache(B, max_len)``, ``prefill(ids, cache)`` →
 (logits, cache), ``decode_step(token, cache)`` → (logits, cache),
 ``apply(ids)`` → logits, and ``init_params(generator)``. A model without a
-KV cache (BERT) serves ``forward`` only: ``generate`` raises
-``AttributeError``, as the JAX engine does.
+KV cache (BERT, the CLIP text tower, the UNet and the VAE) serves
+``forward`` only: ``generate`` raises ``AttributeError``, as the JAX engine
+does. ``forward(input_ids, *args)`` hands every positional array to
+``module.apply`` (the diffusers surface: a UNet's sample, timestep and
+context).
 
 Weights come from ``params`` (a state dict), else from the training tag of
 the config's ``checkpoint`` (``load_inference_params``: only the tag's
@@ -260,10 +263,25 @@ class InferenceEngine:
             input_ids = torch.from_numpy(np.asarray(input_ids))
         return input_ids.to(device=self.device, dtype=torch.long)
 
-    def forward(self, input_ids):
-        """Full-sequence logits (B, T, V) fp32."""
+    def _input(self, a) -> torch.Tensor:
+        """One positional input of ``forward`` on the engine's device: an
+        integer array as ``long``, any other (a float latent, a context)
+        with its values and type kept, for the model to cast to its compute
+        type as the JAX ``apply`` does."""
+        if not torch.is_tensor(a):
+            a = torch.from_numpy(np.asarray(a))
+        if a.dtype.is_floating_point or a.dtype == torch.bool:
+            return a.to(device=self.device)
+        return a.to(device=self.device, dtype=torch.long)
+
+    def forward(self, input_ids, *args):
+        """``module.apply(input_ids, *args)`` under ``inference_mode``, every
+        positional array on the engine's device: an LM's full-sequence
+        logits (B, T, V) fp32 from its ids, or the diffusers surface, e.g. a
+        UNet's (sample, timestep, encoder_hidden_states) or a VAE's image,
+        as the JAX ``forward`` passes extra positional arrays through."""
         with torch.inference_mode():
-            return self.module.apply(self._ids(input_ids))
+            return self.module.apply(*(self._input(a) for a in (input_ids, *args)))
 
     __call__ = forward
 

@@ -75,6 +75,7 @@ class CudaKernel:
         self.functions = dict(functions)
         self.entry_launches = dict.fromkeys(self.functions, 0)
         self.build_log = ""
+        self.build_seconds: Optional[float] = None   # its nvcc's wall time, when built here
         self._lib: Optional[ctypes.CDLL] = None
         _KERNELS.append(self)
 
@@ -143,16 +144,27 @@ class CudaKernel:
 
 def build_all(kernels: Iterable[CudaKernel]) -> float:
     """Build every kernel's library in parallel (one nvcc each, all started
-    together) and load them; returns the seconds taken."""
+    together) and load them; returns the seconds taken. Each kernel built
+    here keeps its nvcc's wall time in ``build_seconds``."""
     kernels: List[CudaKernel] = list(kernels)
     t0 = time.perf_counter()
     procs = [kern.start_build() for kern in kernels]
-    errors = []
-    for kern, proc in zip(kernels, procs):
+    errors: List[str] = []
+
+    def finish(kern: CudaKernel, proc) -> None:
+        # a thread each: every nvcc's output pipe is drained while it runs
         try:
             kern.finish_build(proc)
         except RuntimeError as e:
             errors.append(str(e))
+        if proc is not None:
+            kern.build_seconds = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=finish, args=pair) for pair in zip(kernels, procs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     if errors:
         raise RuntimeError("\n".join(errors))
     for kern in kernels:

@@ -46,7 +46,12 @@ import torch
 from deepspeed_tpu_torch.ops.op_builder import CudaKernel
 
 NEG_INF = -1e30
+# head dims with a kernel instance: the backward kernels (dense and
+# block-sparse) and the block-sparse forward take HEAD_DIMS; the dense forward
+# also takes the UNet's 40 and 160 and the VAE's 512 (FWD_HEAD_DIMS), where no
+# JAX path trains
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+FWD_HEAD_DIMS = (16, 32, 40, 64, 80, 96, 128, 160, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P = ctypes.c_void_p
@@ -170,7 +175,7 @@ def _on_cuda(q, what: str) -> bool:
     return True
 
 
-def _check(q, k, v):
+def _check(q, k, v, head_dims=HEAD_DIMS):
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
     if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
@@ -180,8 +185,8 @@ def _check(q, k, v):
             or q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
         raise ValueError(f"expected q (BH, Tq, D), k/v (BH, Tk, D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.shape[2] not in HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[2]} not in {HEAD_DIMS}")
+    if q.shape[2] not in head_dims:
+        raise ValueError(f"head dim {q.shape[2]} not in {head_dims}")
     if min(q.shape[1], k.shape[1]) < 1:
         raise ValueError("empty sequence")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -204,7 +209,7 @@ def flash_forward(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Ten
     → (o (B*H, Tq, D) in q's type, lse (B*H, Tq) fp32)."""
     if not _on_cuda(q, "flash_forward"):
         return mha_reference_lse(q, k, v, causal)
-    _check(q, k, v)
+    _check(q, k, v, FWD_HEAD_DIMS)
     bh, t_q, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(bh, t_q, dtype=torch.float32, device=q.device)
@@ -276,10 +281,19 @@ def flash_backward(q, k, v, o, lse, do, causal: bool = True):
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention on (B*H, T, D) with the scale in q: forward
     :func:`flash_forward`, backward :func:`flash_backward`; it saves q, k, v,
-    o and lse, as the JAX ``_flash_bhtd_fwd`` does."""
+    o and lse, as the JAX ``_flash_bhtd_fwd`` does. On a CUDA tensor whose
+    gradient is needed at a head dim the backward kernels lack (40, 160,
+    512: forward-only instances), the forward raises, before anything
+    runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
+        d = q.shape[-1]
+        if any(ctx.needs_input_grad[:3]) and d not in HEAD_DIMS and _on_cuda(q, "flash_attention"):
+            raise NotImplementedError(
+                f"flash attention backward at head dim {d}: the backward kernels take "
+                f"{HEAD_DIMS} (head dims {FWD_HEAD_DIMS} are forward-only); run this "
+                "forward without gradients (torch.no_grad / inference_mode)")
         o, lse = flash_forward(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
@@ -301,7 +315,9 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
     # the scale is folded into q in q's type, outside the kernels, as in JAX;
     # autograd scales dq back
     q = q * torch.tensor(scale, dtype=q.dtype)
-    to_bhtd = lambda x, t: x.transpose(1, 2).reshape(b * h, t, d)
+    # the reshape copies, except at B = 1, where it can stay a strided view;
+    # the kernels take contiguous rows
+    to_bhtd = lambda x, t: x.transpose(1, 2).reshape(b * h, t, d).contiguous()
     o = FlashAttentionFunction.apply(to_bhtd(q, t_q), to_bhtd(k, t_k), to_bhtd(v, t_k), causal)
     return o.reshape(b, h, t_q, d).transpose(1, 2)
 

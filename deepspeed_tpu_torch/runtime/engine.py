@@ -458,11 +458,18 @@ class DeepSpeedEngine:
 
         if isinstance(batch, Mapping):
             return {k: put(v) for k, v in batch.items()}
+        if isinstance(batch, (tuple, list)):
+            return tuple(put(v) for v in batch)
         return put(batch)
 
     def _split(self, batch, gas: int):
-        """The global batch as ``gas`` microbatches of consecutive rows."""
-        first = next(iter(batch.values())) if isinstance(batch, Mapping) else batch
+        """The global batch (a dict, a tuple of row-aligned arrays such as
+        ``(x, y)``, or one array) as ``gas`` microbatches of consecutive
+        rows."""
+        if isinstance(batch, Mapping):
+            first = next(iter(batch.values()))
+        else:
+            first = batch[0] if isinstance(batch, tuple) else batch
         rows = first.shape[0]
         if rows % gas:
             raise ValueError(f"batch of {rows} rows does not split into {gas} microbatches")
@@ -471,6 +478,8 @@ class DeepSpeedEngine:
         for i in range(gas):
             if isinstance(batch, Mapping):
                 yield {k: take(v, i) for k, v in batch.items()}
+            elif isinstance(batch, tuple):
+                yield tuple(take(v, i) for v in batch)
             else:
                 yield take(batch, i)
 

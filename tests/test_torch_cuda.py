@@ -18,7 +18,10 @@ type before the second products, as the JAX kernels do; the fp32 instances
 keep the CUDA-core code. Decode splits the cache over CTAs; the engine's
 decode loop is a captured CUDA graph, held here against the eager loop.
 Every kernel has instances for head dims 16, 32, 64, 80, 96 and 128, the
-head dims of the model presets. The last tests feed a small bf16 GPT-2
+head dims of the model presets; the dense forward also has 40, 160 and 512
+(SD-1.5's UNet and VAE), forward only: a gradient at those raises at the
+forward. A small UNet and VAE run through the kernels on the card against
+the same models with the plain attention. The last tests feed a small bf16 GPT-2
 through its data loader, save and resume it (the state after a load equal
 to the saved state bit for bit, the losses equal to the uninterrupted
 run's) and run the seqlen curriculum through the kernels at ragged lengths.
@@ -316,6 +319,84 @@ def test_flash_dq_tensor_core_matches_plain(gen, t_q, t_k, causal, dtype):
                                         causal)
     err = (dq.float() - ref).abs().max().item()
     assert torch.isfinite(dq).all() and err <= GRAD_TOL[dtype] * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [40, 160, 512])
+def test_forward_only_head_dims_match_plain(gen, D, causal, dtype, tol):
+    """The forward at the UNet's and VAE's head dims (40 padded to the mma
+    k-step, 160, 512 on its sliced plan), at tile edges and with Tq != Tk
+    (77 keys: the cross-attention's)."""
+    for t_q, t_k in ((1, 1), (65, 7), (130, 77), (200, 333), (64, 200)):
+        q = torch.randn(6, t_q, D, generator=gen, device="cuda") * D ** -0.5
+        k, v = (torch.randn(6, t_k, D, generator=gen, device="cuda") for _ in range(2))
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        before = tfa.KERNEL.launches
+        o, lse = tfa.flash_forward(q, k, v, causal)
+        o2, _ = tfa.flash_forward(q, k, v, causal)
+        o_ref, lse_ref = tfa.mha_reference_lse(q.float(), k.float(), v.float(), causal)
+        assert tfa.KERNEL.launches == before + 2
+        assert torch.isfinite(o).all() and torch.equal(o, o2)
+        assert (o.float() - o_ref).abs().max().item() <= tol, (t_q, t_k)
+        assert (lse - lse_ref).abs().max().item() <= 1e-3, (t_q, t_k)
+
+
+@pytest.mark.parametrize("D", [40, 160, 512])
+def test_forward_raises_when_a_gradient_needs_a_missing_backward(gen, D):
+    """No backward kernel at these head dims: the forward refuses a call
+    that needs gradients, before it launches anything; without gradients it
+    runs."""
+    q, k, v = (torch.randn(1, 16, 2, D, generator=gen, device="cuda") for _ in range(3))
+    before = tfa.KERNEL.launches
+    with pytest.raises(NotImplementedError, match=f"head dim {D}"):
+        tfa.flash_attention(q.requires_grad_(), k, v, causal=False)
+    assert tfa.KERNEL.launches == before
+    with torch.no_grad():
+        out = tfa.flash_attention(q, k, v, causal=False)
+    assert tfa.KERNEL.launches == before + 1 and torch.isfinite(out).all()
+
+
+def _plain_attention(q, k, v, use_flash=True, causal=True):
+    return tfa.mha_reference(q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+def test_small_unet_and_vae_on_the_card_match_the_plain_path(gen, monkeypatch, dtype, rtol):
+    """A 2-block UNet (8 heads: head dim 40 at 320 channels, 80 in the mid
+    block, 77 context keys) and a 2-block VAE (its single-head mid attention
+    on 512 channels) through init_inference on the card, their K1 launches
+    counted, held to the same models with the plain attention."""
+    from deepspeed_tpu_torch.models import diffusion as td
+
+    # fp32 convolutions in fp32: TF32 rounds their inputs to 10 bits, which
+    # the two paths' last-bit differences can land on either side of
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ucfg = td.UNetConfig(block_out_channels=(320, 640), layers_per_block=1,
+                         down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                         up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), dtype=dtype)
+    vcfg = td.VAEConfig(block_out_channels=(128, 512), layers_per_block=1, dtype=dtype)
+    dt = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
+    unet = deepspeed_tpu_torch.init_inference(td.UNet2DConditionModel(ucfg),
+                                              config={"dtype": dt})
+    vae = deepspeed_tpu_torch.init_inference(td.AutoencoderKL(vcfg), config={"dtype": dt})
+    x = torch.randn(2, 4, 32, 32, generator=gen, device="cuda")
+    ctx = torch.randn(2, 77, 768, generator=gen, device="cuda")
+    img = torch.randn(1, 3, 64, 64, generator=gen, device="cuda")
+    t = torch.tensor([10, 700], device="cuda")
+    before = tfa.KERNEL.launches
+    out_u, out_v = unet(x, t, ctx), vae(img)
+    # UNet: self and cross in four transformers (down block 0, mid, two in up
+    # block 1); VAE: the encoder's and the decoder's mid attention
+    assert tfa.KERNEL.launches == before + 8 + 2
+    monkeypatch.setattr(td, "local_causal_attention", _plain_attention)
+    ref_u, ref_v = unet(x, t, ctx), vae(img)
+    assert tfa.KERNEL.launches == before + 10
+    for out, ref in ((out_u, ref_u), (out_v, ref_v)):
+        assert out.dtype == dtype and torch.isfinite(out.float()).all()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= rtol * ref.float().abs().max().item(), err
 
 
 def test_kernel_wrappers_raise_on_what_the_kernels_do_not_take(gen):

@@ -3,8 +3,11 @@ dense, decode and sparse paths, against the JAX package.
 
 The port's kernels have instances for head dims 16, 32, 64, 80, 96 and 128,
 which cover every preset (gpt2-tiny 32, gpt2-2.7b 80, llama-tiny 16); the
-wrappers raise for any other head dim on the card, and the C dispatch of
-each kernel source takes the same list. On the CPU a wrapper runs its plain
+dense forward also has 40, 160 and 512, the head dims of SD-1.5's UNet and
+VAE, which no JAX path trains. The wrappers raise for any other head dim on
+the card, and the C dispatch of each kernel source takes its wrapper's list:
+the forward's ``FWD_HEAD_DIMS``, the backward's, decode's and the
+block-sparse kernels' ``HEAD_DIMS``. On the CPU a wrapper runs its plain
 version, so each dispatch test replaces the wrapper the model code calls
 with a probe that counts its calls and passes them on. The outputs are held
 against the JAX functions on the same numpy inputs, in fp32 on the CPU,
@@ -32,7 +35,8 @@ from deepspeed_tpu_torch.ops.pallas import decode_attention as tda
 from deepspeed_tpu_torch.ops.pallas import flash_attention as tfa
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)                   # backward, decode, block-sparse
+FWD_HEAD_DIMS = (16, 32, 40, 64, 80, 96, 128, 160, 512)   # the dense forward
 CSRC = pathlib.Path(tfa.__file__).resolve().parents[2] / "csrc"
 PRESETS = {**tgpt2.PRESETS, **tllama.PRESETS}
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -64,21 +68,39 @@ def test_every_preset_head_dim_has_a_kernel_instance(preset):
     assert head_dim in tfa.HEAD_DIMS and head_dim in tda.HEAD_DIMS
 
 
+def test_sd15_head_dims_have_forward_instances():
+    """SD-1.5's UNet (8 heads on 320, 640 and 1280 channels), its VAE's
+    single-head mid attention on 512 channels and CLIP ViT-L/14's text tower
+    (12 heads on 768) reach the forward kernel; the forward-only dims are
+    exactly those the backward lacks."""
+    from deepspeed_tpu_torch.models.diffusion import UNetConfig, VAEConfig
+
+    unet = UNetConfig()
+    dims = {c // unet.heads_for(i) for i, c in enumerate(unet.block_out_channels)}
+    dims |= {VAEConfig().block_out_channels[-1], 768 // 12}
+    assert dims == {40, 64, 80, 160, 512} and dims <= set(tfa.FWD_HEAD_DIMS)
+    assert set(tfa.FWD_HEAD_DIMS) - set(tfa.HEAD_DIMS) == dims - set(HEAD_DIMS)
+
+
 @pytest.mark.parametrize("source,switch", [
     ("flash_attention_fwd.cu", "dispatch_d"), ("flash_attention_bwd.cu", "dispatch_d"),
     ("decode_attention.cu", "dispatch_dh"), ("sparse_attention.cu", "dispatch_d")])
 def test_every_kernel_source_dispatches_the_wrappers_head_dims(source, switch):
     """The head-dim switch of each C entry has a case for exactly the head
-    dims its wrapper lets through."""
+    dims its wrapper lets through: the dense forward's FWD_HEAD_DIMS, every
+    other kernel's HEAD_DIMS."""
     text = (CSRC / source).read_text()
     body = re.search(rf"\b{switch}\(.*?switch \(\w+\) \{{(.*?)\}}", text, re.S)
     assert body, f"no head-dim switch in {source}"
     cases = tuple(int(c) for c in re.findall(r"case (\d+):", body.group(1)))
-    wrapper = tda if source.startswith("decode") else tfa
-    assert cases == wrapper.HEAD_DIMS == HEAD_DIMS
+    if source == "flash_attention_fwd.cu":
+        assert cases == tfa.FWD_HEAD_DIMS == FWD_HEAD_DIMS
+    else:
+        wrapper = tda if source.startswith("decode") else tfa
+        assert cases == wrapper.HEAD_DIMS == HEAD_DIMS
 
 
-@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+@pytest.mark.parametrize("head_dim", FWD_HEAD_DIMS)
 def test_dense_attention_takes_the_kernel_for_every_head_dim(monkeypatch, head_dim):
     calls = _probe(monkeypatch, tcommon, "flash_attention")
     q, k, v = _rand(*[(2, 24, 2, head_dim)] * 3)

@@ -69,6 +69,64 @@ def test_lse_matches_jax_flash_forward(causal):
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j)[..., 0], **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [40, 160, 512])
+def test_forward_only_head_dims_with_fewer_keys_match_jax(D, causal, dtype):
+    """The UNet's head dims 40 and 160 and the VAE's 512, with Tq = 12
+    queries against Tk = 7 keys (no multiple of any block; top-left causal
+    when causal), against the interpreted Pallas kernel: bf16 at the JAX
+    tests' 2e-2, fp32 as above."""
+    rs = np.random.RandomState(D)
+    q = rs.standard_normal((1, 12, 2, D)).astype(np.float32)
+    k, v = (rs.standard_normal((1, 7, 2, D)).astype(np.float32) for _ in range(2))
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    ref = jfa.flash_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)), causal=causal)
+    out = tfa.flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal=causal)
+    assert out.dtype == tdt and out.shape == (1, 12, 2, D)
+    tol = TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), **tol)
+
+
+def test_forward_and_backward_head_dim_sets():
+    """The forward kernel takes every backward head dim and the
+    forward-only 40, 160 and 512; the backward kernels' checks refuse
+    those."""
+    assert set(tfa.HEAD_DIMS) < set(tfa.FWD_HEAD_DIMS)
+    assert set(tfa.FWD_HEAD_DIMS) - set(tfa.HEAD_DIMS) == {40, 160, 512}
+    for d in (40, 160, 512):
+        q = torch.zeros(2, 16, d)
+        tfa._check(q, q, q.clone(), tfa.FWD_HEAD_DIMS)
+        with pytest.raises(ValueError, match="head dim"):
+            tfa._check_bwd(q, q, q.clone(), q.clone(), torch.zeros(2, 16), torch.zeros(2, 16))
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["separate", "fused_qkv_views"])
+def test_batch_of_one_reaches_the_kernel_contiguous(monkeypatch, split):
+    """At B = 1 the (B, T, H, D) → (B*H, T, D) reshape can stay a strided
+    view, which the kernel refuses on the card; the wrapper hands it
+    contiguous rows, for separate q/k/v and for views of a fused qkv
+    projection alike."""
+    seen = []
+    real = tfa.flash_forward
+
+    def probe(q, k, v, causal=True):
+        seen.append(all(t.is_contiguous() for t in (q, k, v)))
+        return real(q, k, v, causal)
+
+    monkeypatch.setattr(tfa, "flash_forward", probe)
+    if split:
+        qkv = torch.randn(1, 16, 3 * 2 * 32)
+        q, k, v = (t.reshape(1, 16, 2, 32) for t in qkv.split(64, dim=-1))
+    else:
+        q, k, v = (torch.randn(1, 16, 2, 32) for _ in range(3))
+    out = tfa.flash_attention(q, k, v, causal=True)
+    assert seen == [True]
+    torch.testing.assert_close(out, tfa.mha_reference(q, k, v, causal=True),
+                               rtol=2e-5, atol=2e-5)
+
+
 def test_cpu_tensors_take_the_plain_version():
     q, k, v = map(torch.from_numpy, _qkv((2, 16, 64), seed=5))
     before = tfa.KERNEL.launches
