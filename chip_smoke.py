@@ -38,7 +38,7 @@ stage-1 run and saves a tag; ``serve gpt2-760m`` serves that tag through
 graphed ``generate`` against the ungraphed loop and the plain path, K1 per
 prefill and K3 per decode step at one query head per KV head), then
 removes it. Then it feeds, saves and resumes
-gpt2-760m at full width and depth (``resume``): a token dataset written with
+gpt2-760m at full width, 12 of its 24 layers (``resume``): a token dataset written with
 the port's indexed-dataset builder into a temporary directory, engine A
 trained through ``initialize(training_data=...)``'s loader, saved with the
 default async save and trained on, engines B and C built from other seeds
@@ -84,7 +84,25 @@ over 77 keys), the VAE decodes the latents (K1 at head dim 512) and its
 engine round-trips one 512 x 512 image; the K1 calls by shape, the outputs
 against the same models with the plain attention, ms per forward and a
 profile of one UNet forward; ``check sd1.5 fp32 2-block`` holds two UNet
-blocks, a two-block VAE and two CLIP layers in fp32 to the plain path. Each phase prints one JSON line with the seconds
+blocks, a two-block VAE and two CLIP layers in fp32 to the plain path.
+Then the GPT-2 variant families (``VARIANT_MODELS``, their published
+widths, random weights): ``train pythia-1.4b attn`` (GPT-NeoX: partial
+rotary, the parallel residual, an untied head; 4 x 2048, stage 1) launches
+24 K1 and 24 of each K2 entry a step, the recompute reading K1's outputs
+back; ``... full`` and ``... dots`` launch 48 K1, their losses held to
+"attn"'s; ``train check pythia-1.4b dropout`` holds 2 fp32 layers under
+remat "attn" to remat off on the same generator seeds; ``serve
+pythia-1.4b``, ``opt-1.3b``, ``gpt-neo-1.3b`` (prompt 384, past its
+256-slot window: K1 and K3 on the 12 global layers) and ``bloom-560m``
+(ALiBi: no kernel) ``from hf`` build HF-shaped state dicts on the card
+(``hf_lm_state``), load them through ``load_hf_model`` with a dict config
+and serve them through the graphed decode loop against the ungraphed one
+and the plain path; ``serve gpt-j-6b`` serves GPT-J-6B (head dim 256,
+interleaved rotary) from the port's own init, and ``serve check gpt-j-6b
+loader 2-layer`` its loader at its widths; ``train bert-large pld`` trains
+under the ``progressive_layer_drop`` block, each step's θ held to
+``theta_at``, beside the same run without it. K1 and K3 are checked at
+head dim 256 at GPT-J-6B's shapes. Each phase prints one JSON line with the seconds
 since the start (``at_s``); any failed check raises, and the script exits
 non-zero without the final line. It needs one card and imports nothing of
 JAX or of the JAX package.
@@ -144,6 +162,9 @@ ZERO_STAGES = (0, 1, 2, 3)
 # builder, steps before and after the save, and the disk the tag needs
 RESUME_SAMPLES, RESUME_STEPS = 64, 3
 STATE_BYTES_PER_PARAM = 14          # bf16 params, fp32 masters, two fp32 moments
+# the resume phase's depth: 12 of gpt2-760m's 24 layers since PR 15, for the
+# script's time (its checks hold at any depth; the tag halves to ~5.3 GB)
+RESUME_LAYERS = 12
 DISK_MARGIN = 2.5                   # free space wanted per byte of the tag
 # the curriculum phase: the legacy block, T from 64 towards 1024 in 8 steps
 CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 64,
@@ -273,6 +294,37 @@ SD_RTOL = 5e-2
 # path, AdamW on the host (fused multiply-adds of the CPU) against the card's
 FP32_NVME_RTOL = 1e-5
 
+
+# the GPT-2 variant families at their published widths (the HF configs of
+# EleutherAI/pythia-1.4b, EleutherAI/gpt-j-6b, facebook/opt-1.3b,
+# EleutherAI/gpt-neo-1.3B and bigscience/bloom-560m), on GPT2Config's
+# switches; random weights
+VARIANT_MODELS = {
+    "pythia-1.4b": dict(vocab_size=50304, n_positions=2048, n_embd=2048, n_layer=24,
+                        n_head=16, activation="gelu", rotary_pct=0.25, rotary_theta=10000.0,
+                        parallel_residual=True, tie_embeddings=False),
+    "gpt-j-6b": dict(vocab_size=50400, n_positions=2048, n_embd=4096, n_layer=28, n_head=16,
+                     rotary_pct=0.25, rotary_interleaved=True, parallel_residual=True,
+                     tie_embeddings=False, lm_head_bias=True),
+    "opt-1.3b": dict(vocab_size=50272, n_positions=2048, n_embd=2048, n_layer=24, n_head=32,
+                     activation="relu"),
+    "gpt-neo-1.3b": dict(vocab_size=50257, n_positions=2048, n_embd=2048, n_layer=24,
+                         n_head=16, attention_layers=("global", "local") * 12, window_size=256),
+    "bloom-560m": dict(vocab_size=250880, n_positions=2048, n_embd=1024, n_layer=24,
+                       n_head=16, alibi=True, embed_layernorm=True),
+}
+PYTHIA = "pythia-1.4b"
+PYTHIA_BATCH, PYTHIA_SEQ = 4, 2048
+PYTHIA_REMATS = ("attn", "full", "dots")
+NEO_PROMPT = 384                    # past GPT-Neo's 256-slot window
+GPTJ_LOADER_LAYERS = 2              # the GPT-J loader checked at its widths on 2 layers
+# the fp32 2-layer dropout check, remat "attn" against remat off on the same
+# generator seeds: gradients relative to each tensor's L2 norm
+DROPOUT_CHECK = {"batch": 2, "seq": 512, "p": 0.1, "rtol": 1e-6}
+PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+# GPT-Neo at HF's init, bf16 against fp32 on each seed: the kernel path's
+# max and mean logit errors within ``ratio`` times the plain path's
+NEO_HF_INIT = {"seeds": (SEED + 3, SEED + 4), "ratio": 1.25}
 
 _T0 = time.perf_counter()
 
@@ -799,22 +851,27 @@ def _replay_ms(loop, logits, cache, steps):
     return start.elapsed_time(end) / steps
 
 
-def _served_cell(engine, ids, accel, fa, da, label, **fields):
+def _served_cell(engine, ids, accel, fa, da, label, kernel_layers=None, **fields):
     """The serving cell's counted main-path run on ``engine`` (its model
     serves with the kernels, bf16): the graphed ``generate`` of GEN greedy
     tokens on ``ids``, the ungraphed loop's tokens, and prefill and one
     decode step against the plain path on the same weights; emits the
-    ``label`` line with ``fields``. → (the second generate's launches, its
-    decode loop, the decode step's logits and cache)."""
+    ``label`` line with ``fields``. ``kernel_layers``: the layers that
+    launch K1 a prefill and K3 a step (every layer by default; a GPT-Neo
+    local layer or an ALiBi layer takes the plain path). → (the second
+    generate's launches, its decode loop, the decode step's logits and
+    cache)."""
     model = engine.module
     c = model.config
+    B, T = ids.shape
+    kernel_layers = c.n_layer if kernel_layers is None else kernel_layers
     engine.generate(ids[:2, :8], max_new_tokens=2)   # warm-up (library handles)
     torch.cuda.synchronize()
     accel.reset_peak_memory_stats()
-    out, first_s, gen_s, loop, first_launches, launches = _graphed_generate(engine, ids, GEN,
-                                                                           fa, da, c.n_layer)
+    out, first_s, gen_s, loop, first_launches, launches = _graphed_generate(
+        engine, ids, GEN, fa, da, kernel_layers)
     peak_gb = accel.max_memory_allocated() / 1e9
-    if tuple(out.shape) != (BATCH, PROMPT + GEN) or not torch.equal(out[:, :PROMPT], ids) \
+    if tuple(out.shape) != (B, T + GEN) or not torch.equal(out[:, :T], ids) \
             or out.min().item() < 0 or out.max().item() >= c.vocab_size:
         raise AssertionError(f"generate output malformed: {tuple(out.shape)}")
     eager, eager_s = _eager_generate(engine, ids, GEN)
@@ -833,7 +890,7 @@ def _served_cell(engine, ids, accel, fa, da, label, **fields):
     with torch.inference_mode():
         for layer in moe:
             layer.record = True
-        prefill_med, logits, cache = _prefill_ms(model, ids, PROMPT + GEN)
+        prefill_med, logits, cache = _prefill_ms(model, ids, T + GEN)
         routes = [layer.routing for layer in moe]
         for layer in moe:
             layer.record = False
@@ -841,12 +898,12 @@ def _served_cell(engine, ids, accel, fa, da, label, **fields):
         if moe:
             for layer in plain.moe:
                 layer.moe_layer.record = True
-            free, _ = plain.prefill(ids, plain.init_cache(BATCH, PROMPT + GEN))
+            free, _ = plain.prefill(ids, plain.init_cache(B, T + GEN))
             plain_routes = [layer.moe_layer.routing for layer in plain.moe]
             for layer in plain.moe:
                 layer.moe_layer.record = False
             _pin_routing(plain, routes)
-        ref, ref_cache = plain.prefill(ids, plain.init_cache(BATCH, PROMPT + GEN))
+        ref, ref_cache = plain.prefill(ids, plain.init_cache(B, T + GEN))
         tok = torch.argmax(logits, dim=-1)
         for layer in moe:
             layer.record = True
@@ -872,15 +929,15 @@ def _served_cell(engine, ids, accel, fa, da, label, **fields):
                              f"decode logits err {err_step}, |ref| max {scale}")
     decode_s = gen_s - prefill_med / 1e3
     eager_decode_s = eager_s - prefill_med / 1e3
-    emit(label, **fields, batch=BATCH, prompt=PROMPT, gen=GEN, dtype="bfloat16",
-         heads=c.n_head,
+    emit(label, **fields, batch=B, prompt=T, gen=GEN, dtype="bfloat16",
+         heads=c.n_head, kernel_layers=kernel_layers,
          kv_heads=getattr(c, "n_kv_head", c.n_head), head_dim=c.head_dim,
          launches=launches, first_call_launches=first_launches, generate_s=gen_s,
          first_generate_s=first_s,
          capture_s=loop.capture_s, prefill_ms=prefill_med,
-         decode_tok_s=BATCH * GEN / decode_s, decode_ms_per_step=decode_s * 1e3 / GEN,
+         decode_tok_s=B * GEN / decode_s, decode_ms_per_step=decode_s * 1e3 / GEN,
          replay_device_ms_per_step=replay_ms,
-         eager_generate_s=eager_s, eager_decode_tok_s=BATCH * GEN / eager_decode_s,
+         eager_generate_s=eager_s, eager_decode_tok_s=B * GEN / eager_decode_s,
          eager_decode_ms_per_step=eager_decode_s * 1e3 / GEN, eager_tokens_identical=True,
          peak_mem_gb=peak_gb, prefill_logits_max_abs_err=err_prefill,
          decode_logits_max_abs_err=err_step, ref_logits_max_abs=scale,
@@ -1390,16 +1447,17 @@ def train_check_bf16(GPT2Model, cfg, batch, label, to_plain):
 
 
 def train_check_fp32(initialize, GPT2Model, cfg, label, seq, extra_config, to_plain,
-                     make_batch=None):
+                     make_batch=None, remat=False):
     """fp32, full width, 2 layers, B=2, gas=2: three AdamW steps through the
     engine on the kernel path and the plain path (``to_plain`` swaps the
-    model's attention before the engine is built); ``make_batch(rows, seq,
-    vocab, seed, device)`` makes the batch (token rows by default)."""
+    model's attention before the engine is built) under ``remat``;
+    ``make_batch(rows, seq, vocab, seed, device)`` makes the batch (token
+    rows by default)."""
     from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
 
     make_batch = make_batch or synthetic_lm_batch
     k = CHECK_FP32
-    c = dataclasses.replace(cfg, n_layer=k["layers"], remat=False, dtype=torch.float32)
+    c = dataclasses.replace(cfg, n_layer=k["layers"], remat=remat, dtype=torch.float32)
     init = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED + 1))
     config = {"train_batch_size": k["batch"] * k["gas"], "gradient_accumulation_steps": k["gas"],
               "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
@@ -1422,7 +1480,7 @@ def train_check_fp32(initialize, GPT2Model, cfg, label, seq, extra_config, to_pl
     param_rel = _rel_l2(flat(pk), flat(pp))
     rel = {n: _rel_l2(pk[n], pp[n]) for n in pk}
     worst = max(rel, key=rel.get)
-    emit(f"train check {label} fp32 {k['layers']}-layer", seq=seq, **k,
+    emit(f"train check {label} fp32 {k['layers']}-layer", seq=seq, **k, remat=remat,
          losses_kernel=lk, losses_plain=lp, loss_rel_diff=loss_rel, param_rel_l2=param_rel,
          rtol=FP32_RTOL, per_tensor_rel_l2_max=rel[worst], per_tensor_rel_l2_worst=worst)
     if loss_rel > FP32_RTOL or param_rel > FP32_RTOL:
@@ -2109,11 +2167,11 @@ def resume_ladder(initialize, GPT2Model, cfg, dataset, tmp):
 def data_and_checkpoint_slices(initialize, GPT2Model, cfg, accel, fa):
     """The resume, curriculum and ladder phases over one token dataset in a
     temporary directory on the disk with the most room, removed afterwards.
-    Where no candidate holds DISK_MARGIN times the tag, depth is cut to the
-    most layers that fit."""
+    The resume phase runs ``RESUME_LAYERS`` layers, fewer where no candidate
+    holds DISK_MARGIN times the tag (the most layers that fit)."""
     need = lambda n: STATE_BYTES_PER_PARAM * dataclasses.replace(cfg, n_layer=n).num_params()
     root, free = _scratch_dir()
-    layers = cfg.n_layer
+    layers = min(cfg.n_layer, RESUME_LAYERS)
     while layers > 2 and DISK_MARGIN * need(layers) > free[root]:
         layers -= 1
     tmp = tempfile.mkdtemp(prefix="ds_resume_", dir=root)
@@ -3103,6 +3161,457 @@ def sd_slices(init_inference, accel, fa, kernels):
     return calls
 
 
+# ------------------------------------------------- GPT-2 variant families
+def hf_lm_state(family: str, cfg: dict, layers: int, gen, dtype=torch.bfloat16,
+                q_std: float = 0.02):
+    """An HF-shaped (config dict, state dict) of ``family`` ("gpt_neox",
+    "opt", "gpt_neo", "bloom", "gptj") at the widths of ``cfg`` with
+    ``layers`` layers, built on the card: HF's key names and tensor shapes
+    (``nn.Linear`` (out, in), BLOOM's and NeoX's head-interleaved
+    ``query_key_value``, OPT's position table with its 2 extra rows, GPT-J's
+    bias-free attention), normal(0.02) weights (GPT-Neo's ``q_proj``
+    normal(``q_std``)), unit gains, zero biases."""
+    d, h, vocab, npos = cfg["n_embd"], cfg["n_head"], cfg["vocab_size"], cfg["n_positions"]
+    sd = {}
+
+    def put(name, *shape, std=0.02):
+        sd[name] = (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
+
+    def ln(name):
+        sd[name + ".weight"] = torch.ones(d, dtype=dtype, device="cuda")
+        sd[name + ".bias"] = torch.zeros(d, dtype=dtype, device="cuda")
+
+    def linear(name, n_out, n_in, bias=True, std=0.02):
+        put(name + ".weight", n_out, n_in, std=std)
+        if bias:
+            sd[name + ".bias"] = torch.zeros(n_out, dtype=dtype, device="cuda")
+
+    if family == "gpt_neox":
+        put("gpt_neox.embed_in.weight", vocab, d)
+        for i in range(layers):
+            p = f"gpt_neox.layers.{i}."
+            ln(p + "input_layernorm")
+            ln(p + "post_attention_layernorm")
+            linear(p + "attention.query_key_value", 3 * d, d)
+            linear(p + "attention.dense", d, d)
+            linear(p + "mlp.dense_h_to_4h", 4 * d, d)
+            linear(p + "mlp.dense_4h_to_h", d, 4 * d)
+        ln("gpt_neox.final_layer_norm")
+        put("embed_out.weight", vocab, d)
+        config = {"model_type": "gpt_neox", "num_attention_heads": h,
+                  "rotary_pct": cfg["rotary_pct"], "rotary_emb_base": cfg["rotary_theta"],
+                  "use_parallel_residual": True, "hidden_act": cfg["activation"],
+                  "max_position_embeddings": npos}
+    elif family == "opt":
+        put("model.decoder.embed_tokens.weight", vocab, d)
+        put("model.decoder.embed_positions.weight", npos + 2, d)
+        for i in range(layers):
+            p = f"model.decoder.layers.{i}."
+            for n in "qkv":
+                linear(p + f"self_attn.{n}_proj", d, d)
+            linear(p + "self_attn.out_proj", d, d)
+            ln(p + "self_attn_layer_norm")
+            ln(p + "final_layer_norm")
+            linear(p + "fc1", 4 * d, d)
+            linear(p + "fc2", d, 4 * d)
+        ln("model.decoder.final_layer_norm")
+        config = {"model_type": "opt", "num_attention_heads": h, "hidden_size": d,
+                  "word_embed_proj_dim": d, "activation_function": "relu",
+                  "do_layer_norm_before": True}
+    elif family == "gpt_neo":
+        put("transformer.wte.weight", vocab, d)
+        put("transformer.wpe.weight", npos, d)
+        for i in range(layers):
+            p = f"transformer.h.{i}."
+            ln(p + "ln_1")
+            ln(p + "ln_2")
+            for n in "qkv":
+                linear(p + f"attn.attention.{n}_proj", d, d, bias=False,
+                       std=q_std if n == "q" else 0.02)
+            linear(p + "attn.attention.out_proj", d, d)
+            linear(p + "mlp.c_fc", 4 * d, d)
+            linear(p + "mlp.c_proj", d, 4 * d)
+        ln("transformer.ln_f")
+        config = {"model_type": "gpt_neo", "num_heads": h, "window_size": cfg["window_size"],
+                  "attention_layers": list(cfg["attention_layers"][:layers]),
+                  "max_position_embeddings": npos, "activation_function": "gelu_new"}
+    elif family == "bloom":
+        put("transformer.word_embeddings.weight", vocab, d)
+        ln("transformer.word_embeddings_layernorm")
+        for i in range(layers):
+            p = f"transformer.h.{i}."
+            ln(p + "input_layernorm")
+            ln(p + "post_attention_layernorm")
+            linear(p + "self_attention.query_key_value", 3 * d, d)
+            linear(p + "self_attention.dense", d, d)
+            linear(p + "mlp.dense_h_to_4h", 4 * d, d)
+            linear(p + "mlp.dense_4h_to_h", d, 4 * d)
+        ln("transformer.ln_f")
+        config = {"model_type": "bloom", "n_head": h}
+    else:
+        put("transformer.wte.weight", vocab, d)
+        for i in range(layers):
+            p = f"transformer.h.{i}."
+            ln(p + "ln_1")
+            for n in "qkv":
+                linear(p + f"attn.{n}_proj", d, d, bias=False)
+            linear(p + "attn.out_proj", d, d, bias=False)
+            linear(p + "mlp.fc_in", 4 * d, d)
+            linear(p + "mlp.fc_out", d, 4 * d)
+        ln("transformer.ln_f")
+        linear("lm_head", vocab, d)
+        config = {"model_type": "gptj", "n_head": h,
+                  "rotary_dim": round(cfg["rotary_pct"] * d // h), "n_positions": npos}
+    return config, sd
+
+
+class _HFObject:
+    """What a loader takes: ``.config`` (a dict here: the card's machine has
+    no ``transformers``) and ``state_dict()``."""
+
+    def __init__(self, config, sd):
+        self.config, self._sd = config, sd
+
+    def state_dict(self):
+        return self._sd
+
+
+def _variant_cfg(name: str, **over):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    return GPT2Config(**{**VARIANT_MODELS[name], **over})
+
+
+def _kernel_layers(c) -> int:
+    """The layers that reach K1 and K3: none under ALiBi, the global ones
+    under GPT-Neo's pattern."""
+    if c.alibi:
+        return 0
+    if c.attention_layers is None:
+        return c.n_layer
+    return sum(1 for a in c.attention_layers if a == "global")
+
+
+def serve_variant(init_inference, model, sd, name, accel, fa, da, prompt=PROMPT, **fields):
+    """A GPT2Model of ``model``'s config served from the state dict ``sd``
+    (emptied once loaded) through ``init_inference`` in bf16 with the decode
+    kernel: the counted graphed ``generate`` beside the ungraphed loop and
+    the plain path (``_served_cell``). → the second generate's launches."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+
+    c = dataclasses.replace(model.config, use_flash_decode=True, dtype=torch.bfloat16)
+    model = GPT2Model(c)
+    t0 = time.perf_counter()
+    engine = init_inference(model, {"dtype": "bfloat16", "max_out_tokens": prompt + GEN},
+                            params=sd)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, c.vocab_size, (BATCH, prompt), generator=gen, device="cuda")
+    sd.clear()                     # the engine holds the weights now, in bf16
+    launches, loop, _, _ = _served_cell(
+        engine, ids, accel, fa, da, f"serve {name}", kernel_layers=_kernel_layers(c),
+        layers=c.n_layer, params=sum(p.numel() for p in engine.module.parameters()),
+        switches={k: getattr(c, k) for k in ("alibi", "rotary_pct", "rotary_interleaved",
+                                             "parallel_residual", "activation",
+                                             "lm_head_bias", "embed_layernorm")},
+        window=c.window_size if c.attention_layers else None, init_inference_s=load_s,
+        nvidia_smi=nvidia_smi_line(), **fields)
+    del engine, model, loop
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_from_hf(init_inference, name, family, accel, fa, da, prompt=PROMPT, q_std=0.02):
+    """An HF-shaped state dict of ``name`` built on the card, loaded by
+    ``load_hf_model`` (the config as a dict) in bf16, its switches held to
+    the published config's, and served."""
+    from deepspeed_tpu_torch.module_inject.hf import load_hf_model
+
+    cfg = VARIANT_MODELS[name]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    config, sd = hf_lm_state(family, cfg, cfg["n_layer"], gen, q_std=q_std)
+    model, params = load_hf_model(_HFObject(config, sd), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del sd
+    want = _variant_cfg(name)
+    for key in ("vocab_size", "n_embd", "n_layer", "n_head", "alibi", "embed_layernorm",
+                "rotary_pct", "rotary_interleaved", "parallel_residual", "tie_embeddings",
+                "lm_head_bias", "attention_layers", "activation"):
+        if getattr(model.config, key) != getattr(want, key):
+            raise AssertionError(f"load_hf_model {name}: {key} {getattr(model.config, key)} "
+                                 f"!= {getattr(want, key)}")
+    launches = serve_variant(init_inference, model, params, f"{name} from hf", accel, fa, da,
+                             prompt, hf_family=family, hf_load_s=load_s, q_proj_std=q_std)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_gptneo_hf_init(fa):
+    """GPT-Neo at HF's own init: ``q_proj`` drawn at 0.02 with no 1/sqrt(dh)
+    in its attention gives scores of std ≈ 9 at d 2048, a near one-hot
+    softmax, where any two roundings of the scores part over the layers. At
+    full depth, B 4 x ``NEO_PROMPT``, for each of ``NEO_HF_INIT["seeds"]``:
+    the bf16 kernel path against the bf16 plain path (reported), and each
+    against the fp32 plain path, the kernel path's max and mean errors held
+    within ``NEO_HF_INIT["ratio"]`` of the plain path's (a kernel fault
+    would part from fp32 further than the plain path's rounding does); at 2
+    layers the fp32 kernel path against the fp32 plain path (within
+    ``FP32_RTOL`` of the largest logit). Why the served phase draws
+    ``q_proj`` at 0.02 / sqrt(dh)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+    from deepspeed_tpu_torch.module_inject.hf import load_hf_model
+
+    cfg = VARIANT_MODELS["gpt-neo-1.3b"]
+    ratio = NEO_HF_INIT["ratio"]
+    by_seed, faults = {}, []
+    for seed in NEO_HF_INIT["seeds"]:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        config, sd = hf_lm_state("gpt_neo", cfg, cfg["n_layer"], gen)
+        model, params = load_hf_model(_HFObject(config, sd), dtype=torch.bfloat16)
+        del sd
+        c = model.config
+        ids = torch.randint(0, c.vocab_size, (4, NEO_PROMPT), generator=gen, device="cuda")
+
+        def prefill(layers, dtype, flash):
+            m = GPT2Model(dataclasses.replace(c, n_layer=layers, dtype=dtype,
+                                              attention_layers=c.attention_layers[:layers],
+                                              use_flash_attention=flash))
+            m.load_state_dict({k: v.to(dtype) for k, v in params.items()
+                               if not k.startswith("blocks.") or int(k.split(".")[1]) < layers},
+                              assign=True)
+            with torch.inference_mode():
+                return m.prefill(ids, m.init_cache(4, NEO_PROMPT))[0].float()
+
+        f32 = torch.float32
+        ref = prefill(c.n_layer, f32, False)
+        out = {path: prefill(c.n_layer, torch.bfloat16, flash)
+               for path, flash in (("kernel", True), ("plain", False))}
+        to_fp32 = {path: {"max": max_err(o, ref), "mean": (o - ref).abs().mean().item()}
+                   for path, o in out.items()}
+        small_ref = prefill(2, f32, False)
+        small_err = max_err(prefill(2, f32, True), small_ref)
+        by_seed[seed] = {
+            "bf16_kernel_vs_plain": {"max": max_err(out["kernel"], out["plain"]),
+                                     "mean": (out["kernel"] - out["plain"]).abs().mean().item(),
+                                     "top1_agree": (out["kernel"].argmax(-1) == out["plain"]
+                                                    .argmax(-1)).float().mean().item()},
+            "bf16_err_to_fp32": to_fp32,
+            "kernel_over_plain": {k: to_fp32["kernel"][k] / to_fp32["plain"][k]
+                                  for k in ("max", "mean")},
+            "ref_logits_max_abs": ref.abs().max().item(),
+            "fp32_2layer_kernel_vs_plain": small_err}
+        over = by_seed[seed]["kernel_over_plain"].values()
+        if not small_err <= FP32_RTOL * small_ref.abs().max().item() \
+                or not all(math.isfinite(v) and v <= ratio for v in over):
+            faults.append(seed)
+        del params, out, ref
+        torch.cuda.empty_cache()
+    emit("check gpt-neo-1.3b hf init", q_proj_std=0.02, ratio_limit=ratio, fp32_rtol=FP32_RTOL,
+         by_seed=by_seed, nvidia_smi=nvidia_smi_line())
+    if faults:
+        raise AssertionError(f"GPT-Neo at HF init, seeds {faults}: "
+                             f"{ {s: by_seed[s] for s in faults} }")
+
+
+def check_gptj_loader(init_inference, accel, fa, da):
+    """GPT-J's loader at its published widths on 2 layers: the HF-shaped
+    dict loaded in bf16 (ln_1 in both ln slots, zero attention biases, the
+    head bias), served through the kernels at head dim 256 with the graphed
+    loop against the ungraphed one and the plain path."""
+    from deepspeed_tpu_torch.module_inject.hf import load_hf_model
+
+    cfg = VARIANT_MODELS["gpt-j-6b"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    config, sd = hf_lm_state("gptj", cfg, GPTJ_LOADER_LAYERS, gen)
+    model, params = load_hf_model(_HFObject(config, sd), dtype=torch.bfloat16)
+    c = model.config
+    if not (c.rotary_interleaved and c.parallel_residual and c.lm_head_bias
+            and c.head_dim == 256 and torch.equal(params["blocks.1.ln2_g"],
+                                                  sd["transformer.h.1.ln_1.weight"])
+            and not params["blocks.0.qkv_b"].any()):
+        raise AssertionError(f"load_gptj at GPT-J's widths: {c}")
+    del sd
+    return serve_variant(init_inference, model, params,
+                         f"check gpt-j-6b loader {GPTJ_LOADER_LAYERS}-layer", accel, fa, da)
+
+
+def train_pythia(initialize, accel, fa):
+    """pythia-1.4b at full width and depth, 4 x 2048, bf16, AdamW, ZeRO
+    stage 1, through initialize → train_batch under remat "attn" (24 K1 and
+    24 of each K2 entry a step: the recompute reads K1's outputs back), then
+    "full" and "dots" (48 K1 a step), their losses within 1% of "attn"'s;
+    then, at 2 layers under remat "attn", the kernel path against the plain
+    path: one bf16 step's loss and gradients on the same batch, and three
+    fp32 AdamW steps through the engine. → launches by run."""
+    import gc
+
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, synthetic_lm_batch
+
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": PYTHIA_BATCH}
+    launches, ref = {}, None
+    batch = synthetic_lm_batch(PYTHIA_BATCH, PYTHIA_SEQ, VARIANT_MODELS[PYTHIA]["vocab_size"],
+                               seed=SEED, device="cuda")
+    for remat in PYTHIA_REMATS:
+        c = _variant_cfg(PYTHIA, remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine, *_ = initialize(model=GPT2Model(c), config=dict(config))
+        init_s = time.perf_counter() - t0
+        losses, step_ms, peak_gb = _timed_steps(engine, batch, accel, (fa.KERNEL, fa.BWD_KERNEL))
+        got = _dense_launches(fa)
+        k1 = (1 if remat in ("attn", "attn_mlp") else 2) * c.n_layer * TRAIN_STEPS
+        expect = {"flash_attention_fwd": k1,
+                  **dict.fromkeys(fa.BWD_KERNEL.entry_launches, c.n_layer * TRAIN_STEPS)}
+        label = f"train {PYTHIA} {remat}"
+        if got != expect:
+            raise AssertionError(f"{label}: launch counts {got} over {TRAIN_STEPS} steps, "
+                                 f"expected {expect}")
+        held = {}
+        if ref is None:
+            ref = losses
+        else:
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+            held = {"loss_rel_to_attn": rel}
+            if rel > TRAIN_LOSS_RTOL:
+                raise AssertionError(f"{label}: losses {losses} vs remat attn's {ref}")
+        launches[f"train_pythia_{remat}"] = got
+        params = sum(p.numel() for p in engine.module.parameters())
+        line = _train_line(c, PYTHIA_BATCH, PYTHIA_SEQ, step_ms, accel)
+        # MFU from the model's own parameter count (GPT2Config.num_params
+        # counts a position table and no untied head, as the JAX one does)
+        step_s = line["step_ms"] / 1e3
+        flops = (6 * params + 12 * c.n_layer * c.n_embd * PYTHIA_SEQ) * PYTHIA_BATCH * PYTHIA_SEQ
+        emit(label, **line, remat=remat, layers=c.n_layer, heads=c.n_head, head_dim=c.head_dim,
+             model_params=params, mfu_model_params=flops / step_s / accel.peak_flops(
+                 torch.bfloat16), init_s=init_s, peak_mem_gb=peak_gb, losses=losses,
+             launches_per_step={k: v / TRAIN_STEPS for k, v in got.items()}, **held,
+             grad_norm=engine.get_global_grad_norm(), nvidia_smi=nvidia_smi_line())
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    train_check_bf16(GPT2Model, _variant_cfg(PYTHIA, n_layer=2, remat="attn"), batch, PYTHIA,
+                     _dense_plain)
+    train_check_fp32(initialize, GPT2Model, _variant_cfg(PYTHIA), PYTHIA, PYTHIA_SEQ, {},
+                     _dense_plain, remat="attn")
+    return launches
+
+
+def check_pythia_dropout(accel):
+    """2 layers at pythia-1.4b's widths, fp32, dropout 0.1: one loss and its
+    gradients under remat "attn" and under remat off from generators of the
+    same seed; the recompute draws the same masks, so every gradient is
+    within ``DROPOUT_CHECK["rtol"]`` of remat off's (relative L2)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, synthetic_lm_batch
+
+    k = DROPOUT_CHECK
+    c = _variant_cfg(PYTHIA, n_layer=2, dropout=k["p"], dtype=torch.float32)
+    model = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    batch = synthetic_lm_batch(k["batch"], k["seq"], c.vocab_size, seed=SEED, device="cuda")
+    runs = {}
+    for remat in ("attn", False):
+        model.config = dataclasses.replace(c, remat=remat)
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(batch, generator=torch.Generator(device="cuda").manual_seed(SEED))
+        loss.backward()
+        runs[remat] = (loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()})
+    rel = {n: _rel_l2(g, runs[False][1][n]) for n, g in runs["attn"][1].items()}
+    worst = max(rel, key=rel.get)
+    with torch.no_grad():
+        no_drop = model.loss(batch).item()
+    emit(f"train check {PYTHIA} dropout", layers=2, **k, loss_attn=runs["attn"][0],
+         loss_off=runs[False][0], loss_without_dropout=no_drop, grad_rel_l2_max=rel[worst],
+         grad_rel_l2_worst=worst)
+    if rel[worst] > k["rtol"] or runs["attn"][0] != runs[False][0] or no_drop == runs[False][0]:
+        raise AssertionError(f"dropout under remat attn vs off: grad rel {rel[worst]} at "
+                             f"{worst}, losses {runs['attn'][0]} / {runs[False][0]}")
+    del model, runs
+    torch.cuda.empty_cache()
+
+
+def train_bert_pld(initialize, BertModel, cfg, accel, fa):
+    """bert-large masked-LM at 64 x 128 with the ds_config
+    ``progressive_layer_drop`` block (θ 0.5, γ 0.001): the θ each step's
+    loss receives equals ``theta_at`` of the step; the losses are finite;
+    the median step beside the same run with PLD off. → launches."""
+    import gc
+
+    from deepspeed_tpu_torch.runtime.progressive_layer_drop import theta_at
+
+    class Recording(BertModel):
+        def loss(self, batch, pld_theta=None, generator=None):
+            self.seen.append(pld_theta)
+            return super().loss(batch, pld_theta, generator)
+
+    rows, seq, maxp = BERT_SHAPES[0]
+    c = dataclasses.replace(cfg, max_predictions_per_seq=maxp, dtype=torch.float16, remat=False)
+    batch = _bert_batch(rows, seq, c.vocab_size, SEED, "cuda", maxp)
+    out, launches = {}, None
+    for pld in (PLD, None):
+        model = Recording(c)
+        model.seen = []
+        config = {**BERT_CONFIG, "train_micro_batch_size_per_gpu": rows,
+                  **({"progressive_layer_drop": pld} if pld else {})}
+        engine, *_ = initialize(model=model, config=config)
+        losses, step_ms, _ = _timed_steps(engine, batch, accel, (fa.KERNEL, fa.BWD_KERNEL))
+        out[pld is not None] = (losses, sorted(step_ms)[TRAIN_STEPS // 2], list(model.seen))
+        if pld:
+            launches = _dense_launches(fa)
+        del engine, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    losses, step_ms, seen = out[True]
+    want = [theta_at(s, PLD["theta"], PLD["gamma"]) for s in range(len(seen))]
+    emit(f"train {BERT_MODEL} pld", batch=rows, seq=seq, pld=PLD, losses=losses,
+         thetas=seen, step_ms=step_ms, step_ms_pld_off=out[False][1],
+         losses_pld_off=out[False][0], launches_per_step={
+             k: v / TRAIN_STEPS for k, v in launches.items()}, nvidia_smi=nvidia_smi_line())
+    if seen != want or out[False][2] != [None] * len(seen) \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"PLD: thetas {seen} vs theta_at {want}; losses {losses}")
+    return launches
+
+
+def variant_slices(initialize, init_inference, BertModel, bert_cfg, accel, fa, da):
+    """The GPT-2 variant families: pythia-1.4b trained under three remat
+    policies and its dropout check, then pythia-1.4b, OPT-1.3b, GPT-Neo-1.3B
+    and BLOOM-560m served from HF-shaped dicts through ``load_hf_model``,
+    GPT-J-6B (head dim 256) built by the port's own init and served, its
+    loader checked on 2 layers, and bert-large under progressive layer drop.
+    → launches by path."""
+    launches = train_pythia(initialize, accel, fa)
+    check_pythia_dropout(accel)
+    # GPT-Neo's attention has no 1/sqrt(dh): its q_proj is drawn at 0.02 /
+    # sqrt(dh), the scores' spread of the other families (check_gptneo_hf_init)
+    neo_q_std = 0.02 / math.sqrt(VARIANT_MODELS["gpt-neo-1.3b"]["n_embd"]
+                                 // VARIANT_MODELS["gpt-neo-1.3b"]["n_head"])
+    for name, family, prompt, q_std in ((PYTHIA, "gpt_neox", PROMPT, 0.02),
+                                        ("opt-1.3b", "opt", PROMPT, 0.02),
+                                        ("gpt-neo-1.3b", "gpt_neo", NEO_PROMPT, neo_q_std),
+                                        ("bloom-560m", "bloom", PROMPT, 0.02)):
+        launches[f"serve_{name}"] = serve_from_hf(init_inference, name, family, accel, fa, da,
+                                                  prompt, q_std)
+    check_gptneo_hf_init(fa)
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+
+    c = _variant_cfg("gpt-j-6b")
+    t0 = time.perf_counter()
+    model = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sd = model.state_dict()
+    del model
+    launches["serve_gpt-j-6b"] = serve_variant(init_inference, GPT2Model(c), sd, "gpt-j-6b",
+                                               accel, fa, da, init_params_s=init_s)
+    torch.cuda.empty_cache()
+    launches["check_gptj_loader"] = check_gptj_loader(init_inference, accel, fa, da)
+    launches["train_bert_pld"] = train_bert_pld(initialize, BertModel, bert_cfg, accel, fa)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -3193,17 +3702,20 @@ def main() -> int:
         *((f"curriculum_t{t}", BH, t, 96, bf, True) for t in ragged),
         ("offload_d80", OFFLOAD_BATCH * 32, OFFLOAD_SEQ, 80, bf, True),
         ("capacity_d128", OFFLOAD_BATCH * 32, OFFLOAD_SEQ, 128, bf, True))]
-    # the llama and BERT training phases' shapes: causal at llama3.2-1b's
-    # 4 x 2048 (32 heads of 64 after the KV heads' repeat), non-causal at
+    # the llama, MoE, pythia and BERT training phases' shapes: causal at
+    # llama3.2-1b's 4 x 2048 (32 heads of 64 after the KV heads' repeat) and
+    # pythia-1.4b's (16 heads of 128), non-causal at
     # bert-large's 64 x 128 and 16 x 512 (16 heads of 64), bf16 and fp16
     model_fwd = {row["name"]: row for row in (check_flash(fa, accel, gen, *case) for case in (
         ("llama_train", LLAMA_BATCH, LLAMA_SEQ, 32, 64, bf, True),
         ("moe_train", MOE_BATCH, MOE_SEQ, 12, 64, bf, True),
+        ("pythia_train", PYTHIA_BATCH, PYTHIA_SEQ, 16, 128, bf, True),
         *((f"bert_s{t}{suffix}", b, t, 16, 64, dt, False)
           for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
     model_bwd = {row["name"]: row for row in (check_flash_bwd(fa, accel, gen, *case) for case in (
         ("llama_train", LLAMA_BATCH * 32, LLAMA_SEQ, 64, bf, True),
         ("moe_train", MOE_BATCH * 12, MOE_SEQ, 64, bf, True),
+        ("pythia_train", PYTHIA_BATCH * 16, PYTHIA_SEQ, 128, bf, True),
         *((f"bert_s{t}{suffix}", b * 16, t, 64, dt, False)
           for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
     # SD-1.5's shapes: the UNet's self-attention (T = H W) and cross-attention
@@ -3231,7 +3743,26 @@ def main() -> int:
         ("sd_vae_decode_d512_fp32", SD_PROMPTS, 4096, 1, 512, f32, False),
         # the forward-only head dims at tile edges, causal, with Tq != Tk
         *((f"sd_edges_d{d}_tq65_tk7", 2, 65, 2, d, bf, True, 7) for d in (40, 160, 512))))}
+    # GPT-J-6B's head dim 256 (forward only): K1 at B 4 x T 2048 (16 heads,
+    # causal and not), at its serving prefill (B 32 x 128), in fp16 and fp32,
+    # and at tile edges with Tq != Tk
+    gptj_fwd = {row["name"]: row for row in (check_flash(fa, accel, gen, *case) for case in (
+        ("gptj_d256", 4, 2048, 16, 256, bf, True),
+        ("gptj_d256_noncausal", 4, 2048, 16, 256, bf, False),
+        ("gptj_prefill_d256", BATCH, PROMPT, 16, 256, bf, True),
+        ("gptj_d256_fp16", 4, 2048, 16, 256, f16, True),
+        ("gptj_d256_fp32", 2, 512, 16, 256, f32, True),
+        ("gptj_d256_fp32_noncausal", 2, 512, 16, 256, f32, False),
+        ("gptj_edges_d256_tq65_tk7", 2, 65, 2, 256, bf, True, 7)))}
     S = PROMPT + GEN
+    # and K3 at GPT-J-6B's serving shape (B 32, S 256, H = KV = 16), its
+    # first slot, fp16 and fp32, and over an 8192-entry cache (the merge)
+    gptj_decode = {row["name"]: row for row in (check_decode(da, accel, gen, *case) for case in (
+        ("gptj_d256", BATCH, S, 16, 16, 256, bf, S - 1),
+        ("gptj_d256_pos0", BATCH, S, 16, 16, 256, bf, 0),
+        ("gptj_d256_fp16", BATCH, S, 16, 16, 256, f16, S - 1),
+        ("gptj_d256_fp32", BATCH, S, 16, 16, 256, f32, S - 1),
+        ("gptj_d256_long", LONG_BATCH, LONG_S, 16, 16, 256, bf, LONG_S - 1)))}
     decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("slice_pos255", BATCH, S, 32, 8, 64, bf, S - 1),
         ("slice_pos0", BATCH, S, 32, 8, 64, bf, 0),
@@ -3332,6 +3863,13 @@ def main() -> int:
     # SD-1.5 served at full width: CLIP, the UNet and the VAE
     sd_calls = sd_slices(deepspeed_tpu_torch.init_inference, accel, fa, all_kernels)
     sd_launches = sum(sd_calls.values())
+    # the GPT-2 variant families: pythia-1.4b trained under three remat
+    # policies, pythia, OPT, GPT-Neo, BLOOM and GPT-J served, bert-large PLD
+    variant_launches = variant_slices(deepspeed_tpu_torch.initialize,
+                                      deepspeed_tpu_torch.init_inference, bert_cls,
+                                      bert_presets[BERT_MODEL], accel, fa, da)
+    variant_trained = {p: n for p, n in variant_launches.items() if p.startswith("train")}
+    variant_served = {p: n for p, n in variant_launches.items() if p not in variant_trained}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bwd = bwd_rows[0]
@@ -3352,7 +3890,9 @@ def main() -> int:
                               **{p: n["flash_attention_fwd"] for p, n in by_offload.items()},
                               **{p: n["flash_attention_fwd"]
                                  for p, n in model_launches.items()},
-                              "serve_sd15": sd_launches},
+                              "serve_sd15": sd_launches,
+                              **{p: n["flash_attention_fwd"]
+                                 for p, n in variant_launches.items()}},
          "at_serving_shape": {k: flash_rows[1][k] for k in keys},
          "at_model_shapes": {name: {k: row[k] for k in keys} for name, row in model_fwd.items()}},
         {"name": "decode_attention", "route": "cuda",
@@ -3362,7 +3902,8 @@ def main() -> int:
          **{k: decode_rows[0][k] for k in keys},
          "launches_by_path": {"serve": serve_launches["decode_attention"],
                               "serve_gpt2": serve_gpt2_launches["decode_attention"],
-                              **{p: model_launches[p]["decode_attention"] for p in served}},
+                              **{p: model_launches[p]["decode_attention"] for p in served},
+                              **{p: n["decode_attention"] for p, n in variant_served.items()}},
          "at_long_shape": {k: long_rows[0][k] for k in keys},
          "at_gpt2_mha_shape": {k: gpt2_decode_rows[0][k] for k in keys},
          "at_moe_serving_shape": {k: moe_decode_row[k] for k in keys}},
@@ -3378,7 +3919,7 @@ def main() -> int:
                 ("resume", resume_launches),
                 ("curriculum", curriculum_launches),
                 *((f"zero{s}", z) for s, z in zero_launches.items()),
-                *by_offload.items(), *trained.items())},
+                *by_offload.items(), *trained.items(), *variant_trained.items())},
             "at_model_shapes": {name: {
                 "max_abs_err": max(row["errs"][n] for n in (("dq",) if entry == "dq"
                                                             else ("dk", "dv"))),
@@ -3425,6 +3966,20 @@ def main() -> int:
                  "at_sd_shapes": {name: {k: r[k] for k in (*keys, "library_backend")}
                                   for name, r in sd_fwd.items() if f"_d{d}" in name}}
                 for label, row, d, replaces in sd_instances]
+    # the head dim 256 instances on GPT-J-6B's served path, at its shapes
+    gptj = variant_launches["serve_gpt-j-6b"]
+    kernels += [
+        {"name": "flash_attention_fwd [gpt-j-6b head dim 256]", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu", "replaces": k1a,
+         "launches": gptj["flash_attention_fwd"], **{k: gptj_fwd["gptj_d256"][k] for k in keys},
+         "library_backend": gptj_fwd["gptj_d256"]["library_backend"],
+         "at_d256_shapes": {name: {k: r[k] for k in (*keys, "library_backend")}
+                            for name, r in gptj_fwd.items()}},
+        {"name": "decode_attention [gpt-j-6b head dim 256]", "route": "cuda",
+         "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:47",
+         "launches": gptj["decode_attention"], **{k: gptj_decode["gptj_d256"][k] for k in keys},
+         "at_d256_shapes": {name: {k: r[k] for k in keys} for name, r in gptj_decode.items()}}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

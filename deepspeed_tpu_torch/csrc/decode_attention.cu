@@ -46,7 +46,9 @@
 // every tile: S = Q K^T from ldmatrix fragments, the online softmax on the
 // fragments, P rounded to the input type and fed from registers to O += P V
 // (V by ldmatrix.trans), as the flash kernels do. The four warps' states are
-// merged through shared memory at the end.
+// merged through shared memory at the end. Head dims 16, 32, 64, 80, 96, 128
+// and 256 (GPT-J-6B: 143,616 bytes of shared memory for the Q rows and the
+// two rings, 32 accumulator n-tiles a thread).
 //
 // fp32: `decode_split_fp32_kernel`, the first design on the CUDA cores, kept
 // because the fp32 checks hold the kernel to 1e-4 of an fp32 reference, which
@@ -429,6 +431,9 @@ decode_split_fp32_kernel(const float* __restrict__ q, const float* __restrict__ 
   __shared__ float sM[kWarps][G];
   __shared__ float sL[kWarps][G];
   __shared__ float sAcc[kWarps][G][DH];
+  // static shared memory stops at 48 KB: 45,312 B at DH = 256 with G = 8
+  static_assert((G * DH + kWarps * G * (kTile + 2 + DH)) * 4 + 4 <= 48 * 1024,
+                "fp32 decode tiles exceed static shared memory");
 
   const int b = blockIdx.z;
   const int rep = h / kv;                  // query heads per KV head
@@ -606,6 +611,7 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const void*
     case 80: return launch_split<T, 80>(q, k, v, pos, o, work, sem, b, h, kv, s_len, chunk, scale, stream);
     case 96: return launch_split<T, 96>(q, k, v, pos, o, work, sem, b, h, kv, s_len, chunk, scale, stream);
     case 128: return launch_split<T, 128>(q, k, v, pos, o, work, sem, b, h, kv, s_len, chunk, scale, stream);
+    case 256: return launch_split<T, 256>(q, k, v, pos, o, work, sem, b, h, kv, s_len, chunk, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -40,7 +40,7 @@
 //   * the epilogue stages O / l through shared memory for 16-byte coalesced
 //     stores.
 //
-// Head dims 16, 32, 40, 64, 80, 96, 128, 160 and 512. A head dim that is not a
+// Head dims 16, 32, 40, 64, 80, 96, 128, 160, 256 and 512. A head dim that is not a
 // multiple of the mma k-step (40) is padded to the next multiple of 16 inside
 // the CTA: every shared row holds D columns loaded and zeros up to the padded
 // width, written once before the first load, so the last k-step of Q K^T adds
@@ -48,10 +48,12 @@
 // never stored. At D = 160 the plan is the same (107,520 bytes of shared
 // memory, 80 fp32 accumulator registers a thread).
 //
-// D = 512 (the VAE's single-head mid attention): the plan above would need
-// 332,800 bytes of shared memory and 256 accumulator registers a thread, so
+// D = 256 (GPT-J-6B) and 512 (the VAE's single-head mid attention): the
+// plan above would need 128 (at 512: 256) fp32 accumulator registers a thread
+// on top of the score tile, and 332,800 bytes of shared memory at 512, so
 // `flash_fwd_wide_kernel` splits the output: one CTA per (bh, 64 query rows,
-// kWideSlice columns of O). The CTA keeps the whole Q tile in shared memory
+// kWideSlice = 256 columns of O). At D = 256 that is one slice, so no scores
+// are recomputed (101,376 bytes of shared memory). The CTA keeps the whole Q tile in shared memory
 // and reads its A fragments per key tile by ldmatrix, streams 32-key K tiles
 // (every column) and V tiles (its own columns) through a 2-stage ring, and
 // computes the full scores for its slice: the slices recompute Q K^T, which
@@ -345,7 +347,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 
 }  // namespace mma
 
-// ------------------------------------------- bf16 / fp16, D = 512 (mma, sliced O)
+// ------------------------------------ bf16 / fp16, D = 256 and 512 (mma, sliced O)
 namespace wide {
 
 constexpr int kBlockQ = 64;   // 4 warps x 16 query rows
@@ -737,7 +739,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, void*
                      int t_q, int t_k, int causal, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, float>)
     return fp32::launch<D>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
-  else if constexpr (D > 256)
+  else if constexpr (D >= 256)
     return wide::launch<T, D>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
   else
     return mma::launch<T, D>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
@@ -755,6 +757,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, voi
     case 96: return launch_d<T, 96>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
     case 128: return launch_d<T, 128>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
     case 160: return launch_d<T, 160>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
+    case 256: return launch_d<T, 256>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
     case 512: return launch_d<T, 512>(q, k, v, o, lse, bh, t_q, t_k, causal, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -18,9 +18,12 @@ for a batch with an ``attention_mask``, the plain masked path (as in JAX,
 where a masked call never reaches the kernel). Each module computes with
 its own parameters through ``_gathered(module)`` (``models/common.py``'s
 :class:`GatheredModule`); the word embedding gathers for the embedding and
-again for the head. There is no KV cache: an encoder does not generate. The
-"dots" and "attn" remat policies, ``flash_block`` (the TPU kernel's tile)
-and progressive layer drop raise ``NotImplementedError``.
+again for the head. There is no KV cache: an encoder does not generate.
+``remat`` is off, "full", "dots" or "attn" (``models/common.py``
+``remat_call``). ``loss`` takes progressive layer drop's ``pld_theta`` and
+the engine's ``generator``: the layers' gates are drawn before the layer
+loop, as GPT-2's. ``flash_block`` (the TPU kernel's tile) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,11 +35,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models.common import (GatheredModule, assemble, chunked_lm_loss,
-                                               init_pieces, layer_norm,
-                                               local_causal_attention, meta_weight)
+                                               gate_layer, init_pieces, layer_norm,
+                                               local_causal_attention, meta_weight, pld_gates,
+                                               remat_call)
 from deepspeed_tpu_torch.utils import env_flag
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -82,8 +85,9 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     activation: str = "gelu"                  # BERT uses exact-erf gelu
     dtype: Any = torch.bfloat16               # compute type
-    # activation checkpointing: False/'none' or True/'full' (recompute each
-    # block in the backward); 'dots' and 'attn' are later slices
+    # activation checkpointing: False/'none', True/'full' (recompute each
+    # block in the backward), 'dots' (keep the matmul outputs) or 'attn'
+    # (keep the flash forward's outputs)
     remat: Any = False
     # recompute each loss chunk's fp32 logits in the backward instead of
     # keeping them (models/common.py chunked_lm_loss)
@@ -112,8 +116,6 @@ class BertConfig:
         if self.remat not in self.VALID_REMAT:
             raise ValueError(f"remat={self.remat!r} not in {self.VALID_REMAT}")
         # what this slice of the port does not carry raises, never silently
-        if self.remat in ("dots", "attn"):
-            raise _later(f"remat={self.remat!r} (saving named activations)")
         if self.flash_block is not None:
             raise _later("BERT flash_block")
 
@@ -255,12 +257,17 @@ class BertModel(GatheredModule):
             h = self._act(h) @ w.fc2_w.to(x.dtype) + w.fc2_b.to(x.dtype)
             return self._layer_norm(x + h, w.mlp_ln_g, w.mlp_ln_b)
 
-    def _trunk(self, input_ids, token_type_ids=None, attention_mask=None):
+    def _trunk(self, input_ids, token_type_ids=None, attention_mask=None, generator=None,
+               pld_theta=None):
+        """Embeddings and every block; with ``pld_theta`` and ``generator``,
+        each block gated by progressive layer drop (``pld_gates``)."""
+        c = self.config
         x = self._embed(input_ids, token_type_ids)
-        remat = self.config.remat in (True, "full")
-        for blk in self.blocks:
-            x = checkpoint(self._block, x, blk, attention_mask, use_reentrant=False) if remat \
-                else self._block(x, blk, attention_mask)
+        gates = pld_gates(pld_theta, c.n_layer, generator) \
+            if pld_theta is not None and generator is not None else None
+        for n, blk in enumerate(self.blocks):
+            y = remat_call(c.remat, self._block, x, blk, attention_mask)
+            x = gate_layer(x, y, None if gates is None else gates[n])
         return x
 
     def hidden_states(self, input_ids, token_type_ids=None, attention_mask=None):
@@ -285,19 +292,21 @@ class BertModel(GatheredModule):
         maxp = self.config.max_predictions_per_seq
         return maxp is not None and maxp < labels.shape[1]
 
-    def loss(self, batch, pld_theta=None):
+    def loss(self, batch, pld_theta=None, generator: Optional[torch.Generator] = None):
         """Masked-LM cross entropy. ``batch``: dict with input_ids and labels
         ((B, T), -100 = not predicted) [+ optional token_type_ids /
         attention_mask (B, T), nonzero = attend]. The vocab projection runs
         through the shared chunked loss, so the (B, T, V) fp32 logits are
         never held at once. With ``max_predictions_per_seq`` the head runs
         on each row's first masked positions in index order
-        (:func:`gathered_positions`), padded with zero-weight positions."""
-        if pld_theta is not None:
-            raise _later("progressive layer drop (pld_theta)")
+        (:func:`gathered_positions`), padded with zero-weight positions.
+        ``pld_theta``: progressive layer drop's keep probability θ, applied
+        with the engine's ``generator`` (without one every block runs, as
+        JAX without an rng)."""
         ids = batch["input_ids"]
         labels = batch.get("labels", ids)
-        x = self._trunk(ids, batch.get("token_type_ids"), batch.get("attention_mask"))
+        x = self._trunk(ids, batch.get("token_type_ids"), batch.get("attention_mask"),
+                        generator, pld_theta)
         mask = labels != IGNORE_INDEX
         if self._capped(labels):
             maxp = self.config.max_predictions_per_seq

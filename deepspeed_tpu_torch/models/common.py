@@ -1,14 +1,22 @@
-"""Shared model building blocks: RoPE, the attention dispatch, the LM loss,
-and what every model needs to train under the engine.
+"""Shared model building blocks: RoPE, ALiBi, the attention dispatch, the
+LM loss, the remat policies, and what every model needs to train under the
+engine.
 
 Counterpart of ``deepspeed_tpu/models/common.py`` for what the llama, GPT-2
 and BERT paths use. The attention dispatch has no fallback: ``use_flash`` /
 ``use_flash_decode`` choose the kernel wrapper (which launches the CUDA
 kernel for a CUDA tensor and runs its plain version for a CPU tensor),
 otherwise the plain einsum path runs, as the JAX package's flags select. A
-``key_padding_mask`` always takes the plain path, as in JAX (the kernels
-carry no mask). Where the JAX dispatch catches a failing flash kernel and
-falls back to einsum, the port raises.
+``key_padding_mask``, ALiBi slopes or a GPT-Neo window (> 0) always take the
+plain path, as in JAX (the kernels carry no mask or bias); the choice is
+made per call, on the host. Where the JAX dispatch catches a failing flash
+kernel and falls back to einsum, the port raises.
+
+:func:`remat_call` runs a block under the configured activation-checkpoint
+policy: "full" keeps nothing, "dots" keeps the outputs of the matmuls
+without batch dimensions, "attn" the flash forward's outputs (its op,
+``ds_tpu_torch::flash_fwd``), "attn_mlp" those and the MLP activation
+(``checkpoint_name("mlp_act")``), as the JAX policies of the same names.
 
 :class:`GatheredModule` is the base of the models the engine trains: each
 module computes with its own parameters through ``_gathered(module)``,
@@ -22,15 +30,18 @@ hold no memory until filled, random initial values drawn a piece at a time
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from deepspeed_tpu_torch.ops.pallas.decode_attention import decode_attention, decode_reference
 from deepspeed_tpu_torch.ops.pallas.flash_attention import flash_attention, mha_reference
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import layer_keep_probs
 
 # logits-buffer budget: chunk length chosen so the (B, chunk, V) fp32 buffer
 # stays around 256MB (the JAX package's value)
@@ -140,57 +151,174 @@ def _scaled_inv_freq(inv_freq, scaling: Optional[dict]):
     return torch.where(is_medium, smoothed, scaled)
 
 
-def _rope_cos_sin(positions, head_dim: int, theta: float, scaling: Optional[dict] = None):
-    """cos/sin tables (T, Dh) for RoPE in the rotate-half convention
-    (LLaMA/NeoX), fp32, on ``positions``' device."""
+def alibi_slopes(n_head: int) -> torch.Tensor:
+    """ALiBi per-head slopes (H,) fp32, exactly HF BLOOM's
+    ``build_alibi_tensor``: a geometric sequence on the nearest power of two
+    below ``n_head``, and every other slope of the next power's sequence for
+    the heads past it."""
+    cp2 = 2 ** math.floor(math.log2(n_head))
+    base = 2.0 ** (-(2.0 ** -(math.log2(cp2) - 3)))
+    slopes = [base ** (i + 1) for i in range(cp2)]
+    if cp2 != n_head:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * cp2) - 3)))
+        slopes += [extra_base ** (i + 1) for i in range(0, 2 * (n_head - cp2), 2)]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
+def _rope_cos_sin(positions, head_dim: int, theta: float, scaling: Optional[dict] = None,
+                  interleaved: bool = False):
+    """cos/sin tables (T, Dh) for RoPE, fp32, on ``positions``' device.
+    ``interleaved=False``: the rotate-half convention (LLaMA/NeoX), the
+    frequencies concatenated twice; ``interleaved=True``: rotate-every-two
+    (GPT-J), each frequency repeated for an adjacent pair of dims."""
     d2 = head_dim // 2
     exponent = torch.arange(d2, dtype=torch.float32, device=positions.device) / d2
     inv_freq = _scaled_inv_freq(1.0 / (theta ** exponent), scaling)
     ang = positions.float()[:, None] * inv_freq[None, :]   # (T, d2)
+    if interleaved:
+        return (torch.repeat_interleave(torch.cos(ang), 2, dim=-1),
+                torch.repeat_interleave(torch.sin(ang), 2, dim=-1))
     cos = torch.cat([torch.cos(ang)] * 2, dim=-1)
     sin = torch.cat([torch.sin(ang)] * 2, dim=-1)
     return cos, sin
 
 
-def apply_rope(x, cos, sin):
-    """x: (B, T, H, Dh); cos/sin: (T, Dh). Computed in fp32, cast back."""
+def apply_rope(x, cos, sin, interleaved: bool = False):
+    """x: (B, T, H, Dh); cos/sin: (T, Dh) of the same convention. Computed
+    in fp32, cast back."""
     x32 = x.float()
-    h1, h2 = x32.chunk(2, dim=-1)
-    rotated = torch.cat([-h2, h1], dim=-1)
+    if interleaved:
+        # rotate every two: out[2i] = -x[2i+1], out[2i+1] = x[2i]
+        rotated = torch.stack([-x32[..., 1::2], x32[..., ::2]], dim=-1).reshape(x32.shape)
+    else:
+        h1, h2 = x32.chunk(2, dim=-1)
+        rotated = torch.cat([-h2, h1], dim=-1)
     out = x32 * cos[None, :, None, :] + rotated * sin[None, :, None, :]
     return out.to(x.dtype)
 
 
+def _global(window: Optional[int]) -> bool:
+    return window is None or window <= 0
+
+
 def local_causal_attention(q, k, v, use_flash: bool = True, causal: bool = True,
-                           key_padding_mask=None):
+                           key_padding_mask=None, alibi=None, window: Optional[int] = None):
     """Self-attention on (B, T, H, Dh) with equal head counts: the flash
     kernel when ``use_flash``, else the plain einsum. Causal by default;
     ``causal=False`` is the encoder (BERT) path. ``key_padding_mask``:
-    optional (B, T), nonzero = attend; a masked call takes the plain path,
-    as the JAX dispatch sends it to the einsum (the kernels carry no
-    mask)."""
-    if use_flash and key_padding_mask is None:
+    optional (B, T), nonzero = attend; ``alibi``: optional (H,) slopes, the
+    bias ``slopes[h] * j`` on key j; ``window``: a host int, GPT-Neo's local
+    window (query i sees keys 0 <= i - j < window; None or <= 0: global). A
+    masked, biased or windowed call takes the plain path, as the JAX
+    dispatch sends it to the einsum (the kernels carry no mask or bias)."""
+    if use_flash and key_padding_mask is None and alibi is None and _global(window):
         return flash_attention(q, k, v, causal=causal)
-    return mha_reference(q, k, v, causal=causal, key_padding_mask=key_padding_mask)
+    return mha_reference(q, k, v, causal=causal, key_padding_mask=key_padding_mask,
+                         alibi=alibi, window=window)
 
 
-def cached_decode_attention(q, k_cache, v_cache, pos, use_flash_decode: bool = False):
+def cached_decode_attention(q, k_cache, v_cache, pos, use_flash_decode: bool = False,
+                            alibi=None, window: Optional[int] = None):
     """Single-token decode attention over a KV cache. q: (B, H, Dh); caches
     (B, S, KV, Dh) valid through index ``pos``; KV may divide H (GQA).
-    ``use_flash_decode`` selects the decode kernel, else the grouped einsum.
-    → (B, H, Dh)."""
-    if use_flash_decode:
+    ``use_flash_decode`` selects the decode kernel, else the grouped einsum;
+    ALiBi slopes or a window (> 0, a host int) take the grouped einsum, as
+    in JAX. → (B, H, Dh)."""
+    if use_flash_decode and alibi is None and _global(window):
         return decode_attention(q, k_cache, v_cache, pos)
-    return decode_reference(q, k_cache, v_cache, pos)
+    return decode_reference(q, k_cache, v_cache, pos, alibi=alibi, window=window)
 
 
-def causal_attention(q, k, v, use_flash: bool = True, sequence_parallel=False):
+def causal_attention(q, k, v, use_flash: bool = True, sequence_parallel=False, alibi=None,
+                     window: Optional[int] = None):
     """The causal-attention dispatch shared by the model families: the
     single-device branch of the JAX ``causal_attention``. Sequence
     parallelism (ring / Ulysses) is a later slice of the port."""
     if sequence_parallel:
         raise NotImplementedError("sequence parallelism: later slice of the port")
-    return local_causal_attention(q, k, v, use_flash)
+    return local_causal_attention(q, k, v, use_flash, alibi=alibi, window=window)
+
+
+# ------------------------------------------------------------------ remat
+# the names open at the current op (``checkpoint_name``), innermost last
+_NAMES: list = []
+# ops without batch dimensions whose outputs "dots" keeps (a 3-D activation
+# times a 2-D weight is one ``mm`` on the flattened rows)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_FLASH = torch.ops.ds_tpu_torch.flash_fwd.default
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Name the ops run inside, for a remat policy (JAX's ``checkpoint_name``
+    names one value; here every op of the section carries the name)."""
+    _NAMES.append(name)
+    try:
+        yield
+    finally:
+        _NAMES.pop()
+
+
+def _remat_policy(policy: str, ctx, op, *args, **kwargs):
+    """What a block under ``policy`` keeps: ``dots`` the outputs of ``mm`` /
+    ``addmm``; ``attn`` the flash forward's (o, lse), so the recompute reads
+    them back instead of launching K1; ``attn_mlp`` those and every op inside
+    ``checkpoint_name("mlp_act")``. Everything else is recomputed."""
+    if policy == "dots":
+        keep = op in _DOTS
+    else:
+        keep = op is _FLASH or (policy == "attn_mlp" and "mlp_act" in _NAMES)
+    return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(policy, fn, *args):
+    """``fn(*args)`` under the activation-checkpoint ``policy`` (a config's
+    ``remat``): off (False, None, "none") runs it as it is; "full" keeps only
+    its inputs; "dots", "attn" and "attn_mlp" keep what :func:`_remat_policy`
+    says, by a selective checkpoint. Random draws inside ``fn`` must come
+    from generators seeded inside it, so that the recompute draws the same."""
+    if policy in (False, None, "none"):
+        return fn(*args)
+    if policy in (True, "full"):
+        return checkpoint(fn, *args, use_reentrant=False)
+    context = functools.partial(create_selective_checkpoint_contexts,
+                                functools.partial(_remat_policy, policy))
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+
+
+def dropout(x, p: float, seed: Optional[int]):
+    """Inverted dropout of ``x`` with drop rate ``p``: each element kept with
+    probability 1 - p and scaled by 1 / (1 - p), as the JAX ``_dropout``. The
+    mask comes from a generator seeded here with ``seed``, so a recompute
+    under remat builds the same mask; ``seed`` None or ``p`` 0: no dropout."""
+    if p == 0.0 or seed is None:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def draw_seeds(generator: torch.Generator, n: int) -> list:
+    """``n`` seeds for per-site generators, drawn from ``generator`` before a
+    layer loop (one host read)."""
+    return torch.randint(0, 2 ** 62, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def pld_gates(theta, n_layer: int, generator: torch.Generator):
+    """Progressive layer drop's per-layer gates (L,) fp32: layer l kept with
+    probability p_l (``layer_keep_probs``) and then scaled by 1 / p_l, else
+    0, drawn from ``generator`` before the layer loop. A gated layer's output
+    is ``x + gate * (block(x) - x)``, as the JAX ``_trunk`` gates it."""
+    keep_p = layer_keep_probs(theta, n_layer, device=generator.device)
+    keep = torch.rand(n_layer, generator=generator, device=generator.device) < keep_p
+    return torch.where(keep, 1.0 / keep_p, torch.zeros_like(keep_p))
+
+
+def gate_layer(x, y, gate):
+    """``x + gate * (y - x)``, the gate cast to ``x``'s type (JAX's PLD
+    residual gate); ``gate`` None returns ``y``."""
+    return y if gate is None else x + gate.to(x.dtype) * (y - x)
 
 
 def parse_lm_batch(batch):

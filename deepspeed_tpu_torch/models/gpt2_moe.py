@@ -7,10 +7,10 @@ dense ``fc_*`` weights, as in JAX: no gradient reaches them, and AdamW
 still decays them.
 
 The layer walk is the JAX one over *pairs*: the dense block, then the odd
-block's attention and its MoE MLP. ``remat`` "full" recomputes each pair
-under ``torch.utils.checkpoint``; the gate's random draws (top-2's second
-keep, ``RSample``) are made before the pair, so a recompute routes as the
-forward did. The aux loss is the mean of the pairs' ``l_aux``, and
+block's attention and its MoE MLP. ``remat`` applies its policy per pair
+(``models/common.py`` ``remat_call``), as the JAX model does; the gate's
+random draws (top-2's second keep, ``RSample``) are made before the pair,
+so a recompute routes as the forward did. The aux loss is the mean of the pairs' ``l_aux``, and
 ``loss`` adds ``aux_loss_coef`` times it to the chunked cross entropy.
 
 Under the engine, ``expert_groups`` (set by the engine) carries the
@@ -35,9 +35,8 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from deepspeed_tpu_torch.models.common import causal_attention, init_pieces
+from deepspeed_tpu_torch.models.common import init_pieces, remat_call
 from deepspeed_tpu_torch.models.gpt2 import BLOCK_KEYS, GPT2Config, GPT2Model
 from deepspeed_tpu_torch.moe.layer import MoE, default_ep_rank
 
@@ -60,6 +59,8 @@ class MoEGPT2(GPT2Model):
                                       "layers")
         if config.sparse_attention is not None:
             raise NotImplementedError("MoEGPT2 with sparse_attention: later slice of the port")
+        if config.dropout:
+            raise NotImplementedError("MoEGPT2 with dropout: later slice of the port")
         if config.n_layer % 2:
             raise ValueError(f"MoEGPT2 pairs a dense block with a MoE block: n_layer "
                              f"{config.n_layer} must be even")
@@ -101,19 +102,22 @@ class MoEGPT2(GPT2Model):
         x = x + (attn.reshape(B, T, D) @ w.proj_w.to(x.dtype) + w.proj_b.to(x.dtype))
         return x, self._layer_norm(x, w.ln2_g, w.ln2_b)
 
-    def _attn_half(self, x, blk):
-        """The odd block's attention sublayer and its MLP's layer norm."""
-        c = self.config
+    def _attn_half(self, x, blk, rope=None):
+        """The odd block's attention sublayer and its MLP's layer norm;
+        ``rope``: the rotary tables of positions 0..T-1 (made here when
+        None). A MoEGPT2 has no local layer, so the layer's index does not
+        reach the attention."""
         with self._gathered(blk) as w:
-            q, k, v = self._block_qkv(x, w)
-            attn = causal_attention(q, k, v, use_flash=c.use_flash_attention,
-                                    sequence_parallel=c.sequence_parallel)
-            return self._attn_proj(x, w, attn)
+            if rope is None:
+                rope = self._rope_tables(torch.arange(x.shape[1], device=x.device))
+            q, k, v = self._block_qkv(x, w, rope)
+            return self._attn_proj(x, w, self._attention(q, k, v, 0))
 
-    def _pair(self, x, p: int, train: bool, noise):
+    def _pair(self, x, p: int, train: bool, noise, rope):
         """Dense block 2p, then block 2p + 1 with MoE layer p as its MLP."""
-        x = self._block(x, self.blocks[self.moe_every * p])
-        x, h = self._attn_half(x, self.blocks[self.moe_every * p + 1])
+        n = self.moe_every * p
+        x = self._block(x, self.blocks[n], n, rope)
+        x, h = self._attn_half(x, self.blocks[n + 1], rope)
         out, l_aux = self.moe[p](h, train, groups=self.expert_groups, noise=noise,
                                  gathered=self._gathered)
         return x + out, l_aux
@@ -121,17 +125,14 @@ class MoEGPT2(GPT2Model):
     def _moe_blocks(self, input_ids, generator=None, train: bool = False):
         """(B, T) → (hidden before the final layer norm, mean aux loss)."""
         x = self._embed(input_ids)
-        remat = self.config.remat in (True, "full")
         g = self.expert_groups
         tokens = input_ids.numel() * (1 if g is None else g.world)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        rope = self._rope_tables(torch.arange(input_ids.shape[1], device=x.device))
         for p, layer in enumerate(self.moe):
             # drawn here, so a recomputed pair routes as its forward did
             noise = layer.gate.draws(generator, tokens, x.device, train)
-            if remat:
-                x, l_aux = checkpoint(self._pair, x, p, train, noise, use_reentrant=False)
-            else:
-                x, l_aux = self._pair(x, p, train, noise)
+            x, l_aux = remat_call(self.config.remat, self._pair, x, p, train, noise, rope)
             aux = aux + l_aux
         return x, aux / self.n_pairs
 

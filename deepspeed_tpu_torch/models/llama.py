@@ -11,7 +11,9 @@ Weights keep the JAX orientation (``x @ W``, ``q_w`` is (d, d)), so
 
 It trains: ``init_params`` (and ``param_chunks``, the same draws a piece at
 a time), ``apply``, ``hidden_states``, ``loss`` and ``loss_tokens``, with
-``remat`` off or "full" (``torch.utils.checkpoint`` per block). The KV heads
+``remat`` off, "full", "dots" or "attn" (``models/common.py``
+``remat_call``: "attn" keeps the flash forward's outputs, so the backward
+does not launch it again). The KV heads
 are repeated to the query heads before the flash kernel, as in JAX, and the
 repeat stays in the autograd graph, so each KV head's gradient is the sum
 over its group of query heads. It serves over a KV cache of the KV heads:
@@ -19,8 +21,7 @@ over its group of query heads. It serves over a KV cache of the KV heads:
 module computes with its own parameters through ``_gathered(module)``
 (``models/common.py``'s :class:`GatheredModule`), so ZeRO stage 3 and
 ``offload_param`` apply; a tied ``wte`` gathers for the embedding and again
-for the head. The "dots" and "attn" remat policies and sequence parallelism
-raise ``NotImplementedError``.
+for the head. Sequence parallelism raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,14 +34,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models.common import (GatheredModule, _rope_cos_sin, apply_rope,
                                                assemble, cached_decode_attention,
                                                causal_attention, chunked_lm_loss,
                                                init_pieces, lm_loss_tokens,
                                                local_causal_attention, meta_weight,
-                                               parse_lm_batch)
+                                               parse_lm_batch, remat_call)
 
 
 @dataclasses.dataclass
@@ -63,8 +63,9 @@ class LlamaConfig:
     remat_loss_chunks: bool = True
     tie_embeddings: bool = False     # llama3.2-1B/3B style tied lm_head
     dtype: Any = torch.bfloat16      # compute and KV-cache type
-    # activation checkpointing: False/'none' or True/'full' (recompute each
-    # block in the backward); 'dots' and 'attn' are later slices
+    # activation checkpointing: False/'none', True/'full' (recompute each
+    # block in the backward), 'dots' (keep the matmul outputs) or 'attn'
+    # (keep the flash forward's outputs: K1 does not run again)
     remat: Any = True
     use_flash_attention: bool = True
     # the decode-attention kernel; off selects the grouped einsum, as in JAX
@@ -92,9 +93,6 @@ class LlamaConfig:
         if self.intermediate_size is None:
             self.intermediate_size = 256 * ((int(8 * self.n_embd / 3) + 255) // 256)
         # what this slice of the port does not carry raises, never silently
-        if self.remat in ("dots", "attn"):
-            raise NotImplementedError(f"remat={self.remat!r} (saving named activations): "
-                                      "later slice of the port")
         if self.sequence_parallel:
             raise NotImplementedError("llama sequence_parallel: later slice of the port")
 
@@ -274,10 +272,8 @@ class LlamaModel(GatheredModule):
         T = input_ids.shape[1]
         x = self._embed(input_ids)
         cos, sin = self._rope(torch.arange(T, device=x.device))
-        remat = self.config.remat in (True, "full")
         for blk in self.blocks:
-            x = checkpoint(self._block, x, blk, cos, sin, use_reentrant=False) if remat \
-                else self._block(x, blk, cos, sin)
+            x = remat_call(self.config.remat, self._block, x, blk, cos, sin)
         return x
 
     def _lm_logits(self, x):

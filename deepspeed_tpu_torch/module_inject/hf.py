@@ -1,22 +1,44 @@
-"""HF and diffusers checkpoints into the port's models: the vision part.
+"""HF and diffusers checkpoints into the port's models.
 
-Counterpart of the stable-diffusion part of ``deepspeed_tpu/module_inject/
-hf.py``: the CLIP text tower (``load_clip_text``), the UNet (``load_unet``)
-and the VAE (``load_vae``), their flat export (``export_vision_params``) and
-the dispatch ``load_hf_model`` for ``clip``, ``clip_text_model``, ``unet``
-and ``vae`` (a diffusers object routes by its config's ``_class_name``).
-Each loader returns (config, state dict of the port's model): the model is
-built on the meta device and filled by ``init_inference(model,
-params=state_dict)`` or ``model.load_state_dict(state_dict, assign=True)``.
-The UNet's and the VAE's state dicts are the diffusers ones, key for key (a
-dtype cast); CLIP's separate q/k/v fuse into the GPT-2 qkv matrix in the
-port's ``x @ W`` orientation. The language-model architectures of the JAX
-loader are a later slice of the port and raise ``NotImplementedError``.
+Counterpart of ``deepspeed_tpu/module_inject/hf.py``. Each loader returns
+(config, state dict of the port's model): the model is built on the meta
+device and filled by ``init_inference(model, params=state_dict)`` or
+``model.load_state_dict(state_dict, assign=True)``; ``load_hf_model``
+returns the model and its state dict, dispatched on the HF config's
+``model_type`` (a diffusers object routes by its config's ``_class_name``).
+
+The language models: GPT-2 (``load_gpt2``) and the GPT-2 variant families
+onto ``GPT2Model`` through its config's switches, as the JAX loaders set
+them: OPT (``load_opt``: ReLU, learned positions with HF's 2-row offset
+dropped), BLOOM (``load_bloom``: ALiBi, the embedding layer norm),
+GPT-NeoX / Pythia (``load_gptneox``: partial rotate-half rotary, parallel
+residual, the untied ``embed_out``), GPT-Neo (``load_gptneo``: per-layer
+global / local windows, the missing 1/sqrt(dh) folded into ``q_w``) and
+GPT-J (``load_gptj``: interleaved rotary, parallel residual with its one
+``ln_1`` copied into the ``ln2`` slots, zero attention biases, a head
+bias). NeoX's and BLOOM's head-interleaved ``query_key_value`` is reordered
+to GPT-2's [all q, all k, all v]. A loader takes an object with ``.config``
+and ``state_dict()`` (or a bare state dict where the JAX loader allows one,
+GPT-2's); the config may be an attribute object or a dict, since the card's
+machine has no ``transformers``, and the tensors torch tensors (kept on
+their device) or numpy arrays. Weights keep the port's ``x @ W``
+orientation, so an ``nn.Linear`` weight is transposed and GPT-2's Conv1D is
+not.
+
+The vision part: the CLIP text tower (``load_clip_text``), the UNet
+(``load_unet``) and the VAE (``load_vae``), and their flat export
+(``export_vision_params``). The UNet's and the VAE's state dicts are the
+diffusers ones, key for key (a dtype cast); CLIP's separate q/k/v fuse into
+the GPT-2 qkv matrix. ``load_llama``, ``load_bert``, ``load_distilbert``,
+the language models' exporters, ``state_dict_to_tree`` and AutoTP are a
+later slice of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import math
 import re
+import types
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -24,22 +46,370 @@ import torch
 
 from deepspeed_tpu_torch.utils.logging import logger
 
+
 def hf_state_dict(model_or_sd: Any) -> Dict[str, torch.Tensor]:
     """A torch ``nn.Module`` | state dict | dict of arrays → dict of
-    detached CPU tensors."""
+    detached tensors, each on the device it lies on (numpy arrays become
+    CPU tensors)."""
     sd = model_or_sd
     if hasattr(sd, "state_dict") and callable(sd.state_dict):
         sd = sd.state_dict()
-    return {k: (v.detach().cpu() if torch.is_tensor(v) else torch.from_numpy(np.asarray(v)))
+    return {k: (v.detach() if torch.is_tensor(v) else torch.from_numpy(np.asarray(v)))
             for k, v in sd.items()}
 
 
+def _hf_config(model_or_sd: Any):
+    """The object's ``.config`` as an attribute object (a dict config
+    becomes one), or None."""
+    cfg = getattr(model_or_sd, "config", None)
+    return types.SimpleNamespace(**cfg) if isinstance(cfg, Mapping) else cfg
+
+
+# ------------------------------------------------ shared loader plumbing
 def _layer_count(sd: Mapping[str, Any], prefix: str, stem: str) -> int:
     """Number of contiguous '<prefix><stem>.<i>.' layers in the state dict."""
     ids = sorted({int(m.group(1)) for k in sd
                   for m in [re.match(rf"{re.escape(prefix)}{stem}\.(\d+)\.", k)] if m})
     assert ids == list(range(len(ids))), f"non-contiguous layers {ids}"
     return len(ids)
+
+
+def _stackers(g, layer_tmpl: str):
+    """(w, b, t): one layer's weight, bias and transposed weight (torch
+    ``nn.Linear`` stores (out, in); the port's matmuls take (in, out)), as
+    ``w(i, name)``; the JAX ``_stackers`` stacks the same tensors over a
+    leading layer dim."""
+    w = lambda i, name: g(layer_tmpl.format(i=i) + name + ".weight")
+    b = lambda i, name: g(layer_tmpl.format(i=i) + name + ".bias")
+    t = lambda i, name: g(layer_tmpl.format(i=i) + name + ".weight").t()
+    return w, b, t
+
+
+def _deinterleave_qkv(w: torch.Tensor, b: torch.Tensor, n_head: int):
+    """BLOOM's and NeoX's fused query_key_value layout ([q_h k_h v_h] rows
+    per head) → GPT-2's [all q, all k, all v]: the (3D, D) torch weight in,
+    the (D, 3D) port weight and the reordered (3D,) bias out."""
+    d3, d = w.shape
+    dh = d // n_head
+    wt = w.t().reshape(d, n_head, 3, dh).permute(0, 2, 1, 3).reshape(d, d3)
+    bt = b.reshape(n_head, 3, dh).permute(1, 0, 2).reshape(d3)
+    return wt, bt
+
+
+def _detect_tied(sd: Mapping[str, torch.Tensor], embed_key: str,
+                 head_key: str = "lm_head.weight") -> bool:
+    """HF ties the head to the token embedding when the head key is absent
+    or equal to it (safetensors materializes shared storage as a copy)."""
+    return head_key not in sd or torch.equal(sd[head_key], sd[embed_key])
+
+
+def _state(out: Dict[str, torch.Tensor], layers) -> Dict[str, torch.Tensor]:
+    """``out`` (the top-level weights) with every layer's block weights as
+    ``blocks.<i>.<key>``, contiguous, in ``BLOCK_KEYS`` order."""
+    from deepspeed_tpu_torch.models.gpt2 import BLOCK_KEYS
+
+    for i, layer in enumerate(layers):
+        out.update({f"blocks.{i}.{k}": layer[k].contiguous() for k in BLOCK_KEYS})
+    return out
+
+
+# ------------------------------------------------------------------- GPT-2
+def load_gpt2(model_or_sd: Any, dtype=torch.float32) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """HF ``GPT2LMHeadModel`` (or its state dict) → (GPT2Config, state dict)
+    for ``models.gpt2.GPT2Model``. HF's Conv1D stores (in, out), the port's
+    orientation, so nothing is transposed but an untied ``lm_head``."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    sd = hf_state_dict(model_or_sd)
+    # "transformer.h.0..." (the LM-head model) or "h.0..." (bare)
+    prefix = "transformer." if any(k.startswith("transformer.") for k in sd) else ""
+    g = lambda name: sd[prefix + name].to(dtype)
+    n_layer = _layer_count(sd, prefix, "h")
+    wte, wpe = g("wte.weight"), g("wpe.weight")
+    vocab, d = wte.shape
+    qkv0 = sd[prefix + "h.0.attn.c_attn.weight"]
+    assert tuple(qkv0.shape) == (d, 3 * d), f"unexpected c_attn shape {tuple(qkv0.shape)}"
+    w, b, _ = _stackers(g, "h.{i}.")
+    layers = [{
+        "ln1_g": w(i, "ln_1"), "ln1_b": b(i, "ln_1"),
+        "qkv_w": w(i, "attn.c_attn"), "qkv_b": b(i, "attn.c_attn"),
+        "proj_w": w(i, "attn.c_proj"), "proj_b": b(i, "attn.c_proj"),
+        "ln2_g": w(i, "ln_2"), "ln2_b": b(i, "ln_2"),
+        "fc_w": w(i, "mlp.c_fc"), "fc_b": b(i, "mlp.c_fc"),
+        "fc2_w": w(i, "mlp.c_proj"), "fc2_b": b(i, "mlp.c_proj")} for i in range(n_layer)]
+    out = {"wte": wte, "wpe": wpe, "lnf_g": g("ln_f.weight"), "lnf_b": g("ln_f.bias")}
+    tied = _detect_tied(sd, prefix + "wte.weight")
+    if not tied:
+        out["lm_head"] = sd["lm_head.weight"].to(dtype).t().contiguous()
+    config = GPT2Config(vocab_size=vocab, n_positions=wpe.shape[0], n_embd=d, n_layer=n_layer,
+                        n_head=_infer_gpt2_heads(model_or_sd, d), tie_embeddings=tied,
+                        dtype=dtype)
+    logger.info(f"load_gpt2: {n_layer} layers, d={d}, vocab={vocab}, heads={config.n_head}")
+    return config, _state(out, layers)
+
+
+def _infer_gpt2_heads(model_or_sd: Any, d: int) -> int:
+    cfg = _hf_config(model_or_sd)
+    if cfg is not None and getattr(cfg, "n_head", None):
+        return int(cfg.n_head)
+    # a bare state dict carries no head count: the GPT-2 family's head dim
+    # 64 when it divides, else the largest power-of-two divisor
+    if d % 64 == 0:
+        return d // 64
+    h = 1
+    while d % (h * 2) == 0:
+        h *= 2
+    return h
+
+
+def _n_head(model_or_sd: Any, loader: str, *names: str) -> int:
+    """The head count from the HF config's first of ``names`` that is set;
+    a bare state dict (no config) raises, as the JAX loaders do."""
+    cfg = _hf_config(model_or_sd)
+    n = next((int(v) for v in (getattr(cfg, name, 0) for name in names) if v), 0)
+    if not n:
+        raise ValueError(f"{loader} needs the HF model (its config carries the head count), "
+                         "not a bare state dict")
+    return n
+
+
+# ------------------------------------------------------------------- BLOOM
+def load_bloom(model_or_sd: Any, dtype=torch.float32) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """HF ``BloomForCausalLM`` → (GPT2Config, state dict) for GPT2Model:
+    ALiBi (no position table) and a layer norm after the token embedding;
+    the head-interleaved ``query_key_value`` reordered."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    n_head = _n_head(model_or_sd, "load_bloom", "n_head", "num_attention_heads")
+    sd = hf_state_dict(model_or_sd)
+    prefix = next((p for p in ("transformer.", "") if p + "word_embeddings.weight" in sd), "")
+    g = lambda name: sd[prefix + name].to(dtype)
+    n_layer = _layer_count(sd, prefix, "h")
+    wte = g("word_embeddings.weight")
+    vocab, d = wte.shape
+    w, b, t = _stackers(g, "h.{i}.")
+    layers = []
+    for i in range(n_layer):
+        qkv_w, qkv_b = _deinterleave_qkv(w(i, "self_attention.query_key_value"),
+                                         b(i, "self_attention.query_key_value"), n_head)
+        layers.append({
+            "ln1_g": w(i, "input_layernorm"), "ln1_b": b(i, "input_layernorm"),
+            "qkv_w": qkv_w, "qkv_b": qkv_b,
+            "proj_w": t(i, "self_attention.dense"), "proj_b": b(i, "self_attention.dense"),
+            "ln2_g": w(i, "post_attention_layernorm"), "ln2_b": b(i, "post_attention_layernorm"),
+            "fc_w": t(i, "mlp.dense_h_to_4h"), "fc_b": b(i, "mlp.dense_h_to_4h"),
+            "fc2_w": t(i, "mlp.dense_4h_to_h"), "fc2_b": b(i, "mlp.dense_4h_to_h")})
+    out = {"wte": wte, "emb_ln_g": g("word_embeddings_layernorm.weight"),
+           "emb_ln_b": g("word_embeddings_layernorm.bias"),
+           "lnf_g": g("ln_f.weight"), "lnf_b": g("ln_f.bias")}
+    tied = _detect_tied(sd, prefix + "word_embeddings.weight")
+    if not tied:
+        out["lm_head"] = sd["lm_head.weight"].to(dtype).t().contiguous()
+    # BLOOM has no position table and its config no length: n_positions
+    # only sizes buffers, as in the JAX loader
+    config = GPT2Config(vocab_size=vocab, n_positions=2048, n_embd=d, n_layer=n_layer,
+                        n_head=n_head, activation="gelu_new", alibi=True, embed_layernorm=True,
+                        tie_embeddings=tied, dtype=dtype)
+    logger.info(f"load_bloom: {n_layer} layers, d={d}, vocab={vocab}, heads={n_head} (ALiBi), "
+                f"tied={tied}")
+    return config, _state(out, layers)
+
+
+# ------------------------------------------------------------------- GPT-J
+def load_gptj(model_or_sd: Any, dtype=torch.float32) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """HF ``GPTJForCausalLM`` → (GPT2Config, state dict) for GPT2Model:
+    interleaved rotary on the first ``rotary_dim`` of each head, the
+    parallel residual with one shared layer norm (``ln_1`` copied into the
+    ``ln2`` slots: both branches normalize the block input with the same
+    weights), bias-free attention projections (zero biases) and a bias on
+    the untied head."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    n_head = _n_head(model_or_sd, "load_gptj", "n_head", "num_attention_heads")
+    cfg = _hf_config(model_or_sd)
+    sd = hf_state_dict(model_or_sd)
+    prefix = "transformer." if any(k.startswith("transformer.") for k in sd) else ""
+    g = lambda name: sd[prefix + name].to(dtype)
+    n_layer = _layer_count(sd, prefix, "h")
+    wte = g("wte.weight")
+    vocab, d = wte.shape
+    rotary_dim = int(getattr(cfg, "rotary_dim", None) or d // n_head)
+    w, b, t = _stackers(g, "h.{i}.")
+    zeros = torch.zeros(d, dtype=dtype, device=wte.device)
+    layers = [{
+        "ln1_g": w(i, "ln_1"), "ln1_b": b(i, "ln_1"),
+        "qkv_w": torch.cat([t(i, f"attn.{p}_proj") for p in "qkv"], dim=1),
+        "qkv_b": torch.zeros(3 * d, dtype=dtype, device=wte.device),
+        "proj_w": t(i, "attn.out_proj"), "proj_b": zeros,
+        "ln2_g": w(i, "ln_1"), "ln2_b": b(i, "ln_1"),
+        "fc_w": t(i, "mlp.fc_in"), "fc_b": b(i, "mlp.fc_in"),
+        "fc2_w": t(i, "mlp.fc_out"), "fc2_b": b(i, "mlp.fc_out")} for i in range(n_layer)]
+    out = {"wte": wte, "lnf_g": g("ln_f.weight"), "lnf_b": g("ln_f.bias"),
+           "lm_head": sd["lm_head.weight"].to(dtype).t().contiguous(),
+           "lm_head_b": sd["lm_head.bias"].to(dtype)}
+    config = GPT2Config(vocab_size=vocab,
+                        n_positions=int(getattr(cfg, "n_positions", 2048) or 2048),
+                        n_embd=d, n_layer=n_layer, n_head=n_head, activation="gelu_new",
+                        rotary_pct=rotary_dim / (d // n_head), rotary_interleaved=True,
+                        parallel_residual=True, tie_embeddings=False, lm_head_bias=True,
+                        dtype=dtype)
+    logger.info(f"load_gptj: {n_layer} layers, d={d}, vocab={vocab}, heads={n_head}, "
+                f"rotary_dim={rotary_dim}")
+    return config, _state(out, layers)
+
+
+# ---------------------------------------------------------------- GPT-NeoX
+def load_gptneox(model_or_sd: Any, dtype=torch.float32) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """HF ``GPTNeoXForCausalLM`` (NeoX-20B, the Pythia ladder) →
+    (GPT2Config, state dict) for GPT2Model: partial rotate-half rotary on
+    ``rotary_pct`` of each head, the parallel residual, the head-interleaved
+    ``query_key_value`` reordered, the head the untied ``embed_out``."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    n_head = _n_head(model_or_sd, "load_gptneox", "num_attention_heads")
+    cfg = _hf_config(model_or_sd)
+    act = getattr(cfg, "hidden_act", "gelu") or "gelu"
+    if act not in ("relu", "gelu", "gelu_new"):
+        raise NotImplementedError(f"GPT-NeoX hidden_act {act!r} not supported")
+    sd = hf_state_dict(model_or_sd)
+    prefix = next((p for p in ("gpt_neox.", "") if p + "embed_in.weight" in sd), "")
+    g = lambda name: sd[prefix + name].to(dtype)
+    n_layer = _layer_count(sd, prefix, "layers")
+    wte = g("embed_in.weight")
+    vocab, d = wte.shape
+    w, b, t = _stackers(g, "layers.{i}.")
+    layers = []
+    for i in range(n_layer):
+        qkv_w, qkv_b = _deinterleave_qkv(w(i, "attention.query_key_value"),
+                                         b(i, "attention.query_key_value"), n_head)
+        layers.append({
+            "ln1_g": w(i, "input_layernorm"), "ln1_b": b(i, "input_layernorm"),
+            "qkv_w": qkv_w, "qkv_b": qkv_b,
+            "proj_w": t(i, "attention.dense"), "proj_b": b(i, "attention.dense"),
+            "ln2_g": w(i, "post_attention_layernorm"), "ln2_b": b(i, "post_attention_layernorm"),
+            "fc_w": t(i, "mlp.dense_h_to_4h"), "fc_b": b(i, "mlp.dense_h_to_4h"),
+            "fc2_w": t(i, "mlp.dense_4h_to_h"), "fc2_b": b(i, "mlp.dense_4h_to_h")})
+    out = {"wte": wte, "lnf_g": g("final_layer_norm.weight"),
+           "lnf_b": g("final_layer_norm.bias")}
+    tied = _detect_tied(sd, prefix + "embed_in.weight", "embed_out.weight")
+    if not tied:
+        out["lm_head"] = sd["embed_out.weight"].to(dtype).t().contiguous()
+    config = GPT2Config(
+        vocab_size=vocab,
+        n_positions=int(getattr(cfg, "max_position_embeddings", 2048) or 2048),
+        n_embd=d, n_layer=n_layer, n_head=n_head, activation=act,
+        rotary_pct=float(getattr(cfg, "rotary_pct", 0.25) or 0.25),
+        # transformers renames GPTNeoXConfig's rotary_emb_base to rope_theta:
+        # the new name first, so that a base other than the default survives
+        rotary_theta=float(getattr(cfg, "rope_theta", None)
+                           or getattr(cfg, "rotary_emb_base", 10000.0) or 10000.0),
+        parallel_residual=bool(getattr(cfg, "use_parallel_residual", True)),
+        tie_embeddings=tied, dtype=dtype)
+    logger.info(f"load_gptneox: {n_layer} layers, d={d}, vocab={vocab}, heads={n_head}, "
+                f"rotary_pct={config.rotary_pct}, "
+                f"parallel_residual={config.parallel_residual}")
+    return config, _state(out, layers)
+
+
+# --------------------------------------------------------------------- OPT
+def load_opt(model_or_sd: Any, dtype=torch.float32) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """HF ``OPTForCausalLM`` → (GPT2Config, state dict) for GPT2Model: the
+    separate q/k/v fused into GPT-2's qkv, the position table without its
+    2 leading rows (HF's ``OPTLearnedPositionalEmbedding`` reads row i + 2
+    for position i), the ReLU MLP. OPT-350m's post-LN and a
+    ``word_embed_proj_dim`` other than the hidden size raise."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    n_head = _n_head(model_or_sd, "load_opt", "num_attention_heads")
+    cfg = _hf_config(model_or_sd)
+    if getattr(cfg, "do_layer_norm_before", True) is False:
+        raise NotImplementedError("OPT-350m-style post-LN (do_layer_norm_before=False) "
+                                  "not supported")
+    act = getattr(cfg, "activation_function", "relu") or "relu"
+    if act not in ("relu", "gelu", "gelu_new"):
+        raise NotImplementedError(f"OPT activation_function {act!r} not supported "
+                                  "(relu, gelu, gelu_new)")
+    if getattr(cfg, "word_embed_proj_dim", None) not in (None, getattr(cfg, "hidden_size", None)):
+        raise NotImplementedError("OPT word_embed_proj_dim != hidden_size (project_in/out) "
+                                  "not supported")
+    sd = hf_state_dict(model_or_sd)
+    prefix = next((p for p in ("model.decoder.", "decoder.", "")
+                   if p + "embed_tokens.weight" in sd), "")
+    g = lambda name: sd[prefix + name].to(dtype)
+    n_layer = _layer_count(sd, prefix, "layers")
+    wte = g("embed_tokens.weight")
+    vocab, d = wte.shape
+    wpe = g("embed_positions.weight")[2:]
+    w, b, t = _stackers(g, "layers.{i}.")
+    layers = [{
+        "ln1_g": w(i, "self_attn_layer_norm"), "ln1_b": b(i, "self_attn_layer_norm"),
+        "qkv_w": torch.cat([t(i, f"self_attn.{p}_proj") for p in "qkv"], dim=1),
+        "qkv_b": torch.cat([b(i, f"self_attn.{p}_proj") for p in "qkv"]),
+        "proj_w": t(i, "self_attn.out_proj"), "proj_b": b(i, "self_attn.out_proj"),
+        "ln2_g": w(i, "final_layer_norm"), "ln2_b": b(i, "final_layer_norm"),
+        "fc_w": t(i, "fc1"), "fc_b": b(i, "fc1"),
+        "fc2_w": t(i, "fc2"), "fc2_b": b(i, "fc2")} for i in range(n_layer)]
+    out = {"wte": wte, "wpe": wpe.contiguous(), "lnf_g": g("final_layer_norm.weight"),
+           "lnf_b": g("final_layer_norm.bias")}
+    tied = _detect_tied(sd, prefix + "embed_tokens.weight")
+    if not tied:
+        out["lm_head"] = sd["lm_head.weight"].to(dtype).t().contiguous()
+    config = GPT2Config(vocab_size=vocab, n_positions=wpe.shape[0], n_embd=d, n_layer=n_layer,
+                        n_head=n_head, activation=act, tie_embeddings=tied, dtype=dtype)
+    logger.info(f"load_opt: {n_layer} layers, d={d}, vocab={vocab}, heads={n_head}, act={act}, "
+                f"tied={tied}")
+    return config, _state(out, layers)
+
+
+# ---------------------------------------------------------------- GPT-Neo
+def load_gptneo(model_or_sd: Any, dtype=torch.float32) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """HF ``GPTNeoForCausalLM`` (gpt-neo-125M/1.3B/2.7B) → (GPT2Config,
+    state dict) for GPT2Model: alternating global / local sliding-window
+    attention per ``attention_layers``; no 1/sqrt(dh) scale in GPT-Neo's
+    attention, so ``q_w`` is multiplied by sqrt(dh) here (exact: q has no
+    bias) and the kernels' scale restores it; bias-free q/k/v, learned
+    positions, the tied head."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = _hf_config(model_or_sd)
+    n_head = int(getattr(cfg, "num_heads", 0) or 0)
+    attn_layers = getattr(cfg, "attention_layers", None)
+    if not n_head or attn_layers is None:
+        raise ValueError("load_gptneo needs the HF model (its config carries num_heads and "
+                         "attention_layers), not a bare state dict")
+    sd = hf_state_dict(model_or_sd)
+    prefix = "transformer." if any(k.startswith("transformer.") for k in sd) else ""
+    g = lambda name: sd[prefix + name].to(dtype)
+    n_layer = _layer_count(sd, prefix, "h")
+    wte = g("wte.weight")
+    vocab, d = wte.shape
+    root_dh = torch.tensor(math.sqrt(d // n_head), dtype=dtype)
+    w, b, t = _stackers(g, "h.{i}.")
+    a = "attn.attention."
+    layers = [{
+        "ln1_g": w(i, "ln_1"), "ln1_b": b(i, "ln_1"),
+        "qkv_w": torch.cat([t(i, a + "q_proj") * root_dh.to(wte.device), t(i, a + "k_proj"),
+                            t(i, a + "v_proj")], dim=1),
+        "qkv_b": torch.zeros(3 * d, dtype=dtype, device=wte.device),
+        "proj_w": t(i, a + "out_proj"), "proj_b": b(i, a + "out_proj"),
+        "ln2_g": w(i, "ln_2"), "ln2_b": b(i, "ln_2"),
+        "fc_w": t(i, "mlp.c_fc"), "fc_b": b(i, "mlp.c_fc"),
+        "fc2_w": t(i, "mlp.c_proj"), "fc2_b": b(i, "mlp.c_proj")} for i in range(n_layer)]
+    if not _detect_tied(sd, prefix + "wte.weight"):
+        raise NotImplementedError("untied GPT-Neo lm_head not supported")
+    out = {"wte": wte, "wpe": g("wpe.weight"), "lnf_g": g("ln_f.weight"),
+           "lnf_b": g("ln_f.bias")}
+    config = GPT2Config(
+        vocab_size=vocab,
+        n_positions=int(getattr(cfg, "max_position_embeddings", 2048) or 2048),
+        n_embd=d, n_layer=n_layer, n_head=n_head,
+        activation=str(getattr(cfg, "activation_function", "gelu_new") or "gelu_new"),
+        attention_layers=tuple(attn_layers),
+        window_size=int(getattr(cfg, "window_size", 256) or 256), dtype=dtype)
+    n_local = sum(1 for x in config.attention_layers if x == "local")
+    logger.info(f"load_gptneo: {n_layer} layers ({n_local} local, window="
+                f"{config.window_size}), d={d}, vocab={vocab}, heads={n_head}")
+    return config, _state(out, layers)
 
 
 # ------------------------------------------------------------------- CLIP
@@ -192,8 +562,20 @@ def _vision_factory(architecture: str):
     return make
 
 
+def _gpt2_model(config):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+
+    return GPT2Model(config)
+
+
 # architecture → (state-dict loader, model factory)
-_LOADERS = {"clip": (load_clip_text, _clip_model),
+_LOADERS = {"gpt2": (load_gpt2, _gpt2_model),
+            "opt": (load_opt, _gpt2_model),
+            "bloom": (load_bloom, _gpt2_model),
+            "gpt_neox": (load_gptneox, _gpt2_model),
+            "gpt_neo": (load_gptneo, _gpt2_model),
+            "gptj": (load_gptj, _gpt2_model),
+            "clip": (load_clip_text, _clip_model),
             "clip_text_model": (load_clip_text, _clip_model),
             "unet": (load_unet, _vision_factory("unet")),
             "vae": (load_vae, _vision_factory("vae"))}
@@ -203,23 +585,21 @@ def load_hf_model(model_or_sd: Any, architecture: Optional[str] = None, dtype=to
     """HF or diffusers model / state dict → (the port's model, its state
     dict), ready for ``init_inference(model=..., params=...)``.
 
-    ``architecture`` defaults to the HF config's ``model_type``, or, for a
-    diffusers config, its ``_class_name`` (``UNet2DConditionModel`` → unet,
-    ``AutoencoderKL`` → vae). The JAX loader's language-model architectures
-    raise ``NotImplementedError`` here (a later slice of the port)."""
+    ``architecture`` defaults to the HF config's ``model_type`` (the config
+    an attribute object or a dict), or, for a diffusers config, its
+    ``_class_name`` (``UNet2DConditionModel`` → unet, ``AutoencoderKL`` →
+    vae). The JAX loader's llama, BERT and DistilBERT raise
+    ``NotImplementedError`` here (a later slice of the port)."""
     if architecture is None:
-        cfg = getattr(model_or_sd, "config", None)
+        cfg = _hf_config(model_or_sd)
         architecture = getattr(cfg, "model_type", None)
         if not architecture and cfg is not None:
-            cls_name = getattr(cfg, "_class_name", None)
-            if cls_name is None and isinstance(cfg, dict):
-                cls_name = cfg.get("_class_name")
             architecture = {"UNet2DConditionModel": "unet",
-                            "AutoencoderKL": "vae"}.get(cls_name)
+                            "AutoencoderKL": "vae"}.get(getattr(cfg, "_class_name", None))
     if architecture not in _LOADERS:
         raise NotImplementedError(
             f"loading architecture {architecture!r}: the port loads {sorted(_LOADERS)}; "
-            "the language-model loaders are a later slice of the port")
+            "llama, bert and distilbert are a later slice of the port")
     loader, model_factory = _LOADERS[architecture]
     config, params = loader(model_or_sd, dtype=dtype)
     return model_factory(config), params

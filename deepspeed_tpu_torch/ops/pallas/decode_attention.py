@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.ops.op_builder import CudaKernel
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+# GPT-J-6B serves at 256
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P = ctypes.c_void_p
@@ -82,17 +83,27 @@ def _semaphores(device: torch.device, n: int) -> torch.Tensor:
     return sem
 
 
-def decode_reference(q, k_cache, v_cache, pos):
+def decode_reference(q, k_cache, v_cache, pos, alibi=None, window=None):
     """The grouped einsum of ``deepspeed_tpu/models/common.py``
     ``cached_decode_attention``: q (B, H, Dh), caches (B, S, KV, Dh) valid
     through ``pos`` (an int or a 0-d tensor). Scores in the input type, then
-    fp32; probabilities cast back to the input type. → (B, H, Dh)."""
+    fp32; probabilities cast back to the input type. ``alibi``: optional
+    (H,) fp32 slopes, the bias ``slopes[h] * j`` on cache slot j;
+    ``window``: GPT-Neo's local window, the slots j > pos - window (None or
+    <= 0: every slot through ``pos``). Both read ``pos`` on the device, so a
+    captured step stays valid at every position. → (B, H, Dh)."""
     B, H, Dh = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, KV, H // KV, Dh)
     scale = 1.0 / math.sqrt(Dh)
     s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache).float() * scale
-    valid = torch.arange(S, device=q.device) <= pos
+    slots = torch.arange(S, device=q.device)
+    if alibi is not None:
+        s = s + (alibi.to(device=q.device, dtype=torch.float32).reshape(KV, H // KV)[None, :, :, None]
+                 * slots.float())
+    valid = slots <= pos
+    if window is not None and window > 0:
+        valid = valid & (slots > pos - window)
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bgrk,bkgd->bgrd", p, v_cache).reshape(B, H, Dh)

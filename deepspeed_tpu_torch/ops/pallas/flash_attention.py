@@ -26,12 +26,13 @@ the plain versions, which are also what the kernels are checked against on
 the card.
 
 Layout: :func:`flash_attention` and :func:`flash_attention_sparse` take and
-return (B, T, H, D), as the JAX functions do, and are differentiable: each
-is a ``torch.autograd.Function`` (:class:`FlashAttentionFunction`,
-:class:`SparseAttentionFunction`) whose forward and backward kernels work on
-(B*H, T, D) with the softmax scale folded into q. The forward also returns
-the fp32 log-sum-exp per row, which the backward uses to recompute the
-probabilities.
+return (B, T, H, D), as the JAX functions do, and are differentiable: the
+dense forward is the dispatcher op :func:`flash_fwd_op` with its autograd
+formula (an op, so that the "attn" remat policy can keep its outputs), the
+sparse one the ``torch.autograd.Function`` :class:`SparseAttentionFunction`;
+their forward and backward kernels work on (B*H, T, D) with the softmax
+scale folded into q. The forward also returns the fp32 log-sum-exp per row,
+which the backward uses to recompute the probabilities.
 """
 
 from __future__ import annotations
@@ -48,10 +49,10 @@ from deepspeed_tpu_torch.ops.op_builder import CudaKernel
 NEG_INF = -1e30
 # head dims with a kernel instance: the backward kernels (dense and
 # block-sparse) and the block-sparse forward take HEAD_DIMS; the dense forward
-# also takes the UNet's 40 and 160 and the VAE's 512 (FWD_HEAD_DIMS), where no
-# JAX path trains
+# also takes the UNet's 40 and 160, GPT-J's 256 and the VAE's 512
+# (FWD_HEAD_DIMS), where no path of the port trains on the card
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
-FWD_HEAD_DIMS = (16, 32, 40, 64, 80, 96, 128, 160, 512)
+FWD_HEAD_DIMS = (16, 32, 40, 64, 80, 96, 128, 160, 256, 512)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P = ctypes.c_void_p
@@ -79,11 +80,14 @@ def _dense_mask(q, k, causal: bool):
     return _causal_mask(q.shape[1], k.shape[1], q.device) if causal else None
 
 
-def _masked_mha(q, k, v, mask, scale: float):
+def _masked_mha(q, k, v, mask, scale: float, bias=None):
     """Plain einsum attention on (B, T, H, D) with a bool mask of visible
-    keys broadcast to (B, H, Tq, Tk) (None: all): scores in the input type, softmax in fp32,
-    probabilities cast back to the input type."""
+    keys broadcast to (B, H, Tq, Tk) (None: all) and an fp32 ``bias`` added
+    to the scores before the mask (None: none): scores in the input type,
+    softmax in fp32, probabilities cast back to the input type."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if bias is not None:
+        logits = logits + bias
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -91,18 +95,30 @@ def _masked_mha(q, k, v, mask, scale: float):
 
 
 def mha_reference(q, k, v, causal: bool = True, scale: Optional[float] = None,
-                  key_padding_mask=None):
+                  key_padding_mask=None, alibi=None, window: Optional[int] = None):
     """Plain einsum attention on (B, T, H, D), as the JAX ``mha_reference``
     and the models' non-flash path compute it: scores in the input type,
     softmax in fp32, probabilities cast back to the input type.
-    ``key_padding_mask``: optional (B, Tk), nonzero = attend."""
+    ``key_padding_mask``: optional (B, Tk), nonzero = attend. ``alibi``:
+    optional (H,) fp32 slopes, the bias ``slopes[h] * j`` on key position j
+    (BLOOM's, under a full mask). ``window``: GPT-Neo's local window, query i
+    sees key j when 0 <= i - j < window (causal only; None or <= 0: global)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     mask = _dense_mask(q, k, causal)
+    if window is not None and window > 0:
+        if not causal:
+            raise ValueError("windowed attention is causal-only")
+        i = torch.arange(q.shape[1], device=q.device)[:, None]
+        mask = mask & (i - torch.arange(k.shape[1], device=q.device)[None, :] < window)
     if key_padding_mask is not None:
         keep = key_padding_mask.to(device=q.device, dtype=torch.bool)[:, None, None, :]
         mask = keep if mask is None else keep & mask
-    return _masked_mha(q, k, v, mask, scale)
+    bias = None
+    if alibi is not None:
+        keys = torch.arange(k.shape[1], dtype=torch.float32, device=q.device)
+        bias = alibi.to(device=q.device, dtype=torch.float32)[None, :, None, None] * keys
+    return _masked_mha(q, k, v, mask, scale, bias)
 
 
 def _reference_lse(q, k, v, mask) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -278,38 +294,47 @@ def flash_backward(q, k, v, o, lse, do, causal: bool = True):
     return (dq, *flash_backward_dkv(q, k, v, do, lse, delta, causal))
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """Flash attention on (B*H, T, D) with the scale in q: forward
-    :func:`flash_forward`, backward :func:`flash_backward`; it saves q, k, v,
-    o and lse, as the JAX ``_flash_bhtd_fwd`` does. On a CUDA tensor whose
-    gradient is needed at a head dim the backward kernels lack (40, 160,
-    512: forward-only instances), the forward raises, before anything
-    runs."""
+@torch.library.custom_op("ds_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_forward` as a dispatcher op, so that a selective
+    activation-checkpoint policy can name it: under remat "attn" the policy
+    keeps its outputs and the recompute reads them back, and the kernel is
+    not launched again (``models/common.py`` ``remat_call``)."""
+    return flash_forward(q, k, v, causal)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        d = q.shape[-1]
-        if any(ctx.needs_input_grad[:3]) and d not in HEAD_DIMS and _on_cuda(q, "flash_attention"):
-            raise NotImplementedError(
-                f"flash attention backward at head dim {d}: the backward kernels take "
-                f"{HEAD_DIMS} (head dims {FWD_HEAD_DIMS} are forward-only); run this "
-                "forward without gradients (torch.no_grad / inference_mode)")
-        o, lse = flash_forward(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(), ctx.causal)
-        return dq, dk, dv, None
+def _flash_setup(ctx, inputs, output):
+    q, k, v, causal = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal = causal
+
+
+def _flash_backward(ctx, do, _dlse):
+    """:func:`flash_backward` from what the forward saved, as the JAX
+    ``_flash_bhtd_fwd`` saves q, k, v, o and lse."""
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(), ctx.causal)
+    return dq, dk, dv, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None):
-    """q, k, v: (B, T, H, D) → (B, T, H, D). Differentiable."""
+    """q, k, v: (B, T, H, D) → (B, T, H, D). Differentiable through
+    :func:`flash_fwd_op`. On a CUDA tensor whose gradient is needed at a head
+    dim the backward kernels lack (40, 160, 256, 512: forward-only
+    instances), it raises before anything runs."""
     b, t_q, h, d = q.shape
     t_k = k.shape[1]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)) \
+            and d not in HEAD_DIMS and _on_cuda(q, "flash_attention"):
+        raise NotImplementedError(
+            f"flash attention backward at head dim {d}: the backward kernels take "
+            f"{HEAD_DIMS} (head dims {FWD_HEAD_DIMS} are forward-only); run this "
+            "forward without gradients (torch.no_grad / inference_mode)")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     # the scale is folded into q in q's type, outside the kernels, as in JAX;
@@ -318,7 +343,7 @@ def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None)
     # the reshape copies, except at B = 1, where it can stay a strided view;
     # the kernels take contiguous rows
     to_bhtd = lambda x, t: x.transpose(1, 2).reshape(b * h, t, d).contiguous()
-    o = FlashAttentionFunction.apply(to_bhtd(q, t_q), to_bhtd(k, t_k), to_bhtd(v, t_k), causal)
+    o, _ = flash_fwd_op(to_bhtd(q, t_q), to_bhtd(k, t_k), to_bhtd(v, t_k), causal)
     return o.reshape(b, h, t_q, d).transpose(1, 2)
 
 

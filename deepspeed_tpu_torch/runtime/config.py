@@ -9,9 +9,9 @@ is resolved and validated centrally with the reference's rules and errors.
 The port reads ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``zero_optimization``, ``aio``, ``comms_logger``, ``data_types``,
 ``sparse_attention``, ``checkpoint``, ``resilience``, ``data_efficiency``,
-``curriculum_learning``, ``dataloader_drop_last``, ``steps_per_print``,
-``wall_clock_breakdown``, ``seed``, the ``tpu`` block's ``data`` and
-``expert`` axes, and the batch keys.
+``curriculum_learning``, ``dataloader_drop_last``, ``progressive_layer_drop``,
+``steps_per_print``, ``wall_clock_breakdown``, ``seed``, the ``tpu`` block's
+``data`` and ``expert`` axes, and the batch keys.
 Every other top-level key the JAX package knows raises
 ``NotImplementedError`` naming it when present, rather than being ignored,
 and so do the parts of a read block that belong to a later slice
@@ -39,7 +39,7 @@ SUPPORTED_KEYS = frozenset({
     "optimizer",
     "scheduler", "gradient_clipping", "sparse_attention", "steps_per_print",
     "wall_clock_breakdown", "seed", "checkpoint", "resilience", "data_efficiency",
-    "curriculum_learning", "dataloader_drop_last", "tpu",
+    "curriculum_learning", "dataloader_drop_last", "progressive_layer_drop", "tpu",
     "train_batch_size", "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
@@ -52,7 +52,7 @@ LATER_KEYS = frozenset({
     "gradient_compression", "compression_training",
     "autotuning", "rewind", "watchdog", "analysis", "telemetry", "profiling",
     "perf", "serving", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
-    "memory_breakdown", "dump_state", "eigenvalue", "progressive_layer_drop",
+    "memory_breakdown", "dump_state", "eigenvalue",
     "sparse_gradients", "prescale_gradients", "gradient_predivide_factor",
     "disable_allgather", "graph_harvesting", "use_data_before_expert_parallel",
     "communication_data_type", "nebula", "zero_allow_untested_optimizer",
@@ -135,6 +135,21 @@ class AioConfig(DeepSpeedConfigModel):
     thread_count: int = 1
     single_submit: bool = False
     overlap_events: bool = True
+
+
+@dataclasses.dataclass
+class PLDConfig(DeepSpeedConfigModel):
+    """The progressive_layer_drop block: θ̄, the floor of the keep
+    probability θ(t), and γ, its anneal rate
+    (``runtime/progressive_layer_drop.py``)."""
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+
+    def __post_init__(self):
+        if not 0.0 < self.theta <= 1.0:
+            raise ValueError(f"progressive_layer_drop.theta {self.theta} not in (0, 1]")
+        _check_min(self, gamma=(0.0, False))
 
 
 @dataclasses.dataclass
@@ -315,6 +330,8 @@ class DeepSpeedConfig:
         self.checkpoint_tag_validation_fail = \
             self.checkpoint_config.tag_validation.lower() == "fail"
         self.resilience = ResilienceConfig.from_dict(pd.get("resilience", {}))
+        self.pld_config = PLDConfig.from_dict(pd.get("progressive_layer_drop", {}))
+        self.pld_enabled = self.pld_config.enabled
         self.data_efficiency_config = pd.get("data_efficiency", {})
         if isinstance(self.data_efficiency_config, dict) \
                 and "data_routing" in self.data_efficiency_config:

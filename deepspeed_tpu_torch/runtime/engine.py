@@ -57,6 +57,10 @@ the JAX engine passes its ``rng``) and ``loss_weight`` (the weight the
 engine gives the rank's loss, below); ``loss_tokens(batch)``, what the
 loss averages over when ranks may hold different counts (None: every row
 the same); ``expert_module_names()`` and ``expert_groups`` on a MoE model;
+a ``pld_theta`` argument of ``loss``, which receives progressive layer
+drop's keep probability θ(t) of the step when the ds_config
+``progressive_layer_drop`` block is enabled (a loss without it is refused,
+as in JAX);
 ``param_chunks(generator)`` or ``init_params(generator)``, its random
 initial values, when its weights are not loaded; and ``param_gatherer``,
 the attribute ZeRO stage 3 and ``offload_param`` set to gather each
@@ -125,6 +129,7 @@ from deepspeed_tpu_torch.runtime.data_pipeline.data_sampling import (apply_seqle
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, grads_finite
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedule, build_lr_schedule
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop, theta_at
 from deepspeed_tpu_torch.runtime.utils import get_grad_norm
 from deepspeed_tpu_torch.runtime.zero.init import build_state, trainable
 from deepspeed_tpu_torch.runtime.zero.offload import CHUNK_BYTES, HostOffload, host_opt_state
@@ -270,6 +275,17 @@ class DeepSpeedEngine:
         # the model outlives the engine: its hooks go with the engine
         weakref.finalize(self, lambda: [h.remove() for h in hooks])
         self._pending_weight = None
+
+        # ---- progressive layer drop: θ(t) into the loss each microbatch ----
+        self.progressive_layer_drop = None
+        if self._config.pld_enabled:
+            if "pld_theta" not in inspect.signature(model.loss).parameters:
+                raise ValueError(
+                    "progressive_layer_drop.enabled=true but the model loss does not accept "
+                    "a pld_theta kwarg — use a model with PLD gates (models.gpt2/bert) or "
+                    "add pld_theta support")
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=self._config.pld_config.theta, gamma=self._config.pld_config.gamma)
 
         # ---- counters and timers -----------------------------------------
         self._global_step = 0
@@ -492,6 +508,9 @@ class DeepSpeedEngine:
                 (self._config.seed * 1_000_003 + self._global_step) * 1_009 + micro)
         if weight is not None and "loss_weight" in self._loss_kwargs:
             kwargs["loss_weight"] = weight
+        if self.progressive_layer_drop is not None:
+            pld = self._config.pld_config
+            kwargs["pld_theta"] = theta_at(self._global_step, pld.theta, pld.gamma)
         with self._zero.forward_context():
             return self.module.loss(batch, **kwargs)
 
@@ -601,6 +620,8 @@ class DeepSpeedEngine:
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
         step = self._global_step
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(step)
         if self._config.steps_per_print and step % self._config.steps_per_print == 0:
             log_dist(f"step={step} loss={float(metrics.loss):.4f} lr={metrics.lr:.3e} "
                      f"gnorm={float(metrics.grad_norm):.3f}"

@@ -65,6 +65,11 @@ class ZeroInfinityEngine:
         if not isinstance(model, GPT2Model):
             raise NotImplementedError("ZeRO-Infinity param offload drives GPT2Model's stages; "
                                       f"got {type(model).__name__}")
+        # the stages run with no generator: no dropout masks, no PLD gates
+        if model.config.dropout:
+            raise NotImplementedError("param-NVMe training with dropout")
+        if ds_config.pld_enabled:
+            raise NotImplementedError("param-NVMe training with progressive layer drop")
         if comm.is_initialized() and comm.get_world_size() > 1:
             raise NotImplementedError("layerwise param-NVMe runs on one process; train over "
                                       "many with offload_optimizer nvme instead")
@@ -187,7 +192,7 @@ class ZeroInfinityEngine:
                 for l in range(L):
                     blk = self._read_layer(l)
                     acts.append(x.to("cpu"))
-                    x = m._block(x, blk)
+                    x = m._block(x, blk, l)
             # loss, and the gradients of the top-level weights and of x
             x = x.detach().requires_grad_()
             loss = m.loss_stage(top, x, mb)
@@ -198,7 +203,7 @@ class ZeroInfinityEngine:
             for l in reversed(range(L)):
                 blk = self._read_layer(l, grad=True)
                 x_l = acts.pop().to(self.device).requires_grad_()
-                m._block(x_l, blk).backward(dx)
+                m._block(x_l, blk, l).backward(dx)
                 dx = x_l.grad
                 for k in BLOCK_KEYS:
                     add(f"layer{l:03d}/{k}", getattr(blk, k).grad)

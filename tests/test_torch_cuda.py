@@ -18,9 +18,9 @@ type before the second products, as the JAX kernels do; the fp32 instances
 keep the CUDA-core code. Decode splits the cache over CTAs; the engine's
 decode loop is a captured CUDA graph, held here against the eager loop.
 Every kernel has instances for head dims 16, 32, 64, 80, 96 and 128, the
-head dims of the model presets; the dense forward also has 40, 160 and 512
-(SD-1.5's UNet and VAE), forward only: a gradient at those raises at the
-forward. A small UNet and VAE run through the kernels on the card against
+head dims of the model presets; the dense forward also has 40, 160, 256
+and 512 (SD-1.5's UNet and VAE, GPT-J-6B), forward only: a gradient at
+those raises at the forward; decode also has 256. A small UNet and VAE run through the kernels on the card against
 the same models with the plain attention. The last tests feed a small bf16 GPT-2
 through its data loader, save and resume it (the state after a load equal
 to the saved state bit for bit, the losses equal to the uninterrupted
@@ -40,7 +40,13 @@ attention_mask, through none), a BERT fp16 LAMB run through the engine,
 and a grouped-KV llama step under remat. The MoE tests run the flash
 kernels at gpt2-moe-125m's training shape, a MoE GPT-2 step under remat
 per pair through the kernels against the plain path, and its graphed
-decode loop (the gate captured with the step) against the eager loop.
+decode loop (the gate captured with the step) against the eager loop. The
+GPT-2 variant families (GPT-J at head dim 256, GPT-NeoX, OPT, GPT-Neo with
+its local layers on the plain path, BLOOM's ALiBi with no kernel) serve
+through the graphed loop with their launches counted; the remat policies
+launch K1 once ("attn", "attn_mlp") or twice ("full", "dots") per layer
+and step; dropout under remat "attn" equals remat off on one seed. K1 and
+K3 also take head dim 256 (GPT-J-6B), K1 forward only.
 """
 
 import dataclasses
@@ -119,12 +125,12 @@ def _decode_checked(gen, kv, pos, dtype, tol, dh):
     assert (out.float() - ref).abs().max().item() <= min(tol, 2e-2 * ref.abs().max().item())
 
 
-@pytest.mark.parametrize("dh", [16, 32, 80])
+@pytest.mark.parametrize("dh", [16, 32, 80, 256])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2),
                                        (torch.float16, 2e-2)])
 def test_decode_kernel_per_head_dim(gen, dh, dtype, tol):
-    """The head dims of the tiny and 2.7b presets; at 16 and 80 the upper
-    lanes own no column of the last group of 32."""
+    """The head dims of the tiny and 2.7b presets and GPT-J-6B's 256; at 16
+    and 80 the upper lanes own no column of the last group of 32."""
     _decode_checked(gen, 8, 200, dtype, tol, dh)
 
 
@@ -324,11 +330,12 @@ def test_flash_dq_tensor_core_matches_plain(gen, t_q, t_k, causal, dtype):
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float16, 2e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [40, 160, 512])
+@pytest.mark.parametrize("D", [40, 160, 256, 512])
 def test_forward_only_head_dims_match_plain(gen, D, causal, dtype, tol):
-    """The forward at the UNet's and VAE's head dims (40 padded to the mma
-    k-step, 160, 512 on its sliced plan), at tile edges and with Tq != Tk
-    (77 keys: the cross-attention's)."""
+    """The forward at the UNet's, GPT-J's and the VAE's head dims (40 padded
+    to the mma k-step, 160, 256 and 512 on the sliced plan, 256 in one
+    slice), at tile edges and with Tq != Tk (77 keys: the
+    cross-attention's)."""
     for t_q, t_k in ((1, 1), (65, 7), (130, 77), (200, 333), (64, 200)):
         q = torch.randn(6, t_q, D, generator=gen, device="cuda") * D ** -0.5
         k, v = (torch.randn(6, t_k, D, generator=gen, device="cuda") for _ in range(2))
@@ -343,7 +350,7 @@ def test_forward_only_head_dims_match_plain(gen, D, causal, dtype, tol):
         assert (lse - lse_ref).abs().max().item() <= 1e-3, (t_q, t_k)
 
 
-@pytest.mark.parametrize("D", [40, 160, 512])
+@pytest.mark.parametrize("D", [40, 160, 256, 512])
 def test_forward_raises_when_a_gradient_needs_a_missing_backward(gen, D):
     """No backward kernel at these head dims: the forward refuses a call
     that needs gradients, before it launches anything; without gradients it
@@ -1211,3 +1218,87 @@ def test_moe_graphed_decode_equals_the_eager_loop(gen):
     out = eng.generate(ids, max_new_tokens=24)
     again = eng.generate(ids, max_new_tokens=24)
     assert torch.equal(out, again) and torch.equal(out, _eager_loop(eng, ids, 24))
+
+
+# ------------------------------------------------- the GPT-2 variant families
+# (family, switches, layers that reach the kernels): GPT-J at head dim 256
+# (d 512, 2 heads), GPT-Neo's global layers only, BLOOM's ALiBi none
+VARIANT_FAMILIES = [
+    ("gptj", dict(n_embd=512, n_head=2, rotary_pct=0.25, rotary_interleaved=True,
+                  parallel_residual=True, tie_embeddings=False, lm_head_bias=True), 2),
+    ("gpt_neox", dict(rotary_pct=0.25, parallel_residual=True, tie_embeddings=False), 2),
+    ("opt", dict(activation="relu"), 2),
+    ("gpt_neo", dict(attention_layers=("global", "local"), window_size=32), 1),
+    ("bloom", dict(n_head=6, n_embd=384, alibi=True, embed_layernorm=True), 0)]
+
+
+@pytest.mark.parametrize("family,switches,kernel_layers", VARIANT_FAMILIES)
+def test_variant_families_serve_graphed_through_the_kernels(gen, family, switches,
+                                                            kernel_layers):
+    """2-layer bf16 models of each family: the graphed generate gives the
+    eager loop's greedy tokens (GPT-Neo past its 32-slot window); K1 once
+    per kernel layer a prefill and K3 once per kernel layer a step, none
+    for a local or ALiBi layer; the prefill's logits within 5e-2 of the
+    plain path's largest on the same weights."""
+    kw = dict(vocab_size=1024, n_positions=256, n_embd=256, n_layer=2, n_head=4,
+              use_flash_decode=True, dtype=torch.bfloat16)
+    cfg = gpt2.GPT2Config(**{**kw, **switches})
+    model = gpt2.GPT2Model(cfg).init_params(gen)
+    eng = deepspeed_tpu_torch.init_inference(model, {"dtype": "bfloat16", "max_out_tokens": 256})
+    ids = torch.randint(0, 1024, (4, 48), generator=gen, device="cuda")
+    first = eng.generate(ids, max_new_tokens=24)           # captures after a warm-up step
+    tfa.KERNEL.reset_launches()
+    tda.KERNEL.reset_launches()
+    out = eng.generate(ids, max_new_tokens=24)             # replays the same graph
+    assert torch.equal(out, first)
+    assert (tfa.KERNEL.launches, tda.KERNEL.launches) == (kernel_layers, kernel_layers * 24)
+    assert torch.equal(out, _eager_loop(eng, ids, 24))
+    plain = gpt2.GPT2Model(dataclasses.replace(cfg, use_flash_attention=False,
+                                               use_flash_decode=False))
+    plain.load_state_dict(eng.module.state_dict(), assign=True)
+    with torch.inference_mode():
+        got, _ = eng.module.prefill(ids, eng.module.init_cache(4, 64))
+        ref, _ = plain.prefill(ids, plain.init_cache(4, 64))
+    assert (got.float() - ref.float()).abs().max().item() <= 5e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("remat,k1_per_layer", [("attn", 1), ("attn_mlp", 1), ("full", 2),
+                                                ("dots", 2), (False, 1)])
+def test_remat_policy_launches_per_step(gen, remat, k1_per_layer):
+    """A 2-layer bf16 NeoX-style GPT-2 step: "attn" and "attn_mlp" keep K1's
+    outputs, so the recompute does not launch it; "full" and "dots" launch
+    it again; each K2 entry once per layer under every policy. The loss
+    equals remat off's bit for bit (the same kernels on the same values)."""
+    cfg = gpt2.GPT2Config(vocab_size=1024, n_positions=256, n_embd=256, n_layer=2, n_head=2,
+                          rotary_pct=0.25, parallel_residual=True, remat=remat,
+                          dtype=torch.bfloat16)
+    model = gpt2.GPT2Model(cfg).init_params(gen).to(torch.bfloat16)
+    batch = gpt2.synthetic_lm_batch(2, 256, 1024, device="cuda")
+    tfa.KERNEL.reset_launches()
+    tfa.BWD_KERNEL.reset_launches()
+    loss, _ = _model_step(model, batch)
+    assert tfa.KERNEL.launches == 2 * k1_per_layer
+    assert tfa.BWD_KERNEL.entry_launches == {"flash_attention_bwd_dq": 2,
+                                             "flash_attention_bwd_dkv": 2}
+    model.config = dataclasses.replace(cfg, remat=False)
+    ref, _ = _model_step(model, batch)
+    assert torch.equal(loss, ref)
+
+
+def test_dropout_under_remat_attn_equals_remat_off_on_the_card(gen):
+    """fp32, dropout 0.1: the same generator seed gives the same masks in
+    the recompute, so the gradients under remat "attn" equal remat off's
+    (1e-6 of each tensor's norm)."""
+    cfg = gpt2.GPT2Config(vocab_size=1024, n_positions=256, n_embd=256, n_layer=2, n_head=2,
+                          rotary_pct=0.25, parallel_residual=True, dropout=0.1, remat="attn",
+                          dtype=torch.float32)
+    model = gpt2.GPT2Model(cfg).init_params(gen)
+    batch = gpt2.synthetic_lm_batch(2, 128, 1024, device="cuda")
+    grads = []
+    for remat in ("attn", False):
+        model.config = dataclasses.replace(cfg, remat=remat)
+        model.zero_grad(set_to_none=True)
+        model.loss(batch, generator=torch.Generator(device="cuda").manual_seed(5)).backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    for n, g in grads[0].items():
+        assert (g - grads[1][n]).norm().item() <= 1e-6 * grads[1][n].norm().item(), n

@@ -4,8 +4,9 @@ dense, decode and sparse paths, against the JAX package.
 The port's kernels have instances for head dims 16, 32, 64, 80, 96 and 128,
 which cover every preset (gpt2-tiny 32, gpt2-2.7b 80, llama-tiny 16); the
 dense forward also has 40, 160 and 512, the head dims of SD-1.5's UNet and
-VAE, which no JAX path trains. The wrappers raise for any other head dim on
-the card, and the C dispatch of each kernel source takes its wrapper's list:
+VAE, and the dense forward and decode 256, GPT-J-6B's, where no path of the
+port trains on the card. The wrappers raise for any other head dim on the
+card, and the C dispatch of each kernel source takes its wrapper's list:
 the forward's ``FWD_HEAD_DIMS``, the backward's, decode's and the
 block-sparse kernels' ``HEAD_DIMS``. On the CPU a wrapper runs its plain
 version, so each dispatch test replaces the wrapper the model code calls
@@ -35,8 +36,9 @@ from deepspeed_tpu_torch.ops.pallas import decode_attention as tda
 from deepspeed_tpu_torch.ops.pallas import flash_attention as tfa
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)                   # backward, decode, block-sparse
-FWD_HEAD_DIMS = (16, 32, 40, 64, 80, 96, 128, 160, 512)   # the dense forward
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)                   # backward, block-sparse
+DECODE_HEAD_DIMS = HEAD_DIMS + (256,)                   # decode: GPT-J-6B's too
+FWD_HEAD_DIMS = (16, 32, 40, 64, 80, 96, 128, 160, 256, 512)   # the dense forward
 CSRC = pathlib.Path(tfa.__file__).resolve().parents[2] / "csrc"
 PRESETS = {**tgpt2.PRESETS, **tllama.PRESETS}
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -70,15 +72,15 @@ def test_every_preset_head_dim_has_a_kernel_instance(preset):
 
 def test_sd15_head_dims_have_forward_instances():
     """SD-1.5's UNet (8 heads on 320, 640 and 1280 channels), its VAE's
-    single-head mid attention on 512 channels and CLIP ViT-L/14's text tower
-    (12 heads on 768) reach the forward kernel; the forward-only dims are
-    exactly those the backward lacks."""
+    single-head mid attention on 512 channels, CLIP ViT-L/14's text tower
+    (12 heads on 768) and GPT-J-6B (16 heads on 4096) reach the forward
+    kernel; the forward-only dims are exactly those the backward lacks."""
     from deepspeed_tpu_torch.models.diffusion import UNetConfig, VAEConfig
 
     unet = UNetConfig()
     dims = {c // unet.heads_for(i) for i, c in enumerate(unet.block_out_channels)}
-    dims |= {VAEConfig().block_out_channels[-1], 768 // 12}
-    assert dims == {40, 64, 80, 160, 512} and dims <= set(tfa.FWD_HEAD_DIMS)
+    dims |= {VAEConfig().block_out_channels[-1], 768 // 12, 4096 // 16}
+    assert dims == {40, 64, 80, 160, 256, 512} and dims <= set(tfa.FWD_HEAD_DIMS)
     assert set(tfa.FWD_HEAD_DIMS) - set(tfa.HEAD_DIMS) == dims - set(HEAD_DIMS)
 
 
@@ -95,9 +97,10 @@ def test_every_kernel_source_dispatches_the_wrappers_head_dims(source, switch):
     cases = tuple(int(c) for c in re.findall(r"case (\d+):", body.group(1)))
     if source == "flash_attention_fwd.cu":
         assert cases == tfa.FWD_HEAD_DIMS == FWD_HEAD_DIMS
+    elif source.startswith("decode"):
+        assert cases == tda.HEAD_DIMS == DECODE_HEAD_DIMS
     else:
-        wrapper = tda if source.startswith("decode") else tfa
-        assert cases == wrapper.HEAD_DIMS == HEAD_DIMS
+        assert cases == tfa.HEAD_DIMS == HEAD_DIMS
 
 
 @pytest.mark.parametrize("head_dim", FWD_HEAD_DIMS)
@@ -110,7 +113,7 @@ def test_dense_attention_takes_the_kernel_for_every_head_dim(monkeypatch, head_d
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+@pytest.mark.parametrize("head_dim", DECODE_HEAD_DIMS)
 def test_decode_attention_takes_the_kernel_for_every_head_dim(monkeypatch, head_dim):
     calls = _probe(monkeypatch, tcommon, "decode_attention")
     q, k, v = _rand((2, 4, head_dim), (2, 40, 2, head_dim), (2, 40, 2, head_dim), seed=1)

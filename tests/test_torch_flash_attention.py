@@ -91,11 +91,11 @@ def test_forward_only_head_dims_with_fewer_keys_match_jax(D, causal, dtype):
 
 def test_forward_and_backward_head_dim_sets():
     """The forward kernel takes every backward head dim and the
-    forward-only 40, 160 and 512; the backward kernels' checks refuse
+    forward-only 40, 160, 256 and 512; the backward kernels' checks refuse
     those."""
     assert set(tfa.HEAD_DIMS) < set(tfa.FWD_HEAD_DIMS)
-    assert set(tfa.FWD_HEAD_DIMS) - set(tfa.HEAD_DIMS) == {40, 160, 512}
-    for d in (40, 160, 512):
+    assert set(tfa.FWD_HEAD_DIMS) - set(tfa.HEAD_DIMS) == {40, 160, 256, 512}
+    for d in (40, 160, 256, 512):
         q = torch.zeros(2, 16, d)
         tfa._check(q, q, q.clone(), tfa.FWD_HEAD_DIMS)
         with pytest.raises(ValueError, match="head dim"):

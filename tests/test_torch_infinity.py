@@ -158,3 +158,28 @@ def test_tags_load_between_infinity_and_the_engine(jax_runs, tmp_path, dtype):
         for k, v in saved.items():
             assert torch.equal(restored[k], v), (loader, k)
         np.testing.assert_allclose(float(dst.train_batch(batch)), after, rtol=rtol)
+
+
+@pytest.mark.parametrize("switch", ["dropout", "progressive_layer_drop"])
+def test_dropout_and_layer_drop_are_refused(tmp_path, switch):
+    """The layerwise stages run with no generator, so neither dropout masks
+    nor PLD gates would be drawn: ZeRO-Infinity refuses both at build, as
+    the JAX engine refuses dropout, rather than training without them."""
+    cfg = tgpt2.GPT2Config(**SMALL, dtype=torch.float32,
+                           dropout=0.1 if switch == "dropout" else 0.0)
+    model = tgpt2.GPT2Model(cfg).init_params(torch.Generator().manual_seed(0))
+    config = _config(1, offload_param={"device": "nvme", "nvme_path": str(tmp_path)})
+    if switch == "progressive_layer_drop":
+        config["progressive_layer_drop"] = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+    with pytest.raises(NotImplementedError, match="param-NVMe training with"):
+        deepspeed_tpu_torch.initialize(model=model, config=config, device="cpu")
+    if switch == "dropout":
+        import jax.numpy as jnp
+
+        from deepspeed_tpu.models import gpt2 as jgpt2
+        from deepspeed_tpu.runtime.config import DeepSpeedConfig
+        from deepspeed_tpu.runtime.zero.infinity import ZeroInfinityEngine as JaxInfinity
+
+        jcfg = jgpt2.GPT2Config(**SMALL, dtype=jnp.float32, dropout=0.1)
+        with pytest.raises(NotImplementedError, match="param-NVMe training with dropout"):
+            JaxInfinity(jgpt2.GPT2Model(jcfg), DeepSpeedConfig(config))
