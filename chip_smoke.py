@@ -102,7 +102,25 @@ interleaved rotary) from the port's own init, and ``serve check gpt-j-6b
 loader 2-layer`` its loader at its widths; ``train bert-large pld`` trains
 under the ``progressive_layer_drop`` block, each step's θ held to
 ``theta_at``, beside the same run without it. K1 and K3 are checked at
-head dim 256 at GPT-J-6B's shapes. Each phase prints one JSON line with the seconds
+head dim 256 at GPT-J-6B's shapes. Then model import: ``import
+llama3.2-1b from hf`` builds an HF-shaped llama3.2-1b dict on the card
+(``hf_lm_state``), loads it through ``load_hf_model`` (its config held to
+the registry preset's) and serves it like ``slice llama3.2-1b``, its greedy
+tokens equal to a preset model's on the same weights; ``import bert-large
+from hf`` and ``import distilbert-base from hf`` load masked-LM dicts and
+serve ``init_inference``'s forward at 16 x 512 (one non-causal K1 per
+layer), bf16 and 2 fp32 layers against the plain path; ``export round
+trip`` reads ``export_llama`` (2 of llama3.2-1b's 16 layers),
+``export_gpt2`` (gpt2-760m) and ``export_bloom`` (BLOOM-560m) back through
+their loaders bit for bit; ``consolidate llama3.2-1b arch llama`` (in the
+llama training phases) writes the stage-1 tag as an HF file and reads it
+back to the tag's params; ``serve megatron gpt2-760m`` (tp 2) and ``serve
+megatron gpt2-moe-125m`` write Megatron-DeepSpeed directories (fp16) and
+serve them through ``init_inference(model=None, checkpoint=...,
+checkpoint_config={"type": ...})``, their greedy tokens equal to the same
+weights served from the port's state dict. The kernel rows that no summary
+reports (edge lengths, other types and head dims) are checked without a
+time (``untimed``). Each phase prints one JSON line with the seconds
 since the start (``at_s``); any failed check raises, and the script exits
 non-zero without the final line. It needs one card and imports nothing of
 JAX or of the JAX package.
@@ -223,6 +241,7 @@ BERT_CONFIG = {"train_micro_batch_size_per_gpu": 64, "gradient_accumulation_step
 # the MoE training phases: gpt2-moe-125m at the JAX bench's 12 x 1024 with
 # the training recipe, the expert axis 1 (one card)
 MOE_MODEL = "gpt2-moe-125m"
+MOE_EXPERTS = 8                     # the registry's gpt2-moe expert count
 MOE_BATCH, MOE_SEQ = 12, 1024
 MOE_CONFIG = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": MOE_BATCH,
               "tpu": {"expert": 1}}
@@ -325,6 +344,11 @@ PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
 # GPT-Neo at HF's init, bf16 against fp32 on each seed: the kernel path's
 # max and mean logit errors within ``ratio`` times the plain path's
 NEO_HF_INIT = {"seeds": (SEED + 3, SEED + 4), "ratio": 1.25}
+# model import: DistilBERT-base's published widths on BertConfig (6 layers,
+# d 768, 12 heads, hidden_dim 3072, no token types; vocab 30522 and 512
+# positions, as bert-large), and the MLM forward's batch x sequence
+DISTILBERT = dict(n_embd=768, n_layer=6, n_head=12, intermediate_size=3072, type_vocab_size=1)
+IMPORT_BERT_SHAPE = (16, 512)
 
 _T0 = time.perf_counter()
 
@@ -340,8 +364,31 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+_UNTIMED = [False]
+
+
+@contextlib.contextmanager
+def untimed():
+    """Kernel checks inside check correctness only: ``time_ms`` gives None
+    (the rows no summary reports; a check of the same shape class is timed
+    elsewhere)."""
+    _UNTIMED[0] = True
+    try:
+        yield
+    finally:
+        _UNTIMED[0] = False
+
+
+def _per(num, ms):
+    """``num / ms``, None for an untimed row."""
+    return None if ms is None else num / ms
+
+
 def time_ms(fn, arg_sets):
-    """Device ms per call of fn(*args), args rotated over ``arg_sets``."""
+    """Device ms per call of fn(*args), args rotated over ``arg_sets``; None
+    inside ``untimed``."""
+    if _UNTIMED[0]:
+        return None
     for args in arg_sets[:2]:
         fn(*args)
     torch.cuda.synchronize()
@@ -464,8 +511,8 @@ def check_flash(fa, accel, gen, name, B, T, H, D, dtype, causal, Tk=None):
            "ms": time_ms(lambda q, k, v: fa.flash_forward(q, k, v, causal), sets),
            "plain_ms": time_ms(lambda q, k, v: fa.mha_reference_lse(q, k, v, causal), sets),
            "library_ms": time_ms(sdpa, sets), "bound_ms": b_ms, "bound_by": b_by}
-    row["tflops"] = 4.0 * D * _pairs(T, Tk, causal) * B * H / row["ms"] / 1e9
-    row["bound_share"] = b_ms / row["ms"]
+    row["tflops"] = _per(4.0 * D * _pairs(T, Tk, causal) * B * H / 1e9, row["ms"])
+    row["bound_share"] = _per(b_ms, row["ms"])
     emit("kernel flash_attention_fwd", **row)
     return row
 
@@ -520,9 +567,9 @@ def check_decode(da, accel, gen, name, B, S, H, KV, Dh, dtype, pos, garbage=Fals
            "ms": time_ms(da.decode_attention, sets),
            "plain_ms": time_ms(da.decode_reference, sets),
            "library_ms": time_ms(sdpa, sets), "bound_ms": b_ms, "bound_by": b_by}
-    row["tflops"] = ops / row["ms"] / 1e9
-    row["gbytes_per_s"] = nbytes / row["ms"] / 1e6
-    row["bound_share"] = b_ms / row["ms"]
+    row["tflops"] = _per(ops / 1e9, row["ms"])
+    row["gbytes_per_s"] = _per(nbytes / 1e6, row["ms"])
+    row["bound_share"] = _per(b_ms, row["ms"])
     emit("kernel decode_attention", **row)
     return row
 
@@ -599,10 +646,10 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal, Tk=None):
            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
            "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
            "library_bwd_ms": time_ms(lib_bwd, lib), "library_fwd_bwd_ms": time_ms(lib_fwd_bwd, lib)}
-    row["dq_tflops"] = 6.0 * D * pairs / row["dq_ms"] / 1e9
-    row["dq_bound_share"] = dq_bound[0] / row["dq_ms"]
-    row["dkv_tflops"] = 8.0 * D * pairs / row["dkv_ms"] / 1e9
-    row["dkv_bound_share"] = dkv_bound[0] / row["dkv_ms"]
+    row["dq_tflops"] = _per(6.0 * D * pairs / 1e9, row["dq_ms"])
+    row["dq_bound_share"] = _per(dq_bound[0], row["dq_ms"])
+    row["dkv_tflops"] = _per(8.0 * D * pairs / 1e9, row["dkv_ms"])
+    row["dkv_bound_share"] = _per(dkv_bound[0], row["dkv_ms"])
     del lib
     emit("kernel flash_attention_bwd", **row)
     return row
@@ -704,8 +751,8 @@ def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
         dkv_plain_ms=time_ms(lambda *a: fa.sparse_backward_dkv_reference(*a, layout, causal),
                              sets))
     for entry in ops:   # visible-pair work only
-        row[f"{entry}_tflops"] = ops[entry] / row[f"{entry}_ms"] / 1e9
-        row[f"{entry}_bound_share"] = row[f"{entry}_bound_ms"] / row[f"{entry}_ms"]
+        row[f"{entry}_tflops"] = _per(ops[entry] / 1e9, row[f"{entry}_ms"])
+        row[f"{entry}_bound_share"] = _per(row[f"{entry}_bound_ms"], row[f"{entry}_ms"])
 
     mask = pairs.mask
     sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
@@ -2752,6 +2799,7 @@ def llama_train_slices(initialize, init_inference, LlamaModel, cfg, accel, fa, d
 
         launches["serve_llama_tag"] = serve_tag_slice(init_inference, LlamaModel, c, accel, fa,
                                                       da, save_dir, f"serve {MODEL} from its tag")
+        consolidate_llama_tag(save_dir, c)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -3165,28 +3213,92 @@ def sd_slices(init_inference, accel, fa, kernels):
 def hf_lm_state(family: str, cfg: dict, layers: int, gen, dtype=torch.bfloat16,
                 q_std: float = 0.02):
     """An HF-shaped (config dict, state dict) of ``family`` ("gpt_neox",
-    "opt", "gpt_neo", "bloom", "gptj") at the widths of ``cfg`` with
-    ``layers`` layers, built on the card: HF's key names and tensor shapes
-    (``nn.Linear`` (out, in), BLOOM's and NeoX's head-interleaved
+    "opt", "gpt_neo", "bloom", "gptj", "llama", "bert", "distilbert") at the
+    widths of ``cfg`` (a GPT2Config's, LlamaConfig's or BertConfig's fields)
+    with ``layers`` layers, built on the card: HF's key names and tensor
+    shapes (``nn.Linear`` (out, in), BLOOM's and NeoX's head-interleaved
     ``query_key_value``, OPT's position table with its 2 extra rows, GPT-J's
-    bias-free attention), normal(0.02) weights (GPT-Neo's ``q_proj``
-    normal(``q_std``)), unit gains, zero biases."""
+    bias-free attention, llama's grouped ``k_proj``/``v_proj`` and no
+    ``lm_head`` when tied, BERT's and DistilBERT's separate q/k/v and MLM
+    heads without the tied decoder weight), normal(0.02) weights (GPT-Neo's
+    ``q_proj`` normal(``q_std``)), unit gains, zero biases."""
     d, h, vocab, npos = cfg["n_embd"], cfg["n_head"], cfg["vocab_size"], cfg["n_positions"]
     sd = {}
 
     def put(name, *shape, std=0.02):
         sd[name] = (torch.randn(*shape, generator=gen, device="cuda") * std).to(dtype)
 
-    def ln(name):
+    def ln(name, bias=True):
         sd[name + ".weight"] = torch.ones(d, dtype=dtype, device="cuda")
-        sd[name + ".bias"] = torch.zeros(d, dtype=dtype, device="cuda")
+        if bias:
+            sd[name + ".bias"] = torch.zeros(d, dtype=dtype, device="cuda")
 
     def linear(name, n_out, n_in, bias=True, std=0.02):
         put(name + ".weight", n_out, n_in, std=std)
         if bias:
             sd[name + ".bias"] = torch.zeros(n_out, dtype=dtype, device="cuda")
 
-    if family == "gpt_neox":
+    if family == "llama":
+        kv, inter = cfg["n_kv_head"] * (d // h), cfg["intermediate_size"]
+        put("model.embed_tokens.weight", vocab, d)
+        for i in range(layers):
+            p = f"model.layers.{i}."
+            ln(p + "input_layernorm", bias=False)
+            ln(p + "post_attention_layernorm", bias=False)
+            for n, rows in (("q", d), ("k", kv), ("v", kv), ("o", d)):
+                linear(p + f"self_attn.{n}_proj", rows, d, bias=False)
+            linear(p + "mlp.gate_proj", inter, d, bias=False)
+            linear(p + "mlp.up_proj", inter, d, bias=False)
+            linear(p + "mlp.down_proj", d, inter, bias=False)
+        ln("model.norm", bias=False)
+        if not cfg["tie_embeddings"]:
+            put("lm_head.weight", vocab, d)
+        config = {"model_type": "llama", "num_attention_heads": h,
+                  "num_key_value_heads": cfg["n_kv_head"], "rms_norm_eps": cfg["rms_norm_eps"],
+                  "rope_theta": cfg["rope_theta"], "rope_scaling": cfg["rope_scaling"],
+                  "max_position_embeddings": npos, "intermediate_size": inter,
+                  "tie_word_embeddings": cfg["tie_embeddings"]}
+    elif family in ("bert", "distilbert"):
+        inter = cfg["intermediate_size"]
+        e = f"{family}.embeddings."
+        put(e + "word_embeddings.weight", vocab, d)
+        put(e + "position_embeddings.weight", npos, d)
+        ln(e + "LayerNorm")
+        for i in range(layers):
+            if family == "bert":
+                p = f"bert.encoder.layer.{i}."
+                for n in ("query", "key", "value"):
+                    linear(p + f"attention.self.{n}", d, d)
+                linear(p + "attention.output.dense", d, d)
+                ln(p + "attention.output.LayerNorm")
+                linear(p + "intermediate.dense", inter, d)
+                linear(p + "output.dense", d, inter)
+                ln(p + "output.LayerNorm")
+            else:
+                p = f"distilbert.transformer.layer.{i}."
+                for n in ("q", "k", "v", "out"):
+                    linear(p + f"attention.{n}_lin", d, d)
+                ln(p + "sa_layer_norm")
+                linear(p + "ffn.lin1", inter, d)
+                linear(p + "ffn.lin2", d, inter)
+                ln(p + "output_layer_norm")
+        if family == "bert":
+            put(e + "token_type_embeddings.weight", cfg["type_vocab_size"], d)
+            linear("cls.predictions.transform.dense", d, d)
+            ln("cls.predictions.transform.LayerNorm")
+            sd["cls.predictions.bias"] = torch.zeros(vocab, dtype=dtype, device="cuda")
+            config = {"model_type": "bert", "num_attention_heads": h,
+                      "intermediate_size": inter, "hidden_act": cfg["activation"],
+                      "layer_norm_eps": cfg["layer_norm_eps"], "max_position_embeddings": npos,
+                      "type_vocab_size": cfg["type_vocab_size"],
+                      "position_embedding_type": "absolute"}
+        else:
+            linear("vocab_transform", d, d)
+            ln("vocab_layer_norm")
+            sd["vocab_projector.bias"] = torch.zeros(vocab, dtype=dtype, device="cuda")
+            config = {"model_type": "distilbert", "n_heads": h, "hidden_dim": inter,
+                      "activation": cfg["activation"], "max_position_embeddings": npos}
+    elif family == "gpt_neox":
         put("gpt_neox.embed_in.weight", vocab, d)
         for i in range(layers):
             p = f"gpt_neox.layers.{i}."
@@ -3612,6 +3724,323 @@ def variant_slices(initialize, init_inference, BertModel, bert_cfg, accel, fa, d
     return launches
 
 
+# ------------------------------------------------------------ model import
+def _config_held_to(config, want, keys, label):
+    """``config``'s ``keys`` equal ``want``'s (the published widths), else
+    raise."""
+    for key in keys:
+        if getattr(config, key) != getattr(want, key):
+            raise AssertionError(f"{label}: {key} {getattr(config, key)!r} != "
+                                 f"{getattr(want, key)!r}")
+
+
+def _state_equal(got, want, label):
+    """Two state dicts with the same keys and equal tensors (on the host),
+    else raise."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{label}: keys differ: {sorted(set(got) ^ set(want))[:6]}")
+    for k, t in got.items():
+        w = want[k]
+        if t.dtype != w.dtype or not torch.equal(t.cpu(), w.cpu()):
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def import_llama_from_hf(init_inference, LlamaModel, cfg, accel, fa, da):
+    """llama3.2-1b (the registry preset: Meta's published widths, llama3
+    rope scaling, tied) as an HF-shaped dict built on the card, loaded by
+    ``load_hf_model`` (a dict config) in bf16, its config held to the
+    preset's, and served through ``init_inference`` → the graphed
+    ``generate`` (``_served_cell``: B 32, prompt 128, 128 new, greedy; the
+    ungraphed loop's tokens, the plain path's logits). The same weights
+    served by a model of the preset's own config give the same tokens. →
+    (launches, the served state dict, the HF config dict)."""
+    from deepspeed_tpu_torch.module_inject.hf import load_hf_model
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    config, sd = hf_lm_state("llama", dataclasses.asdict(cfg), cfg.n_layer, gen)
+    model, params = load_hf_model(_HFObject(config, sd), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del sd
+    _config_held_to(model.config, cfg, ("vocab_size", "n_positions", "n_embd", "n_layer",
+                                        "n_head", "n_kv_head", "intermediate_size",
+                                        "rope_theta", "rope_scaling", "rms_norm_eps",
+                                        "tie_embeddings"), f"load_hf_model {MODEL}")
+    c = dataclasses.replace(model.config, use_flash_decode=True)
+    t0 = time.perf_counter()
+    engine = init_inference(LlamaModel(c), {"dtype": "bfloat16",
+                                            "max_out_tokens": PROMPT + GEN}, params=params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    del params
+    ids = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
+    label = f"import {MODEL} from hf"
+    launches, loop, _, _ = _served_cell(engine, ids, accel, fa, da, label, hf_load_s=load_s,
+                                        init_inference_s=init_s, nvidia_smi=nvidia_smi_line())
+    with torch.inference_mode():
+        tokens = engine.generate(ids, max_new_tokens=GEN)
+    served = engine.module.state_dict()
+    own = init_inference(LlamaModel(dataclasses.replace(cfg, use_flash_decode=True)),
+                         {"dtype": "bfloat16", "max_out_tokens": PROMPT + GEN}, params=served)
+    with torch.inference_mode():
+        if not torch.equal(own.generate(ids, max_new_tokens=GEN), tokens):
+            raise AssertionError(f"{label}: the preset's model on the same weights gave "
+                                 "other greedy tokens")
+    emit(f"{label} preset tokens", tokens_equal=True, batch=BATCH, prompt=PROMPT, gen=GEN)
+    del engine, own, loop
+    torch.cuda.empty_cache()
+    return launches, served, config
+
+
+def _bert_check_fp32(init_inference, BertModel, family, cfg, ids, fa):
+    """2 layers of ``family`` at ``cfg``'s widths in fp32, loaded from an
+    HF-shaped dict and served: the kernel path's MLM logits against the
+    plain path's within 1e-4 of the largest. → (err, |ref| max)."""
+    from deepspeed_tpu_torch.module_inject.hf import load_hf_model
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    config, sd = hf_lm_state(family, dataclasses.asdict(cfg), 2, gen, dtype=torch.float32)
+    model, params = load_hf_model(_HFObject(config, sd), dtype=torch.float32)
+    engine = init_inference(model, {"dtype": "float32"}, params=params)
+    plain = BertModel(dataclasses.replace(model.config, use_flash_attention=False))
+    plain.load_state_dict(engine.module.state_dict(), assign=True)
+    with torch.inference_mode():
+        got, ref = engine.forward(ids), plain.apply(ids)
+    err, scale = max_err(got, ref), ref.abs().max().item()
+    if not torch.isfinite(got).all() or err > 1e-4 * scale:
+        raise AssertionError(f"fp32 2-layer {family}: kernel vs plain err {err}, |ref| {scale}")
+    return err, scale
+
+
+def import_bert_from_hf(init_inference, BertModel, name, family, cfg, accel, fa):
+    """``name`` (bert-large or DistilBERT-base at their published widths) as an
+    HF-shaped masked-LM dict built on the card, loaded by ``load_hf_model``
+    in bf16 (its config held to ``cfg``) and served through
+    ``init_inference``'s forward: MLM logits at 16 x 512, one non-causal K1
+    per layer, against the plain path (LOGIT_RTOL of the largest logit),
+    its ms per forward (median of SD_TIMED), and 2 fp32 layers against the
+    plain path. → launches."""
+    from deepspeed_tpu_torch.module_inject.hf import load_hf_model
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    config, sd = hf_lm_state(family, dataclasses.asdict(cfg), cfg.n_layer, gen)
+    model, params = load_hf_model(_HFObject(config, sd), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del sd
+    label = f"import {name} from hf"
+    _config_held_to(model.config, cfg, ("vocab_size", "n_positions", "n_embd", "n_layer",
+                                        "n_head", "intermediate_size", "type_vocab_size",
+                                        "layer_norm_eps", "activation"), label)
+    engine = init_inference(model, {"dtype": "bfloat16"}, params=params)
+    del params
+    rows, seq = IMPORT_BERT_SHAPE
+    ids = torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen, device="cuda")
+    with torch.inference_mode():
+        engine.forward(ids)                                    # warm-up
+        fa.KERNEL.reset_launches()
+        torch.cuda.synchronize()
+        logits = engine.forward(ids)
+        torch.cuda.synchronize()
+        launches = {"flash_attention_fwd": fa.KERNEL.launches, "decode_attention": 0}
+        if launches["flash_attention_fwd"] != cfg.n_layer:
+            raise AssertionError(f"{label}: {launches} K1 launches for {cfg.n_layer} layers")
+        ms, each = _median_ms(lambda: engine.forward(ids))
+        plain = BertModel(dataclasses.replace(engine.module.config, use_flash_attention=False))
+        plain.load_state_dict(engine.module.state_dict(), assign=True)
+        ref = plain.apply(ids)
+    err, scale = max_err(logits, ref), ref.abs().max().item()
+    if tuple(logits.shape) != (rows, seq, cfg.vocab_size) or not torch.isfinite(logits).all() \
+            or err > LOGIT_RTOL * scale:
+        raise AssertionError(f"{label}: kernel vs plain err {err}, |ref| max {scale}")
+    fp32_err, fp32_scale = _bert_check_fp32(init_inference, BertModel, family, cfg,
+                                            ids[:2, :128], fa)
+    emit(label, family=family, batch=rows, seq=seq, layers=cfg.n_layer, heads=cfg.n_head,
+         head_dim=cfg.n_embd // cfg.n_head, dtype="bfloat16", launches=launches,
+         forward_ms=ms, forward_ms_each=each, hf_load_s=load_s,
+         logits_max_abs_err=err, ref_logits_max_abs=scale, logit_rtol=LOGIT_RTOL,
+         top1_agree=(logits.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+         fp32_2layer_max_abs_err=fp32_err, fp32_2layer_ref_max_abs=fp32_scale,
+         fp32_rtol=1e-4, nvidia_smi=nvidia_smi_line())
+    del engine, plain, logits, ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def export_round_trip(llama_sd, llama_config, gpt2_cfg):
+    """``export_llama`` of the imported llama3.2-1b (2 of its 16 layers, its
+    full width), ``export_gpt2`` of gpt2-760m and ``export_bloom`` of
+    BLOOM-560m (full depth, random bf16 weights on the card), each read
+    back by its loader: the same state dict bit for bit (the exporters widen
+    bf16 to fp32 numpy, exactly)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+    from deepspeed_tpu_torch.module_inject import hf
+
+    rows = {}
+    keep = ("blocks.0.", "blocks.1.")
+    sub = {k: v for k, v in llama_sd.items() if not k.startswith("blocks.") or k.startswith(keep)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cases = (("llama3.2-1b (2 of 16 layers)", sub, hf.export_llama, hf.load_llama,
+              llama_config),
+             ("gpt2-760m", lambda: GPT2Model(gpt2_cfg).init_params(gen).to(
+                 torch.bfloat16).state_dict(), hf.export_gpt2, hf.load_gpt2,
+              {"model_type": "gpt2", "n_head": gpt2_cfg.n_head}),
+             ("bloom-560m", lambda: GPT2Model(_variant_cfg("bloom-560m")).init_params(gen).to(
+                 torch.bfloat16).state_dict(),
+              lambda p: hf.export_bloom(p, n_head=VARIANT_MODELS["bloom-560m"]["n_head"]),
+              hf.load_bloom, {"model_type": "bloom",
+                              "n_head": VARIANT_MODELS["bloom-560m"]["n_head"]}))
+    for label, src, export, load, config in cases:
+        src = src() if callable(src) else src
+        t0 = time.perf_counter()
+        exported = export(src)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, back = load(_HFObject(config, exported), dtype=torch.bfloat16)
+        load_s = time.perf_counter() - t0
+        _state_equal(back, src, f"export round trip {label}")
+        rows[label] = {"tensors": len(exported), "export_s": export_s, "load_s": load_s,
+                       "params": sum(t.numel() for t in src.values()), "bitwise_equal": True}
+        del exported, back, src
+    torch.cuda.empty_cache()
+    emit("export round trip", **rows)
+
+
+def consolidate_llama_tag(save_dir, cfg):
+    """``consolidate_to_file(arch="llama")`` of the llama3.2-1b stage-1 tag
+    (its fp32 masters in the HF layout): its seconds and GB; the file read
+    back by ``load_llama`` gives the preset's config, and its weights cast
+    to bf16 are the tag's bf16 params, bit for bit."""
+    from deepspeed_tpu_torch.module_inject.hf import load_llama
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.consolidate import consolidate_to_file
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import read_state
+
+    out = os.path.join(os.path.dirname(save_dir), "llama_hf.npz")
+    t0 = time.perf_counter()
+    consolidate_to_file(save_dir, out, arch="llama")
+    seconds = time.perf_counter() - t0
+    nbytes = os.path.getsize(out)
+    with open(os.path.join(save_dir, "latest")) as f:
+        tag = read_state(os.path.join(save_dir, f.read().strip()), ("params",), "cpu")
+    with np.load(out) as z:
+        config, sd = load_llama(_HFObject(
+            {"num_attention_heads": cfg.n_head, "rope_theta": cfg.rope_theta,
+             "rope_scaling": cfg.rope_scaling, "rms_norm_eps": cfg.rms_norm_eps,
+             "max_position_embeddings": cfg.n_positions}, {k: z[k] for k in z.files}))
+    os.remove(out)
+    _config_held_to(config, cfg, ("vocab_size", "n_embd", "n_layer", "n_head", "n_kv_head",
+                                  "intermediate_size", "tie_embeddings"), "consolidate")
+    _state_equal({k: v.to(torch.bfloat16) for k, v in sd.items()},
+                 {k[len("params/"):]: v for k, v in tag.items()}, "consolidated llama")
+    emit(f"consolidate {MODEL} arch llama", seconds=seconds, gb=nbytes / 1e9,
+         gb_per_s=nbytes / 1e9 / seconds, tensors=len(sd), params_bitwise_equal_to_tag=True)
+
+
+def serve_megatron(init_inference, name, kind, tp, accel, fa, da, tmp):
+    """``name`` (gpt2-760m or gpt2-moe-125m at the registry's widths, random
+    weights from the port's init on the card) written as a Megatron-DeepSpeed
+    directory (fp16, ``tp`` shards, by the tests' ``write_megatron``: qkv
+    rows in (head, 3, dh) order, column- and row-parallel weights split on
+    dims 0 and 1, the experts in their own files) and served with ``init_inference(
+    model=None, checkpoint=dir, checkpoint_config={"type": kind, "n_head":
+    ...})`` in bf16: the model built from the files has the preset's widths
+    and the written weights (bit for bit in bf16); ``_served_cell`` runs the
+    counted graphed ``generate`` (B 32, prompt 128, 128 new) against the
+    ungraphed loop and the plain path; the same weights served from the
+    port's state dict by a model of the preset give the same tokens. →
+    launches."""
+    from deepspeed_tpu_torch.models.gpt2_moe import MoEGPT2
+    from deepspeed_tpu_torch.models.registry import resolve_family
+    from tests.torch_megatron_files import write_megatron
+
+    cls, presets = resolve_family(name)
+    cfg = presets[name]
+    moe = kind == "Megatron-MoE"
+    build = (lambda c: MoEGPT2(c, num_experts=MOE_EXPERTS, drop_tokens=False)) if moe \
+        else cls
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sd = build(dataclasses.replace(cfg, remat=False)).init_params(gen).state_dict()
+    out_dir = os.path.join(tmp, f"megatron_{name}")
+    t0 = time.perf_counter()
+    write_megatron({k: v.to(torch.float16).cpu() for k, v in sd.items()}, cfg.n_layer,
+                   cfg.n_head, out_dir, tp=tp, moe=moe)
+    write_s = time.perf_counter() - t0
+    nbytes = _tree_bytes(out_dir)
+    # the served weights: the files' fp16 values in bf16; a MoE block's dense
+    # MLP is in no file (zeros, never used)
+    want = {k: v.to(torch.float16).to(torch.bfloat16) for k, v in sd.items()}
+    if moe:
+        want.update({k: torch.zeros_like(v) for k, v in want.items()
+                     if k.startswith("blocks.") and int(k.split(".")[1]) % 2
+                     and ".fc" in k})
+    del sd
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = init_inference(config={"checkpoint": out_dir, "dtype": "bfloat16",
+                                    "max_out_tokens": PROMPT + GEN,
+                                    "checkpoint_config": {"type": kind, "n_head": cfg.n_head}})
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    label = f"serve megatron {name}"
+    _config_held_to(engine.module.config, cfg, ("vocab_size", "n_positions", "n_embd",
+                                                 "n_layer", "n_head"), label)
+    if moe and engine.module.num_experts != MOE_EXPERTS:
+        raise AssertionError(f"{label}: {engine.module.num_experts} experts")
+    _state_equal(engine.module.state_dict(), want, label)
+    ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
+    launches, loop, _, _ = _served_cell(
+        engine, ids, accel, fa, da, label, checkpoint_type=kind, tp_files=tp,
+        files_gb=nbytes / 1e9, write_s=write_s, load_s=load_s, params_bitwise_equal=True,
+        nvidia_smi=nvidia_smi_line())
+    with torch.inference_mode():
+        tokens = engine.generate(ids, max_new_tokens=GEN)
+    del engine, loop
+    torch.cuda.empty_cache()
+    direct = init_inference(build(dataclasses.replace(cfg, use_flash_decode=True)),
+                            {"dtype": "bfloat16", "max_out_tokens": PROMPT + GEN}, params=want)
+    with torch.inference_mode():
+        if not torch.equal(direct.generate(ids, max_new_tokens=GEN), tokens):
+            raise AssertionError(f"{label}: the port's state dict served other greedy tokens")
+    emit(f"{label} state dict tokens", tokens_equal=True)
+    del direct, want
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def import_slices(init_inference, LlamaModel, llama_cfg, BertModel, bert_cfg, gpt2_cfg, accel,
+                  fa, da):
+    """Model import: llama3.2-1b, bert-large and DistilBERT-base served from
+    HF-shaped dicts, the exporters' round trips, and Megatron and
+    Megatron-MoE directories served through ``checkpoint_config.type``. →
+    launches by path."""
+    launches = {}
+    launches["import_llama_hf"], llama_sd, llama_config = import_llama_from_hf(
+        init_inference, LlamaModel, llama_cfg, accel, fa, da)
+    launches["import_bert_large_hf"] = import_bert_from_hf(
+        init_inference, BertModel, BERT_MODEL, "bert", bert_cfg, accel, fa)
+    launches["import_distilbert_hf"] = import_bert_from_hf(
+        init_inference, BertModel, "distilbert-base", "distilbert",
+        dataclasses.replace(bert_cfg, **DISTILBERT), accel, fa)
+    export_round_trip(llama_sd, llama_config, gpt2_cfg)
+    del llama_sd
+    torch.cuda.empty_cache()
+    root, _ = _scratch_dir()
+    tmp = tempfile.mkdtemp(prefix="ds_megatron_", dir=root)
+    try:
+        launches["serve_megatron"] = serve_megatron(init_inference, TRAIN_MODEL, "Megatron", 2,
+                                                    accel, fa, da, tmp)
+        launches["serve_megatron_moe"] = serve_megatron(init_inference, MOE_MODEL,
+                                                        "Megatron-MoE", 1, accel, fa, da, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -3647,61 +4076,68 @@ def main() -> int:
     # the 64-row tiles' edges: T = 1, 63, 64, 65, 127, 200, 1000, Tq != Tk, and
     # D 64 / 96 / 128 in bf16 and fp16; the curriculum phase's lengths below 1024
     ragged = sorted(set(curriculum_lengths()) - {TRAIN_SEQ})
+    # the rows the kernels' summary reports are timed (the first of each
+    # list, the model and SD-1.5 shapes, the head dim 256 rows); the edge,
+    # type and head-dim rows after them are held to their plain versions
+    # without a time
     flash_rows = [check_flash(fa, accel, gen, *case) for case in (
         ("train", TRAIN_BATCH, TRAIN_SEQ, 16, 96, bf, True),
-        ("slice", BATCH, PROMPT, 32, 64, bf, True),
-        ("t1", BATCH, 1, 32, 64, bf, True),
-        ("t100_ragged", BATCH, 100, 32, 64, bf, True),
-        ("noncausal", BATCH, PROMPT, 32, 64, bf, False),
-        ("d96", BATCH, PROMPT, 32, 96, bf, True),
-        ("d128", BATCH, PROMPT, 32, 128, bf, True),
-        ("fp32", BATCH, PROMPT, 32, 64, f32, True),
-        ("fp16", BATCH, PROMPT, 32, 64, f16, True),
-        ("fp16_d96", BATCH, PROMPT, 32, 96, f16, True),
-        ("fp16_d128", BATCH, PROMPT, 32, 128, f16, True),
-        # the head dims of gpt2-tiny (32), gpt2-2.7b (80) and llama-tiny (16)
-        ("d16", BATCH, PROMPT, 32, 16, bf, True),
-        ("d32", BATCH, PROMPT, 32, 32, bf, True),
-        ("d80", BATCH, PROMPT, 32, 80, bf, True),
-        ("fp16_d80", BATCH, PROMPT, 32, 80, f16, True),
-        ("fp32_d16", BATCH, PROMPT, 32, 16, f32, True),
-        ("fp32_d80", BATCH, PROMPT, 32, 80, f32, False),
-        *((f"t{t}", 4, t, 16, 96, bf, True) for t in (63, 64, 65, 127, 200, 1000)),
-        ("noncausal_tq100_tk300", 4, 100, 16, 96, bf, False, 300),
-        ("causal_tq64_tk200", 4, 64, 16, 96, bf, True, 200),
-        # the curriculum phase's ragged lengths at the training cell's B, H, D
-        *((f"curriculum_t{t}", TRAIN_BATCH, t, 16, 96, bf, True) for t in ragged),
-        # the offload phases' shapes: gpt2-2.7b (D=80) and gpt2-6.7b (D=128),
-        # 32 heads, at their B x T
-        ("offload_d80", OFFLOAD_BATCH, OFFLOAD_SEQ, 32, 80, bf, True),
-        ("capacity_d128", OFFLOAD_BATCH, OFFLOAD_SEQ, 32, 128, bf, True),
-        # the long serving path's prefill, one row (the plain version's
-        # (H, T, T) fp32 scores take 8 GB)
-        ("long_prefill", 1, LONG_PROMPT, 32, 64, bf, True))]
+        ("slice", BATCH, PROMPT, 32, 64, bf, True))]
+    with untimed():
+        flash_rows += [check_flash(fa, accel, gen, *case) for case in (
+            ("t1", BATCH, 1, 32, 64, bf, True),
+            ("t100_ragged", BATCH, 100, 32, 64, bf, True),
+            ("noncausal", BATCH, PROMPT, 32, 64, bf, False),
+            ("d96", BATCH, PROMPT, 32, 96, bf, True),
+            ("d128", BATCH, PROMPT, 32, 128, bf, True),
+            ("fp32", BATCH, PROMPT, 32, 64, f32, True),
+            ("fp16", BATCH, PROMPT, 32, 64, f16, True),
+            ("fp16_d96", BATCH, PROMPT, 32, 96, f16, True),
+            ("fp16_d128", BATCH, PROMPT, 32, 128, f16, True),
+            # the head dims of gpt2-tiny (32), gpt2-2.7b (80) and llama-tiny (16)
+            ("d16", BATCH, PROMPT, 32, 16, bf, True),
+            ("d32", BATCH, PROMPT, 32, 32, bf, True),
+            ("d80", BATCH, PROMPT, 32, 80, bf, True),
+            ("fp16_d80", BATCH, PROMPT, 32, 80, f16, True),
+            ("fp32_d16", BATCH, PROMPT, 32, 16, f32, True),
+            ("fp32_d80", BATCH, PROMPT, 32, 80, f32, False),
+            *((f"t{t}", 4, t, 16, 96, bf, True) for t in (63, 64, 65, 127, 200, 1000)),
+            ("noncausal_tq100_tk300", 4, 100, 16, 96, bf, False, 300),
+            ("causal_tq64_tk200", 4, 64, 16, 96, bf, True, 200),
+            # the curriculum phase's ragged lengths at the training cell's B, H, D
+            *((f"curriculum_t{t}", TRAIN_BATCH, t, 16, 96, bf, True) for t in ragged),
+            # the offload phases' shapes: gpt2-2.7b (D=80) and gpt2-6.7b (D=128),
+            # 32 heads, at their B x T
+            ("offload_d80", OFFLOAD_BATCH, OFFLOAD_SEQ, 32, 80, bf, True),
+            ("capacity_d128", OFFLOAD_BATCH, OFFLOAD_SEQ, 32, 128, bf, True),
+            # the long serving path's prefill, one row (the plain version's
+            # (H, T, T) fp32 scores take 8 GB)
+            ("long_prefill", 1, LONG_PROMPT, 32, 64, bf, True))]
     BH = TRAIN_BATCH * 16
-    bwd_rows = [check_flash_bwd(fa, accel, gen, *case) for case in (
-        ("train", BH, TRAIN_SEQ, 96, bf, True),
-        ("d64", BH, TRAIN_SEQ, 64, bf, True),
-        ("d128", BH, TRAIN_SEQ, 128, bf, True),
-        ("t1000_ragged", BH, 1000, 96, bf, True),
-        ("t1", BH, 1, 96, bf, True),
-        ("noncausal", BH, TRAIN_SEQ, 96, bf, False),
-        ("fp32", BH, TRAIN_SEQ, 96, f32, True),
-        ("fp16", BH, TRAIN_SEQ, 96, f16, True),
-        ("fp16_d64", BH, TRAIN_SEQ, 64, f16, True),
-        ("fp16_d128", BH, TRAIN_SEQ, 128, f16, True),
-        ("d16", BH, TRAIN_SEQ, 16, bf, True),
-        ("d32", BH, TRAIN_SEQ, 32, bf, True),
-        ("d80", BH, TRAIN_SEQ, 80, bf, True),
-        ("fp16_d80", BH, TRAIN_SEQ, 80, f16, False),
-        ("fp32_d16", 64, 200, 16, f32, True),
-        ("fp32_d80", 64, 200, 80, f32, True),
-        *((f"t{t}", 64, t, 96, bf, True) for t in (63, 64, 65, 127, 200)),
-        ("noncausal_tq100_tk300", 64, 100, 96, bf, False, 300),
-        ("causal_tq64_tk200", 64, 64, 96, bf, True, 200),
-        *((f"curriculum_t{t}", BH, t, 96, bf, True) for t in ragged),
-        ("offload_d80", OFFLOAD_BATCH * 32, OFFLOAD_SEQ, 80, bf, True),
-        ("capacity_d128", OFFLOAD_BATCH * 32, OFFLOAD_SEQ, 128, bf, True))]
+    bwd_rows = [check_flash_bwd(fa, accel, gen, "train", BH, TRAIN_SEQ, 96, bf, True)]
+    with untimed():
+        bwd_rows += [check_flash_bwd(fa, accel, gen, *case) for case in (
+            ("d64", BH, TRAIN_SEQ, 64, bf, True),
+            ("d128", BH, TRAIN_SEQ, 128, bf, True),
+            ("t1000_ragged", BH, 1000, 96, bf, True),
+            ("t1", BH, 1, 96, bf, True),
+            ("noncausal", BH, TRAIN_SEQ, 96, bf, False),
+            ("fp32", BH, TRAIN_SEQ, 96, f32, True),
+            ("fp16", BH, TRAIN_SEQ, 96, f16, True),
+            ("fp16_d64", BH, TRAIN_SEQ, 64, f16, True),
+            ("fp16_d128", BH, TRAIN_SEQ, 128, f16, True),
+            ("d16", BH, TRAIN_SEQ, 16, bf, True),
+            ("d32", BH, TRAIN_SEQ, 32, bf, True),
+            ("d80", BH, TRAIN_SEQ, 80, bf, True),
+            ("fp16_d80", BH, TRAIN_SEQ, 80, f16, False),
+            ("fp32_d16", 64, 200, 16, f32, True),
+            ("fp32_d80", 64, 200, 80, f32, True),
+            *((f"t{t}", 64, t, 96, bf, True) for t in (63, 64, 65, 127, 200)),
+            ("noncausal_tq100_tk300", 64, 100, 96, bf, False, 300),
+            ("causal_tq64_tk200", 64, 64, 96, bf, True, 200),
+            *((f"curriculum_t{t}", BH, t, 96, bf, True) for t in ragged),
+            ("offload_d80", OFFLOAD_BATCH * 32, OFFLOAD_SEQ, 80, bf, True),
+            ("capacity_d128", OFFLOAD_BATCH * 32, OFFLOAD_SEQ, 128, bf, True))]
     # the llama, MoE, pythia and BERT training phases' shapes: causal at
     # llama3.2-1b's 4 x 2048 (32 heads of 64 after the KV heads' repeat) and
     # pythia-1.4b's (16 heads of 128), non-causal at
@@ -3711,7 +4147,11 @@ def main() -> int:
         ("moe_train", MOE_BATCH, MOE_SEQ, 12, 64, bf, True),
         ("pythia_train", PYTHIA_BATCH, PYTHIA_SEQ, 16, 128, bf, True),
         *((f"bert_s{t}{suffix}", b, t, 16, 64, dt, False)
-          for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
+          for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16))),
+        # the model-import phases' new shapes: DistilBERT-base's MLM forward
+        # (12 heads of 64, non-causal) and gpt2-760m's serving prefill
+        ("distilbert_s512", *IMPORT_BERT_SHAPE, 12, 64, bf, False),
+        ("gpt2_prefill_d96", BATCH, PROMPT, 16, 96, bf, True)))}
     model_bwd = {row["name"]: row for row in (check_flash_bwd(fa, accel, gen, *case) for case in (
         ("llama_train", LLAMA_BATCH * 32, LLAMA_SEQ, 64, bf, True),
         ("moe_train", MOE_BATCH * 12, MOE_SEQ, 64, bf, True),
@@ -3763,24 +4203,25 @@ def main() -> int:
         ("gptj_d256_fp16", BATCH, S, 16, 16, 256, f16, S - 1),
         ("gptj_d256_fp32", BATCH, S, 16, 16, 256, f32, S - 1),
         ("gptj_d256_long", LONG_BATCH, LONG_S, 16, 16, 256, bf, LONG_S - 1)))}
-    decode_rows = [check_decode(da, accel, gen, *case) for case in (
-        ("slice_pos255", BATCH, S, 32, 8, 64, bf, S - 1),
-        ("slice_pos0", BATCH, S, 32, 8, 64, bf, 0),
-        ("slice_pos127", BATCH, S, 32, 8, 64, bf, 127),
-        ("slice_pos128", BATCH, S, 32, 8, 64, bf, 128),
-        ("mha", BATCH, S, 32, 32, 64, bf, 200),
-        ("mqa", BATCH, S, 32, 1, 64, bf, 200),
-        ("d128", BATCH, S, 32, 8, 128, bf, 200),
-        ("fp32", BATCH, S, 32, 8, 64, f32, S - 1),
-        ("fp16", BATCH, S, 32, 8, 64, f16, S - 1),
-        ("d16", BATCH, S, 32, 8, 16, bf, 200),
-        ("d32", BATCH, S, 32, 8, 32, bf, 200),
-        ("d80", BATCH, S, 32, 32, 80, bf, 200),
-        ("fp16_d80", BATCH, S, 32, 32, 80, f16, S - 1),
-        ("fp32_d16", BATCH, S, 32, 8, 16, f32, 200),
-        ("fp32_d80", BATCH, S, 32, 32, 80, f32, 200))]
-    decode_rows.append(check_decode(da, accel, gen, "garbage_past_pos", BATCH, S, 32, 8, 64,
-                                    bf, 100, garbage=True))
+    decode_rows = [check_decode(da, accel, gen, "slice_pos255", BATCH, S, 32, 8, 64, bf, S - 1)]
+    with untimed():
+        decode_rows += [check_decode(da, accel, gen, *case) for case in (
+            ("slice_pos0", BATCH, S, 32, 8, 64, bf, 0),
+            ("slice_pos127", BATCH, S, 32, 8, 64, bf, 127),
+            ("slice_pos128", BATCH, S, 32, 8, 64, bf, 128),
+            ("mha", BATCH, S, 32, 32, 64, bf, 200),
+            ("mqa", BATCH, S, 32, 1, 64, bf, 200),
+            ("d128", BATCH, S, 32, 8, 128, bf, 200),
+            ("fp32", BATCH, S, 32, 8, 64, f32, S - 1),
+            ("fp16", BATCH, S, 32, 8, 64, f16, S - 1),
+            ("d16", BATCH, S, 32, 8, 16, bf, 200),
+            ("d32", BATCH, S, 32, 8, 32, bf, 200),
+            ("d80", BATCH, S, 32, 32, 80, bf, 200),
+            ("fp16_d80", BATCH, S, 32, 32, 80, f16, S - 1),
+            ("fp32_d16", BATCH, S, 32, 8, 16, f32, 200),
+            ("fp32_d80", BATCH, S, 32, 32, 80, f32, 200))]
+        decode_rows.append(check_decode(da, accel, gen, "garbage_past_pos", BATCH, S, 32, 8, 64,
+                                        bf, 100, garbage=True))
     # gpt2-760m's serving shape: one query head per KV head (MHA), head dim 96
     gpt2_decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("gpt2_mha_d96", BATCH, S, 16, 16, 96, bf, S - 1),
@@ -3791,16 +4232,18 @@ def main() -> int:
     # the long caches the split is for, its chunks' edges, and the other types
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     long_chunk = da.decode_chunk(LONG_BATCH, 8, LONG_S, n_sm)
-    long_rows = [check_decode(da, accel, gen, *case) for case in (
-        ("long_b4_s8192", LONG_BATCH, LONG_S, 32, 8, 64, bf, LONG_S - 1),
-        ("long_b1_s32768_pos20000", 1, 32768, 32, 8, 64, bf, 20000),
-        ("long_pos_chunk_last", LONG_BATCH, LONG_S, 32, 8, 64, bf, long_chunk - 1),
-        ("long_pos_chunk_first", LONG_BATCH, LONG_S, 32, 8, 64, bf, long_chunk),
-        ("long_fp32", LONG_BATCH, LONG_S, 32, 8, 64, f32, LONG_S - 1),
-        ("long_fp16", LONG_BATCH, LONG_S, 32, 8, 64, f16, LONG_S - 1),
-        ("long_mqa", LONG_BATCH, LONG_S, 32, 1, 64, bf, LONG_S - 1))]
-    long_rows.append(check_decode(da, accel, gen, "long_garbage_past_pos", LONG_BATCH, LONG_S,
-                                  32, 8, 64, bf, 5000, garbage=True))
+    long_rows = [check_decode(da, accel, gen, "long_b4_s8192", LONG_BATCH, LONG_S, 32, 8, 64, bf,
+                              LONG_S - 1)]
+    with untimed():
+        long_rows += [check_decode(da, accel, gen, *case) for case in (
+            ("long_b1_s32768_pos20000", 1, 32768, 32, 8, 64, bf, 20000),
+            ("long_pos_chunk_last", LONG_BATCH, LONG_S, 32, 8, 64, bf, long_chunk - 1),
+            ("long_pos_chunk_first", LONG_BATCH, LONG_S, 32, 8, 64, bf, long_chunk),
+            ("long_fp32", LONG_BATCH, LONG_S, 32, 8, 64, f32, LONG_S - 1),
+            ("long_fp16", LONG_BATCH, LONG_S, 32, 8, 64, f16, LONG_S - 1),
+            ("long_mqa", LONG_BATCH, LONG_S, 32, 1, 64, bf, LONG_S - 1))]
+        long_rows.append(check_decode(da, accel, gen, "long_garbage_past_pos", LONG_BATCH,
+                                      LONG_S, 32, 8, 64, bf, 5000, garbage=True))
     from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config
     sparse_rows = [check_sparse(fa, accel, gen, *case)
                    for case in sparse_cases(fa, sparsity_config)]
@@ -3870,6 +4313,11 @@ def main() -> int:
                                       bert_presets[BERT_MODEL], accel, fa, da)
     variant_trained = {p: n for p, n in variant_launches.items() if p.startswith("train")}
     variant_served = {p: n for p, n in variant_launches.items() if p not in variant_trained}
+    # model import: llama3.2-1b, bert-large and DistilBERT from HF-shaped
+    # dicts, the exporters' round trips, Megatron and Megatron-MoE directories
+    import_launches = import_slices(deepspeed_tpu_torch.init_inference, model_cls,
+                                    presets[MODEL], bert_cls, bert_presets[BERT_MODEL],
+                                    gpt2_presets[TRAIN_MODEL], accel, fa, da)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bwd = bwd_rows[0]
@@ -3892,7 +4340,9 @@ def main() -> int:
                                  for p, n in model_launches.items()},
                               "serve_sd15": sd_launches,
                               **{p: n["flash_attention_fwd"]
-                                 for p, n in variant_launches.items()}},
+                                 for p, n in variant_launches.items()},
+                              **{p: n["flash_attention_fwd"]
+                                 for p, n in import_launches.items()}},
          "at_serving_shape": {k: flash_rows[1][k] for k in keys},
          "at_model_shapes": {name: {k: row[k] for k in keys} for name, row in model_fwd.items()}},
         {"name": "decode_attention", "route": "cuda",
@@ -3903,7 +4353,9 @@ def main() -> int:
          "launches_by_path": {"serve": serve_launches["decode_attention"],
                               "serve_gpt2": serve_gpt2_launches["decode_attention"],
                               **{p: model_launches[p]["decode_attention"] for p in served},
-                              **{p: n["decode_attention"] for p, n in variant_served.items()}},
+                              **{p: n["decode_attention"] for p, n in variant_served.items()},
+                              **{p: n["decode_attention"] for p, n in import_launches.items()
+                                 if n["decode_attention"]}},
          "at_long_shape": {k: long_rows[0][k] for k in keys},
          "at_gpt2_mha_shape": {k: gpt2_decode_rows[0][k] for k in keys},
          "at_moe_serving_shape": {k: moe_decode_row[k] for k in keys}},

@@ -122,13 +122,20 @@ def init_inference(model=None, config=None, **kwargs):
     ``params`` (a state dict for ``model``) and ``device`` are merged into
     it, as in the JAX package. ``checkpoint`` (a training save dir, or one
     of its tag dirs; ``checkpoint_config={"tag": ...}`` picks a tag) serves
-    that tag's params; ``params`` takes precedence over it. A Megatron
-    ``checkpoint_config.type`` raises (model import is a later slice)."""
+    that tag's params; ``params`` takes precedence over it.
+
+    A Megatron-DeepSpeed checkpoint directory is served directly:
+    ``checkpoint=<dir>`` with ``checkpoint_config={"type": "Megatron" |
+    "Megatron-MoE", "n_head": N[, "tp_degree": T]}`` merges its tp grid and
+    converts it (``checkpoint.load_megatron_gpt`` / ``load_megatron_moe``);
+    without ``model`` it builds a ``GPT2Model`` (``MoEGPT2`` with
+    ``drop_tokens=False``) of the checkpoint's widths in the serving dtype,
+    with the decode kernel on (``use_flash_decode``). ``model`` may be None
+    on this path only, and ``params`` takes precedence over the files, as
+    in the JAX package."""
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine
 
-    if model is None:
-        raise ValueError("init_inference needs a model")
     engine_kwargs = {k: kwargs.pop(k) for k in ("params", "device") if k in kwargs}
     if config is None:
         config = {}
@@ -137,7 +144,43 @@ def init_inference(model=None, config=None, **kwargs):
             config = DeepSpeedInferenceConfig.from_dict({**dataclasses.asdict(config), **kwargs})
     else:
         config = DeepSpeedInferenceConfig.from_dict({**config, **kwargs})
+    if config.checkpoint and config.megatron_type and "params" not in engine_kwargs:
+        model, engine_kwargs["params"] = _megatron_model(model, config)
+        # the params are in memory now: no tag restore from the directory
+        config = dataclasses.replace(config, checkpoint=None)
+    if model is None:
+        raise ValueError("init_inference needs a model (or a Megatron checkpoint: "
+                         'checkpoint_config {"type": "Megatron", "n_head": N})')
     return InferenceEngine(model, config, **engine_kwargs)
+
+
+def _megatron_model(model, config):
+    """(the model, its state dict) of the Megatron checkpoint that
+    ``config`` names; ``model`` None builds one."""
+    cc = config.checkpoint_config
+    n_head = cc.get("n_head") or cc.get("num_attention_heads")
+    if not n_head:
+        raise ValueError('checkpoint_config {"type": "Megatron"} needs "n_head" (or '
+                         '"num_attention_heads"): Megatron layer files do not carry model args')
+    dtype = config.torch_dtype()
+    if config.megatron_type == "megatronmoe":
+        from deepspeed_tpu_torch.checkpoint import load_megatron_moe
+        from deepspeed_tpu_torch.models.gpt2_moe import MoEGPT2
+
+        mcfg, params, n_experts = load_megatron_moe(config.checkpoint, n_head=int(n_head),
+                                                    dtype=dtype, tp_degree=cc.get("tp_degree"))
+        if model is None:
+            model = MoEGPT2(dataclasses.replace(mcfg, use_flash_decode=True),
+                            num_experts=n_experts, ep_size=config.ep_size, drop_tokens=False)
+    else:
+        from deepspeed_tpu_torch.checkpoint import load_megatron_gpt
+        from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+
+        mcfg, params = load_megatron_gpt(config.checkpoint, n_head=int(n_head), dtype=dtype,
+                                         tp_degree=cc.get("tp_degree"))
+        if model is None:
+            model = GPT2Model(dataclasses.replace(mcfg, use_flash_decode=True))
+    return model, params
 
 
 def add_config_arguments(parser):

@@ -5,10 +5,12 @@ Counterpart of ``deepspeed_tpu/inference/config.py``, key-compatible with it
 keys and aliases (``kernel_inject``, ``tp``, ``tm``, ``max_tokens``,
 ``min_tokens``, ``ckpt_config``, ``injection_dict``), unknown keys rejected.
 ``checkpoint`` (a training save dir or tag dir) with ``checkpoint_config``
-``{"tag": ...}`` serves a training tag. The ``moe`` block is read with
-``ep_size`` 1 (a MoE model served in one process). Blocks this slice does
-not serve yet (tensor parallelism, expert parallelism, weight quantization,
-injection policies, a Megatron ``checkpoint_config.type``) raise
+``{"tag": ...}`` serves a training tag; with ``checkpoint_config`` ``{"type":
+"Megatron" | "Megatron-MoE", "n_head": N}`` it is a Megatron-DeepSpeed
+layer-file directory, which ``init_inference`` reads (``megatron_type``). The
+``moe`` block is read with ``ep_size`` 1 (a MoE model served in one
+process). Blocks this slice does not serve yet (tensor parallelism, expert
+parallelism, weight quantization, injection policies) raise
 ``NotImplementedError`` rather than being ignored. ``enable_cuda_graph`` is
 accepted, as the JAX package accepts it: the engine runs the decode loop as
 one captured CUDA graph on the card whatever the key says, as the JAX engine
@@ -98,11 +100,16 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         for key in ("quant", "injection_policy", "injection_policy_tuple"):
             if getattr(self, key):
                 raise _later(f"inference config {key!r}")
-        kind = str(self.checkpoint_config.get("type", "")).lower().replace("-", "").replace("_", "")
-        if kind in ("megatron", "megatronmoe"):
-            raise _later(f"serving a {self.checkpoint_config['type']!r} checkpoint "
-                         "(model import)")
         self.torch_dtype()
+
+    @property
+    def megatron_type(self) -> Optional[str]:
+        """The Megatron kind that ``checkpoint_config.type`` names, with case,
+        "-" and "_" ignored as in JAX: "megatron" or "megatronmoe"; else
+        None."""
+        kind = str(self.checkpoint_config.get("type", "")).lower().replace("-", "")
+        kind = kind.replace("_", "")
+        return kind if kind in ("megatron", "megatronmoe") else None
 
     @property
     def ep_size(self) -> int:

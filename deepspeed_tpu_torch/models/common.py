@@ -298,11 +298,22 @@ def dropout(x, p: float, seed: Optional[int]):
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def draw_seeds(generator: torch.Generator, n: int) -> list:
+# odd 64-bit constant (the golden ratio's): a data-parallel rank's offset
+# of the dropout seeds
+_RANK_STRIDE = 0x9E3779B97F4A7C15
+
+
+def draw_seeds(generator: torch.Generator, n: int, rank: int = 0) -> list:
     """``n`` seeds for per-site generators, drawn from ``generator`` before a
-    layer loop (one host read)."""
-    return torch.randint(0, 2 ** 62, (n,), generator=generator,
-                         device=generator.device).tolist()
+    layer loop (one host read), and offset by data-parallel ``rank``: every
+    rank draws the same ``n`` values from its generator (which stays in
+    step, so the PLD gates drawn after them agree), and rank r adds r times
+    an odd constant, so its masks are its own, as the JAX package draws
+    each mask over the global micro-batch; rank 0's seeds are the drawn
+    ones."""
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=generator,
+                          device=generator.device).tolist()
+    return [(s + rank * _RANK_STRIDE) % 2 ** 62 for s in seeds]
 
 
 def pld_gates(theta, n_layer: int, generator: torch.Generator):

@@ -29,11 +29,13 @@ attention or, when ``sparse_attention`` is set, block-sparse attention
 branches) and progressive layer drop (``pld_theta``) draw from the
 ``generator`` the engine passes: per-site seeds and the layers' gates before
 the layer loop, each mask from a generator seeded inside its block, so a
-recompute under remat draws the same masks. Without a generator neither
-applies, as JAX without an rng. It serves over a KV cache: ``init_cache``,
-``prefill`` (the flash kernel, causal) and ``decode_step`` (the decode
-kernel with ``use_flash_decode``, one query head per KV head), each step
-graph-safe: the position stays on the device, and the rotary tables, the
+recompute under remat draws the same masks. The engine hands the loss the
+same generator on every data-parallel rank and the rank: the seeds are
+offset by it, so each rank's rows get masks of their own, while the gates
+agree. Without a generator neither applies, as JAX without an rng. It
+serves over a KV cache: ``init_cache``, ``prefill`` (the flash kernel,
+causal) and ``decode_step`` (the decode kernel with ``use_flash_decode``,
+one query head per KV head), each step graph-safe: the position stays on the device, and the rotary tables, the
 ALiBi bias and the window mask of a step are computed from it there. A
 sparse-trained model is not served (``init_cache`` raises, as in JAX).
 Sequence parallelism raises ``NotImplementedError``.
@@ -412,16 +414,19 @@ class GPT2Model(GatheredModule):
                                                  self.config.n_head)
         return self._sparse(q, k, v, causal=True)
 
-    def _blocks(self, input_ids, generator: Optional[torch.Generator] = None, pld_theta=None):
+    def _blocks(self, input_ids, generator: Optional[torch.Generator] = None, pld_theta=None,
+                dropout_rank: int = 0):
         """Embedding and every block: (B, T) → (B, T, D) before the final
         layer norm. With ``generator``: dropout (one seed per site, drawn
-        here) and, with ``pld_theta`` too, progressive layer drop's gates."""
+        here and offset by the data-parallel ``dropout_rank``) and, with
+        ``pld_theta`` too, progressive layer drop's gates (the same on
+        every rank)."""
         c = self.config
         L = c.n_layer
         x = self._embed(input_ids)
         seeds = None
         if generator is not None and c.dropout > 0.0:
-            seeds = draw_seeds(generator, 1 + 2 * L)
+            seeds = draw_seeds(generator, 1 + 2 * L, dropout_rank)
             x = dropout(x, c.dropout, seeds[0])
         gates = pld_gates(pld_theta, L, generator) \
             if pld_theta is not None and generator is not None else None
@@ -472,15 +477,17 @@ class GPT2Model(GatheredModule):
                                mask[:, 1:] if mask is not None else None,
                                bias=self._head_bias(top), remat=self.config.remat_loss_chunks)
 
-    def loss(self, batch, generator: Optional[torch.Generator] = None, pld_theta=None):
+    def loss(self, batch, generator: Optional[torch.Generator] = None, pld_theta=None,
+             dropout_rank: int = 0):
         """batch: dict with input_ids (B, T) [+ optional labels/loss_mask]
         or a bare (B, T) tensor → mean next-token cross entropy (fp32). The
         vocab projection runs in sequence chunks, so the (B, T, V) fp32
         logits are never held at once. ``generator``: the engine's, for
         dropout and the PLD gates; ``pld_theta``: progressive layer drop's
-        keep probability θ (None: every block runs)."""
+        keep probability θ (None: every block runs); ``dropout_rank``: this
+        process's data-parallel rank, which offsets the dropout seeds."""
         ids, _, _ = parse_lm_batch(batch)
-        x = self._blocks(ids, generator, pld_theta)
+        x = self._blocks(ids, generator, pld_theta, dropout_rank)
         with self._gathered(self) as top:
             return self.loss_stage(top, x, batch)
 

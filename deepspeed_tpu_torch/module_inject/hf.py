@@ -29,9 +29,18 @@ The vision part: the CLIP text tower (``load_clip_text``), the UNet
 (``load_unet``) and the VAE (``load_vae``), and their flat export
 (``export_vision_params``). The UNet's and the VAE's state dicts are the
 diffusers ones, key for key (a dtype cast); CLIP's separate q/k/v fuse into
-the GPT-2 qkv matrix. ``load_llama``, ``load_bert``, ``load_distilbert``,
-the language models' exporters, ``state_dict_to_tree`` and AutoTP are a
-later slice of the port and raise ``NotImplementedError``.
+the GPT-2 qkv matrix.
+
+LLaMA (``load_llama``: grouped KV heads, RoPE theta and scaling, the tied
+head), BERT (``load_bert``: ``BertForMaskedLM``, its separate q/k/v fused,
+the MLM decoder tied to the word embedding) and DistilBERT
+(``load_distilbert``: onto ``BertModel`` with a 1-row zero token-type
+table). The exporters ``export_gpt2``, ``export_llama`` and
+``export_bloom`` are their loaders' inverses: the port's per-layer state
+dict (or a model) in, an HF-layout dict of numpy arrays out, which the
+loader reads back bit for bit. ``state_dict_to_tree`` nests a flat dotted
+state dict. AutoTP comes with inference tensor parallelism, a later slice
+of the port.
 """
 
 from __future__ import annotations
@@ -56,6 +65,18 @@ def hf_state_dict(model_or_sd: Any) -> Dict[str, torch.Tensor]:
         sd = sd.state_dict()
     return {k: (v.detach() if torch.is_tensor(v) else torch.from_numpy(np.asarray(v)))
             for k, v in sd.items()}
+
+
+def state_dict_to_tree(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Flat dotted-key state dict → nested dict, one level per dot."""
+    tree: Dict[str, Any] = {}
+    for key, val in sd.items():
+        node = tree
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return tree
 
 
 def _hf_config(model_or_sd: Any):
@@ -103,14 +124,24 @@ def _detect_tied(sd: Mapping[str, torch.Tensor], embed_key: str,
     return head_key not in sd or torch.equal(sd[head_key], sd[embed_key])
 
 
-def _state(out: Dict[str, torch.Tensor], layers) -> Dict[str, torch.Tensor]:
+def _state(out: Dict[str, torch.Tensor], layers, block_keys=None) -> Dict[str, torch.Tensor]:
     """``out`` (the top-level weights) with every layer's block weights as
-    ``blocks.<i>.<key>``, contiguous, in ``BLOCK_KEYS`` order."""
-    from deepspeed_tpu_torch.models.gpt2 import BLOCK_KEYS
+    ``blocks.<i>.<key>``, contiguous, in ``block_keys`` order (GPT-2's
+    ``BLOCK_KEYS`` by default)."""
+    if block_keys is None:
+        from deepspeed_tpu_torch.models.gpt2 import BLOCK_KEYS as block_keys
 
     for i, layer in enumerate(layers):
-        out.update({f"blocks.{i}.{k}": layer[k].contiguous() for k in BLOCK_KEYS})
+        out.update({f"blocks.{i}.{k}": layer[k].contiguous() for k in block_keys})
     return out
+
+
+def _export_source(params: Any) -> Dict[str, Any]:
+    """A model (its state dict) or a flat state dict of the port's names,
+    as the exporters read it."""
+    if hasattr(params, "state_dict") and callable(params.state_dict):
+        params = params.state_dict()
+    return dict(params)
 
 
 # ------------------------------------------------------------------- GPT-2
@@ -160,6 +191,32 @@ def _infer_gpt2_heads(model_or_sd: Any, d: int) -> int:
     while d % (h * 2) == 0:
         h *= 2
     return h
+
+
+def export_gpt2(params: Any, prefix: str = "transformer.") -> Dict[str, np.ndarray]:
+    """Inverse of ``load_gpt2``: the port's GPT-2 state dict (or model) →
+    HF ``GPT2LMHeadModel`` layout, numpy arrays (bf16 widened to fp32).
+    Conv1D keeps (in, out), so only an untied head transposes; a tied head
+    is written as a copy of ``wte``, as safetensors materializes it. A tree
+    without ``wpe`` (ALiBi, rotary) has no position table, as in JAX."""
+    params = _export_source(params)
+    sd: Dict[str, np.ndarray] = {prefix + "wte.weight": _numpy(params["wte"]),
+                                 prefix + "ln_f.weight": _numpy(params["lnf_g"]),
+                                 prefix + "ln_f.bias": _numpy(params["lnf_b"])}
+    if "wpe" in params:
+        sd[prefix + "wpe.weight"] = _numpy(params["wpe"])
+    names = (("ln_1.weight", "ln1_g"), ("ln_1.bias", "ln1_b"),
+             ("attn.c_attn.weight", "qkv_w"), ("attn.c_attn.bias", "qkv_b"),
+             ("attn.c_proj.weight", "proj_w"), ("attn.c_proj.bias", "proj_b"),
+             ("ln_2.weight", "ln2_g"), ("ln_2.bias", "ln2_b"),
+             ("mlp.c_fc.weight", "fc_w"), ("mlp.c_fc.bias", "fc_b"),
+             ("mlp.c_proj.weight", "fc2_w"), ("mlp.c_proj.bias", "fc2_b"))
+    for i in range(_layer_count(params, "", "blocks")):
+        for hf_name, ours in names:
+            sd[f"{prefix}h.{i}.{hf_name}"] = _numpy(params[f"blocks.{i}.{ours}"])
+    sd["lm_head.weight"] = (_numpy(params["lm_head"]).T if "lm_head" in params
+                            else sd[prefix + "wte.weight"])
+    return sd
 
 
 def _n_head(model_or_sd: Any, loader: str, *names: str) -> int:
@@ -213,6 +270,253 @@ def load_bloom(model_or_sd: Any, dtype=torch.float32) -> Tuple[Any, Dict[str, to
     logger.info(f"load_bloom: {n_layer} layers, d={d}, vocab={vocab}, heads={n_head} (ALiBi), "
                 f"tied={tied}")
     return config, _state(out, layers)
+
+
+def export_bloom(params: Any, n_head: int, prefix: str = "transformer.") -> Dict[str, np.ndarray]:
+    """Inverse of ``load_bloom``: the port's BLOOM-shaped GPT-2 state dict
+    (or model) → HF ``BloomForCausalLM`` layout, numpy arrays. ``n_head``
+    is needed to put the fused qkv back in BLOOM's head-interleaved order:
+    the weights alone do not carry it."""
+    params = _export_source(params)
+    n_layer = _layer_count(params, "", "blocks")
+    d = int(params["blocks.0.ln1_g"].shape[0])
+    dh = d // n_head
+    sd: Dict[str, np.ndarray] = {
+        prefix + "word_embeddings.weight": _numpy(params["wte"]),
+        prefix + "word_embeddings_layernorm.weight": _numpy(params["emb_ln_g"]),
+        prefix + "word_embeddings_layernorm.bias": _numpy(params["emb_ln_b"]),
+        prefix + "ln_f.weight": _numpy(params["lnf_g"]),
+        prefix + "ln_f.bias": _numpy(params["lnf_b"])}
+    sd["lm_head.weight"] = (_numpy(params["lm_head"]).T if "lm_head" in params
+                            else sd[prefix + "word_embeddings.weight"])
+    transposed = (("self_attention.dense", "proj_w"), ("mlp.dense_h_to_4h", "fc_w"),
+                  ("mlp.dense_4h_to_h", "fc2_w"))
+    biases = (("self_attention.dense", "proj_b"), ("mlp.dense_h_to_4h", "fc_b"),
+              ("mlp.dense_4h_to_h", "fc2_b"))
+    norms = (("input_layernorm", "ln1_g", "ln1_b"), ("post_attention_layernorm", "ln2_g", "ln2_b"))
+    for i in range(n_layer):
+        b = lambda key: _numpy(params[f"blocks.{i}.{key}"])
+        # [all q, all k, all v] columns → BLOOM's [q_h k_h v_h] rows per head
+        w = b("qkv_w").reshape(d, 3, n_head, dh).transpose(0, 2, 1, 3).reshape(d, 3 * d)
+        sd[f"{prefix}h.{i}.self_attention.query_key_value.weight"] = w.T
+        sd[f"{prefix}h.{i}.self_attention.query_key_value.bias"] = (
+            b("qkv_b").reshape(3, n_head, dh).transpose(1, 0, 2).reshape(3 * d))
+        for hf_name, ours in transposed:
+            sd[f"{prefix}h.{i}.{hf_name}.weight"] = b(ours).T
+        for hf_name, ours in biases:
+            sd[f"{prefix}h.{i}.{hf_name}.bias"] = b(ours)
+        for hf_name, g_key, b_key in norms:
+            sd[f"{prefix}h.{i}.{hf_name}.weight"] = b(g_key)
+            sd[f"{prefix}h.{i}.{hf_name}.bias"] = b(b_key)
+    return sd
+
+
+# ------------------------------------------------------------------- LLaMA
+def load_llama(model_or_sd: Any, dtype=torch.float32) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """HF ``LlamaForCausalLM`` → (LlamaConfig, state dict) for
+    ``models.llama.LlamaModel``. The head count, RoPE theta and scaling and
+    the norm's eps come from the config: a bare state dict raises (the head
+    count is not in the shapes, and a wrong guess changes RoPE), and a
+    ``rope_scaling`` type the model lacks raises before any tensor is
+    converted. The KV heads are ``k_proj``'s rows over the head dim; the
+    head is tied when ``lm_head`` is absent or equals the embedding. Every
+    ``nn.Linear`` weight is transposed to the port's (in, out)."""
+    from deepspeed_tpu_torch.models.llama import BLOCK_KEYS, LlamaConfig
+
+    n_head = _n_head(model_or_sd, "load_llama", "num_attention_heads")
+    cfg = _hf_config(model_or_sd)
+    rope_scaling = getattr(cfg, "rope_scaling", None)
+    if rope_scaling is not None:
+        kind = rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
+        if kind not in LlamaConfig.VALID_ROPE_TYPES:
+            raise NotImplementedError(f"rope_scaling type {kind!r} not supported (have: "
+                                      f"{LlamaConfig.VALID_ROPE_TYPES}): converting would "
+                                      "give wrong logits")
+        rope_scaling = dict(rope_scaling)
+    sd = hf_state_dict(model_or_sd)
+    prefix = "model." if any(k.startswith("model.") for k in sd) else ""
+    g = lambda name: sd[prefix + name].to(dtype)
+    n_layer = _layer_count(sd, prefix, "layers")
+    wte = g("embed_tokens.weight")
+    vocab, d = wte.shape
+    kv_dim = sd[prefix + "layers.0.self_attn.k_proj.weight"].shape[0]
+    inter = sd[prefix + "layers.0.mlp.gate_proj.weight"].shape[0]
+    head_dim = d // n_head
+    assert kv_dim % head_dim == 0, f"kv_dim {kv_dim} vs head_dim {head_dim}"
+    w, _, t = _stackers(g, "layers.{i}.")
+    layers = [{
+        "attn_norm_g": w(i, "input_layernorm"),
+        "q_w": t(i, "self_attn.q_proj"), "k_w": t(i, "self_attn.k_proj"),
+        "v_w": t(i, "self_attn.v_proj"), "o_w": t(i, "self_attn.o_proj"),
+        "mlp_norm_g": w(i, "post_attention_layernorm"),
+        "gate_w": t(i, "mlp.gate_proj"), "up_w": t(i, "mlp.up_proj"),
+        "down_w": t(i, "mlp.down_proj")} for i in range(n_layer)]
+    out = {"wte": wte, "norm_g": g("norm.weight")}
+    tied = _detect_tied(sd, prefix + "embed_tokens.weight")
+    if not tied:
+        out["lm_head"] = sd["lm_head.weight"].to(dtype).t().contiguous()
+    config = LlamaConfig(
+        vocab_size=vocab, n_embd=d, n_layer=n_layer, n_head=n_head,
+        n_kv_head=kv_dim // head_dim, intermediate_size=inter,
+        n_positions=int(getattr(cfg, "max_position_embeddings", 2048) or 2048),
+        rope_theta=float(getattr(cfg, "rope_theta", 10000.0) or 10000.0),
+        rope_scaling=rope_scaling, tie_embeddings=tied,
+        rms_norm_eps=float(getattr(cfg, "rms_norm_eps", 1e-5) or 1e-5), dtype=dtype)
+    logger.info(f"load_llama: {n_layer} layers, d={d}, vocab={vocab}, heads={n_head}, "
+                f"kv_heads={config.n_kv_head}, inter={inter}")
+    return config, _state(out, layers, BLOCK_KEYS)
+
+
+def export_llama(params: Any, prefix: str = "model.") -> Dict[str, np.ndarray]:
+    """Inverse of ``load_llama``: the port's llama state dict (or model) →
+    HF ``LlamaForCausalLM`` layout, numpy arrays; a tied head is written as
+    a copy of the embedding."""
+    params = _export_source(params)
+    sd: Dict[str, np.ndarray] = {prefix + "embed_tokens.weight": _numpy(params["wte"]),
+                                 prefix + "norm.weight": _numpy(params["norm_g"])}
+    sd["lm_head.weight"] = (_numpy(params["lm_head"]).T if "lm_head" in params
+                            else sd[prefix + "embed_tokens.weight"])
+    transposed = (("self_attn.q_proj", "q_w"), ("self_attn.k_proj", "k_w"),
+                  ("self_attn.v_proj", "v_w"), ("self_attn.o_proj", "o_w"),
+                  ("mlp.gate_proj", "gate_w"), ("mlp.up_proj", "up_w"),
+                  ("mlp.down_proj", "down_w"))
+    for i in range(_layer_count(params, "", "blocks")):
+        p = f"{prefix}layers.{i}."
+        sd[p + "input_layernorm.weight"] = _numpy(params[f"blocks.{i}.attn_norm_g"])
+        sd[p + "post_attention_layernorm.weight"] = _numpy(params[f"blocks.{i}.mlp_norm_g"])
+        for hf_name, ours in transposed:
+            sd[f"{p}{hf_name}.weight"] = _numpy(params[f"blocks.{i}.{ours}"]).T
+    return sd
+
+
+# -------------------------------------------------------------------- BERT
+def _bert_config(cfg, vocab: int, d: int, n_layer: int, n_head: int, act: str, dtype,
+                 intermediate: int, type_vocab: int, eps: float):
+    from deepspeed_tpu_torch.models.bert import BertConfig
+
+    return BertConfig(vocab_size=vocab,
+                      n_positions=int(getattr(cfg, "max_position_embeddings", 512) or 512),
+                      n_embd=d, n_layer=n_layer, n_head=n_head, intermediate_size=intermediate,
+                      type_vocab_size=type_vocab, layer_norm_eps=eps, activation=act,
+                      dtype=dtype)
+
+
+def load_bert(model_or_sd: Any, dtype=torch.float32) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """HF ``BertForMaskedLM`` → (BertConfig, state dict) for
+    ``models.bert.BertModel``: the separate q/k/v fused into the port's qkv
+    ([all q, all k, all v]), the MLM head's transform and decoder bias (its
+    decoder weight is the word embedding; an untied one raises). A bare
+    ``BertModel`` or a classification head, an activation other than
+    relu/gelu/gelu_new and relative position embeddings raise."""
+    from deepspeed_tpu_torch.models.bert import BLOCK_KEYS
+
+    n_head = _n_head(model_or_sd, "load_bert", "num_attention_heads")
+    cfg = _hf_config(model_or_sd)
+    sd = hf_state_dict(model_or_sd)
+    if "cls.predictions.transform.dense.weight" not in sd:
+        raise NotImplementedError("load_bert converts BertForMaskedLM checkpoints (needs the "
+                                  "cls.predictions MLM head); bare BertModel / classification "
+                                  "heads are not supported")
+    prefix = "bert." if any(k.startswith("bert.") for k in sd) else ""
+    g = lambda name: sd[prefix + name].to(dtype)
+    top = lambda name: sd[name].to(dtype)
+    n_layer = _layer_count(sd, prefix, "encoder.layer")
+    wte = g("embeddings.word_embeddings.weight")
+    vocab, d = wte.shape
+    w, b, t = _stackers(g, "encoder.layer.{i}.")
+    a = "attention.self."
+    layers = [{
+        "qkv_w": torch.cat([t(i, a + n) for n in ("query", "key", "value")], dim=1),
+        "qkv_b": torch.cat([b(i, a + n) for n in ("query", "key", "value")]),
+        "proj_w": t(i, "attention.output.dense"), "proj_b": b(i, "attention.output.dense"),
+        "attn_ln_g": w(i, "attention.output.LayerNorm"),
+        "attn_ln_b": b(i, "attention.output.LayerNorm"),
+        "fc_w": t(i, "intermediate.dense"), "fc_b": b(i, "intermediate.dense"),
+        "fc2_w": t(i, "output.dense"), "fc2_b": b(i, "output.dense"),
+        "mlp_ln_g": w(i, "output.LayerNorm"), "mlp_ln_b": b(i, "output.LayerNorm")}
+        for i in range(n_layer)]
+    out = {"wte": wte, "wpe": g("embeddings.position_embeddings.weight"),
+           "wtype": g("embeddings.token_type_embeddings.weight"),
+           "emb_ln_g": g("embeddings.LayerNorm.weight"),
+           "emb_ln_b": g("embeddings.LayerNorm.bias"),
+           "mlm_w": top("cls.predictions.transform.dense.weight").t().contiguous(),
+           "mlm_b": top("cls.predictions.transform.dense.bias"),
+           "mlm_ln_g": top("cls.predictions.transform.LayerNorm.weight"),
+           "mlm_ln_b": top("cls.predictions.transform.LayerNorm.bias"),
+           "decoder_b": top("cls.predictions.bias")}
+    if not _detect_tied(sd, prefix + "embeddings.word_embeddings.weight",
+                        "cls.predictions.decoder.weight"):
+        raise NotImplementedError("untied BERT MLM decoder weight not supported")
+    act = getattr(cfg, "hidden_act", "gelu") or "gelu"
+    if act not in ("relu", "gelu", "gelu_new"):
+        raise NotImplementedError(f"BERT hidden_act {act!r} not supported")
+    pos_type = getattr(cfg, "position_embedding_type", "absolute") or "absolute"
+    if pos_type != "absolute":
+        raise NotImplementedError(f"BERT position_embedding_type {pos_type!r} not supported "
+                                  "(relative-position attention would silently diverge)")
+    config = _bert_config(
+        cfg, vocab, d, n_layer, n_head, act, dtype,
+        intermediate=int(getattr(cfg, "intermediate_size", 4 * d) or 4 * d),
+        type_vocab=int(getattr(cfg, "type_vocab_size", 2) or 2),
+        eps=float(getattr(cfg, "layer_norm_eps", 1e-12) or 1e-12))
+    logger.info(f"load_bert: {n_layer} layers, d={d}, vocab={vocab}, heads={n_head}")
+    return config, _state(out, layers, BLOCK_KEYS)
+
+
+def load_distilbert(model_or_sd: Any,
+                    dtype=torch.float32) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """HF ``DistilBertForMaskedLM`` → (BertConfig, state dict) for
+    ``BertModel``: the same post-LN encoder with q/k/v in ``q_lin`` /
+    ``k_lin`` / ``v_lin``, no token types (a 1-row zero table: the trunk
+    adds row 0), ``hidden_dim`` as the intermediate size, and an MLM head of
+    ``vocab_transform``, ``vocab_layer_norm`` and the tied
+    ``vocab_projector``. The layer norms take BertConfig's eps, 1e-12, as
+    the JAX loader leaves them."""
+    from deepspeed_tpu_torch.models.bert import BLOCK_KEYS
+
+    n_head = _n_head(model_or_sd, "load_distilbert", "n_heads")
+    cfg = _hf_config(model_or_sd)
+    sd = hf_state_dict(model_or_sd)
+    if "vocab_transform.weight" not in sd:
+        raise NotImplementedError("load_distilbert converts DistilBertForMaskedLM checkpoints "
+                                  "(needs the vocab_transform MLM head)")
+    prefix = "distilbert." if any(k.startswith("distilbert.") for k in sd) else ""
+    g = lambda name: sd[prefix + name].to(dtype)
+    top = lambda name: sd[name].to(dtype)
+    n_layer = _layer_count(sd, prefix, "transformer.layer")
+    wte = g("embeddings.word_embeddings.weight")
+    vocab, d = wte.shape
+    w, b, t = _stackers(g, "transformer.layer.{i}.")
+    a = "attention."
+    layers = [{
+        "qkv_w": torch.cat([t(i, a + f"{n}_lin") for n in "qkv"], dim=1),
+        "qkv_b": torch.cat([b(i, a + f"{n}_lin") for n in "qkv"]),
+        "proj_w": t(i, a + "out_lin"), "proj_b": b(i, a + "out_lin"),
+        "attn_ln_g": w(i, "sa_layer_norm"), "attn_ln_b": b(i, "sa_layer_norm"),
+        "fc_w": t(i, "ffn.lin1"), "fc_b": b(i, "ffn.lin1"),
+        "fc2_w": t(i, "ffn.lin2"), "fc2_b": b(i, "ffn.lin2"),
+        "mlp_ln_g": w(i, "output_layer_norm"), "mlp_ln_b": b(i, "output_layer_norm")}
+        for i in range(n_layer)]
+    out = {"wte": wte, "wpe": g("embeddings.position_embeddings.weight"),
+           "wtype": torch.zeros(1, d, dtype=dtype, device=wte.device),
+           "emb_ln_g": g("embeddings.LayerNorm.weight"),
+           "emb_ln_b": g("embeddings.LayerNorm.bias"),
+           "mlm_w": top("vocab_transform.weight").t().contiguous(),
+           "mlm_b": top("vocab_transform.bias"),
+           "mlm_ln_g": top("vocab_layer_norm.weight"),
+           "mlm_ln_b": top("vocab_layer_norm.bias"),
+           "decoder_b": top("vocab_projector.bias")}
+    if not _detect_tied(sd, prefix + "embeddings.word_embeddings.weight",
+                        "vocab_projector.weight"):
+        raise NotImplementedError("untied DistilBERT vocab_projector not supported")
+    act = str(getattr(cfg, "activation", "gelu") or "gelu")
+    if act not in ("relu", "gelu", "gelu_new"):
+        raise NotImplementedError(f"DistilBERT activation {act!r} not supported")
+    config = _bert_config(cfg, vocab, d, n_layer, n_head, act, dtype,
+                          intermediate=int(getattr(cfg, "hidden_dim", 4 * d) or 4 * d),
+                          type_vocab=1, eps=1e-12)
+    logger.info(f"load_distilbert: {n_layer} layers, d={d}, vocab={vocab}, heads={n_head}")
+    return config, _state(out, layers, BLOCK_KEYS)
 
 
 # ------------------------------------------------------------------- GPT-J
@@ -568,13 +872,28 @@ def _gpt2_model(config):
     return GPT2Model(config)
 
 
+def _llama_model(config):
+    from deepspeed_tpu_torch.models.llama import LlamaModel
+
+    return LlamaModel(config)
+
+
+def _bert_model(config):
+    from deepspeed_tpu_torch.models.bert import BertModel
+
+    return BertModel(config)
+
+
 # architecture → (state-dict loader, model factory)
 _LOADERS = {"gpt2": (load_gpt2, _gpt2_model),
+            "llama": (load_llama, _llama_model),
             "opt": (load_opt, _gpt2_model),
             "bloom": (load_bloom, _gpt2_model),
             "gpt_neox": (load_gptneox, _gpt2_model),
             "gpt_neo": (load_gptneo, _gpt2_model),
             "gptj": (load_gptj, _gpt2_model),
+            "bert": (load_bert, _bert_model),
+            "distilbert": (load_distilbert, _bert_model),
             "clip": (load_clip_text, _clip_model),
             "clip_text_model": (load_clip_text, _clip_model),
             "unet": (load_unet, _vision_factory("unet")),
@@ -588,8 +907,7 @@ def load_hf_model(model_or_sd: Any, architecture: Optional[str] = None, dtype=to
     ``architecture`` defaults to the HF config's ``model_type`` (the config
     an attribute object or a dict), or, for a diffusers config, its
     ``_class_name`` (``UNet2DConditionModel`` → unet, ``AutoencoderKL`` →
-    vae). The JAX loader's llama, BERT and DistilBERT raise
-    ``NotImplementedError`` here (a later slice of the port)."""
+    vae)."""
     if architecture is None:
         cfg = _hf_config(model_or_sd)
         architecture = getattr(cfg, "model_type", None)
@@ -598,8 +916,7 @@ def load_hf_model(model_or_sd: Any, architecture: Optional[str] = None, dtype=to
                             "AutoencoderKL": "vae"}.get(getattr(cfg, "_class_name", None))
     if architecture not in _LOADERS:
         raise NotImplementedError(
-            f"loading architecture {architecture!r}: the port loads {sorted(_LOADERS)}; "
-            "llama, bert and distilbert are a later slice of the port")
+            f"loading architecture {architecture!r}: the port loads {sorted(_LOADERS)}")
     loader, model_factory = _LOADERS[architecture]
     config, params = loader(model_or_sd, dtype=dtype)
     return model_factory(config), params

@@ -5,15 +5,20 @@ read a tag's flat state on the host, without an engine or a card, and
 return the fp32 weights, preferring the fp32 masters (the authoritative
 weights under bf16 or fp16 training) and else the compute-type params cast
 up. The port's param names carry no ``/``, so the result is one level deep,
-``{name: array}``, the model's own state-dict names. The HF exporters
-(``arch=``) need ``module_inject`` and are a later slice.
+``{name: array}``, the model's own state-dict names. With ``arch`` the file
+holds the HF layout of ``module_inject``'s exporters instead.
+
+Run as ``python -m deepspeed_tpu_torch.runtime.checkpoint_engine.consolidate
+<checkpoint_dir> <output.npz> [--tag TAG] [--arch gpt2|llama|opt|bloom]
+[--n-head N]``, the counterpart of the JAX package's ``bin/ds_to_fp32``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -76,16 +81,69 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+_ARCHS = ("gpt2", "llama", "opt", "bloom")
+
+
 def consolidate_to_file(ckpt_dir: str, output: str, tag: Optional[str] = None,
-                        arch: Optional[str] = None) -> str:
-    """Consolidate and write an ``.npz`` (appended to ``output`` if missing)
-    keyed by ``/``-joined names. Returns the path written."""
+                        arch: Optional[str] = None, n_head: Optional[int] = None) -> str:
+    """Consolidate and write an ``.npz`` (appended to ``output`` if missing):
+    keyed by the ``/``-joined names by default; with ``arch`` ("gpt2",
+    "llama", "opt" or "bloom") in the HF state-dict layout of that
+    architecture (``{k: torch.from_numpy(v) for k, v in np.load(f).items()}``
+    reads it back into torch). "bloom" needs ``n_head`` for its
+    head-interleaved qkv; "opt" writes GPT-2-layout keys, as the JAX
+    package does. Returns the path written."""
+    params = consolidated_fp32_params(ckpt_dir, tag)
     if arch is not None:
-        raise NotImplementedError(f"consolidate_to_file(arch={arch!r}): the HF exporters "
-                                  "(module_inject) are a later slice of the port")
-    sd = _flatten(consolidated_fp32_params(ckpt_dir, tag))
+        from deepspeed_tpu_torch.module_inject import hf
+
+        if arch not in _ARCHS:
+            raise ValueError(f"no exporter for arch {arch!r} (have: {_ARCHS})")
+        if arch == "bloom":
+            if n_head is None:
+                raise ValueError("arch='bloom' needs n_head for the head-interleaved qkv "
+                                 "reorder")
+            sd = hf.export_bloom(params, n_head=n_head)
+        elif arch == "llama":
+            sd = hf.export_llama(params)
+        else:
+            if arch == "opt":
+                logger.warning("arch='opt': emitting GPT-2-layout keys (the in-tree OPT "
+                               "runtime model is GPT-2-shaped); re-keying to OPT names is "
+                               "not implemented")
+            sd = hf.export_gpt2(params)
+    else:
+        sd = _flatten(params)
     if not output.endswith(".npz"):
         output += ".npz"
     np.savez(output, **sd)
     logger.info(f"wrote {len(sd)} tensors to {output}")
     return output
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    """The command line: the JAX ``bin/ds_to_fp32``'s arguments and output,
+    on the host only."""
+    ap = argparse.ArgumentParser(
+        prog="python -m deepspeed_tpu_torch.runtime.checkpoint_engine.consolidate",
+        description="Consolidate a deepspeed_tpu_torch checkpoint into one fp32 file "
+                    "(the zero_to_fp32.py analogue).")
+    ap.add_argument("checkpoint_dir")
+    ap.add_argument("output")
+    ap.add_argument("--tag", default=None, help="checkpoint tag (default: latest)")
+    ap.add_argument("--arch", default=None,
+                    help="emit HF-layout keys for this architecture (gpt2|llama|opt|bloom)")
+    ap.add_argument("--n-head", type=int, default=None,
+                    help="head count (required for --arch bloom)")
+    args = ap.parse_args(argv)
+    meta = checkpoint_metadata(args.checkpoint_dir, args.tag)
+    if meta:
+        print(f"checkpoint: step={meta.get('global_steps')} "
+              f"zero_stage={meta.get('zero_stage')} dp={meta.get('dp_world_size')}")
+    path = consolidate_to_file(args.checkpoint_dir, args.output, tag=args.tag,
+                               arch=args.arch, n_head=args.n_head)
+    print(f"wrote {path}")
+
+
+if __name__ == "__main__":
+    main()

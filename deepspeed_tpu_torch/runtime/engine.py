@@ -327,7 +327,8 @@ class DeepSpeedEngine:
         grid's, and it routes over the engine's groups. Offload, zero.Init
         and ZeRO-Infinity of a MoE model are later slices."""
         loss_args = inspect.signature(model.loss).parameters
-        self._loss_kwargs = {k for k in ("generator", "loss_weight") if k in loss_args}
+        self._loss_kwargs = {k for k in ("generator", "loss_weight", "dropout_rank")
+                             if k in loss_args}
         if not hasattr(model, "expert_module_names"):
             return
         ep = self.grid.get_expert_parallel_world_size()
@@ -500,12 +501,15 @@ class DeepSpeedEngine:
                 yield take(batch, i)
 
     def _forward(self, batch, weight=None, micro: int = 0):
-        """The model's loss of one microbatch, given the generator and the
-        token weight where its ``loss`` takes them."""
+        """The model's loss of one microbatch, given the generator (seeded
+        alike on every rank), the data-parallel rank and the token weight
+        where its ``loss`` takes them."""
         kwargs = {}
         if "generator" in self._loss_kwargs:
             kwargs["generator"] = torch.Generator(device=self.device).manual_seed(
                 (self._config.seed * 1_000_003 + self._global_step) * 1_009 + micro)
+        if "dropout_rank" in self._loss_kwargs:
+            kwargs["dropout_rank"] = self.global_rank
         if weight is not None and "loss_weight" in self._loss_kwargs:
             kwargs["loss_weight"] = weight
         if self.progressive_layer_drop is not None:

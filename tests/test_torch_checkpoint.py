@@ -441,8 +441,16 @@ def test_consolidated_fp32_params_match_jax_and_the_masters(runs, tmp_path):
     out = tcons.consolidate_to_file(runs["torch"], str(tmp_path / "w"))
     with np.load(out) as z:
         assert sorted(z.files) == sorted(ttree)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tcons.consolidate_to_file(runs["torch"], str(tmp_path / "h"), arch="gpt2")
+    # the HF-layout files (arch gpt2, and opt in GPT-2's layout) hold the JAX
+    # function's keys, and its values as the trees above hold them
+    for arch in ("gpt2", "opt"):
+        got = tcons.consolidate_to_file(runs["torch"], str(tmp_path / f"h_{arch}"), arch=arch)
+        ref = jcons.consolidate_to_file(runs["jax"], str(tmp_path / f"j_{arch}"), arch=arch)
+        with np.load(got) as a, np.load(ref) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-4, atol=1e-5, err_msg=k)
+            np.testing.assert_array_equal(a["transformer.wte.weight"], ttree["wte"])
     # a bf16 run's consolidation is its fp32 masters, not the bf16 params
     eng, _ = _port_engine(_config(bf16={"enabled": True}), None, dtype=torch.bfloat16)
     ids = np.random.RandomState(0).randint(0, SMALL["vocab_size"], size=(8, T))

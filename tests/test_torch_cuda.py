@@ -46,11 +46,16 @@ its local layers on the plain path, BLOOM's ALiBi with no kernel) serve
 through the graphed loop with their launches counted; the remat policies
 launch K1 once ("attn", "attn_mlp") or twice ("full", "dots") per layer
 and step; dropout under remat "attn" equals remat off on one seed. K1 and
-K3 also take head dim 256 (GPT-J-6B), K1 forward only.
+K3 also take head dim 256 (GPT-J-6B), K1 forward only. Model import:
+llama3.2-1b's widths at 2 layers exported to HF's layout and imported back
+serve through the kernels like the port's own model, and a Megatron
+directory at gpt2-760m's widths (tp 2) serves the greedy tokens of its
+state dict.
 """
 
 import dataclasses
 import os
+import types
 
 import numpy as np
 import pytest
@@ -1302,3 +1307,75 @@ def test_dropout_under_remat_attn_equals_remat_off_on_the_card(gen):
         grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
     for n, g in grads[0].items():
         assert (g - grads[1][n]).norm().item() <= 1e-6 * grads[1][n].norm().item(), n
+
+
+# ------------------------------------------------------------ model import
+def test_imported_llama_serves_through_the_kernels(gen):
+    """llama3.2-1b's widths at 2 layers: the port's own bf16 weights exported
+    to HF's layout (``export_llama``) and imported by ``load_hf_model`` (a
+    dict config) come back bit for bit; served in bf16, the graphed generate
+    launches K1 once per layer and K3 once per layer and step, gives the
+    eager loop's tokens and the port's own model's tokens, and its prefill
+    logits are within 5e-2 of the plain path's largest."""
+    from deepspeed_tpu_torch.module_inject import hf
+
+    cfg = dataclasses.replace(PRESETS["llama3.2-1b"], n_layer=2, remat=False,
+                              use_flash_decode=True)
+    own = LlamaModel(cfg).init_params(gen).to(torch.bfloat16)
+    config = {"model_type": "llama", "num_attention_heads": cfg.n_head,
+              "rope_theta": cfg.rope_theta, "rope_scaling": cfg.rope_scaling,
+              "max_position_embeddings": cfg.n_positions, "rms_norm_eps": cfg.rms_norm_eps}
+    model, params = hf.load_hf_model(types.SimpleNamespace(
+        config=config, state_dict=lambda: hf.export_llama(own)), dtype=torch.bfloat16)
+    for name, t in own.state_dict().items():
+        assert torch.equal(params[name], t.cpu()), name
+    assert model.config.n_kv_head == cfg.n_kv_head and model.config.tie_embeddings
+    eng = deepspeed_tpu_torch.init_inference(
+        LlamaModel(dataclasses.replace(model.config, use_flash_decode=True)),
+        {"dtype": "bfloat16", "max_out_tokens": 256}, params=params)
+    ref_eng = deepspeed_tpu_torch.init_inference(own, {"dtype": "bfloat16", "max_out_tokens": 256})
+    ids = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device="cuda")
+    first = eng.generate(ids, max_new_tokens=24)
+    tfa.KERNEL.reset_launches()
+    tda.KERNEL.reset_launches()
+    out = eng.generate(ids, max_new_tokens=24)
+    assert (tfa.KERNEL.launches, tda.KERNEL.launches) == (2, 2 * 24)
+    assert torch.equal(out, first) and torch.equal(out, _eager_loop(eng, ids, 24))
+    assert torch.equal(out, ref_eng.generate(ids, max_new_tokens=24))
+    plain = LlamaModel(dataclasses.replace(model.config, use_flash_attention=False))
+    plain.load_state_dict(eng.module.state_dict(), assign=True)
+    with torch.inference_mode():
+        got, _ = eng.module.prefill(ids, eng.module.init_cache(4, 64))
+        ref, _ = plain.prefill(ids, plain.init_cache(4, 64))
+    assert (got.float() - ref.float()).abs().max().item() <= 5e-2 * ref.float().abs().max().item()
+
+
+def test_megatron_dir_serves_greedy_like_its_state_dict(gen, tmp_path):
+    """gpt2-760m's widths at 2 layers written as a Megatron-DeepSpeed
+    directory (fp16, tp 2) and served by ``init_inference(model=None,
+    checkpoint=..., checkpoint_config={"type": "Megatron", "n_head": 16})``
+    in bf16: the files' weights bit for bit, one K1 per layer a prefill and
+    one K3 per layer a step, and the greedy tokens of the same weights
+    served from the port's state dict."""
+    from tests.torch_megatron_files import write_megatron
+
+    cfg = dataclasses.replace(gpt2.PRESETS["gpt2-760m"], n_layer=2, remat=False)
+    sd = {k: v.to(torch.float16).cpu()
+          for k, v in gpt2.GPT2Model(cfg).init_params(gen).state_dict().items()}
+    write_megatron(sd, cfg.n_layer, cfg.n_head, str(tmp_path), tp=2)
+    served = deepspeed_tpu_torch.init_inference(config={
+        "checkpoint": str(tmp_path), "dtype": "bfloat16", "max_out_tokens": 256,
+        "checkpoint_config": {"type": "Megatron", "n_head": cfg.n_head}})
+    want = {k: v.to(torch.bfloat16) for k, v in sd.items()}
+    for name, p in served.module.state_dict().items():
+        assert torch.equal(p.cpu(), want[name]), name
+    direct = deepspeed_tpu_torch.init_inference(
+        gpt2.GPT2Model(dataclasses.replace(cfg, use_flash_decode=True)),
+        {"dtype": "bfloat16", "max_out_tokens": 256}, params=want)
+    ids = torch.randint(0, cfg.vocab_size, (4, 64), generator=gen, device="cuda")
+    tfa.KERNEL.reset_launches()
+    tda.KERNEL.reset_launches()
+    out = served.generate(ids, max_new_tokens=32)
+    assert (tfa.KERNEL.launches, tda.KERNEL.launches) == (2, 2 * 33)
+    assert torch.equal(out, direct.generate(ids, max_new_tokens=32))
+    assert torch.equal(out, _eager_loop(served, ids, 32))

@@ -200,9 +200,13 @@ def test_load_hf_model_dispatches_the_diffusers_class_name():
         assert dataclasses.asdict(model.config) == dataclasses.asdict(ref.config)
         model.load_state_dict(sd, assign=True)
         assert all(torch.equal(v, ref.state_dict()[k]) for k, v in model.state_dict().items())
-    for arch in ("llama", "bert", "distilbert", None):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    # llama, BERT and DistilBERT load now, and need the HF config's head
+    # count; an architecture the port does not load raises
+    for arch in ("llama", "bert", "distilbert"):
+        with pytest.raises(ValueError, match="bare state dict"):
             thf.load_hf_model({"w": np.zeros(2)}, architecture=arch)
+    with pytest.raises(NotImplementedError, match="loading architecture None"):
+        thf.load_hf_model({"w": np.zeros(2)}, architecture=None)
 
 
 def test_engine_forward_serves_the_unet_with_float_inputs():

@@ -53,6 +53,8 @@ print(json.dumps({{"modules": names, "files": files}}))
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert "deepspeed_tpu_torch.inference.engine" in got["modules"]
     assert "deepspeed_tpu_torch.models.llama" in got["modules"]
+    assert "deepspeed_tpu_torch.checkpoint.megatron_checkpoint" in got["modules"]
+    assert "deepspeed_tpu_torch.checkpoint.meg_2d" in got["modules"]
     for ref in REFERENCE_DIRS:
         root = str(REPO / ref) + os.sep
         assert not [f for f in got["files"] if f.startswith(root)], ref

@@ -7,7 +7,9 @@ logits bit for bit. A tag dir given directly and ``checkpoint_config``'s
 ``tag`` pick an older tag; a save dir without ``latest`` and a missing tag
 raise ``FileNotFoundError`` with the JAX package's messages
 (``load_inference_params``); params of another model are refused; a
-Megatron ``checkpoint_config.type`` raises (model import is a later slice);
+Megatron ``checkpoint_config.type`` serves a Megatron-DeepSpeed directory
+(``model`` None builds the model; without ``n_head`` it raises, and
+without a Megatron checkpoint ``model`` None raises);
 ``params`` takes precedence over ``checkpoint``, as in JAX. Tags saved at
 ZeRO stage 3 over two gloo ranks and by the layerwise ``ZeroInfinityEngine``
 (NVMe) hold whole params like stage 0's and serve its logits (fp32: 1e-5
@@ -25,7 +27,9 @@ import torch
 
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models import gpt2
+from deepspeed_tpu_torch.models.gpt2_moe import MoEGPT2
 from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import wait_for_pending_saves
+from tests.torch_megatron_files import write_megatron
 from tests.torch_world import World
 
 SMALL = dict(vocab_size=128, n_positions=32, n_embd=32, n_layer=2, n_head=2, remat=False,
@@ -150,8 +154,37 @@ def test_params_of_another_model_are_refused(tags):
 
 @pytest.mark.parametrize("kind", ["Megatron", "megatron_moe", "Megatron-MoE"])
 def test_megatron_checkpoint_type_raises(tmp_path, kind):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        _serve(str(tmp_path), checkpoint_config={"type": kind, "n_head": 2})
+    """A Megatron ``checkpoint_config.type`` without ``n_head`` raises the
+    JAX package's ValueError; with it, the directory serves: a model built
+    from the files (none given) gives the logits of the written weights
+    served from ``params``, bit for bit."""
+    moe = kind.lower().replace("-", "").replace("_", "") == "megatronmoe"
+    cfg = gpt2.GPT2Config(**SMALL)
+    model = MoEGPT2(cfg, num_experts=4, drop_tokens=False) if moe else gpt2.GPT2Model(cfg)
+    weights = model.init_params(torch.Generator().manual_seed(8)).state_dict()
+    write_megatron(weights, SMALL["n_layer"], SMALL["n_head"], str(tmp_path), tp=2, moe=moe)
+    with pytest.raises(ValueError, match="n_head"):
+        deepspeed_tpu_torch.init_inference(
+            config={**SERVE, "checkpoint": str(tmp_path), "checkpoint_config": {"type": kind}},
+            device="cpu")
+    served = deepspeed_tpu_torch.init_inference(
+        config={**SERVE, "checkpoint": str(tmp_path),
+                "checkpoint_config": {"type": kind, "n_head": SMALL["n_head"]}}, device="cpu")
+    assert type(served.module) is type(model)
+    if moe:     # the dense MLP of a MoE block is in no file, and never used
+        weights.update({k: torch.zeros_like(v) for k, v in weights.items()
+                        if k.startswith("blocks.1.fc")})
+    direct = deepspeed_tpu_torch.init_inference(model, SERVE, params=weights, device="cpu")
+    ids = _prompt()
+    with torch.no_grad():
+        assert torch.equal(served(ids), direct(ids))
+
+
+def test_model_none_raises_without_a_megatron_checkpoint(tags):
+    with pytest.raises(ValueError, match="needs a model"):
+        deepspeed_tpu_torch.init_inference(config={**SERVE,
+                                                   "checkpoint": str(tags["root"] / "zero0")},
+                                           device="cpu")
 
 
 def test_params_take_precedence_over_checkpoint(tmp_path):
