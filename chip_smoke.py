@@ -17,6 +17,16 @@ checks that each run went through its kernels and that the kernel path
 agrees with the plain path. ``generate`` runs its decode loop as replays of
 a captured CUDA graph: the serving phase holds its greedy tokens against the
 ungraphed loop's (``build_generate_parts``) and reports both loops' tokens/s.
+``serve llama3.2-1b int8`` and ``int4`` serve the same model with
+weight-quantized weights (``init_inference(dtype=torch.int8, quant=...)``,
+each block dequantized inside the captured step): its launches, greedy
+tokens equal bit for bit to the dequantized weights served in bf16, and
+its prefill ms, tokens/s, weight bytes and peak beside the bf16 line's.
+``train gpt2-760m activation_checkpointing`` trains the dense cell with
+DeepSpeed-Chat's ``activation_checkpointing`` block (losses equal to the
+plain run's bit for bit), and its hand loop calls
+``checkpointing.checkpoint`` around each block with ``cpu_checkpointing``
+off and on (step ms, peak, gradients against the model's own remat).
 It also serves two layers of llama3.2-1b in fp32 and fp16 and with sampling
 (top-k) through the graphed loop, serves llama3.2-1b at full depth over an
 8192-entry cache (B=4, the path the decode kernel's split over the cache is
@@ -31,14 +41,10 @@ above the state to the largest unit, holds every stage's losses to stage
 0's and three fp32 steps of two layers at stage 3 to stage 0's, and
 destroys the group. ``launch gpt2-760m`` starts the stage-1 recipe from the
 command line (``python -m deepspeed_tpu_torch.launcher.runner --num_gpus
-1`` on a user script written to a temporary directory), holds the
+1`` on a user script written to a temporary directory) and holds the
 launched process's environment, launches and losses to the in-process
-stage-1 run and saves a tag; ``serve gpt2-760m`` serves that tag through
-``init_inference(config={"checkpoint": ...})`` (params bit for bit, the
-graphed ``generate`` against the ungraphed loop and the plain path, K1 per
-prefill and K3 per decode step at one query head per KV head), then
-removes it. Then it feeds, saves and resumes
-gpt2-760m at full width, 12 of its 24 layers (``resume``): a token dataset written with
+stage-1 run. Then it feeds, saves and resumes
+gpt2-760m at full width, 8 of its 24 layers (``resume``): a token dataset written with
 the port's indexed-dataset builder into a temporary directory, engine A
 trained through ``initialize(training_data=...)``'s loader, saved with the
 default async save and trained on, engines B and C built from other seeds
@@ -46,7 +52,11 @@ loading the tag and training on through their restored loaders; it holds
 the state after each load to the saved state bit for bit, B's batches to
 A's, and B's losses to A's as closely as to C's, and reports the tag's
 bytes, the save's blocking and commit seconds, the write and read rates
-and the data wait per step. ``curriculum`` trains the same model under the
+and the data wait per step; ``serve gpt2-760m`` serves engine A's tag
+through ``init_inference(config={"checkpoint": ...})`` (params bit for
+bit, the graphed ``generate`` against the ungraphed loop and the plain
+path, K1 per prefill and K3 per decode step at one query head per KV
+head). ``curriculum`` trains the same model under the
 legacy ``curriculum_learning`` block, T growing through ragged lengths to
 1024 (the kernel checks hold the forward and both backward kernels against
 their plain versions at each of those lengths), and reports the data wait
@@ -59,8 +69,10 @@ directory is removed afterwards. Then the llama and BERT families train:
 ``offload llama3.2-1b`` with the optimizer state, the master and the params
 in pinned host memory from a ``zero.Init`` build, their losses held to
 stage 1's; the 2-layer kernel-vs-plain checks; ``serve llama3.2-1b from its
-tag`` serves the stage-1 run's tag (params bit for bit, 16 K1 per
-``generate`` and 16 K3 per decode step). ``train bert-large seq128`` (64 x
+tag`` serves a stage-1 tag of the preset at 4 of its 16 layers
+(``LLAMA_TAG_LAYERS``; params bit for bit, one K1 per layer and
+``generate``, one K3 per layer and decode step), which ``consolidate``
+writes in HF's layout. ``train bert-large seq128`` (64 x
 128) and ``seq512`` (16 x 512) train masked-LM with LAMB in fp16 under
 dynamic loss scaling, each step launching 24 K1 and 24 of each K2 entry,
 non-causal; ``train check bert-large ...`` holds 2 layers to the plain
@@ -73,8 +85,13 @@ the largest expert load over the mean) and a profile with the gate,
 dispatch, experts and combine as ranges of their own, its tag saved;
 ``... zero3`` over a NCCL group of one, its losses held to stage 1's; the
 2-layer kernel-vs-plain checks (with the share of tokens the two bf16
-paths route to other experts); ``serve gpt2-moe-125m from its tag`` (12 K1
-per ``generate``, 12 K3 per decode step). Last, ``serve sd1.5`` serves the
+paths route to other experts); ``... offloaded`` (stage 2,
+``offload_optimizer`` cpu) and ``... zero.Init`` (stage 3 from a
+``zero.materialize`` build), their losses held to stage 1's; ``...
+sparse-fixed16`` (the "fixed" layout at block 16: K4a twice and K4b and
+K4c once per layer and step, no dense kernel) with one dense/MoE pair held
+to the plain path in bf16 and fp32; ``serve gpt2-moe-125m from its tag``
+(12 K1 per ``generate``, 12 K3 per decode step). Last, ``serve sd1.5`` serves the
 stable-diffusion stack at its published widths in bf16 through
 ``init_inference``: CLIP ViT-L/14's text tower encodes 2 prompts and their
 unconditional rows (12 causal K1 at T = 77), SD-1.5's UNet runs 4 guided
@@ -173,6 +190,13 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": TRAIN_BATCH, "gradient_accumul
                 "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
                 "gradient_clipping": 1.0, "steps_per_print": 0, "seed": SEED}
 CHECK_FP32 = dict(layers=2, batch=2, gas=2, steps=3)   # the fp32 train check
+# the activation_checkpointing phase: DeepSpeed-Chat's block (its
+# training scripts' ds_config), the hand loop's timed steps, and the bf16
+# gradient limit against the model's own remat
+AC_BLOCK = {"partition_activations": False, "cpu_checkpointing": False,
+            "contiguous_memory_optimization": False, "number_checkpoints": None}
+AC_STEPS = 3
+AC_GRAD_RTOL = 5e-2
 # the ZeRO phase: the training cell's recipe at each stage, over a NCCL
 # process group of one
 ZERO_STAGES = (0, 1, 2, 3)
@@ -180,9 +204,10 @@ ZERO_STAGES = (0, 1, 2, 3)
 # builder, steps before and after the save, and the disk the tag needs
 RESUME_SAMPLES, RESUME_STEPS = 64, 3
 STATE_BYTES_PER_PARAM = 14          # bf16 params, fp32 masters, two fp32 moments
-# the resume phase's depth: 12 of gpt2-760m's 24 layers since PR 15, for the
-# script's time (its checks hold at any depth; the tag halves to ~5.3 GB)
-RESUME_LAYERS = 12
+# the resume phase's depth: 8 of gpt2-760m's 24 layers since PR 17 (12 in
+# PRs 15-16), for the script's time (its checks, and those of serving its
+# tag, hold at any depth; the tag is ~4.0 GB)
+RESUME_LAYERS = 8
 DISK_MARGIN = 2.5                   # free space wanted per byte of the tag
 # the curriculum phase: the legacy block, T from 64 towards 1024 in 8 steps
 CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 64,
@@ -201,10 +226,11 @@ SPARSE_BLOCK = {"mode": "fixed", "block": 16, "different_layout_per_head": True,
 # presets' own), bf16 with fp32 masters, ZeRO stage 1 without a process group
 OFFLOAD_MODEL, CAPACITY_MODEL = "gpt2-2.7b", "gpt2-6.7b"
 OFFLOAD_BATCH, OFFLOAD_SEQ = 4, 2048
-# the five gpt2-2.7b offload runs at a quarter of the preset's depth (full
-# width): the script's time limit stays while it grows, and each run's
-# placement and policy are the same at 8 layers as at 32
-OFFLOAD_LAYERS = 8
+# the five gpt2-2.7b offload runs at an eighth of the preset's depth (full
+# width; 8 layers in PRs 14-16): the script's time limit stays while it
+# grows, and each run's placement and policy are the same at 4 layers as
+# at 32
+OFFLOAD_LAYERS = 4
 OFFLOAD_CONFIG = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": OFFLOAD_BATCH}
 OFFLOAD_KNOBS = ("DS_TPU_OFFLOAD_MASTER", "DS_TPU_FORCE_STREAMED_OFFLOAD",
                  "DS_TPU_OFFLOAD_CHUNK_BYTES", "DS_TPU_OFFLOAD_OVERLAP")
@@ -229,6 +255,8 @@ NVME_LOSS_RTOL = 1e-2               # bf16: the Infinity engine keeps the top-le
 # (LAMB, fp16 with dynamic loss scaling, clipping 1.0) at its two sequence
 # lengths, (batch, seq, max_predictions_per_seq) each
 LLAMA_BATCH, LLAMA_SEQ = 4, 2048
+# the llama tag (saved, served, consolidated) at 4 of the preset's 16 layers
+LLAMA_TAG_LAYERS = 4
 BERT_MODEL = "bert-large"
 BERT_SHAPES = ((64, 128, 20), (16, 512, 80))
 BERT_CONFIG = {"train_micro_batch_size_per_gpu": 64, "gradient_accumulation_steps": 1,
@@ -353,7 +381,12 @@ IMPORT_BERT_SHAPE = (16, 512)
 _T0 = time.perf_counter()
 
 
+# each phase's last line, for the phases that report beside another's
+LINES = {}
+
+
 def emit(phase, **fields):
+    LINES[phase] = fields
     print(json.dumps({"phase": phase, "at_s": time.perf_counter() - _T0, **fields}), flush=True)
 
 
@@ -1001,10 +1034,103 @@ def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
     model = LlamaModel(c).init_params(gen)
     engine = init_inference(model, {"dtype": "bfloat16", "max_out_tokens": PROMPT + GEN})
     ids = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
-    launches, loop, logits, cache = _served_cell(engine, ids, accel, fa, da, f"slice {MODEL}")
+    launches, loop, logits, cache = _served_cell(engine, ids, accel, fa, da, f"slice {MODEL}",
+                                                 weight_bytes=engine.weight_nbytes())
     with torch.inference_mode():
         profile_slice(model, engine, loop, ids, logits, cache, c.n_layer)
     del engine, model, loop, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_quantized(init_inference, LlamaModel, cfg, accel, fa, da, bits):
+    """llama3.2-1b (the serving cell's model and ids, the same seed) served
+    weight-quantized: ``init_inference(dtype=torch.int8, quant={"weight":
+    {"num_bits": bits}})``, the compute in bf16, each block's weights
+    dequantized just before it runs (inside the captured decode step). The
+    counted graphed ``generate`` (B 32, prompt 128, 128 new, greedy; 16 K1
+    a ``generate``, 16 K3 a decode step) must give, bit for bit, the tokens
+    of the same model served in bf16 from the dequantized weights; prefill
+    and one decode step against the plain path on those weights at
+    LOGIT_RTOL. Reported beside the bf16 serving cell's line: prefill ms,
+    graphed tokens/s, the weight bytes the engine holds and the peak of the
+    ``generate``. → the second ``generate``'s launches."""
+    from deepspeed_tpu_torch.ops.quantizer import dequantize_params
+
+    c = dataclasses.replace(cfg, use_flash_decode=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = LlamaModel(c).init_params(gen)
+    ids = torch.randint(0, c.vocab_size, (BATCH, PROMPT), generator=gen, device="cuda")
+    bf16_bytes = sum(p.numel() * 2 for p in model.parameters())
+    t0 = time.perf_counter()
+    engine = init_inference(model, {"max_out_tokens": PROMPT + GEN}, dtype=torch.int8,
+                            quant={"weight": {"num_bits": bits}})
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    held = engine.weight_nbytes()
+    engine.generate(ids[:2, :8], max_new_tokens=2)    # warm-up (library handles)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    accel.reset_peak_memory_stats()
+    out, first_s, gen_s, loop, first_launches, launches = _graphed_generate(
+        engine, ids, GEN, fa, da, c.n_layer)
+    peak_gb = accel.max_memory_allocated() / 1e9
+    with torch.inference_mode():
+        prefill_med, logits, cache = _prefill_ms(model, ids, PROMPT + GEN)
+        replay_ms = _replay_ms(loop, logits, cache, GEN)
+    decode_s = gen_s - prefill_med / 1e3
+
+    # the same weights dequantized, served in bf16: the same tokens, bit for
+    # bit; and the plain path on them
+    quantized = {n: q for n, q in engine.quantized.items()}
+    dense = {n: p for n, p in model.named_parameters() if not p.is_meta}
+    dense.update(dequantize_params(quantized, torch.bfloat16))
+    ref_model = LlamaModel(c)
+    ref_model.load_state_dict(dense, assign=True)
+    ref = init_inference(ref_model, {"dtype": "bfloat16", "max_out_tokens": PROMPT + GEN})
+    ref_out = ref.generate(ids, max_new_tokens=GEN)
+    if not torch.equal(ref_out, out):
+        raise AssertionError(f"int{bits} tokens differ from the dequantized bf16 model's in "
+                             f"{int((ref_out != out).sum().item())} places")
+    plain = LlamaModel(dataclasses.replace(c, use_flash_attention=False, use_flash_decode=False))
+    plain.load_state_dict(dense, assign=True)
+    with torch.inference_mode():
+        ref_logits, _ = ref_model.prefill(ids, ref_model.init_cache(BATCH, PROMPT + GEN))
+        p_logits, p_cache = plain.prefill(ids, plain.init_cache(BATCH, PROMPT + GEN))
+        tok = torch.argmax(logits, dim=-1)
+        step_k, _ = model.decode_step(tok, cache)
+        step_p, _ = plain.decode_step(tok, p_cache)
+    scale = p_logits.abs().max().item()
+    err_prefill, err_step = max_err(logits, p_logits), max_err(step_k, step_p)
+    if not (torch.isfinite(logits).all() and torch.isfinite(step_k).all()) \
+            or err_prefill > LOGIT_RTOL * scale \
+            or err_step > LOGIT_RTOL * step_p.abs().max().item():
+        raise AssertionError(f"int{bits}: kernel path vs plain path: prefill logits err "
+                             f"{err_prefill}, decode logits err {err_step}, |ref| max {scale}")
+    bf16_line = LINES[f"slice {MODEL}"]
+    emit(f"serve {MODEL} int{bits}", batch=BATCH, prompt=PROMPT, gen=GEN, compute="bfloat16",
+         num_bits=bits, group_size=128, quantized_tensors=len(quantized),
+         quantized_params=sum(math.prod(q.shape) for q in quantized.values()),
+         quantize_s=quantize_s, weight_bytes=held, weight_bytes_bf16=bf16_bytes,
+         weight_bytes_bf16_phase=bf16_line["weight_bytes"],
+         launches=launches, first_call_launches=first_launches,
+         generate_s=gen_s, first_generate_s=first_s, capture_s=loop.capture_s,
+         prefill_ms=prefill_med, prefill_ms_bf16_phase=bf16_line["prefill_ms"],
+         decode_tok_s=BATCH * GEN / decode_s,
+         decode_tok_s_bf16_phase=bf16_line["decode_tok_s"],
+         replay_device_ms_per_step=replay_ms,
+         replay_device_ms_per_step_bf16_phase=bf16_line["replay_device_ms_per_step"],
+         peak_mem_gb=peak_gb, peak_mem_gb_bf16_phase=bf16_line["peak_mem_gb"],
+         tokens_equal_dequantized_bf16=True,
+         prefill_logits_equal_dequantized_bf16=bool(torch.equal(logits, ref_logits)),
+         prefill_logits_max_abs_err=err_prefill, decode_logits_max_abs_err=err_step,
+         ref_logits_max_abs=scale, logit_rtol=LOGIT_RTOL,
+         top1_agree=(logits.argmax(-1) == p_logits.argmax(-1)).float().mean().item())
+    if not held < bf16_line["weight_bytes"] or not peak_gb < bf16_line["peak_mem_gb"]:
+        raise AssertionError(f"int{bits}: {held} weight bytes and {peak_gb} GB peak against "
+                             f"the bf16 phase's {bf16_line['weight_bytes']} and "
+                             f"{bf16_line['peak_mem_gb']}")
+    del engine, model, ref, ref_model, plain, loop, cache, dense, quantized
     torch.cuda.empty_cache()
     return launches
 
@@ -1382,7 +1508,107 @@ def train_slice(initialize, GPT2Model, cfg, accel, fa):
          step=device_profile(lambda: engine.train_batch(batch), top=12))
     del engine
     torch.cuda.empty_cache()
-    return launches, batch
+    return launches, batch, losses
+
+
+def _hand_checkpointed_loss(model, batch, checkpointing, policy=None):
+    """GPT-2's loss with ``checkpointing.checkpoint`` around each block in a
+    loop written here (the reference's Megatron-style use of the module),
+    under ``policy`` (None: the configured one)."""
+    ids = batch["input_ids"]
+    x = model._embed(ids)
+    rope = model._rope_tables(torch.arange(ids.shape[1], device=x.device))
+    for n, blk in enumerate(model.blocks):
+        x = checkpointing.checkpoint(lambda h, blk=blk, n=n: model._block(h, blk, n, rope), x,
+                                     policy=policy)
+    with model._gathered(model) as top:
+        return model.loss_stage(top, x, batch)
+
+
+def train_activation_checkpointing(initialize, GPT2Model, cfg, accel, fa, ref_losses, batch):
+    """gpt2-760m's training phase with the DeepSpeed-Chat
+    ``activation_checkpointing`` block (and ``memory_breakdown`` and
+    ``dump_state``): its losses must be the plain phase's bit for bit (the
+    block asks for nothing a one-card run changes). Then a loop written
+    here calls ``checkpointing.checkpoint`` around each block of the port's
+    ``GPT2Model`` (bf16, 8 x 1024), with ``cpu_checkpointing`` off and then
+    on: step ms (forward and backward) and peak memory of each; the
+    gradients held to the model's own ``remat="full"`` loss at the bf16
+    limit (AC_GRAD_RTOL, relative L2); with ``cpu_checkpointing`` the kept
+    matmul outputs are pinned host tensors.
+    → the engine run's launches."""
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+
+    c = dataclasses.replace(cfg, remat=False)
+    label = f"train {TRAIN_MODEL} activation_checkpointing"
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    config = {**TRAIN_CONFIG, "activation_checkpointing": dict(AC_BLOCK),
+              "memory_breakdown": True, "dump_state": True, "steps_per_print": steps}
+    engine, *_ = initialize(model=GPT2Model(c), config=config)
+    losses, step_ms, peak_gb = _timed_steps(engine, batch, accel, (fa.KERNEL, fa.BWD_KERNEL))
+    launches = {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
+    expect = dict.fromkeys(launches, c.n_layer * TRAIN_STEPS)
+    if launches != expect or losses != ref_losses:
+        raise AssertionError(f"{label}: launches {launches} (expected {expect}), losses "
+                             f"{losses} against the plain phase's {ref_losses}")
+    emit(label, **_train_line(c, TRAIN_BATCH, TRAIN_SEQ, step_ms, accel),
+         activation_checkpointing=AC_BLOCK, memory_breakdown=True, dump_state=True,
+         configured=checkpointing.is_configured(), peak_mem_gb=peak_gb, losses=losses,
+         losses_bitwise_equal_to_plain_phase=True,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()})
+    del engine
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = GPT2Model(c).init_params(gen).to(torch.bfloat16)
+    full = GPT2Model(dataclasses.replace(c, remat="full"))
+    full.load_state_dict(model.state_dict(), assign=True)
+    _, want = _grads(full, batch)
+    del full
+    runs = {}
+    for cpu in (False, True):
+        checkpointing.configure(checkpoint_in_cpu=cpu)
+        times = []
+        for step in range(1 + AC_STEPS):
+            model.zero_grad(set_to_none=True)
+            if step == 1:
+                torch.cuda.synchronize()
+                accel.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = _hand_checkpointed_loss(model, batch, checkpointing)
+            loss.backward()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+        rel = {n: _rel_l2(got[n], want[n]) for n in want}
+        worst = max(rel, key=rel.get)
+        runs["cpu_checkpointing" if cpu else "recompute"] = dict(
+            loss=loss.item(), step_ms=sorted(times[1:])[AC_STEPS // 2], step_ms_each=times[1:],
+            peak_mem_gb=accel.max_memory_allocated() / 1e9, grad_rel_l2_max=rel[worst],
+            grad_rel_l2_worst=worst, grads_bitwise_equal_to_remat_full=all(
+                torch.equal(got[n], want[n]) for n in want))
+        if set(got) != set(want) or rel[worst] > AC_GRAD_RTOL:
+            raise AssertionError(f"{label} hand loop (cpu_checkpointing={cpu}): grad {worst} "
+                                 f"rel {rel[worst]} against remat full")
+    # where cpu_checkpointing keeps a block's matmul outputs
+    store = []
+    x = model._embed(batch["input_ids"]).detach().requires_grad_()
+    rope = model._rope_tables(torch.arange(TRAIN_SEQ, device="cuda"))
+    out = torch.utils.checkpoint.checkpoint(
+        lambda h: model._block(h, model.blocks[0], 0, rope), x, use_reentrant=False,
+        context_fn=lambda: checkpointing.offload_contexts(store))
+    if not store or not all(t.device.type == "cpu" and t.is_pinned() for t in store):
+        raise AssertionError(f"{label}: the kept matmul outputs are not pinned host tensors")
+    kept = {"tensors_per_block": len(store),
+            "bytes_per_block": sum(t.numel() * t.element_size() for t in store)}
+    checkpointing.configure()
+    emit(f"{label} hand loop", batch=TRAIN_BATCH, seq=TRAIN_SEQ, layers=c.n_layer,
+         timed_steps=AC_STEPS, step="forward and backward, no optimizer", **runs,
+         host_kept=kept, grad_rtol=AC_GRAD_RTOL)
+    del model, want, got, out, store
+    torch.cuda.empty_cache()
+    return launches
 
 
 def train_sparse_slice(initialize, GPT2Model, cfg, accel, fa):
@@ -1698,11 +1924,10 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.models.gpt2 import PRESETS, GPT2Model, synthetic_lm_batch
 from deepspeed_tpu_torch.ops.pallas import flash_attention as fa
-from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import wait_for_pending_saves
 
 parser = argparse.ArgumentParser()
 deepspeed_tpu_torch.add_config_arguments(parser)
-for name in ("model", "save_dir", "prefix"):
+for name in ("model", "prefix"):
     parser.add_argument("--" + name)
 for name in ("batch", "seq", "warmup", "steps", "seed"):
     parser.add_argument("--" + name, type=int)
@@ -1720,16 +1945,12 @@ for _ in range(args.steps):
     losses.append(float(engine.train_batch(batch)))
     step_ms.append((time.perf_counter() - t0) * 1e3)
 launches = {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
-t0 = time.perf_counter()
-engine.save_checkpoint(args.save_dir)
-wait_for_pending_saves()
-save_s = time.perf_counter() - t0
 seen = {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE",
                                       "CUDA_VISIBLE_DEVICES", "MASTER_ADDR", "MASTER_PORT")}
 print(args.prefix + json.dumps({
     "env": seen, "backend": comm.get_backend(), "world": comm.get_world_size(),
     "device": str(engine.device), "losses": losses, "step_ms_each": step_ms,
-    "launches": launches, "save_s": save_s,
+    "launches": launches,
     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
 comm.destroy_process_group()
 """
@@ -1768,17 +1989,17 @@ def launch_slice(cfg, zero1_losses, zero1_step_ms, tmp):
     deepspeed_tpu_torch.launcher.runner --num_gpus 1`` runs a user script
     (``add_config_arguments``, ``set_device(LOCAL_RANK)``, ``initialize``
     joining a NCCL group of one from the launcher's environment), which
-    takes TRAIN_WARMUP and TRAIN_STEPS steps and saves a tag. Held: exit 0,
-    the environment it saw, 24 launches of K1 and of each K2 entry per
-    step, and its losses within TRAIN_LOSS_RTOL of the in-process stage-1
-    run on the same batch. → (its launches, the save dir)."""
+    takes TRAIN_WARMUP and TRAIN_STEPS steps. Held: exit 0, the environment
+    it saw, 24 launches of K1 and of each K2 entry per step, and its losses
+    within TRAIN_LOSS_RTOL of the in-process stage-1 run on the same batch.
+    It saves no tag: ``serve gpt2-760m`` serves the resume phase's. → its
+    launches."""
     script = os.path.join(tmp, "train_gpt2.py")
     with open(script, "w") as f:
         f.write(LAUNCHED_SCRIPT)
     ds_config = os.path.join(tmp, "ds_config.json")
     with open(ds_config, "w") as f:
         json.dump(TRAIN_CONFIG, f)
-    save_dir = os.path.join(tmp, "launched_run")
     repo = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
@@ -1786,7 +2007,7 @@ def launch_slice(cfg, zero1_losses, zero1_step_ms, tmp):
            "--master_port", str(_free_port()), script, "--deepspeed_config", ds_config,
            "--model", TRAIN_MODEL, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
            "--warmup", str(TRAIN_WARMUP), "--steps", str(TRAIN_STEPS), "--seed", str(SEED),
-           "--save_dir", save_dir, "--prefix", LAUNCHED_PREFIX]
+           "--prefix", LAUNCHED_PREFIX]
     rc, out, err, wall_s = _run_launcher(cmd, env, LAUNCH_TIMEOUT_S)
     lines = [ln for ln in out.splitlines() if ln.startswith(LAUNCHED_PREFIX)]
     if rc != 0 or len(lines) != 1:
@@ -1817,9 +2038,8 @@ def launch_slice(cfg, zero1_losses, zero1_step_ms, tmp):
          step_ms=step_ms, step_ms_each=got["step_ms_each"],
          step_ms_in_process_zero1=zero1_step_ms,
          launches_per_step={k: v / TRAIN_STEPS for k, v in got["launches"].items()},
-         save_s=got["save_s"], peak_mem_gb=got["peak_mem_gb"], wall_s=wall_s,
-         tag_bytes=_tree_bytes(save_dir))
-    return got["launches"], save_dir
+         peak_mem_gb=got["peak_mem_gb"], wall_s=wall_s)
+    return got["launches"]
 
 
 def serve_tag_slice(init_inference, model_cls, cfg, accel, fa, da, save_dir, label):
@@ -1871,23 +2091,19 @@ def serve_tag_slice(init_inference, model_cls, cfg, accel, fa, da, save_dir, lab
     return launches
 
 
-def launch_and_serve_slices(init_inference, GPT2Model, cfg, accel, fa, da, zero1_losses,
-                            zero1_step_ms):
-    """Launch, train and save (``launch_slice``), then serve the tag
-    (``serve_tag_slice``), in a temporary directory on the disk with the
-    most room, removed afterwards. → (the launched run's launches, the
-    served run's)."""
+def launch_slices(cfg, zero1_losses, zero1_step_ms):
+    """Launch and train (``launch_slice``) with the user's script in a
+    temporary directory on the disk with the most room, removed
+    afterwards. → the launched run's launches."""
     root, _ = _scratch_dir()
     tmp = tempfile.mkdtemp(prefix="ds_launch_", dir=root)
     t0 = time.perf_counter()
     try:
-        launched, save_dir = launch_slice(cfg, zero1_losses, zero1_step_ms, tmp)
-        served = serve_tag_slice(init_inference, GPT2Model, cfg, accel, fa, da, save_dir,
-                                 f"serve {TRAIN_MODEL}")
+        launched = launch_slice(cfg, zero1_losses, zero1_step_ms, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    emit(f"launch and serve {TRAIN_MODEL} seconds", seconds=time.perf_counter() - t0)
-    return launched, served
+    emit(f"launch {TRAIN_MODEL} seconds", seconds=time.perf_counter() - t0)
+    return launched
 
 
 def check_head_dim_80(initialize, GPT2Model, cfg, fa):
@@ -2211,11 +2427,13 @@ def resume_ladder(initialize, GPT2Model, cfg, dataset, tmp):
     torch.cuda.empty_cache()
 
 
-def data_and_checkpoint_slices(initialize, GPT2Model, cfg, accel, fa):
+def data_and_checkpoint_slices(initialize, init_inference, GPT2Model, cfg, accel, fa, da):
     """The resume, curriculum and ladder phases over one token dataset in a
-    temporary directory on the disk with the most room, removed afterwards.
-    The resume phase runs ``RESUME_LAYERS`` layers, fewer where no candidate
-    holds DISK_MARGIN times the tag (the most layers that fit)."""
+    temporary directory on the disk with the most room, removed afterwards,
+    and ``serve gpt2-760m``: the resume phase's tag served
+    (``serve_tag_slice``). The resume phase runs ``RESUME_LAYERS`` layers,
+    fewer where no candidate holds DISK_MARGIN times the tag (the most
+    layers that fit). → (resume, curriculum, serving launches)."""
     need = lambda n: STATE_BYTES_PER_PARAM * dataclasses.replace(cfg, n_layer=n).num_params()
     root, free = _scratch_dir()
     layers = min(cfg.n_layer, RESUME_LAYERS)
@@ -2228,11 +2446,13 @@ def data_and_checkpoint_slices(initialize, GPT2Model, cfg, accel, fa):
         dataset = _token_dataset(tmp, cfg.vocab_size)
         c = dataclasses.replace(cfg, n_layer=layers)
         resume = resume_slice(initialize, GPT2Model, c, accel, fa, dataset, tmp)
+        served = serve_tag_slice(init_inference, GPT2Model, c, accel, fa, da,
+                                 os.path.join(tmp, "ckpt"), f"serve {TRAIN_MODEL}")
         curriculum = curriculum_slice(initialize, GPT2Model, cfg, fa, dataset)
         resume_ladder(initialize, GPT2Model, cfg, dataset, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return resume, curriculum
+    return resume, curriculum, served
 
 
 # ------------------------------------------------- offload and ZeRO-Infinity
@@ -2714,11 +2934,12 @@ def llama_train_slices(initialize, init_inference, LlamaModel, cfg, accel, fa, d
     """llama3.2-1b, the full preset (16 layers, d 2048, 32 query heads over
     8 KV heads, V 128256, tied, llama3 rope scaling, remat "full"), B=4 x
     T=2048, through initialize → train_batch with the training recipe:
-    ZeRO stage 1 (its tag saved), stage 3, and stage 3 with the optimizer
-    state and the params in pinned host memory from a ``zero.Init`` build
-    (the fp32 master on the host too); the stage-3 and offloaded losses
-    held to stage 1's. Then the 2-layer kernel-vs-plain checks, and the tag
-    served through ``init_inference(config={"checkpoint": ...})``. →
+    ZeRO stage 1, stage 3, and stage 3 with the optimizer state and the
+    params in pinned host memory from a ``zero.Init`` build (the fp32 master
+    on the host too); the stage-3 and offloaded losses held to stage 1's.
+    Then the 2-layer kernel-vs-plain checks, and a stage-1 tag of the
+    preset at LLAMA_TAG_LAYERS layers saved, served through
+    ``init_inference(config={"checkpoint": ...})`` and consolidated. →
     launches by path."""
     import gc
 
@@ -2739,13 +2960,6 @@ def llama_train_slices(initialize, init_inference, LlamaModel, cfg, accel, fa, d
             fa, label)
         emit(label, **line)
         emit(f"profile {label}", step=device_profile(lambda: engine.train_batch(batch), top=12))
-        save_dir = os.path.join(tmp, "tag")
-        t0 = time.perf_counter()
-        engine.save_checkpoint(save_dir)
-        blocking = time.perf_counter() - t0
-        wait_for_pending_saves()
-        emit(f"save {MODEL}", blocking_s=blocking, commit_s=time.perf_counter() - t0,
-             tag_bytes=_tree_bytes(save_dir), dir=root, free_bytes=free[root])
         del engine
         gc.collect()
         torch.cuda.empty_cache()
@@ -2797,9 +3011,28 @@ def llama_train_slices(initialize, init_inference, LlamaModel, cfg, accel, fa, d
         train_check_bf16(LlamaModel, small, batch, MODEL, _dense_plain)
         train_check_fp32(initialize, LlamaModel, c, MODEL, LLAMA_SEQ, {}, _dense_plain)
 
-        launches["serve_llama_tag"] = serve_tag_slice(init_inference, LlamaModel, c, accel, fa,
-                                                      da, save_dir, f"serve {MODEL} from its tag")
-        consolidate_llama_tag(save_dir, c)
+        # the tag: the same recipe at LLAMA_TAG_LAYERS of the 16 layers (full
+        # width), served and consolidated; the script's time limit stays
+        # while it grows, and the save, the load and the HF layout are the
+        # same per layer at 4 layers as at 16
+        tc = dataclasses.replace(c, n_layer=LLAMA_TAG_LAYERS)
+        engine = initialize(model=LlamaModel(tc), config=dict(config))[0]
+        tag_losses = [float(engine.train_batch(batch)) for _ in range(TRAIN_WARMUP)]
+        save_dir = os.path.join(tmp, "tag")
+        t0 = time.perf_counter()
+        engine.save_checkpoint(save_dir)
+        blocking = time.perf_counter() - t0
+        wait_for_pending_saves()
+        emit(f"save {MODEL}", layers=tc.n_layer, losses=tag_losses, blocking_s=blocking,
+             commit_s=time.perf_counter() - t0, tag_bytes=_tree_bytes(save_dir), dir=root,
+             free_bytes=free[root])
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches["serve_llama_tag"] = serve_tag_slice(init_inference, LlamaModel, tc, accel,
+                                                      fa, da, save_dir,
+                                                      f"serve {MODEL} from its tag")
+        consolidate_llama_tag(save_dir, tc)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -2912,7 +3145,8 @@ def moe_train_slices(initialize, init_inference, MoECls, cfg, accel, fa, da):
     T=1024, through initialize → train_batch with the training recipe at
     ZeRO stage 1 (its routing, a profile, its tag saved) and at stage 3
     over a NCCL group of one (held to stage 1's losses); the 2-layer
-    kernel-vs-plain checks; the tag served through
+    kernel-vs-plain checks; the switches of one card
+    (``moe_switch_slices``); the tag served through
     ``init_inference(config={"checkpoint": ...})``. → launches by path."""
     import gc
 
@@ -2977,6 +3211,7 @@ def moe_train_slices(initialize, init_inference, MoECls, cfg, accel, fa, da):
         small = dataclasses.replace(c, n_layer=2, remat=False)
         train_check_bf16(MoECls, small, batch, MOE_MODEL, _dense_plain)
         train_check_fp32(initialize, MoECls, c, MOE_MODEL, MOE_SEQ, {}, _dense_plain)
+        launches.update(moe_switch_slices(initialize, MoECls, c, batch, ref, accel, fa))
 
         launches["serve_moe_tag"] = serve_tag_slice(init_inference, MoECls, c, accel, fa, da,
                                                     save_dir, f"serve {MOE_MODEL} from its tag")
@@ -2984,6 +3219,88 @@ def moe_train_slices(initialize, init_inference, MoECls, cfg, accel, fa, da):
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
 
+
+def moe_switch_slices(initialize, MoECls, c, batch, ref, accel, fa):
+    """gpt2-moe-125m under the switches of one card, each with the training
+    recipe at MOE_BATCH x MOE_SEQ: ``offload_optimizer`` cpu at stage 2,
+    and a ``zero.Init`` build at stage 3 (the expert banks placed and
+    updated as the dense units), their losses held to the stage-1 run's
+    ``ref`` at TRAIN_LOSS_RTOL as the dense offload phases are; then
+    ``sparse_attention`` (SPARSE_BLOCK) at the registry widths: each step
+    launches K4a twice (remat per pair) and K4b and K4c once per layer and
+    no dense kernel, and one pair (a dense block and a MoE half-block) is
+    held to the plain path in bf16 and fp32. → launches by path."""
+    import gc
+
+    from deepspeed_tpu_torch.runtime import zero
+
+    launches = {}
+    label = f"train {MOE_MODEL} offloaded"
+    offload = {**MOE_CONFIG, "zero_optimization": {"stage": 2,
+                                                   "offload_optimizer": {"device": "cpu"}}}
+    engine, losses, launches["train_moe_offload"], line = _remat_run(
+        lambda: initialize(model=MoECls(c), config=offload)[0], c, batch, accel, fa, label)
+    off = engine._offload
+    emit(label, **line, zero=offload["zero_optimization"],
+         policy={"master_on_host": off.master_host, "streamed": off.streamed},
+         host_state_gb=_host_state_bytes(engine) / 1e9,
+         h2d_gb_per_update=off.h2d_bytes / 1e9, d2h_gb_per_update=off.d2h_bytes / 1e9,
+         **_held_to(losses, ref, label))
+    del engine, off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    label = f"train {MOE_MODEL} zero.Init"
+    zero3 = {**MOE_CONFIG, "zero_optimization": {"stage": 3}}
+
+    def build():
+        model = MoECls(c)
+        with zero.Init(config=zero3):
+            zero.materialize(model, torch.Generator(device="cuda").manual_seed(SEED))
+        return initialize(model=model, config=zero3)[0]
+
+    engine, losses, launches["train_moe_zero_init"], line = _remat_run(
+        build, c, batch, accel, fa, label)
+    emit(label, **line, zero_stage=3, units=len(engine._plan.units),
+         stage3_gathers_per_step=engine._zero.gathers / (TRAIN_WARMUP + TRAIN_STEPS),
+         **_held_to(losses, ref, label))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    label = f"train {MOE_MODEL} sparse-fixed16"
+    model = MoECls(c)
+    engine, *_ = initialize(model=model, config={**MOE_CONFIG,
+                                                 "sparse_attention": dict(SPARSE_BLOCK)})
+    if model.config.sparse_attention != SPARSE_BLOCK:
+        raise AssertionError(f"initialize did not carry the block: {model.config.sparse_attention}")
+    losses, step_ms, peak_gb = _timed_steps(engine, batch, accel,
+                                            (fa.KERNEL, fa.BWD_KERNEL, fa.SPARSE_KERNEL))
+    sparse = {**fa.SPARSE_KERNEL.entry_launches, "flash_attention_fwd": fa.KERNEL.launches,
+              "flash_attention_bwd": fa.BWD_KERNEL.launches}
+    per = c.n_layer * TRAIN_STEPS
+    expect = {"sparse_attention_fwd": 2 * per if c.remat in (True, "full") else per,
+              "sparse_attention_bwd_dq": per, "sparse_attention_bwd_dkv": per,
+              "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    if sparse != expect:
+        raise AssertionError(f"{label}: launch counts {sparse} over {TRAIN_STEPS} steps, "
+                             f"expected {expect}")
+    emit(label, **_train_line(c, MOE_BATCH, MOE_SEQ, step_ms, accel), remat=c.remat,
+         sparse_attention=SPARSE_BLOCK, experts=model.num_experts, peak_mem_gb=peak_gb,
+         losses=losses, launches_per_step={k: v / TRAIN_STEPS for k, v in sparse.items()},
+         grad_norm=engine.get_global_grad_norm())
+    launches["train_moe_sparse"] = sparse
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    block = dict(SPARSE_BLOCK)
+    sparse_plain = lambda m: _sparse_plain(fa, m, block, MOE_SEQ)
+    train_check_bf16(MoECls, dataclasses.replace(c, n_layer=2, remat=False,
+                                                 sparse_attention=block),
+                     batch, f"{MOE_MODEL} sparse-fixed16", sparse_plain)
+    train_check_fp32(initialize, MoECls, c, f"{MOE_MODEL} sparse-fixed16", MOE_SEQ,
+                     {"sparse_attention": dict(block)}, sparse_plain)
+    return launches
 
 
 # --------------------------------------------------------- stable diffusion
@@ -4247,27 +4564,38 @@ def main() -> int:
     from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config
     sparse_rows = [check_sparse(fa, accel, gen, *case)
                    for case in sparse_cases(fa, sparsity_config)]
+    # gpt2-moe-125m's sparse training shape: 12 x 1024, 12 heads of 64, the
+    # same fixed layout
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention
+    moe_sparse_row = check_sparse(fa, accel, gen, "moe_train_fixed16", MOE_BATCH * 12, MOE_SEQ,
+                                  64, bf, sparse_self_attention(SPARSE_BLOCK, 12)
+                                  .get_layout(MOE_SEQ), True)
 
     model_cls, presets = resolve_family(MODEL)
     serve_launches = serve_slice(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL],
                                  accel, fa, da)
+    # weight-quantized serving of the same model: int8, then int4
+    quant_launches = {f"serve_int{bits}": serve_quantized(
+        deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL], accel, fa, da, bits)
+        for bits in (8, 4)}
     serve_small_fp32(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL])
     serve_small_fp16(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL], fa, da)
     serve_sampled(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL], da)
     serve_long(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL], fa, da)
 
     gpt2_cls, gpt2_presets = resolve_family(TRAIN_MODEL)
-    train_launches, batch = train_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
-                                        gpt2_presets[TRAIN_MODEL], accel, fa)
+    train_launches, batch, train_losses = train_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
+                                                      gpt2_presets[TRAIN_MODEL], accel, fa)
+    ac_launches = train_activation_checkpointing(deepspeed_tpu_torch.initialize, gpt2_cls,
+                                                 gpt2_presets[TRAIN_MODEL], accel, fa,
+                                                 train_losses, batch)
     train_check_bf16(gpt2_cls, dataclasses.replace(gpt2_presets[TRAIN_MODEL], remat=False),
                      batch, TRAIN_MODEL, _dense_plain)
     train_check_fp32(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL],
                      TRAIN_MODEL, TRAIN_SEQ, {}, _dense_plain)
     zero_launches, zero_losses, zero_step_ms = zero_slice(
         deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa)
-    launch_launches, serve_gpt2_launches = launch_and_serve_slices(
-        deepspeed_tpu_torch.init_inference, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa, da,
-        zero_losses[1], zero_step_ms[1])
+    launch_launches = launch_slices(gpt2_presets[TRAIN_MODEL], zero_losses[1], zero_step_ms[1])
 
     sparse_cfg = gpt2_presets[SPARSE_MODEL]
     sparse_launches, batch = train_sparse_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
@@ -4282,8 +4610,9 @@ def main() -> int:
                      f"{SPARSE_MODEL} sparse-fixed16", SPARSE_SEQ,
                      {"sparse_attention": dict(SPARSE_BLOCK)}, sparse_plain)
     check_head_dim_80(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets["gpt2-2.7b"], fa)
-    resume_launches, curriculum_launches = data_and_checkpoint_slices(
-        deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa)
+    resume_launches, curriculum_launches, serve_gpt2_launches = data_and_checkpoint_slices(
+        deepspeed_tpu_torch.initialize, deepspeed_tpu_torch.init_inference, gpt2_cls,
+        gpt2_presets[TRAIN_MODEL], accel, fa, da)
     offload_launches = offload_slices(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets,
                                       accel, fa)
     # launches per offload path: the five gpt2-2.7b runs, gpt2-6.7b, the NVMe runs
@@ -4301,6 +4630,7 @@ def main() -> int:
     model_launches.update(moe_train_slices(deepspeed_tpu_torch.initialize,
                                            deepspeed_tpu_torch.init_inference, moe_cls,
                                            moe_presets[MOE_MODEL], accel, fa, da))
+    moe_sparse_launches = model_launches.pop("train_moe_sparse")
     served = ("serve_llama_tag", "serve_moe_tag")
     trained = {p: n for p, n in model_launches.items() if p not in served}
     # SD-1.5 served at full width: CLIP, the UNet and the VAE
@@ -4329,7 +4659,11 @@ def main() -> int:
          **{k: flash_rows[0][k] for k in keys},
          "launches_by_path": {"serve": serve_launches["flash_attention_fwd"],
                               "serve_gpt2": serve_gpt2_launches["flash_attention_fwd"],
+                              **{p: n["flash_attention_fwd"]
+                                 for p, n in quant_launches.items()},
                               "train": train_launches["flash_attention_fwd"],
+                              "train_activation_checkpointing":
+                                  ac_launches["flash_attention_fwd"],
                               "launch": launch_launches["flash_attention_fwd"],
                               "resume": resume_launches["flash_attention_fwd"],
                               "curriculum": curriculum_launches["flash_attention_fwd"],
@@ -4351,6 +4685,7 @@ def main() -> int:
          "launches": serve_launches["decode_attention"],
          **{k: decode_rows[0][k] for k in keys},
          "launches_by_path": {"serve": serve_launches["decode_attention"],
+                              **{p: n["decode_attention"] for p, n in quant_launches.items()},
                               "serve_gpt2": serve_gpt2_launches["decode_attention"],
                               **{p: model_launches[p]["decode_attention"] for p in served},
                               **{p: n["decode_attention"] for p, n in variant_served.items()},
@@ -4367,7 +4702,8 @@ def main() -> int:
             "source": "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu", "replaces": replaces,
             "launches": train_launches[f"flash_attention_bwd_{entry}"],
             "launches_by_path": {p: n[f"flash_attention_bwd_{entry}"] for p, n in (
-                ("train", train_launches), ("launch", launch_launches),
+                ("train", train_launches), ("train_activation_checkpointing", ac_launches),
+                ("launch", launch_launches),
                 ("resume", resume_launches),
                 ("curriculum", curriculum_launches),
                 *((f"zero{s}", z) for s, z in zero_launches.items()),
@@ -4395,6 +4731,15 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu", "replaces": replaces,
             "launches": sparse_launches[name], "max_abs_err": err,
+            "launches_by_path": {"train": sparse_launches[name],
+                                 "train_moe_sparse": moe_sparse_launches[name]},
+            "at_moe_shape": {
+                "max_abs_err": moe_sparse_row["max_abs_err"] if entry == "fwd" else max(
+                    moe_sparse_row["grad_errs"][g] for g in (("dq",) if entry == "dq"
+                                                             else ("dk", "dv"))),
+                **{k: moe_sparse_row[f"{entry}_{k}"]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": moe_sparse_row["fwd_library_ms"] if entry == "fwd" else None},
             "ms": sp[f"{entry}_ms"], "plain_ms": sp[f"{entry}_plain_ms"],
             "bound_ms": sp[f"{entry}_bound_ms"], "bound_by": sp[f"{entry}_bound_by"],
             # SDPA under the layout's token mask computes the forward; no

@@ -78,8 +78,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         from deepspeed_tpu_torch.runtime.zero.infinity import ZeroInfinityEngine
 
         if hasattr(model, "expert_module_names"):
-            raise NotImplementedError("ZeRO-Infinity (offload_param nvme) of a MoE model: "
-                                      "later slice of the port")
+            # the JAX ZeroInfinityEngine takes any GPT2Model subclass and
+            # walks only its dense stacked blocks, never a MoE expert bank;
+            # the port refuses rather than copy that
+            raise NotImplementedError("ZeRO-Infinity (offload_param nvme) of a MoE model: the "
+                                      "layerwise engine walks only the dense blocks and would "
+                                      "never load or update the expert banks")
         if optimizer is not None or lr_scheduler is not None:
             raise ValueError("offload_param=nvme (layerwise ZeRO-Infinity) builds its own "
                              "NVMe-swapped optimizer; pass optimizer/scheduler via ds_config, "

@@ -9,9 +9,15 @@ keys and aliases (``kernel_inject``, ``tp``, ``tm``, ``max_tokens``,
 "Megatron" | "Megatron-MoE", "n_head": N}`` it is a Megatron-DeepSpeed
 layer-file directory, which ``init_inference`` reads (``megatron_type``). The
 ``moe`` block is read with ``ep_size`` 1 (a MoE model served in one
-process). Blocks this slice does not serve yet (tensor parallelism, expert
-parallelism, weight quantization, injection policies) raise
-``NotImplementedError`` rather than being ignored. ``enable_cuda_graph`` is
+process). ``dtype`` int8 is weight-only quantized serving: the compute runs
+in bf16, and with ``quant.enabled`` and ``quant.weight.enabled`` the
+engine stores the eligible weights as int8 or int4 codes with group scales
+(``quant.weight``: ``num_bits``, ``q_type``, ``q_groups``,
+``quantized_initialization.min_numel``); the ``quant`` block's
+``activation`` and ``qkv`` parts parse and change nothing, as in JAX.
+Blocks this slice does not serve yet (tensor parallelism, expert
+parallelism, injection policies) raise ``NotImplementedError`` rather than
+being ignored. ``enable_cuda_graph`` is
 accepted, as the JAX package accepts it: the engine runs the decode loop as
 one captured CUDA graph on the card whatever the key says, as the JAX engine
 always compiles it into one program.
@@ -66,6 +72,38 @@ class DeepSpeedMoEConfig(DeepSpeedConfigModel):
 
 
 @dataclasses.dataclass
+class BaseQuantConfig(DeepSpeedConfigModel):
+    enabled: bool = True
+    num_bits: int = 8
+    q_type: str = "symmetric"          # or "asymmetric"
+    q_groups: int = 1
+
+
+@dataclasses.dataclass
+class WeightQuantConfig(BaseQuantConfig):
+    quantized_initialization: dict = field(default_factory=dict)
+    post_init_quant: dict = field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class ActivationQuantConfig(BaseQuantConfig):
+    pass
+
+
+@dataclasses.dataclass
+class QKVQuantConfig(DeepSpeedConfigModel):
+    enabled: bool = True
+
+
+@dataclasses.dataclass
+class QuantizationConfig(DeepSpeedConfigModel):
+    enabled: bool = True
+    activation: ActivationQuantConfig = field(default_factory=ActivationQuantConfig)
+    weight: WeightQuantConfig = field(default_factory=WeightQuantConfig)
+    qkv: QKVQuantConfig = field(default_factory=QKVQuantConfig)
+
+
+@dataclasses.dataclass
 class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     replace_with_kernel_inject: bool = field(default=False, metadata={"alias": "kernel_inject"})
     dtype: str = "bfloat16"
@@ -76,7 +114,7 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     zero: dict = field(default_factory=dict)
     triangular_masking: bool = field(default=True, metadata={"alias": "tm"})
     moe: DeepSpeedMoEConfig = field(default_factory=DeepSpeedMoEConfig)
-    quant: dict = field(default_factory=dict)
+    quant: QuantizationConfig = field(default_factory=QuantizationConfig)
     checkpoint: Optional[str] = None
     base_dir: str = ""
     set_empty_params: bool = False
@@ -97,7 +135,7 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
         if self.mp_size != 1:
             logger.warning("Config parameter mp_size is deprecated. Use tensor_parallel instead.")
             self.tensor_parallel = DeepSpeedTPConfig(tp_size=self.mp_size)
-        for key in ("quant", "injection_policy", "injection_policy_tuple"):
+        for key in ("injection_policy", "injection_policy_tuple"):
             if getattr(self, key):
                 raise _later(f"inference config {key!r}")
         self.torch_dtype()
@@ -119,10 +157,16 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
     def tp_size(self) -> int:
         return self.tensor_parallel.tp_size
 
+    @property
+    def quantize_weights(self) -> bool:
+        """``dtype`` int8: weight-only quantized serving."""
+        return str(self.dtype).replace("torch.", "") == "int8"
+
     def torch_dtype(self) -> torch.dtype:
+        """The compute type: bf16 for ``dtype`` int8."""
         name = str(self.dtype).replace("torch.", "")
         if name == "int8":
-            raise _later("int8 weight-quantized serving")
+            return torch.bfloat16
         if name not in _DTYPES:
             raise ValueError(f"dtype {self.dtype!r} not one of {sorted(_DTYPES)}")
         return _DTYPES[name]

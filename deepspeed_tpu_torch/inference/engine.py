@@ -34,8 +34,20 @@ the config's ``checkpoint`` (``load_inference_params``: only the tag's
 params, in the serving dtype, on the device), else seed-0 random weights.
 A MoE model (``MoEGPT2``) serves in one process, every expert on the
 card (``ep_world_size`` 1): its gates route each call's tokens alone, with
-the eval capacity factor. This slice has no tensor or expert parallelism,
-weight quantization or telemetry-observed path; the config rejects those.
+the eval capacity factor. This slice has no tensor or expert parallelism
+or telemetry-observed path; the config rejects those.
+
+Weight-only quantized serving (``dtype`` int8, as in JAX): the compute runs
+in bf16, and with ``quant.enabled`` and ``quant.weight.enabled`` each
+eligible weight (``ops/quantizer.py`` ``quantize_params``: 2-D and larger,
+not an embedding, norm or bias) is replaced by a ``QuantizedTensor`` of
+int8 or int4 codes and its parameter left on ``meta``. The model computes
+through ``GatheredModule._gathered`` (``models/common.py``), so the engine
+sets its ``param_gatherer`` to a :class:`DequantGatherer`: a module's
+quantized weights are dequantized when it reads them, just before use, into
+transient tensors that go when the module is done; the whole model is
+never dequantized at once. The graphed decode loop captures the dequant
+with the rest of the step.
 """
 
 from __future__ import annotations
@@ -50,7 +62,9 @@ import torch
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.ops import op_builder
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.ops.quantizer import (QuantizedTensor, dequantize_tensor,
+                                               quantize_params, quantized_nbytes)
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 DECODE_LOOPS_KEPT = 4
 
@@ -222,6 +236,49 @@ class DecodeLoop:
         return self.tokens.clone()
 
 
+class _Dequantized:
+    """A module's own parameters to compute with: a quantized weight
+    dequantized at its first read (then kept until the module is done),
+    every other parameter the module's own."""
+
+    def __init__(self, module, quantized: Mapping[str, QuantizedTensor], dtype: torch.dtype):
+        self._module, self._quantized, self._dtype = module, quantized, dtype
+
+    def __getattr__(self, name):
+        leaf = self._quantized.get(name)
+        if leaf is None:
+            return getattr(self._module, name)
+        value = dequantize_tensor(leaf, self._dtype)
+        setattr(self, name, value)
+        return value
+
+
+class DequantGatherer:
+    """The ``param_gatherer`` of a weight-quantized model: ``gather(module)``
+    gives the module's parameters with its quantized ones dequantized into
+    ``dtype`` as they are read, and ``release`` drops those tensors with
+    the view. ``quantized``: the model's state dict names of the quantized
+    weights → their ``QuantizedTensor``."""
+
+    def __init__(self, model: torch.nn.Module, quantized: Mapping[str, QuantizedTensor],
+                 dtype: torch.dtype):
+        self.dtype = dtype
+        self._owned = {}
+        for mname, module in model.named_modules():
+            prefix = f"{mname}." if mname else ""
+            own = {leaf: quantized[prefix + leaf] for leaf in module._parameters
+                   if prefix + leaf in quantized}
+            if own:
+                self._owned[id(module)] = own
+
+    def gather(self, module):
+        own = self._owned.get(id(module))
+        return module if own is None else _Dequantized(module, own, self.dtype)
+
+    def release(self, module) -> None:
+        return None
+
+
 class InferenceEngine:
     def __init__(self, model, config: Optional[DeepSpeedInferenceConfig] = None,
                  params: Optional[Mapping[str, Any]] = None, device=None):
@@ -252,11 +309,57 @@ class InferenceEngine:
         # every float param, norm gains included, in the serving dtype
         model.to(device=self.device, dtype=self.dtype)
         model.eval()
+        self.quantized = {}
+        if self._config.quantize_weights:
+            self._quantize(model)
         # decode loops by generate key, as the JAX engine keeps its programs;
         # the DECODE_LOOPS_KEPT most recently used
         self._decode_loops: OrderedDict = OrderedDict()
         log_dist(f"InferenceEngine ready: dtype={self.dtype}, device={self.device}",
                  ranks=[0])
+
+    def _quantize(self, model) -> None:
+        """``dtype`` int8: the eligible weights replaced by their quantized
+        codes (``quant.weight``), as the JAX engine does; with quantization
+        disabled the bf16 weights are served as they are."""
+        wq = self._config.quant.weight
+        if not (self._config.quant.enabled and wq.enabled):
+            log_dist("dtype int8 but quant.weight disabled: serving bf16 weights unquantized",
+                     ranks=[0])
+            return
+        if not hasattr(model, "param_gatherer"):
+            raise NotImplementedError(
+                f"weight-quantized serving of {type(model).__name__}: the model must compute "
+                "through its modules' parameters (param_gatherer, as models/common.py "
+                "GatheredModule does)")
+        bits = wq.num_bits if wq.num_bits in (4, 8) else 8
+        if bits != wq.num_bits:
+            logger.warning(f"quant.weight.num_bits={wq.num_bits} unsupported; using {bits}")
+        params = dict(model.named_parameters())
+        before = sum(p.numel() * p.element_size() for p in params.values())
+        with torch.no_grad():
+            tree = quantize_params(params, num_bits=bits, symmetric=wq.q_type != "asymmetric",
+                                   q_groups=wq.q_groups if wq.q_groups > 1 else None,
+                                   min_numel=int(wq.quantized_initialization.get(
+                                       "min_numel", 1 << 16)))
+        self.quantized = {n: q for n, q in tree.items() if isinstance(q, QuantizedTensor)}
+        for name in self.quantized:
+            mname, _, leaf = name.rpartition(".")
+            owner = model.get_submodule(mname) if mname else model
+            old = owner._parameters[leaf]
+            owner._parameters[leaf] = torch.nn.Parameter(
+                torch.empty(old.shape, dtype=old.dtype, device="meta"), requires_grad=False)
+        model.param_gatherer = DequantGatherer(model, self.quantized, self.dtype)
+        log_dist(f"weight quantization: {before / 1e6:.1f}MB -> "
+                 f"{quantized_nbytes(tree) / 1e6:.1f}MB (int{bits})", ranks=[0])
+
+    def weight_nbytes(self) -> int:
+        """The bytes of the weights the engine holds: the model's
+        parameters (those not on ``meta``) and the quantized codes and
+        scales."""
+        held = sum(p.numel() * p.element_size() for p in self.module.parameters()
+                   if not p.is_meta)
+        return held + sum(q.nbytes for q in self.quantized.values())
 
     def _ids(self, input_ids) -> torch.Tensor:
         if not torch.is_tensor(input_ids):

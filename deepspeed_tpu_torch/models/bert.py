@@ -22,8 +22,8 @@ again for the head. There is no KV cache: an encoder does not generate.
 ``remat`` is off, "full", "dots" or "attn" (``models/common.py``
 ``remat_call``). ``loss`` takes progressive layer drop's ``pld_theta`` and
 the engine's ``generator``: the layers' gates are drawn before the layer
-loop, as GPT-2's. ``flash_block`` (the TPU kernel's tile) raises
-``NotImplementedError``.
+loop, as GPT-2's. ``flash_block`` (the TPU kernel's tile) is accepted and
+changes nothing, as in port GPT-2: the CUDA kernels use fixed tiles.
 """
 
 from __future__ import annotations
@@ -69,10 +69,6 @@ def gathered_positions(mask, maxp: int):
     return order.indices[:, :maxp], order.values[:, :maxp].bool()
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: later slice of the port")
-
-
 @dataclasses.dataclass
 class BertConfig:
     vocab_size: int = 30522
@@ -115,9 +111,6 @@ class BertConfig:
             raise ValueError(f"activation {self.activation!r} unknown")
         if self.remat not in self.VALID_REMAT:
             raise ValueError(f"remat={self.remat!r} not in {self.VALID_REMAT}")
-        # what this slice of the port does not carry raises, never silently
-        if self.flash_block is not None:
-            raise _later("BERT flash_block")
 
     @property
     def head_dim(self) -> int:

@@ -7,8 +7,14 @@ dense ``fc_*`` weights, as in JAX: no gradient reaches them, and AdamW
 still decays them.
 
 The layer walk is the JAX one over *pairs*: the dense block, then the odd
-block's attention and its MoE MLP. ``remat`` applies its policy per pair
-(``models/common.py`` ``remat_call``), as the JAX model does; the gate's
+block's attention and its MoE MLP. With ``sparse_attention`` both halves
+of a pair attend through ``SparseSelfAttention`` (GPT-2's ``_attention``),
+as the JAX ``_attn_sublayer`` does; prefill and decode stay dense, and a
+sparse model is not served (GPT-2's ``init_cache`` raises), as in JAX.
+A config with ``dropout`` raises: the JAX trunk passes no rng to its
+blocks and so trains such a config without dropout. ``remat`` applies its
+policy per pair (``models/common.py`` ``remat_call``), as the JAX model
+does; the gate's
 random draws (top-2's second keep, ``RSample``) are made before the pair,
 so a recompute routes as the forward did. The aux loss is the mean of the pairs' ``l_aux``, and
 ``loss`` adds ``aux_loss_coef`` times it to the chunked cross entropy.
@@ -57,10 +63,14 @@ class MoEGPT2(GPT2Model):
         if config.attention_layers and "local" in config.attention_layers:
             raise NotImplementedError("MoEGPT2 does not implement GPT-Neo local attention "
                                       "layers")
-        if config.sparse_attention is not None:
-            raise NotImplementedError("MoEGPT2 with sparse_attention: later slice of the port")
         if config.dropout:
-            raise NotImplementedError("MoEGPT2 with dropout: later slice of the port")
+            # the JAX _moe_trunk passes rng=None to every dense block, so a
+            # dropout config trains there with no dropout at all; the port
+            # does not copy that silent drop
+            raise NotImplementedError(
+                "MoEGPT2 with dropout: the reference MoE trunk silently trains without "
+                "dropout (it passes no rng to its blocks), and the port refuses it rather "
+                "than copy that")
         if config.n_layer % 2:
             raise ValueError(f"MoEGPT2 pairs a dense block with a MoE block: n_layer "
                              f"{config.n_layer} must be even")

@@ -8,16 +8,25 @@ is resolved and validated centrally with the reference's rules and errors.
 
 The port reads ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``zero_optimization``, ``aio``, ``comms_logger``, ``data_types``,
-``sparse_attention``, ``checkpoint``, ``resilience``, ``data_efficiency``,
-``curriculum_learning``, ``dataloader_drop_last``, ``progressive_layer_drop``,
-``steps_per_print``, ``wall_clock_breakdown``, ``seed``, the ``tpu`` block's
-``data`` and ``expert`` axes, and the batch keys.
+``sparse_attention``, ``checkpoint``, ``resilience``, ``data_efficiency``
+(random-LTD's ``data_routing`` included: accepted, and applied to no model,
+as in JAX), ``curriculum_learning``, ``dataloader_drop_last``,
+``progressive_layer_drop``, ``activation_checkpointing``, ``memory_breakdown``,
+``dump_state``, ``steps_per_print``, ``wall_clock_breakdown``, ``seed``, the
+``tpu`` block's ``data`` and ``expert`` axes, and the batch keys.
+
+The JAX package's advisory keys (its ``ADVISORY_NOOP_KEYS``) are the
+reference's knobs that change nothing there. Here each has the reason that
+is true of the port on CUDA: :data:`ADVISORY_NOOP_KEYS` are accepted at any
+value, and :data:`ADVISORY_REFUSED_KEYS` only at the value that asks for
+nothing (another raises ``ValueError`` with the reason and the knob to use).
+The engine logs every one a config sets.
+
 Every other top-level key the JAX package knows raises
 ``NotImplementedError`` naming it when present, rather than being ignored,
 and so do the parts of a read block that belong to a later slice
-(``resilience.sentinel``, an enabled ``resilience.chaos``, random-LTD's
-``data_efficiency.data_routing``); a key neither package knows is rejected
-with a did-you-mean hint.
+(``resilience.sentinel``, an enabled ``resilience.chaos``); a key neither
+package knows is rejected with a did-you-mean hint.
 """
 
 from __future__ import annotations
@@ -40,24 +49,84 @@ SUPPORTED_KEYS = frozenset({
     "scheduler", "gradient_clipping", "sparse_attention", "steps_per_print",
     "wall_clock_breakdown", "seed", "checkpoint", "resilience", "data_efficiency",
     "curriculum_learning", "dataloader_drop_last", "progressive_layer_drop", "tpu",
+    "activation_checkpointing", "memory_breakdown", "dump_state",
     "train_batch_size", "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
 
-# the other top-level keys the JAX package accepts (its KNOWN_TOP_LEVEL_KEYS
-# and ADVISORY_NOOP_KEYS): each is a later slice of the port
+# the other top-level keys the JAX package accepts (its KNOWN_TOP_LEVEL_KEYS):
+# each is a later slice of the port
 LATER_KEYS = frozenset({
-    "flops_profiler", "activation_checkpointing", "tensorboard", "wandb",
+    "flops_profiler", "tensorboard", "wandb",
     "csv_monitor", "pipeline", "elasticity", "hybrid_engine",
     "gradient_compression", "compression_training",
     "autotuning", "rewind", "watchdog", "analysis", "telemetry", "profiling",
     "perf", "serving", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
-    "memory_breakdown", "dump_state", "eigenvalue",
-    "sparse_gradients", "prescale_gradients", "gradient_predivide_factor",
-    "disable_allgather", "graph_harvesting", "use_data_before_expert_parallel",
-    "communication_data_type", "nebula", "zero_allow_untested_optimizer",
-    "zero_force_ds_cpu_optimizer", "timers",
+    "eigenvalue",
 })
+
+# The JAX package's advisory keys that the port accepts at any value, each
+# with why it changes nothing here (the engine logs the reason).
+ADVISORY_NOOP_KEYS = {
+    "sparse_gradients":
+        "the port's embedding gradients are dense tensors: the lookup's backward "
+        "scatter-adds into the embedding's dense gradient (models/gpt2.py:287 "
+        "embed_stage, models/llama.py:223 _embed), which joins its ZeRO unit's flat "
+        "buffer and is reduced with the rest (runtime/zero/state.py:292 grad_hook); a "
+        "sparse reduction would carry the same values",
+    "prescale_gradients":
+        "every gradient reduction is ReduceOp.AVG in data_types.grad_accum_dtype, fp32 "
+        "unless set (runtime/zero/state.py:337 and :370), and NCCL runs a floating-point "
+        "average as a sum of each rank's gradient pre-multiplied by 1/world: the "
+        "gradients are always prescaled",
+    "nebula":
+        "the port's checkpoint engine already saves asynchronously: save_checkpoint "
+        "blocks only for the copy to host memory and a background thread writes and "
+        "commits the tag (checkpoint.async_save, runtime/checkpoint_engine/engine.py:480); "
+        "nebula's tiers and storage paths have no counterpart",
+    "zero_allow_untested_optimizer":
+        "a client optimizer is a deepspeed_tpu_torch.ops.optimizers.Optimizer, which "
+        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:454 "
+        "_configure_optimizer): there is no untested-optimizer gate to pass",
+    "zero_force_ds_cpu_optimizer":
+        "the port has no CPU Adam to force: offload_optimizer cpu keeps the state in "
+        "host memory and the card does the math (runtime/zero/offload.py HostOffload), "
+        "and offload_optimizer nvme steps its one AdamW on the host "
+        "(runtime/swap_tensor/optimizer_swapper.py)",
+    "timers":
+        "throughput timing is always on (ThroughputTimer, utils/timer.py; the engine's "
+        "tput_timer, runtime/engine.py:309) and the synchronized breakdown is the "
+        "wall_clock_breakdown knob: set that instead",
+}
+
+# The JAX package's advisory keys that the port accepts only at the value
+# that asks for nothing: key -> (that value, why another value is refused
+# on CUDA and what to use instead). communication_data_type is also
+# accepted at the gradient-accumulation type, which is what the port
+# communicates in.
+ADVISORY_REFUSED_KEYS = {
+    "gradient_predivide_factor": (
+        1.0,
+        "the port divides by the world inside one ReduceOp.AVG (runtime/zero/state.py:337 "
+        "and :370), with no split of the division around the reduction; leave it at 1.0 "
+        "(prescale_gradients is accepted)"),
+    "disable_allgather": (
+        False,
+        "ZeRO stages 1-3 reassemble updated shards with all_gather_into_tensor "
+        "(runtime/zero/state.py:408) and have no broadcast path; leave it false"),
+    "graph_harvesting": (
+        False,
+        "the port does not capture the training step as a CUDA graph; only generate's "
+        "decode loop is captured (inference/engine.py DecodeLoop); leave it false"),
+    "use_data_before_expert_parallel": (
+        False,
+        "the port's rank grid is data outside expert, rank d * ep + x "
+        "(parallel/topology.py:8), with no reordered rank lists; leave it false"),
+    "communication_data_type": (
+        None,
+        "gradients are reduced in data_types.grad_accum_dtype (runtime/zero/state.py:288 "
+        "_buffer); set that knob instead"),
+}
 
 # the keys of the "sparse_attention" block: every SparsityConfig's keyword
 # arguments and the mode (the JAX package's RAW_BLOCK_KEYS entry)
@@ -150,6 +219,21 @@ class PLDConfig(DeepSpeedConfigModel):
         if not 0.0 < self.theta <= 1.0:
             raise ValueError(f"progressive_layer_drop.theta {self.theta} not in (0, 1]")
         _check_min(self, gamma=(0.0, False))
+
+
+@dataclasses.dataclass
+class ActivationCheckpointingConfig(DeepSpeedConfigModel):
+    """The activation_checkpointing block, read by
+    ``runtime/activation_checkpointing/checkpointing.py`` ``configure``:
+    ``cpu_checkpointing`` keeps the matmul outputs in pinned host memory
+    instead of recomputing them; ``partition_activations`` is validated and
+    does nothing at world 1, as in JAX; the rest parse as in JAX."""
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
 
 
 @dataclasses.dataclass
@@ -333,17 +417,40 @@ class DeepSpeedConfig:
         self.pld_config = PLDConfig.from_dict(pd.get("progressive_layer_drop", {}))
         self.pld_enabled = self.pld_config.enabled
         self.data_efficiency_config = pd.get("data_efficiency", {})
-        if isinstance(self.data_efficiency_config, dict) \
-                and "data_routing" in self.data_efficiency_config:
-            raise NotImplementedError("ds_config data_efficiency.data_routing (random-LTD): "
-                                      "later slice of the port")
+        self.activation_checkpointing_config = ActivationCheckpointingConfig.from_dict(
+            pd.get("activation_checkpointing", {}))
+        self.memory_breakdown = bool(pd.get("memory_breakdown", False))
+        self.dump_state = bool(pd.get("dump_state", False))
+        # the advisory keys the config sets: presence, not truthiness
+        self.advisory_keys_set = [k for k in (*ADVISORY_NOOP_KEYS, *ADVISORY_REFUSED_KEYS)
+                                  if k in pd]
         self.dataloader_drop_last = pd.get("dataloader_drop_last", None)
         self.gradient_clipping = float(pd.get("gradient_clipping", 0.0))
         self.steps_per_print = int(pd.get("steps_per_print", 10))
         self.wall_clock_breakdown = bool(pd.get("wall_clock_breakdown", False))
         self.seed = int(pd.get("seed", 1234))
         self.train_dtype = self._resolve_train_dtype()
+        self._check_advisory_values(pd)
         self._configure_train_batch_size(world_size)
+
+    def _check_advisory_values(self, pd):
+        """An advisory key of :data:`ADVISORY_REFUSED_KEYS` at a value that
+        asks for what the port does not do raises ``ValueError``."""
+        for key, (noop, why) in ADVISORY_REFUSED_KEYS.items():
+            if key not in pd:
+                continue
+            value = pd[key]
+            if key == "communication_data_type" and value is not None \
+                    and GRAD_ACCUM_DTYPES.get(value) == self.grad_accum_dtype:
+                continue
+            if value != noop:
+                raise ValueError(f"ds_config {key}={value!r} is not supported on CUDA: {why}")
+
+    def advisory_reason(self, key: str) -> str:
+        """Why the advisory ``key`` changes nothing in the port."""
+        if key in ADVISORY_NOOP_KEYS:
+            return ADVISORY_NOOP_KEYS[key]
+        return ADVISORY_REFUSED_KEYS[key][1]
 
     def _validate_top_level_keys(self, pd):
         for key, why in REJECTED_KEYS.items():
@@ -352,10 +459,11 @@ class DeepSpeedConfig:
         later = sorted(set(pd) & LATER_KEYS)
         if later:
             raise NotImplementedError(f"ds_config key(s) {later}: later slice of the port")
-        unknown = set(pd) - SUPPORTED_KEYS
+        known = SUPPORTED_KEYS | set(ADVISORY_NOOP_KEYS) | set(ADVISORY_REFUSED_KEYS)
+        unknown = set(pd) - known
         if unknown:
             raise ValueError("Unknown top-level ds_config key(s): "
-                             f"{format_unknown_key_hints(unknown, SUPPORTED_KEYS | LATER_KEYS)}")
+                             f"{format_unknown_key_hints(unknown, known | LATER_KEYS)}")
         for name, accepted in RAW_BLOCK_KEYS.items():
             head, _, tail = name.partition(".")
             block = pd.get(head)

@@ -97,6 +97,14 @@ The JAX package's knobs ``DS_TPU_OFFLOAD_MASTER``,
 meanings. On ``device="cpu"`` the host is the same memory; the offload path
 still runs, as copies between CPU tensors.
 
+The ``activation_checkpointing`` block configures
+``runtime/activation_checkpointing/checkpointing.py`` when it asks for
+partitioned or host-kept activations, as in JAX; the models keep their own
+``remat``. Each advisory key a config sets is logged with why it changes
+nothing here (``runtime/config.py``), ``dump_state`` prints the config, and
+``memory_breakdown`` logs the card's and the host's memory on the steps
+that print.
+
 The engine runs on CUDA unless it is given ``device="cpu"``; without a card
 it raises. Its process group is the default one when one is initialized
 (NCCL for a CUDA engine, gloo for a CPU one; any other pairing raises), and
@@ -130,11 +138,11 @@ from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, grads_finite
 from deepspeed_tpu_torch.runtime.lr_schedules import LRSchedule, build_lr_schedule
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop, theta_at
-from deepspeed_tpu_torch.runtime.utils import get_grad_norm
+from deepspeed_tpu_torch.runtime.utils import get_grad_norm, see_memory_usage
 from deepspeed_tpu_torch.runtime.zero.init import build_state, trainable
 from deepspeed_tpu_torch.runtime.zero.offload import CHUNK_BYTES, HostOffload, host_opt_state
 from deepspeed_tpu_torch.runtime.zero.partition import partition_report
-from deepspeed_tpu_torch.runtime.zero.state import PARAMS, ZeroState
+from deepspeed_tpu_torch.runtime.zero.state import PARAMS
 from deepspeed_tpu_torch.utils import env_flag
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
@@ -317,6 +325,18 @@ class DeepSpeedEngine:
         cl_cfg = curriculum_config_from_ds(self._config._param_dict)
         if cl_cfg.get("enabled"):
             self.curriculum_scheduler = CurriculumScheduler(cl_cfg)
+
+        # ---- the activation_checkpointing block and the advisory keys ----
+        ac = self._config.activation_checkpointing_config
+        if ac.partition_activations or ac.cpu_checkpointing:
+            from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+
+            checkpointing.configure(deepspeed_config=self._config)
+        for key in self._config.advisory_keys_set:
+            log_dist(f"config key {key!r} accepted (changes nothing on CUDA): "
+                     f"{self._config.advisory_reason(key)}", ranks=[0])
+        if self._config.dump_state:
+            self._config.print_config()
         log_dist(f"engine ready: dtype={self.train_dtype}, zero={self.zero_stage}, "
                  f"device={self.device}, dp={self.dp_world_size}, "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
@@ -324,8 +344,9 @@ class DeepSpeedEngine:
 
     def _check_experts(self, model) -> None:
         """A MoE model: its expert-parallel size and coordinate must be the
-        grid's, and it routes over the engine's groups. Offload, zero.Init
-        and ZeRO-Infinity of a MoE model are later slices."""
+        grid's, and it routes over the engine's groups. Its expert banks are
+        ZeRO units like the others, so offload and ``zero.Init`` place and
+        update them as they do the dense units."""
         loss_args = inspect.signature(model.loss).parameters
         self._loss_kwargs = {k for k in ("generator", "loss_weight", "dropout_rank")
                              if k in loss_args}
@@ -336,11 +357,6 @@ class DeepSpeedEngine:
             raise ValueError(f"the model holds experts {model.ep_rank} of {model.ep_size}-way "
                              f"expert parallelism, the engine's grid has tpu.expert={ep} and "
                              f"this rank at {self.grid.get_expert_parallel_rank()}")
-        zc = self._config.zero_config
-        if zc.offload_optimizer is not None or zc.offload_param is not None:
-            raise _later("offload of a MoE model")
-        if isinstance(getattr(model, "param_gatherer", None), ZeroState):
-            raise _later("zero.Init of a MoE model")
         model.expert_groups = self.grid.expert_groups
 
     # -------------------------------------------------------------- offload
@@ -634,6 +650,8 @@ class DeepSpeedEngine:
             if self.wall_clock_breakdown:
                 self.timers.log([TRAIN_BATCH_TIMER, FORWARD_GLOBAL_TIMER,
                                  BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER])
+            if self._config.memory_breakdown:
+                see_memory_usage(f"after step {step}", force=True)
 
     # ----------------------------------------------------------- public API
     def train_batch(self, batch=None, data_iter=None) -> torch.Tensor:

@@ -11,7 +11,9 @@ surface. The engine reads ``lr_at(global step)``.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
+
+import torch
 
 LR_RANGE_TEST = "LRRangeTest"
 ONE_CYCLE = "OneCycle"
@@ -202,3 +204,10 @@ def build_lr_schedule(name: str, params: dict, optimizer=None) -> LRSchedule:
     if name not in SCHEDULE_REGISTRY:
         raise ValueError(f"Unknown scheduler {name}; valid: {VALID_LR_SCHEDULES}")
     return SCHEDULE_REGISTRY[name](optimizer, **params)
+
+
+def constant_schedule(lr: float) -> Callable[[int], float]:
+    """``step -> lr`` at every step (the JAX ``constant_schedule``; the
+    value as fp32, as the JAX one returns it)."""
+    value = float(torch.tensor(lr, dtype=torch.float32))
+    return lambda step: value

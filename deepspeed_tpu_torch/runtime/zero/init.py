@@ -187,8 +187,6 @@ class Init(contextlib.AbstractContextManager):
         if not self.enabled:
             return init_fn(*args, **kwargs)
         model = init_fn if isinstance(init_fn, torch.nn.Module) else init_fn.__self__
-        if hasattr(model, "expert_module_names"):
-            raise NotImplementedError("zero.Init of a MoE model: later slice of the port")
         generator = args[0] if args else kwargs["generator"]
         device = resolve_device(self.device)
         grid = ParallelGrid()

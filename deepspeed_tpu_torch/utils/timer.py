@@ -162,7 +162,8 @@ class NoopTimer:
 class ThroughputTimer:
     """Samples/sec reporting every ``steps_per_output`` global steps, after
     ``start_step`` warm-up steps. It synchronizes the device only on the
-    steps that log, unless ``sync_every_step``."""
+    steps that log, unless ``sync_every_step``. With the FLOPs of one global
+    batch (``set_flops_per_batch``) the line ends in the achieved TFLOP/s."""
 
     def __init__(self, batch_size: int, start_step: int = 2, steps_per_output: int = 50,
                  logging_fn=None, sync_every_step: bool = True, synchronize=None):
@@ -170,6 +171,8 @@ class ThroughputTimer:
         self.started = False
         self.batch_size = max(1, batch_size)
         self.start_step = start_step
+        self.epoch_count = 0
+        self.flops_per_batch: Optional[float] = None
         self.micro_step_count = 0
         self.global_step_count = 0
         self.total_elapsed_time = 0.0
@@ -178,6 +181,20 @@ class ThroughputTimer:
         self.logging = logging_fn or (lambda m: log_dist(m, ranks=[0]))
         self.sync_every_step = sync_every_step
         self.synchronize = synchronize or get_accelerator().synchronize
+
+    def set_flops_per_batch(self, flops: float) -> None:
+        """The model FLOPs of one global batch, for the TFLOP/s suffix."""
+        self.flops_per_batch = float(flops)
+
+    def _tflops_suffix(self, per_step_time: float) -> str:
+        if not self.flops_per_batch or per_step_time <= 0:
+            return ""
+        return f", EstTFLOPs={self.flops_per_batch / per_step_time / 1e12:.2f}"
+
+    def update_epoch_count(self) -> None:
+        """A new epoch: the epoch count advances and the micro-step count restarts."""
+        self.epoch_count += 1
+        self.micro_step_count = 0
 
     def start(self):
         self.started = True
@@ -202,10 +219,12 @@ class ThroughputTimer:
             self.start_time = 0.0
             if will_log:
                 self.logging(
-                    f"micro_step={self.micro_step_count}/global_step={self.global_step_count}, "
+                    f"epoch={self.epoch_count}/micro_step={self.micro_step_count}/"
+                    f"global_step={self.global_step_count}, "
                     f"RunningAvgSamplesPerSec={self.avg_samples_per_sec():.3f}, "
                     f"CurrSamplesPerSec="
-                    f"{self.batch_size / self.step_elapsed_time * self.steps_per_output:.3f}")
+                    f"{self.batch_size / self.step_elapsed_time * self.steps_per_output:.3f}"
+                    + self._tflops_suffix(self.step_elapsed_time / self.steps_per_output))
                 self.step_elapsed_time = 0.0
 
     def avg_samples_per_sec(self) -> float:

@@ -252,12 +252,11 @@ def test_num_params_and_flops_match_jax():
 
 
 def test_later_knobs_raise():
-    """``flash_block`` is still a later slice of the port; the "dots" and
-    "attn" remat policies are carried and "attn_mlp" is refused, as in JAX;
-    ``pld_theta`` without a generator runs every block (JAX without an
-    rng)."""
-    with pytest.raises(NotImplementedError):
-        _tcfg(flash_block=64)
+    """``flash_block`` (the TPU kernel's tile) is accepted and changes
+    nothing, as in port GPT-2; the "dots" and "attn" remat policies are
+    carried and "attn_mlp" is refused, as in JAX; ``pld_theta`` without a
+    generator runs every block (JAX without an rng)."""
+    assert _tcfg(flash_block=64).flash_block == 64
     assert _tcfg(remat="dots").remat == "dots" and _tcfg(remat="attn").remat == "attn"
     for bad in ({"activation": "quick_gelu"}, {"remat": "attn_mlp"}):
         with pytest.raises(ValueError):

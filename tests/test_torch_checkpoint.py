@@ -494,13 +494,15 @@ def test_checkpoint_and_data_blocks_parse_like_jax_and_later_blocks_raise():
                          ({"resilience": {"sentinel": {"enabled": True}}}, "sentinel"),
                          ({"resilience": {"chaos": {"enabled": True, "failure_rate": 0.5}}},
                           "chaos"),
-                         ({"data_efficiency": {"data_routing": {"enabled": True}}},
-                          "random-LTD"),
                          ({"checkpoint": {"load_universal": True}}, "load_universal"),
                          ({"checkpoint": {"parallel_write": {"pipeline_stage": True}}},
                           "parallel_write")):
         with pytest.raises(NotImplementedError, match=match):
             TConfig({"train_batch_size": 8, **later})
+    # random-LTD's block is accepted and applied to no model, as in JAX
+    routing = {"data_efficiency": {"data_routing": {"enabled": True}}}
+    assert TConfig({"train_batch_size": 8, **routing}).data_efficiency_config == \
+        JConfig({"train_batch_size": 8, **routing}).data_efficiency_config
     # the keys for many ranks parse as in the JAX package (tags are written
     # by rank 0 alone, so node-local storage changes nothing)
     for ranks in ({"tag_validation": "Fail"}, {"use_node_local_storage": True}):

@@ -50,7 +50,12 @@ K3 also take head dim 256 (GPT-J-6B), K1 forward only. Model import:
 llama3.2-1b's widths at 2 layers exported to HF's layout and imported back
 serve through the kernels like the port's own model, and a Megatron
 directory at gpt2-760m's widths (tp 2) serves the greedy tokens of its
-state dict.
+state dict. The switches of one card: a llama served with int8 and int4
+weights dequantized inside the captured decode step gives the eager
+loop's tokens and those of its dequantized weights served in bf16;
+``cpu_checkpointing`` keeps pinned host copies and the plain gradients; a
+block-sparse MoE step launches the sparse kernels; random-LTD's gather
+and scatter on the card equal the CPU's.
 """
 
 import dataclasses
@@ -1379,3 +1384,92 @@ def test_megatron_dir_serves_greedy_like_its_state_dict(gen, tmp_path):
     assert (tfa.KERNEL.launches, tda.KERNEL.launches) == (2, 2 * 33)
     assert torch.equal(out, direct.generate(ids, max_new_tokens=32))
     assert torch.equal(out, _eager_loop(served, ids, 32))
+
+
+# ----------------------------------------------- the switches of one card
+def _llama_small(gen, **over):
+    cfg = dataclasses.replace(PRESETS["llama-tiny"], n_embd=256, n_head=4, n_kv_head=2,
+                              intermediate_size=512, vocab_size=1024, n_positions=256,
+                              use_flash_decode=True, **over)
+    return LlamaModel(cfg).init_params(gen)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_llama_serves_graphed_like_its_dequantized_weights(gen, bits):
+    """int8/int4 weights dequantized per block inside the captured decode
+    step: the graphed tokens equal the eager loop's and those of the same
+    model served in bf16 from the dequantized weights; the codes, not the
+    bf16 weights, are what the engine holds."""
+    from deepspeed_tpu_torch.ops.quantizer import dequantize_params
+
+    model = _llama_small(gen)
+    eng = deepspeed_tpu_torch.init_inference(model, {"max_out_tokens": 128}, dtype=torch.int8,
+                                             quant={"weight": {"num_bits": bits,
+                                                               "quantized_initialization":
+                                                                   {"min_numel": 4096}}})
+    assert eng.quantized and all(q.q.is_cuda for q in eng.quantized.values())
+    ids = torch.randint(0, 1024, (8, 24), generator=gen, device="cuda")
+    tda.KERNEL.reset_launches()
+    out = eng.generate(ids, max_new_tokens=16)
+    assert tda.KERNEL.launches == 2 * 17                       # 2 layers, warm-up included
+    assert torch.equal(out, _eager_loop(eng, ids, 16))
+    dense = {n: p for n, p in model.named_parameters() if not p.is_meta}
+    dense.update(dequantize_params(eng.quantized, torch.bfloat16))
+    ref_model = LlamaModel(model.config)
+    ref_model.load_state_dict(dense, assign=True)
+    ref = deepspeed_tpu_torch.init_inference(ref_model, {"dtype": "bf16", "max_out_tokens": 128})
+    assert torch.equal(ref.generate(ids, max_new_tokens=16), out)
+    assert eng.weight_nbytes() < ref.weight_nbytes()
+
+
+def test_cpu_checkpointing_keeps_pinned_host_copies_on_the_card(gen):
+    """``cpu_checkpointing`` on the card: the kept matmul outputs are pinned
+    host tensors, read back in the recompute, and the gradients are the
+    plain path's bit for bit."""
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+
+    cfg = gpt2.GPT2Config(vocab_size=1024, n_positions=256, n_embd=256, n_layer=2, n_head=4,
+                          dtype=torch.bfloat16, remat=False)
+    model = gpt2.GPT2Model(cfg).init_params(gen).to(torch.bfloat16)
+    x = torch.randn(4, 128, 256, generator=gen, device="cuda", dtype=torch.bfloat16)
+    store = []
+    grads = []
+    for keep in (True, False):
+        h = x.clone().requires_grad_()
+        fn = lambda t: model._block(t, model.blocks[0], 0, None)
+        out = torch.utils.checkpoint.checkpoint(
+            fn, h, use_reentrant=False,
+            context_fn=lambda: checkpointing.offload_contexts(store)) if keep else fn(h)
+        out.float().square().sum().backward()
+        grads.append(h.grad)
+    assert len(store) == 4 and all(t.device.type == "cpu" and t.is_pinned() for t in store)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_sparse_moe_step_runs_the_sparse_kernels(gen):
+    """A 4-layer bf16 MoE GPT-2 with a fixed block-16 layout under remat per
+    pair: K4a twice per layer (forward and recompute), K4b and K4c once, no
+    dense kernel; a finite loss."""
+    model = _moe_model(gen, torch.bfloat16, remat="full",
+                       sparse_attention={"mode": "fixed", "block": 16, "num_local_blocks": 2})
+    batch = gpt2.synthetic_lm_batch(2, 256, 1024, device="cuda")
+    tfa.SPARSE_KERNEL.reset_launches()
+    tfa.KERNEL.reset_launches()
+    loss, grads = _model_step(model, batch)
+    assert tfa.SPARSE_KERNEL.entry_launches == {"sparse_attention_fwd": 8,
+                                                "sparse_attention_bwd_dq": 4,
+                                                "sparse_attention_bwd_dkv": 4}
+    assert tfa.KERNEL.launches == 0 and torch.isfinite(loss)
+    assert all(torch.isfinite(g).all() for g in grads.values())
+
+
+def test_random_ltd_ops_on_the_card_equal_the_cpu(gen):
+    from deepspeed_tpu_torch.runtime.data_pipeline import data_routing as dr
+
+    idx = dr.random_ltd_sample(torch.Generator(device="cuda").manual_seed(3), 64, 20, 4)
+    assert idx.is_cuda and idx.shape == (4, 20)
+    x = torch.randn(4, 64, 32, generator=gen, device="cuda")
+    small = dr.random_ltd_gather(x, idx)
+    back = dr.random_ltd_scatter(small * 2, idx, x)
+    assert torch.equal(small.cpu(), dr.random_ltd_gather(x.cpu(), idx.cpu()))
+    assert torch.equal(back.cpu(), dr.random_ltd_scatter(small.cpu() * 2, idx.cpu(), x.cpu()))

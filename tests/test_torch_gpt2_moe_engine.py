@@ -8,7 +8,8 @@ weights alike), at 1e-4. Prefill and decode walk the pairs: without drops
 they equal the full forward, and with drops they equal JAX's ``prefill``
 and ``decode_step`` logits. The registry resolves ``gpt2-moe-*``; a
 trained tag serves bit for bit; a JAX MoE tag continues in the port
-through ``state_from_jax``; the knobs of later slices raise.
+through ``state_from_jax``; the knobs of later slices, ZeRO-Infinity and
+dropout raise.
 """
 
 import dataclasses
@@ -180,15 +181,22 @@ def test_later_knobs_raise(tmp_path):
     from deepspeed_tpu_torch.runtime import zero
 
     params = _jax_params(seed=11)
-    for extra in ({"offload_optimizer": {"device": "cpu"}},
-                  {"offload_param": {"device": "cpu"}},
-                  {"offload_param": {"device": "nvme", "nvme_path": str(tmp_path)}}):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            deepspeed_tpu_torch.initialize(model=_port(params), config=_config(3, **extra),
-                                           device="cpu")
-    with pytest.raises(NotImplementedError, match="zero.Init of a MoE model"):
-        with zero.Init(config=_config(3), device="cpu"):
-            zero.materialize(tmoe.MoEGPT2(_tcfg(), num_experts=E), torch.Generator())
+    # ZeRO-Infinity of a MoE model still raises (its layerwise engine would
+    # walk only the dense blocks); optimizer and param offload and zero.Init
+    # take the expert banks as units (test_torch_gpt2_moe_offload.py,
+    # test_torch_gpt2_moe_zero_init.py)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        deepspeed_tpu_torch.initialize(
+            model=_port(params),
+            config=_config(3, offload_param={"device": "nvme", "nvme_path": str(tmp_path)}),
+            device="cpu")
+    for extra in ({"offload_optimizer": {"device": "cpu"}}, {"offload_param": {"device": "cpu"}}):
+        engine, *_ = deepspeed_tpu_torch.initialize(model=_port(params),
+                                                    config=_config(3, **extra), device="cpu")
+        assert np.isfinite(float(engine.train_batch(_torch(_batch(ROWS * GAS, seed=11)))))
+    with zero.Init(config=_config(3), device="cpu"):
+        state = zero.materialize(tmoe.MoEGPT2(_tcfg(), num_experts=E), torch.Generator())
+    assert any(state.fetched)
     with pytest.raises(ValueError, match="tpu.expert=1"):
         deepspeed_tpu_torch.initialize(model=tmoe.params_from_jax(
             params, _tcfg(), num_experts=E, ep_size=2), config=_config(0), device="cpu")
@@ -201,7 +209,10 @@ def test_later_knobs_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="expert-parallel size"):
         deepspeed_tpu_torch.init_inference(
             tmoe.params_from_jax(params, _tcfg(), num_experts=E, ep_size=2), device="cpu")
+    sparse = tmoe.MoEGPT2(_tcfg(sparse_attention={"mode": "fixed", "block": 16}))
     with pytest.raises(NotImplementedError, match="sparse_attention"):
-        tmoe.MoEGPT2(_tcfg(sparse_attention={"mode": "fixed", "block": 16}))
+        sparse.init_cache(1, 16)                  # trained sparse, not served (as in JAX)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tmoe.MoEGPT2(_tcfg(dropout=0.1))
     with pytest.raises(ValueError, match="even"):
         tmoe.MoEGPT2(_tcfg(n_layer=3))

@@ -129,9 +129,11 @@ def test_config_takes_the_jax_keys_and_rejects_unknown_ones():
         tconfig.DeepSpeedInferenceConfig.from_dict({"tp": {"tp_sise": 1}})
 
 
+# (the quant block and dtype int8 are served since weight quantization:
+# test_torch_quantized_serving.py)
 @pytest.mark.parametrize("block", [{"tp": {"tp_size": 2}}, {"mp_size": 2},
-                                   {"moe": {"ep_size": 2}}, {"quant": {"enabled": True}},
-                                   {"dtype": "int8"}])
+                                   {"moe": {"ep_size": 2}}, {"injection_policy": {"a": "b"}},
+                                   {"injection_dict": {"a": "b"}}])
 def test_config_blocks_of_later_slices_raise(block):
     with pytest.raises(NotImplementedError, match="later slice"):
         tconfig.DeepSpeedInferenceConfig.from_dict(block)

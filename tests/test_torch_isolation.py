@@ -55,6 +55,9 @@ print(json.dumps({{"modules": names, "files": files}}))
     assert "deepspeed_tpu_torch.models.llama" in got["modules"]
     assert "deepspeed_tpu_torch.checkpoint.megatron_checkpoint" in got["modules"]
     assert "deepspeed_tpu_torch.checkpoint.meg_2d" in got["modules"]
+    for new in ("runtime.activation_checkpointing.checkpointing",
+                "runtime.data_pipeline.data_routing", "ops.quantizer"):
+        assert f"deepspeed_tpu_torch.{new}" in got["modules"], new
     for ref in REFERENCE_DIRS:
         root = str(REPO / ref) + os.sep
         assert not [f for f in got["files"] if f.startswith(root)], ref

@@ -9,7 +9,8 @@ port with remat off (the same arithmetic: rtol 1e-5). The flash forward's
 entry is counted per loss and backward: under "attn" and "attn_mlp" it runs
 once per layer (the policy keeps its outputs and the recompute reads them
 back), under "full" and "dots" twice, and the backward once per layer under
-every policy. Two gloo ranks train a GPT-2 at ZeRO stage 3 under "attn"
+every policy. GPT-2's cases are here, llama's and BERT's in
+``test_torch_remat_llama_bert.py``. Two gloo ranks train a GPT-2 at ZeRO stage 3 under "attn"
 against one rank at stage 0 without remat: the same losses, the weights of
 the same ranks under "full" bit for bit, and the stage-3 units gathered
 again in the recompute, as under "full".
@@ -33,6 +34,9 @@ FAMILIES = {"gpt2": (False, "full", "dots", "attn", "attn_mlp"),
             "llama": (False, "full", "dots", "attn"),
             "bert": (False, "full", "dots", "attn")}
 CASES = [(f, p) for f, policies in FAMILIES.items() for p in policies]
+# this file holds GPT-2's cases; llama's and BERT's are in
+# test_torch_remat_llama_bert.py, so the two files run side by side
+GPT2_CASES = [c for c in CASES if c[0] == "gpt2"]
 B, T, WORLD, STEPS = 4, 32, 2, 3
 
 
@@ -88,8 +92,9 @@ def _within(got, ref, rel, what):
     assert err <= rel * scale, f"{what}: max err {err} over {rel} x {scale}"
 
 
-@pytest.mark.parametrize("family,policy", CASES)
-def test_loss_and_grads_match_jax_and_remat_off(family, policy):
+def check_loss_and_grads(family, policy):
+    """The loss and every gradient under ``policy``: the JAX model's under
+    the same policy and the port's without remat."""
     params, batch, jloss, jgrads = _jax_ref(family, policy, seed=1)
     loss, grads = _loss_and_grads(_port(family, params, policy), batch)
     loss0, grads0 = _loss_and_grads(_port(family, params, False), batch)
@@ -106,8 +111,7 @@ def test_loss_and_grads_match_jax_and_remat_off(family, policy):
         torch.testing.assert_close(g, grads0[n], rtol=1e-5, atol=1e-7, msg=n)
 
 
-@pytest.mark.parametrize("family,policy", CASES)
-def test_flash_entry_calls_per_step(monkeypatch, family, policy):
+def check_flash_entry_calls(monkeypatch, family, policy):
     """The flash forward's entry (the kernel on the card, its plain version
     here) once per layer and step under "attn" / "attn_mlp" and without
     remat, twice under "full" / "dots"; the backward once per layer."""
@@ -130,6 +134,16 @@ def test_flash_entry_calls_per_step(monkeypatch, family, policy):
     _loss_and_grads(model, _batch(family))
     layers = small["n_layer"]
     assert calls == {"fwd": layers * (2 if policy in ("full", "dots") else 1), "bwd": layers}
+
+
+@pytest.mark.parametrize("family,policy", GPT2_CASES)
+def test_loss_and_grads_match_jax_and_remat_off(family, policy):
+    check_loss_and_grads(family, policy)
+
+
+@pytest.mark.parametrize("family,policy", GPT2_CASES)
+def test_flash_entry_calls_per_step(monkeypatch, family, policy):
+    check_flash_entry_calls(monkeypatch, family, policy)
 
 
 def test_policy_names_what_jax_names():
