@@ -44,7 +44,7 @@ command line (``python -m deepspeed_tpu_torch.launcher.runner --num_gpus
 1`` on a user script written to a temporary directory) and holds the
 launched process's environment, launches and losses to the in-process
 stage-1 run. Then it feeds, saves and resumes
-gpt2-760m at full width, 8 of its 24 layers (``resume``): a token dataset written with
+gpt2-760m at full width, 4 of its 24 layers (``resume``): a token dataset written with
 the port's indexed-dataset builder into a temporary directory, engine A
 trained through ``initialize(training_data=...)``'s loader, saved with the
 default async save and trained on, engines B and C built from other seeds
@@ -135,7 +135,18 @@ back to the tag's params; ``serve megatron gpt2-760m`` (tp 2) and ``serve
 megatron gpt2-moe-125m`` write Megatron-DeepSpeed directories (fp16) and
 serve them through ``init_inference(model=None, checkpoint=...,
 checkpoint_config={"type": ...})``, their greedy tokens equal to the same
-weights served from the port's state dict. The kernel rows that no summary
+weights served from the port's state dict. Then the RLHF actor: ``hybrid
+opt-1.3b`` runs DeepSpeed-Chat's actor loop on OPT-1.3b through the hybrid
+engine (16 prompts of 256, 256 greedy new tokens through the graphed decode
+loop over the live params, equal to the ungraphed loop bit for bit, then a
+``train_batch`` on the answers, three times, one decode graph for the whole
+run); ``train gpt2-760m compression`` trains the training cell under MoQ
+(8 -> 4 bits) and l1 pruning through every stage, then holds
+``redundancy_clean``'s weights to their levels, zeros and the terminal
+transform, with the compressed path's bf16 and fp32 kernel-vs-plain
+checks; ``eigenvalue gpt2-760m`` runs the block Hessian eigenvalue after
+each step (no K1 or K2 inside an estimate) and holds an fp32 estimate on
+the card to the CPU's. The kernel rows that no summary
 reports (edge lengths, other types and head dims) are checked without a
 time (``untimed``). Each phase prints one JSON line with the seconds
 since the start (``at_s``); any failed check raises, and the script exits
@@ -204,10 +215,10 @@ ZERO_STAGES = (0, 1, 2, 3)
 # builder, steps before and after the save, and the disk the tag needs
 RESUME_SAMPLES, RESUME_STEPS = 64, 3
 STATE_BYTES_PER_PARAM = 14          # bf16 params, fp32 masters, two fp32 moments
-# the resume phase's depth: 8 of gpt2-760m's 24 layers since PR 17 (12 in
-# PRs 15-16), for the script's time (its checks, and those of serving its
-# tag, hold at any depth; the tag is ~4.0 GB)
-RESUME_LAYERS = 8
+# the resume phase's depth: 4 of gpt2-760m's 24 layers, for the script's
+# time (its checks, and those of serving its tag, hold at any depth; the
+# tag is ~2.7 GB)
+RESUME_LAYERS = 4
 DISK_MARGIN = 2.5                   # free space wanted per byte of the tag
 # the curriculum phase: the legacy block, T from 64 towards 1024 in 8 steps
 CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 64,
@@ -246,7 +257,8 @@ CAPACITY_LAYERS = 23
 NVME_LAYERS, NVME_WARMUP, NVME_STEPS = 2, 1, 2
 NVME_AIO = {"block_size": 1 << 20, "thread_count": 8}
 AIO_COUNTS = ("direct_chunks", "buffered_chunks", "direct_bytes", "buffered_bytes")
-NVME_FP32 = dict(layers=2, batch=2, seq=1024, steps=3)
+# the fp32 NVMe check: two AdamW steps, for the script's time
+NVME_FP32 = dict(layers=2, batch=2, seq=1024, steps=2)
 NVME_LOSS_RTOL = 1e-2               # bf16: the Infinity engine keeps the top-level weights
                                     # in fp32 where the engine rounds them to bf16
 
@@ -4358,6 +4370,389 @@ def import_slices(init_inference, LlamaModel, llama_cfg, BertModel, bert_cfg, gp
     return launches
 
 
+# ------------------------------------------------------------- RLHF actor
+# the hybrid engine's phase: DeepSpeed-Chat's step-3 actor (OPT-1.3b, its
+# training script's batch of 16 prompts of 256 tokens answered with 256 new
+# tokens) at the published widths, bf16, ZeRO stage 2, remat "full"
+HYBRID_MODEL = "opt-1.3b"
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_GEN, HYBRID_ITERS = 16, 256, 256, 3
+HYBRID_CONFIG = {"train_micro_batch_size_per_gpu": HYBRID_BATCH,
+                 "gradient_accumulation_steps": 1,
+                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-5, "weight_decay": 0.0}},
+                 "bf16": {"enabled": True}, "zero_optimization": {"stage": 2},
+                 "gradient_clipping": 1.0, "steps_per_print": 0, "seed": SEED,
+                 "hybrid_engine": {"enabled": True,
+                                   "max_out_tokens": HYBRID_PROMPT + HYBRID_GEN}}
+# the compression phase: MoQ 8 -> 4 bits on every block tensor (a stage
+# every 2 steps from step 2: 4 bits from step 10) and l1 sparse pruning at
+# dense ratio 0.5 from step 4, on the training cell's model and batch
+COMPRESSION_STEPS = 12
+COMPRESSION_BLOCK = {
+    "weight_quantization": {
+        "shared_parameters": {"enabled": True, "schedule_offset": 2, "quantization_period": 2},
+        "different_groups": {"wq": {"params": {"start_bits": 8, "target_bits": 4},
+                                    "modules": ["blocks"]}}},
+    "sparse_pruning": {
+        "shared_parameters": {"enabled": True, "schedule_offset": 4, "method": "l1"},
+        "different_groups": {"sp": {"params": {"dense_ratio": 0.5}, "modules": ["blocks"]}}}}
+# the eigenvalue phase: gpt2-760m's widths at 4 layers, micro batch 2 x 1024,
+# 8 power iterations, the same MoQ block; its fp32 2-layer check against the
+# CPU on 1 x 128 tokens from the same start vector
+EIGEN_LAYERS, EIGEN_BATCH, EIGEN_STEPS = 4, 2, 3
+EIGEN_BLOCK = {"enabled": True, "max_iter": 8, "tol": 1e-2, "gas_boundary_resolution": 1}
+EIGEN_FP32 = dict(layers=2, batch=1, seq=128, rtol=1e-3)
+
+
+def _k123(fa, da) -> dict:
+    return {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches,
+            "decode_attention": da.KERNEL.launches}
+
+
+def _reset_k123(fa, da) -> None:
+    for kern in (fa.KERNEL, fa.BWD_KERNEL, da.KERNEL):
+        kern.reset_launches()
+
+
+def hybrid_slice(initialize, init_inference, accel, fa, da):
+    """DeepSpeed-Chat's actor loop on OPT-1.3b through the hybrid engine:
+    HYBRID_ITERS times, graphed ``generate`` of 256 greedy tokens for 16
+    prompts of 256 over the live params, then one ``train_batch`` on the 16
+    x 512 sequences with the loss masked to the answers. Every generate's
+    tokens equal the ungraphed loop's on the same live params bit for bit,
+    one decode graph is captured for the whole run, and after a step the
+    training model's prefill logits equal an ``InferenceEngine``'s over a
+    copy of the updated params. Then the step's bf16 kernel-vs-plain check.
+    → launches by path."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+
+    c = _variant_cfg(HYBRID_MODEL, remat="full", use_flash_decode=True, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=GPT2Model(c), config=json.loads(json.dumps(HYBRID_CONFIG)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    prompts = torch.randint(0, c.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT), generator=gen,
+                            device="cuda")
+    mask = torch.zeros(HYBRID_BATCH, HYBRID_PROMPT + HYBRID_GEN, device="cuda")
+    mask[:, HYBRID_PROMPT:] = 1.0
+    accel.reset_peak_memory_stats()
+    rows, launches = [], {}
+    for it in range(HYBRID_ITERS):
+        t_it = time.perf_counter()
+        _reset_k123(fa, da)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seqs = engine.generate(prompts, max_new_tokens=HYBRID_GEN)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_launches = _k123(fa, da)
+        want_k3 = c.n_layer * (HYBRID_GEN + (it == 0))       # the capture's warm-up step
+        if gen_launches["flash_attention_fwd"] != c.n_layer or \
+                gen_launches["decode_attention"] != want_k3:
+            raise AssertionError(f"hybrid generate {it}: launches {gen_launches}, expected "
+                                 f"{c.n_layer} K1 and {want_k3} K3")
+        eager, eager_s = _eager_generate(engine, prompts, HYBRID_GEN)
+        if not torch.equal(eager, seqs):
+            raise AssertionError(f"hybrid generate {it}: graphed and ungraphed tokens differ "
+                                 f"in {int((eager != seqs).sum().item())} places")
+        _reset_k123(fa, da)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch({"input_ids": seqs, "loss_mask": mask}))
+        step_ms = (time.perf_counter() - t0) * 1e3
+        train_launches = _k123(fa, da)
+        want = {"flash_attention_fwd": 2 * c.n_layer, "flash_attention_bwd_dq": c.n_layer,
+                "flash_attention_bwd_dkv": c.n_layer, "decode_attention": 0}
+        if train_launches != want or not math.isfinite(loss):
+            raise AssertionError(f"hybrid train {it}: launches {train_launches} (expected "
+                                 f"{want}), loss {loss}")
+        rows.append({"generate_s": gen_s, "generate_tok_s": HYBRID_BATCH * HYBRID_GEN / gen_s,
+                     "eager_generate_s": eager_s, "train_step_ms": step_ms, "loss": loss,
+                     "answer_distinct_tokens": int(torch.unique(seqs[:, HYBRID_PROMPT:]).numel()),
+                     "alternation_s": time.perf_counter() - t_it - eager_s,
+                     "generate_launches": gen_launches, "train_launches": train_launches})
+        launches[f"hybrid_generate_{it}"] = gen_launches
+        launches[f"hybrid_train_{it}"] = train_launches
+    peak_gb = accel.max_memory_allocated() / 1e9
+    stats = engine.hybrid_stats()
+    if stats["captures"] != 1 or len(engine._decode_loops) != 1:
+        raise AssertionError(f"hybrid decode graphs: {stats['captures']} captures, "
+                             f"{len(engine._decode_loops)} loops for one key")
+    # the updated params served by an inference engine over a copy of them
+    params = {n: p.detach().clone() for n, p in engine.module.named_parameters()}
+    served = init_inference(GPT2Model(c), {"dtype": "bfloat16",
+                                           "max_out_tokens": HYBRID_PROMPT + HYBRID_GEN},
+                            params=params)
+    with torch.inference_mode():
+        live, _ = engine.module.prefill(prompts, engine.module.init_cache(HYBRID_BATCH,
+                                                                          HYBRID_PROMPT))
+        copy, _ = served.module.prefill(prompts, served.module.init_cache(HYBRID_BATCH,
+                                                                          HYBRID_PROMPT))
+    if not torch.equal(live, copy):
+        raise AssertionError(f"after {HYBRID_ITERS} steps the live params' prefill logits "
+                             f"differ from an inference engine's over their copy by "
+                             f"{max_err(live, copy)}")
+    steady = rows[1:]
+    emit(f"hybrid {HYBRID_MODEL}", layers=c.n_layer, width=c.n_embd, heads=c.n_head,
+         head_dim=c.head_dim, batch=HYBRID_BATCH, prompt=HYBRID_PROMPT, gen=HYBRID_GEN,
+         zero=2, remat="full", dtype="bfloat16", params=c.num_params(), init_s=init_s,
+         iterations=rows, graphed_generate_tok_s=sum(r["generate_tok_s"] for r in steady)
+         / len(steady), eager_generate_tok_s=sum(HYBRID_BATCH * HYBRID_GEN / r["eager_generate_s"]
+                                                 for r in steady) / len(steady),
+         train_step_ms=sum(r["train_step_ms"] for r in steady) / len(steady),
+         alternation_s=sum(r["alternation_s"] for r in steady) / len(steady),
+         captures=stats["captures"], capture_s=stats["capture_s"],
+         hybrid_stats=stats, peak_mem_gb=peak_gb, graphed_equals_ungraphed=True,
+         prefill_logits_equal_inference_engine=True, nvidia_smi=nvidia_smi_line())
+    del engine, served, params
+    torch.cuda.empty_cache()
+    # the actor's step, kernel path against plain path in bf16 at full depth
+    # on the last answers. No fp32 2-layer check of this model's step: its
+    # gradients came 5.2e-4 apart in L2 on identical losses on an H100
+    # (1.7e-6 with GELU in place of ReLU, 1.3e-6 for gpt2-760m), ReLU's kink
+    # turning rounding-sized differences into flipped units
+    train_check_bf16(GPT2Model, c, {"input_ids": seqs, "loss_mask": mask}, HYBRID_MODEL,
+                     _dense_plain)
+    return launches
+
+
+def _stage_of(step: int) -> str:
+    """The compression phase's stage at ``step`` (COMPRESSION_BLOCK)."""
+    if step < 2:
+        return "raw"
+    bits = max(4, 8 - (step - 2) // 2)
+    return f"{bits}bit" + ("+pruned" if step >= 4 else "")
+
+
+def _armed(model, block, step):
+    """``model`` reading its weights compressed by ``block`` at ``step``."""
+    from deepspeed_tpu_torch.compression.compress import CompressedParams, init_compression
+
+    transform = init_compression(model, {"compression_training": block})
+    model.param_gatherer = CompressedParams(model, transform)
+    model.param_gatherer.refresh(step)
+    return transform
+
+
+def compression_check_bf16(GPT2Model, cfg, batch):
+    """gpt2-760m's bf16 step at the 5-bit pruned stage, kernel path against
+    plain path on the same compressed weights: the loss and every gradient
+    at the training check's limits."""
+    model = GPT2Model(cfg).init_params(torch.Generator(device="cuda").manual_seed(SEED))
+    model.to(dtype=torch.bfloat16)
+    _armed(model, COMPRESSION_BLOCK, 8)
+    loss_k, grads_k = _grads(model, batch)
+    _dense_plain(model)
+    loss_p, grads_p = _grads(model, batch)
+    rel = {n: _rel_l2(grads_k[n], grads_p[n]) for n in grads_k}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    emit(f"train check {TRAIN_MODEL} compression bf16", layers=cfg.n_layer, step=8,
+         stage=_stage_of(8), loss_kernel=loss_k.item(), loss_plain=loss_p.item(),
+         loss_rel_diff=loss_rel, loss_rtol=TRAIN_LOSS_RTOL, grad_rel_l2_max=rel[worst],
+         grad_rel_l2_worst=worst, grad_rtol=TRAIN_GRAD_RTOL)
+    if not math.isfinite(loss_k.item()) or loss_rel > TRAIN_LOSS_RTOL \
+            or rel[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"compressed bf16 kernel path vs plain path: loss rel {loss_rel}, "
+                             f"grad {worst} rel {rel[worst]}")
+    del model, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+
+def _cleaned_leaves(engine, keys=("qkv_w", "fc_w", "fc2_w", "proj_w")) -> dict:
+    """Per stacked block leaf of the cleaned engine: its distinct values,
+    zeros, the share at the smallest kept magnitude (the l1 threshold's
+    ties) and the 4-bit transform's largest move of it in bf16 ulps."""
+    named = dict(engine.module.named_parameters())
+    L = engine.module.config.n_layer
+    transform = engine._compression
+    terminal = COMPRESSION_STEPS + 100
+    eff, _ = transform.effective(named, terminal)
+    out = {}
+    for key in keys:
+        w = torch.stack([named[f"blocks.{i}.{key}"].detach() for i in range(L)])
+        again = torch.stack([eff[f"blocks.{i}.{key}"] for i in range(L)])
+        mag = w.abs()
+        ulp = torch.finfo(torch.bfloat16).eps * mag.clamp_min(torch.finfo(torch.bfloat16).tiny)
+        out[key] = {"levels": int(torch.unique(w).numel()),
+                    "zeros": (w == 0).float().mean().item(),
+                    "threshold_ties": (mag == mag[mag > 0].min()).float().mean().item(),
+                    "transform_moved": int((again != w).sum().item()),
+                    "transform_max_ulps": ((again.float() - w.float()).abs() / ulp.float())
+                    .max().item(),
+                    "zeros_kept": bool(((w != 0) | (again == 0)).all().item())}
+    return out
+
+
+def compression_slice(initialize, GPT2Model, cfg, accel, fa):
+    """The training cell under ``compression_training`` (COMPRESSION_BLOCK):
+    COMPRESSION_STEPS steps through every MoQ stage and the pruning's start,
+    each step's time by stage against the plain cell's; K1 and each K2 entry
+    once per layer and step; ``redundancy_clean`` then leaves every block
+    leaf with at most 2^4 levels (15: -7..7), half its entries zero less the
+    ties the threshold keeps, and the terminal transform moves it by at most
+    one bf16 rounding. Then the bf16 and fp32 2-layer kernel-vs-plain checks
+    of the compressed path. → launches."""
+    from deepspeed_tpu_torch.compression.compress import redundancy_clean
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    c = dataclasses.replace(cfg, remat=False)
+    config = {**TRAIN_CONFIG, "compression_training": COMPRESSION_BLOCK}
+    engine, *_ = initialize(model=GPT2Model(c), config=json.loads(json.dumps(config)))
+    batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED, device="cuda")
+    accel.reset_peak_memory_stats()
+    losses, step_ms, refresh_ms = [], [], []
+    for kern in (fa.KERNEL, fa.BWD_KERNEL):
+        kern.reset_launches()
+    for step in range(COMPRESSION_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
+    expect = dict.fromkeys(launches, c.n_layer * COMPRESSION_STEPS)
+    if launches != expect or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"compression steps: launches {launches} (expected {expect}), "
+                             f"losses {losses}")
+    # the refresh alone (the compressed weights of one step), timed
+    for _ in range(3):
+        engine.invalidate_compiled()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._refresh_compression()
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = accel.max_memory_allocated() / 1e9
+    by_stage = {}
+    for step, ms in enumerate(step_ms[1:], start=1):        # step 0 holds the first use
+        by_stage.setdefault(_stage_of(step), []).append(ms)
+    redundancy_clean(engine, {"compression_training": COMPRESSION_BLOCK})
+    leaves = _cleaned_leaves(engine)
+    for key, leaf in leaves.items():
+        if leaf["levels"] > 2 ** 4 or not 0.5 - leaf["threshold_ties"] <= leaf["zeros"] <= 0.5 \
+                or leaf["transform_max_ulps"] > 1.0 or not leaf["zeros_kept"]:
+            raise AssertionError(f"redundancy_clean {key}: {leaf}")
+    plain = LINES.get(f"train {TRAIN_MODEL}", {}).get("step_ms")
+    emit(f"train {TRAIN_MODEL} compression", batch=TRAIN_BATCH, seq=TRAIN_SEQ, zero=1,
+         layers=c.n_layer, steps=COMPRESSION_STEPS, losses=losses, step_ms_each=step_ms,
+         step_ms_by_stage={s: sorted(v)[len(v) // 2] for s, v in by_stage.items()},
+         plain_cell_step_ms=plain, refresh_ms=sorted(refresh_ms)[1],
+         launches_per_step={k: v / COMPRESSION_STEPS for k, v in launches.items()},
+         peak_mem_gb=peak_gb, cleaned=leaves, nvidia_smi=nvidia_smi_line())
+    del engine
+    torch.cuda.empty_cache()
+    compression_check_bf16(GPT2Model, c, batch)
+    early = json.loads(json.dumps(COMPRESSION_BLOCK))
+    early["weight_quantization"]["shared_parameters"].update(schedule_offset=0,
+                                                             quantization_period=1)
+    early["sparse_pruning"]["shared_parameters"]["schedule_offset"] = 1
+    train_check_fp32(initialize, GPT2Model, cfg, f"{TRAIN_MODEL} compression", TRAIN_SEQ,
+                     {"compression_training": early}, _dense_plain)
+    return launches
+
+
+def eigenvalue_check_fp32(GPT2Model, cfg):
+    """gpt2-760m's widths at 2 layers in fp32: the block eigenvalues on the
+    card against the CPU's plain run from the same start vectors."""
+    from deepspeed_tpu_torch.models.common import plain_math
+    from deepspeed_tpu_torch.runtime.eigenvalue import block_eigenvalues
+
+    k = EIGEN_FP32
+    c = dataclasses.replace(cfg, n_layer=k["layers"], remat=False, dtype=torch.float32)
+    model = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED + 2))
+    ids = torch.randint(0, c.vocab_size, (k["batch"], k["seq"]),
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    cpu = torch.Generator().manual_seed(SEED + 3)
+    v0 = [{n.split(".", 2)[2]: torch.randn(p.shape, generator=cpu)
+           for n, p in model.named_parameters() if n.startswith(f"blocks.{i}.")}
+          for i in range(c.n_layer)]
+    evs = {}
+    for device in ("cuda", "cpu"):
+        model.to(device)
+        with plain_math(model):
+            t0 = time.perf_counter()
+            evs[device] = block_eigenvalues(lambda: model.loss({"input_ids": ids.to(device)}),
+                                            dict(model.named_parameters()), max_iter=8,
+                                            tol=1e-2, v0=v0).cpu()
+            evs[device + "_s"] = time.perf_counter() - t0
+    rel = ((evs["cuda"] - evs["cpu"]).abs() / evs["cpu"].abs()).max().item()
+    emit(f"eigenvalue check {TRAIN_MODEL} fp32 {k['layers']}-layer", **k,
+         card=evs["cuda"].tolist(), cpu=evs["cpu"].tolist(), rel_diff=rel,
+         card_s=evs["cuda_s"], cpu_s=evs["cpu_s"])
+    if not rel <= k["rtol"]:
+        raise AssertionError(f"eigenvalues on the card {evs['cuda'].tolist()} against the "
+                             f"CPU's {evs['cpu'].tolist()}: rel {rel}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def eigenvalue_slice(initialize, GPT2Model, cfg, accel, fa):
+    """The eigenvalue block with the compression phase's MoQ on gpt2-760m's
+    widths at EIGEN_LAYERS layers: after each ``train_batch`` the engine
+    estimates each layer's eigenvalue on the first microbatch and installs
+    MoQ's period factors. The estimate launches no K1 or K2 (plain
+    attention: the kernels have no double backward) and the train step its
+    own counts; the estimate's ms and peak. Then the fp32 2-layer estimate
+    against the CPU. → the train steps' launches."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    c = dataclasses.replace(cfg, n_layer=EIGEN_LAYERS, remat=False)
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": EIGEN_BATCH,
+              "compression_training": COMPRESSION_BLOCK, "eigenvalue": EIGEN_BLOCK}
+    engine, *_ = initialize(model=GPT2Model(c), config=json.loads(json.dumps(config)))
+    batch = synthetic_lm_batch(EIGEN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED, device="cuda")
+    estimate = engine._maybe_update_eigenvalue
+    runs, steps = [], []
+    counts = lambda: {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
+
+    def measured(b):
+        # the step's own launches (counted from 0 before its train_batch),
+        # then the estimate's from 0
+        steps.append(counts())
+        for kern in (fa.KERNEL, fa.BWD_KERNEL):
+            kern.reset_launches()
+        torch.cuda.synchronize()
+        accel.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        estimate(b)
+        torch.cuda.synchronize()
+        runs.append({"ms": (time.perf_counter() - t0) * 1e3, "launches": counts(),
+                     "peak_mem_gb": accel.max_memory_allocated() / 1e9,
+                     "eigenvalues": [ev for ev, _ in (engine.block_eigenvalue or {}).values()],
+                     "factors": list(engine._compression._ev_factors or ())})
+
+    engine._maybe_update_eigenvalue = measured
+    losses = []
+    for _ in range(EIGEN_STEPS):
+        for kern in (fa.KERNEL, fa.BWD_KERNEL):
+            kern.reset_launches()
+        losses.append(float(engine.train_batch(batch)))
+    own = dict.fromkeys(("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv"), EIGEN_LAYERS)
+    if any(step != own for step in steps) or any(any(r["launches"].values()) for r in runs) \
+            or len(runs) != EIGEN_STEPS or not runs[-1]["factors"] \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"eigenvalue phase: estimates {runs}, train steps' launches "
+                             f"{steps} (expected {own} each), losses {losses}")
+    emit(f"eigenvalue {TRAIN_MODEL}", layers=EIGEN_LAYERS, batch=EIGEN_BATCH, seq=TRAIN_SEQ,
+         max_iter=EIGEN_BLOCK["max_iter"], estimates=runs,
+         estimate_ms=sorted(r["ms"] for r in runs)[len(runs) // 2],
+         train_step_launches=steps, losses=losses, nvidia_smi=nvidia_smi_line())
+    del engine
+    torch.cuda.empty_cache()
+    eigenvalue_check_fp32(GPT2Model, cfg)
+    return {k: v * EIGEN_STEPS for k, v in own.items()}
+
+
+def rlhf_slices(initialize, init_inference, GPT2Model, gpt2_cfg, accel, fa, da):
+    """The RLHF actor's path: the hybrid engine on OPT-1.3b, compression
+    training and the eigenvalue on gpt2-760m. → launches by path."""
+    launches = hybrid_slice(initialize, init_inference, accel, fa, da)
+    launches["train_compression"] = compression_slice(initialize, GPT2Model, gpt2_cfg, accel, fa)
+    launches["train_eigenvalue"] = eigenvalue_slice(initialize, GPT2Model, gpt2_cfg, accel, fa)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
@@ -4468,11 +4863,15 @@ def main() -> int:
         # the model-import phases' new shapes: DistilBERT-base's MLM forward
         # (12 heads of 64, non-causal) and gpt2-760m's serving prefill
         ("distilbert_s512", *IMPORT_BERT_SHAPE, 12, 64, bf, False),
-        ("gpt2_prefill_d96", BATCH, PROMPT, 16, 96, bf, True)))}
+        ("gpt2_prefill_d96", BATCH, PROMPT, 16, 96, bf, True),
+        # the hybrid engine's OPT-1.3b: its prefill and its train step
+        ("opt_prefill", HYBRID_BATCH, HYBRID_PROMPT, 32, 64, bf, True),
+        ("opt_train", HYBRID_BATCH, HYBRID_PROMPT + HYBRID_GEN, 32, 64, bf, True)))}
     model_bwd = {row["name"]: row for row in (check_flash_bwd(fa, accel, gen, *case) for case in (
         ("llama_train", LLAMA_BATCH * 32, LLAMA_SEQ, 64, bf, True),
         ("moe_train", MOE_BATCH * 12, MOE_SEQ, 64, bf, True),
         ("pythia_train", PYTHIA_BATCH * 16, PYTHIA_SEQ, 128, bf, True),
+        ("opt_train", HYBRID_BATCH * 32, HYBRID_PROMPT + HYBRID_GEN, 64, bf, True),
         *((f"bert_s{t}{suffix}", b * 16, t, 64, dt, False)
           for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
     # SD-1.5's shapes: the UNet's self-attention (T = H W) and cross-attention
@@ -4543,6 +4942,11 @@ def main() -> int:
     gpt2_decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("gpt2_mha_d96", BATCH, S, 16, 16, 96, bf, S - 1),
         ("gpt2_mha_d96_fp16", BATCH, S, 16, 16, 96, f16, S - 1))]
+    # the hybrid engine's OPT-1.3b decode: 32 heads of 64, one per KV head,
+    # over its 512-entry cache
+    opt_decode_row = check_decode(da, accel, gen, "opt_mha_d64", HYBRID_BATCH,
+                                  HYBRID_PROMPT + HYBRID_GEN, 32, 32, 64, bf,
+                                  HYBRID_PROMPT + HYBRID_GEN - 1)
     # gpt2-moe-125m's serving shape: 12 heads of 64, one per KV head
     moe_decode_row = check_decode(da, accel, gen, "moe_mha_d64", BATCH, S, 12, 12, 64, bf,
                                   S - 1)
@@ -4562,8 +4966,12 @@ def main() -> int:
         long_rows.append(check_decode(da, accel, gen, "long_garbage_past_pos", LONG_BATCH,
                                       LONG_S, 32, 8, 64, bf, 5000, garbage=True))
     from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config
-    sparse_rows = [check_sparse(fa, accel, gen, *case)
-                   for case in sparse_cases(fa, sparsity_config)]
+    # the training cell's row is timed; the other layouts, blocks, head dims
+    # and types are held to their plain versions without a time
+    cases = sparse_cases(fa, sparsity_config)
+    sparse_rows = [check_sparse(fa, accel, gen, *cases[0])]
+    with untimed():
+        sparse_rows += [check_sparse(fa, accel, gen, *case) for case in cases[1:]]
     # gpt2-moe-125m's sparse training shape: 12 x 1024, 12 heads of 64, the
     # same fixed layout
     from deepspeed_tpu_torch.ops.sparse_attention import sparse_self_attention
@@ -4648,6 +5056,12 @@ def main() -> int:
     import_launches = import_slices(deepspeed_tpu_torch.init_inference, model_cls,
                                     presets[MODEL], bert_cls, bert_presets[BERT_MODEL],
                                     gpt2_presets[TRAIN_MODEL], accel, fa, da)
+    # the RLHF actor: the hybrid engine on OPT-1.3b, compression training and
+    # the eigenvalue on gpt2-760m
+    rlhf_launches = rlhf_slices(deepspeed_tpu_torch.initialize, deepspeed_tpu_torch.init_inference,
+                                gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa, da)
+    rlhf_trained = {p: n for p, n in rlhf_launches.items() if "generate" not in p}
+    rlhf_generated = {p: n for p, n in rlhf_launches.items() if "generate" in p}
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bwd = bwd_rows[0]
@@ -4676,7 +5090,8 @@ def main() -> int:
                               **{p: n["flash_attention_fwd"]
                                  for p, n in variant_launches.items()},
                               **{p: n["flash_attention_fwd"]
-                                 for p, n in import_launches.items()}},
+                                 for p, n in import_launches.items()},
+                              **{p: n["flash_attention_fwd"] for p, n in rlhf_launches.items()}},
          "at_serving_shape": {k: flash_rows[1][k] for k in keys},
          "at_model_shapes": {name: {k: row[k] for k in keys} for name, row in model_fwd.items()}},
         {"name": "decode_attention", "route": "cuda",
@@ -4690,7 +5105,9 @@ def main() -> int:
                               **{p: model_launches[p]["decode_attention"] for p in served},
                               **{p: n["decode_attention"] for p, n in variant_served.items()},
                               **{p: n["decode_attention"] for p, n in import_launches.items()
-                                 if n["decode_attention"]}},
+                                 if n["decode_attention"]},
+                              **{p: n["decode_attention"] for p, n in rlhf_generated.items()}},
+         "at_opt_serving_shape": {k: opt_decode_row[k] for k in keys},
          "at_long_shape": {k: long_rows[0][k] for k in keys},
          "at_gpt2_mha_shape": {k: gpt2_decode_rows[0][k] for k in keys},
          "at_moe_serving_shape": {k: moe_decode_row[k] for k in keys}},
@@ -4707,7 +5124,8 @@ def main() -> int:
                 ("resume", resume_launches),
                 ("curriculum", curriculum_launches),
                 *((f"zero{s}", z) for s, z in zero_launches.items()),
-                *by_offload.items(), *trained.items(), *variant_trained.items())},
+                *by_offload.items(), *trained.items(), *variant_trained.items(),
+                *rlhf_trained.items())},
             "at_model_shapes": {name: {
                 "max_abs_err": max(row["errs"][n] for n in (("dq",) if entry == "dq"
                                                             else ("dk", "dv"))),

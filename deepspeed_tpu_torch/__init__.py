@@ -26,7 +26,11 @@ script takes ``add_config_arguments`` and calls
 (``models/clip.py``, ``models/diffusion.py``: the CLIP text tower, the UNet
 and the VAE, loaded from HF and diffusers by ``module_inject/hf.py``) serves
 through ``init_inference`` → ``InferenceEngine.forward(sample, timestep,
-context)``.
+context)``. The RLHF actor's path: ``hybrid_engine.enabled`` makes
+``initialize`` return ``DeepSpeedHybridEngine`` (``generate`` over the live
+training params), and the ``compression_training`` and ``eigenvalue``
+blocks train with MoQ, pruning and the block Hessian eigenvalue
+(``compression/``, ``runtime/eigenvalue.py``).
 """
 
 from __future__ import annotations
@@ -56,7 +60,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``dist_init_required`` True (or None under torchrun, whose ``RANK`` and
     ``WORLD_SIZE`` are set) joins the process group first
     (``comm.init_distributed``: NCCL on CUDA, gloo for ``device="cpu"``);
-    the engine trains over whatever group is initialized."""
+    the engine trains over whatever group is initialized. With
+    ``hybrid_engine.enabled`` the engine is a ``DeepSpeedHybridEngine``,
+    which also generates over its live params."""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
@@ -84,6 +90,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
             raise NotImplementedError("ZeRO-Infinity (offload_param nvme) of a MoE model: the "
                                       "layerwise engine walks only the dense blocks and would "
                                       "never load or update the expert banks")
+        if ds_config.hybrid_engine.enabled:
+            raise NotImplementedError("hybrid_engine with offload_param nvme: the layerwise "
+                                      "ZeRO-Infinity engine has no generate")
         if optimizer is not None or lr_scheduler is not None:
             raise ValueError("offload_param=nvme (layerwise ZeRO-Infinity) builds its own "
                              "NVMe-swapped optimizer; pass optimizer/scheduler via ds_config, "
@@ -94,11 +103,16 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
         loader = None if training_data is None else DeepSpeedDataLoader(
             training_data, batch_size=zengine.train_batch_size(), collate_fn=collate_fn)
         return zengine, zengine.optimizer, loader, zengine.lr_scheduler
-    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
-                             model_parameters=model_parameters, training_data=training_data,
-                             lr_scheduler=lr_scheduler, mpu=mpu,
-                             dist_init_required=dist_init_required, collate_fn=collate_fn,
-                             config_class=ds_config, device=device)
+    engine_cls = DeepSpeedEngine
+    if ds_config.hybrid_engine.enabled:
+        from deepspeed_tpu_torch.runtime.hybrid_engine import DeepSpeedHybridEngine
+
+        engine_cls = DeepSpeedHybridEngine
+    engine = engine_cls(args=args, model=model, optimizer=optimizer,
+                        model_parameters=model_parameters, training_data=training_data,
+                        lr_scheduler=lr_scheduler, mpu=mpu,
+                        dist_init_required=dist_init_required, collate_fn=collate_fn,
+                        config_class=ds_config, device=device)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 

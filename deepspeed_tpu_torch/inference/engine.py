@@ -10,7 +10,9 @@ engine's compiled programs. On the CPU the same step runs as an eager loop.
 Nothing in a step waits on the host: the cache position and the step index
 live on the device, sampling and EOS masking are tensor operations, and the
 tokens come back once, at the end. :func:`build_generate_parts` is the
-ungraphed loop, for comparison.
+ungraphed loop, for comparison. :func:`generate_with_loops` (prefill, then
+the key's decode loop) is shared with the hybrid engine
+(``runtime/hybrid_engine.py``), which generates over its training params.
 
 An engine keeps the decode loops of its ``DECODE_LOOPS_KEPT`` most recently
 used keys; each holds a KV cache of the key's capacity (and on the card a
@@ -236,6 +238,35 @@ class DecodeLoop:
         return self.tokens.clone()
 
 
+def generate_with_loops(loops: "OrderedDict", module, ids: torch.Tensor, max_new_tokens: int,
+                        do_sample: bool, temperature: float, top_k: int, top_p: float,
+                        eos_token_id: Optional[int], seed: int, device: torch.device,
+                        kept: int = DECODE_LOOPS_KEPT):
+    """Prefill ``ids`` (B, T) and run the decode loop of the generate key
+    from ``loops`` (key → :class:`DecodeLoop`, the ``kept`` most recently
+    used, a new loop made and the oldest dropped as needed), on the device's
+    default stream. → (ids with the new tokens appended, the loop, whether
+    the loop was made by this call). The inference engine and the hybrid
+    engine share it."""
+    B, T = ids.shape
+    if device.type == "cuda" and \
+            torch.cuda.current_stream(device) != torch.cuda.default_stream(device):
+        raise RuntimeError("generate runs on the device's default stream: the decode "
+                           "kernel's merge semaphores are shared per device")
+    key = (B, T, max_new_tokens, do_sample, temperature, top_k, top_p, eos_token_id)
+    with torch.inference_mode():
+        loop = loops.pop(key, None)
+        made = loop is None
+        if made:
+            while len(loops) >= kept:
+                loops.popitem(last=False)              # its cache and graph go with it
+            loop = DecodeLoop(module, B, T, max_new_tokens, do_sample, temperature,
+                              top_k, top_p, eos_token_id, device)
+        loops[key] = loop
+        logits, cache = module.prefill(ids, loop.cache)
+        return torch.cat([ids, loop.run(logits, cache, seed)], dim=1), loop, made
+
+
 class _Dequantized:
     """A module's own parameters to compute with: a quantized weight
     dequantized at its first read (then kept until the module is done),
@@ -398,22 +429,10 @@ class InferenceEngine:
         token ids on the engine's device (post-EOS positions hold the EOS
         token)."""
         ids = self._ids(input_ids)
-        B, T = ids.shape
-        if self.device.type == "cuda" and \
-                torch.cuda.current_stream(self.device) != torch.cuda.default_stream(self.device):
-            raise RuntimeError("generate runs on the device's default stream: the decode "
-                               "kernel's merge semaphores are shared per device")
+        T = ids.shape[1]
         if T + max_new_tokens > self._config.max_out_tokens:
             raise ValueError(f"sequence {T + max_new_tokens} exceeds max_out_tokens "
                              f"{self._config.max_out_tokens}")
-        key = (B, T, max_new_tokens, do_sample, temperature, top_k, top_p, eos_token_id)
-        with torch.inference_mode():
-            loop = self._decode_loops.pop(key, None)
-            if loop is None:
-                while len(self._decode_loops) >= DECODE_LOOPS_KEPT:
-                    self._decode_loops.popitem(last=False)   # its cache and graph go with it
-                loop = DecodeLoop(self.module, B, T, max_new_tokens, do_sample, temperature,
-                                  top_k, top_p, eos_token_id, self.device)
-            self._decode_loops[key] = loop
-            logits, cache = self.module.prefill(ids, loop.cache)
-            return torch.cat([ids, loop.run(logits, cache, seed)], dim=1)
+        return generate_with_loops(self._decode_loops, self.module, ids, max_new_tokens,
+                                   do_sample, temperature, top_k, top_p, eos_token_id, seed,
+                                   self.device)[0]

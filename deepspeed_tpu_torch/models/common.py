@@ -30,6 +30,7 @@ hold no memory until filled, random initial values drawn a piece at a time
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -96,9 +97,15 @@ class GatheredModule(nn.Module):
     :meth:`_gathered`: the module itself, or, when the engine trains under
     ZeRO stage 3 or ``offload_param`` and has set ``param_gatherer``, the
     parameters gathered just before the module runs and released after it
-    (``runtime/zero/state.py``). A model's top-level parameters gather once
-    for each use (a tied embedding twice a forward); a block under ``remat``
-    gathers again when it is recomputed."""
+    (``runtime/zero/state.py``), or their compressed values under
+    compression training (``compression/compress.py``). A model's top-level
+    parameters gather once for each use (a tied embedding twice a forward);
+    a block under ``remat`` gathers again when it is recomputed.
+    ``stacked_layers``: the module lists whose layers the JAX package
+    stacks into leaves with a leading L (the compression transform's
+    paths)."""
+
+    stacked_layers = ("blocks",)
 
     def __init__(self):
         super().__init__()
@@ -116,6 +123,27 @@ class GatheredModule(nn.Module):
             yield gatherer.gather(module)
         finally:
             gatherer.release(module)
+
+
+@contextlib.contextmanager
+def plain_math(model: nn.Module):
+    """``model`` computing with the plain attention and no activation
+    checkpointing, for a loss that is differentiated twice (the eigenvalue's
+    Hessian-vector products): the flash kernels have no double backward,
+    and a recomputed block is not differentiable twice. The model's config
+    is swapped for the duration; a block-sparse config raises (its kernels
+    have no double backward either)."""
+    c = model.config
+    if getattr(c, "sparse_attention", None) is not None:
+        raise NotImplementedError("a Hessian-vector product through block-sparse attention: "
+                                  "its kernels have no double backward")
+    plain = {k: v for k, v in (("use_flash_attention", False), ("remat", False),
+                               ("remat_loss_chunks", False)) if hasattr(c, k)}
+    model.config = dataclasses.replace(c, **plain)
+    try:
+        yield model
+    finally:
+        model.config = c
 
 
 def layer_norm(x, g, b, eps: float = 1e-5):

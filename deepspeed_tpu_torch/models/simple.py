@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deepspeed_tpu_torch.models.common import assemble, init_pieces, meta_weight
+from deepspeed_tpu_torch.models.common import GatheredModule, assemble, init_pieces, meta_weight
 
 
 class SimpleLayer(nn.Module):
@@ -27,8 +27,12 @@ class SimpleLayer(nn.Module):
         self.b = meta_weight(hidden_dim)
 
 
-class SimpleModel(nn.Module):
-    """Linear → relu stack with an MSE head. batch = (x, y)."""
+class SimpleModel(GatheredModule):
+    """Linear → relu stack with an MSE head. batch = (x, y). Each layer
+    computes through ``_gathered`` (ZeRO stage 3, compression); the JAX
+    package keeps its layers as a list, not a stacked leaf."""
+
+    stacked_layers = ()
 
     def __init__(self, hidden_dim: int = 16, nlayers: int = 2, empty_grad: bool = False):
         super().__init__()
@@ -52,8 +56,9 @@ class SimpleModel(nn.Module):
 
     def apply(self, x):
         h = x
-        for i, lyr in enumerate(self.layers):
-            h = h @ lyr.w.to(h.dtype) + lyr.b.to(h.dtype)
+        for i, layer in enumerate(self.layers):
+            with self._gathered(layer) as lyr:
+                h = h @ lyr.w.to(h.dtype) + lyr.b.to(h.dtype)
             if i < self.nlayers - 1:
                 h = F.relu(h)
         return h

@@ -12,8 +12,10 @@ The port reads ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 (random-LTD's ``data_routing`` included: accepted, and applied to no model,
 as in JAX), ``curriculum_learning``, ``dataloader_drop_last``,
 ``progressive_layer_drop``, ``activation_checkpointing``, ``memory_breakdown``,
-``dump_state``, ``steps_per_print``, ``wall_clock_breakdown``, ``seed``, the
-``tpu`` block's ``data`` and ``expert`` axes, and the batch keys.
+``dump_state``, ``hybrid_engine``, ``compression_training`` (validated as
+``compression/config.py`` reads it), ``eigenvalue``, ``steps_per_print``,
+``wall_clock_breakdown``, ``seed``, the ``tpu`` block's ``data`` and
+``expert`` axes, and the batch keys.
 
 The JAX package's advisory keys (its ``ADVISORY_NOOP_KEYS``) are the
 reference's knobs that change nothing there. Here each has the reason that
@@ -50,6 +52,7 @@ SUPPORTED_KEYS = frozenset({
     "wall_clock_breakdown", "seed", "checkpoint", "resilience", "data_efficiency",
     "curriculum_learning", "dataloader_drop_last", "progressive_layer_drop", "tpu",
     "activation_checkpointing", "memory_breakdown", "dump_state",
+    "hybrid_engine", "compression_training", "eigenvalue",
     "train_batch_size", "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
@@ -58,11 +61,9 @@ SUPPORTED_KEYS = frozenset({
 # each is a later slice of the port
 LATER_KEYS = frozenset({
     "flops_profiler", "tensorboard", "wandb",
-    "csv_monitor", "pipeline", "elasticity", "hybrid_engine",
-    "gradient_compression", "compression_training",
+    "csv_monitor", "pipeline", "elasticity", "gradient_compression",
     "autotuning", "rewind", "watchdog", "analysis", "telemetry", "profiling",
     "perf", "serving", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
-    "eigenvalue",
 })
 
 # The JAX package's advisory keys that the port accepts at any value, each
@@ -86,7 +87,7 @@ ADVISORY_NOOP_KEYS = {
         "nebula's tiers and storage paths have no counterpart",
     "zero_allow_untested_optimizer":
         "a client optimizer is a deepspeed_tpu_torch.ops.optimizers.Optimizer, which "
-        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:454 "
+        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:607 "
         "_configure_optimizer): there is no untested-optimizer gate to pass",
     "zero_force_ds_cpu_optimizer":
         "the port has no CPU Adam to force: offload_optimizer cpu keeps the state in "
@@ -95,7 +96,7 @@ ADVISORY_NOOP_KEYS = {
         "(runtime/swap_tensor/optimizer_swapper.py)",
     "timers":
         "throughput timing is always on (ThroughputTimer, utils/timer.py; the engine's "
-        "tput_timer, runtime/engine.py:309) and the synchronized breakdown is the "
+        "tput_timer, runtime/engine.py:324) and the synchronized breakdown is the "
         "wall_clock_breakdown knob: set that instead",
 }
 
@@ -219,6 +220,69 @@ class PLDConfig(DeepSpeedConfigModel):
         if not 0.0 < self.theta <= 1.0:
             raise ValueError(f"progressive_layer_drop.theta {self.theta} not in (0, 1]")
         _check_min(self, gamma=(0.0, False))
+
+
+# The hybrid_engine keys that the JAX package accepts as no-ops, with why each
+# changes nothing in the port (the engine logs the reason when one is set).
+HYBRID_NOOP_KEYS = {
+    "pin_parameters":
+        "generate reads the training params where they live on the card "
+        "(runtime/hybrid_engine.py generate): there is no inference copy to pin",
+    "tp_gather_partition_size":
+        "it sizes the gathers of tensor-parallel inference shards, and the port "
+        "generates at inference_tp_size 1 only",
+}
+
+
+@dataclasses.dataclass
+class HybridEngineConfig(DeepSpeedConfigModel):
+    """The hybrid_engine block (``runtime/hybrid_engine.py``): ``enabled``
+    makes ``initialize`` return the engine that trains and generates over
+    the same params; ``max_out_tokens`` caps prompt + new tokens;
+    ``pin_parameters`` and ``tp_gather_partition_size`` parse and change
+    nothing (:data:`HYBRID_NOOP_KEYS`); ``release_inference_cache`` is
+    refused at true and ``inference_tp_size`` above 1 is a later slice
+    (tensor-parallel inference)."""
+    enabled: bool = False
+    max_out_tokens: int = 512
+    inference_tp_size: int = 1
+    release_inference_cache: bool = False
+    pin_parameters: bool = True
+    tp_gather_partition_size: int = 8
+
+    def __post_init__(self):
+        _check_min(self, max_out_tokens=(0, True), inference_tp_size=(1, False),
+                   tp_gather_partition_size=(1, False))
+        if self.release_inference_cache:
+            raise ValueError(
+                "ds_config hybrid_engine.release_inference_cache=true is not supported on "
+                "CUDA: generate keeps each key's decode loop (its KV cache and captured graph, "
+                "inference/engine.py generate_with_loops) for the next call to replay; leave "
+                "it false")
+        if self.inference_tp_size > 1:
+            raise NotImplementedError(
+                f"ds_config hybrid_engine.inference_tp_size={self.inference_tp_size}: "
+                "tensor-parallel inference is a later slice of the port")
+
+
+@dataclasses.dataclass
+class EigenvalueConfig(DeepSpeedConfigModel):
+    """The eigenvalue block (``runtime/eigenvalue.py``): power iteration on
+    each layer's block of the Hessian, feeding MoQ's per-layer quantization
+    periods at gradient-accumulation boundaries. ``layer_name`` names the
+    model's layer list (``blocks``), ``layer_num`` (0: any) its length."""
+    enabled: bool = False
+    verbose: bool = False
+    max_iter: int = 100
+    tol: float = 1e-2
+    stability: float = 1e-6
+    gas_boundary_resolution: int = 1
+    layer_name: str = "blocks"
+    layer_num: int = 0
+
+    def __post_init__(self):
+        _check_min(self, max_iter=(0, True), tol=(0.0, True), stability=(0.0, False),
+                   gas_boundary_resolution=(0, True), layer_num=(0, False))
 
 
 @dataclasses.dataclass
@@ -419,6 +483,14 @@ class DeepSpeedConfig:
         self.data_efficiency_config = pd.get("data_efficiency", {})
         self.activation_checkpointing_config = ActivationCheckpointingConfig.from_dict(
             pd.get("activation_checkpointing", {}))
+        self.hybrid_engine = HybridEngineConfig.from_dict(pd.get("hybrid_engine", {}))
+        self.compression_config = pd.get("compression_training", {})
+        if self.compression_config:
+            from deepspeed_tpu_torch.compression.config import CompressionConfig
+
+            CompressionConfig.from_dict(self.compression_config)      # validated here
+        self.eigenvalue_config = EigenvalueConfig.from_dict(pd.get("eigenvalue", {}))
+        self.eigenvalue_enabled = self.eigenvalue_config.enabled
         self.memory_breakdown = bool(pd.get("memory_breakdown", False))
         self.dump_state = bool(pd.get("dump_state", False))
         # the advisory keys the config sets: presence, not truthiness

@@ -97,6 +97,20 @@ The JAX package's knobs ``DS_TPU_OFFLOAD_MASTER``,
 meanings. On ``device="cpu"`` the host is the same memory; the offload path
 still runs, as copies between CPU tensors.
 
+Compression training (the ``compression_training`` block, or
+``compression.init_compression(engine, ...)``): the transform of
+``compression/compress.py`` computes each step's compressed weights once,
+at the engine's step, into static buffers that the model reads through its
+``param_gatherer`` in ``train_batch``, ``forward`` / ``backward`` /
+``step``, ``eval_batch`` and a hybrid engine's ``generate``; the gradient
+at the compressed weights updates the raw ones, as in JAX. With the ``eigenvalue``
+block, after each ``train_batch`` at a gradient-accumulation boundary
+(outside the train-batch timer) the engine estimates each layer's Hessian
+eigenvalue on the first microbatch with the raw weights
+(``runtime/eigenvalue.py``) and stretches MoQ's per-layer quantization
+periods, as the JAX ``_maybe_update_eigenvalue`` does. Compression under
+ZeRO stage 3 or ``offload_param`` is a later slice and raises.
+
 The ``activation_checkpointing`` block configures
 ``runtime/activation_checkpointing/checkpointing.py`` when it asks for
 partitioned or host-kept activations, as in JAX; the models keep their own
@@ -115,6 +129,7 @@ configured.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import inspect
@@ -337,6 +352,25 @@ class DeepSpeedEngine:
                      f"{self._config.advisory_reason(key)}", ranks=[0])
         if self._config.dump_state:
             self._config.print_config()
+
+        # ---- compression training and the eigenvalue ----------------------
+        self._compression = None          # the CompressionTransform, when armed
+        self._compressed = None           # its CompressedParams gatherer
+        self._compression_at = None       # the step its buffers hold
+        if self._config.compression_config:
+            from deepspeed_tpu_torch.compression.compress import init_compression
+
+            init_compression(self, {"compression_training": self._config.compression_config})
+        self.eigenvalue = None
+        self.block_eigenvalue = None
+        if self._config.eigenvalue_enabled:
+            from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue
+
+            ec = self._config.eigenvalue_config
+            self.eigenvalue = Eigenvalue(
+                verbose=ec.verbose, max_iter=ec.max_iter, tol=ec.tol, stability=ec.stability,
+                gas_boundary_resolution=ec.gas_boundary_resolution,
+                layer_name=ec.layer_name, layer_num=ec.layer_num)
         log_dist(f"engine ready: dtype={self.train_dtype}, zero={self.zero_stage}, "
                  f"device={self.device}, dp={self.dp_world_size}, "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
@@ -358,6 +392,126 @@ class DeepSpeedEngine:
                              f"expert parallelism, the engine's grid has tpu.expert={ep} and "
                              f"this rank at {self.grid.get_expert_parallel_rank()}")
         model.expert_groups = self.grid.expert_groups
+
+    # ---------------------------------------------------------- compression
+    def arm_compression(self, config) -> "DeepSpeedEngine":
+        """Install the compression of ``config`` (a ``CompressionConfig``):
+        the model reads its armed weights compressed at the engine's step
+        through a ``CompressedParams`` gatherer. Returns the engine."""
+        from deepspeed_tpu_torch.compression.compress import (CompressedParams,
+                                                              CompressionTransform,
+                                                              stacked_layers_of)
+
+        if any(self._zero.fetched):
+            raise _later("compression training under ZeRO stage 3 or offload_param (the "
+                         "transform's statistics need each stacked leaf whole on the card)")
+        if not hasattr(self.module, "param_gatherer"):
+            raise NotImplementedError(
+                f"compression training of {type(self.module).__name__}: the model must "
+                "compute through its modules' parameters (param_gatherer, as "
+                "models/common.py GatheredModule does)")
+        transform = CompressionTransform(config, dict(self.module.named_parameters()),
+                                         stacked_layers_of(self.module))
+        inner = self.module.param_gatherer
+        if isinstance(inner, CompressedParams):
+            inner = inner.inner
+        self._compression = transform
+        self._compressed = CompressedParams(self.module, transform, inner)
+        self.module.param_gatherer = self._compressed
+        self.invalidate_compiled()
+        return self
+
+    def invalidate_compiled(self) -> None:
+        """Drop what baked in the compression (the JAX engine's
+        ``invalidate_compiled``): the compressed weights are recomputed at
+        their next use; a hybrid engine also drops its captured decode
+        loops."""
+        self._compression_at = None
+
+    def _refresh_compression(self) -> None:
+        """The compressed weights and gradient masks of the current step,
+        computed once per step before the first use."""
+        if self._compressed is None or self._compression_at == self._global_step:
+            return
+        self._compressed.refresh(self._global_step)
+        self._compression_at = self._global_step
+
+    @contextlib.contextmanager
+    def _raw_params(self):
+        """The model computing with its raw weights (the eigenvalue's
+        Hessian is of the raw loss, as in JAX)."""
+        if self._compressed is None:
+            yield
+            return
+        self.module.param_gatherer = self._compressed.inner
+        try:
+            yield
+        finally:
+            self.module.param_gatherer = self._compressed
+
+    @torch.no_grad()
+    def replace_params(self, values: Mapping[str, torch.Tensor]) -> None:
+        """The compute-type params from whole tensors by name (every
+        trainable parameter); the fp32 copy the optimizer updates too when
+        the engine keeps no separate master (fp32 training, where the JAX
+        engine's params are its masters)."""
+        tensors = [values[n].detach() for n in self._param_names]
+        self._zero.load(PARAMS, tensors)
+        if not self._keep_master and self._nvme_optimizer is None:
+            self._zero.load(self._zero.fp32, tensors)
+        self._compression_at = None
+
+    def _maybe_update_eigenvalue(self, batch) -> None:
+        """MoQ's coupling at a gradient-accumulation boundary (the JAX
+        engine's ``_maybe_update_eigenvalue``): every
+        ``gas_boundary_resolution`` steps while quantization stages are
+        armed and some layer has a bit width still to reach, estimate the
+        layers' eigenvalues on the first microbatch with the raw weights and
+        install the period factors ``1 + int(4 ev)``, a change accepted only
+        past the adjacent bucket's midpoint (hysteresis). The factors take
+        effect from the next step."""
+        comp = self._compression
+        step = self._global_step
+        if (comp is None or not comp.any_quant_armed()
+                or step % self.eigenvalue.gas_boundary_resolution
+                or not comp.any_precision_switch(step)):
+            return
+        from deepspeed_tpu_torch.models.common import plain_math
+
+        micro = next(self._split(batch, self._config.gradient_accumulation_steps))
+        gen = torch.Generator(device=self.device).manual_seed(
+            (self._config.seed * 1_000_003 + step) * 1_009 + 0xE1)
+        with self._raw_params(), plain_math(self.module):
+            self.block_eigenvalue = self.eigenvalue.compute_eigenvalue(
+                lambda: self.module.loss(micro), dict(self.module.named_parameters()),
+                generator=gen)
+        if not self.block_eigenvalue:
+            return
+        raw = [ev for ev, _ in self.block_eigenvalue.values()]
+        if self._group is not None:
+            # every rank installs rank 0's estimate
+            t = torch.tensor(raw, dtype=torch.float32, device=self.device)
+            comm.broadcast(t, src=0, group=self._group)
+            raw = t.tolist()
+            self.block_eigenvalue = {i: (ev, i) for i, ev in enumerate(raw)}
+        old = comp._ev_factors
+        factors = []
+        for layer, ev in enumerate(raw):
+            new = 1 + int(ev * 4)
+            if old is not None and layer < len(old) and new != old[layer]:
+                # hysteresis: a flip only when 4 ev moved past the adjacent
+                # bucket's midpoint, so a layer riding a boundary stays put
+                if abs(4.0 * ev - (old[layer] - 0.5)) <= 1.0:
+                    new = old[layer]
+            factors.append(new)
+        if comp.set_eigenvalue_factors(factors, layer_name=self.eigenvalue.layer_name,
+                                       step=step):
+            # the windows moved: the next use recomputes the compressed
+            # weights (the captured decode graphs read the same buffers)
+            self._compression_at = None
+
+    def eigenvalue_enabled(self) -> bool:
+        return self.eigenvalue is not None
 
     # -------------------------------------------------------------- offload
     def _hbm_bytes(self) -> int:
@@ -669,6 +823,7 @@ class DeepSpeedEngine:
         batch = self._to_device(batch)
         self.timers(TRAIN_BATCH_TIMER).start()
         self.tput_timer.start()
+        self._refresh_compression()
         microbatches = list(self._split(batch, gas))
         weights = self._token_weights(microbatches)
         losses = []
@@ -683,12 +838,15 @@ class DeepSpeedEngine:
         self._apply_grads(mean_loss, gas)
         self.timers(TRAIN_BATCH_TIMER).stop()
         self.tput_timer.stop(global_step=True)
+        if self.eigenvalue is not None:
+            self._maybe_update_eigenvalue(batch)
         return mean_loss
 
     def forward(self, batch):
         """The loss of one microbatch (this rank's), with its autograd graph."""
         self.timers(FORWARD_GLOBAL_TIMER).start()
         batch = self._to_device(batch)
+        self._refresh_compression()
         weights = self._token_weights([batch])
         self._pending_weight = None if weights is None else weights[0]
         loss = self._forward(batch, self._pending_weight,
@@ -731,7 +889,9 @@ class DeepSpeedEngine:
         self.timers(STEP_GLOBAL_TIMER).stop()
 
     def eval_batch(self, batch) -> torch.Tensor:
-        """Loss without gradients (for eval loops)."""
+        """Loss without gradients (for eval loops), with the compressed
+        weights of the current step when compression is armed."""
+        self._refresh_compression()
         with torch.no_grad():
             return self.module.loss(self._to_device(batch))
 
@@ -866,6 +1026,8 @@ class DeepSpeedEngine:
         from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import \
             load_engine_checkpoint
 
-        return load_engine_checkpoint(self, load_dir, tag=tag,
-                                      load_optimizer_states=load_optimizer_states,
-                                      load_module_only=load_module_only)
+        out = load_engine_checkpoint(self, load_dir, tag=tag,
+                                     load_optimizer_states=load_optimizer_states,
+                                     load_module_only=load_module_only)
+        self.invalidate_compiled()            # the weights the compression read changed
+        return out

@@ -141,8 +141,8 @@ def test_mlm_loss_and_grads_match_jax(case):
     jover = {k: v for k, v in over.items() if k != "remat"}
     params = _jax_params(_jcfg(**jover), seed=2)
     batch = _batch(seed=2, types=types, attn=attn)
-    jloss, jgrads = jax.value_and_grad(
-        lambda p: jbert.BertModel(_jcfg(**jover)).loss(p, batch))(params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jbert.BertModel(_jcfg(**jover)).loss(p, batch)))(params)
     model = tbert.params_from_jax(params, _tcfg(**over))
     loss = model.loss(_torch(batch))
     loss.backward()

@@ -55,7 +55,11 @@ weights dequantized inside the captured decode step gives the eager
 loop's tokens and those of its dequantized weights served in bf16;
 ``cpu_checkpointing`` keeps pinned host copies and the plain gradients; a
 block-sparse MoE step launches the sparse kernels; random-LTD's gather
-and scatter on the card equal the CPU's.
+and scatter on the card equal the CPU's. The RLHF actor: the hybrid
+engine's one captured decode graph, replayed after each step, gives the
+eager loop's tokens on the updated params (stages 0, 2, 3 and under MoQ);
+fake quantization and the pruning masks on the card equal the CPU's bit
+for bit; the eigenvalue estimate launches no K1 or K2.
 """
 
 import dataclasses
@@ -1473,3 +1477,91 @@ def test_random_ltd_ops_on_the_card_equal_the_cpu(gen):
     back = dr.random_ltd_scatter(small * 2, idx, x)
     assert torch.equal(small.cpu(), dr.random_ltd_gather(x.cpu(), idx.cpu()))
     assert torch.equal(back.cpu(), dr.random_ltd_scatter(small.cpu() * 2, idx.cpu(), x.cpu()))
+
+
+# ------------------------------------------------------------- RLHF actor
+_MOQ = {"weight_quantization": {
+    "shared_parameters": {"enabled": True, "schedule_offset": 1, "quantization_period": 1},
+    "different_groups": {"q": {"params": {"start_bits": 8, "target_bits": 6},
+                               "modules": ["blocks"]}}}}
+
+
+def _hybrid_gpt2(**extra):
+    cfg = gpt2.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2,
+                          remat=False, use_flash_decode=True, dtype=torch.bfloat16)
+    config = {"train_batch_size": 4, "steps_per_print": 0, "bf16": {"enabled": True},
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-2}},
+              "hybrid_engine": {"enabled": True, "max_out_tokens": 128}, **extra}
+    engine, *_ = deepspeed_tpu_torch.initialize(model=gpt2.GPT2Model(cfg), config=config)
+    return engine
+
+
+@pytest.mark.parametrize("extra", [
+    {}, {"zero_optimization": {"stage": 2}},
+    {"zero_optimization": {"stage": 3, "stage3_param_persistence_threshold": 0}},
+    {"compression_training": _MOQ}], ids=["stage0", "stage2", "stage3", "moq"])
+def test_hybrid_replay_reads_params_updated_in_place(gen, extra):
+    """The hybrid engine's one captured decode graph, replayed after each
+    step, gives the eager loop's tokens on the updated params: the step
+    writes the params in place (stages 0-2), the stage-3 gathers copy from
+    partitions written in place, and MoQ's compressed weights are rewritten
+    into the same buffers for each step."""
+    eng = _hybrid_gpt2(**extra)
+    ids = torch.randint(0, 512, (4, 16), generator=torch.Generator(device="cuda")
+                        .manual_seed(1), device="cuda")
+    ptrs = [p.data_ptr() for p in eng.module.parameters()]
+    outs = []
+    for _ in range(3):
+        out = eng.generate(ids, max_new_tokens=32)
+        assert torch.equal(out, _eager_loop(eng, ids, 32))
+        outs.append(out)
+        eng.train_batch({"input_ids": out})
+    assert [p.data_ptr() for p in eng.module.parameters()] == ptrs
+    assert eng.hybrid_stats()["captures"] == 1 and len(eng._decode_loops) == 1
+    assert not all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_compression_ops_on_the_card_equal_the_cpu(gen):
+    from deepspeed_tpu_torch.compression import basic_ops as ops
+
+    w = torch.randn(3, 64, 96, generator=gen, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = w.to(dtype)
+        for bits, groups, sym in ((8, 1, True), (4, 5, False)):
+            assert torch.equal(ops.fake_quantize_values(x, bits, groups, sym, False).cpu(),
+                               ops.fake_quantize_values(x.cpu(), bits, groups, sym, False))
+    for ratio in (0.5, 0.3):
+        assert torch.equal(ops.topk_mask(w.abs(), ratio).cpu(), ops.topk_mask(w.abs().cpu(), ratio))
+        assert torch.equal(ops.head_prune(w, 4, ratio).cpu(), ops.head_prune(w.cpu(), 4, ratio))
+        assert torch.equal(ops.row_prune(w, ratio).cpu(), ops.row_prune(w.cpu(), ratio))
+    sto = ops.fake_quantize_values(w, 4, 1, True, True)
+    scale = w.abs().max() / 7
+    assert torch.allclose(sto / scale, torch.round(sto / scale), atol=1e-4)
+    assert (ops.fake_quantize_values(w, 4, 1, True, False) - sto).abs().max() <= scale * 1.0001
+
+
+def test_eigenvalue_estimate_launches_no_kernel(gen):
+    """The Hessian-vector products run the plain attention: the estimate
+    launches no K1 or K2, the train step its own."""
+    cfg = gpt2.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2,
+                          remat=False, dtype=torch.bfloat16)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=gpt2.GPT2Model(cfg), config={
+        "train_batch_size": 4, "steps_per_print": 0, "bf16": {"enabled": True},
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+        "compression_training": _MOQ, "eigenvalue": {"enabled": True, "max_iter": 4}})
+    seen = {}
+    estimate = engine._maybe_update_eigenvalue
+
+    def counted(batch):
+        seen["step"] = (tfa.KERNEL.launches, tfa.BWD_KERNEL.launches)
+        estimate(batch)
+        seen["estimate"] = (tfa.KERNEL.launches - seen["step"][0],
+                            tfa.BWD_KERNEL.launches - seen["step"][1])
+
+    engine._maybe_update_eigenvalue = counted
+    fwd0, bwd0 = tfa.KERNEL.launches, tfa.BWD_KERNEL.launches
+    engine.train_batch({"input_ids": torch.randint(0, 512, (4, 64), generator=gen,
+                                                   device="cuda")})
+    assert seen["estimate"] == (0, 0)
+    assert seen["step"][0] - fwd0 == 2 and seen["step"][1] > bwd0
+    assert engine.block_eigenvalue and engine._compression._ev_factors

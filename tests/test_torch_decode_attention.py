@@ -22,6 +22,9 @@ from deepspeed_tpu_torch.ops.pallas import decode_attention as tda
 from deepspeed_tpu_torch.ops.pallas import flash_attention as tfa
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+# compiled once per shape (``pos`` traced): interpreted op by op, each call
+# of the JAX kernel takes about a second here
+_jax_decode = jax.jit(jda.decode_attention, static_argnames="block_k")
 
 
 def _rand(B, S, H, KV, Dh, seed=0):
@@ -36,7 +39,7 @@ def _rand(B, S, H, KV, Dh, seed=0):
 @pytest.mark.parametrize("pos", [0, 63, 64, 200, 255])
 def test_matches_jax_decode_attention(kv, pos):
     q, k, v = _rand(2, 256, 4, kv, 64)
-    ref = jda.decode_attention(*map(jnp.asarray, (q, k, v)), jnp.int32(pos), block_k=64)
+    ref = _jax_decode(*map(jnp.asarray, (q, k, v)), jnp.int32(pos), block_k=64)
     out = tda.decode_attention(*map(torch.from_numpy, (q, k, v)), pos)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
@@ -44,7 +47,7 @@ def test_matches_jax_decode_attention(kv, pos):
 def test_garbage_beyond_pos_ignored():
     q, k, v = _rand(1, 128, 2, 1, 64, seed=1)
     pos = 40
-    ref = jda.decode_attention(*map(jnp.asarray, (q, k, v)), jnp.int32(pos), block_k=32)
+    ref = _jax_decode(*map(jnp.asarray, (q, k, v)), jnp.int32(pos), block_k=32)
     k_dirty, v_dirty = k.copy(), v.copy()
     k_dirty[:, pos + 1:] = 1e9
     v_dirty[:, pos + 1:] = -1e9
@@ -95,9 +98,6 @@ def test_fp16_plain_version_matches_jax(kv):
     assert out.dtype == torch.float16
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, dtype=np.float32),
                                atol=2e-2, rtol=2e-2)
-
-
-_jax_decode = jax.jit(jda.decode_attention, static_argnames="block_k")
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-5), (jnp.bfloat16, 2e-2)])

@@ -69,7 +69,7 @@ def test_loss_and_grads_match_jax(mask):
     params = _jax_params(jcfg)
     batch = _batch(mask=mask)
     jmodel = jgpt2.GPT2Model(jcfg)
-    jloss, jgrads = jax.value_and_grad(lambda p: jmodel.loss(p, batch))(params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: jmodel.loss(p, batch)))(params)
     tloss, tgrads = _torch_loss_and_grads(tgpt2.params_from_jax(params, tcfg), batch)
     np.testing.assert_allclose(tloss, np.asarray(jloss), **LOSS_TOL)
     assert len(tgrads) == len(tgpt2.BLOCK_KEYS) * tcfg.n_layer + len(jgrads) - 1
@@ -169,7 +169,7 @@ def test_sparse_loss_and_grads_match_jax(block, remat):
     params = _jax_params(jcfg, seed=5)
     batch = _batch(seed=5)
     jmodel = jgpt2.GPT2Model(jcfg)
-    jloss, jgrads = jax.value_and_grad(lambda p: jmodel.loss(p, batch))(params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: jmodel.loss(p, batch)))(params)
     tmodel = tgpt2.params_from_jax(params, tcfg)
     tloss, tgrads = _torch_loss_and_grads(tmodel, batch)
     np.testing.assert_allclose(tloss, np.asarray(jloss), **LOSS_TOL)

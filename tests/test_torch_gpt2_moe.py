@@ -120,7 +120,7 @@ def test_loss_and_every_gradient_match_jax(case):
     params = _jax_params(seed=2)
     batch = _batch(4, seed=2, mask=mask)
     jm = _jax_model(k, cf, drop)
-    jloss, jgrads = jax.value_and_grad(lambda p: jm.loss(p, batch))(params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: jm.loss(p, batch)))(params)
     model = _port(params, k, cf, drop)
     loss = model.loss(_torch(batch))
     loss.backward()

@@ -140,19 +140,22 @@ def test_prefill_and_decode_equal_the_full_forward_without_drops():
 
 
 def test_prefill_and_decode_match_jax_with_drops():
+    import jax
     import jax.numpy as jnp
 
     params = _jax_params(seed=10, skew=2.0)
     jm, model = _jax_model(), _port(params)
+    # compiled once each: op by op the JAX walk takes seconds here
+    prefill, decode_step = jax.jit(jm.prefill), jax.jit(jm.decode_step)
     ids = _batch(4, seed=10)["input_ids"]
-    j_logits, j_cache = jm.prefill(params, jnp.asarray(ids[:, :12]), jm.init_cache(4, SEQ))
+    j_logits, j_cache = prefill(params, jnp.asarray(ids[:, :12]), jm.init_cache(4, SEQ))
     with torch.no_grad():
         logits, cache = model.prefill(torch.from_numpy(ids[:, :12]).long(),
                                       model.init_cache(4, SEQ))
     np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), rtol=1e-4, atol=1e-5)
     for t in range(12, SEQ):
         tok = ids[:, t]
-        j_logits, j_cache = jm.decode_step(params, jnp.asarray(tok), j_cache)
+        j_logits, j_cache = decode_step(params, jnp.asarray(tok), j_cache)
         with torch.no_grad():
             logits, cache = model.decode_step(torch.from_numpy(tok).long(), cache)
         np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), rtol=1e-4, atol=1e-5,

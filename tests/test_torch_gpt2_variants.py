@@ -87,10 +87,10 @@ def test_apply_loss_and_grads_match_jax(name):
     jmodel = jgpt2.GPT2Model(jcfg)
     model = tgpt2.params_from_jax(params, tcfg)
     with torch.no_grad():
-        _close(model.apply(torch.from_numpy(ids)), jmodel.apply(params, jnp.asarray(ids)), 1e-5,
-               "logits")
+        _close(model.apply(torch.from_numpy(ids)), jax.jit(jmodel.apply)(params, jnp.asarray(ids)),
+               1e-5, "logits")
     batch = {"input_ids": ids}
-    jloss, jgrads = jax.value_and_grad(lambda p: jmodel.loss(p, batch))(params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda p: jmodel.loss(p, batch)))(params)
     loss = model.loss({"input_ids": torch.from_numpy(ids)})
     loss.backward()
     _close(loss.detach(), jloss, 1e-5, "loss")

@@ -41,7 +41,8 @@ def test_loss_and_grads_match_jax(case):
     jcfg, tcfg = _jcfg(**over), _tcfg(**over)
     params = _jax_params(jcfg)
     batch = _batch(4, seed=1, mask=mask)
-    jloss, jgrads = jax.value_and_grad(lambda p: jllama.LlamaModel(jcfg).loss(p, batch))(params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jllama.LlamaModel(jcfg).loss(p, batch)))(params)
     model = tllama.params_from_jax(params, tcfg)
     loss = model.loss(_torch(batch))
     loss.backward()

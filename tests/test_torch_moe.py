@@ -197,8 +197,9 @@ def test_moe_output_and_every_gradient_match_jax(k, residual, cf):
         out, l_aux = layer(p, x, None, train=True)
         return jnp.sum(out * cot) + 3.0 * l_aux, (out, l_aux)
 
-    (_, (j_out, j_aux)), (j_grads, j_dx) = jax.value_and_grad(
-        objective, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+    # compiled once: op by op the reference takes seconds per case here
+    (_, (j_out, j_aux)), (j_grads, j_dx) = jax.jit(jax.value_and_grad(
+        objective, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
     port = _port_moe(params, k, residual, cf)
     xt = torch.from_numpy(x).requires_grad_(True)
     out, l_aux = port(xt, train=True)

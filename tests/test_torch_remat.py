@@ -82,7 +82,7 @@ def _jax_ref(name, remat, seed):
     jmodel = jmodel_cls(jcfg(**small, dtype=jnp.float32, remat=remat))
     params = jax.tree.map(np.asarray, jmodel.init_params(jax.random.PRNGKey(seed)))
     batch = _batch(name, seed)
-    loss, grads = jax.value_and_grad(lambda p: jmodel.loss(p, batch))(params)
+    loss, grads = jax.jit(jax.value_and_grad(lambda p: jmodel.loss(p, batch)))(params)
     return params, batch, np.asarray(loss), grads
 
 

@@ -278,10 +278,9 @@ def test_engine_skips_a_non_finite_fp16_step_like_jax():
 def test_engine_three_call_api_matches_train_batch():
     cfg = {"train_batch_size": 8, "gradient_accumulation_steps": 2, "steps_per_print": 0,
            "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
-    model = lambda: tgpt2.params_from_jax(
-        jax.tree.map(np.asarray, jgpt2.GPT2Model(jgpt2.GPT2Config(
-            **SMALL, dtype=jnp.float32)).init_params(jax.random.PRNGKey(1))),
-        tgpt2.GPT2Config(**SMALL, dtype=torch.float32))
+    params = jax.tree.map(np.asarray, jgpt2.GPT2Model(jgpt2.GPT2Config(
+        **SMALL, dtype=jnp.float32)).init_params(jax.random.PRNGKey(1)))
+    model = lambda: tgpt2.params_from_jax(params, tgpt2.GPT2Config(**SMALL, dtype=torch.float32))
     e1, *_ = deepspeed_tpu_torch.initialize(model=model(), config=dict(cfg), device="cpu")
     e2, *_ = deepspeed_tpu_torch.initialize(model=model(), config=dict(cfg), device="cpu")
     ids = torch.from_numpy(np.random.RandomState(2).randint(0, 512, size=(8, 64)))
