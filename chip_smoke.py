@@ -22,6 +22,13 @@ weight-quantized weights (``init_inference(dtype=torch.int8, quant=...)``,
 each block dequantized inside the captured step): its launches, greedy
 tokens equal bit for bit to the dequantized weights served in bf16, and
 its prefill ms, tokens/s, weight bytes and peak beside the bf16 line's.
+``serve_frontend llama3.2-1b`` puts the same engine behind the serving
+front-end (``serving.from_ds_config`` with the ``serving`` and
+``telemetry`` blocks; B = 1 a request, ticks of 16 tokens): 8 greedy
+requests counted and equal to ``generate`` bit for bit, a sampled one, a
+queue-full shed, a chaos hang on a decode tick, the circuit opening and
+closing, a drain with exit code 87; K1 and K3 are checked at its B = 1
+shapes.
 ``train gpt2-760m activation_checkpointing`` trains the dense cell with
 DeepSpeed-Chat's ``activation_checkpointing`` block (losses equal to the
 plain run's bit for bit), and its hand loop calls
@@ -170,6 +177,7 @@ warm-up steps; the median is reported with every step's time.
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -178,6 +186,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1040,7 +1049,9 @@ def _served_cell(engine, ids, accel, fa, da, label, kernel_layers=None, **fields
 
 def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
     """llama3.2-1b, bf16, full width and depth: the counted main-path run,
-    through the graphed decode loop, beside the ungraphed loop."""
+    through the graphed decode loop, beside the ungraphed loop; then the
+    same engine behind the serving front-end (``serve_frontend``). →
+    (generate's launches, the front-end's)."""
     c = dataclasses.replace(cfg, use_flash_decode=True)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     model = LlamaModel(c).init_params(gen)
@@ -1050,8 +1061,206 @@ def serve_slice(init_inference, LlamaModel, cfg, accel, fa, da):
                                                  weight_bytes=engine.weight_nbytes())
     with torch.inference_mode():
         profile_slice(model, engine, loop, ids, logits, cache, c.n_layer)
-    del engine, model, loop, cache
+    del loop, cache
+    frontend_launches = serve_frontend(engine, c, fa, da)
+    del engine, model
+    # a front-end and its breaker refer to each other (the transition
+    # callback): the cycle, and the engine it holds, go at a collection
+    gc.collect()
     torch.cuda.empty_cache()
+    return launches, frontend_launches
+
+
+# the serving front-end's phase: 8 greedy requests (prompt, new tokens)
+# within max_out_tokens = PROMPT + GEN, ticks of 16 tokens
+FRONTEND_REQUESTS = ((16, 32), (128, 128), (40, 64), (96, 96), (64, 128), (24, 48),
+                     (112, 80), (80, 112))
+FRONTEND_SAMPLED = {"do_sample": True, "top_k": 50, "top_p": 0.9, "seed": 7}
+FRONTEND_SERVING = {"decode_tick_tokens": 16, "decode_tick_timeout_s": 0.5,
+                    "max_queue_depth": 8, "breaker_threshold": 2, "breaker_cooldown_s": 1.0,
+                    "drain_grace_s": 0.1}
+FRONTEND_HANG_S = 3.0
+
+
+def _join_disowned_ticks(timeout: float) -> None:
+    """Wait for the front-end's disowned tick threads: their wake-up must
+    not meet a capture in another thread (``generate`` captures with
+    capture_error_mode "global")."""
+    from deepspeed_tpu_torch.utils import locks
+
+    for rec in locks.framework_threads():
+        if rec.owner == "watchdog" and rec.name.startswith("ds-deadline-serve-tick"):
+            rec.thread.join(timeout)
+            if rec.thread.is_alive():
+                raise AssertionError(f"disowned tick {rec.name} still alive after {timeout} s")
+
+
+def serve_frontend(engine, c, fa, da):
+    """The serving front-end (``serving/``) over the serving phase's engine
+    (llama3.2-1b, bf16, full width and depth, max_out_tokens PROMPT + GEN,
+    B = 1 per request), built by ``from_ds_config`` with the serving and
+    telemetry blocks: 8 greedy requests, counted (one K1 per layer per
+    prompt, one K3 per layer per token and one more per layer for the
+    capture's warm-up step), each equal to ``engine.generate`` bit for bit;
+    a sampled request equal to ``generate`` with its seed; a queue-full shed
+    with the worker stopped; a chaos hang on a decode tick against the
+    0.5 s warm tick cap (a partial with reason timeout, the server ready,
+    the next request equal to ``generate``: the disowned tick wrote nothing
+    of it); two failed ticks opening the circuit, a queued request shed
+    circuit_open, a probe after the cooldown closing it; a SIGTERM-style
+    drain mid-stream (a partial with reason drained, exit code 87). →
+    the counted requests' launches."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.resilience.chaos import (ChaosInjector, install_chaos,
+                                                      uninstall_chaos)
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.serving import ServingFrontEnd, ShedError, from_ds_config
+
+    out_dir = tempfile.mkdtemp(prefix="serve_frontend_", dir=_scratch_dir()[0])
+    ds_cfg = DeepSpeedConfig({"serving": FRONTEND_SERVING,
+                              "telemetry": {"enabled": True, "output_dir": out_dir,
+                                            "trace": False, "flush_interval": 1000}})
+    gen = torch.Generator().manual_seed(SEED + 19)
+    prompts = [torch.randint(0, c.vocab_size, (1, t), generator=gen).numpy()
+               for t, _ in FRONTEND_REQUESTS]
+    fe = from_ds_config(engine, ds_cfg, start=True)
+    try:
+        # the counted main-path run: 8 greedy requests, queued at once
+        fa.KERNEL.reset_launches()
+        da.KERNEL.reset_launches()
+        t0 = time.perf_counter()
+        reqs = [fe.submit(p, max_new_tokens=n, deadline_s=600)
+                for p, (_, n) in zip(prompts, FRONTEND_REQUESTS)]
+        for r in reqs:
+            r.result(timeout=600)
+        served_s = time.perf_counter() - t0
+        launches = {"flash_attention_fwd": fa.KERNEL.launches,
+                    "decode_attention": da.KERNEL.launches}
+        expect = {"flash_attention_fwd": c.n_layer * len(reqs),
+                  "decode_attention": c.n_layer * (sum(n for _, n in FRONTEND_REQUESTS) + 1)}
+        if launches != expect:
+            raise AssertionError(f"front-end launch counts {launches}, expected {expect}")
+        if any(r.status != "completed" for r in reqs):
+            raise AssertionError(f"front-end requests not completed: "
+                                 f"{[(r.status, r.reason) for r in reqs]}")
+        greedy_key = (False, 1.0, 0, 1.0, None)
+        capture_s = fe._programs[greedy_key].capture_s
+        snap = {r["name"]: r for r in telemetry.get_registry().snapshot()}
+        # the sampled request
+        sampled = fe.submit(prompts[1], max_new_tokens=64, deadline_s=600,
+                            **FRONTEND_SAMPLED).result(timeout=600)
+        # a queue-full shed from a front-end whose worker is stopped
+        idle = ServingFrontEnd(engine, DeepSpeedConfig(
+            {"serving": {**FRONTEND_SERVING, "max_queue_depth": 2}}).serving, start=False)
+        idle.submit(prompts[0], max_new_tokens=8)
+        idle.submit(prompts[0], max_new_tokens=8)
+        try:
+            idle.submit(prompts[0], max_new_tokens=8)
+            raise AssertionError("a third request was admitted past max_queue_depth 2")
+        except ShedError as e:
+            queue_full = {"reason": e.reason, "queue_depth": e.queue_depth,
+                          "retry_after_s": e.retry_after_s}
+        idle.close()
+        if queue_full["reason"] != "queue_full" or queue_full["queue_depth"] != 2:
+            raise AssertionError(f"queue-full shed: {queue_full}")
+        # a hung decode tick: tick #1 is the prefill, #2 the first decode
+        # chunk, #3 the second (so the request has tokens: a partial)
+        install_chaos(ChaosInjector(hang_at={"decode_step": [3]}, hang_s=FRONTEND_HANG_S))
+        t_hang = time.perf_counter()
+        hung = fe.submit(prompts[2], max_new_tokens=64, deadline_s=600).result(timeout=600)
+        hung_s = time.perf_counter() - t_hang
+        uninstall_chaos()
+        after_hang = fe.submit(prompts[3], max_new_tokens=96, deadline_s=600).result(600)
+        state_after_hang = fe.state
+        if (hung.status, hung.reason) != ("partial", "timeout") or hung_s > 2.0 \
+                or state_after_hang != "ready" or after_hang.status != "completed":
+            raise AssertionError(f"hang drill: {hung.status}/{hung.reason} in {hung_s} s, "
+                                 f"state {state_after_hang}, next {after_hang.status}")
+        _join_disowned_ticks(FRONTEND_HANG_S + 5.0)
+        # two failed ticks open the circuit; the queued third is shed
+        install_chaos(ChaosInjector(fail_at={"decode_step": [1, 2]}))
+        trio = [fe.submit(prompts[0], max_new_tokens=32, deadline_s=600) for _ in range(3)]
+        for r in trio:
+            r.result(timeout=600)
+        uninstall_chaos()
+        breaker_open = fe.breaker.state
+        try:
+            fe.submit(prompts[0], max_new_tokens=8)
+            raise AssertionError("admitted with the circuit open")
+        except ShedError as e:
+            open_shed = e.reason
+        time.sleep(FRONTEND_SERVING["breaker_cooldown_s"] + 0.1)
+        probe = fe.probe(timeout=600)
+        if [(r.status, r.reason.split(":")[0]) for r in trio] != \
+                [("failed", "error"), ("failed", "error"), ("shed", "circuit_open")] \
+                or breaker_open != "open" or open_shed != "circuit_open" \
+                or probe.status != "completed" or fe.breaker.state != "closed":
+            raise AssertionError(f"breaker drill: {[(r.status, r.reason) for r in trio]}, "
+                                 f"{breaker_open}, {open_shed}, probe {probe.status}, "
+                                 f"{fe.breaker.state}")
+        # the drain mid-stream
+        streaming = threading.Event()
+        long = fe.submit(prompts[0], max_new_tokens=PROMPT + GEN - 16, deadline_s=600,
+                         stream=lambda toks: streaming.set())
+        if not streaming.wait(600):
+            raise AssertionError("the long request streamed nothing")
+        fe.begin_drain("signal")
+        code = fe.drain(timeout=600)
+        long.result(timeout=600)
+        if (long.status, long.reason) != ("partial", "drained") or code != 87 \
+                or fe.state != "dead":
+            raise AssertionError(f"drain: {long.status}/{long.reason}, exit {code}, "
+                                 f"state {fe.state}")
+        counts = dict(fe.counts)
+    finally:
+        uninstall_chaos()
+        fe.close()
+        _join_disowned_ticks(FRONTEND_HANG_S + 5.0)
+    # every served request against generate on the same prompt (main thread,
+    # the front-end idle: no capture meets a tick)
+    with torch.inference_mode():
+        for r, p in zip([*reqs, after_hang], [*prompts, prompts[3]]):
+            ref = engine.generate(p, max_new_tokens=len(r.tokens))[0, p.shape[1]:].tolist()
+            if r.tokens != ref:
+                raise AssertionError(f"front-end request {r.id}: tokens differ from generate "
+                                     f"in {sum(a != b for a, b in zip(r.tokens, ref))} places")
+        ref = engine.generate(prompts[1], max_new_tokens=64, **FRONTEND_SAMPLED)
+        if sampled.tokens != ref[0, prompts[1].shape[1]:].tolist():
+            raise AssertionError("the sampled front-end request differs from generate")
+        # generate's graphed decode at B = 1 on the (128, 128) request's prompt
+        t, n = FRONTEND_REQUESTS[1]
+        ids = torch.from_numpy(prompts[1]).cuda()
+        engine.generate(ids, max_new_tokens=n)
+        telemetry.deconfigure()                 # plain generate for the timing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(ids, max_new_tokens=n)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        prefill_med, _, _ = _prefill_ms(engine.module, ids, t + n)
+    r = reqs[1]
+    fe_decode_s = r.finished_at - (r.submitted_at + r.ttft_s)
+    chunk = FRONTEND_SERVING["decode_tick_tokens"]
+    hist = lambda name, q: snap[f"serving/{name}"][q]
+    emit(f"serve_frontend {MODEL}", nvidia_smi=nvidia_smi_line(), batch_per_request=1,
+         requests=[list(x) for x in FRONTEND_REQUESTS], tick_tokens=chunk,
+         max_out_tokens=PROMPT + GEN, launches=launches, served_s=served_s,
+         tokens_identical_to_generate=True, sampled_identical_to_generate=True,
+         ttft_p50_s=hist("ttft_seconds", "p50"), ttft_p99_s=hist("ttft_seconds", "p99"),
+         decode_chunk_p50_s=hist("decode_chunk_seconds", "p50"),
+         decode_chunk_p99_s=hist("decode_chunk_seconds", "p99"),
+         prefill_p50_s=hist("prefill_seconds", "p50"),
+         queue_wait_p50_s=hist("queue_wait_seconds", "p50"),
+         frontend_decode_tok_s=(n - chunk) / fe_decode_s,
+         generate_decode_tok_s=n / (gen_s - prefill_med / 1e3), generate_b1_s=gen_s,
+         prefill_b1_ms=prefill_med, capture_s=capture_s, queue_full=queue_full,
+         hang={"status": hung.status, "reason": hung.reason, "seconds": hung_s,
+               "tokens": len(hung.tokens), "next_request_identical": True},
+         breaker={"trio": [(x.status, x.reason.split(":")[0]) for x in trio],
+                  "probe": probe.status, "state": "closed"},
+         drain={"status": long.status, "reason": long.reason, "tokens": len(long.tokens),
+                "exit_code": code}, counts=counts)
+    shutil.rmtree(out_dir, ignore_errors=True)
     return launches
 
 
@@ -4938,6 +5147,15 @@ def main() -> int:
             ("fp32_d80", BATCH, S, 32, 32, 80, f32, 200))]
         decode_rows.append(check_decode(da, accel, gen, "garbage_past_pos", BATCH, S, 32, 8, 64,
                                         bf, 100, garbage=True))
+    # the serving front-end's shapes: one sequence at a time (B = 1), its
+    # prefill at T = PROMPT and its decode over a cache of max_out_tokens
+    # (S = PROMPT + GEN) with pos mid-cache; bf16 timed, fp32 held untimed
+    frontend_fwd = check_flash(fa, accel, gen, "frontend_b1", 1, PROMPT, 32, 64, bf, True)
+    frontend_decode = check_decode(da, accel, gen, "frontend_b1_pos150", 1, S, 32, 8, 64, bf,
+                                   150)
+    with untimed():
+        check_flash(fa, accel, gen, "frontend_b1_fp32", 1, PROMPT, 32, 64, f32, True)
+        check_decode(da, accel, gen, "frontend_b1_pos150_fp32", 1, S, 32, 8, 64, f32, 150)
     # gpt2-760m's serving shape: one query head per KV head (MHA), head dim 96
     gpt2_decode_rows = [check_decode(da, accel, gen, *case) for case in (
         ("gpt2_mha_d96", BATCH, S, 16, 16, 96, bf, S - 1),
@@ -4980,8 +5198,8 @@ def main() -> int:
                                   .get_layout(MOE_SEQ), True)
 
     model_cls, presets = resolve_family(MODEL)
-    serve_launches = serve_slice(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL],
-                                 accel, fa, da)
+    serve_launches, frontend_launches = serve_slice(deepspeed_tpu_torch.init_inference,
+                                                    model_cls, presets[MODEL], accel, fa, da)
     # weight-quantized serving of the same model: int8, then int4
     quant_launches = {f"serve_int{bits}": serve_quantized(
         deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL], accel, fa, da, bits)
@@ -5072,6 +5290,7 @@ def main() -> int:
          "launches": train_launches["flash_attention_fwd"],
          **{k: flash_rows[0][k] for k in keys},
          "launches_by_path": {"serve": serve_launches["flash_attention_fwd"],
+                              "serve_frontend": frontend_launches["flash_attention_fwd"],
                               "serve_gpt2": serve_gpt2_launches["flash_attention_fwd"],
                               **{p: n["flash_attention_fwd"]
                                  for p, n in quant_launches.items()},
@@ -5093,6 +5312,7 @@ def main() -> int:
                                  for p, n in import_launches.items()},
                               **{p: n["flash_attention_fwd"] for p, n in rlhf_launches.items()}},
          "at_serving_shape": {k: flash_rows[1][k] for k in keys},
+         "at_frontend_shape": {k: frontend_fwd[k] for k in keys},
          "at_model_shapes": {name: {k: row[k] for k in keys} for name, row in model_fwd.items()}},
         {"name": "decode_attention", "route": "cuda",
          "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
@@ -5100,6 +5320,7 @@ def main() -> int:
          "launches": serve_launches["decode_attention"],
          **{k: decode_rows[0][k] for k in keys},
          "launches_by_path": {"serve": serve_launches["decode_attention"],
+                              "serve_frontend": frontend_launches["decode_attention"],
                               **{p: n["decode_attention"] for p, n in quant_launches.items()},
                               "serve_gpt2": serve_gpt2_launches["decode_attention"],
                               **{p: model_launches[p]["decode_attention"] for p in served},
@@ -5108,6 +5329,7 @@ def main() -> int:
                                  if n["decode_attention"]},
                               **{p: n["decode_attention"] for p, n in rlhf_generated.items()}},
          "at_opt_serving_shape": {k: opt_decode_row[k] for k in keys},
+         "at_frontend_shape": {k: frontend_decode[k] for k in keys},
          "at_long_shape": {k: long_rows[0][k] for k in keys},
          "at_gpt2_mha_shape": {k: gpt2_decode_rows[0][k] for k in keys},
          "at_moe_serving_shape": {k: moe_decode_row[k] for k in keys}},

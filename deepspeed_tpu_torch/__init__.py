@@ -30,7 +30,11 @@ context)``. The RLHF actor's path: ``hybrid_engine.enabled`` makes
 ``initialize`` return ``DeepSpeedHybridEngine`` (``generate`` over the live
 training params), and the ``compression_training`` and ``eigenvalue``
 blocks train with MoQ, pruning and the block Hessian eigenvalue
-(``compression/``, ``runtime/eigenvalue.py``).
+(``compression/``, ``runtime/eigenvalue.py``). The ``serving`` block puts
+the request-lifecycle front-end (``serving/``: admission, deadlines, a
+circuit breaker, drain) in front of an inference engine, and the
+``telemetry`` block records the registry, spans and exporters of
+``telemetry/``.
 """
 
 from __future__ import annotations

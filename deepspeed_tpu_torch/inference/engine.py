@@ -36,8 +36,21 @@ the config's ``checkpoint`` (``load_inference_params``: only the tag's
 params, in the serving dtype, on the device), else seed-0 random weights.
 A MoE model (``MoEGPT2``) serves in one process, every expert on the
 card (``ep_world_size`` 1): its gates route each call's tokens alone, with
-the eval capacity factor. This slice has no tensor or expert parallelism
-or telemetry-observed path; the config rejects those.
+the eval capacity factor. This slice has no tensor or expert parallelism;
+the config rejects those.
+
+Observed generation: with a telemetry session whose ``inference`` is true,
+or after :meth:`InferenceEngine.profile_model_time`, ``generate`` syncs the
+device at the end of prefill and of the decode loop (the same path, timed)
+and records the ``prefill`` and ``decode`` spans, the ``inference/*``
+counters and histograms of the JAX engine, and the per-request model time
+(:meth:`InferenceEngine.model_times`).
+
+The serving front-end (``serving/frontend.py``) decodes through a
+:class:`ServingLoop` per sampling key: one ``DecodeLoop`` over a B = 1 KV
+cache sized once at ``max_out_tokens`` (one captured graph serves every
+prompt length), prefilled eagerly, then advanced ``decode_tick_tokens``
+steps a tick, the tick's tokens and finished flag read back to the host.
 
 Weight-only quantized serving (``dtype`` int8, as in JAX): the compute runs
 in bf16, and with ``quant.enabled`` and ``quant.weight.enabled`` each
@@ -54,13 +67,15 @@ with the rest of the step.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import OrderedDict
-from typing import Any, Mapping, Optional
+from typing import Any, List, Mapping, Optional
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import telemetry as _telemetry
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.ops import op_builder
@@ -150,14 +165,19 @@ class DecodeLoop:
     on a CUDA device it is captured once as a CUDA graph (after one warm-up
     step that loads the kernels) and replayed, on the CPU it runs eagerly.
     The warm-up's launches ran and stay counted; those the graph holds are
-    credited to the kernels' counts per replay."""
+    credited to the kernels' counts per replay. ``capture_error_mode`` is
+    ``torch.cuda.graph``'s: the serving front-end captures on its tick
+    thread with "thread_local", so another thread's CUDA call during the
+    capture neither fails it nor is refused."""
 
     def __init__(self, module, batch: int, prompt_len: int, max_new_tokens: int,
                  do_sample: bool, temperature: float, top_k: int, top_p: float,
-                 eos_token_id: Optional[int], device: torch.device):
+                 eos_token_id: Optional[int], device: torch.device,
+                 capture_error_mode: str = "global"):
         self.max_new_tokens = max_new_tokens
         self.do_sample = do_sample
         self.device = device
+        self.capture_error_mode = capture_error_mode
         self._scan_step = _decode_scan_step(module, do_sample, temperature, top_k, top_p,
                                             -1 if eos_token_id is None else int(eos_token_id))
         self.cache = module.init_cache(batch, prompt_len + max_new_tokens)
@@ -213,7 +233,7 @@ class DecodeLoop:
         graph = torch.cuda.CUDAGraph()
         if self.do_sample:
             graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode=self.capture_error_mode):
             self.step()
         captured = op_builder.launch_counts()
         self.graph_launches = {key: n - warm[key] for key, n in captured.items() if n != warm[key]}
@@ -222,32 +242,95 @@ class DecodeLoop:
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
 
-    def run(self, logits, cache, seed: int) -> torch.Tensor:
-        """The decode loop after prefill → the (B, max_new_tokens) new tokens."""
-        self.load(logits, cache, seed)
-        if self.device.type != "cuda":
-            for _ in range(self.max_new_tokens):
-                self.step()
-            return self.tokens.clone()
-        if self.graph is None:
-            self.capture()
+    def start(self, logits, cache, seed: int) -> None:
+        """:meth:`load` a run, capturing the step first on a CUDA device
+        that has no graph yet (the capture's warm-up step moves the buffers,
+        so the run is loaded after it)."""
+        if self.device.type == "cuda" and self.graph is None:
             self.load(logits, cache, seed)
-        for _ in range(self.max_new_tokens):
+            self.capture()
+        self.load(logits, cache, seed)
+
+    def advance(self, steps: int) -> None:
+        """``steps`` tokens of the loop: graph replays, each credited with
+        the graph's launches, on a CUDA device; eager steps on the CPU."""
+        if self.device.type != "cuda":
+            for _ in range(steps):
+                self.step()
+            return
+        for _ in range(steps):
             self.graph.replay()
             op_builder.add_launches(self.graph_launches)
+
+    def run(self, logits, cache, seed: int) -> torch.Tensor:
+        """The decode loop after prefill → the (B, max_new_tokens) new tokens."""
+        self.start(logits, cache, seed)
+        self.advance(self.max_new_tokens)
         return self.tokens.clone()
+
+
+class ServingLoop:
+    """The serving front-end's decode of one sampling key (the counterpart
+    of the JAX ``build_serving_programs``): a :class:`DecodeLoop` at B = 1
+    whose KV cache and token buffer are sized once at ``max_total_len``, so
+    one captured graph serves every prompt length. :meth:`prefill` runs the
+    prompt eagerly into that cache and seeds the loop's generator with the
+    request's seed; :meth:`decode_chunk` advances up to ``chunk_tokens``
+    steps and brings that tick's tokens and the finished flag to the host.
+    A request's tokens are the ones ``generate`` gives for the same prompt,
+    sampling parameters and seed: the same step, the same generator draws.
+    The capture runs on the first tick after its first prefill, on the tick
+    thread, with ``capture_error_mode="thread_local"``."""
+
+    def __init__(self, module, max_total_len: int, chunk_tokens: int, do_sample: bool,
+                 temperature: float, top_k: int, top_p: float, eos_token_id: Optional[int],
+                 device: torch.device):
+        self.module = module
+        self.chunk_tokens = int(chunk_tokens)
+        self.loop = DecodeLoop(module, 1, 0, int(max_total_len), do_sample, temperature,
+                               top_k, top_p, eos_token_id, device,
+                               capture_error_mode="thread_local")
+        self._start = None       # prefill's (logits, cache, seed) until the first tick
+        self.produced = 0
+
+    def prefill(self, ids: torch.Tensor, seed: int) -> None:
+        """The (1, T) prompt into the loop's cache; the decode starts at
+        the next :meth:`decode_chunk`."""
+        logits, cache = self.module.prefill(ids, self.loop.cache)
+        self._start = (logits, cache, int(seed))
+        self.produced = 0
+
+    def decode_chunk(self, max_steps: Optional[int] = None):
+        """Advance ``min(chunk_tokens, max_steps)`` tokens → (that many
+        tokens as a list, whether the row has finished), read on the host.
+        A request stops at its ``max_new_tokens``, so the loop never writes
+        past the cache."""
+        if self._start is not None:
+            self.loop.start(*self._start)
+            self._start = None
+        n = self.chunk_tokens if max_steps is None else min(self.chunk_tokens, int(max_steps))
+        self.loop.advance(n)
+        toks = self.loop.tokens[0, self.produced:self.produced + n].tolist()
+        self.produced += n
+        return toks, bool(self.loop.done[0].item())
+
+    @property
+    def capture_s(self) -> float:
+        return self.loop.capture_s
 
 
 def generate_with_loops(loops: "OrderedDict", module, ids: torch.Tensor, max_new_tokens: int,
                         do_sample: bool, temperature: float, top_k: int, top_p: float,
                         eos_token_id: Optional[int], seed: int, device: torch.device,
-                        kept: int = DECODE_LOOPS_KEPT):
+                        kept: int = DECODE_LOOPS_KEPT, phase=None):
     """Prefill ``ids`` (B, T) and run the decode loop of the generate key
     from ``loops`` (key → :class:`DecodeLoop`, the ``kept`` most recently
     used, a new loop made and the oldest dropped as needed), on the device's
     default stream. → (ids with the new tokens appended, the loop, whether
     the loop was made by this call). The inference engine and the hybrid
-    engine share it."""
+    engine share it. ``phase(name, **args)``, when given, is a context
+    manager around the prefill and the decode (:class:`PhaseTimer`)."""
+    phase = phase or _no_phase
     B, T = ids.shape
     if device.type == "cuda" and \
             torch.cuda.current_stream(device) != torch.cuda.default_stream(device):
@@ -263,8 +346,34 @@ def generate_with_loops(loops: "OrderedDict", module, ids: torch.Tensor, max_new
             loop = DecodeLoop(module, B, T, max_new_tokens, do_sample, temperature,
                               top_k, top_p, eos_token_id, device)
         loops[key] = loop
-        logits, cache = module.prefill(ids, loop.cache)
-        return torch.cat([ids, loop.run(logits, cache, seed)], dim=1), loop, made
+        with phase("prefill", tokens=T):
+            logits, cache = module.prefill(ids, loop.cache)
+        with phase("decode", tokens=max_new_tokens):
+            new = loop.run(logits, cache, seed)
+        return torch.cat([ids, new], dim=1), loop, made
+
+
+def _no_phase(name: str, **args):
+    return contextlib.nullcontext()
+
+
+class PhaseTimer:
+    """Times ``generate``'s phases: each ``with timer("prefill"):`` block is a
+    tracer span (category ``inference``) that ends with a device sync, and
+    its seconds land in ``seconds[name]``."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.seconds = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str, **args):
+        t0 = time.perf_counter()
+        with _telemetry.get_tracer().span(name, cat="inference", **args):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.seconds[name] = time.perf_counter() - t0
 
 
 class _Dequantized:
@@ -346,6 +455,8 @@ class InferenceEngine:
         # decode loops by generate key, as the JAX engine keeps its programs;
         # the DECODE_LOOPS_KEPT most recently used
         self._decode_loops: OrderedDict = OrderedDict()
+        self._model_profile_enabled = False
+        self._model_times: List[float] = []
         log_dist(f"InferenceEngine ready: dtype={self.dtype}, device={self.device}",
                  ranks=[0])
 
@@ -414,8 +525,15 @@ class InferenceEngine:
         logits (B, T, V) fp32 from its ids, or the diffusers surface, e.g. a
         UNet's (sample, timestep, encoder_hidden_states) or a VAE's image,
         as the JAX ``forward`` passes extra positional arrays through."""
+        xs = [self._input(a) for a in (input_ids, *args)]
+        t0 = time.perf_counter()
         with torch.inference_mode():
-            return self.module.apply(*(self._input(a) for a in (input_ids, *args)))
+            out = self.module.apply(*xs)
+        if self._model_profile_enabled:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._model_times.append(time.perf_counter() - t0)
+        return out
 
     __call__ = forward
 
@@ -433,6 +551,52 @@ class InferenceEngine:
         if T + max_new_tokens > self._config.max_out_tokens:
             raise ValueError(f"sequence {T + max_new_tokens} exceeds max_out_tokens "
                              f"{self._config.max_out_tokens}")
-        return generate_with_loops(self._decode_loops, self.module, ids, max_new_tokens,
-                                   do_sample, temperature, top_k, top_p, eos_token_id, seed,
-                                   self.device)[0]
+        session = _telemetry.get_session()
+        observed = self._model_profile_enabled or (session is not None
+                                                   and session.cfg.inference)
+        timer = PhaseTimer(self.device) if observed else None
+        out = generate_with_loops(self._decode_loops, self.module, ids, max_new_tokens,
+                                  do_sample, temperature, top_k, top_p, eos_token_id, seed,
+                                  self.device, phase=timer)[0]
+        if observed:
+            self._record_generate(timer.seconds, ids.shape[0], max_new_tokens)
+        return out
+
+    def _record_generate(self, seconds, batch: int, max_new_tokens: int) -> None:
+        """The observed ``generate``'s series, as the JAX engine's
+        ``_generate_observed`` records them, and its model time."""
+        ttft, decode_s = seconds["prefill"], seconds["decode"]
+        reg = _telemetry.get_registry()
+        if reg.enabled:
+            reg.counter("inference/requests").inc(batch)
+            reg.counter("inference/generated_tokens").inc(batch * int(max_new_tokens))
+            reg.histogram("inference/ttft_seconds").observe(ttft)
+            reg.histogram("inference/decode_per_token_seconds").observe(
+                decode_s / max(1, int(max_new_tokens)))
+            reg.histogram("inference/request_seconds").observe(ttft + decode_s)
+        if self._model_profile_enabled:
+            self._model_times.append(ttft + decode_s)
+
+    def profile_model_time(self, use_cuda_events: bool = False) -> None:
+        """Record each request's model time for :meth:`model_times` (the
+        reference's ``_model_times``); ``generate`` becomes observed. The
+        times are host seconds to a device sync (``use_cuda_events`` is
+        accepted as in the reference)."""
+        self._model_profile_enabled = True
+        self._model_times = []
+
+    def model_times(self) -> List[float]:
+        """Drain and return the per-request model times (seconds)."""
+        assert self._model_profile_enabled, \
+            "model_times() requires profile_model_time() first (reference contract)"
+        times = self._model_times
+        self._model_times = []
+        return times
+
+    def serving_loop(self, chunk_tokens: int, do_sample: bool = False, temperature: float = 1.0,
+                     top_k: int = 0, top_p: float = 1.0,
+                     eos_token_id: Optional[int] = None) -> ServingLoop:
+        """A :class:`ServingLoop` of one sampling key over this engine's
+        model, its cache sized at ``max_out_tokens``."""
+        return ServingLoop(self.module, self._config.max_out_tokens, chunk_tokens, do_sample,
+                           temperature, top_k, top_p, eos_token_id, self.device)

@@ -497,9 +497,12 @@ class GPT2Model(GatheredModule):
         return lm_loss_tokens(batch)
 
     # ------------------------------------------------------------- inference
-    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch_size: int, max_len: int,
+                   device=None) -> Dict[str, torch.Tensor]:
         """KV cache: (L, B, max_len, H, Dh) per k and v, plus the next write
-        position ``pos`` as a 0-d int32 tensor on the device."""
+        position ``pos`` as a 0-d int32 tensor on the device
+        (``device``, default the model's: ``"meta"`` sizes it without
+        allocating)."""
         c = self.config
         if c.sparse_attention is not None:
             # prefill and decode attend densely over the cache; serving a
@@ -509,7 +512,7 @@ class GPT2Model(GatheredModule):
                 "KV-cache generation does not apply sparse_attention "
                 "layouts; serve with sparse_attention=None only if the "
                 "model was also trained dense")
-        dev = self.wte.device
+        dev = self.wte.device if device is None else device
         shape = (c.n_layer, batch_size, max_len, c.n_head, c.head_dim)
         return {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
                 "v": torch.zeros(shape, dtype=c.dtype, device=dev),

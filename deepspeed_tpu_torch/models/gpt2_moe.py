@@ -175,14 +175,14 @@ class MoEGPT2(GPT2Model):
             return self.loss_stage(top, x, batch) + self.aux_loss_coef * aux
 
     # ------------------------------------------------------------- inference
-    def init_cache(self, batch_size: int, max_len: int):
+    def init_cache(self, batch_size: int, max_len: int, device=None):
         """GPT-2's KV cache; ``prefill`` and ``decode_step`` are GPT-2's
         walk, each odd layer finishing through its expert bank. Serving is
         one process: expert-parallel serving is a later slice."""
         if self.ep_size > 1:
             raise NotImplementedError("expert-parallel serving (ep_size > 1): later slice of "
                                       "the port")
-        return super().init_cache(batch_size, max_len)
+        return super().init_cache(batch_size, max_len, device=device)
 
     def _layer_finish(self, n: int, x, w, attn):
         if n % self.moe_every == 0:

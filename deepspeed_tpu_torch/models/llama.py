@@ -312,11 +312,14 @@ class LlamaModel(GatheredModule):
         return lm_loss_tokens(batch)
 
     # ------------------------------------------------------------- inference
-    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch_size: int, max_len: int,
+                   device=None) -> Dict[str, torch.Tensor]:
         """KV cache of the KV heads only: (L, B, max_len, KV, Dh), plus the
-        next write position ``pos`` as a 0-d int32 tensor on the device."""
+        next write position ``pos`` as a 0-d int32 tensor on the device
+        (``device``, default the model's: ``"meta"`` sizes it without
+        allocating)."""
         c = self.config
-        dev = self.wte.device
+        dev = self.wte.device if device is None else device
         shape = (c.n_layer, batch_size, max_len, c.n_kv_head, c.head_dim)
         return {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
                 "v": torch.zeros(shape, dtype=c.dtype, device=dev),

@@ -1,0 +1,169 @@
+"""Render a serving run's telemetry for operators.
+
+Counterpart of the part of ``deepspeed_tpu/profiling/report.py`` the
+serving status view uses: :func:`load_metrics_records` (the last record
+per series of a ``metrics.jsonl``), :func:`render_serving_summary` and its
+table helper. Standard library only, so the status view runs on a box with
+no accelerator; the same records render to the same text as ``bin/ds_serve
+status`` prints.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import List, Optional, Sequence, Tuple
+
+
+def load_metrics_records(path: str) -> Tuple[List[dict], int]:
+    """Last record per (kind, name, labels) from a telemetry metrics.jsonl,
+    plus the count of malformed lines (a run killed mid-append leaves a
+    torn last line — counted, not fatal). The one loader both
+    ``bin/ds_metrics`` and ``ds_prof memory`` share."""
+    last = {}
+    order = []
+    bad = 0
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+                key = (rec["kind"], rec["name"],
+                       tuple(sorted((rec.get("labels") or {}).items())))
+            except (ValueError, KeyError, TypeError):
+                bad += 1
+                continue
+            if key not in last:
+                order.append(key)
+            last[key] = rec
+    return [last[k] for k in order], bad
+
+
+def _table(rows: Sequence[Sequence[str]]) -> str:
+    widths = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
+    lines = []
+    for i, r in enumerate(rows):
+        lines.append("  ".join(c.ljust(w) for c, w in zip(r, widths)).rstrip())
+        if i == 0:
+            lines.append("  ".join("-" * w for w in widths))
+    return "\n".join(lines)
+
+
+# ------------------------------------------------------------ serving summary
+# mirror of serving/frontend.py ServerState.CODES: this module is pure
+# stdlib and does not import the serving package (torch) to render a log
+SERVING_STATE_NAMES = {0: "starting", 1: "ready", 2: "degraded",
+                       3: "draining", 4: "dead"}
+
+
+def render_serving_summary(records: List[dict],
+                           source: Optional[str] = None,
+                           status: Optional[dict] = None) -> str:
+    """The operator SLO view of a serving run, from the ``serving/*``
+    registry series (last snapshot per series) plus the optional
+    ``serving_status.json`` payload ``ds_serve status`` passes in:
+    health state + queue, the request-lifecycle ledger (admitted must
+    equal the sum of terminal outcomes — the no-silent-drops invariant,
+    visible from the JSONL alone), latency percentiles vs deadline, and
+    the circuit-breaker transition history."""
+    counters, hists, gauges = {}, {}, {}
+    for rec in records:
+        name = rec.get("name", "")
+        if not name.startswith("serving/"):
+            continue
+        short = name[len("serving/"):]
+        labels = rec.get("labels") or {}
+        key = short if not labels else \
+            short + "{" + ",".join(f"{k}={v}" for k, v in sorted(labels.items())) + "}"
+        if rec.get("kind") == "histogram":
+            hists[short] = rec
+        elif rec.get("kind") == "gauge":
+            gauges[short] = rec.get("value")
+        else:
+            counters[key] = rec.get("value", 0)
+    if not (counters or hists or gauges) and status is None:
+        return ("no serving/* series found"
+                + (f" in {source}" if source else "")
+                + " — enable the ds_config `serving` + `telemetry` blocks")
+    out = ["serving summary" + (f": {source}" if source else "")]
+
+    state = None
+    if status is not None:
+        state = status.get("state")
+    elif "state" in gauges:
+        state = SERVING_STATE_NAMES.get(int(gauges["state"]), "?")
+    line = f"state: {state or '?'}"
+    if "capacity" in gauges:
+        line += f"  capacity: {int(gauges['capacity'])}"
+    if "queue_depth" in gauges:
+        line += f"  queue_depth: {int(gauges['queue_depth'])}"
+    if status is not None and status.get("breaker"):
+        line += f"  breaker: {status['breaker']}"
+    out.append(line)
+
+    lifecycle = [(k, v) for k, v in sorted(counters.items())
+                 if not k.startswith(("circuit_transitions",
+                                      "state_transitions",
+                                      "tokens_streamed"))]
+    if lifecycle:
+        out.append("")
+        out.append("request lifecycle:")
+        table = [("outcome", "count")]
+        for k, v in lifecycle:
+            table.append((k, f"{int(v)}"))
+        out.append("\n".join("  " + ln for ln in _table(table).splitlines()))
+        admitted = counters.get("admitted", 0)
+        if admitted:
+            terminal = sum(v for k, v in counters.items()
+                           if k in ("completed", "timed_out", "drained",
+                                    "failed")
+                           or k.startswith("shed_admitted{"))
+            live = int(gauges.get("queue_depth", 0))   # queued + in flight
+            tick = ("OK" if int(terminal) + live == int(admitted)
+                    else "MISMATCH — an admitted request is unaccounted for")
+            out.append(f"  (no-silent-drops ledger: admitted {int(admitted)} "
+                       f"== completed+timed_out+drained+failed+shed_admitted "
+                       f"[{int(terminal)}] + still-live [{live}] … {tick}; "
+                       "at-the-door shed{…} refusals sit outside the "
+                       "admitted ledger)")
+        if "tokens_streamed" in counters:
+            out.append(f"  tokens streamed: {int(counters['tokens_streamed'])}")
+
+    if hists:
+        out.append("")
+        out.append("latency (s unless noted):")
+        table = [("series", "count", "p50", "p90", "p99", "max")]
+        for short in ("ttft_seconds", "request_seconds", "queue_wait_seconds",
+                      "prefill_seconds", "decode_chunk_seconds",
+                      "ttft_deadline_fraction", "tokens_per_request"):
+            rec = hists.get(short)
+            if rec is None:
+                continue
+            fmt = lambda v: "-" if v is None else f"{v:.4g}"
+            table.append((short, f"{int(rec.get('count', 0))}",
+                          fmt(rec.get("p50")), fmt(rec.get("p90")),
+                          fmt(rec.get("p99")), fmt(rec.get("max"))))
+        if len(table) > 1:
+            out.append("\n".join("  " + ln for ln in _table(table).splitlines()))
+        # TTFT decomposition from the request-scoped spans: where does the
+        # first token's latency come from — sitting in the queue, or the
+        # prefill compute itself? (p50s of independent series, so the sum
+        # is an approximation; it still answers "queue or compute")
+        ttft = hists.get("ttft_seconds")
+        qw = hists.get("queue_wait_seconds")
+        pf = hists.get("prefill_seconds")
+        if ttft and ttft.get("count") and qw and pf:
+            out.append(f"  ttft decomposition (p50): queue-wait "
+                       f"{qw.get('p50', 0):.4g}s + prefill "
+                       f"{pf.get('p50', 0):.4g}s ~= ttft "
+                       f"{ttft.get('p50', 0):.4g}s")
+
+    trans = [(k, v) for k, v in sorted(counters.items())
+             if k.startswith("circuit_transitions")]
+    if trans:
+        out.append("")
+        out.append("circuit breaker transitions:")
+        for k, v in trans:
+            out.append(f"  {k[len('circuit_transitions'):]:<28} {int(v)}x")
+    return "\n".join(out)

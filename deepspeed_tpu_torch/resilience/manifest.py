@@ -14,8 +14,8 @@ when its manifest, written after the ``state/`` tree commits and before the
   checkpoint engine writes after every ``state/`` file is fsynced.
 
 ``candidate_tags`` orders tags newest first, so a restart resumes at the
-newest tag that passes. The JAX module also counts verification failures
-in its telemetry registry; telemetry is a later slice of the port.
+newest tag that passes. A failed verification bumps the telemetry
+counter ``resilience/verify_failures``, as in JAX.
 """
 
 from __future__ import annotations
@@ -90,7 +90,18 @@ def _is_own_leftover(name: str) -> bool:
 
 
 def verify_tag(tag_dir: str) -> Tuple[bool, str]:
-    """Is this tag safe to restore? Returns (ok, reason).
+    """Is this tag safe to restore? Returns (ok, reason); a failure bumps
+    the ``resilience/verify_failures`` counter."""
+    ok, reason = _verify_tag(tag_dir)
+    if not ok:
+        from deepspeed_tpu_torch import telemetry
+
+        telemetry.get_registry().counter("resilience/verify_failures").inc()
+    return ok, reason
+
+
+def _verify_tag(tag_dir: str) -> Tuple[bool, str]:
+    """:func:`verify_tag` without the counter.
 
     A tag without ``manifest.json`` predates the manifests: it is accepted
     when the commit marker is present and ``client_state.json`` parses. A

@@ -3,9 +3,10 @@
 Counterpart of ``deepspeed_tpu/resilience/retry.py`` (``RetryPolicy``,
 ``retry``, ``NO_RETRY``): a checkpoint write that meets a flaky disk or
 network filesystem retries with exponential backoff and jitter under a
-wall-clock deadline, and re-raises its last error when either runs out. The
-telemetry counters the JAX module bumps are a later slice; the warnings
-stay. The elastic agent's ``RestartBackoff`` is a later slice too.
+wall-clock deadline, and re-raises its last error when either runs out.
+Each retry bumps the telemetry counter ``resilience/retries{op}`` and a
+give-up ``resilience/retry_exhausted{op}``, as in JAX. The elastic agent's
+``RestartBackoff`` is a later slice.
 """
 
 from __future__ import annotations
@@ -60,15 +61,23 @@ def retry(fn: Callable, policy: Optional[RetryPolicy] = None, *, op: str = "",
         try:
             return fn()
         except policy.retry_on as e:
+            from deepspeed_tpu_torch import telemetry
+
+            labels = {"op": op or "unknown"}
             attempt += 1
             if attempt >= policy.max_attempts:
+                telemetry.get_registry().counter("resilience/retry_exhausted",
+                                                 labels=labels).inc()
                 logger.warning(f"retry[{op}]: giving up after {attempt} attempt(s): {e}")
                 raise
             d = policy.delay_for(attempt, rng)
             if policy.deadline is not None and (clock() - start) + d > policy.deadline:
+                telemetry.get_registry().counter("resilience/retry_exhausted",
+                                                 labels=labels).inc()
                 logger.warning(f"retry[{op}]: deadline {policy.deadline}s exhausted "
                                f"after {attempt} attempt(s): {e}")
                 raise
+            telemetry.get_registry().counter("resilience/retries", labels=labels).inc()
             logger.warning(f"retry[{op}]: attempt {attempt}/{policy.max_attempts} "
                            f"failed ({e}); retrying in {d:.3f}s")
             sleep(d)

@@ -13,7 +13,10 @@ The port reads ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 as in JAX), ``curriculum_learning``, ``dataloader_drop_last``,
 ``progressive_layer_drop``, ``activation_checkpointing``, ``memory_breakdown``,
 ``dump_state``, ``hybrid_engine``, ``compression_training`` (validated as
-``compression/config.py`` reads it), ``eigenvalue``, ``steps_per_print``,
+``compression/config.py`` reads it), ``eigenvalue``, ``telemetry`` (the
+session ``telemetry/`` installs), ``serving`` (the front-end of
+``serving/``; ``serving_present`` says whether the block is there),
+``steps_per_print``,
 ``wall_clock_breakdown``, ``seed``, the ``tpu`` block's ``data`` and
 ``expert`` axes, and the batch keys.
 
@@ -52,7 +55,7 @@ SUPPORTED_KEYS = frozenset({
     "wall_clock_breakdown", "seed", "checkpoint", "resilience", "data_efficiency",
     "curriculum_learning", "dataloader_drop_last", "progressive_layer_drop", "tpu",
     "activation_checkpointing", "memory_breakdown", "dump_state",
-    "hybrid_engine", "compression_training", "eigenvalue",
+    "hybrid_engine", "compression_training", "eigenvalue", "telemetry", "serving",
     "train_batch_size", "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
@@ -62,8 +65,8 @@ SUPPORTED_KEYS = frozenset({
 LATER_KEYS = frozenset({
     "flops_profiler", "tensorboard", "wandb",
     "csv_monitor", "pipeline", "elasticity", "gradient_compression",
-    "autotuning", "rewind", "watchdog", "analysis", "telemetry", "profiling",
-    "perf", "serving", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
+    "autotuning", "rewind", "watchdog", "analysis", "profiling",
+    "perf", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
 })
 
 # The JAX package's advisory keys that the port accepts at any value, each
@@ -87,7 +90,7 @@ ADVISORY_NOOP_KEYS = {
         "nebula's tiers and storage paths have no counterpart",
     "zero_allow_untested_optimizer":
         "a client optimizer is a deepspeed_tpu_torch.ops.optimizers.Optimizer, which "
-        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:607 "
+        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:611 "
         "_configure_optimizer): there is no untested-optimizer gate to pass",
     "zero_force_ds_cpu_optimizer":
         "the port has no CPU Adam to force: offload_optimizer cpu keeps the state in "
@@ -96,7 +99,7 @@ ADVISORY_NOOP_KEYS = {
         "(runtime/swap_tensor/optimizer_swapper.py)",
     "timers":
         "throughput timing is always on (ThroughputTimer, utils/timer.py; the engine's "
-        "tput_timer, runtime/engine.py:324) and the synchronized breakdown is the "
+        "tput_timer, runtime/engine.py:325) and the synchronized breakdown is the "
         "wall_clock_breakdown knob: set that instead",
 }
 
@@ -418,6 +421,73 @@ class TPUMeshConfig(DeepSpeedConfigModel):
         return self.expert
 
 
+@dataclasses.dataclass
+class TelemetryConfig(DeepSpeedConfigModel):
+    """The telemetry block (``telemetry/``): the process-wide registry
+    (counters, gauges, p50/p90/p99 histograms) and Chrome-trace spans,
+    exported to JSONL and Prometheus text by process 0. ``inference``
+    makes ``generate`` observed (a host sync at prefill's end, the
+    ``inference/*`` series). ``monitor`` (the TensorBoard / W&B / CSV
+    fan-out) needs ``monitor/``, a later slice, and raises."""
+    enabled: bool = False
+    output_dir: str = "./ds_telemetry"
+    jsonl: bool = True
+    prometheus: bool = True
+    trace: bool = True
+    monitor: bool = False
+    inference: bool = True
+    flush_interval: int = 50
+    histogram_max_samples: int = 512
+    histogram_buckets: list = dataclasses.field(default_factory=list)
+    max_trace_events: int = 100_000
+
+    def __post_init__(self):
+        _check_min(self, flush_interval=(0, True), histogram_max_samples=(0, True),
+                   max_trace_events=(0, True))
+        if self.monitor:
+            raise NotImplementedError("ds_config telemetry.monitor=true (the MonitorMaster "
+                                      "fan-out) needs monitor/, a later slice of the port")
+
+
+@dataclasses.dataclass
+class ServingConfig(DeepSpeedConfigModel):
+    """The serving block (``serving/``): the request-lifecycle front-end
+    over the inference engine, with the JAX package's fields, defaults and
+    bounds. Admission is bounded by ``max_queue_depth`` or, at 0, by
+    ``kv_budget_fraction`` of the card's memory past the weights over one
+    request's KV cache (``hbm_bytes`` > 0 pins the memory); deadlines are
+    checked at admission and at every tick of ``decode_tick_tokens``
+    tokens, each under ``decode_tick_timeout_s`` (``startup_tick_timeout_s``
+    until a tick of its key has run); ``breaker_threshold`` consecutive
+    tick failures open the circuit for ``breaker_cooldown_s``; a drain
+    gives the request in flight ``drain_grace_s``; ``max_program_variants``
+    bounds the sampling keys the server builds decode loops for."""
+    enabled: bool = True
+    max_queue_depth: int = 0
+    kv_budget_fraction: float = 0.6
+    hbm_bytes: int = 0
+    default_deadline_s: float = 30.0
+    decode_tick_tokens: int = 16
+    decode_tick_timeout_s: float = 10.0
+    startup_tick_timeout_s: float = 300.0
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 5.0
+    drain_grace_s: float = 10.0
+    shed_retry_after_s: float = 1.0
+    max_program_variants: int = 8
+
+    def __post_init__(self):
+        _check_min(self, max_queue_depth=(0, False), kv_budget_fraction=(0.0, True),
+                   hbm_bytes=(0, False), default_deadline_s=(0.0, True),
+                   decode_tick_tokens=(0, True), decode_tick_timeout_s=(0.0, True),
+                   startup_tick_timeout_s=(0.0, True), breaker_threshold=(1, False),
+                   breaker_cooldown_s=(0.0, True), drain_grace_s=(0.0, False),
+                   shed_retry_after_s=(0.0, False), max_program_variants=(1, False))
+        if self.kv_budget_fraction > 1.0:
+            raise ValueError("ServingConfig.kv_budget_fraction must be <= 1.0, got "
+                             f"{self.kv_budget_fraction}")
+
+
 # data_types.grad_accum_dtype → the type gradients are accumulated in
 GRAD_ACCUM_DTYPES = {None: torch.float32, "fp32": torch.float32, "float32": torch.float32,
                      "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -491,6 +561,9 @@ class DeepSpeedConfig:
             CompressionConfig.from_dict(self.compression_config)      # validated here
         self.eigenvalue_config = EigenvalueConfig.from_dict(pd.get("eigenvalue", {}))
         self.eigenvalue_enabled = self.eigenvalue_config.enabled
+        self.telemetry = TelemetryConfig.from_dict(pd.get("telemetry", {}))
+        self.serving = ServingConfig.from_dict(pd.get("serving", {}))
+        self.serving_present = "serving" in pd
         self.memory_breakdown = bool(pd.get("memory_breakdown", False))
         self.dump_state = bool(pd.get("dump_state", False))
         # the advisory keys the config sets: presence, not truthiness

@@ -142,6 +142,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch import telemetry as _telemetry
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.ops.optimizers import AdamState, Optimizer, build_optimizer
 from deepspeed_tpu_torch.parallel.topology import ParallelGrid
@@ -326,6 +327,10 @@ class DeepSpeedEngine:
             sync_every_step=self.wall_clock_breakdown,
             synchronize=functools.partial(torch.cuda.synchronize, self.device) if on_card
             else (lambda: None))
+        # the process-wide telemetry session (telemetry/): None when the
+        # block is off; the per-step hooks read the live session, so one a
+        # caller installs gets the same series
+        self.telemetry = _telemetry.configure(self._config.telemetry)
         self._last_save = None
         self._last_recovery = None
 
@@ -806,6 +811,34 @@ class DeepSpeedEngine:
                                  BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER])
             if self._config.memory_breakdown:
                 see_memory_usage(f"after step {step}", force=True)
+        session = _telemetry.get_session()
+        if session is not None:
+            self._record_step_telemetry(session, metrics, step)
+
+    def _record_step_telemetry(self, session, metrics: StepMetrics, step: int) -> None:
+        """The JAX engine's per-step series and the flush cadence, on the
+        live session. The float() reads are one host sync per step, what
+        enabling telemetry opts into. The ``device/*`` gauges read the
+        caching allocator on the card; the CPU has none, as JAX's
+        ``memory_stats`` has none there."""
+        reg = session.registry
+        reg.counter("train/steps").inc()
+        reg.counter("train/samples").inc(self.train_batch_size())
+        reg.gauge("train/loss").set(float(metrics.loss))
+        reg.gauge("train/grad_norm").set(float(metrics.grad_norm))
+        reg.gauge("train/lr").set(float(metrics.lr))
+        if self.fp16_enabled:
+            reg.gauge("train/loss_scale").set(float(metrics.loss_scale))
+        if bool(metrics.overflow):
+            reg.counter("train/overflow_steps").inc()
+        sps = self.tput_timer.avg_samples_per_sec()
+        if sps > 0:
+            reg.gauge("train/samples_per_sec").set(sps)
+        if self.device.type == "cuda":
+            reg.gauge("device/bytes_in_use").set(float(torch.cuda.memory_allocated(self.device)))
+            reg.gauge("device/peak_bytes_in_use").set(
+                float(torch.cuda.max_memory_allocated(self.device)))
+        session.step_end(step)
 
     # ----------------------------------------------------------- public API
     def train_batch(self, batch=None, data_iter=None) -> torch.Tensor:
@@ -813,14 +846,24 @@ class DeepSpeedEngine:
         and take one step. Returns the world's mean loss over the
         microbatches (a 0-d fp32 tensor, the same on every rank)."""
         gas = self._config.gradient_accumulation_steps
-        if batch is None:
-            if data_iter is None:
-                raise ValueError("train_batch needs a batch or data_iter")
-            batch = next(data_iter)
-        if self.curriculum_scheduler is not None:
-            difficulty = self.curriculum_scheduler.update_difficulty(self._global_step + 1)
-            batch = apply_seqlen_curriculum(batch, difficulty)
-        batch = self._to_device(batch)
+        tracer = _telemetry.get_tracer()
+        with tracer.span("data", step=self._global_step):
+            if batch is None:
+                if data_iter is None:
+                    raise ValueError("train_batch needs a batch or data_iter")
+                batch = next(data_iter)
+            if self.curriculum_scheduler is not None:
+                difficulty = self.curriculum_scheduler.update_difficulty(self._global_step + 1)
+                batch = apply_seqlen_curriculum(batch, difficulty)
+            batch = self._to_device(batch)
+        with tracer.span("train_batch", step=self._global_step):
+            mean_loss = self._train_batch(batch, gas)
+        if self.eigenvalue is not None:
+            with tracer.span("eigenvalue", step=self._global_step):
+                self._maybe_update_eigenvalue(batch)
+        return mean_loss
+
+    def _train_batch(self, batch, gas: int) -> torch.Tensor:
         self.timers(TRAIN_BATCH_TIMER).start()
         self.tput_timer.start()
         self._refresh_compression()
@@ -838,12 +881,14 @@ class DeepSpeedEngine:
         self._apply_grads(mean_loss, gas)
         self.timers(TRAIN_BATCH_TIMER).stop()
         self.tput_timer.stop(global_step=True)
-        if self.eigenvalue is not None:
-            self._maybe_update_eigenvalue(batch)
         return mean_loss
 
     def forward(self, batch):
         """The loss of one microbatch (this rank's), with its autograd graph."""
+        with _telemetry.get_tracer().span("fwd", step=self._global_step):
+            return self._forward_call(batch)
+
+    def _forward_call(self, batch):
         self.timers(FORWARD_GLOBAL_TIMER).start()
         batch = self._to_device(batch)
         self._refresh_compression()
@@ -859,6 +904,10 @@ class DeepSpeedEngine:
     def backward(self, loss, allreduce_gradients=True, release_loss=False):
         """Backpropagate one microbatch's (scaled) loss into the fp32
         accumulation buffers, weighted by the microbatch's token share."""
+        with _telemetry.get_tracer().span("bwd", step=self._global_step):
+            return self._backward_call(loss)
+
+    def _backward_call(self, loss):
         self.timers(BACKWARD_GLOBAL_TIMER).start()
         if self._pending_weight is not None:
             loss = loss * self._pending_weight
@@ -882,11 +931,12 @@ class DeepSpeedEngine:
             return
         if self._micro_loss is None:
             raise RuntimeError("step() called with no accumulated gradients")
-        self.timers(STEP_GLOBAL_TIMER).start()
-        self._apply_grads(self._world_mean(self._micro_loss),
-                          self._config.gradient_accumulation_steps)
-        self._micro_loss = None
-        self.timers(STEP_GLOBAL_TIMER).stop()
+        with _telemetry.get_tracer().span("step", step=self._global_step):
+            self.timers(STEP_GLOBAL_TIMER).start()
+            self._apply_grads(self._world_mean(self._micro_loss),
+                              self._config.gradient_accumulation_steps)
+            self._micro_loss = None
+            self.timers(STEP_GLOBAL_TIMER).stop()
 
     def eval_batch(self, batch) -> torch.Tensor:
         """Loss without gradients (for eval loops), with the compressed
@@ -1017,8 +1067,9 @@ class DeepSpeedEngine:
         from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import \
             save_engine_checkpoint
 
-        return save_engine_checkpoint(self, save_dir, tag=tag, client_state=client_state,
-                                      save_latest=save_latest)
+        with _telemetry.get_tracer().span("save_checkpoint", cat="checkpoint"):
+            return save_engine_checkpoint(self, save_dir, tag=tag, client_state=client_state,
+                                          save_latest=save_latest)
 
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
                         load_optimizer_states=True, load_lr_scheduler_states=True,
@@ -1026,8 +1077,9 @@ class DeepSpeedEngine:
         from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import \
             load_engine_checkpoint
 
-        out = load_engine_checkpoint(self, load_dir, tag=tag,
-                                     load_optimizer_states=load_optimizer_states,
-                                     load_module_only=load_module_only)
+        with _telemetry.get_tracer().span("load_checkpoint", cat="checkpoint"):
+            out = load_engine_checkpoint(self, load_dir, tag=tag,
+                                         load_optimizer_states=load_optimizer_states,
+                                         load_module_only=load_module_only)
         self.invalidate_compiled()            # the weights the compression read changed
         return out

@@ -70,6 +70,10 @@ class ZeroInfinityEngine:
             raise NotImplementedError("param-NVMe training with dropout")
         if ds_config.pld_enabled:
             raise NotImplementedError("param-NVMe training with progressive layer drop")
+        if ds_config.telemetry.enabled:
+            raise NotImplementedError("the telemetry block with param-NVMe training (the "
+                                      "layerwise engine records no series): later slice of "
+                                      "the port")
         if comm.is_initialized() and comm.get_world_size() > 1:
             raise NotImplementedError("layerwise param-NVMe runs on one process; train over "
                                       "many with offload_optimizer nvme instead")

@@ -1565,3 +1565,83 @@ def test_eigenvalue_estimate_launches_no_kernel(gen):
     assert seen["estimate"] == (0, 0)
     assert seen["step"][0] - fwd0 == 2 and seen["step"][1] > bwd0
     assert engine.block_eigenvalue and engine._compression._ev_factors
+
+
+def _card_frontend(eng, **serving):
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.serving import ServingFrontEnd
+
+    block = {"decode_tick_tokens": 8, "max_queue_depth": 8, **serving}
+    return ServingFrontEnd(eng, DeepSpeedConfig({"serving": block}).serving)
+
+
+def _join_serving_ticks():
+    from deepspeed_tpu_torch.utils import locks
+
+    for rec in locks.framework_threads():
+        if rec.name.startswith("ds-deadline-serve-tick"):
+            rec.thread.join(30.0)
+
+
+def test_frontend_serves_generate_tokens_on_the_card(gen):
+    """A small llama behind the serving front-end: each request's B = 1
+    loop over a cache of max_out_tokens, captured on the tick thread, gives
+    generate's tokens, greedy and sampled; one K1 per layer per prompt, one
+    K3 per layer per token and per layer for the capture's warm-up step."""
+    eng = _graph_engine(gen, torch.bfloat16)
+    prompts = [torch.randint(0, 512, (1, t), generator=gen, device="cuda").cpu().numpy()
+               for t in (5, 40, 120)]
+    new = (24, 64, 100)
+    fe = _card_frontend(eng)
+    try:
+        fa0, da0 = tfa.KERNEL.launches, tda.KERNEL.launches
+        reqs = [fe.submit(p, max_new_tokens=n) for p, n in zip(prompts, new)]
+        for r in reqs:
+            r.result(timeout=300)
+        counts = (tfa.KERNEL.launches - fa0, tda.KERNEL.launches - da0)
+        sample = dict(do_sample=True, top_k=50, top_p=0.9, seed=7)
+        sampled = fe.submit(prompts[1], max_new_tokens=32, **sample).result(timeout=300)
+    finally:
+        fe.close()
+        _join_serving_ticks()
+    assert [r.status for r in reqs] == ["completed"] * 3 and sampled.status == "completed"
+    assert counts == (2 * 3, 2 * (sum(new) + 1))
+    for r, p in zip(reqs, prompts):
+        ref = eng.generate(p, max_new_tokens=len(r.tokens))[0, p.shape[1]:].tolist()
+        assert r.tokens == ref
+    ref = eng.generate(prompts[1], max_new_tokens=32, **sample)[0, 40:].tolist()
+    assert sampled.tokens == ref
+
+
+def test_frontend_hung_tick_then_requests_equal_generate(gen):
+    """A chaos hang on a decode tick times out against the warm tick cap;
+    the key's loop is dropped, so the request served while the disowned
+    tick sleeps, and the one after it wakes, give generate's tokens."""
+    import time
+
+    from deepspeed_tpu_torch.resilience.chaos import (ChaosInjector, install_chaos,
+                                                      uninstall_chaos)
+
+    eng = _graph_engine(gen, torch.bfloat16)
+    prompts = [torch.randint(0, 512, (1, 32), generator=gen, device="cuda").cpu().numpy()
+               for _ in range(4)]
+    fe = _card_frontend(eng, decode_tick_timeout_s=0.5)
+    try:
+        assert fe.submit(prompts[0], max_new_tokens=32).result(timeout=300).status == \
+            "completed"
+        install_chaos(ChaosInjector(hang_at={"decode_step": [3]}, hang_s=2.0))
+        hung = fe.submit(prompts[1], max_new_tokens=48).result(timeout=60)
+        uninstall_chaos()
+        during = fe.submit(prompts[2], max_new_tokens=48).result(timeout=300)
+        time.sleep(2.0)
+        after = fe.submit(prompts[3], max_new_tokens=48).result(timeout=300)
+        state = fe.state
+    finally:
+        uninstall_chaos()
+        fe.close()
+        _join_serving_ticks()
+    assert (hung.status, hung.reason, len(hung.tokens)) == ("partial", "timeout", 8)
+    assert state == "ready"
+    for r, p in ((during, prompts[2]), (after, prompts[3])):
+        assert r.status == "completed"
+        assert r.tokens == eng.generate(p, max_new_tokens=48)[0, 32:].tolist()

@@ -188,8 +188,10 @@ def test_config_blocks_parse_like_jax_and_later_blocks_raise():
     assert (t.fp16.loss_scale_window, t.fp16.hysteresis) == (50, 3)
     assert t.zero_config.prefetch_bucket_size == j.zero_config.prefetch_bucket_size == 1000
     assert t.train_dtype == torch.float16 and t.grad_accum_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        TConfig({"train_batch_size": 8, "telemetry": {"enabled": True}})
+    with pytest.raises(NotImplementedError, match="watchdog"):
+        TConfig({"train_batch_size": 8, "watchdog": {"enabled": True}})
+    with pytest.raises(NotImplementedError, match="monitor"):
+        TConfig({"train_batch_size": 8, "telemetry": {"enabled": True, "monitor": True}})
     with pytest.raises(NotImplementedError, match="MiCS"):
         TConfig({"train_batch_size": 8, "zero_optimization": {"stage": 2, "mics_shard_size": 2}})
     offload = TConfig({"train_batch_size": 8, "zero_optimization": {
