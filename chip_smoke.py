@@ -29,6 +29,20 @@ requests counted and equal to ``generate`` bit for bit, a sampled one, a
 queue-full shed, a chaos hang on a decode tick, the circuit opening and
 closing, a drain with exit code 87; K1 and K3 are checked at its B = 1
 shapes.
+``resilience gpt2-760m`` trains the dense cell again with the ``watchdog``
+block (a heartbeat file, the step agreement every step), the bad-step
+sentinel and the ``rewind`` ring (``ram_interval`` 4, ``keep`` 2): losses
+equal to the unarmed cell's bit for bit, K1 and each K2 entry once per
+layer a step, the snapshot ms, the host GB held and the heartbeat's
+advancing mtime; then three drills at 4 of its 24 layers, each under
+``DSElasticAgent``: a chaos hang on the ``train_step`` hook ends in the
+watchdog's ``WatchdogTimeout`` and a restart from the RAM tier whose losses
+equal an unfaulted run's bit for bit; a loss spike (one batch repeated
+until its loss falls, then fresh ones) is rewound in place from RAM with
+no disk, once; a chaos ``preempt`` stops the run with an
+``emergency_step<N>`` tag that an engine from another seed loads, in
+preference to the stale ``latest``, bit for bit (the save's seconds,
+bytes and host peak).
 ``train gpt2-760m activation_checkpointing`` trains the dense cell with
 DeepSpeed-Chat's ``activation_checkpointing`` block (losses equal to the
 plain run's bit for bit), and its hand loop calls
@@ -154,8 +168,9 @@ transform, with the compressed path's bf16 and fp32 kernel-vs-plain
 checks; ``eigenvalue gpt2-760m`` runs the block Hessian eigenvalue after
 each step (no K1 or K2 inside an estimate) and holds an fp32 estimate on
 the card to the CPU's. The kernel rows that no summary
-reports (edge lengths, other types and head dims) are checked without a
-time (``untimed``). Each phase prints one JSON line with the seconds
+reports (edge lengths, other types and head dims, and the type and
+tile-edge variants of the model shapes' rows) are checked without a time
+(``untimed``). Each phase prints one JSON line with the seconds
 since the start (``at_s``); any failed check raises, and the script exits
 non-zero without the final line. It needs one card and imports nothing of
 JAX or of the JAX package.
@@ -165,7 +180,8 @@ card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Timing: each kernel time is CUDA-event device time per call, averaged over
-``ITERS`` back-to-back calls queued behind a device sleep (so host launch
+``ITERS`` back-to-back calls (the plain versions over ``PLAIN_ITERS``)
+queued behind a device sleep (so host launch
 overhead does not show), with inputs rotated over copies totalling more than
 the 50 MB L2 cache, as the model's per-layer calls find them cold.
 ``bound_ms`` is max(bytes moved / memory bandwidth, operations / peak rate
@@ -194,6 +210,7 @@ import torch
 
 SEED = 0
 ITERS = 20
+PLAIN_ITERS = 5                     # the plain versions, 10-1000x slower, over fewer calls
 L2_BYTES = 50 * 2**20
 MODEL = "llama3.2-1b"
 BATCH, PROMPT, GEN = 32, 128, 128          # the serving cell
@@ -263,7 +280,7 @@ CAPACITY_LAYERS = 23
 # the NVMe phases: gpt2-2.7b's width at 2 layers (the script's time limit
 # stays while it grows; the swap's placement and policy are the same at 2
 # layers as at 4); the swap through 8 I/O threads
-NVME_LAYERS, NVME_WARMUP, NVME_STEPS = 2, 1, 2
+NVME_LAYERS, NVME_WARMUP, NVME_STEPS = 2, 1, 1
 NVME_AIO = {"block_size": 1 << 20, "thread_count": 8}
 AIO_COUNTS = ("direct_chunks", "buffered_chunks", "direct_bytes", "buffered_bytes")
 # the fp32 NVMe check: two AdamW steps, for the script's time
@@ -438,9 +455,9 @@ def _per(num, ms):
     return None if ms is None else num / ms
 
 
-def time_ms(fn, arg_sets):
-    """Device ms per call of fn(*args), args rotated over ``arg_sets``; None
-    inside ``untimed``."""
+def time_ms(fn, arg_sets, iters=ITERS):
+    """Device ms per call of fn(*args) over ``iters`` calls, args rotated
+    over ``arg_sets``; None inside ``untimed``."""
     if _UNTIMED[0]:
         return None
     for args in arg_sets[:2]:
@@ -450,14 +467,30 @@ def time_ms(fn, arg_sets):
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(50_000_000)   # holds the device while the host queues the calls
     start.record()
-    for i in range(ITERS):
+    for i in range(iters):
         fn(*arg_sets[i % len(arg_sets)])
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / ITERS
+    return start.elapsed_time(end) / iters
+
+
+def _side_row(name: str) -> bool:
+    """A type or tile-edge variant of a model shape's row: held to its plain
+    version without a time (the model shape's own row is timed)."""
+    return name.endswith(("_fp16", "_fp32", "_fp32_noncausal")) or "_edges_" in name
+
+
+def _checked(check, name, *args):
+    """``check(*args)`` (a kernel row), untimed for a :func:`_side_row`."""
+    with untimed() if _side_row(name) else contextlib.nullcontext():
+        return check(*args)
 
 
 def n_copies(set_bytes: int) -> int:
+    """Input sets a row rotates over: past the L2 cache when it is timed,
+    one inside ``untimed`` (the checks read the first set only)."""
+    if _UNTIMED[0]:
+        return 1
     return max(2, min(16, math.ceil(2 * L2_BYTES / max(1, set_bytes))))
 
 
@@ -563,7 +596,8 @@ def check_flash(fa, accel, gen, name, B, T, H, D, dtype, causal, Tk=None):
            "bitwise_repeat": repeat, "library_backend": sdpa_backend(
                q.view(B, H, T, D), k.view(B, H, Tk, D), v.view(B, H, Tk, D), causal),
            "ms": time_ms(lambda q, k, v: fa.flash_forward(q, k, v, causal), sets),
-           "plain_ms": time_ms(lambda q, k, v: fa.mha_reference_lse(q, k, v, causal), sets),
+           "plain_ms": time_ms(lambda q, k, v: fa.mha_reference_lse(q, k, v, causal), sets,
+                               PLAIN_ITERS),
            "library_ms": time_ms(sdpa, sets), "bound_ms": b_ms, "bound_by": b_by}
     row["tflops"] = _per(4.0 * D * _pairs(T, Tk, causal) * B * H / 1e9, row["ms"])
     row["bound_share"] = _per(b_ms, row["ms"])
@@ -619,7 +653,7 @@ def check_decode(da, accel, gen, name, B, S, H, KV, Dh, dtype, pos, garbage=Fals
            "active_ctas": B * KV * groups * -(-n_valid // chunk), "merge": n_chunks > 1,
            "max_abs_err": err, "split_plain_max_abs_err": split_err, "tol": tol,
            "ms": time_ms(da.decode_attention, sets),
-           "plain_ms": time_ms(da.decode_reference, sets),
+           "plain_ms": time_ms(da.decode_reference, sets, PLAIN_ITERS),
            "library_ms": time_ms(sdpa, sets), "bound_ms": b_ms, "bound_by": b_by}
     row["tflops"] = _per(ops / 1e9, row["ms"])
     row["gbytes_per_s"] = _per(nbytes / 1e6, row["ms"])
@@ -695,8 +729,10 @@ def check_flash_bwd(fa, accel, gen, name, BH, T, D, dtype, causal, Tk=None):
            "unseen_key_nonzero": unseen,
            "dq_ms": time_ms(lambda *a: fa.flash_backward_dq(*a, causal), sets),
            "dkv_ms": time_ms(lambda *a: fa.flash_backward_dkv(*a, causal), sets),
-           "dq_plain_ms": time_ms(lambda *a: fa.mha_backward_dq_reference(*a, causal), sets),
-           "dkv_plain_ms": time_ms(lambda *a: fa.mha_backward_dkv_reference(*a, causal), sets),
+           "dq_plain_ms": time_ms(lambda *a: fa.mha_backward_dq_reference(*a, causal), sets,
+                                  PLAIN_ITERS),
+           "dkv_plain_ms": time_ms(lambda *a: fa.mha_backward_dkv_reference(*a, causal), sets,
+                                   PLAIN_ITERS),
            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
            "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
            "library_bwd_ms": time_ms(lib_bwd, lib), "library_fwd_bwd_ms": time_ms(lib_fwd_bwd, lib)}
@@ -800,10 +836,11 @@ def check_sparse(fa, accel, gen, name, BH, T, D, dtype, layout, causal):
         dq_ms=time_ms(lambda *a: fa.sparse_backward_dq(*a, layout, causal), sets),
         dkv_ms=time_ms(lambda *a: fa.sparse_backward_dkv(*a, layout, causal), sets),
         fwd_plain_ms=time_ms(lambda q, k, v, *_: fa.sparse_reference_lse(q, k, v, layout, causal),
-                             sets),
-        dq_plain_ms=time_ms(lambda *a: fa.sparse_backward_dq_reference(*a, layout, causal), sets),
+                             sets, PLAIN_ITERS),
+        dq_plain_ms=time_ms(lambda *a: fa.sparse_backward_dq_reference(*a, layout, causal), sets,
+                            PLAIN_ITERS),
         dkv_plain_ms=time_ms(lambda *a: fa.sparse_backward_dkv_reference(*a, layout, causal),
-                             sets))
+                             sets, PLAIN_ITERS))
     for entry in ops:   # visible-pair work only
         row[f"{entry}_tflops"] = _per(ops[entry] / 1e9, row[f"{entry}_ms"])
         row[f"{entry}_bound_share"] = _per(row[f"{entry}_bound_ms"], row[f"{entry}_ms"])
@@ -1709,7 +1746,10 @@ def _train_line(c, batch, seq, step_ms, accel, dtype=torch.bfloat16):
 
 def train_slice(initialize, GPT2Model, cfg, accel, fa):
     """gpt2-760m, bf16, full width and depth, through initialize →
-    train_batch: the counted main-path run of the dense training slice."""
+    train_batch: the counted main-path run of the dense training slice.
+    → (launches, batch, the timed run's losses, those and the losses of
+    the further steps the armed resilience cell takes, untimed and
+    uncounted)."""
     from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
 
     c = dataclasses.replace(cfg, remat=False)
@@ -1721,6 +1761,8 @@ def train_slice(initialize, GPT2Model, cfg, accel, fa):
     if launches != expect:
         raise AssertionError(f"launch counts {launches} over {TRAIN_STEPS} steps, "
                              f"expected {expect} ({c.n_layer} per microbatch)")
+    extended = losses + [float(engine.train_batch(batch)) for _ in range(
+        RESILIENCE_WARMUP + RESILIENCE_STEPS - len(losses))]
     emit(f"train {TRAIN_MODEL}", **_train_line(c, TRAIN_BATCH, TRAIN_SEQ, step_ms, accel),
          peak_mem_gb=peak_gb, losses=losses,
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
@@ -1729,7 +1771,7 @@ def train_slice(initialize, GPT2Model, cfg, accel, fa):
          step=device_profile(lambda: engine.train_batch(batch), top=12))
     del engine
     torch.cuda.empty_cache()
-    return launches, batch, losses
+    return launches, batch, losses, extended
 
 
 def _hand_checkpointed_loss(model, batch, checkpointing, policy=None):
@@ -2117,8 +2159,11 @@ def zero_slice(initialize, GPT2Model, cfg, accel, fa):
                  collective_bytes_per_step=sum(v["bytes"] for v in collectives.values()),
                  logged_step_ms=logged_ms, stage3_gathers_per_step=gathers, **save,
                  grad_norm=engine.get_global_grad_norm(), lr=engine.get_lr()[0])
-            emit(f"profile train {TRAIN_MODEL} zero{stage}",
-                 step=device_profile(lambda: engine.train_batch(batch), top=12))
+            if stage == 3:
+                # the gathers' share of the step: the other stages' profiles
+                # are the plain cell's
+                emit(f"profile train {TRAIN_MODEL} zero{stage}",
+                     step=device_profile(lambda: engine.train_batch(batch), top=12))
             del engine
             gc.collect()
             torch.cuda.empty_cache()
@@ -2427,12 +2472,12 @@ def _evict_from_page_cache(path: str) -> None:
                 os.close(fd)
 
 
-def _disk_rates(tmp: str, gib: int = 2) -> dict:
+def _disk_rates(tmp: str, gib: float = 2) -> dict:
     """What the disk gives without the checkpoint engine: ``gib`` GiB
     written in 64 MiB chunks and fsynced, then read back after the pages
     were dropped from the page cache, in GB/s."""
     path, chunk = os.path.join(tmp, "disk_probe"), np.ones(64 * 2**20, np.uint8)
-    n = gib * 16
+    n = int(gib * 16)
     t0 = time.perf_counter()
     with open(path, "wb") as f:
         for _ in range(n):
@@ -3037,7 +3082,7 @@ def nvme_check_fp32(initialize, GPT2Model, cfg, tmp):
 
 def resume_offload(initialize, GPT2Model, cfg, tmp):
     """At the NVMe phase's model: (c) (the master on the host, streamed)
-    trains two steps and saves; an engine without offload, the NVMe
+    trains a step and saves; an engine without offload, the NVMe
     engine (e) and the ZeRO-Infinity engine (f) load the tag, and the state
     each restores must equal the saved state bit for bit."""
     import gc
@@ -3052,8 +3097,7 @@ def resume_offload(initialize, GPT2Model, cfg, tmp):
     ckpt = os.path.join(tmp, "ckpt")
     src, _ = _offload_engine(initialize, GPT2Model, c, {"stage": 1, "offload_optimizer": {
         "device": "cpu"}}, {"DS_TPU_OFFLOAD_MASTER": "host", "DS_TPU_FORCE_STREAMED_OFFLOAD": "1"})
-    for _ in range(2):
-        src.train_batch(batch)
+    src.train_batch(batch)
     saved = flatten_state(src)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3105,13 +3149,413 @@ def offload_slices(initialize, GPT2Model, presets, accel, fa):
     root, free = _scratch_dir()
     tmp = tempfile.mkdtemp(prefix="ds_nvme_", dir=root)
     try:
-        emit("disk nvme", free_bytes=free, chosen=root, **_disk_rates(tmp))
+        emit("disk nvme", free_bytes=free, chosen=root, **_disk_rates(tmp, gib=0.25))
         launches["nvme"] = nvme_slice(initialize, GPT2Model, presets[OFFLOAD_MODEL], accel, fa,
                                       tmp)
         nvme_check_fp32(initialize, GPT2Model, presets[OFFLOAD_MODEL], tmp)
         resume_offload(initialize, GPT2Model, presets[OFFLOAD_MODEL], tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+# ------------------------------------------------------------- resilience
+# the armed training cell: the watchdog (a heartbeat file, the step
+# agreement every step), the sentinel and the RAM ring, 2 + 8 steps
+RESILIENCE_WARMUP, RESILIENCE_STEPS = 2, 8
+RESILIENCE_REWIND = {"ram_interval": 4, "keep": 2}
+# the drills, at the resume phase's depth, each under DSElasticAgent, with
+# one RAM slot (each engine page-locks its ring's slots when it is built)
+DRILL_REWIND = {**RESILIENCE_REWIND, "keep": 1}
+DRILL_STEPS = 10                    # the hang drill's run, faulted and not
+DRILL_HANG_AT = 7                   # train_step call the hang lands on
+DRILL_WATCHDOG = {"enabled": True, "min_step_timeout": 2.0, "startup_timeout": 120.0}
+# the spike drill: one batch repeated at SPIKE_LR until its loss is below
+# SPIKE_FALL of its first (at most SPIKE_MAX_REPEATS), then SPIKE_FRESH
+# fresh batches, the first of which the sentinel must rewind
+SPIKE_LR, SPIKE_FALL, SPIKE_MAX_REPEATS, SPIKE_FRESH = 3e-4, 0.8, 40, 4
+SPIKE_SENTINEL = {"enabled": True, "patience": 1, "spike_factor": 1.1, "window": 4,
+                  "max_rewinds": 2}
+DRILL_PREEMPT_AT, DRILL_CHECKPOINT_INTERVAL = 6, 4
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class _PeakRss:
+    """The process's resident bytes sampled every 5 ms on a thread while
+    the block runs: the peak above the start."""
+
+    def __enter__(self):
+        self.start = self.peak = _rss_bytes()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            self.peak = max(self.peak, _rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, _rss_bytes())
+
+    @property
+    def above_start(self) -> int:
+        return self.peak - self.start
+
+
+def _kernel_counts(fa) -> dict:
+    return {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
+
+
+def _reset_counts(fa) -> None:
+    for kern in (fa.KERNEL, fa.BWD_KERNEL):
+        kern.reset_launches()
+
+
+def _held_bitwise(got, want, label) -> None:
+    if got != want:
+        raise AssertionError(f"{label}: losses {got} differ from {want}")
+
+
+def resilience_armed(initialize, GPT2Model, cfg, accel, fa, ref_losses, ref_step_ms, tmp):
+    """The training cell, full width and depth, with the watchdog (a
+    heartbeat file, the step agreement every step), the sentinel and the
+    RAM ring: each of its losses must equal the unarmed run's at the same
+    step bit for bit (``ref_losses``, as many), and K1 and each K2 entry
+    launch once per layer a step."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+    from deepspeed_tpu_torch.resilience import rewind as rw
+
+    c = dataclasses.replace(cfg, remat=False)
+    hb = os.path.join(tmp, "heartbeat")
+    config = {**TRAIN_CONFIG,
+              "watchdog": {"enabled": True, "heartbeat_file": hb, "consistency_interval": 1},
+              "resilience": {"sentinel": {"enabled": True}},
+              "rewind": dict(RESILIENCE_REWIND)}
+    engine, *_ = initialize(model=GPT2Model(c), config=config)
+    mgr = engine._rewind
+    batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED, device="cuda")
+    losses = [float(engine.train_batch(batch)) for _ in range(RESILIENCE_WARMUP)]
+    torch.cuda.synchronize()
+    _reset_counts(fa)
+    step_ms, mtimes, snaps = [], [os.stat(hb).st_mtime_ns], {}
+    for _ in range(RESILIENCE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        mtimes.append(os.stat(hb).st_mtime_ns)
+        newest = mgr.newest()
+        if newest is not None and newest.step == engine.global_steps:
+            snaps[newest.step] = newest.capture_s * 1e3
+    launches = _kernel_counts(fa)
+    expect = dict.fromkeys(launches, c.n_layer * RESILIENCE_STEPS)
+    held = rw.ram_snapshots()
+    ring_bytes = sum(s.nbytes for s in held)
+    snap_steps = [s for s in range(RESILIENCE_WARMUP + 1, RESILIENCE_WARMUP + RESILIENCE_STEPS + 1)
+                  if s % RESILIENCE_REWIND["ram_interval"] == 0]
+    plain = [ms for i, ms in enumerate(step_ms) if RESILIENCE_WARMUP + 1 + i not in snap_steps]
+    emit(f"resilience {TRAIN_MODEL}", part="armed training cell", layers=c.n_layer,
+         params=c.num_params(), blocks={k: config[k] for k in ("watchdog", "rewind")},
+         sentinel=config["resilience"]["sentinel"],
+         losses=losses, losses_unarmed=ref_losses,
+         step_ms=sorted(step_ms)[RESILIENCE_STEPS // 2], step_ms_each=step_ms,
+         step_ms_mean=sum(step_ms) / len(step_ms),
+         step_ms_without_snapshot_median=sorted(plain)[len(plain) // 2],
+         step_ms_unarmed=ref_step_ms, snapshot_ms=snaps,
+         snapshot_gb_per_s={s: ring_bytes / len(held) / (ms / 1e3) / 1e9
+                            for s, ms in snaps.items()},
+         ring_steps=[s.step for s in held], host_gb_held=ring_bytes / 1e9,
+         pinned=all(s.slot.pinned for s in held), reserve_s=mgr.reserve_s,
+         reserved_gb=mgr.reserved_bytes / 1e9,
+         heartbeat_mtime_ns=mtimes, heartbeat_advanced=all(
+             b > a for a, b in zip(mtimes, mtimes[1:])),
+         watchdog_deadline_s=engine._watchdog.deadline_s(),
+         watchdog_trips=engine._watchdog.trips, sentinel_trips=engine._bad_step_sentinel.trips,
+         launches=launches, launches_expected=expect)
+    _held_bitwise(losses, list(ref_losses), "armed cell against the unarmed cell")
+    if [s.step for s in held] != snap_steps[-RESILIENCE_REWIND["keep"]:] \
+            or not all(b > a for a, b in zip(mtimes, mtimes[1:])):
+        raise AssertionError(f"armed cell: ring at {[s.step for s in held]} (expected "
+                             f"{snap_steps}), heartbeat mtimes {mtimes}")
+    if launches != expect:
+        raise AssertionError(f"armed cell: launch counts {launches}, expected {expect}")
+    engine._watchdog.close()
+    del engine, mgr, held
+    rw.clear_ram_snapshots()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _drill_agent(initialize, GPT2Model, c, config, save_dir, batches, num_steps, **agent_kw):
+    """A DSElasticAgent run of ``num_steps`` over ``batches(agent)`` (one
+    batch per engine step): its status and every (step, loss) it saw."""
+    from deepspeed_tpu_torch.elasticity import DSElasticAgent
+
+    seen = []
+    agent = DSElasticAgent(lambda: initialize(model=GPT2Model(c), config=dict(config))[0],
+                           save_dir, **{"checkpoint_interval": 0,
+                                        "install_signal_handlers": False, **agent_kw})
+    out = agent.run(lambda: batches(agent), num_steps=num_steps,
+                    step_callback=lambda step, loss: seen.append((step, float(loss))))
+    return agent, out, seen
+
+
+def _by_step(seen) -> dict:
+    """The last loss seen at each step (a re-trodden step replaces the
+    first)."""
+    return {step: loss for step, loss in seen}
+
+
+def drill_hang(initialize, GPT2Model, c, fa, tmp, telemetry_dir):
+    """A hang on the ``train_step`` hook: the watchdog's WatchdogTimeout,
+    the agent's restart from the RAM tier with steps_lost <= ram_interval,
+    and the losses after the recovery equal to an unfaulted run's (the
+    same steps on an engine without the blocks, which change no bit)."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+    from deepspeed_tpu_torch.resilience import chaos
+    from deepspeed_tpu_torch.resilience import rewind as rw
+
+    rw.clear_ram_snapshots()            # the run starts with nothing to resume from
+    feed = [synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED + 100 + i,
+                               device="cuda") for i in range(DRILL_STEPS)]
+    plain, *_ = initialize(model=GPT2Model(c), config=dict(TRAIN_CONFIG))
+    want = {step: float(plain.train_batch(feed[step])) for step in range(DRILL_STEPS)}
+    del plain
+    torch.cuda.empty_cache()
+
+    def batches(agent):
+        while True:
+            yield feed[agent.engine.global_steps % DRILL_STEPS]
+
+    config = {**TRAIN_CONFIG, "rewind": dict(DRILL_REWIND), "watchdog": DRILL_WATCHDOG,
+              "telemetry": {"enabled": True, "output_dir": telemetry_dir, "trace": False}}
+    _reset_counts(fa)
+    chaos.install_chaos(chaos.ChaosInjector(hang_at={"train_step": [DRILL_HANG_AT]},
+                                            hang_s=60.0))
+    t0 = time.perf_counter()
+    try:
+        agent, out, seen = _drill_agent(initialize, GPT2Model, c, config,
+                                        os.path.join(tmp, "hang"), batches, DRILL_STEPS,
+                                        max_restarts=1)
+    finally:
+        chaos.uninstall_chaos()
+    wall_s = time.perf_counter() - t0
+    launches = _kernel_counts(fa)
+    expect = dict.fromkeys(launches, c.n_layer * len(seen))
+    rec = out["restart_log"][0] if out["restart_log"] else {}
+    got = _by_step(seen)
+    restart_log = os.path.join(telemetry_dir, "restart_log.jsonl")
+    emit(f"resilience {TRAIN_MODEL}", part="hang drill", layers=c.n_layer,
+         status=out["status"], final_step=out["final_step"], restarts=out["restarts"],
+         restart_record=rec, watchdog=DRILL_WATCHDOG, hang_at_call=DRILL_HANG_AT,
+         ram_interval=RESILIENCE_REWIND["ram_interval"], wall_s=wall_s,
+         restart_log_jsonl=[json.loads(line) for line in open(restart_log)]
+         if os.path.isfile(restart_log) else None,
+         losses=got, losses_unfaulted=want, steps_trained=len(seen),
+         launches=launches, launches_expected=expect)
+    if out["status"] != "complete" or out["restarts"] != 1 \
+            or "WatchdogTimeout" not in rec.get("error", "") or rec.get("tier") != "ram" \
+            or not 0 <= rec.get("steps_lost", -1) <= RESILIENCE_REWIND["ram_interval"]:
+        raise AssertionError(f"hang drill: {out['status']}, record {rec}")
+    _held_bitwise(got, want, "hang drill against the unfaulted run")
+    if launches != expect:
+        raise AssertionError(f"hang drill: launch counts {launches}, expected {expect}")
+    return launches
+
+
+def drill_spike(initialize, GPT2Model, c, fa, tmp, telemetry_dir):
+    """A loss spike: one batch repeated until its loss falls, then fresh
+    batches; the sentinel rewinds in place from the RAM tier, no disk
+    touched, once."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    memorized = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED + 200,
+                                   device="cuda")
+    fresh = [synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED + 201 + i,
+                                device="cuda") for i in range(SPIKE_FRESH)]
+    save_dir = os.path.join(tmp, "spike")
+    state = {"first": None, "repeats": 0, "fell": False, "rewound_at": None, "disk": None}
+
+    def batches(agent):
+        while not state["fell"]:
+            if state["repeats"] >= SPIKE_MAX_REPEATS:
+                raise AssertionError(f"spike drill: the repeated batch's loss did not fall "
+                                     f"below {SPIKE_FALL} of its first in "
+                                     f"{SPIKE_MAX_REPEATS} steps")
+            state["repeats"] += 1
+            yield memorized
+        yield from fresh
+
+    def on_step(step, loss):
+        loss = float(loss)
+        state["first"] = state["first"] or loss
+        if not state["fell"] and loss < SPIKE_FALL * state["first"]:
+            state["fell"] = True
+
+    config = {**TRAIN_CONFIG, "optimizer": {"type": "AdamW", "params": {
+        "lr": SPIKE_LR, "weight_decay": 0.01}},
+              "rewind": {**DRILL_REWIND, "ram_interval": 1},
+              "resilience": {"sentinel": dict(SPIKE_SENTINEL)},
+              "telemetry": {"enabled": True, "output_dir": telemetry_dir, "trace": False}}
+    from deepspeed_tpu_torch.elasticity import DSElasticAgent
+
+    _reset_counts(fa)
+    seen = []
+    agent = DSElasticAgent(lambda: initialize(model=GPT2Model(c), config=dict(config))[0],
+                           save_dir, checkpoint_interval=0, install_signal_handlers=False)
+
+    def callback(step, loss):
+        seen.append((step, float(loss)))
+        on_step(step, loss)
+        eng = agent.engine
+        if eng._sentinel_rewinds and state["rewound_at"] is None:
+            state["rewound_at"] = step
+            state["disk"] = os.listdir(save_dir) if os.path.isdir(save_dir) else []
+            state["recovery"] = dict(eng._rewind.last_recovery)
+            state["ckpt_dir"] = eng._ckpt_save_dir
+
+    out = agent.run(lambda: batches(agent), num_steps=10 ** 6, step_callback=callback)
+    counts = {",".join(f"{k}={v}" for k, v in sorted((r.get("labels") or {}).items())):
+              r["value"] for r in telemetry.get_registry().snapshot()
+              if r["name"] == "resilience/sentinel_rewinds"}
+    launches = _kernel_counts(fa)
+    expect = dict.fromkeys(launches, c.n_layer * len(seen))
+    emit(f"resilience {TRAIN_MODEL}", part="loss spike drill", layers=c.n_layer,
+         sentinel=SPIKE_SENTINEL, lr=SPIKE_LR, repeats=state["repeats"],
+         losses=[loss for _, loss in seen], steps=[s for s, _ in seen],
+         rewound_at_step=state["rewound_at"], recovery=state.get("recovery"),
+         disk_at_rewind=state["disk"], ckpt_dir_at_rewind=state.get("ckpt_dir"),
+         sentinel_rewinds=counts, status=out["status"], final_step=out["final_step"],
+         launches=launches, launches_expected=expect)
+    if counts != {"tier=ram": 1} or state["disk"] or state.get("ckpt_dir") \
+            or (state.get("recovery") or {}).get("tier") != "ram" or out["status"] != "complete":
+        raise AssertionError(f"spike drill: rewinds {counts}, disk at the rewind "
+                             f"{state['disk']}, status {out['status']}")
+    if launches != expect:
+        raise AssertionError(f"spike drill: launch counts {launches}, expected {expect}")
+    return launches
+
+
+def drill_preempt(initialize, GPT2Model, c, fa, tmp):
+    """``preempt_at`` on the train_step hook: the agent stops at the next
+    boundary and writes ``emergency_step<N>``; an engine from another seed
+    loads it in preference to the stale ``latest``, bitwise equal to the
+    state at the stop, steps_lost 0."""
+    import signal
+
+    from deepspeed_tpu_torch.elasticity import DSElasticAgent
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+    from deepspeed_tpu_torch.resilience import chaos
+    from deepspeed_tpu_torch.resilience import rewind as rw
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import (flatten_state,
+                                                                       wait_for_pending_saves)
+
+    batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED + 300,
+                               device="cuda")
+    save_dir = os.path.join(tmp, "preempt")
+    config = {**TRAIN_CONFIG, "rewind": dict(DRILL_REWIND)}
+    peak = {}
+    emergency_save = rw.RewindManager.emergency_save
+
+    def measured(mgr, where):
+        with _PeakRss() as rss:
+            tag = emergency_save(mgr, where)
+        peak.update(rss_start_gb=rss.start / 1e9, rss_peak_above_start_gb=rss.above_start / 1e9)
+        return tag
+
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    _reset_counts(fa)
+    seen = []
+    rw.RewindManager.emergency_save = measured
+    chaos.install_chaos(chaos.ChaosInjector(preempt_at={"train_step": [DRILL_PREEMPT_AT]}))
+    try:
+        agent = DSElasticAgent(lambda: initialize(model=GPT2Model(c), config=dict(config))[0],
+                               save_dir, checkpoint_interval=DRILL_CHECKPOINT_INTERVAL,
+                               max_restarts=0, install_signal_handlers=True)
+        out = agent.run(lambda: iter(lambda: batch, None), num_steps=50,
+                        step_callback=lambda step, loss: seen.append(float(loss)))
+        wait_for_pending_saves()
+    finally:
+        chaos.uninstall_chaos()
+        rw.RewindManager.emergency_save = emergency_save
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    launches = _kernel_counts(fa)
+    expect = dict.fromkeys(launches, c.n_layer * len(seen))
+    record = dict(agent.engine._rewind.last_emergency or {})
+    stopped = out["final_step"]
+    want = flatten_state(agent.engine)
+    agent.engine = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(save_dir, "latest")) as f:
+        latest = f.read().strip()
+    fresh, *_ = initialize(model=GPT2Model(c), config={**config, "seed": SEED + 1})
+    t0 = time.perf_counter()
+    path, _ = fresh.load_checkpoint(save_dir)
+    load_s = time.perf_counter() - t0
+    got = flatten_state(fresh)
+    differ = sorted(k for k in want if k not in got or not _bitwise_equal(got[k], want[k]))
+    recovery = dict(fresh._last_recovery or {})
+    emit(f"resilience {TRAIN_MODEL}", part="preempt drill", layers=c.n_layer,
+         status=out["status"], final_step=stopped, preempt_at_call=DRILL_PREEMPT_AT,
+         latest=latest, tags=sorted(os.listdir(save_dir)), loaded=os.path.basename(str(path)),
+         recovery=recovery, load_s=load_s, tensors_differing=len(differ),
+         emergency_save_s=record.get("seconds"), emergency_write_s=record.get("write_s"),
+         emergency_capture_s=record.get("capture_s"),
+         emergency_payload_bytes=record.get("payload_bytes"),
+         emergency_write_gb_per_s=(record.get("payload_bytes") or 0)
+         / max(record.get("write_s") or 1e-9, 1e-9) / 1e9, **peak,
+         losses=seen, launches=launches, launches_expected=expect)
+    if out["status"] != "preempted" or stopped != DRILL_PREEMPT_AT \
+            or latest != f"global_step{DRILL_CHECKPOINT_INTERVAL}" \
+            or os.path.basename(str(path)) != f"emergency_step{stopped}" \
+            or recovery.get("tier") != "emergency" or recovery.get("steps_lost") != 0 or differ:
+        raise AssertionError(f"preempt drill: {out['status']} at {stopped}, latest {latest}, "
+                             f"loaded {path}, recovery {recovery}, {len(differ)} tensors "
+                             f"differ ({differ[:4]})")
+    if launches != expect:
+        raise AssertionError(f"preempt drill: launch counts {launches}, expected {expect}")
+    del fresh, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resilience_slices(initialize, GPT2Model, cfg, accel, fa, ref_losses, ref_step_ms):
+    """The armed training cell, then the hang, spike and preempt drills at
+    RESUME_LAYERS layers, in a temporary directory on the disk with the
+    most room. → launches by path."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.resilience import rewind as rw
+
+    root, _ = _scratch_dir()
+    tmp = tempfile.mkdtemp(prefix="ds_resilience_", dir=root)
+    c4 = dataclasses.replace(cfg, n_layer=RESUME_LAYERS, remat=False)
+    try:
+        launches = {"resilience": resilience_armed(initialize, GPT2Model, cfg, accel, fa,
+                                                   ref_losses, ref_step_ms, tmp)}
+        launches["resilience_hang"] = drill_hang(initialize, GPT2Model, c4, fa, tmp,
+                                                 os.path.join(tmp, "telemetry_hang"))
+        rw.clear_ram_snapshots()
+        launches["resilience_spike"] = drill_spike(initialize, GPT2Model, c4, fa, tmp,
+                                                   os.path.join(tmp, "telemetry_spike"))
+        rw.clear_ram_snapshots()
+        launches["resilience_preempt"] = drill_preempt(initialize, GPT2Model, c4, fa, tmp)
+    finally:
+        telemetry.deconfigure()
+        rw.clear_ram_snapshots()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -5062,33 +5506,38 @@ def main() -> int:
     # the llama, MoE, pythia and BERT training phases' shapes: causal at
     # llama3.2-1b's 4 x 2048 (32 heads of 64 after the KV heads' repeat) and
     # pythia-1.4b's (16 heads of 128), non-causal at
-    # bert-large's 64 x 128 and 16 x 512 (16 heads of 64), bf16 and fp16
-    model_fwd = {row["name"]: row for row in (check_flash(fa, accel, gen, *case) for case in (
-        ("llama_train", LLAMA_BATCH, LLAMA_SEQ, 32, 64, bf, True),
-        ("moe_train", MOE_BATCH, MOE_SEQ, 12, 64, bf, True),
-        ("pythia_train", PYTHIA_BATCH, PYTHIA_SEQ, 16, 128, bf, True),
-        *((f"bert_s{t}{suffix}", b, t, 16, 64, dt, False)
-          for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16))),
-        # the model-import phases' new shapes: DistilBERT-base's MLM forward
-        # (12 heads of 64, non-causal) and gpt2-760m's serving prefill
-        ("distilbert_s512", *IMPORT_BERT_SHAPE, 12, 64, bf, False),
-        ("gpt2_prefill_d96", BATCH, PROMPT, 16, 96, bf, True),
-        # the hybrid engine's OPT-1.3b: its prefill and its train step
-        ("opt_prefill", HYBRID_BATCH, HYBRID_PROMPT, 32, 64, bf, True),
-        ("opt_train", HYBRID_BATCH, HYBRID_PROMPT + HYBRID_GEN, 32, 64, bf, True)))}
-    model_bwd = {row["name"]: row for row in (check_flash_bwd(fa, accel, gen, *case) for case in (
-        ("llama_train", LLAMA_BATCH * 32, LLAMA_SEQ, 64, bf, True),
-        ("moe_train", MOE_BATCH * 12, MOE_SEQ, 64, bf, True),
-        ("pythia_train", PYTHIA_BATCH * 16, PYTHIA_SEQ, 128, bf, True),
-        ("opt_train", HYBRID_BATCH * 32, HYBRID_PROMPT + HYBRID_GEN, 64, bf, True),
-        *((f"bert_s{t}{suffix}", b * 16, t, 64, dt, False)
-          for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
+    # bert-large's 64 x 128 and 16 x 512 (16 heads of 64), bf16 and fp16;
+    # held to their plain versions without a time (their times: PERF.md)
+    with untimed():
+        model_fwd = {row["name"]: row for row in (
+            check_flash(fa, accel, gen, *case) for case in (
+            ("llama_train", LLAMA_BATCH, LLAMA_SEQ, 32, 64, bf, True),
+            ("moe_train", MOE_BATCH, MOE_SEQ, 12, 64, bf, True),
+            ("pythia_train", PYTHIA_BATCH, PYTHIA_SEQ, 16, 128, bf, True),
+            *((f"bert_s{t}{suffix}", b, t, 16, 64, dt, False)
+              for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16))),
+            # the model-import phases' new shapes: DistilBERT-base's MLM forward
+            # (12 heads of 64, non-causal) and gpt2-760m's serving prefill
+            ("distilbert_s512", *IMPORT_BERT_SHAPE, 12, 64, bf, False),
+            ("gpt2_prefill_d96", BATCH, PROMPT, 16, 96, bf, True),
+            # the hybrid engine's OPT-1.3b: its prefill and its train step
+            ("opt_prefill", HYBRID_BATCH, HYBRID_PROMPT, 32, 64, bf, True),
+            ("opt_train", HYBRID_BATCH, HYBRID_PROMPT + HYBRID_GEN, 32, 64, bf, True)))}
+        model_bwd = {row["name"]: row for row in (
+            check_flash_bwd(fa, accel, gen, *case) for case in (
+            ("llama_train", LLAMA_BATCH * 32, LLAMA_SEQ, 64, bf, True),
+            ("moe_train", MOE_BATCH * 12, MOE_SEQ, 64, bf, True),
+            ("pythia_train", PYTHIA_BATCH * 16, PYTHIA_SEQ, 128, bf, True),
+            ("opt_train", HYBRID_BATCH * 32, HYBRID_PROMPT + HYBRID_GEN, 64, bf, True),
+            *((f"bert_s{t}{suffix}", b * 16, t, 64, dt, False)
+              for b, t, _ in BERT_SHAPES for suffix, dt in (("", bf), ("_fp16", f16)))))}
     # SD-1.5's shapes: the UNet's self-attention (T = H W) and cross-attention
     # (77 context keys) at head dims 40, 80 and 160 over a 64 x 64 latent with
     # classifier-free guidance (B = 4, 8 heads), the VAE's mid attention at
     # head dim 512 (the decode's B = 2, the round trip's B = 1), CLIP's causal
     # T = 77; bf16, and one fp16 and one fp32 row per new head dim
-    sd_fwd = {row["name"]: row for row in (check_flash(fa, accel, gen, *case) for case in (
+    sd_fwd = {row["name"]: row for row in (
+        _checked(check_flash, case[0], fa, accel, gen, *case) for case in (
         ("sd_unet_self_d40", 4, 4096, 8, 40, bf, False),
         ("sd_unet_cross_d40", 4, 4096, 8, 40, bf, False, SD_TOKENS),
         ("sd_unet_self_d80", 4, 1024, 8, 80, bf, False),
@@ -5111,7 +5560,8 @@ def main() -> int:
     # GPT-J-6B's head dim 256 (forward only): K1 at B 4 x T 2048 (16 heads,
     # causal and not), at its serving prefill (B 32 x 128), in fp16 and fp32,
     # and at tile edges with Tq != Tk
-    gptj_fwd = {row["name"]: row for row in (check_flash(fa, accel, gen, *case) for case in (
+    gptj_fwd = {row["name"]: row for row in (
+        _checked(check_flash, case[0], fa, accel, gen, *case) for case in (
         ("gptj_d256", 4, 2048, 16, 256, bf, True),
         ("gptj_d256_noncausal", 4, 2048, 16, 256, bf, False),
         ("gptj_prefill_d256", BATCH, PROMPT, 16, 256, bf, True),
@@ -5122,7 +5572,8 @@ def main() -> int:
     S = PROMPT + GEN
     # and K3 at GPT-J-6B's serving shape (B 32, S 256, H = KV = 16), its
     # first slot, fp16 and fp32, and over an 8192-entry cache (the merge)
-    gptj_decode = {row["name"]: row for row in (check_decode(da, accel, gen, *case) for case in (
+    gptj_decode = {row["name"]: row for row in (
+        _checked(check_decode, case[0], da, accel, gen, *case) for case in (
         ("gptj_d256", BATCH, S, 16, 16, 256, bf, S - 1),
         ("gptj_d256_pos0", BATCH, S, 16, 16, 256, bf, 0),
         ("gptj_d256_fp16", BATCH, S, 16, 16, 256, f16, S - 1),
@@ -5210,8 +5661,8 @@ def main() -> int:
     serve_long(deepspeed_tpu_torch.init_inference, model_cls, presets[MODEL], fa, da)
 
     gpt2_cls, gpt2_presets = resolve_family(TRAIN_MODEL)
-    train_launches, batch, train_losses = train_slice(deepspeed_tpu_torch.initialize, gpt2_cls,
-                                                      gpt2_presets[TRAIN_MODEL], accel, fa)
+    train_launches, batch, train_losses, unarmed_losses = train_slice(
+        deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa)
     ac_launches = train_activation_checkpointing(deepspeed_tpu_torch.initialize, gpt2_cls,
                                                  gpt2_presets[TRAIN_MODEL], accel, fa,
                                                  train_losses, batch)
@@ -5219,6 +5670,11 @@ def main() -> int:
                      batch, TRAIN_MODEL, _dense_plain)
     train_check_fp32(deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL],
                      TRAIN_MODEL, TRAIN_SEQ, {}, _dense_plain)
+    # the training cell under the watchdog, the sentinel and the RAM ring,
+    # then the hang, loss-spike and preempt drills under the elastic agent
+    resilience_launches = resilience_slices(
+        deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa,
+        unarmed_losses, LINES[f"train {TRAIN_MODEL}"]["step_ms"])
     zero_launches, zero_losses, zero_step_ms = zero_slice(
         deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa)
     launch_launches = launch_slices(gpt2_presets[TRAIN_MODEL], zero_losses[1], zero_step_ms[1])
@@ -5310,7 +5766,9 @@ def main() -> int:
                                  for p, n in variant_launches.items()},
                               **{p: n["flash_attention_fwd"]
                                  for p, n in import_launches.items()},
-                              **{p: n["flash_attention_fwd"] for p, n in rlhf_launches.items()}},
+                              **{p: n["flash_attention_fwd"] for p, n in rlhf_launches.items()},
+                              **{p: n["flash_attention_fwd"]
+                                 for p, n in resilience_launches.items()}},
          "at_serving_shape": {k: flash_rows[1][k] for k in keys},
          "at_frontend_shape": {k: frontend_fwd[k] for k in keys},
          "at_model_shapes": {name: {k: row[k] for k in keys} for name, row in model_fwd.items()}},
@@ -5347,7 +5805,7 @@ def main() -> int:
                 ("curriculum", curriculum_launches),
                 *((f"zero{s}", z) for s, z in zero_launches.items()),
                 *by_offload.items(), *trained.items(), *variant_trained.items(),
-                *rlhf_trained.items())},
+                *rlhf_trained.items(), *resilience_launches.items())},
             "at_model_shapes": {name: {
                 "max_abs_err": max(row["errs"][n] for n in (("dq",) if entry == "dq"
                                                             else ("dk", "dv"))),

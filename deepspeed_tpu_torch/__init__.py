@@ -34,7 +34,9 @@ blocks train with MoQ, pruning and the block Hessian eigenvalue
 the request-lifecycle front-end (``serving/``: admission, deadlines, a
 circuit breaker, drain) in front of an inference engine, and the
 ``telemetry`` block records the registry, spans and exporters of
-``telemetry/``.
+``telemetry/``. A training run survives hangs, divergence and preemption
+under the ``watchdog``, ``resilience.sentinel`` and ``rewind`` blocks
+(``resilience/``), supervised by ``elasticity.DSElasticAgent``.
 """
 
 from __future__ import annotations

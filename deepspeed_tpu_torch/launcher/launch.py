@@ -18,12 +18,12 @@ forwarded to every group. :func:`supervise` polls the children: when one
 exits non-zero the others are killed (their NCCL peers would otherwise wait
 in a collective forever) and the launcher exits with that first failure's
 code. With ``--heartbeat_file`` it also kills every child once the file,
-having existed, goes stale for ``--heartbeat_timeout`` seconds (exit 86); a
-file never created does not trip it. No engine of the port touches the
-file yet (the watchdog is a later slice), and the JAX launcher's
-``resilience/heartbeat_stale`` telemetry counter waits for the port's
-telemetry. Exit 87 is a child's graceful drain, as in the JAX package: it
-kills no one.
+having existed, goes stale for ``--heartbeat_timeout`` seconds (exit 86,
+counted as ``resilience/heartbeat_stale``); a file never created does not
+trip it. The children find the file in ``DS_TPU_HEARTBEAT_FILE``, and an
+engine with the ``watchdog`` block touches it every
+``heartbeat_interval`` steps. Exit 87 is a child's graceful drain, as in
+the JAX package: it kills no one.
 """
 
 from __future__ import annotations
@@ -162,6 +162,9 @@ def supervise(procs: List[subprocess.Popen], heartbeat_file=None,
                 reason = (f"heartbeat stale: {heartbeat_file} last touched {age:.0f}s ago "
                           f"(> {heartbeat_timeout:.0f}s) — killing the wedged processes")
                 logger.error(f"launcher: {reason}")
+                from deepspeed_tpu_torch import telemetry
+
+                telemetry.get_registry().counter("resilience/heartbeat_stale").inc()
                 _kill_all(procs, kill_grace, sleep)
                 return HEARTBEAT_KILL_EXIT_CODE, reason
         sleep(poll_interval)

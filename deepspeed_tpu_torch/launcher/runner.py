@@ -11,7 +11,9 @@ runner:
 * without a hostfile the job is ``localhost`` with ``--num_gpus`` slots,
   else one per visible GPU (``torch.cuda.device_count()``); with neither
   it raises: no silent single-process CPU run;
-* ``--elastic_training`` needs ``elasticity/``, a later slice: it raises;
+* ``--elastic_training`` validates the ``elasticity`` block of the
+  script's ``--deepspeed_config`` (``compute_elastic_config``) before
+  launching, as the JAX runner does;
 * the environment exported to other hosts is what a CUDA job needs
   (``EXPORT_ENVS``).
 
@@ -221,11 +223,14 @@ def launch_cmd(active, master_addr: str, master_port: int, node_rank, user_scrip
 
 def main(args=None):
     args = parse_args(args)
-    if args.elastic_training:
-        raise NotImplementedError("--elastic_training (elasticity/): later slice of the port")
     active = build_resource_pool(args)
     hosts = list(active)
     multi_node = args.force_multi or len(hosts) > 1
+
+    if args.elastic_training:
+        from deepspeed_tpu_torch.elasticity import validate_elastic_config_from_script_args
+
+        validate_elastic_config_from_script_args(args)
 
     if multi_node and not args.no_ssh_check and args.launcher in ("ssh", "pdsh"):
         unreachable = [h for h in hosts if not _ssh_reachable(h)]

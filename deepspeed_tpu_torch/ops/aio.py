@@ -66,6 +66,9 @@ def host_zeros(numel: int, dtype: torch.dtype = torch.uint8, pin: bool = False) 
                       flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS)
     t = torch.frombuffer(pages, dtype=dtype, count=numel)
     if pin:
+        # the pages faulted in on torch's threads first: page-locking
+        # touched memory is faster than faulting it in on one thread
+        t.zero_()
         cudart = torch.cuda.cudart()
         err = int(cudart.cudaHostRegister(t.data_ptr(), len(pages), 0))
         if err != 0:

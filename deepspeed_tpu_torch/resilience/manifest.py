@@ -24,7 +24,7 @@ import hashlib
 import json
 import os
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 from deepspeed_tpu_torch.resilience.fsio import atomic_write_json
 from deepspeed_tpu_torch.resilience.retry import RetryPolicy
@@ -58,11 +58,19 @@ def _walk_sizes(root: str, rel_prefix: str) -> Dict[str, int]:
     return out
 
 
-def write_manifest(tag_dir: str, tag: str, files: Dict[str, bytes],
+def _entry(data) -> dict:
+    if isinstance(data, tuple):             # (bytes, sha256) of a streamed write
+        return {"bytes": int(data[0]), "sha256": data[1]}
+    return {"bytes": len(data), "sha256": sha256_bytes(data)}
+
+
+def write_manifest(tag_dir: str, tag: str, files: Dict[str, Union[bytes, Tuple[int, str]]],
                    policy: Optional[RetryPolicy] = None, advance_latest: bool = True) -> dict:
     """Write ``<tag_dir>/manifest.json``. ``files`` maps each sidecar's name
-    to the exact bytes meant for it; the committed ``state/`` tree is sized
-    from the disk. ``advance_latest`` records whether the save meant to move
+    to the exact bytes meant for it, or to their (length, sha256) when they
+    were streamed (:func:`~deepspeed_tpu_torch.resilience.fsio.atomic_write_stream`);
+    the committed ``state/`` tree is sized from the disk. ``advance_latest``
+    records whether the save meant to move
     ``latest``: it tells a save that died before the pointer moved (resume
     from it) from a ``save_latest=False`` side checkpoint (never resumed
     automatically)."""
@@ -71,8 +79,7 @@ def write_manifest(tag_dir: str, tag: str, files: Dict[str, bytes],
         "tag": tag,
         "advance_latest": bool(advance_latest),
         "commit_marker": COMMIT_MARKER.replace(os.sep, "/"),
-        "files": {name: {"bytes": len(data), "sha256": sha256_bytes(data)}
-                  for name, data in files.items()},
+        "files": {name: _entry(data) for name, data in files.items()},
         "state_files": {k.replace(os.sep, "/"): v
                         for k, v in _walk_sizes(os.path.join(tag_dir, STATE_DIR),
                                                 STATE_DIR).items()},

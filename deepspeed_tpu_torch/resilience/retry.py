@@ -1,12 +1,12 @@
 """Retried filesystem operations.
 
 Counterpart of ``deepspeed_tpu/resilience/retry.py`` (``RetryPolicy``,
-``retry``, ``NO_RETRY``): a checkpoint write that meets a flaky disk or
-network filesystem retries with exponential backoff and jitter under a
-wall-clock deadline, and re-raises its last error when either runs out.
-Each retry bumps the telemetry counter ``resilience/retries{op}`` and a
-give-up ``resilience/retry_exhausted{op}``, as in JAX. The elastic agent's
-``RestartBackoff`` is a later slice.
+``retry``, ``NO_RETRY``, ``RestartBackoff``): a checkpoint write that meets
+a flaky disk or network filesystem retries with exponential backoff and
+jitter under a wall-clock deadline, and re-raises its last error when
+either runs out. Each retry bumps the telemetry counter
+``resilience/retries{op}`` and a give-up ``resilience/retry_exhausted{op}``,
+as in JAX. :class:`RestartBackoff` paces the elastic agent's restarts.
 """
 
 from __future__ import annotations
@@ -81,3 +81,30 @@ def retry(fn: Callable, policy: Optional[RetryPolicy] = None, *, op: str = "",
             logger.warning(f"retry[{op}]: attempt {attempt}/{policy.max_attempts} "
                            f"failed ({e}); retrying in {d:.3f}s")
             sleep(d)
+
+
+@dataclasses.dataclass
+class RestartBackoff:
+    """The elastic agent's restart pacing: each consecutive failure doubles
+    the delay up to ``max_delay``, scaled by ±``jitter``; :meth:`reset`
+    after a healthy stretch."""
+    base_delay: float = 0.1
+    multiplier: float = 2.0
+    max_delay: float = 30.0
+    jitter: float = 0.25
+    seed: Optional[int] = None   # None: OS entropy (see RetryPolicy.seed)
+    attempt: int = 0
+    _rng: random.Random = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        self._rng = random.Random(self.seed)
+
+    def next_delay(self) -> float:
+        d = min(self.max_delay, self.base_delay * self.multiplier ** self.attempt)
+        self.attempt += 1
+        if self.jitter:
+            d *= 1.0 + self.jitter * self._rng.uniform(-1.0, 1.0)
+        return max(0.0, d)
+
+    def reset(self):
+        self.attempt = 0

@@ -26,9 +26,21 @@ so a crash leaves the previous tag intact or this one verifiable.
 
 With ``checkpoint.async_save`` (the default) ``save_checkpoint`` blocks only
 for the copy of the state to host memory; a daemon thread writes the rest.
-Loads, the next save and the exit wait for it. Load verifies each candidate
-tag's manifest and falls back to the newest good one. The rewind tiers,
-emergency tags, the chaos injector and elastic resizes are later slices.
+Loads, the next save and the exit wait for it. Every file write passes the
+chaos injector's hooks (``state_save`` inside the retried state write, the
+sidecars', the manifest's and ``latest``'s in ``resilience/fsio.py``).
+
+Load is the rewind ladder's walk, as in JAX: the freshest verified tier
+wins. With the ``rewind`` block, the host-RAM snapshot ring first, when its
+newest usable snapshot is at least as new as the best disk candidate; then
+the disk candidates newest first, each verified against its manifest:
+``emergency_step<N>`` tags (``state/rewind_state.npz``, restored from
+their payload by the rewind manager) and ordinary tags; when every disk
+candidate fails, the ring once more without the freshness gate. Without the
+block an emergency tag is skipped loudly. A snapshot taken on another world
+degrades loudly to the disk tier (JAX's behaviour without
+``elasticity.resize``). Every restore stamps ``engine._last_recovery =
+{tier, snapshot_step, steps_lost, restore_s}``.
 
 State under ZeRO-Offload is read and written where it lives (the card,
 host memory, the NVMe optimizer's files), one unit at a time; a tag does not
@@ -59,12 +71,13 @@ import shutil
 import tempfile
 import threading
 import time
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.resilience import chaos as _chaos
 from deepspeed_tpu_torch.resilience.fsio import (atomic_write_bytes, atomic_write_text,
                                                  fsync_dir)
 from deepspeed_tpu_torch.resilience.manifest import (COMMIT_MARKER, MANIFEST_NAME,
@@ -90,12 +103,15 @@ class CheckpointLayoutError(ValueError):
     older candidate: every tag of one run shares the layout."""
 
 
-# a tier-1 emergency snapshot's payload (the rewind block's); the port
-# restores none, so load skips such tags with a warning
+# a tier-1 emergency snapshot's payload; defined here, not in
+# resilience/rewind.py, so the ladder classifies tags without importing
+# the rewind module (which stays unloaded without its block)
 REWIND_STATE_FILE = os.path.join("state", "rewind_state.npz")
 
 
 def is_emergency_tag(tag_dir: str) -> bool:
+    """Does this tag hold an emergency snapshot (an npz payload) rather
+    than the ``torch.save`` state files?"""
     return os.path.isfile(os.path.join(tag_dir, REWIND_STATE_FILE))
 
 
@@ -287,6 +303,41 @@ def state_shapes(engine) -> Dict[str, tuple]:
                         engine.module)
 
 
+def host_state_layout(engine) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Every key of the flat state, per parameter (a model's
+    ``stacked_modules`` not stacked), with its whole shape and dtype: what
+    :func:`copy_state_into` fills."""
+    plan = engine._plan
+    out = {}
+    for key, shape, get in _state_spec(engine):
+        if isinstance(get, tuple):
+            source, i = get
+            dtype = engine._params[i].dtype if isinstance(source, str) \
+                else source[plan.params[i].unit].dtype
+        else:
+            dtype = get().dtype
+        out[key] = (tuple(shape), dtype)
+    return out
+
+
+@torch.no_grad()
+def copy_state_into(engine, slot: Mapping[str, torch.Tensor]) -> None:
+    """The engine's whole state, under :func:`host_state_layout`'s keys,
+    copied into the host tensors of ``slot`` (pinned ones from the card
+    asynchronously, then one wait): a snapshot without allocating. Every
+    rank calls it (the ZeRO gathers), and every rank keeps the whole."""
+    sources = {}                        # id(source) -> (source, {param index: key})
+    for key, _, get in _state_spec(engine):
+        if isinstance(get, tuple):
+            sources.setdefault(id(get[0]), (get[0], {}))[1][get[1]] = key
+        else:
+            slot[key].copy_(get())
+    for source, keys in sources.values():
+        engine._zero.to_host(source, into=[slot[keys[i]] for i in range(len(keys))])
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+
+
 def _field(key: str) -> str:
     return key.split("/", 1)[0]
 
@@ -458,9 +509,15 @@ def save_engine_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     record = {"tag": tag, "path": path, "writer": True,
               "bytes": sum(v.numel() * v.element_size() for v in host.values())}
 
+    def write_state():
+        inj = _chaos.active_injector()
+        if inj is not None:
+            inj.before("state_save", path)
+        _write_state(path, host)
+
     def commit():
         t_write = time.perf_counter()
-        retry(lambda: _write_state(path, host), policy, op="state_save")
+        retry(write_state, policy, op="state_save")
         record["write_s"] = time.perf_counter() - t_write
         # the state has committed; then the sidecars, the manifest that
         # indexes them, and the pointer last
@@ -528,6 +585,7 @@ def apply_flat_state(engine, flat: Mapping[str, torch.Tensor], load_module_only:
     if hasattr(engine, "apply_flat_state"):
         engine.apply_flat_state(flat, load_module_only, load_optimizer_states)
         return
+    engine._zero.reset_grads()          # a restore after a step that did not finish
     flat = unstack_layers(flat, engine.module)
     names = engine._param_names
     trained = set(names)
@@ -597,24 +655,57 @@ def apply_restored_meta(engine, meta: dict) -> None:
         # a custom schedule needs its function installed first; train_batch
         # recomputes the difficulty on the next step anyway
         sched.update_difficulty(engine.global_steps + 1)
+    pld = getattr(engine, "progressive_layer_drop", None)
+    if pld is not None:
+        pld.update_state(engine.global_steps)
+
+
+def _best_restorable_step(load_dir: str, candidates, verify: bool, cache: dict) -> int:
+    """The step of the newest disk candidate that verifies, -1 when none:
+    what the RAM tier must match to win. An unverified candidate's step
+    would let a corrupt newest tag evict a fresher RAM snapshot in favour
+    of an older disk tag. The verdicts land in ``cache``."""
+    from deepspeed_tpu_torch.resilience.manifest import tag_step
+
+    for cand in candidates:
+        if verify:
+            verdict = verify_tag(_ckpt_dir(load_dir, cand))
+            cache[cand] = verdict
+            if not verdict[0]:
+                continue
+        return tag_step(cand)           # an unparsable step (-1): RAM wins
+    return -1
 
 
 def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                            load_optimizer_states: bool = True, load_module_only: bool = False):
-    """Verified restore with fallback to the last good tag. Returns (tag
-    path, client_state), or (None, {}) when nothing was restored.
+    """Verified restore with fallback to the last good tag: the rewind
+    ladder's walk (module docstring). Returns (tag path, client_state);
+    ``("ram://step<N>", {})`` from the RAM tier; (None, {}) when nothing
+    was restored.
 
-    Candidates come newest first (``candidate_tags``; ``latest`` is a hint
-    that a provably newer committed tag outranks). Each must pass its
-    manifest (``resilience.verify_on_load``) and then read back whole;
-    otherwise the next is tried (``resilience.fallback_to_last_good``). An
-    explicit ``tag`` is a contract: no fallback. ``engine._last_recovery``
-    records the tier, the step and the seconds the restore took."""
+    Disk candidates come newest first (``candidate_tags``; ``latest`` is a
+    hint that a provably newer committed tag outranks, as an emergency tag
+    is). Each must pass its manifest (``resilience.verify_on_load``) and
+    then read back whole; otherwise the next is tried
+    (``resilience.fallback_to_last_good``). An explicit ``tag`` is a
+    contract: no other tier, no fallback. A partial load
+    (``load_module_only``, no optimizer states) never takes the RAM tier."""
     wait_for_pending_saves()
     comm.barrier()                          # rank 0's commit has landed
     engine._last_recovery = None
     res = engine._config.resilience
+    rewind_mgr = getattr(engine, "_rewind", None)
+    whole = tag is None and not load_module_only and load_optimizer_states
     candidates = candidate_tags(load_dir, preferred=tag)
+
+    verified: dict = {}
+    if rewind_mgr is not None and whole:
+        info = rewind_mgr.restore_from_ram(
+            min_step=_best_restorable_step(load_dir, candidates, res.verify_on_load, verified),
+            for_dir=load_dir)
+        if info is not None:
+            return f"ram://step{info['snapshot_step']}", {}
     if tag is not None:
         if tag not in candidates:
             logger.warning(f"checkpoint {_ckpt_dir(load_dir, tag)} not found")
@@ -629,31 +720,42 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     fields = ("params",) if load_module_only else \
         ("params", "master") if not load_optimizer_states else STATE_FIELDS
     skipped = []
+    tier = "disk"
     t_restore = time.perf_counter()
     for cand in candidates:
         path = _ckpt_dir(load_dir, cand)
         if res.verify_on_load:
-            ok, reason = verify_tag(path)
+            ok, reason = verified[cand] if cand in verified else verify_tag(path)
             if not ok:
                 logger.warning(f"skipping checkpoint {cand!r}: {reason}")
                 skipped.append(cand)
                 continue
-        if is_emergency_tag(path):
+        emergency = is_emergency_tag(path)
+        if emergency and rewind_mgr is None:
             logger.warning(f"skipping emergency snapshot tag {cand!r}: the 'rewind' "
                            "ds_config block is absent (enable it to restore preemption "
                            "emergency saves)")
             skipped.append(cand)
             continue
         try:
-            if not os.path.isfile(os.path.join(path, COMMIT_MARKER)):
-                raise FileNotFoundError("no committed state/")
-            flat = read_state(path, fields, "cpu")
-            _check_restored(engine, flat, fields)
-            meta = {}
-            meta_path = os.path.join(path, "client_state.json")
-            if os.path.isfile(meta_path):
-                with open(meta_path) as f:
-                    meta = json.load(f)
+            if emergency:
+                flat, meta = rewind_mgr.load_emergency_tag(path, verified=res.verify_on_load)
+                if flat is None:            # another world: warned inside
+                    skipped.append(cand)
+                    continue
+                tier = "emergency"
+            else:
+                if not os.path.isfile(os.path.join(path, COMMIT_MARKER)):
+                    raise FileNotFoundError("no committed state/")
+                flat = read_state(path, fields, "cpu")
+                _check_restored(engine, flat, fields)
+                meta = {}
+                meta_path = os.path.join(path, "client_state.json")
+                if os.path.isfile(meta_path):
+                    with open(meta_path) as f:
+                        meta = json.load(f)
+                tier = "disk"
+            # the curriculum sampler's admitted order rides a sidecar on both tiers
             sampler_sd = meta.get("data_sampler")
             if sampler_sd and sampler_sd.get("admitted_file"):
                 sampler_sd["admitted"] = np.load(
@@ -672,6 +774,15 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
         raise RuntimeError(f"rank {comm.get_rank()} would restore {cand!r} from {load_dir}, "
                            f"rank 0 {chosen!r}: the ranks see different checkpoints")
     if cand is None:
+        if rewind_mgr is not None and whole:
+            # every disk tier failed: a RAM snapshot older than the best
+            # unrestorable disk step beats nothing
+            info = rewind_mgr.restore_from_ram(for_dir=load_dir)
+            if info is not None:
+                logger.warning(f"no restorable disk checkpoint in {load_dir} (tried "
+                               f"{candidates}); recovered from the RAM tier @step "
+                               f"{info['snapshot_step']}")
+                return f"ram://step{info['snapshot_step']}", {}
         logger.warning(f"no restorable checkpoint in {load_dir} (tried {candidates}); "
                        "nothing loaded")
         return None, {}
@@ -684,9 +795,14 @@ def load_engine_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     apply_restored_meta(engine, meta)
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
-    engine._last_recovery = {"tier": "disk", "snapshot_step": int(engine.global_steps),
-                             "steps_lost": None,
+    # an emergency tag knows how far behind its stop boundary it was
+    # captured; for a disk tag the caller diffs against its failing step
+    engine._last_recovery = {"tier": tier, "snapshot_step": int(engine.global_steps),
+                             "steps_lost": ((meta or {}).get("rewind") or {}).get(
+                                 "steps_lost_at_save"),
                              "restore_s": round(time.perf_counter() - t_restore, 4)}
+    if rewind_mgr is not None:
+        rewind_mgr.note_recovery(engine._last_recovery)
     if skipped:
         log_dist(f"checkpoint fallback: restored {cand!r} after skipping {skipped} "
                  "(corrupt/unverified)", ranks=[0])

@@ -16,7 +16,8 @@ as in JAX), ``curriculum_learning``, ``dataloader_drop_last``,
 ``compression/config.py`` reads it), ``eigenvalue``, ``telemetry`` (the
 session ``telemetry/`` installs), ``serving`` (the front-end of
 ``serving/``; ``serving_present`` says whether the block is there),
-``steps_per_print``,
+``watchdog``, ``rewind`` (``rewind_present``), ``elasticity``
+(``elasticity/config.py``; None without the block), ``steps_per_print``,
 ``wall_clock_breakdown``, ``seed``, the ``tpu`` block's ``data`` and
 ``expert`` axes, and the batch keys.
 
@@ -29,9 +30,9 @@ The engine logs every one a config sets.
 
 Every other top-level key the JAX package knows raises
 ``NotImplementedError`` naming it when present, rather than being ignored,
-and so do the parts of a read block that belong to a later slice
-(``resilience.sentinel``, an enabled ``resilience.chaos``); a key neither
-package knows is rejected with a did-you-mean hint.
+and so do the parts of a read block that belong to a later slice (the
+chaos knobs of several devices, ``elasticity.resize.enabled``); a key
+neither package knows is rejected with a did-you-mean hint.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ SUPPORTED_KEYS = frozenset({
     "curriculum_learning", "dataloader_drop_last", "progressive_layer_drop", "tpu",
     "activation_checkpointing", "memory_breakdown", "dump_state",
     "hybrid_engine", "compression_training", "eigenvalue", "telemetry", "serving",
-    "train_batch_size", "train_micro_batch_size_per_gpu",
+    "watchdog", "rewind", "elasticity", "train_batch_size", "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
 
@@ -64,8 +65,8 @@ SUPPORTED_KEYS = frozenset({
 # each is a later slice of the port
 LATER_KEYS = frozenset({
     "flops_profiler", "tensorboard", "wandb",
-    "csv_monitor", "pipeline", "elasticity", "gradient_compression",
-    "autotuning", "rewind", "watchdog", "analysis", "profiling",
+    "csv_monitor", "pipeline", "gradient_compression",
+    "autotuning", "analysis", "profiling",
     "perf", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
 })
 
@@ -80,17 +81,17 @@ ADVISORY_NOOP_KEYS = {
         "sparse reduction would carry the same values",
     "prescale_gradients":
         "every gradient reduction is ReduceOp.AVG in data_types.grad_accum_dtype, fp32 "
-        "unless set (runtime/zero/state.py:337 and :370), and NCCL runs a floating-point "
+        "unless set (runtime/zero/state.py:337 and :382), and NCCL runs a floating-point "
         "average as a sum of each rank's gradient pre-multiplied by 1/world: the "
         "gradients are always prescaled",
     "nebula":
         "the port's checkpoint engine already saves asynchronously: save_checkpoint "
         "blocks only for the copy to host memory and a background thread writes and "
-        "commits the tag (checkpoint.async_save, runtime/checkpoint_engine/engine.py:480); "
+        "commits the tag (checkpoint.async_save, runtime/checkpoint_engine/engine.py:537); "
         "nebula's tiers and storage paths have no counterpart",
     "zero_allow_untested_optimizer":
         "a client optimizer is a deepspeed_tpu_torch.ops.optimizers.Optimizer, which "
-        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:611 "
+        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:786 "
         "_configure_optimizer): there is no untested-optimizer gate to pass",
     "zero_force_ds_cpu_optimizer":
         "the port has no CPU Adam to force: offload_optimizer cpu keeps the state in "
@@ -99,7 +100,7 @@ ADVISORY_NOOP_KEYS = {
         "(runtime/swap_tensor/optimizer_swapper.py)",
     "timers":
         "throughput timing is always on (ThroughputTimer, utils/timer.py; the engine's "
-        "tput_timer, runtime/engine.py:325) and the synchronized breakdown is the "
+        "tput_timer, runtime/engine.py:341) and the synchronized breakdown is the "
         "wall_clock_breakdown knob: set that instead",
 }
 
@@ -112,12 +113,12 @@ ADVISORY_REFUSED_KEYS = {
     "gradient_predivide_factor": (
         1.0,
         "the port divides by the world inside one ReduceOp.AVG (runtime/zero/state.py:337 "
-        "and :370), with no split of the division around the reduction; leave it at 1.0 "
+        "and :382), with no split of the division around the reduction; leave it at 1.0 "
         "(prescale_gradients is accepted)"),
     "disable_allgather": (
         False,
         "ZeRO stages 1-3 reassemble updated shards with all_gather_into_tensor "
-        "(runtime/zero/state.py:408) and have no broadcast path; leave it false"),
+        "(runtime/zero/state.py:420) and have no broadcast path; leave it false"),
     "graph_harvesting": (
         False,
         "the port does not capture the training step as a CUDA graph; only generate's "
@@ -364,22 +365,181 @@ class ResilienceRetryConfig(DeepSpeedConfigModel):
 
 
 @dataclasses.dataclass
+class ResilienceSentinelConfig(DeepSpeedConfigModel):
+    """The bad-step sentinel (``resilience/sentinel.py``): after
+    ``patience`` consecutive non-finite, overflow-skipped or spiking steps
+    the engine rewinds through the snapshot ladder instead of burning the
+    job; ``max_rewinds`` bounds the loop (then ``BadStepError``)."""
+    enabled: bool = False
+    patience: int = 3
+    spike_factor: float = 0.0
+    window: int = 20
+    max_rewinds: int = 2
+
+    def __post_init__(self):
+        _check_min(self, patience=(1, False), spike_factor=(0.0, False), window=(2, False),
+                   max_rewinds=(0, False))
+
+
+# the fault classes of the JAX injector that need several devices or a
+# simulated mesh (elasticity.resize, resilience.sdc and .gray): later slices
+CHAOS_MESH_KNOBS = ("shrink_at_step", "shrink_to", "grow_at_step", "grow_to",
+                    "collective_mismatch", "collective_mismatch_rank", "bitflip_at_step",
+                    "bitflip_rate", "bitflip_target", "bitflip_device", "bitflip_bit",
+                    "slow_from_step", "slow_device", "slow_factor", "slow_rate", "slow_min_s",
+                    "slow_kind")
+
+
+@dataclasses.dataclass
+class ResilienceChaosConfig(DeepSpeedConfigModel):
+    """Seedable fault injection (``resilience/chaos.py``), with the JAX
+    block's fields, defaults and bounds; an enabled block installs the
+    injector at engine init. The fault classes of several devices (its
+    ``shrink``/``grow``, ``bitflip``, ``slow_device`` and
+    ``collective_mismatch`` knobs, :data:`CHAOS_MESH_KNOBS`) are later
+    slices: an enabled block with one set away from its default raises."""
+    enabled: bool = False
+    seed: int = 0
+    failure_rate: float = 0.0
+    truncate_rate: float = 0.0
+    delay_rate: float = 0.0
+    max_delay_s: float = 0.02
+    hang_rate: float = 0.0
+    hang_s: float = 3600.0
+    preempt_rate: float = 0.0
+    shrink_at_step: int = -1
+    shrink_to: int = 0
+    grow_at_step: int = -1
+    grow_to: int = 0
+    ops: list = dataclasses.field(default_factory=list)
+    collective_mismatch: bool = False
+    collective_mismatch_rank: int = -1
+    bitflip_at_step: int = -1
+    bitflip_rate: float = 0.0
+    bitflip_target: str = "params"
+    bitflip_device: int = 0
+    bitflip_bit: int = 12
+    slow_from_step: int = -1
+    slow_device: int = 0
+    slow_factor: float = 1.0
+    slow_rate: float = 0.0
+    slow_min_s: float = 0.0
+    slow_kind: str = "compute"
+
+    def __post_init__(self):
+        _check_min(self, failure_rate=(0.0, False), truncate_rate=(0.0, False),
+                   delay_rate=(0.0, False), max_delay_s=(0.0, False), hang_rate=(0.0, False),
+                   hang_s=(0.0, False), preempt_rate=(0.0, False), shrink_at_step=(-1, False),
+                   shrink_to=(0, False), grow_at_step=(-1, False), grow_to=(0, False),
+                   collective_mismatch_rank=(-1, False), bitflip_at_step=(-1, False),
+                   bitflip_rate=(0.0, False), bitflip_device=(0, False),
+                   bitflip_bit=(0, False), slow_from_step=(-1, False), slow_device=(0, False),
+                   slow_factor=(0.0, False), slow_rate=(0.0, False), slow_min_s=(0.0, False))
+        for name in ("failure_rate", "truncate_rate", "delay_rate", "hang_rate",
+                     "preempt_rate", "bitflip_rate", "slow_rate"):
+            if getattr(self, name) > 1.0:
+                raise ValueError(f"ResilienceChaosConfig.{name} must be <= 1.0, "
+                                 f"got {getattr(self, name)}")
+        if self.bitflip_bit > 31:
+            raise ValueError(f"ResilienceChaosConfig.bitflip_bit must be <= 31, "
+                             f"got {self.bitflip_bit}")
+        # the JAX block's consistency rules: an armed drill with its target
+        # left at the default is a typo, not a drill
+        if self.shrink_at_step >= 0 and self.shrink_to < 1:
+            raise ValueError("resilience.chaos: shrink_at_step is set but shrink_to is "
+                             f"{self.shrink_to} — name the survivor count (>= 1)")
+        if self.grow_at_step >= 0 and self.grow_to < 1:
+            raise ValueError("resilience.chaos: grow_at_step is set but grow_to is "
+                             f"{self.grow_to} — name the post-grow device count (>= 1)")
+        if self.bitflip_at_step >= 0 and self.bitflip_rate <= 0.0:
+            raise ValueError("resilience.chaos: bitflip_at_step is set but bitflip_rate is "
+                             f"{self.bitflip_rate} — name the flip probability (1.0 for a "
+                             "deterministic drill)")
+        if self.bitflip_target not in ("params", "grads", "opt_state"):
+            raise ValueError("resilience.chaos: bitflip_target must be 'params', 'grads' or "
+                             f"'opt_state', got {self.bitflip_target!r}")
+        if (self.slow_from_step >= 0 or self.slow_rate > 0.0) and self.slow_factor <= 1.0:
+            raise ValueError("resilience.chaos: slow_device fault is armed but slow_factor is "
+                             f"{self.slow_factor} — name the inflation multiple (> 1.0; 5.0 "
+                             "for the acceptance drill)")
+        if self.slow_kind not in ("compute", "link", "host"):
+            raise ValueError("resilience.chaos: slow_kind must be 'compute', 'link' or "
+                             f"'host', got {self.slow_kind!r}")
+        defaults = ResilienceChaosConfig.__dataclass_fields__
+        mesh = [k for k in CHAOS_MESH_KNOBS if getattr(self, k) != defaults[k].default]
+        if self.enabled and mesh:
+            raise NotImplementedError(
+                f"ds_config resilience.chaos {mesh}: the shrink/grow, bitflip, slow_device "
+                "and collective_mismatch fault classes need several devices or a simulated "
+                "mesh, a later slice of the port")
+
+
+@dataclasses.dataclass
 class ResilienceConfig(DeepSpeedConfigModel):
-    """Verified checkpoints and the restore policy. ``sentinel`` and an
-    enabled ``chaos`` are later slices of the port and raise."""
+    """Verified checkpoints and the restore policy, the bad-step
+    ``sentinel`` and the ``chaos`` drill injector."""
     verify_on_load: bool = True
     fallback_to_last_good: bool = True
     retry: ResilienceRetryConfig = dataclasses.field(default_factory=ResilienceRetryConfig)
-    sentinel: Optional[dict] = None
-    chaos: Optional[dict] = None
+    sentinel: ResilienceSentinelConfig = dataclasses.field(
+        default_factory=ResilienceSentinelConfig)
+    chaos: ResilienceChaosConfig = dataclasses.field(default_factory=ResilienceChaosConfig)
+
+
+@dataclasses.dataclass
+class WatchdogConfig(DeepSpeedConfigModel):
+    """The step watchdog and the consistency guard
+    (``resilience/watchdog.py``, ``resilience/consistency.py``), with the
+    JAX block's fields, defaults and bounds. A stalled step ends in a stack
+    dump and a ``WatchdogTimeout`` (``on_timeout`` "raise") or a SIGABRT
+    ("kill"); ranks agree on a config fingerprint at init and on (step,
+    loss bits, RNG hash) every ``consistency_interval`` steps; the engine
+    touches ``heartbeat_file`` (else ``DS_TPU_HEARTBEAT_FILE``) every
+    ``heartbeat_interval`` steps. Without the block nothing of this runs."""
+    enabled: bool = False
+    step_timeout_factor: float = 3.0
+    step_timeout_percentile: float = 0.95
+    window: int = 32
+    min_step_timeout: float = 60.0
+    startup_timeout: float = 600.0
+    barrier_timeout: float = 300.0
+    on_timeout: str = "raise"
+    stack_dump_file: str = ""
+    consistency_interval: int = 0
+    check_fingerprint_at_init: bool = True
+    heartbeat_file: str = ""
+    heartbeat_interval: int = 1
 
     def __post_init__(self):
-        if self.sentinel is not None:
-            raise NotImplementedError("ds_config resilience.sentinel (the bad-step "
-                                      "sentinel): later slice of the port")
-        if isinstance(self.chaos, dict) and self.chaos.get("enabled"):
-            raise NotImplementedError("ds_config resilience.chaos with enabled=true (the "
-                                      "fault injector): later slice of the port")
+        _check_min(self, step_timeout_factor=(0.0, True), step_timeout_percentile=(0.0, True),
+                   window=(4, False), min_step_timeout=(0.0, True),
+                   startup_timeout=(0.0, True), barrier_timeout=(0.0, True),
+                   consistency_interval=(0, False), heartbeat_interval=(1, False))
+        if self.step_timeout_percentile > 1.0:
+            raise ValueError("WatchdogConfig.step_timeout_percentile must be <= 1.0, got "
+                             f"{self.step_timeout_percentile}")
+        if self.on_timeout not in ("raise", "kill"):
+            raise ValueError(f"watchdog.on_timeout must be 'raise' or 'kill', got "
+                             f"{self.on_timeout!r}")
+
+
+@dataclasses.dataclass
+class RewindConfig(DeepSpeedConfigModel):
+    """The snapshot ladder (``resilience/rewind.py``): a host-RAM snapshot
+    of the whole state every ``ram_interval`` healthy steps, ``keep`` of
+    them in a process-wide ring; on preemption the elastic agent flushes
+    one (a fresh one with ``emergency_fresh``) as an ``emergency_step<N>``
+    tag (``emergency_save``); a load takes the freshest verified tier. The
+    block's presence arms it (``enabled`` false keeps it present and off);
+    without it the module is never imported."""
+    enabled: bool = True
+    ram_interval: int = 5
+    keep: int = 2
+    emergency_save: bool = True
+    emergency_fresh: bool = True
+
+    def __post_init__(self):
+        _check_min(self, ram_interval=(0, True), keep=(1, False))
 
 
 @dataclasses.dataclass
@@ -564,6 +724,16 @@ class DeepSpeedConfig:
         self.telemetry = TelemetryConfig.from_dict(pd.get("telemetry", {}))
         self.serving = ServingConfig.from_dict(pd.get("serving", {}))
         self.serving_present = "serving" in pd
+        self.watchdog = WatchdogConfig.from_dict(pd.get("watchdog", {}))
+        # presence matters, as in JAX: without the block the rewind module
+        # is never imported
+        self.rewind = RewindConfig.from_dict(pd.get("rewind", {}))
+        self.rewind_present = "rewind" in pd
+        self.elasticity_config = None
+        if "elasticity" in pd:
+            from deepspeed_tpu_torch.elasticity.config import ElasticityConfig
+
+            self.elasticity_config = ElasticityConfig.from_dict(pd["elasticity"])
         self.memory_breakdown = bool(pd.get("memory_breakdown", False))
         self.dump_state = bool(pd.get("dump_state", False))
         # the advisory keys the config sets: presence, not truthiness

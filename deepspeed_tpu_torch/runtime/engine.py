@@ -119,6 +119,20 @@ nothing here (``runtime/config.py``), ``dump_state`` prints the config, and
 ``memory_breakdown`` logs the card's and the host's memory on the steps
 that print.
 
+The resilience blocks, each a strict no-op when absent (as in JAX):
+``watchdog`` arms a ``StepWatchdog`` around each ``train_batch`` (the data
+fetch included) and ``step``, touches the heartbeat file every
+``heartbeat_interval`` steps and runs the consistency guard (the startup
+fingerprint, the step agreement); ``resilience.sentinel`` rewinds a bad
+streak through the snapshot ladder; ``rewind`` snapshots the state into the
+host-RAM ring every ``ram_interval`` healthy steps
+(``resilience/rewind.py``) and makes ``load_checkpoint`` walk the ladder;
+an enabled ``resilience.chaos`` installs the injector, whose
+``train_step`` hook runs before any launch. A step that stops part way (a
+timeout or a fault after its first launch) leaves the state half updated:
+the engine then refuses ``train_batch`` and ``step`` until a whole-state
+restore (``load_checkpoint``, which the sentinel's rewind also is).
+
 The engine runs on CUDA unless it is given ``device="cpu"``; without a card
 it raises. Its process group is the default one when one is initialized
 (NCCL for a CUDA engine, gloo for a CPU one; any other pairing raises), and
@@ -146,6 +160,7 @@ from deepspeed_tpu_torch import telemetry as _telemetry
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.ops.optimizers import AdamState, Optimizer, build_optimizer
 from deepspeed_tpu_torch.parallel.topology import ParallelGrid
+from deepspeed_tpu_torch.resilience import chaos as _chaos
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import CurriculumScheduler
 from deepspeed_tpu_torch.runtime.data_pipeline.data_sampling import (apply_seqlen_curriculum,
@@ -212,6 +227,7 @@ class DeepSpeedEngine:
         self.ep_world_size = self.grid.get_expert_parallel_world_size()
         self._config._configure_train_batch_size(self.dp_world_size)
         comm.configure(self._config)
+        self._init_watchdog()
 
         # ---- model protocol ----------------------------------------------
         if not (isinstance(model, torch.nn.Module) and hasattr(model, "loss")):
@@ -333,6 +349,7 @@ class DeepSpeedEngine:
         self.telemetry = _telemetry.configure(self._config.telemetry)
         self._last_save = None
         self._last_recovery = None
+        self._init_resilience()
 
         # ---- data: the loader and the curricula --------------------------
         self.collate_fn = collate_fn
@@ -380,6 +397,164 @@ class DeepSpeedEngine:
                  f"device={self.device}, dp={self.dp_world_size}, "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
                  f"gas={self._config.gradient_accumulation_steps}", ranks=[0])
+
+    # ------------------------------------------------------------ resilience
+    def _init_watchdog(self) -> None:
+        """The ``watchdog`` block, before any state is built: the step
+        watchdog, the barrier and dump defaults, the heartbeat file and the
+        startup fingerprint agreement. Without the block: no watchdog, no
+        thread, no heartbeat, no agreement, and an earlier engine's
+        config-installed barrier deadline and dump file are removed."""
+        from deepspeed_tpu_torch.resilience import watchdog as _wd
+
+        wd = self._config.watchdog
+        self._watchdog = None
+        self._heartbeat_path = None
+        self._heartbeat_interval = 1
+        self._consistency_interval = 0
+        self._broken = None                 # why a step did not finish, if one did not
+        if not wd.enabled:
+            comm.clear_config_barrier_timeout()
+            _wd.clear_config_dump_path()
+            return
+        _wd.set_default_dump_path(wd.stack_dump_file or None, source="config")
+        self._watchdog = _wd.StepWatchdog(
+            factor=wd.step_timeout_factor, percentile=wd.step_timeout_percentile,
+            window=wd.window, min_timeout=wd.min_step_timeout,
+            startup_timeout=wd.startup_timeout, on_timeout=wd.on_timeout,
+            dump_path=wd.stack_dump_file or None)
+        comm.set_default_barrier_timeout(wd.barrier_timeout, source="config")
+        hb = wd.heartbeat_file or os.environ.get("DS_TPU_HEARTBEAT_FILE", "")
+        if hb:
+            self._heartbeat_path = hb
+            self._heartbeat_interval = wd.heartbeat_interval
+        self._consistency_interval = wd.consistency_interval
+        if wd.check_fingerprint_at_init:
+            from deepspeed_tpu_torch.resilience.consistency import verify_startup_consistency
+
+            # every rank runs the same config, world and code before the
+            # first collective; the deadline covers a peer that died
+            self._config_fingerprint = verify_startup_consistency(
+                self._config._param_dict,
+                mesh={"data": self.dp_world_size, "expert": self.ep_world_size},
+                timeout=wd.barrier_timeout)
+
+    def _init_resilience(self) -> None:
+        """The bad-step sentinel, the rewind ladder and the chaos block. The
+        sentinel's and the ladder's modules are imported only with their
+        blocks; an engine without an enabled chaos block removes an earlier
+        engine's config-installed injector."""
+        res = self._config.resilience
+        self._bad_step_sentinel = None
+        self._sentinel_rewinds = 0
+        self._ckpt_save_dir = None           # the last save or load dir: the rewind target
+        if res.sentinel.enabled:
+            from deepspeed_tpu_torch.resilience.sentinel import BadStepSentinel
+
+            s = res.sentinel
+            self._bad_step_sentinel = BadStepSentinel(
+                patience=s.patience, spike_factor=s.spike_factor, window=s.window,
+                max_rewinds=s.max_rewinds)
+        self._rewind = None
+        if self._config.rewind_present and self._config.rewind.enabled:
+            from deepspeed_tpu_torch.resilience.rewind import RewindManager
+
+            self._rewind = RewindManager(self, self._config.rewind)
+        if res.chaos.enabled:
+            _chaos.install_chaos(_chaos.ChaosInjector.from_config(res.chaos))
+        else:
+            _chaos.uninstall_config_chaos()
+
+    def _mark_broken(self, e: BaseException) -> None:
+        """A step stopped part way (a watchdog timeout, a fault): the flat
+        params, masters, moments or gradient buffers may be half updated, so
+        the engine refuses further steps until a restore."""
+        self._broken = f"{type(e).__name__}: {e}"
+        self._stop_step_timers()
+
+    def _stop_step_timers(self) -> None:
+        self.timers(TRAIN_BATCH_TIMER).reset()
+        self.tput_timer.started = False
+
+    def _check_not_broken(self) -> None:
+        if self._broken is not None:
+            raise RuntimeError(
+                f"a step of this engine did not finish ({self._broken}), so its state may be "
+                "half updated: build a new engine (the elastic agent does) or restore a "
+                "checkpoint with load_checkpoint before training on")
+
+    def _after_step(self, metrics: "StepMetrics") -> None:
+        """The sentinel, then the RAM snapshot (a step the sentinel flagged
+        never enters the ring)."""
+        if self._bad_step_sentinel is not None:
+            self._check_bad_step(metrics)
+        if self._rewind is not None:
+            self._rewind.maybe_snapshot(self._global_step, metrics)
+
+    def _check_bad_step(self, metrics: "StepMetrics") -> None:
+        """Feed the step's loss and overflow flag to the sentinel; when it
+        trips, rewind through the snapshot ladder: the RAM tier in place
+        when the ring holds a snapshot, else the last verified disk
+        checkpoint. With nothing to rewind to, or past ``max_rewinds``,
+        raise ``BadStepError``. Counts ``resilience/sentinel_rewinds{tier}``."""
+        from deepspeed_tpu_torch.resilience.sentinel import BadStepError
+
+        sentinel = self._bad_step_sentinel
+        if not sentinel.observe(float(metrics.loss), overflow=bool(metrics.overflow)):
+            return
+        reason = sentinel.last_reason
+        has_ram = self._rewind is not None and self._rewind.has_ram_snapshot()
+        if self._ckpt_save_dir is None and not has_ram:
+            raise BadStepError(
+                f"bad-step sentinel tripped ({reason}, patience={sentinel.patience}) and no "
+                "checkpoint has been saved or loaded this run (and no RAM snapshot is held) "
+                "— nothing to rewind to")
+        if self._sentinel_rewinds >= sentinel.max_rewinds:
+            raise BadStepError(f"bad-step sentinel tripped ({reason}) after "
+                               f"{self._sentinel_rewinds} rewind(s) — giving up")
+        self._sentinel_rewinds += 1
+        logger.warning(f"bad-step sentinel: {reason} for {sentinel.patience} consecutive "
+                       f"step(s); rewinding through the snapshot ladder (rewind "
+                       f"{self._sentinel_rewinds}/{sentinel.max_rewinds})")
+        if self._watchdog is not None:
+            self._watchdog.extend_if_armed()        # a restore is step-sized work
+        tier = None
+        try:
+            if has_ram and self._rewind.restore_from_ram() is not None:
+                tier = "ram"
+            if tier is None:
+                if self._ckpt_save_dir is None:
+                    raise BadStepError(
+                        f"bad-step sentinel tripped ({reason}): the RAM snapshot was unusable "
+                        "and no checkpoint has been saved or loaded this run — nothing to "
+                        "rewind to")
+                path, _ = self.load_checkpoint(self._ckpt_save_dir)
+                if path is None:
+                    raise BadStepError(f"bad-step sentinel tripped ({reason}) but no "
+                                       f"restorable checkpoint was found in "
+                                       f"{self._ckpt_save_dir}")
+                tier = (self._last_recovery or {}).get("tier", "disk")
+        except BadStepError:
+            raise
+        except BaseException as e:
+            self._mark_broken(e)
+            raise
+        _telemetry.get_registry().counter("resilience/sentinel_rewinds",
+                                          labels={"tier": tier}).inc()
+        _telemetry.get_tracer().instant("sentinel_rewind", cat="resilience", reason=reason,
+                                        tier=tier)
+        sentinel.reset()
+
+    def _touch_heartbeat_now(self) -> None:
+        """A heartbeat outside the step cadence: a save or a load is
+        progress, not a wedge; one reached from inside an armed step (the
+        sentinel's rewind) gets ``startup_timeout`` more."""
+        if self._heartbeat_path is not None:
+            from deepspeed_tpu_torch.resilience.watchdog import touch_heartbeat
+
+            touch_heartbeat(self._heartbeat_path)
+        if self._watchdog is not None:
+            self._watchdog.extend_if_armed()
 
     def _check_experts(self, model) -> None:
         """A MoE model: its expert-parallel size and coordinate must be the
@@ -799,6 +974,11 @@ class DeepSpeedEngine:
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()
         step = self._global_step
+        if self._heartbeat_path is not None and step % self._heartbeat_interval == 0:
+            from deepspeed_tpu_torch.resilience.watchdog import touch_heartbeat
+
+            # the launcher's liveness proof: its absence is the signal
+            touch_heartbeat(self._heartbeat_path)
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(step)
         if self._config.steps_per_print and step % self._config.steps_per_print == 0:
@@ -844,7 +1024,27 @@ class DeepSpeedEngine:
     def train_batch(self, batch=None, data_iter=None) -> torch.Tensor:
         """Consume this rank's rows of one global batch (all microbatches)
         and take one step. Returns the world's mean loss over the
-        microbatches (a 0-d fp32 tensor, the same on every rank)."""
+        microbatches (a 0-d fp32 tensor, the same on every rank). With the
+        ``watchdog`` block the whole call, the data fetch included, runs
+        under the step deadline.
+
+        An exception before the first backward (in the data fetch or a
+        forward, an out-of-memory say) leaves the state as it was, and the
+        caller may retry. One from the first backward on (with or without
+        the resilience blocks) may leave the gradient buffers, params,
+        masters or moments half updated: the engine then refuses
+        ``train_batch`` and ``step`` until a whole-state
+        ``load_checkpoint`` (or the elastic agent's rebuilt engine)."""
+        self._check_not_broken()
+        if self._watchdog is None:
+            return self._train_batch_outer(batch, data_iter)
+        self._watchdog.arm()
+        try:
+            return self._train_batch_outer(batch, data_iter)
+        finally:
+            self._watchdog.disarm()
+
+    def _train_batch_outer(self, batch, data_iter) -> torch.Tensor:
         gas = self._config.gradient_accumulation_steps
         tracer = _telemetry.get_tracer()
         with tracer.span("data", step=self._global_step):
@@ -856,8 +1056,20 @@ class DeepSpeedEngine:
                 difficulty = self.curriculum_scheduler.update_difficulty(self._global_step + 1)
                 batch = apply_seqlen_curriculum(batch, difficulty)
             batch = self._to_device(batch)
+        # the chaos step hook before any launch: an injected fault changes
+        # no state
+        inj = _chaos.active_injector()
+        if inj is not None and inj.targets("train_step"):
+            inj.before("train_step", f"step={self._global_step + 1}")
         with tracer.span("train_batch", step=self._global_step):
             mean_loss = self._train_batch(batch, gas)
+        if self._consistency_interval and self._global_step % self._consistency_interval == 0:
+            from deepspeed_tpu_torch.resilience.consistency import check_step_agreement
+
+            # the engine's generators are seeded from (seed, step): the
+            # seed is its RNG state
+            check_step_agreement(self._global_step, float(mean_loss),
+                                 rng=np.int64(self._config.seed))
         if self.eigenvalue is not None:
             with tracer.span("eigenvalue", step=self._global_step):
                 self._maybe_update_eigenvalue(batch)
@@ -866,21 +1078,31 @@ class DeepSpeedEngine:
     def _train_batch(self, batch, gas: int) -> torch.Tensor:
         self.timers(TRAIN_BATCH_TIMER).start()
         self.tput_timer.start()
-        self._refresh_compression()
-        microbatches = list(self._split(batch, gas))
-        weights = self._token_weights(microbatches)
-        losses = []
-        for i, mb in enumerate(microbatches):
-            loss = self._forward(mb, None if weights is None else weights[i], i)
-            if weights is not None:
-                loss = loss * weights[i]
-            self._backward(loss)
-            losses.append(loss.detach().float())
-        mean_loss = self._world_mean(torch.stack(losses).mean())
-        self.micro_steps += gas
-        self._apply_grads(mean_loss, gas)
+        writing = False                 # the state is untouched until the first backward
+        try:
+            self._refresh_compression()
+            microbatches = list(self._split(batch, gas))
+            weights = self._token_weights(microbatches)
+            losses = []
+            for i, mb in enumerate(microbatches):
+                loss = self._forward(mb, None if weights is None else weights[i], i)
+                if weights is not None:
+                    loss = loss * weights[i]
+                writing = True
+                self._backward(loss)
+                losses.append(loss.detach().float())
+            mean_loss = self._world_mean(torch.stack(losses).mean())
+            self.micro_steps += gas
+            self._apply_grads(mean_loss, gas)
+        except BaseException as e:
+            if writing:
+                self._mark_broken(e)
+            else:
+                self._stop_step_timers()
+            raise
         self.timers(TRAIN_BATCH_TIMER).stop()
         self.tput_timer.stop(global_step=True)
+        self._after_step(self._last_metrics)
         return mean_loss
 
     def forward(self, batch):
@@ -931,12 +1153,24 @@ class DeepSpeedEngine:
             return
         if self._micro_loss is None:
             raise RuntimeError("step() called with no accumulated gradients")
-        with _telemetry.get_tracer().span("step", step=self._global_step):
-            self.timers(STEP_GLOBAL_TIMER).start()
-            self._apply_grads(self._world_mean(self._micro_loss),
-                              self._config.gradient_accumulation_steps)
-            self._micro_loss = None
-            self.timers(STEP_GLOBAL_TIMER).stop()
+        self._check_not_broken()
+        if self._watchdog is not None:
+            self._watchdog.arm()
+        try:
+            with _telemetry.get_tracer().span("step", step=self._global_step):
+                self.timers(STEP_GLOBAL_TIMER).start()
+                try:
+                    self._apply_grads(self._world_mean(self._micro_loss),
+                                      self._config.gradient_accumulation_steps)
+                except BaseException as e:
+                    self._mark_broken(e)
+                    raise
+                self._micro_loss = None
+                self.timers(STEP_GLOBAL_TIMER).stop()
+                self._after_step(self._last_metrics)
+        finally:
+            if self._watchdog is not None:
+                self._watchdog.disarm()
 
     def eval_batch(self, batch) -> torch.Tensor:
         """Loss without gradients (for eval loops), with the compressed
@@ -1067,9 +1301,15 @@ class DeepSpeedEngine:
         from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import \
             save_engine_checkpoint
 
-        with _telemetry.get_tracer().span("save_checkpoint", cat="checkpoint"):
-            return save_engine_checkpoint(self, save_dir, tag=tag, client_state=client_state,
-                                          save_latest=save_latest)
+        self._ckpt_save_dir = save_dir          # the sentinel's rewind target
+        self._touch_heartbeat_now()
+        try:
+            with _telemetry.get_tracer().span("save_checkpoint", cat="checkpoint"):
+                return save_engine_checkpoint(self, save_dir, tag=tag,
+                                              client_state=client_state,
+                                              save_latest=save_latest)
+        finally:
+            self._touch_heartbeat_now()
 
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
                         load_optimizer_states=True, load_lr_scheduler_states=True,
@@ -1077,9 +1317,15 @@ class DeepSpeedEngine:
         from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import \
             load_engine_checkpoint
 
+        self._touch_heartbeat_now()
         with _telemetry.get_tracer().span("load_checkpoint", cat="checkpoint"):
-            out = load_engine_checkpoint(self, load_dir, tag=tag,
-                                         load_optimizer_states=load_optimizer_states,
-                                         load_module_only=load_module_only)
+            path, client_state = load_engine_checkpoint(
+                self, load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
+                load_module_only=load_module_only)
+        self._touch_heartbeat_now()
         self.invalidate_compiled()            # the weights the compression read changed
-        return out
+        if path is not None:
+            self._ckpt_save_dir = load_dir    # the sentinel's rewind target
+            if not (load_module_only or not load_optimizer_states):
+                self._broken = None           # the whole state was restored
+        return path, client_state

@@ -74,6 +74,15 @@ class ZeroInfinityEngine:
             raise NotImplementedError("the telemetry block with param-NVMe training (the "
                                       "layerwise engine records no series): later slice of "
                                       "the port")
+        armed = [name for name, on in (
+            ("watchdog", ds_config.watchdog.enabled),
+            ("rewind", ds_config.rewind_present and ds_config.rewind.enabled),
+            ("resilience.sentinel", ds_config.resilience.sentinel.enabled),
+            ("resilience.chaos", ds_config.resilience.chaos.enabled)) if on]
+        if armed:
+            raise NotImplementedError(f"the {armed} block(s) with param-NVMe training (the "
+                                      "layerwise engine keeps its state in files and has no "
+                                      "step hooks): later slice of the port")
         if comm.is_initialized() and comm.get_world_size() > 1:
             raise NotImplementedError("layerwise param-NVMe runs on one process; train over "
                                       "many with offload_optimizer nvme instead")

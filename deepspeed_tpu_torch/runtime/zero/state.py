@@ -342,6 +342,18 @@ class ZeroState:
         else:
             have.add_(part)
 
+    def reset_grads(self) -> None:
+        """Drop every gradient buffer and delivery count of a step that did
+        not finish (a timeout or a fault mid-step): a restore starts from
+        none."""
+        self._grads.clear()
+        self._shard_grads.clear()
+        self._arrived.clear()
+        self._due.clear()
+        self._bwd = None
+        for p in self.params:
+            p.grad = None
+
     def end_backward(self) -> None:
         self._bwd = None
         if self.stage >= 2:
@@ -519,12 +531,15 @@ class ZeroState:
         comm.all_gather_into_tensor(buf, part, group=self.group)
         return buf
 
-    def to_host(self, source: Source, keep: bool = True) -> List[Optional[torch.Tensor]]:
+    def to_host(self, source: Source, keep: bool = True,
+                into: Optional[Sequence[torch.Tensor]] = None) -> List[Optional[torch.Tensor]]:
         """Whole per-parameter host copies of ``source`` (``PARAMS``, or a
         list laid out as ``fp32``), gathered one unit at a time: beyond the
         state, the device holds one unit's buffer at most. Every rank calls
         it; ``keep=False`` takes part in the gathers and keeps nothing.
-        ``source[u]`` may read the unit from elsewhere (the NVMe files)."""
+        ``source[u]`` may read the unit from elsewhere (the NVMe files).
+        ``into``: host tensors, one per parameter, to copy into (pinned
+        ones asynchronously; the caller synchronizes) instead of new ones."""
         self.host_sync()
         out: List[Optional[torch.Tensor]] = [None] * len(self.params)
         for u, unit in enumerate(self.plan.units):
@@ -533,9 +548,14 @@ class ZeroState:
                 # an expert unit's buffer is the ep ranks' parts in order
                 n = buf.numel() // unit.length
                 for i in unit.params:
-                    out[i] = (self._view(buf, i) if n == 1 else torch.cat(
-                        [self._view(buf[j * unit.length:], i) for j in range(n)])).to(
-                            "cpu", copy=True)
+                    whole = self._view(buf, i) if n == 1 else torch.cat(
+                        [self._view(buf[j * unit.length:], i) for j in range(n)])
+                    if into is None:
+                        out[i] = whole.to("cpu", copy=True)
+                    else:
+                        out[i] = into[i].copy_(whole.view(into[i].shape),
+                                               non_blocking=into[i].is_pinned())
+                    del whole       # a view: it would keep the gathered buffer
             del buf                 # before the next unit's gather
         return out
 
@@ -553,13 +573,16 @@ class ZeroState:
             else:
                 dst, part = (None if hasattr(source, "write_unit") else source[u]), unit.sharded
             dtype = torch.float32 if dst is None else dst.dtype
-            buf = torch.zeros(unit.length, dtype=dtype, device=tensors[unit.params[0]].device)
+            # assembled where it goes (host tensors copied straight up,
+            # asynchronously from pinned memory)
+            buf = torch.zeros(unit.length, dtype=dtype, device=tensors[unit.params[0]].device
+                              if dst is None else dst.device)
             for i in unit.params:
                 t = tensors[i]
                 if unit.ep > 1:                     # this rank's experts
                     n = self.plan.params[i].shape[0]
                     t = t.narrow(0, self.expert_groups.ep_rank * n, n)
-                self._view(buf, i).copy_(t)
+                self._view(buf, i).copy_(t, non_blocking=t.is_pinned())
             value = self._shard(buf, u) if part else buf
             if dst is None:
                 source.write_unit(u, value)

@@ -88,10 +88,10 @@ class ServingFrontEnd:
     :class:`~deepspeed_tpu_torch.inference.engine.InferenceEngine`.
 
     ``cfg`` is the ``serving`` ds_config block (``ServingConfig``);
-    ``agent`` (optional) is any object with a ``preempted`` flag (the JAX
-    package's ``DSElasticAgent``; the port's elastic agent is a later
-    slice), which triggers a drain; ``start=False`` defers the worker
-    thread (tests fill the queue first, then :meth:`start`)."""
+    ``agent`` (optional) is a
+    :class:`~deepspeed_tpu_torch.elasticity.elastic_agent.DSElasticAgent`
+    whose ``preempted`` flag triggers a drain; ``start=False`` defers the
+    worker thread (tests fill the queue first, then :meth:`start`)."""
 
     WORKER_POLL_S = 0.02
 

@@ -490,10 +490,12 @@ def test_checkpoint_and_data_blocks_parse_like_jax_and_later_blocks_raise():
     assert t.data_efficiency_config == j.data_efficiency_config
     assert TConfig({"train_batch_size": 8}).checkpoint_config.async_save is \
         JConfig({"train_batch_size": 8}).checkpoint_config.async_save is True
-    for later, match in (({"rewind": {}}, "rewind"),
-                         ({"resilience": {"sentinel": {"enabled": True}}}, "sentinel"),
-                         ({"resilience": {"chaos": {"enabled": True, "failure_rate": 0.5}}},
-                          "chaos"),
+    # the rewind block and the resilience sub-blocks parse (their tests are
+    # tests/test_torch_resilience_units.py); the knobs of several devices
+    # stay later slices
+    for later, match in (({"elasticity": {"resize": {"enabled": True}}}, "resize"),
+                         ({"resilience": {"chaos": {"enabled": True, "shrink_at_step": 2,
+                                                    "shrink_to": 1}}}, "chaos"),
                          ({"checkpoint": {"load_universal": True}}, "load_universal"),
                          ({"checkpoint": {"parallel_write": {"pipeline_stage": True}}},
                           "parallel_write")):

@@ -1645,3 +1645,67 @@ def test_frontend_hung_tick_then_requests_equal_generate(gen):
     for r, p in ((during, prompts[2]), (after, prompts[3])):
         assert r.status == "completed"
         assert r.tokens == eng.generate(p, max_new_tokens=48)[0, 32:].tolist()
+
+
+# --------------------------------------------------- the resilient training run
+def _armed_config(tmp_path):
+    return {**RESUME_CONFIG,
+            "watchdog": {"enabled": True, "heartbeat_file": str(tmp_path / "hb"),
+                         "consistency_interval": 1},
+            "resilience": {"sentinel": {"enabled": True}},
+            "rewind": {"ram_interval": 2, "keep": 2}}
+
+
+def test_armed_step_equals_the_unarmed_step_bit_for_bit(gen, tmp_path):
+    """The watchdog (heartbeat, the step agreement every step), the
+    sentinel and the RAM ring change no bit of a bf16 step on the card, and
+    the steps still run the kernels once per layer."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+    from deepspeed_tpu_torch.resilience import rewind as rw
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import flatten_state
+
+    batch = synthetic_lm_batch(4, 128, 1024, seed=3, device="cuda")
+    runs = []
+    try:
+        for config in (dict(RESUME_CONFIG), _armed_config(tmp_path)):
+            eng, *_ = deepspeed_tpu_torch.initialize(model=_resume_model(), config=config)
+            before = tfa.KERNEL.launches
+            losses = [float(eng.train_batch(batch)) for _ in range(5)]
+            assert tfa.KERNEL.launches - before == 2 * 5
+            runs.append((losses, {k: _bits(v) for k, v in flatten_state(eng).items()}))
+            if eng._watchdog is not None:
+                assert [s.step for s in rw.ram_snapshots()] == [2, 4]
+                assert os.path.isfile(tmp_path / "hb")
+                eng._watchdog.close()
+    finally:
+        rw.clear_ram_snapshots()
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][1].keys() == runs[1][1].keys()
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
+
+
+def test_ram_snapshot_roundtrips_on_the_card(gen, tmp_path):
+    """A snapshot in page-locked host memory restores the card's state bit
+    for bit, and the steps after it equal the steps after the snapshot."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+    from deepspeed_tpu_torch.resilience import rewind as rw
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.engine import flatten_state
+
+    batch = synthetic_lm_batch(4, 128, 1024, seed=4, device="cuda")
+    try:
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=_resume_model(), config={**RESUME_CONFIG,
+                                           "rewind": {"ram_interval": 1000, "keep": 1}})
+        for _ in range(2):
+            eng.train_batch(batch)
+        snap = eng._rewind.snapshot_now()
+        assert snap.step == 2 and snap.slot.pinned and rw.ram_snapshots() == [snap]
+        want = {k: _bits(v) for k, v in flatten_state(eng).items()}
+        after = [float(eng.train_batch(batch)) for _ in range(2)]
+        info = eng._rewind.restore_from_ram()
+        assert info["tier"] == "ram" and eng.global_steps == 2
+        got = {k: _bits(v) for k, v in flatten_state(eng).items()}
+        assert all(torch.equal(got[k], want[k]) for k in want)
+        assert [float(eng.train_batch(batch)) for _ in range(2)] == after
+    finally:
+        rw.clear_ram_snapshots()

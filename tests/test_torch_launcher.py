@@ -136,7 +136,10 @@ def test_refusals(monkeypatch, tmp_path):
     argv = ["--hostfile", str(tmp_path / "none"), "train.py"]
     with pytest.raises(ValueError, match="Cloud-TPU"):
         multinode_runner.get_runner("gcloud", runner.parse_args(argv), {"h": [0]}, "h")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # --elastic_training validates the script's config, as the JAX runner does
+    from deepspeed_tpu_torch.elasticity import ElasticityError
+
+    with pytest.raises(ElasticityError, match="--deepspeed_config"):
         runner.main(["--elastic_training", "--num_gpus", "1", *argv])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):

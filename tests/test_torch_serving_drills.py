@@ -227,16 +227,16 @@ def test_drain_mid_stream_flushes_partials(engine):
     time.sleep(0.25)
 
 
-def test_agent_preemption_flag_triggers_drain(engine):
-    class FakeAgent:
-        preempted = False
+def test_agent_preemption_flag_triggers_drain(engine, tmp_path):
+    from deepspeed_tpu_torch.elasticity import DSElasticAgent
 
-    agent = FakeAgent()
+    agent = DSElasticAgent(lambda: None, str(tmp_path), install_signal_handlers=False)
     fe = _frontend(engine, agent=agent)
     try:
         r = fe.submit(_prompt(), max_new_tokens=4)
         r.result(timeout=60)
-        agent.preempted = True
+        assert not agent.preempted
+        agent.preempt()
         code = fe.drain(timeout=30)
         assert fe.state == "dead"
         assert code == DRAIN_EXIT_CODE

@@ -188,8 +188,10 @@ def test_config_blocks_parse_like_jax_and_later_blocks_raise():
     assert (t.fp16.loss_scale_window, t.fp16.hysteresis) == (50, 3)
     assert t.zero_config.prefetch_bucket_size == j.zero_config.prefetch_bucket_size == 1000
     assert t.train_dtype == torch.float16 and t.grad_accum_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="watchdog"):
-        TConfig({"train_batch_size": 8, "watchdog": {"enabled": True}})
+    # the watchdog block parses, with JAX's checks
+    assert TConfig({"train_batch_size": 8, "watchdog": {"enabled": True}}).watchdog.enabled
+    with pytest.raises(ValueError, match="on_timeout"):
+        TConfig({"train_batch_size": 8, "watchdog": {"enabled": True, "on_timeout": "abort"}})
     with pytest.raises(NotImplementedError, match="monitor"):
         TConfig({"train_batch_size": 8, "telemetry": {"enabled": True, "monitor": True}})
     with pytest.raises(NotImplementedError, match="MiCS"):

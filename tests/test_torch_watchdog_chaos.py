@@ -7,8 +7,8 @@ and (unless ``stall_span=False``) a ``watchdog_stall`` span, and refuses a
 non-positive timeout, as in JAX. The chaos injector, given the same seed
 and script, fires the same fail / hang / delay sequence as JAX's (one
 ``random.Random(seed)`` stream drawn in the same order) with the same
-counts; every fault class and hook of a later slice raises in the
-constructor. Threads spawned through the lock factory are registered and
+counts; the fault classes of several devices and the ``collective`` hook
+raise in the constructor, and the others are taken as JAX takes them. Threads spawned through the lock factory are registered and
 joined, and the named locks witness their order.
 """
 
@@ -141,21 +141,15 @@ def test_chaos_from_env_and_active_injector(monkeypatch):
     assert tchaos.active_injector() is None       # an explicit uninstall wins over the env
 
 
+# the fault classes of several devices and the collective hook: a later slice
 REFUSED = {
-    "truncate_rate": dict(truncate_rate=0.1),
-    "truncate_at": dict(truncate_at={"decode_step": [1]}),
-    "kill_at": dict(kill_at={"decode_step": [1]}),
-    "preempt_at": dict(preempt_at={"decode_step": [1]}),
-    "preempt_rate": dict(preempt_rate=0.1, ops=["decode_step"]),
     "shrink_at": dict(shrink_at={"train_step": [2]}, shrink_to=6),
     "grow_to": dict(grow_to=8),
     "bitflip_at": dict(bitflip_at=6, bitflip_rate=1.0),
     "slow_device": dict(slow_from_step=11, slow_rate=0.0),
     "collective_mismatch": dict(collective_mismatch=True),
-    "checkpoint_io_hook": dict(fail_at={"latest": [1]}),
-    "train_step_hook": dict(hang_at={"train_step": [1]}),
     "collective_hook": dict(ops=["collective"], delay_rate=0.5),
-    "rate_without_ops": dict(failure_rate=0.2),
+    "collective_scripted": dict(hang_at={"collective": [1]}),
 }
 
 
@@ -165,11 +159,36 @@ def test_later_fault_classes_and_hooks_raise(name):
         tchaos.ChaosInjector(**REFUSED[name])
 
 
+# the fault classes and hooks a card's training run reaches, taken as the
+# JAX injector takes them (their sequences: test_torch_resilience_units.py)
+ACCEPTED = {
+    "truncate_rate": dict(truncate_rate=0.1),
+    "truncate_at": dict(truncate_at={"decode_step": [1]}),
+    "kill_at": dict(kill_at={"decode_step": [1]}),
+    "preempt_at": dict(preempt_at={"decode_step": [1]}),
+    "preempt_rate": dict(preempt_rate=0.1, ops=["decode_step"]),
+    "checkpoint_io_hook": dict(fail_at={"latest": [1]}),
+    "train_step_hook": dict(hang_at={"train_step": [1]}),
+    "rate_without_ops": dict(failure_rate=0.2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ACCEPTED))
+def test_fault_classes_and_hooks_of_a_training_run_accepted(name):
+    t = tchaos.ChaosInjector(**ACCEPTED[name])
+    j = jchaos.ChaosInjector(**ACCEPTED[name])
+    for op in ("decode_step", "train_step", "latest", "state_save"):
+        assert t.targets(op) == j.targets(op), op
+
+
 def test_chaos_config_block_still_raises():
+    """An enabled chaos block installs the injector and the watchdog block
+    parses now; the chaos knobs of several devices still raise."""
+    assert DeepSpeedConfig({"resilience": {"chaos": {"enabled": True}}}).resilience.chaos.enabled
+    assert DeepSpeedConfig({"watchdog": {"enabled": True}}).watchdog.enabled
     with pytest.raises(NotImplementedError, match="chaos"):
-        DeepSpeedConfig({"resilience": {"chaos": {"enabled": True}}})
-    with pytest.raises(NotImplementedError, match="watchdog"):
-        DeepSpeedConfig({"watchdog": {"enabled": True}})
+        DeepSpeedConfig({"resilience": {"chaos": {"enabled": True,
+                                                  "collective_mismatch": True}}})
 
 
 def test_retry_and_verify_counters_as_in_jax(tmp_path):
