@@ -43,6 +43,13 @@ no disk, once; a chaos ``preempt`` stops the run with an
 ``emergency_step<N>`` tag that an engine from another seed loads, in
 preference to the stale ``latest``, bit for bit (the save's seconds,
 bytes and host peak).
+``profiled gpt2-760m`` trains the dense cell again with ``csv_monitor``,
+``tensorboard``, ``telemetry.monitor``, ``profiling`` (a memory census
+every step) and ``flops_profiler`` at the 3rd timed step: losses equal to
+the unarmed cell's bit for bit, K1 and each K2 entry once per layer a
+step, the CSV's losses equal to the run's, the counted flops equal to the
+closed form (``matmul_flops``) and, for 2 of its layers, to the CPU's
+count, and the census's state bytes and total (the allocator's).
 ``train gpt2-760m activation_checkpointing`` trains the dense cell with
 DeepSpeed-Chat's ``activation_checkpointing`` block (losses equal to the
 plain run's bit for bit), and its hand loop calls
@@ -195,6 +202,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import logging
 import math
 import os
 import re
@@ -277,10 +285,15 @@ HOST_MARGIN = 6e9                   # host memory left for the run beside that s
 # master, moments and gradients) exceed the card's 85.5 GB (80 GiB): the
 # model the card cannot hold, in the least time
 CAPACITY_LAYERS = 23
-# the NVMe phases: gpt2-2.7b's width at 2 layers (the script's time limit
-# stays while it grows; the swap's placement and policy are the same at 2
-# layers as at 4); the swap through 8 I/O threads
+# the NVMe and offloaded-resume phases: gpt2-125m's width at 2 layers, 4 x
+# 1024 (gpt2-2.7b's at 2 layers until the monitoring and profiling phase
+# came: its 129 M-parameter embedding set the phases' ~90 s; the swap's and
+# the Infinity engine's placement, policy and code are the same at any
+# width); the swap through 8 I/O threads
+NVME_MODEL = "gpt2-125m"
 NVME_LAYERS, NVME_WARMUP, NVME_STEPS = 2, 1, 1
+NVME_BATCH, NVME_SEQ = 4, 1024
+NVME_CONFIG = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": NVME_BATCH}
 NVME_AIO = {"block_size": 1 << 20, "thread_count": 8}
 AIO_COUNTS = ("direct_chunks", "buffered_chunks", "direct_bytes", "buffered_bytes")
 # the fp32 NVMe check: two AdamW steps, for the script's time
@@ -2966,19 +2979,18 @@ def _nvme_swapper(engine):
 
 
 def nvme_slice(initialize, GPT2Model, cfg, accel, fa, tmp):
-    """gpt2-2.7b's width at NVME_LAYERS layers, 4 x 2048, bf16: (e)
-    ``offload_optimizer: nvme`` through the engine and (f) ``offload_param:
-    nvme`` (the ZeRO-Infinity engine), each from the same seed as the
-    engine without offload, whose losses they must give within
+    """NVME_MODEL's width at NVME_LAYERS layers, NVME_BATCH x NVME_SEQ, bf16:
+    (e) ``offload_optimizer: nvme`` through the engine and (f)
+    ``offload_param: nvme`` (the ZeRO-Infinity engine), each from the same
+    seed as the engine without offload, whose losses they must give within
     NVME_LOSS_RTOL; the disk's bytes and rates per step."""
     import gc
 
     from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
 
     c = dataclasses.replace(cfg, n_layer=NVME_LAYERS)
-    batch = synthetic_lm_batch(OFFLOAD_BATCH, OFFLOAD_SEQ, c.vocab_size, seed=SEED,
-                               device="cuda")
-    config = {**OFFLOAD_CONFIG, "aio": dict(NVME_AIO)}
+    batch = synthetic_lm_batch(NVME_BATCH, NVME_SEQ, c.vocab_size, seed=SEED, device="cuda")
+    config = {**NVME_CONFIG, "aio": dict(NVME_AIO)}
     runs, launches = {}, {}
     for name, zero in (("memory", {"stage": 1}),
                        ("e", {"stage": 1, "offload_optimizer": {
@@ -2999,7 +3011,7 @@ def nvme_slice(initialize, GPT2Model, cfg, accel, fa, tmp):
         launches[name] = _check_remat_launches(fa, c.n_layer, NVME_STEPS, f"nvme ({name})")
         row = {"zero": zero, "layers": c.n_layer, "params": c.num_params(), **init,
                "losses": losses, "step_s_each": step_s, "step_s": sorted(step_s)[len(step_s) // 2],
-               "tokens_per_s": OFFLOAD_BATCH * OFFLOAD_SEQ / sorted(step_s)[len(step_s) // 2]}
+               "tokens_per_s": NVME_BATCH * NVME_SEQ / sorted(step_s)[len(step_s) // 2]}
         if sw:
             after = sw.stats()
             read = (after["swap_in_bytes"] - before["swap_in_bytes"]) / NVME_STEPS
@@ -3019,7 +3031,7 @@ def nvme_slice(initialize, GPT2Model, cfg, accel, fa, tmp):
     ref = runs["memory"]["losses"]
     rel = {n: max(abs(a - b) / abs(b) for a, b in zip(runs[n]["losses"], ref)) for n in "ef"}
     for name, row in runs.items():
-        emit(f"nvme {OFFLOAD_MODEL} {NVME_LAYERS}-layer ({name})", **row,
+        emit(f"nvme {NVME_MODEL} {NVME_LAYERS}-layer ({name})", **row,
              loss_rel_to_memory=rel.get(name), rtol=NVME_LOSS_RTOL, launches=launches[name])
     if max(rel.values()) > NVME_LOSS_RTOL or not all(
             math.isfinite(x) for r in runs.values() for x in r["losses"]):
@@ -3033,7 +3045,7 @@ def nvme_slice(initialize, GPT2Model, cfg, accel, fa, tmp):
 
 
 def nvme_check_fp32(initialize, GPT2Model, cfg, tmp):
-    """fp32, gpt2-2.7b's width, 2 layers: (e) and (f) against the engine in
+    """fp32, NVME_MODEL's width, 2 layers: (e) and (f) against the engine in
     memory from the same seed, losses and params within FP32_NVME_RTOL (the
     params in L2 over all tensors together, as train_check_fp32 holds
     them)."""
@@ -3072,7 +3084,7 @@ def nvme_check_fp32(initialize, GPT2Model, cfg, tmp):
         out[name] = {"losses": ln,
                      "loss_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(ln, l0)),
                      "param_rel_l2": _rel_l2(flat(pn), flat(p0))}
-    emit(f"nvme check {OFFLOAD_MODEL} fp32 {k['layers']}-layer", **k, losses_memory=l0,
+    emit(f"nvme check {NVME_MODEL} fp32 {k['layers']}-layer", **k, losses_memory=l0,
          runs=out, rtol=FP32_NVME_RTOL)
     bad = {n: r for n, r in out.items()
            if r["loss_rel_diff"] > FP32_NVME_RTOL or r["param_rel_l2"] > FP32_NVME_RTOL}
@@ -3092,11 +3104,11 @@ def resume_offload(initialize, GPT2Model, cfg, tmp):
                                                                        wait_for_pending_saves)
 
     c = dataclasses.replace(cfg, n_layer=NVME_LAYERS)
-    batch = synthetic_lm_batch(OFFLOAD_BATCH, OFFLOAD_SEQ, c.vocab_size, seed=SEED,
-                               device="cuda")
+    batch = synthetic_lm_batch(NVME_BATCH, NVME_SEQ, c.vocab_size, seed=SEED, device="cuda")
     ckpt = os.path.join(tmp, "ckpt")
     src, _ = _offload_engine(initialize, GPT2Model, c, {"stage": 1, "offload_optimizer": {
-        "device": "cpu"}}, {"DS_TPU_OFFLOAD_MASTER": "host", "DS_TPU_FORCE_STREAMED_OFFLOAD": "1"})
+        "device": "cpu"}}, {"DS_TPU_OFFLOAD_MASTER": "host", "DS_TPU_FORCE_STREAMED_OFFLOAD": "1"},
+        config=NVME_CONFIG)
     src.train_batch(batch)
     saved = flatten_state(src)
     torch.cuda.synchronize()
@@ -3116,7 +3128,7 @@ def resume_offload(initialize, GPT2Model, cfg, tmp):
                        ("f", {"stage": 3, "offload_param": {
                            "device": "nvme", "nvme_path": os.path.join(tmp, "resume_f")}})):
         engine, _ = _offload_engine(initialize, GPT2Model, c, zero,
-                                    config={**OFFLOAD_CONFIG, "aio": dict(NVME_AIO)})
+                                    config={**NVME_CONFIG, "aio": dict(NVME_AIO)})
         _evict_from_page_cache(record["path"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3133,7 +3145,7 @@ def resume_offload(initialize, GPT2Model, cfg, tmp):
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(os.path.join(tmp, f"resume_{name}"), ignore_errors=True)
-    emit(f"resume offload {OFFLOAD_MODEL} {NVME_LAYERS}-layer", saved_by="(c)",
+    emit(f"resume offload {NVME_MODEL} {NVME_LAYERS}-layer", saved_by="(c)",
          tag_bytes=_tree_bytes(record["path"]), save_blocking_s=blocking_s,
          commit_s=record["commit_s"], loads=loads, state_bitwise_after_load=True)
 
@@ -3150,10 +3162,10 @@ def offload_slices(initialize, GPT2Model, presets, accel, fa):
     tmp = tempfile.mkdtemp(prefix="ds_nvme_", dir=root)
     try:
         emit("disk nvme", free_bytes=free, chosen=root, **_disk_rates(tmp, gib=0.25))
-        launches["nvme"] = nvme_slice(initialize, GPT2Model, presets[OFFLOAD_MODEL], accel, fa,
+        launches["nvme"] = nvme_slice(initialize, GPT2Model, presets[NVME_MODEL], accel, fa,
                                       tmp)
-        nvme_check_fp32(initialize, GPT2Model, presets[OFFLOAD_MODEL], tmp)
-        resume_offload(initialize, GPT2Model, presets[OFFLOAD_MODEL], tmp)
+        nvme_check_fp32(initialize, GPT2Model, presets[NVME_MODEL], tmp)
+        resume_offload(initialize, GPT2Model, presets[NVME_MODEL], tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -3290,6 +3302,182 @@ def resilience_armed(initialize, GPT2Model, cfg, accel, fa, ref_losses, ref_step
     rw.clear_ram_snapshots()
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------ monitoring and profiling
+# the training cell with the monitor, the telemetry fan-out, the memory
+# profiler (a census every step) and the flops profiler at the 3rd timed step
+PROFILED_STEP = TRAIN_WARMUP + 3
+# the flop count on the card against the CPU's: the cell's model at 2 layers
+FLOPS_CHECK = dict(layers=2, batch=2, seq=128)
+
+
+def matmul_flops(c, batch: int, seq: int) -> int:
+    """The matmul flops of one GPT-2 training batch as the flops profiler
+    counts them (the JAX package's jaxpr walk), remat off and the chunked
+    loss recomputed: per token of the trunk 6 x 12·d² a layer (qkv, out,
+    fc, fc2: forward and two backward products) and 12·d·T a layer for
+    attention (QKᵀ and PV, full square, and their four backward products);
+    the tied head 8·V·d per predicted token (forward, its recompute in the
+    chunked loss's backward, two backward products) over T − 1 positions."""
+    d, n_layer, vocab = c.n_embd, c.n_layer, c.vocab_size
+    trunk = batch * seq * (72 * n_layer * d * d + 12 * n_layer * d * seq)
+    return trunk + batch * (seq - 1) * 8 * vocab * d
+
+
+def _flops_profiled(initialize, GPT2Model, c, device: str, batch: int, seq: int):
+    """The flops profiler's count (and per-scope counts) of one train_batch
+    of ``c`` on ``device``."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    config = {**TRAIN_CONFIG, "train_micro_batch_size_per_gpu": batch,
+              "flops_profiler": {"enabled": True, "profile_step": 1, "detailed": False}}
+    engine, *_ = initialize(model=GPT2Model(c), config=config, device=device)
+    engine.train_batch(synthetic_lm_batch(batch, seq, c.vocab_size, seed=SEED, device=device))
+    prof = engine.flops_profile
+    del engine
+    return int(prof.flops), prof.per_scope
+
+
+class _Logged(logging.Handler):
+    """The port logger's warnings while the block runs."""
+
+    def __init__(self):
+        super().__init__(level=logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.utils.logging import logger
+
+        self._logger = logger
+        logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+
+
+def profiled_slice(initialize, GPT2Model, cfg, accel, fa, ref_losses, ref_step_ms):
+    """The training cell, full width and depth, with ``csv_monitor``,
+    ``tensorboard`` (a warning where the library is absent),
+    ``telemetry.monitor``, ``profiling`` (a census every step) and
+    ``flops_profiler`` at PROFILED_STEP: every loss equals the unarmed
+    run's bit for bit; K1 and each K2 entry launch once a layer a step; the
+    CSV holds one row per step, equal to the losses; the counted flops of
+    the batch equal :func:`matmul_flops`, and a 2-layer model's count on
+    the card equals its count on the CPU; the census attributes the params,
+    masters and moments at 2, 4 and 8 bytes a parameter and its total is the
+    allocator's. → launches."""
+    import csv
+
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    c = dataclasses.replace(cfg, remat=False)
+    root, _ = _scratch_dir()
+    tmp = tempfile.mkdtemp(prefix="ds_profiled_", dir=root)
+    config = {**TRAIN_CONFIG,
+              "csv_monitor": {"enabled": True, "output_path": tmp, "job_name": "profiled"},
+              "tensorboard": {"enabled": True, "output_path": tmp, "job_name": "profiled"},
+              "telemetry": {"enabled": True, "output_dir": os.path.join(tmp, "telemetry"),
+                            "monitor": True},
+              "profiling": {"sample_interval": 1},
+              "flops_profiler": {"enabled": True, "profile_step": PROFILED_STEP,
+                                 "top_modules": 3}}
+    try:
+        # the span peaks read the allocator's lifetime peak, which an earlier
+        # phase may have set higher: this phase's own start from its engine
+        torch.cuda.reset_peak_memory_stats()
+        with _Logged() as logged:
+            engine, *_ = initialize(model=GPT2Model(c), config=config)
+        mon = engine.monitor
+        batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED, device="cuda")
+        losses = [float(engine.train_batch(batch)) for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        _reset_counts(fa)
+        step_ms = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = _kernel_counts(fa)
+        expect = dict.fromkeys(launches, c.n_layer * TRAIN_STEPS)
+        prof = engine.flops_profile
+        tput_flops = engine.tput_timer.flops_per_batch
+        census = engine.memory_census()
+        allocated = torch.cuda.memory_allocated()
+        n = c.num_params()
+        snap = {(r["name"], tuple(sorted(r["labels"].items()))): r
+                for r in telemetry.get_registry().snapshot()}
+        span = snap[("profiling/span_peak_bytes", (("span", "train_batch"),))]
+        telemetry.deconfigure()
+        mon.csv_monitor.close()
+        with open(os.path.join(tmp, "profiled", "Train_Samples_train_loss.csv")) as f:
+            rows = [(int(a), float(b)) for a, b in list(csv.reader(f))[1:]]
+        csv_files = sorted(os.listdir(os.path.join(tmp, "profiled")))
+    finally:
+        telemetry.deconfigure()
+        shutil.rmtree(tmp, ignore_errors=True)
+    profile_i = PROFILED_STEP - TRAIN_WARMUP - 1
+    others = [ms for i, ms in enumerate(step_ms) if i != profile_i]
+    median = sorted(others)[len(others) // 2]
+    closed = matmul_flops(c, TRAIN_BATCH, TRAIN_SEQ)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    c2 = dataclasses.replace(c, n_layer=FLOPS_CHECK["layers"])
+    shape = (FLOPS_CHECK["batch"], FLOPS_CHECK["seq"])
+    small = {dev: _flops_profiled(initialize, GPT2Model, c2, dev, *shape)
+             for dev in ("cuda", "cpu")}
+    small_closed = matmul_flops(c2, *shape)
+    expected_bytes = {"params": 2 * n, "master": 4 * n, "optimizer_state": 8 * n}
+    emit(f"profiled {TRAIN_MODEL}", layers=c.n_layer, params=n,
+         blocks=sorted(k for k in config if k not in TRAIN_CONFIG),
+         tensorboard_enabled=mon.tb_monitor.enabled, warnings_at_init=logged.messages,
+         losses=losses, losses_unarmed=list(ref_losses[:len(losses)]),
+         step_ms=median, step_ms_each=step_ms, step_ms_unarmed=ref_step_ms,
+         profile_step=PROFILED_STEP, profile_step_ms=step_ms[profile_i],
+         profile_step_extra_ms=step_ms[profile_i] - median,
+         profile_step_device_ms=prof.duration * 1e3,
+         counted_flops=int(prof.flops), closed_form_flops=closed,
+         counted_tflop=prof.flops / 1e12, model_flops_per_token_tflop=(
+             c.flops_per_token(TRAIN_SEQ) * TRAIN_BATCH * TRAIN_SEQ / 1e12),
+         per_scope_top={s or "<toplevel>": f for s, f in
+                        sorted(prof.per_scope.items(), key=lambda kv: -kv[1])[:3]},
+         est_tflops_flops_per_batch=tput_flops,
+         achieved_tflop_s_profile_step=prof.flops / prof.duration / 1e12,
+         flops_2_layer={"cuda": small["cuda"][0], "cpu": small["cpu"][0],
+                        "closed_form": small_closed, "shape": shape},
+         census_bytes=census.bucket_bytes, census_total=census.total_bytes,
+         memory_allocated=allocated, census_attributed_fraction=census.fraction_attributed,
+         expected_state_bytes=expected_bytes,
+         span_peak_bytes_train_batch={"max": span["max"], "p50": span["p50"],
+                                      "count": span["count"]},
+         csv_rows=rows, csv_files=len(csv_files), launches=launches, launches_expected=expect)
+    _held_bitwise(losses, list(ref_losses[:len(losses)]), "profiled cell against the unarmed cell")
+    if launches != expect:
+        raise AssertionError(f"profiled cell: launch counts {launches}, expected {expect}")
+    if [v for _, v in rows] != losses or [s for s, _ in rows] != [
+            TRAIN_BATCH * (i + 1) for i in range(len(losses))]:
+        raise AssertionError(f"profiled cell: the CSV's losses {rows} are not the run's {losses}")
+    if int(prof.flops) != closed or tput_flops != prof.flops or small["cuda"] != small["cpu"] \
+            or small["cuda"][0] != small_closed:
+        raise AssertionError(f"profiled cell: counted {int(prof.flops)} flops against the closed "
+                             f"form {closed}; 2 layers: {small['cuda'][0]} on the card, "
+                             f"{small['cpu'][0]} on the CPU, closed form {small_closed}")
+    if census.total_bytes != allocated or any(census.bucket_bytes[b] != v
+                                              for b, v in expected_bytes.items()):
+        raise AssertionError(f"profiled cell: census {census.bucket_bytes} (total "
+                             f"{census.total_bytes}, allocated {allocated}), expected "
+                             f"{expected_bytes}")
+    if not mon.tb_monitor.enabled and not any("TensorBoard" in m for m in logged.messages):
+        raise AssertionError("profiled cell: the TensorBoard writer is off without its warning")
+    if not span["count"] or span["max"] <= 0:
+        raise AssertionError(f"profiled cell: no train_batch span peak ({span})")
     return launches
 
 
@@ -5673,6 +5861,11 @@ def main() -> int:
     # the training cell under the watchdog, the sentinel and the RAM ring,
     # then the hang, loss-spike and preempt drills under the elastic agent
     resilience_launches = resilience_slices(
+        deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa,
+        unarmed_losses, LINES[f"train {TRAIN_MODEL}"]["step_ms"])
+    # the training cell under the monitor, the telemetry fan-out and both
+    # profilers
+    resilience_launches["profiled"] = profiled_slice(
         deepspeed_tpu_torch.initialize, gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa,
         unarmed_losses, LINES[f"train {TRAIN_MODEL}"]["step_ms"])
     zero_launches, zero_losses, zero_step_ms = zero_slice(

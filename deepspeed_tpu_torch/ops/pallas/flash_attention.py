@@ -37,12 +37,14 @@ which the backward uses to recompute the probabilities.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from deepspeed_tpu_torch.ops.op_builder import CudaKernel
 
@@ -181,6 +183,28 @@ def mha_backward_reference(q, k, v, do, lse, delta, causal: bool = True):
     return (dq, *mha_backward_dkv_reference(q, k, v, do, lse, delta, causal))
 
 
+def einsum_attention_flops(bh: int, t_q: int, t_k: int, d: int, backward: bool = False) -> int:
+    """The matmul flops of plain einsum attention of ``bh`` heads of
+    ``t_q`` queries over ``t_k`` keys at head dim ``d``, the full square as
+    the JAX package's einsum path computes it off the TPU, causal or not:
+    QKᵀ and PV, 2·bh·t_q·t_k·d each, forward; their four transposed
+    products, twice that, backward."""
+    return (8 if backward else 4) * bh * t_q * t_k * d
+
+
+def _counted(q, k, backward: bool):
+    """Report an attention call's flops (:func:`einsum_attention_flops` of
+    q (BH, Tq, D) and k (BH, Tk, D)) to a flop counter running this step
+    (``profiling/flops_profiler`` ``FlopCounter``), which then leaves the
+    aten ops inside uncounted (the plain version's products on the CPU): the
+    count is the same whichever body runs. Nothing without a counter."""
+    for mode in _get_current_dispatch_mode_stack():
+        if hasattr(mode, "opaque"):
+            return mode.opaque(einsum_attention_flops(q.shape[0], q.shape[1], k.shape[1],
+                                                      q.shape[2], backward))
+    return contextlib.nullcontext()
+
+
 def _on_cuda(q, what: str) -> bool:
     """True for a CUDA tensor (the kernel runs), False for a CPU tensor (the
     plain version runs); any other device raises."""
@@ -315,7 +339,8 @@ def _flash_backward(ctx, do, _dlse):
     """:func:`flash_backward` from what the forward saved, as the JAX
     ``_flash_bhtd_fwd`` saves q, k, v, o and lse."""
     q, k, v, o, lse = ctx.saved_tensors
-    dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(), ctx.causal)
+    with _counted(q, k, backward=True):
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do.contiguous(), ctx.causal)
     return dq, dk, dv, None
 
 
@@ -667,7 +692,8 @@ class SparseAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, layout, causal: bool):
-        o, lse = sparse_forward(q, k, v, layout, causal)
+        with _counted(q, k, backward=False):
+            o, lse = sparse_forward(q, k, v, layout, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.layout, ctx.causal = layout, causal
         return o
@@ -675,10 +701,11 @@ class SparseAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        delta = (do.float() * o.float()).sum(dim=-1)
-        dq = sparse_backward_dq(q, k, v, do, lse, delta, ctx.layout, ctx.causal)
-        dk, dv = sparse_backward_dkv(q, k, v, do, lse, delta, ctx.layout, ctx.causal)
+        with _counted(q, k, backward=True):
+            do = do.contiguous()
+            delta = (do.float() * o.float()).sum(dim=-1)
+            dq = sparse_backward_dq(q, k, v, do, lse, delta, ctx.layout, ctx.causal)
+            dk, dv = sparse_backward_dkv(q, k, v, do, lse, delta, ctx.layout, ctx.causal)
         return dq, dk, dv, None, None
 
 

@@ -1,11 +1,15 @@
-"""Render a serving run's telemetry for operators.
+"""Render a run's telemetry for people: the memory and serving summaries.
 
-Counterpart of the part of ``deepspeed_tpu/profiling/report.py`` the
-serving status view uses: :func:`load_metrics_records` (the last record
-per series of a ``metrics.jsonl``), :func:`render_serving_summary` and its
-table helper. Standard library only, so the status view runs on a box with
-no accelerator; the same records render to the same text as ``bin/ds_serve
-status`` prints.
+Counterpart of ``deepspeed_tpu/profiling/report.py``'s
+:func:`load_metrics_records` (the last record per series of a
+``metrics.jsonl``), :func:`format_bytes`, :func:`format_us`,
+:func:`render_memory_summary` (the ``profiling/*`` series) and
+:func:`render_serving_summary` (the ``serving/*`` series). Standard library
+only, so the views run on a box with no accelerator; the same records
+render to the same text as ``bin/ds_metrics --memory`` and ``bin/ds_serve
+status`` print. The fleet views (stragglers, exposed communication, the
+critical path) read the trace aggregation, which the port does not have
+yet.
 """
 
 from __future__ import annotations
@@ -40,6 +44,23 @@ def load_metrics_records(path: str) -> Tuple[List[dict], int]:
     return [last[k] for k in order], bad
 
 
+def format_bytes(n: float) -> str:
+    n = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0 or unit == "TiB":
+            return f"{n:.0f} {unit}" if unit == "B" else f"{n:.2f} {unit}"
+        n /= 1024.0
+    return f"{n:.2f} TiB"
+
+
+def format_us(us: float) -> str:
+    if us >= 1e6:
+        return f"{us / 1e6:.2f} s"
+    if us >= 1e3:
+        return f"{us / 1e3:.2f} ms"
+    return f"{us:.0f} us"
+
+
 def _table(rows: Sequence[Sequence[str]]) -> str:
     widths = [max(len(r[i]) for r in rows) for i in range(len(rows[0]))]
     lines = []
@@ -48,6 +69,76 @@ def _table(rows: Sequence[Sequence[str]]) -> str:
         if i == 0:
             lines.append("  ".join("-" * w for w in widths))
     return "\n".join(lines)
+
+
+# ------------------------------------------------------------- memory summary
+def render_memory_summary(records: List[dict],
+                          source: Optional[str] = None) -> str:
+    """The ``profiling/*`` series of a record list (the last snapshot per
+    series): live bytes by bucket, peak deltas by span, the executable
+    accounting where a run recorded one, the device gauges, leak suspects."""
+    buckets, spans, execu, leaks, device = [], [], [], [], []
+    total = frac = None
+    for rec in records:
+        name = rec.get("name", "")
+        labels = rec.get("labels") or {}
+        if name.startswith("device/"):
+            device.append((name[len("device/"):], rec.get("value", 0)))
+        elif name == "profiling/live_bytes":
+            buckets.append((labels.get("bucket", "?"), rec.get("value", 0)))
+        elif name == "profiling/live_bytes_total":
+            total = rec.get("value", 0)
+        elif name == "profiling/attributed_fraction":
+            frac = rec.get("value")
+        elif name == "profiling/span_peak_bytes":
+            spans.append((labels.get("span", "?"), rec.get("max", 0),
+                          rec.get("p50", 0), rec.get("count", 0)))
+        elif name.startswith("profiling/executable_"):
+            execu.append((name[len("profiling/executable_"):-len("_bytes")],
+                          rec.get("value", 0)))
+        elif name == "profiling/leak_suspects":
+            leaks.append((labels.get("bucket", "?"), rec.get("value", 0)))
+    if not (buckets or spans or execu or leaks or device or total is not None):
+        return ("no profiling/* series found"
+                + (f" in {source}" if source else "")
+                + " — enable the ds_config `profiling` block (and `telemetry`)")
+    out = ["memory profile" + (f": {source}" if source else "")]
+    if buckets:
+        out.append("")
+        out.append("live device bytes by bucket:")
+        for bucket, n in sorted(buckets, key=lambda kv: -kv[1]):
+            out.append(f"  {bucket:<18} {format_bytes(n):>12}")
+        if total is not None:
+            line = f"  {'total live':<18} {format_bytes(total):>12}"
+            if frac is not None:
+                line += f"  ({100.0 * frac:.1f}% attributed)"
+            out.append(line)
+    if execu:
+        # recorded by the JAX package only: CUDA has no compiled program to
+        # read (profiling/memory.py executable_memory)
+        out.append("")
+        out.append("train-step executable (XLA memory_analysis):")
+        for key, n in execu:
+            out.append(f"  {key:<18} {format_bytes(n):>12}")
+    if spans:
+        out.append("")
+        out.append("peak HBM delta by span (max over run):")
+        for span, mx, p50, count in sorted(spans, key=lambda s: -s[1]):
+            out.append(f"  {span:<18} {format_bytes(mx):>12}  "
+                       f"(p50 {format_bytes(p50)}, {int(count)} samples)")
+    if device:
+        out.append("")
+        out.append("device memory (runtime stats, device 0):")
+        for key, n in device:
+            out.append(f"  {key:<18} {format_bytes(n):>12}")
+    out.append("")
+    if leaks:
+        out.append("leak suspects (monotonic live-bytes growth):")
+        for bucket, n in sorted(leaks, key=lambda kv: -kv[1]):
+            out.append(f"  {bucket:<18} flagged {int(n)}x")
+    else:
+        out.append("leak suspects: none")
+    return "\n".join(out)
 
 
 # ------------------------------------------------------------ serving summary

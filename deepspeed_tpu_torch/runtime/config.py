@@ -14,7 +14,10 @@ as in JAX), ``curriculum_learning``, ``dataloader_drop_last``,
 ``progressive_layer_drop``, ``activation_checkpointing``, ``memory_breakdown``,
 ``dump_state``, ``hybrid_engine``, ``compression_training`` (validated as
 ``compression/config.py`` reads it), ``eigenvalue``, ``telemetry`` (the
-session ``telemetry/`` installs), ``serving`` (the front-end of
+session ``telemetry/`` installs, with the ``monitor`` fan-out), the monitor
+blocks ``tensorboard``, ``wandb`` and ``csv_monitor`` (``monitor/``),
+``flops_profiler`` and ``profiling`` (``profiling/``; ``profiling_present``
+says whether the block is there), ``serving`` (the front-end of
 ``serving/``; ``serving_present`` says whether the block is there),
 ``watchdog``, ``rewind`` (``rewind_present``), ``elasticity``
 (``elasticity/config.py``; None without the block), ``steps_per_print``,
@@ -57,16 +60,15 @@ SUPPORTED_KEYS = frozenset({
     "curriculum_learning", "dataloader_drop_last", "progressive_layer_drop", "tpu",
     "activation_checkpointing", "memory_breakdown", "dump_state",
     "hybrid_engine", "compression_training", "eigenvalue", "telemetry", "serving",
-    "watchdog", "rewind", "elasticity", "train_batch_size", "train_micro_batch_size_per_gpu",
+    "watchdog", "rewind", "elasticity", "tensorboard", "wandb", "csv_monitor",
+    "flops_profiler", "profiling", "train_batch_size", "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
 
 # the other top-level keys the JAX package accepts (its KNOWN_TOP_LEVEL_KEYS):
 # each is a later slice of the port
 LATER_KEYS = frozenset({
-    "flops_profiler", "tensorboard", "wandb",
-    "csv_monitor", "pipeline", "gradient_compression",
-    "autotuning", "analysis", "profiling",
+    "pipeline", "gradient_compression", "autotuning", "analysis",
     "perf", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
 })
 
@@ -91,7 +93,7 @@ ADVISORY_NOOP_KEYS = {
         "nebula's tiers and storage paths have no counterpart",
     "zero_allow_untested_optimizer":
         "a client optimizer is a deepspeed_tpu_torch.ops.optimizers.Optimizer, which "
-        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:786 "
+        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:887 "
         "_configure_optimizer): there is no untested-optimizer gate to pass",
     "zero_force_ds_cpu_optimizer":
         "the port has no CPU Adam to force: offload_optimizer cpu keeps the state in "
@@ -100,7 +102,7 @@ ADVISORY_NOOP_KEYS = {
         "(runtime/swap_tensor/optimizer_swapper.py)",
     "timers":
         "throughput timing is always on (ThroughputTimer, utils/timer.py; the engine's "
-        "tput_timer, runtime/engine.py:341) and the synchronized breakdown is the "
+        "tput_timer, runtime/engine.py:355) and the synchronized breakdown is the "
         "wall_clock_breakdown knob: set that instead",
 }
 
@@ -313,6 +315,79 @@ class CommsLoggerConfig(DeepSpeedConfigModel):
     prof_all: bool = True
     debug: bool = False
     prof_ops: list = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class FlopsProfilerConfig(DeepSpeedConfigModel):
+    """The flops_profiler block (``profiling/flops_profiler/``): the engine
+    counts the matmul and convolution flops of the step that becomes
+    ``profile_step`` and prints the profile after it; ``recompute_fwd_factor``
+    parses and changes nothing, as in JAX."""
+    enabled: bool = False
+    recompute_fwd_factor: float = 0.0
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+    def __post_init__(self):
+        _check_min(self, recompute_fwd_factor=(0.0, False))
+
+
+@dataclasses.dataclass
+class TensorboardConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass
+class WandbConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: str = "deepspeed"
+
+
+@dataclasses.dataclass
+class CSVConfig(DeepSpeedConfigModel):
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass
+class MonitorConfig(DeepSpeedConfigModel):
+    """The three monitor writers' blocks (``monitor/monitor.py``), each a
+    top-level ds_config key."""
+    tensorboard: TensorboardConfig = dataclasses.field(default_factory=TensorboardConfig)
+    wandb: WandbConfig = dataclasses.field(default_factory=WandbConfig)
+    csv_monitor: CSVConfig = dataclasses.field(default_factory=CSVConfig)
+
+
+@dataclasses.dataclass
+class ProfilingConfig(DeepSpeedConfigModel):
+    """The profiling block (``profiling/memory.py``): the census of the
+    card's allocated bytes by the engine's state (params, fp32 masters,
+    optimizer state, gradient buffers, the rest) every ``sample_interval``
+    steps and at step 1, per-span peak deltas on the telemetry tracer
+    (``span_memory``), and the leak sentinel over ``leak_window`` samples.
+    ``executable_analysis`` asks for XLA's ``memory_analysis``, which has no
+    CUDA counterpart: it records nothing and says so once. Its presence
+    arms it (``enabled`` false keeps it present and off); without it the
+    module is never imported."""
+    enabled: bool = True
+    sample_interval: int = 10
+    memory: bool = True
+    span_memory: bool = True
+    executable_analysis: bool = True
+    leak_window: int = 5
+    leak_min_growth_bytes: int = 1 << 20
+
+    def __post_init__(self):
+        _check_min(self, sample_interval=(0, True), leak_window=(2, False),
+                   leak_min_growth_bytes=(0, False))
 
 
 @dataclasses.dataclass
@@ -587,8 +662,8 @@ class TelemetryConfig(DeepSpeedConfigModel):
     (counters, gauges, p50/p90/p99 histograms) and Chrome-trace spans,
     exported to JSONL and Prometheus text by process 0. ``inference``
     makes ``generate`` observed (a host sync at prefill's end, the
-    ``inference/*`` series). ``monitor`` (the TensorBoard / W&B / CSV
-    fan-out) needs ``monitor/``, a later slice, and raises."""
+    ``inference/*`` series). ``monitor`` fans the registry out through the
+    engine's monitor writers as ``Telemetry/*`` tags."""
     enabled: bool = False
     output_dir: str = "./ds_telemetry"
     jsonl: bool = True
@@ -604,9 +679,6 @@ class TelemetryConfig(DeepSpeedConfigModel):
     def __post_init__(self):
         _check_min(self, flush_interval=(0, True), histogram_max_samples=(0, True),
                    max_trace_events=(0, True))
-        if self.monitor:
-            raise NotImplementedError("ds_config telemetry.monitor=true (the MonitorMaster "
-                                      "fan-out) needs monitor/, a later slice of the port")
 
 
 @dataclasses.dataclass
@@ -722,6 +794,13 @@ class DeepSpeedConfig:
         self.eigenvalue_config = EigenvalueConfig.from_dict(pd.get("eigenvalue", {}))
         self.eigenvalue_enabled = self.eigenvalue_config.enabled
         self.telemetry = TelemetryConfig.from_dict(pd.get("telemetry", {}))
+        self.flops_profiler_config = FlopsProfilerConfig.from_dict(pd.get("flops_profiler", {}))
+        self.monitor_config = MonitorConfig.from_dict(
+            {k: pd[k] for k in ("tensorboard", "wandb", "csv_monitor") if k in pd})
+        # presence matters, as in JAX: without the block the memory profiler
+        # is never imported and no census runs
+        self.profiling = ProfilingConfig.from_dict(pd.get("profiling", {}))
+        self.profiling_present = "profiling" in pd
         self.serving = ServingConfig.from_dict(pd.get("serving", {}))
         self.serving_present = "serving" in pd
         self.watchdog = WatchdogConfig.from_dict(pd.get("watchdog", {}))

@@ -133,12 +133,24 @@ timeout or a fault after its first launch) leaves the state half updated:
 the engine then refuses ``train_batch`` and ``step`` until a whole-state
 restore (``load_checkpoint``, which the sentinel's rewind also is).
 
+Monitoring and profiling, each a strict no-op when its block is absent (as
+in JAX): the ``tensorboard``, ``wandb`` and ``csv_monitor`` blocks make the
+engine's ``MonitorMaster`` (``monitor/``) write ``Train/Samples/train_loss``
+and ``Train/Samples/lr`` at ``global_samples`` every step, on process 0, and
+``telemetry.monitor`` fans the telemetry series out through it;
+``flops_profiler`` counts the matmul and convolution flops of the step that
+becomes ``profile_step`` while it runs (``profiling/flops_profiler/``),
+prints the profile after it and gives the count to the throughput timer's
+EstTFLOPs and the ``train/flops_per_batch`` gauge; ``profiling`` samples the
+census of the card's memory by the engine's state after the telemetry step
+and wraps the telemetry tracer for per-span peaks
+(``profiling/memory.py``); ``memory_census()`` takes a census on demand.
+
 The engine runs on CUDA unless it is given ``device="cpu"``; without a card
 it raises. Its process group is the default one when one is initialized
 (NCCL for a CUDA engine, gloo for a CPU one; any other pairing raises), and
 without one it is a world of one that issues no collective. Model
-parallelism and the observability blocks are later slices and raise when
-configured.
+parallelism is a later slice and raises when configured.
 """
 
 from __future__ import annotations
@@ -149,6 +161,7 @@ import functools
 import inspect
 import os
 import tempfile
+import time
 import weakref
 from typing import Any, List, Mapping, NamedTuple, Optional
 
@@ -158,6 +171,7 @@ import torch
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch import telemetry as _telemetry
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.monitor.monitor import MonitorMaster
 from deepspeed_tpu_torch.ops.optimizers import AdamState, Optimizer, build_optimizer
 from deepspeed_tpu_torch.parallel.topology import ParallelGrid
 from deepspeed_tpu_torch.resilience import chaos as _chaos
@@ -343,10 +357,12 @@ class DeepSpeedEngine:
             sync_every_step=self.wall_clock_breakdown,
             synchronize=functools.partial(torch.cuda.synchronize, self.device) if on_card
             else (lambda: None))
+        self.monitor = MonitorMaster(self._config.monitor_config)
         # the process-wide telemetry session (telemetry/): None when the
         # block is off; the per-step hooks read the live session, so one a
         # caller installs gets the same series
-        self.telemetry = _telemetry.configure(self._config.telemetry)
+        self.telemetry = _telemetry.configure(self._config.telemetry, monitor=self.monitor)
+        self._init_profiling()
         self._last_save = None
         self._last_recovery = None
         self._init_resilience()
@@ -397,6 +413,91 @@ class DeepSpeedEngine:
                  f"device={self.device}, dp={self.dp_world_size}, "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()}, "
                  f"gas={self._config.gradient_accumulation_steps}", ranks=[0])
+
+    # ------------------------------------------------------------- profiling
+    def _init_profiling(self) -> None:
+        """The ``flops_profiler`` and ``profiling`` blocks. The memory
+        profiler's module is imported only with an enabled ``profiling``
+        block; with ``span_memory`` it wraps the live session's tracer, so
+        every span records its peak device memory above its entry."""
+        self.flops_profiler_cfg = self._config.flops_profiler_config
+        self.flops_profile = None       # the FlopsProfiler of the profiled step
+        self._mem_profiler = None
+        prof = self._config.profiling
+        if not (self._config.profiling_present and prof.enabled):
+            return
+        from deepspeed_tpu_torch.profiling.memory import (MemoryProfiler, SpanMemoryTracer,
+                                                          device_memory_stats)
+
+        self._mem_profiler = MemoryProfiler(
+            sample_interval=prof.sample_interval, memory=prof.memory,
+            executable_analysis=prof.executable_analysis, leak_window=prof.leak_window,
+            leak_min_growth_bytes=prof.leak_min_growth_bytes)
+        session = _telemetry.get_session()
+        if prof.span_memory and session is not None \
+                and session.tracer is not _telemetry.NOOP_TRACER \
+                and not isinstance(session.tracer, SpanMemoryTracer):
+            session.tracer = SpanMemoryTracer(session.tracer, device_memory_stats(self.device))
+
+    def _flops_profile_due(self) -> bool:
+        """Whether the step about to run is ``flops_profiler.profile_step``.
+        The NVMe optimizer's host-side step is not profiled, as in JAX."""
+        cfg = self.flops_profiler_cfg
+        if not cfg.enabled or self._global_step + 1 != cfg.profile_step:
+            return False
+        if self._nvme_optimizer is not None:
+            logger.warning("flops profiler: unsupported for the NVMe-offload optimizer path "
+                           "(host-side stepping); skipping")
+            return False
+        return True
+
+    def _profiled_train_batch(self, batch, gas: int) -> torch.Tensor:
+        """One ``_train_batch`` under the flops profiler's counter, its
+        latency from CUDA events on the card (the host clock on the CPU).
+        The count gives the throughput timer's EstTFLOPs and the
+        ``train/flops_per_batch`` gauge."""
+        from deepspeed_tpu_torch.profiling.flops_profiler.profiler import FlopsProfiler
+
+        prof = FlopsProfiler(self.module, ds_engine=self)
+        on_card = self.device.type == "cuda"
+        if on_card:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        t0 = time.perf_counter()
+        prof.start_profile()
+        try:
+            mean_loss = self._train_batch(batch, gas)
+        finally:
+            prof.stop_profile()
+        if on_card:
+            end.record()
+            end.synchronize()
+            prof.duration = start.elapsed_time(end) / 1e3
+        else:
+            prof.duration = time.perf_counter() - t0
+        prof.params = self._numel
+        self.flops_profile = prof
+        self.tput_timer.set_flops_per_batch(prof.flops)
+        _telemetry.get_registry().gauge("train/flops_per_batch").set(prof.flops)
+        return mean_loss
+
+    def _print_flops_profile(self) -> None:
+        cfg = self.flops_profiler_cfg
+        if comm.get_rank() == 0:
+            self.flops_profile.print_model_profile(
+                profile_step=cfg.profile_step, module_depth=cfg.module_depth,
+                top_modules=cfg.top_modules, detailed=cfg.detailed,
+                output_file=cfg.output_file)
+
+    def memory_census(self):
+        """A census of the card's allocated bytes by this engine's state
+        (params, masters, optimizer state, gradient buffers, the rest as
+        ``other``; a ``profiling.memory.CensusResult``), with or without the
+        ``profiling`` block: the interactive entry point, where the block is
+        the sampling one."""
+        from deepspeed_tpu_torch.profiling.memory import census, named_engine_tensors
+
+        return census(named_engine_tensors(self), device=self.device)
 
     # ------------------------------------------------------------ resilience
     def _init_watchdog(self) -> None:
@@ -991,9 +1092,15 @@ class DeepSpeedEngine:
                                  BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER])
             if self._config.memory_breakdown:
                 see_memory_usage(f"after step {step}", force=True)
+        if self.monitor.enabled:
+            self.monitor.write_events([
+                ("Train/Samples/train_loss", float(metrics.loss), self.global_samples),
+                ("Train/Samples/lr", float(metrics.lr), self.global_samples)])
         session = _telemetry.get_session()
         if session is not None:
             self._record_step_telemetry(session, metrics, step)
+        if self._mem_profiler is not None:
+            self._mem_profiler.maybe_sample(self, step)
 
     def _record_step_telemetry(self, session, metrics: StepMetrics, step: int) -> None:
         """The JAX engine's per-step series and the flush cadence, on the
@@ -1061,8 +1168,9 @@ class DeepSpeedEngine:
         inj = _chaos.active_injector()
         if inj is not None and inj.targets("train_step"):
             inj.before("train_step", f"step={self._global_step + 1}")
+        profile = self._flops_profile_due()
         with tracer.span("train_batch", step=self._global_step):
-            mean_loss = self._train_batch(batch, gas)
+            mean_loss = (self._profiled_train_batch if profile else self._train_batch)(batch, gas)
         if self._consistency_interval and self._global_step % self._consistency_interval == 0:
             from deepspeed_tpu_torch.resilience.consistency import check_step_agreement
 
@@ -1073,6 +1181,8 @@ class DeepSpeedEngine:
         if self.eigenvalue is not None:
             with tracer.span("eigenvalue", step=self._global_step):
                 self._maybe_update_eigenvalue(batch)
+        if profile:
+            self._print_flops_profile()
         return mean_loss
 
     def _train_batch(self, batch, gas: int) -> torch.Tensor:

@@ -78,7 +78,12 @@ class ZeroInfinityEngine:
             ("watchdog", ds_config.watchdog.enabled),
             ("rewind", ds_config.rewind_present and ds_config.rewind.enabled),
             ("resilience.sentinel", ds_config.resilience.sentinel.enabled),
-            ("resilience.chaos", ds_config.resilience.chaos.enabled)) if on]
+            ("resilience.chaos", ds_config.resilience.chaos.enabled),
+            ("tensorboard", ds_config.monitor_config.tensorboard.enabled),
+            ("wandb", ds_config.monitor_config.wandb.enabled),
+            ("csv_monitor", ds_config.monitor_config.csv_monitor.enabled),
+            ("flops_profiler", ds_config.flops_profiler_config.enabled),
+            ("profiling", ds_config.profiling_present and ds_config.profiling.enabled)) if on]
         if armed:
             raise NotImplementedError(f"the {armed} block(s) with param-NVMe training (the "
                                       "layerwise engine keeps its state in files and has no "

@@ -11,16 +11,16 @@ owns:
   Chrome-trace/Perfetto JSON spans for the host-visible phases;
 * exporters: append-only JSONL (``bin/ds_metrics`` renders it) and the
   Prometheus text exposition, written by process 0 only (the
-  ``torch.distributed`` rank).
+  ``torch.distributed`` rank), and with ``monitor`` the engine's
+  ``MonitorMaster`` fan-out (TensorBoard / W&B / CSV get the series as
+  ``Telemetry/*`` tags).
 
 Enabled by the ``telemetry`` ds_config block (the training engine's init
 and the serving front-end's ``from_ds_config`` call :func:`configure`);
 when off, :func:`get_registry` / :func:`get_tracer` return shared no-op
 singletons, so every instrumentation point costs one call into a ``pass``.
 Instrumented code never holds the registry across a reconfigure: it
-re-fetches through the module functions. The JAX package's monitor fan-out
-(``MonitorExporter``) waits for ``monitor/``: ``telemetry.monitor`` true
-raises at config time.
+re-fetches through the module functions.
 """
 
 from __future__ import annotations
@@ -29,7 +29,8 @@ import atexit
 import os
 from typing import Optional
 
-from deepspeed_tpu_torch.telemetry.exporters import JSONLExporter, PrometheusExporter
+from deepspeed_tpu_torch.telemetry.exporters import (JSONLExporter, MonitorExporter,
+                                                     PrometheusExporter)
 from deepspeed_tpu_torch.telemetry.registry import (NOOP_REGISTRY, Counter, Gauge, Histogram,
                                                     MetricsRegistry, NoopRegistry)
 from deepspeed_tpu_torch.telemetry.tracing import NOOP_TRACER, NoopTracer, StepTracer
@@ -38,7 +39,7 @@ from deepspeed_tpu_torch.utils.logging import logger
 __all__ = [
     "MetricsRegistry", "NoopRegistry", "Counter", "Gauge", "Histogram",
     "StepTracer", "NoopTracer", "TelemetrySession", "JSONLExporter",
-    "PrometheusExporter", "configure", "install_session",
+    "PrometheusExporter", "MonitorExporter", "configure", "install_session",
     "deconfigure", "get_session", "get_registry", "get_tracer", "flush",
     "METRICS_FILE", "PROMETHEUS_FILE", "TRACE_FILE",
 ]
@@ -59,12 +60,11 @@ class TelemetrySession:
 
     File exporters exist only on process 0; the session still collects on
     every rank. Traces are per rank (``trace.json`` on rank 0,
-    ``trace.rank<N>.json`` beside it on the others)."""
+    ``trace.rank<N>.json`` beside it on the others). With ``cfg.monitor``
+    and a ``monitor`` (the engine's ``MonitorMaster``, which gates itself
+    to process 0) the series also go to its writers."""
 
-    def __init__(self, cfg):
-        if getattr(cfg, "monitor", False):
-            raise NotImplementedError("telemetry.monitor (the MonitorMaster fan-out) needs "
-                                      "monitor/, a later slice of the port")
+    def __init__(self, cfg, monitor=None):
         self.cfg = cfg
         self.source = "manual"          # "config" when installed by configure()
         self.registry = MetricsRegistry(
@@ -88,6 +88,8 @@ class TelemetrySession:
             os.makedirs(cfg.output_dir, exist_ok=True)
             self.trace_path = os.path.join(cfg.output_dir, name)
             _rotate_stale_trace(self.trace_path)
+        if cfg.monitor and monitor is not None:
+            self.exporters.append(MonitorExporter(monitor))
         self._last_step = 0
 
     def step_end(self, step: int) -> None:
@@ -133,9 +135,10 @@ _session: Optional[TelemetrySession] = None
 _atexit_registered = False
 
 
-def configure(cfg=None) -> Optional[TelemetrySession]:
+def configure(cfg=None, monitor=None) -> Optional[TelemetrySession]:
     """Install (or tear down) the process-wide session from a ds_config
-    ``telemetry`` block. A disabled block removes only a previous
+    ``telemetry`` block, fanning out through ``monitor`` when the block's
+    ``monitor`` is on. A disabled block removes only a previous
     config-installed session: a new engine does not inherit the last
     engine's session, and a test's manual install stays."""
     global _session, _atexit_registered
@@ -146,7 +149,7 @@ def configure(cfg=None) -> Optional[TelemetrySession]:
         return None
     if _session is not None:
         _flush_quietly(_session)          # the old session's data lands first
-    s = TelemetrySession(cfg)
+    s = TelemetrySession(cfg, monitor=monitor)
     s.source = "config"
     _session = s
     if not _atexit_registered:

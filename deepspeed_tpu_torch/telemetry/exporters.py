@@ -1,14 +1,15 @@
-"""Exporters: registry snapshots → JSONL event log / Prometheus text.
+"""Exporters: registry snapshots → JSONL event log / Prometheus text /
+monitor fan-out.
 
 Counterpart of ``deepspeed_tpu/telemetry/exporters.py`` with the same
-record schema and text format, so ``bin/ds_metrics`` and ``bin/ds_serve
-status`` read a port run's directory as they read a JAX run's. File
-exporters are written by process 0 only (the session gates them). The
-Prometheus file is rewritten atomically each flush (textfile-collector
-convention); the JSONL log is append-only, one JSON object per metric per
-flush. The JAX package's ``MonitorExporter`` (the TensorBoard / W&B / CSV
-fan-out) needs ``monitor/``, a later slice: ``telemetry.monitor: true``
-raises at config time.
+record schema, text format and monitor tags, so ``bin/ds_metrics`` and
+``bin/ds_serve status`` read a port run's directory as they read a JAX
+run's. File exporters are written by process 0 only (the session gates
+them). The Prometheus file is rewritten atomically each flush
+(textfile-collector convention); the JSONL log is append-only, one JSON
+object per metric per flush; :class:`MonitorExporter` hands the series to
+the engine's ``MonitorMaster`` (TensorBoard / W&B / CSV), which writes on
+process 0 only.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import re
 import time
 from typing import List, Optional
+
+from deepspeed_tpu_torch.utils.logging import logger
 
 
 _PROM_NAME = re.compile(r"[^a-zA-Z0-9_:]")
@@ -96,3 +99,32 @@ class PrometheusExporter:
         with open(tmp, "w") as f:
             f.write(self.render(snapshot))
         os.replace(tmp, self.path)
+
+
+class MonitorExporter:
+    """The registry through a ``MonitorMaster`` (``monitor/monitor.py``):
+    counters and gauges export their value, histograms their p50 under
+    ``<tag>/p50``. Tags are ``Telemetry/<name>[/<k>=<v>...]`` (labels sorted),
+    apart from the engine's own ``Train/Samples/*`` events."""
+
+    def __init__(self, monitor):
+        self.monitor = monitor
+
+    def export(self, snapshot: List[dict], step: Optional[int] = None) -> None:
+        if not getattr(self.monitor, "enabled", False):
+            return
+        s = int(step or 0)
+        events = []
+        for rec in snapshot:
+            tag = "Telemetry/" + rec["name"]
+            if rec.get("labels"):
+                tag += "/" + "/".join(f"{k}={v}" for k, v in sorted(rec["labels"].items()))
+            if rec["kind"] in ("counter", "gauge"):
+                events.append((tag, float(rec["value"]), s))
+            else:
+                events.append((tag + "/p50", float(rec["p50"]), s))
+        if events:
+            try:
+                self.monitor.write_events(events)
+            except Exception as e:  # noqa: BLE001 - a wedged writer must not stop training
+                logger.warning(f"telemetry monitor fan-out failed: {e}")

@@ -59,7 +59,10 @@ and scatter on the card equal the CPU's. The RLHF actor: the hybrid
 engine's one captured decode graph, replayed after each step, gives the
 eager loop's tokens on the updated params (stages 0, 2, 3 and under MoQ);
 fake quantization and the pruning masks on the card equal the CPU's bit
-for bit; the eigenvalue estimate launches no K1 or K2.
+for bit; the eigenvalue estimate launches no K1 or K2. Monitoring and
+profiling: the flops profiler counts a step through K1/K2 on the card as
+it counts the plain step on the CPU, and the memory census's total is the
+allocator's.
 """
 
 import dataclasses
@@ -1709,3 +1712,59 @@ def test_ram_snapshot_roundtrips_on_the_card(gen, tmp_path):
         assert [float(eng.train_batch(batch)) for _ in range(2)] == after
     finally:
         rw.clear_ram_snapshots()
+
+
+# -------------------------------------------------- monitoring and profiling
+def test_flops_count_on_the_card_equals_the_cpu_count(gen, tmp_path):
+    """The flops profiler's count of a bf16 step through K1/K2 on the card
+    equals the count of the same step on the CPU (the plain attention),
+    scope by scope: the attention ops report the einsum formula whichever
+    body runs. The profiled step launches K1 and each K2 entry once a layer."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    config = {**RESUME_CONFIG, "flops_profiler": {"enabled": True, "profile_step": 2},
+              "csv_monitor": {"enabled": True, "output_path": str(tmp_path)}}
+    profiles = {}
+    for device in ("cuda", "cpu"):
+        eng, *_ = deepspeed_tpu_torch.initialize(model=_resume_model(), config=dict(config),
+                                                 device=device)
+        batch = synthetic_lm_batch(4, 128, 1024, seed=5, device=device)
+        eng.train_batch(batch)
+        before = (tfa.KERNEL.launches, dict(tfa.BWD_KERNEL.entry_launches))
+        eng.train_batch(batch)
+        if device == "cuda":
+            assert tfa.KERNEL.launches - before[0] == 2
+            assert {k: v - before[1].get(k, 0) for k, v in tfa.BWD_KERNEL.entry_launches.items()} \
+                == {"flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
+        profiles[device] = (eng.flops_profile.flops, eng.flops_profile.per_scope,
+                            eng.tput_timer.flops_per_batch)
+        eng.monitor.csv_monitor.close()
+    assert profiles["cuda"] == profiles["cpu"]
+    assert profiles["cuda"][0] > 0
+
+
+def test_census_total_is_the_allocators_on_the_card(gen, tmp_path):
+    """The census total is ``torch.cuda.memory_allocated()``; the params,
+    masters and Adam moments hold 2, 4 and 8 bytes a parameter; the
+    train_batch span records its peak above its entry."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    config = {**RESUME_CONFIG, "profiling": {"sample_interval": 1},
+              "telemetry": {"enabled": True, "output_dir": str(tmp_path), "flush_interval": 100}}
+    try:
+        eng, *_ = deepspeed_tpu_torch.initialize(model=_resume_model(), config=config)
+        eng.train_batch(synthetic_lm_batch(4, 128, 1024, seed=6, device="cuda"))
+        res = eng.memory_census()
+        assert res.total_bytes == torch.cuda.memory_allocated()
+        n = sum(p.numel() for p in eng.module.parameters())
+        assert (res.bucket_bytes["params"], res.bucket_bytes["master"],
+                res.bucket_bytes["optimizer_state"]) == (2 * n, 4 * n, 8 * n)
+        assert res.other_bytes == res.total_bytes - res.attributed_bytes >= 0
+        snap = {(r["name"], tuple(sorted(r["labels"].items()))): r
+                for r in telemetry.get_registry().snapshot()}
+        peak = snap[("profiling/span_peak_bytes", (("span", "train_batch"),))]
+        assert peak["count"] == 1 and peak["max"] > 0
+        assert snap[("profiling/live_bytes_total", ())]["value"] > 0
+    finally:
+        telemetry.deconfigure()

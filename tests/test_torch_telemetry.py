@@ -11,8 +11,15 @@ the JAX engine's ``train/*`` series and spans (the JAX engine also writes
 ``device/*`` gauges of 0 where its CPU backend reports no memory; the
 port writes them on the card only). An observed ``generate`` writes the
 ``inference/*`` series, and ``model_times()`` keeps the JAX contract.
+
+The JAX engines whose spans are compared run in a fresh process
+(``tests/jax_process.py``): a JAX ``goodput`` test earlier in the same
+worker installs a process-wide compile listener that adds ``compile``
+spans to every later JAX series, and the comparison holds with it
+installed here.
 """
 
+import inspect
 import json
 import os
 
@@ -22,15 +29,13 @@ import numpy as np
 import pytest
 import torch
 
-import deepspeed_tpu
 import deepspeed_tpu_torch
 from deepspeed_tpu import telemetry as jtel
-from deepspeed_tpu.comm import comm as jcomm
-from deepspeed_tpu.models import gpt2 as jgpt2
 from deepspeed_tpu.runtime.config import TelemetryConfig as JTelemetryConfig
 from deepspeed_tpu_torch import telemetry as ttel
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.runtime.config import TelemetryConfig as TTelemetryConfig
+from tests.jax_process import run_jax
 
 SMALL = dict(vocab_size=256, n_positions=64, n_embd=64, n_layer=2, n_head=4)
 
@@ -137,39 +142,73 @@ def test_disabled_block_is_the_noop_registry(tmp_path):
     ttel.install_session(manual)
     ttel.configure(TTelemetryConfig(enabled=False))
     assert ttel.get_session() is manual
-    with pytest.raises(NotImplementedError, match="monitor"):
-        TTelemetryConfig(enabled=True, monitor=True)
+    # the monitor fan-out parses; without a monitor the session adds no exporter
+    cfg = TTelemetryConfig.from_dict({"enabled": True, "monitor": True,
+                                      "output_dir": str(tmp_path / "m")})
+    assert cfg.monitor and not any(isinstance(e, ttel.MonitorExporter)
+                                   for e in ttel.TelemetrySession(cfg).exporters)
 
 
-def test_training_steps_write_the_jax_series(tmp_path):
-    from deepspeed_tpu.models.simple import SimpleModel as JSimple
+_TRAIN_CONFIG = {"train_batch_size": 8, "steps_per_print": 0,
+                 "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
+
+
+def _training_series(d):
+    """(the train/* series with their kinds, the steps and values of
+    train/steps, the names of the complete spans) of a run's files."""
+    records = [json.loads(line) for line in open(os.path.join(d, "metrics.jsonl"))]
+    trace = json.load(open(os.path.join(d, "trace.json")))
+    return [[list(nk) for nk in sorted({(r["name"], r["kind"]) for r in records
+                                        if r["name"].startswith("train/")})],
+            [r["step"] for r in records if r["name"] == "train/steps"],
+            [r["value"] for r in records if r["name"] == "train/steps"],
+            [e["name"] for e in trace["traceEvents"] if e["ph"] == "X"]]
+
+
+_JAX_TRAINING = inspect.getsource(_training_series) + """
+import numpy as np
+import deepspeed_tpu
+from deepspeed_tpu import telemetry as jtel
+from deepspeed_tpu.models.simple import SimpleModel
+
+batch = (np.ones((8, 16), np.float32), np.zeros((8, 16), np.float32))
+train_dir = os.path.join(OUT, "training")
+config = {**INPUTS["config"], "telemetry": {"enabled": True, "output_dir": train_dir,
+                                            "flush_interval": 1}}
+engine, *_ = deepspeed_tpu.initialize(model=SimpleModel(hidden_dim=16, nlayers=2), config=config)
+for _ in range(3):
+    engine.train_batch(batch)
+jtel.deconfigure()
+TRAINING = _training_series(train_dir)
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_side(tmp_path_factory):
+    """The JAX engines' series of this module, from one fresh process:
+    {"training": the 3 steps' series, "generate": the observed generate's}."""
+    ids = np.random.RandomState(0).randint(0, 256, size=(2, 6)).astype(np.int32)
+    out = tmp_path_factory.mktemp("jax")
+    result = run_jax(_JAX_TRAINING + _JAX_GENERATE, str(out), config=_TRAIN_CONFIG,
+                     small=SMALL, ids=ids.tolist())
+    return {**result, "ids": ids, "params": os.path.join(out, "params.npz")}
+
+
+def _compare_training_series(tmp_path, want):
     from deepspeed_tpu_torch.models.simple import SimpleModel as TSimple
 
     batch = (np.ones((8, 16), np.float32), np.zeros((8, 16), np.float32))
-    series = {}
-    for side, init, Simple, tel in (
-            ("jax", deepspeed_tpu.initialize, JSimple, jtel),
-            ("torch", deepspeed_tpu_torch.initialize, TSimple, ttel)):
-        d = tmp_path / side
-        config = {"train_batch_size": 8, "steps_per_print": 0,
-                  "optimizer": {"type": "adamw", "params": {"lr": 1e-3}},
-                  "telemetry": {"enabled": True, "output_dir": str(d), "flush_interval": 1}}
-        kw = {"device": "cpu"} if side == "torch" else {}
-        if side == "jax":
-            jcomm.cdb = None
-        engine, *_ = init(model=Simple(hidden_dim=16, nlayers=2), config=config, **kw)
-        for _ in range(3):
-            engine.train_batch(batch)
-        tel.deconfigure()
-        records = [json.loads(line) for line in (d / "metrics.jsonl").read_text().splitlines()]
-        trace = json.loads((d / "trace.json").read_text())
-        series[side] = (
-            sorted({(r["name"], r["kind"]) for r in records if r["name"].startswith("train/")}),
-            [r["step"] for r in records if r["name"] == "train/steps"],
-            [r["value"] for r in records if r["name"] == "train/steps"],
-            [e["name"] for e in trace["traceEvents"] if e["ph"] == "X"])
-    assert series["torch"] == series["jax"]
-    names, steps, counts, spans = series["torch"]
+    d = tmp_path / "torch"
+    config = {**_TRAIN_CONFIG, "telemetry": {"enabled": True, "output_dir": str(d),
+                                             "flush_interval": 1}}
+    engine, *_ = deepspeed_tpu_torch.initialize(model=TSimple(hidden_dim=16, nlayers=2),
+                                                config=config, device="cpu")
+    for _ in range(3):
+        engine.train_batch(batch)
+    ttel.deconfigure()
+    got = json.loads(json.dumps(_training_series(str(d))))
+    assert got == want
+    names, steps, counts, spans = got
     assert [n for n, _ in names] == ["train/grad_norm", "train/loss", "train/lr",
                                      "train/samples", "train/steps"]
     # a flush each step (flush_interval 1), and the deconfigure's at the end
@@ -177,46 +216,117 @@ def test_training_steps_write_the_jax_series(tmp_path):
     assert spans == ["data", "train_batch"] * 3
 
 
-def _inference_engines():
-    jcfg = jgpt2.GPT2Config(**SMALL, dtype=jnp.float32, remat=False)
-    params = jgpt2.GPT2Model(jcfg).init_params(jax.random.PRNGKey(0))
-    jcomm.cdb = None
-    je = deepspeed_tpu.init_inference(jgpt2.GPT2Model(jcfg),
-                                      config={"dtype": "float32", "max_out_tokens": 32},
-                                      params=params)
+def test_training_steps_write_the_jax_series(tmp_path, jax_side):
+    _compare_training_series(tmp_path, jax_side["training"])
+
+
+def test_span_comparison_holds_with_the_compile_listener_installed(tmp_path, jax_side):
+    """The JAX goodput meter's process-wide compile listener, installed in
+    this process first (as an earlier test in the worker may), leaves the
+    comparison as it is: the JAX series are built in a fresh process. The
+    listener is removed again afterwards unless it was there before."""
+    import jax.monitoring as mon
+    from jax._src import monitoring as _mon
+
+    from deepspeed_tpu.goodput import recorder
+
+    was = recorder._LISTENER["installed"]
+    before = list(_mon.get_event_duration_listeners())
+    assert recorder.install_compile_listener()
+    try:
+        # the listener is live in this process: a JAX compile here with a
+        # session on adds a compile span (what broke the in-process comparison)
+        jtel.configure(JTelemetryConfig(enabled=True, output_dir=str(tmp_path / "probe")))
+        jax.jit(lambda x: x * 3.0 + 1.0)(jnp.arange(7.0)).block_until_ready()
+        assert "compile" in [e["name"] for e in jtel.get_tracer().events]
+        jtel.deconfigure()
+        _compare_training_series(tmp_path, jax_side["training"])
+    finally:
+        if not was:
+            for cb in _mon.get_event_duration_listeners():
+                if cb not in before:
+                    mon.unregister_event_duration_listener(cb)
+            recorder._LISTENER["installed"] = False
+
+
+_JAX_GENERATE = """
+import numpy as np
+import jax.numpy as jnp
+import deepspeed_tpu
+from deepspeed_tpu import telemetry as jtel
+from deepspeed_tpu.models import gpt2 as jgpt2
+from deepspeed_tpu.runtime.config import TelemetryConfig
+
+jcfg = jgpt2.GPT2Config(**INPUTS["small"], dtype=jnp.float32, remat=False)
+params = jgpt2.GPT2Model(jcfg).init_params(jax.random.PRNGKey(0))
+np.savez(os.path.join(OUT, "params.npz"), **{
+    "/".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+    for path, v in jax.tree_util.tree_flatten_with_path(params)[0]})
+eng = deepspeed_tpu.init_inference(jgpt2.GPT2Model(jcfg),
+                                   config={"dtype": "float32", "max_out_tokens": 32},
+                                   params=params)
+ids = np.asarray(INPUTS["ids"], np.int32)
+try:
+    eng.model_times()
+    refused = ""
+except AssertionError as e:
+    refused = str(e)
+jtel.configure(TelemetryConfig(enabled=True, output_dir=os.path.join(OUT, "generate")))
+out = np.asarray(eng.generate(ids, max_new_tokens=5))
+eng.profile_model_time()
+eng.generate(ids, max_new_tokens=5)
+eng.forward(ids)
+times = eng.model_times()
+snap = {r["name"]: r for r in jtel.get_registry().snapshot()}
+spans = [(e["name"], e["cat"], e["args"]) for e in jtel.get_tracer().events]
+jtel.deconfigure()
+RESULT = {"training": TRAINING,
+          "generate": [out.tolist(), refused, all(t > 0 for t in times), len(times),
+                       eng.model_times(),
+                       {n: (r.get("value"), r.get("count")) for n, r in snap.items()}, spans]}
+"""
+
+
+def _params_from_npz(path) -> dict:
+    """The JAX params tree (``wte``, ``blocks/<key>`` ...) from the flat npz."""
+    tree = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            *heads, leaf = key.split("/")
+            for h in heads:
+                node = node.setdefault(h, {})
+            node[leaf] = z[key]
+    return tree
+
+
+def test_observed_generate_and_model_times(tmp_path, jax_side):
+    ids, want = jax_side["ids"], jax_side["generate"]
     te = deepspeed_tpu_torch.init_inference(
-        tgpt2.params_from_jax(jax.tree.map(np.asarray, params),
+        tgpt2.params_from_jax(_params_from_npz(jax_side["params"]),
                               tgpt2.GPT2Config(**SMALL, dtype=torch.float32)),
         {"dtype": "float32", "max_out_tokens": 32}, device="cpu")
-    return je, te
-
-
-def test_observed_generate_and_model_times(tmp_path):
-    je, te = _inference_engines()
-    ids = np.random.RandomState(0).randint(0, 256, size=(2, 6)).astype(np.int32)
-    got = {}
-    for side, eng, tel, Cfg in (("jax", je, jtel, JTelemetryConfig),
-                                ("torch", te, ttel, TTelemetryConfig)):
-        with pytest.raises(AssertionError, match="profile_model_time"):
-            eng.model_times()
-        tel.configure(Cfg(enabled=True, output_dir=str(tmp_path / side)))
-        out = np.asarray(eng.generate(ids, max_new_tokens=5))
-        eng.profile_model_time()
-        eng.generate(ids, max_new_tokens=5)
-        eng.forward(ids)
-        times = eng.model_times()
-        snap = {r["name"]: r for r in tel.get_registry().snapshot()}
-        spans = [(e["name"], e["cat"], e["args"]) for e in tel.get_tracer().events]
-        tel.deconfigure()
-        got[side] = (out, len(times), eng.model_times(),
-                     {n: (r.get("value"), r.get("count")) for n, r in snap.items()}, spans)
-        assert all(t > 0 for t in times)
-    np.testing.assert_array_equal(got["torch"][0], got["jax"][0])
-    assert got["torch"][1:] == got["jax"][1:]
-    series = got["torch"][3]
-    assert series["inference/requests"] == (4.0, None)
-    assert series["inference/generated_tokens"] == (20.0, None)
+    with pytest.raises(AssertionError, match="profile_model_time") as refused:
+        te.model_times()
+    ttel.configure(TTelemetryConfig(enabled=True, output_dir=str(tmp_path / "torch")))
+    out = np.asarray(te.generate(ids, max_new_tokens=5))
+    te.profile_model_time()
+    te.generate(ids, max_new_tokens=5)
+    te.forward(ids)
+    times = te.model_times()
+    snap = {r["name"]: r for r in ttel.get_registry().snapshot()}
+    spans = [(e["name"], e["cat"], e["args"]) for e in ttel.get_tracer().events]
+    ttel.deconfigure()
+    got = json.loads(json.dumps(
+        [out.tolist(), str(refused.value), all(t > 0 for t in times), len(times),
+         te.model_times(), {n: (r.get("value"), r.get("count")) for n, r in snap.items()},
+         spans]))
+    assert "profile_model_time" in want[1] and want[2]
+    assert got == want
+    series = got[5]
+    assert series["inference/requests"] == [4.0, None]
+    assert series["inference/generated_tokens"] == [20.0, None]
     for h in ("ttft_seconds", "decode_per_token_seconds", "request_seconds"):
-        assert series[f"inference/{h}"] == (None, 2)
-    assert got["torch"][4] == [("prefill", "inference", {"tokens": 6}),
-                               ("decode", "inference", {"tokens": 5})] * 2
+        assert series[f"inference/{h}"] == [None, 2]
+    assert got[6] == [["prefill", "inference", {"tokens": 6}],
+                      ["decode", "inference", {"tokens": 5}]] * 2

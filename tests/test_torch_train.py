@@ -192,8 +192,11 @@ def test_config_blocks_parse_like_jax_and_later_blocks_raise():
     assert TConfig({"train_batch_size": 8, "watchdog": {"enabled": True}}).watchdog.enabled
     with pytest.raises(ValueError, match="on_timeout"):
         TConfig({"train_batch_size": 8, "watchdog": {"enabled": True, "on_timeout": "abort"}})
-    with pytest.raises(NotImplementedError, match="monitor"):
-        TConfig({"train_batch_size": 8, "telemetry": {"enabled": True, "monitor": True}})
+    # the monitor fan-out parses as in JAX; a block of a later slice raises
+    monitored = {"train_batch_size": 8, "telemetry": {"enabled": True, "monitor": True}}
+    assert TConfig(monitored).telemetry.monitor == JConfig(monitored).telemetry.monitor is True
+    with pytest.raises(NotImplementedError, match="goodput"):
+        TConfig({"train_batch_size": 8, "goodput": {"enabled": True}})
     with pytest.raises(NotImplementedError, match="MiCS"):
         TConfig({"train_batch_size": 8, "zero_optimization": {"stage": 2, "mics_shard_size": 2}})
     offload = TConfig({"train_batch_size": 8, "zero_optimization": {
