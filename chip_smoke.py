@@ -71,7 +71,9 @@ destroys the group. ``launch gpt2-760m`` starts the stage-1 recipe from the
 command line (``python -m deepspeed_tpu_torch.launcher.runner --num_gpus
 1`` on a user script written to a temporary directory) and holds the
 launched process's environment, launches and losses to the in-process
-stage-1 run. Then it feeds, saves and resumes
+stage-1 run; its ``telemetry`` and ``goodput`` blocks are armed, and its
+first step's ``compile`` bucket holds the kernels' builds (their loads,
+where the libraries were built before). Then it feeds, saves and resumes
 gpt2-760m at full width, 4 of its 24 layers (``resume``): a token dataset written with
 the port's indexed-dataset builder into a temporary directory, engine A
 trained through ``initialize(training_data=...)``'s loader, saved with the
@@ -172,7 +174,17 @@ run); ``train gpt2-760m compression`` trains the training cell under MoQ
 (8 -> 4 bits) and l1 pruning through every stage, then holds
 ``redundancy_clean``'s weights to their levels, zeros and the terminal
 transform, with the compressed path's bf16 and fp32 kernel-vs-plain
-checks; ``eigenvalue gpt2-760m`` runs the block Hessian eigenvalue after
+checks; ``train gpt2-760m compression zero3`` trains the same cell at ZeRO
+stage 3 (the blocks' weights fetched and served compressed by their
+gathers) over a NCCL group of one with the ``telemetry`` trace and the
+``goodput`` meter, its losses held to the stage-1 cell's, every step's
+goodput buckets summing to its wall timed apart, its comm spans well
+formed, the goodput fraction and MFU beside the device's busy share, the
+goodput report and the live view run on its directory, and its bf16 and
+fp32 kernel-vs-plain checks at stage 3; ``train gpt2-760m compression
+offload`` trains it under ``offload_param: cpu`` (the compressed values
+in pinned host memory), its extra card memory over the cell without the
+block held to twice the largest stacked leaf; ``eigenvalue gpt2-760m`` runs the block Hessian eigenvalue after
 each step (no K1 or K2 inside an estimate) and holds an fp32 estimate on
 the card to the CPU's. The kernel rows that no summary
 reports (edge lengths, other types and head dims, and the type and
@@ -285,6 +297,9 @@ HOST_MARGIN = 6e9                   # host memory left for the run beside that s
 # master, moments and gradients) exceed the card's 85.5 GB (80 GiB): the
 # model the card cannot hold, in the least time
 CAPACITY_LAYERS = 23
+# its steps, cut from the training cell's 2 warm-up and 5 timed (~4.6 s
+# each) for the script's time limit
+CAPACITY_WARMUP, CAPACITY_STEPS = 1, 2
 # the NVMe and offloaded-resume phases: gpt2-125m's width at 2 layers, 4 x
 # 1024 (gpt2-2.7b's at 2 layers until the monitoring and profiling phase
 # came: its 129 M-parameter embedding set the phases' ~90 s; the swap's and
@@ -1727,16 +1742,16 @@ def _sparse_plain(fa, model, block: dict, seq: int):
     model._sparse_attention = lambda q, k, v: fa.sparse_mha_reference(q, k, v, layout)
 
 
-def _timed_steps(engine, batch, accel, kernels):
-    """TRAIN_WARMUP steps, then the counts of ``kernels`` set to 0 and
-    TRAIN_STEPS timed steps. → (losses, step ms each, peak GB)."""
-    losses = [float(engine.train_batch(batch)) for _ in range(TRAIN_WARMUP)]
+def _timed_steps(engine, batch, accel, kernels, warmup=TRAIN_WARMUP, steps=TRAIN_STEPS):
+    """``warmup`` steps, then the counts of ``kernels`` set to 0 and
+    ``steps`` timed steps. → (losses, step ms each, peak GB)."""
+    losses = [float(engine.train_batch(batch)) for _ in range(warmup)]
     torch.cuda.synchronize()
     accel.reset_peak_memory_stats()
     for kern in kernels:
         kern.reset_launches()
     step_ms = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(float(engine.train_batch(batch)))   # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1745,13 +1760,13 @@ def _timed_steps(engine, batch, accel, kernels):
     return losses, step_ms, accel.max_memory_allocated() / 1e9
 
 
-def _train_line(c, batch, seq, step_ms, accel, dtype=torch.bfloat16):
-    step_s = sorted(step_ms)[TRAIN_STEPS // 2] / 1e3              # the median step
+def _train_line(c, batch, seq, step_ms, accel, dtype=torch.bfloat16, warmup=TRAIN_WARMUP):
+    step_s = sorted(step_ms)[len(step_ms) // 2] / 1e3             # the median step
     tokens = batch * seq
     flops = c.flops_per_token(seq) * tokens
     return dict(batch=batch, seq=seq, gas=1, dtype=str(dtype).split(".")[-1],
                 params=c.num_params(),
-                warmup_steps=TRAIN_WARMUP, timed_steps=TRAIN_STEPS, step_ms=step_s * 1e3,
+                warmup_steps=warmup, timed_steps=len(step_ms), step_ms=step_s * 1e3,
                 step_ms_each=step_ms, tokens_per_s=tokens / step_s,
                 mfu=flops / step_s / accel.peak_flops(dtype),
                 model_tflop_per_step=flops / 1e12)
@@ -1995,13 +2010,14 @@ def train_check_bf16(GPT2Model, cfg, batch, label, to_plain):
     torch.cuda.empty_cache()
 
 
-def train_check_fp32(initialize, GPT2Model, cfg, label, seq, extra_config, to_plain,
-                     make_batch=None, remat=False):
+def _fp32_runs(initialize, GPT2Model, cfg, seq, paths, make_batch=None, remat=False):
     """fp32, full width, 2 layers, B=2, gas=2: three AdamW steps through the
-    engine on the kernel path and the plain path (``to_plain`` swaps the
-    model's attention before the engine is built) under ``remat``;
-    ``make_batch(rows, seq, vocab, seed, device)`` makes the batch (token
-    rows by default)."""
+    engine for each of ``paths`` ({name: (extra config, the model's swap to
+    the plain path or None)}) from the same weights and batch under
+    ``remat``; ``make_batch(rows, seq, vocab, seed, device)`` makes the
+    batch (token rows by default). → {name: (losses, trained params by
+    name)} on the card, the params read whole through ``module_state_dict``
+    (a stage-3 engine's own parameters are empty)."""
     from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
 
     make_batch = make_batch or synthetic_lm_batch
@@ -2010,34 +2026,61 @@ def train_check_fp32(initialize, GPT2Model, cfg, label, seq, extra_config, to_pl
     init = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED + 1))
     config = {"train_batch_size": k["batch"] * k["gas"], "gradient_accumulation_steps": k["gas"],
               "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
-              "gradient_clipping": 1.0, "steps_per_print": 0, **extra_config}
+              "gradient_clipping": 1.0, "steps_per_print": 0}
     batch = make_batch(k["batch"] * k["gas"], seq, c.vocab_size, seed=SEED + 1, device="cuda")
     runs = {}
-    for path in ("kernel", "plain"):
+    for name, (extra_config, to_plain) in paths.items():
         model = GPT2Model(c)
-        if path == "plain":
+        if to_plain is not None:
             to_plain(model)
-        engine, *_ = initialize(model=model, config=dict(config),
+        engine, *_ = initialize(model=model, config={**config, **extra_config},
                                 model_parameters={n: t.clone()
                                                   for n, t in init.state_dict().items()})
         losses = [float(engine.train_batch(batch)) for _ in range(k["steps"])]
-        runs[path] = (losses, {n: p.detach().clone() for n, p in model.named_parameters()})
-        del engine
-    (lk, pk), (lp, pp) = runs["kernel"], runs["plain"]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
-    flat = lambda ps: torch.cat([t.flatten() for t in ps.values()])
-    param_rel = _rel_l2(flat(pk), flat(pp))
-    rel = {n: _rel_l2(pk[n], pp[n]) for n in pk}
-    worst = max(rel, key=rel.get)
-    emit(f"train check {label} fp32 {k['layers']}-layer", seq=seq, **k, remat=remat,
-         losses_kernel=lk, losses_plain=lp, loss_rel_diff=loss_rel, param_rel_l2=param_rel,
-         rtol=FP32_RTOL, per_tensor_rel_l2_max=rel[worst], per_tensor_rel_l2_worst=worst)
-    if loss_rel > FP32_RTOL or param_rel > FP32_RTOL:
-        raise AssertionError(f"fp32 kernel path vs plain path: loss rel {loss_rel}, "
-                             f"params rel {param_rel}")
-    del runs, pk, pp
+        sd = engine.module_state_dict()
+        params = {n: sd[n].to("cuda") for n, _ in model.named_parameters()}
+        empty = [n for n, t in params.items() if not t.numel()]
+        if empty or not params:
+            raise AssertionError(f"fp32 check {name}: no values read for {empty or 'any param'}")
+        runs[name] = (losses, params)
+        del engine, model, sd
+        gc.collect()
     torch.cuda.empty_cache()
+    return runs
 
+
+def _fp32_compare(runs, a, b) -> dict:
+    """Run ``a`` against run ``b`` of :func:`_fp32_runs`: the largest
+    relative loss difference, the params' relative L2 (all, and the worst
+    tensor's) and whether both are equal bit for bit."""
+    (la, pa), (lb, pb) = runs[a], runs[b]
+    flat = lambda ps: torch.cat([t.flatten() for t in ps.values()])
+    rel = {n: _rel_l2(pa[n], pb[n]) for n in pa}
+    worst = max(rel, key=rel.get)
+    return {"loss_rel_diff": max(abs(x - y) / abs(y) for x, y in zip(la, lb)),
+            "param_rel_l2": _rel_l2(flat(pa), flat(pb)), "per_tensor_rel_l2_max": rel[worst],
+            "per_tensor_rel_l2_worst": worst, "params_compared": len(pa),
+            "bitwise_equal": la == lb and all(torch.equal(pa[n], pb[n]) for n in pa)}
+
+
+def train_check_fp32(initialize, GPT2Model, cfg, label, seq, extra_config, to_plain,
+                     make_batch=None, remat=False):
+    """The engine's fp32 steps (:func:`_fp32_runs`) on the kernel path and
+    the plain path (``to_plain`` swaps the model's attention before the
+    engine is built): losses and params within FP32_RTOL."""
+    k = CHECK_FP32
+    runs = _fp32_runs(initialize, GPT2Model, cfg, seq,
+                      {"kernel": (extra_config, None), "plain": (extra_config, to_plain)},
+                      make_batch, remat)
+    got = _fp32_compare(runs, "kernel", "plain")
+    emit(f"train check {label} fp32 {k['layers']}-layer", seq=seq, **k, remat=remat,
+         losses_kernel=runs["kernel"][0], losses_plain=runs["plain"][0], **got, rtol=FP32_RTOL)
+    if got["loss_rel_diff"] > FP32_RTOL or got["param_rel_l2"] > FP32_RTOL:
+        raise AssertionError(f"fp32 kernel path vs plain path: loss rel {got['loss_rel_diff']}, "
+                             f"params rel {got['param_rel_l2']}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------- ZeRO
@@ -2088,39 +2131,20 @@ def _state_to_host(engine) -> dict:
 
 
 def zero_check_fp32(initialize, GPT2Model, cfg):
-    """fp32, full width, 2 layers, B=2, gas=2: three AdamW steps at ZeRO
-    stage 3 against stage 0 on the same weights and batch, held as
-    train_check_fp32 holds the kernel path to the plain path."""
-    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
-
+    """The engine's fp32 steps (:func:`_fp32_runs`) at ZeRO stage 3 against
+    stage 0 on the same weights and batch, held as train_check_fp32 holds
+    the kernel path to the plain path."""
     k = CHECK_FP32
-    c = dataclasses.replace(cfg, n_layer=k["layers"], remat=False, dtype=torch.float32)
-    init = GPT2Model(c).init_params(torch.Generator(device="cuda").manual_seed(SEED + 1))
-    config = {"train_batch_size": k["batch"] * k["gas"], "gradient_accumulation_steps": k["gas"],
-              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
-              "gradient_clipping": 1.0, "steps_per_print": 0}
-    batch = synthetic_lm_batch(k["batch"] * k["gas"], TRAIN_SEQ, c.vocab_size, seed=SEED + 1,
-                               device="cuda")
-    runs = {}
-    for stage in (0, 3):
-        engine, *_ = initialize(model=GPT2Model(c),
-                                config={**config, "zero_optimization": {"stage": stage}},
-                                model_parameters={n: t.clone()
-                                                  for n, t in init.state_dict().items()})
-        losses = [float(engine.train_batch(batch)) for _ in range(k["steps"])]
-        runs[stage] = (losses, {n: t.cuda() for n, t in engine.module_state_dict().items()})
-        del engine
-    (l0, p0), (l3, p3) = runs[0], runs[3]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l3, l0))
-    flat = lambda ps: torch.cat([ps[n].flatten() for n in sorted(ps)])
-    param_rel = _rel_l2(flat(p3), flat(p0))
+    runs = _fp32_runs(initialize, GPT2Model, cfg, TRAIN_SEQ,
+                      {s: ({"zero_optimization": {"stage": s}}, None) for s in (0, 3)})
+    got = _fp32_compare(runs, 3, 0)
     emit(f"train check {TRAIN_MODEL} zero3 fp32 {k['layers']}-layer", **k, seq=TRAIN_SEQ,
-         losses_stage0=l0, losses_stage3=l3, loss_rel_diff=loss_rel, param_rel_l2=param_rel,
-         rtol=FP32_RTOL)
-    if loss_rel > FP32_RTOL or param_rel > FP32_RTOL:
-        raise AssertionError(f"fp32 stage 3 vs stage 0: loss rel {loss_rel}, params rel "
-                             f"{param_rel}")
-    del runs, p0, p3, init
+         losses_stage0=runs[0][0], losses_stage3=runs[3][0], **got, rtol=FP32_RTOL)
+    if got["loss_rel_diff"] > FP32_RTOL or got["param_rel_l2"] > FP32_RTOL:
+        raise AssertionError(f"fp32 stage 3 vs stage 0: loss rel {got['loss_rel_diff']}, "
+                             f"params rel {got['param_rel_l2']}")
+    del runs
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -2226,10 +2250,13 @@ for _ in range(args.steps):
 launches = {"flash_attention_fwd": fa.KERNEL.launches, **fa.BWD_KERNEL.entry_launches}
 seen = {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE",
                                       "CUDA_VISIBLE_DEVICES", "MASTER_ADDR", "MASTER_PORT")}
+deepspeed_tpu_torch.telemetry.deconfigure()     # the trace to disk
 print(args.prefix + json.dumps({
     "env": seen, "backend": comm.get_backend(), "world": comm.get_world_size(),
     "device": str(engine.device), "losses": losses, "step_ms_each": step_ms,
-    "launches": launches,
+    "launches": launches, "goodput_armed": engine._goodput is not None,
+    "build_seconds": {k.name: k.build_seconds for k in (fa.KERNEL, fa.BWD_KERNEL)},
+    "load_seconds": {k.name: k.load_seconds for k in (fa.KERNEL, fa.BWD_KERNEL)},
     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
 comm.destroy_process_group()
 """
@@ -2263,22 +2290,29 @@ def _run_launcher(cmd, env, timeout: float):
 
 
 def launch_slice(cfg, zero1_losses, zero1_step_ms, tmp):
-    """The dense training cell's recipe (ZeRO stage 1, bf16, 8 x 1024)
-    started from the command line: ``python -m
+    """The dense training cell's recipe (ZeRO stage 1, bf16, 8 x 1024) with
+    ``telemetry`` and ``goodput`` started from the command line: ``python -m
     deepspeed_tpu_torch.launcher.runner --num_gpus 1`` runs a user script
     (``add_config_arguments``, ``set_device(LOCAL_RANK)``, ``initialize``
     joining a NCCL group of one from the launcher's environment), which
     takes TRAIN_WARMUP and TRAIN_STEPS steps. Held: exit 0, the environment
     it saw, 24 launches of K1 and of each K2 entry per step, and its losses
-    within TRAIN_LOSS_RTOL of the in-process stage-1 run on the same batch.
-    It saves no tag: ``serve gpt2-760m`` serves the resume phase's. → its
-    launches."""
+    within TRAIN_LOSS_RTOL of the in-process stage-1 run on the same batch;
+    its first step's goodput ``compile`` bucket holds at least 0.9 of the
+    kernels' ``nvcc`` build seconds in that process, or, the libraries
+    found built, of their load seconds. It saves no tag: ``serve
+    gpt2-760m`` serves the resume phase's. → its launches."""
+    from deepspeed_tpu_torch.goodput.ledger import step_ledgers
+    from deepspeed_tpu_torch.profiling.aggregate import load_trace_events
+
     script = os.path.join(tmp, "train_gpt2.py")
     with open(script, "w") as f:
         f.write(LAUNCHED_SCRIPT)
     ds_config = os.path.join(tmp, "ds_config.json")
+    tel = os.path.join(tmp, "telemetry")
     with open(ds_config, "w") as f:
-        json.dump(TRAIN_CONFIG, f)
+        json.dump({**TRAIN_CONFIG, "goodput": {},
+                   "telemetry": {"enabled": True, "output_dir": tel, "flush_interval": 1000}}, f)
     repo = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (repo, os.environ.get("PYTHONPATH")) if p)}
@@ -2310,7 +2344,22 @@ def launch_slice(cfg, zero1_losses, zero1_step_ms, tmp):
         raise AssertionError(f"launched losses {losses} against the in-process stage-1 run's "
                              f"{zero1_losses}: rel {rel}")
     step_ms = sorted(got["step_ms_each"])[TRAIN_STEPS // 2]
+    # the compile bucket: the step whose window holds the process's first
+    # kernel loads holds their nvcc builds, or, where the libraries were
+    # already built, their loads
+    events, _ = load_trace_events(os.path.join(tel, "trace.json"))
+    ledgers = step_ledgers(events)
+    built = {k: v for k, v in got["build_seconds"].items() if v}
+    phase = "nvcc" if built else "load"
+    seconds = sum((built or got["load_seconds"]).values())
+    first = ledgers[0]["buckets"] if ledgers else {}
+    compile_spans = [(e["args"]["phase"], e["dur"]) for e in events if e.get("cat") == "compile"]
     emit(f"launch {TRAIN_MODEL}", cmd=" ".join(cmd[1:4] + ["..."]), exit_code=rc,
+         goodput_armed=got["goodput_armed"], compile_phase_checked=phase,
+         compile_seconds_checked=seconds, build_seconds=got["build_seconds"],
+         load_seconds=got["load_seconds"], compile_spans=compile_spans,
+         step0_compile_us=first.get("compile"), step0_wall_us=ledgers[0]["wall_us"]
+         if ledgers else None, step0_buckets_us={b: v for b, v in first.items() if v > 0},
          env=env_seen, backend=got["backend"], world=got["world"], device=got["device"],
          losses=losses, losses_in_process_zero1=zero1_losses, loss_rel_diff=rel,
          losses_bitwise_equal=losses == zero1_losses, rtol=TRAIN_LOSS_RTOL,
@@ -2318,6 +2367,10 @@ def launch_slice(cfg, zero1_losses, zero1_step_ms, tmp):
          step_ms_in_process_zero1=zero1_step_ms,
          launches_per_step={k: v / TRAIN_STEPS for k, v in got["launches"].items()},
          peak_mem_gb=got["peak_mem_gb"], wall_s=wall_s)
+    if not got["goodput_armed"] or len(ledgers) != TRAIN_WARMUP + TRAIN_STEPS \
+            or not seconds or first.get("compile", 0.0) < 0.9 * seconds * 1e6:
+        raise AssertionError(f"launched run: step 0's compile bucket {first.get('compile')} us "
+                             f"against {seconds} s of {phase}, {len(ledgers)} step ledgers")
     return got["launches"]
 
 
@@ -2808,7 +2861,7 @@ def _check_remat_launches(fa, layers: int, steps: int, label: str) -> dict:
     return launches
 
 
-def _offload_row(engine, c, batch, step_ms, prof, accel) -> dict:
+def _offload_row(engine, c, batch, step_ms, prof, accel, warmup=TRAIN_WARMUP) -> dict:
     """A training line with the host link's bytes and rates: bytes of the
     last update each way, their GB/s over the profiled step's copy time,
     and the step split into copy and compute device time."""
@@ -2816,7 +2869,8 @@ def _offload_row(engine, c, batch, step_ms, prof, accel) -> dict:
     h2d, d2h = (off.h2d_bytes, off.d2h_bytes) if off is not None else (0, 0)
     copy = prof["memcpy_ms"]
     compute_ms = prof["device_ms"] - copy["HtoD"] - copy["DtoH"]
-    return dict(_train_line(c, OFFLOAD_BATCH, OFFLOAD_SEQ, step_ms, accel), remat=c.remat,
+    return dict(_train_line(c, OFFLOAD_BATCH, OFFLOAD_SEQ, step_ms, accel, warmup=warmup),
+                remat=c.remat,
                 layers=c.n_layer, h2d_gb_per_step=h2d / 1e9, d2h_gb_per_step=d2h / 1e9,
                 h2d_gb_per_s=h2d / max(copy["HtoD"], 1e-9) / 1e6,
                 d2h_gb_per_s=d2h / max(copy["DtoH"], 1e-9) / 1e6,
@@ -2961,10 +3015,12 @@ def capacity_slice(initialize, GPT2Model, cfg, accel, fa):
         raise AssertionError(f"{CAPACITY_MODEL}: the auto policy did not put the master on "
                              f"the host and stream the update: {vars(off)}")
     host_gb = _host_state_bytes(engine) / 1e9
-    losses, step_ms, peak_gb = _timed_steps(engine, batch, accel, (fa.KERNEL, fa.BWD_KERNEL))
-    launches = _check_remat_launches(fa, c.n_layer, TRAIN_STEPS, f"offload {CAPACITY_MODEL}")
+    losses, step_ms, peak_gb = _timed_steps(engine, batch, accel, (fa.KERNEL, fa.BWD_KERNEL),
+                                            CAPACITY_WARMUP, CAPACITY_STEPS)
+    launches = _check_remat_launches(fa, c.n_layer, CAPACITY_STEPS, f"offload {CAPACITY_MODEL}")
     prof = device_profile(lambda: engine.train_batch(batch), top=8)
-    emit(f"offload {CAPACITY_MODEL}", **_offload_row(engine, c, batch, step_ms, prof, accel),
+    emit(f"offload {CAPACITY_MODEL}", **_offload_row(engine, c, batch, step_ms, prof, accel,
+                                                     warmup=CAPACITY_WARMUP),
          **init, peak_mem_gb=peak_gb, host_state_gb=host_gb, losses=losses,
          launches=launches, params_on_card_gb=2 * c.num_params() / 1e9)
     del engine
@@ -5492,6 +5548,339 @@ def compression_slice(initialize, GPT2Model, cfg, accel, fa):
     return launches
 
 
+# the compression cell at ZeRO stage 3 (the blocks' weights fetched, the
+# biases and gains in the persistent unit) over a NCCL group of one, with
+# the telemetry trace, the goodput meter and the flops profiler (its count
+# at GOODPUT_PROFILE_STEP gives MFU); then under offload_param: cpu for
+# OFFLOAD_COMPRESSION_STEPS (MoQ's first stage at step 2, pruning's start at
+# 4) beside OFFLOAD_BASE_STEPS of the same cell without the block, its
+# extra peak at most twice the largest stacked leaf (24 x 1536 x 6144 bf16)
+ZERO3_COMPRESSION = {"stage": 3}
+GOODPUT_PROFILE_STEP = 2
+GOODPUT_BUSY_STEPS = 2              # steps under the profiler, beside their ledgers
+OFFLOAD_COMPRESSION_STEPS, OFFLOAD_BASE_STEPS = 6, 3
+OFFLOAD_COMPRESSION_EXTRA_GB = 0.91
+
+
+def _comm_spans(events) -> dict:
+    """The comm layer's spans of a trace, each held to carry ``op``, ``seq``,
+    ``group`` and ``bytes``, ``seq`` counting each (op, group) from 0. →
+    spans by op and group."""
+    seqs = {}
+    for ev in events:
+        if ev.get("cat") != "comm":
+            continue
+        a = ev.get("args") or {}
+        if ev.get("ph") != "X" or ev.get("name") != f"comm:{a.get('op')}" \
+                or not isinstance(a.get("seq"), int) or not a.get("group") \
+                or not isinstance(a.get("bytes"), int) or a["bytes"] <= 0:
+            raise AssertionError(f"a malformed comm span: {ev}")
+        seqs.setdefault((a["op"], a["group"]), []).append(a["seq"])
+    for key, seq in seqs.items():
+        if seq != list(range(len(seq))):
+            raise AssertionError(f"comm spans {key}: seq {seq[:8]}... does not count from 0")
+    return {f"{op}@{group}": len(seq) for (op, group), seq in sorted(seqs.items())}
+
+
+def _port_tool(main, *args) -> dict:
+    """A command-line tool's ``main(args)`` in this process (the tools are
+    standard library only; a process each would cost its start-up): exit
+    code and output."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(list(args))
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {' '.join(args)} exited {rc}:\n"
+                             f"{out.getvalue()[-2000:]}")
+    return {"exit_code": rc, "stdout": out.getvalue().splitlines()}
+
+
+def _losses_held(losses, ref, label) -> float:
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    if len(losses) > len(ref) or not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{label}: losses {losses} against the stage-1 cell's {ref}: "
+                             f"rel {rel}")
+    return rel
+
+
+def compression_zero3_slice(initialize, GPT2Model, cfg, accel, fa, ref_losses, zero_losses):
+    """The compression cell (COMPRESSION_BLOCK, COMPRESSION_STEPS) at ZeRO
+    stage 3 over a NCCL group of one, with ``telemetry`` (the trace),
+    ``goodput`` and the flops profiler: the losses within TRAIN_LOSS_RTOL
+    of the stage-1 cell's; K1 and each K2 entry once per layer and step;
+    every step's goodput buckets summing to its wall, timed apart (a
+    synchronize, then the host clock around ``train_batch``), within the
+    block's tolerance, and no closure violation; the comm spans well
+    formed; the goodput fraction, top badput bucket and MFU beside the
+    device's busy share of GOODPUT_BUSY_STEPS more steps under the
+    profiler and their ledgers; ``profiling.cli goodput`` and ``goodput.top
+    --once`` on the phase's directory. The drift's witness: the ZeRO
+    phase's stage-3 and stage-1 losses without the block
+    (``zero_losses``, by stage) beside this cell's and the stage-1 cell's,
+    and at the steps before any technique applies this cell's losses
+    equal to the stage-3 run's without the block bit for bit. → launches."""
+    from deepspeed_tpu_torch import comm, telemetry
+    from deepspeed_tpu_torch.goodput import top as goodput_top
+    from deepspeed_tpu_torch.goodput.ledger import (goodput_fraction, step_ledgers,
+                                                    sum_buckets, top_badput)
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+    from deepspeed_tpu_torch.profiling import cli as profiling_cli
+
+    c = dataclasses.replace(cfg, remat=False)
+    root, _ = _scratch_dir()
+    tmp = tempfile.mkdtemp(prefix="ds_goodput_", dir=root)
+    tel = os.path.join(tmp, "telemetry")
+    config = {**TRAIN_CONFIG, "zero_optimization": dict(ZERO3_COMPRESSION),
+              "compression_training": COMPRESSION_BLOCK,
+              "telemetry": {"enabled": True, "output_dir": tel,
+                            "flush_interval": COMPRESSION_STEPS},
+              "goodput": {},
+              "flops_profiler": {"enabled": True, "profile_step": GOODPUT_PROFILE_STEP,
+                                 "detailed": False,
+                                 "output_file": os.path.join(tmp, "flops_profile.txt")}}
+    comm.init_distributed(init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1,
+                          timeout=600)
+    try:
+        engine, *_ = initialize(model=GPT2Model(c), config=json.loads(json.dumps(config)))
+        fetched = sum(engine._zero.fetched)
+        tolerance = engine._config.goodput.tolerance
+        batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        accel.reset_peak_memory_stats()
+        _reset_counts(fa)
+        losses, wall_ms = [], []
+        for _ in range(COMPRESSION_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = engine.train_batch(batch)
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        launches = _kernel_counts(fa)
+        peak_gb = accel.max_memory_allocated() / 1e9
+        events = list(telemetry.get_tracer().events)
+        snap = {(r["name"], tuple(sorted(r["labels"].items()))): r
+                for r in telemetry.get_registry().snapshot()}
+        refresh_ms = []
+        for _ in range(3):
+            engine.invalidate_compiled()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine._refresh_compression()
+            torch.cuda.synchronize()
+            refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        n0 = len(telemetry.get_tracer().events)
+        busy = device_profile(lambda: [engine.train_batch(batch)
+                                       for _ in range(GOODPUT_BUSY_STEPS)], top=8)
+        busy_ledgers = step_ledgers(telemetry.get_tracer().events[n0:])
+        served = sorted({t.device.type for t in engine._zero.served.values()})
+        del engine
+        telemetry.deconfigure()             # the trace and the metrics to disk
+        tools = {"profiling.cli goodput": _port_tool(profiling_cli.main, "goodput", tel),
+                 "goodput.top --once": _port_tool(goodput_top.main, tel, "--once")}
+    finally:
+        telemetry.deconfigure()
+        comm.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ledgers = step_ledgers(events)
+    closure = [abs(sum(led["buckets"].values()) - ms * 1e3) / (ms * 1e3)
+               for led, ms in zip(ledgers, wall_ms)]
+    total = sum_buckets([led["buckets"] for led in ledgers])
+    top = top_badput(total)
+    busy_total = sum_buckets([led["buckets"] for led in busy_ledgers])
+    gauge = lambda name, **labels: (snap.get((name, tuple(sorted(labels.items())))) or {}).get(
+        "value")
+    rel = _losses_held(losses, ref_losses, "compression at stage 3")
+    per_step = lambda xs, ys: [abs(x - y) / abs(y) for x, y in zip(xs, ys)]
+    raw = sum(_stage_of(s) == "raw" for s in range(COMPRESSION_STEPS))
+    drift = {"raw_steps": raw,
+             "raw_steps_equal_zero3_without_block": losses[:raw] == zero_losses[3][:raw],
+             "zero3_vs_zero1_without_block": per_step(zero_losses[3], zero_losses[1]),
+             "zero3_vs_zero1_compressed": per_step(losses, ref_losses)}
+    expect = dict.fromkeys(launches, c.n_layer * COMPRESSION_STEPS)
+    comm_spans = _comm_spans(events)
+    emit(f"train {TRAIN_MODEL} compression zero3", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         zero=ZERO3_COMPRESSION, fetched_units=fetched, served_on=served, layers=c.n_layer,
+         steps=COMPRESSION_STEPS, losses=losses, losses_stage1=ref_losses, loss_rel_diff=rel,
+         rtol=TRAIN_LOSS_RTOL, drift_witness=drift, step_ms_each=wall_ms,
+         step_ms=sorted(wall_ms[1:])[len(wall_ms[1:]) // 2],
+         refresh_ms=sorted(refresh_ms)[1], peak_mem_gb=peak_gb,
+         launches_per_step={k: v / COMPRESSION_STEPS for k, v in launches.items()},
+         goodput_per_step=[{"step": led["step"], "wall_us": led["wall_us"],
+                            "timed_wall_us": ms * 1e3, "closure_err": err,
+                            "buckets_us": {b: v for b, v in led["buckets"].items() if v > 0}}
+                           for led, ms, err in zip(ledgers, wall_ms, closure)],
+         closure_max=max(closure), tolerance=tolerance,
+         closure_violations=gauge("goodput/closure_violations") or 0,
+         goodput_fraction=goodput_fraction(total), top_badput=top[0] if top else None,
+         top_badput_share=top[1] / sum(total.values()) if top else 0.0,
+         buckets_us=total, mfu=gauge("goodput/mfu"),
+         flops_per_batch=gauge("train/flops_per_batch"),
+         busy_steps=GOODPUT_BUSY_STEPS, busy_share=1.0 - busy["idle_share"],
+         busy_steps_goodput_fraction=goodput_fraction(busy_total),
+         busy_steps_buckets_us=busy_total, busy_profile=busy, comm_spans=comm_spans,
+         tools=tools, nvidia_smi=nvidia_smi_line())
+    if launches != expect or len(ledgers) != COMPRESSION_STEPS \
+            or not drift["raw_steps_equal_zero3_without_block"]:
+        raise AssertionError(f"compression at stage 3: launches {launches} (expected {expect}), "
+                             f"{len(ledgers)} step ledgers, the raw steps' losses "
+                             f"{losses[:raw]} against stage 3's without the block "
+                             f"{zero_losses[3][:raw]}")
+    if max(closure) > tolerance or (gauge("goodput/closure_violations") or 0) \
+            or gauge("goodput/mfu") is None or not comm_spans or not fetched:
+        raise AssertionError(f"compression at stage 3: goodput closure {closure} (tolerance "
+                             f"{tolerance}), violations "
+                             f"{gauge('goodput/closure_violations')}, MFU "
+                             f"{gauge('goodput/mfu')}, comm spans {comm_spans}, "
+                             f"{fetched} fetched units")
+    compression_zero3_check_bf16(initialize, GPT2Model, c, batch)
+    early = json.loads(json.dumps(COMPRESSION_BLOCK))
+    early["weight_quantization"]["shared_parameters"].update(schedule_offset=0,
+                                                             quantization_period=1)
+    early["sparse_pruning"]["shared_parameters"]["schedule_offset"] = 1
+    compression_zero3_check_fp32(initialize, GPT2Model, cfg, early)
+    return launches
+
+
+def compression_zero3_check_fp32(initialize, GPT2Model, cfg, block):
+    """The engine's fp32 steps (:func:`_fp32_runs`) under ``block`` at ZeRO
+    stage 3, every unit fetched: the kernel path against the plain path
+    within FP32_RTOL, as train_check_fp32 holds them; and, the witness of
+    the served compressed values, the kernel path at stage 3 against the
+    same at stage 1, within FP32_RTOL (bit for bit where the arithmetic is
+    the same)."""
+    k = CHECK_FP32
+    zero3 = {"stage": 3, "stage3_param_persistence_threshold": 0}
+    runs = _fp32_runs(initialize, GPT2Model, cfg, TRAIN_SEQ, {
+        "kernel": ({"compression_training": block, "zero_optimization": zero3}, None),
+        "plain": ({"compression_training": block, "zero_optimization": zero3}, _dense_plain),
+        "stage1": ({"compression_training": block, "zero_optimization": {"stage": 1}}, None)})
+    got = _fp32_compare(runs, "kernel", "plain")
+    stage1 = _fp32_compare(runs, "kernel", "stage1")
+    emit(f"train check {TRAIN_MODEL} compression zero3 fp32 {k['layers']}-layer", seq=TRAIN_SEQ,
+         **k, losses_kernel=runs["kernel"][0], losses_plain=runs["plain"][0], **got,
+         losses_stage1=runs["stage1"][0], stage3_vs_stage1=stage1, rtol=FP32_RTOL)
+    bad = {n: r for n, r in (("plain path", got), ("stage 1", stage1))
+           if r["loss_rel_diff"] > FP32_RTOL or r["param_rel_l2"] > FP32_RTOL}
+    if bad:
+        raise AssertionError(f"fp32 compressed stage-3 kernel path against {bad}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def compression_zero3_check_bf16(initialize, GPT2Model, c, batch):
+    """The bf16 step at the 5-bit pruned stage (step 8) through a stage-3
+    engine, whose fetched units hand out the compressed weights: the loss
+    and every unit's gradient on the kernel path against the plain path on
+    the same compressed weights, at the training check's limits."""
+    config = {**TRAIN_CONFIG, "zero_optimization": {"stage": 3},
+              "compression_training": COMPRESSION_BLOCK}
+    model = GPT2Model(c)
+    engine, *_ = initialize(model=model, config=json.loads(json.dumps(config)))
+    engine._global_step = 8
+    z = engine._zero
+    runs = {}
+    for path in ("kernel", "plain"):
+        if path == "plain":
+            _dense_plain(model)
+        z.reset_grads()
+        loss = engine.forward(batch)
+        engine.backward(loss)
+        runs[path] = (loss.detach().float().item(),
+                      {engine._param_names[i]: z._shard_grads[p.unit][
+                          p.offset:p.offset + p.numel].float().clone()
+                       for i, p in enumerate(z.plan.params)})
+    (loss_k, grads_k), (loss_p, grads_p) = runs["kernel"], runs["plain"]
+    rel = {n: _rel_l2(grads_k[n], grads_p[n]) for n in grads_k}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit(f"train check {TRAIN_MODEL} compression zero3 bf16", layers=c.n_layer, step=8,
+         stage=_stage_of(8), fetched_units=sum(z.fetched), loss_kernel=loss_k,
+         loss_plain=loss_p, loss_rel_diff=loss_rel, loss_rtol=TRAIN_LOSS_RTOL,
+         grad_rel_l2_max=rel[worst], grad_rel_l2_worst=worst, grad_rtol=TRAIN_GRAD_RTOL)
+    if not math.isfinite(loss_k) or loss_rel > TRAIN_LOSS_RTOL or rel[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"stage-3 compressed bf16 kernel path vs plain path: loss rel "
+                             f"{loss_rel}, grad {worst} rel {rel[worst]}")
+    del engine, model, runs, grads_k, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def compression_offload_slice(initialize, GPT2Model, cfg, accel, fa, ref_losses):
+    """The compression cell at ZeRO stage 3 with ``offload_param: cpu`` for
+    OFFLOAD_COMPRESSION_STEPS, the compressed values served from pinned
+    host memory: its losses within TRAIN_LOSS_RTOL of the stage-1 cell's
+    first ones, K1 and each K2 entry once per layer and step, and its peak
+    card memory at most OFFLOAD_COMPRESSION_EXTRA_GB above the same cell's
+    without the block (OFFLOAD_BASE_STEPS), each peak taken above what
+    was allocated when its steps began. → launches."""
+    from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
+
+    c = dataclasses.replace(cfg, remat=False)
+    batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED, device="cuda")
+    runs = {}
+    gc.collect()                        # the earlier phases' engines, freed before either run
+    for name, steps in (("plain", OFFLOAD_BASE_STEPS), ("compression", OFFLOAD_COMPRESSION_STEPS)):
+        config = {**TRAIN_CONFIG, "zero_optimization": {"stage": 3,
+                                                        "offload_param": {"device": "cpu"}}}
+        if name == "compression":
+            config["compression_training"] = COMPRESSION_BLOCK
+        engine, *_ = initialize(model=GPT2Model(c), config=json.loads(json.dumps(config)))
+        torch.cuda.synchronize()
+        accel.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_counts(fa)
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch)))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = accel.max_memory_allocated()
+        run = {"losses": losses, "step_ms_each": step_ms, "launches": _kernel_counts(fa),
+               "peak_mem_gb": peak / 1e9, "allocated_at_start_gb": base / 1e9,
+               "peak_above_start_gb": (peak - base) / 1e9,
+               "fetched_units": sum(engine._zero.fetched)}
+        if name == "compression":
+            refresh_ms = []
+            for _ in range(3):
+                engine.invalidate_compiled()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine._refresh_compression()
+                torch.cuda.synchronize()
+                refresh_ms.append((time.perf_counter() - t0) * 1e3)
+            served = engine._zero.served.values()
+            run.update(refresh_ms=sorted(refresh_ms)[1],
+                       served_pinned=all(t.is_pinned() for t in served),
+                       served_gb=sum(t.numel() * t.element_size() for t in served) / 1e9)
+        runs[name] = run
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    got = runs["compression"]
+    rel = _losses_held(got["losses"], ref_losses[:OFFLOAD_COMPRESSION_STEPS],
+                       "compression under offload_param")
+    extra = got["peak_above_start_gb"] - runs["plain"]["peak_above_start_gb"]
+    expect = dict.fromkeys(got["launches"], c.n_layer * OFFLOAD_COMPRESSION_STEPS)
+    emit(f"train {TRAIN_MODEL} compression offload", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         zero={"stage": 3, "offload_param": "cpu"}, layers=c.n_layer, runs=runs,
+         losses_stage1=ref_losses[:OFFLOAD_COMPRESSION_STEPS], loss_rel_diff=rel,
+         rtol=TRAIN_LOSS_RTOL, peak_extra_gb=extra,
+         peak_extra_limit_gb=OFFLOAD_COMPRESSION_EXTRA_GB,
+         launches_per_step={k: v / OFFLOAD_COMPRESSION_STEPS for k, v in got["launches"].items()},
+         nvidia_smi=nvidia_smi_line())
+    if got["launches"] != expect or not got["served_pinned"] \
+            or extra > OFFLOAD_COMPRESSION_EXTRA_GB:
+        raise AssertionError(f"compression under offload_param: launches {got['launches']} "
+                             f"(expected {expect}), served pinned {got['served_pinned']}, "
+                             f"{extra} GB above the cell without the block")
+    return got["launches"]
+
+
 def eigenvalue_check_fp32(GPT2Model, cfg):
     """gpt2-760m's widths at 2 layers in fp32: the block eigenvalues on the
     card against the CPU's plain run from the same start vectors."""
@@ -5585,11 +5974,19 @@ def eigenvalue_slice(initialize, GPT2Model, cfg, accel, fa):
     return {k: v * EIGEN_STEPS for k, v in own.items()}
 
 
-def rlhf_slices(initialize, init_inference, GPT2Model, gpt2_cfg, accel, fa, da):
+def rlhf_slices(initialize, init_inference, GPT2Model, gpt2_cfg, accel, fa, da, zero_losses):
     """The RLHF actor's path: the hybrid engine on OPT-1.3b, compression
-    training and the eigenvalue on gpt2-760m. → launches by path."""
+    training (at stage 1, at stage 3 with the goodput meter, under
+    offload_param) and the eigenvalue on gpt2-760m; ``zero_losses``, the
+    ZeRO phase's losses by stage, witness the stage-3 cell's drift. →
+    launches by path."""
     launches = hybrid_slice(initialize, init_inference, accel, fa, da)
     launches["train_compression"] = compression_slice(initialize, GPT2Model, gpt2_cfg, accel, fa)
+    stage1 = LINES[f"train {TRAIN_MODEL} compression"]["losses"]
+    launches["train_compression_zero3"] = compression_zero3_slice(
+        initialize, GPT2Model, gpt2_cfg, accel, fa, stage1, zero_losses)
+    launches["train_compression_offload"] = compression_offload_slice(
+        initialize, GPT2Model, gpt2_cfg, accel, fa, stage1)
     launches["train_eigenvalue"] = eigenvalue_slice(initialize, GPT2Model, gpt2_cfg, accel, fa)
     return launches
 
@@ -5926,7 +6323,8 @@ def main() -> int:
     # the RLHF actor: the hybrid engine on OPT-1.3b, compression training and
     # the eigenvalue on gpt2-760m
     rlhf_launches = rlhf_slices(deepspeed_tpu_torch.initialize, deepspeed_tpu_torch.init_inference,
-                                gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa, da)
+                                gpt2_cls, gpt2_presets[TRAIN_MODEL], accel, fa, da,
+                                zero_losses)
     rlhf_trained = {p: n for p, n in rlhf_launches.items() if "generate" not in p}
     rlhf_generated = {p: n for p, n in rlhf_launches.items() if "generate" in p}
 

@@ -18,10 +18,29 @@ is synchronous. ``ppermute`` (the JAX collective permute) is built on
 Every collective is wrapped by ``timed_op``: with a ``CommsLogger``
 installed (``configure``, the ds_config ``comms_logger`` block) it waits for
 the collective to finish (a card synchronize) and records its latency and
-message size; without one it costs one ``is None`` check. A message's size
-is the full buffer of the collective on this rank, as nccl-tests counts it:
-the output of an all-gather, the input of a reduce-scatter, the tensor of
-an all-reduce or broadcast.
+message size. With a telemetry session live and no logger it records them
+without waiting: on a card tensor the latency is the host's time in the
+call (the collective queued, not finished), and the device's time lands in
+whichever host span next waits for the card, as every other launch's does.
+Without either it costs two ``is None`` checks. A message's size is the
+full buffer of the collective on this rank, as nccl-tests counts it: the
+output of an all-gather, the input of a reduce-scatter, the tensor of an
+all-reduce or broadcast.
+
+Telemetry (the JAX ``timed_op``'s series): each timed collective is a
+``cat="comm"`` trace span ``comm:<op>`` carrying ``op``, ``seq``, ``group``
+and ``bytes``. ``(op, seq, group)`` matches the k-th collective of an op
+over a group on one rank with the k-th on every other
+(``profiling/aggregate.py``): ``seq`` counts per (op, group) from the
+telemetry session's start (:func:`reset_collective_trace_seq`), and
+``group`` names the ``torch.distributed`` group the same way on every rank
+of it (:func:`group_desc`). The ``comm/op_latency_seconds`` histogram and
+the ``comm/op_calls`` and ``comm/op_bytes`` counters go to the registry;
+with a logger also the ``comm/skew`` gauge (max over mean latency of the
+op's recent window) and, for a call past twice the recent fastest-half
+mean, a ``cat="straggler"`` span of the excess (the goodput
+``straggler_wait`` bucket). ``record_phase_span`` records a collective
+phase its caller timed the same way.
 
 ``init_distributed`` reads the contract torchrun sets (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) unless it
@@ -31,6 +50,7 @@ it makes ``LOCAL_RANK``'s card the current device.
 
 from __future__ import annotations
 
+import collections
 import datetime
 import functools
 import inspect
@@ -44,6 +64,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from deepspeed_tpu_torch import telemetry
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 
@@ -77,7 +98,8 @@ __all__ = ["ReduceOp", "CommsLogger", "init_distributed", "is_initialized", "get
            "all_to_all_single", "all_to_all", "broadcast", "reduce", "gather", "scatter",
            "barrier", "monitored_barrier", "set_default_barrier_timeout",
            "clear_config_barrier_timeout", "all_gather_coalesced", "all_reduce_coalesced",
-           "ppermute", "send", "recv", "allgather_host", "broadcast_object_list"]
+           "ppermute", "send", "recv", "allgather_host", "broadcast_object_list",
+           "reset_collective_trace_seq", "record_phase_span", "group_desc"]
 
 
 def _torch_op(op) -> "dist.ReduceOp":
@@ -211,6 +233,41 @@ def destroy_process_group(group=None) -> None:
         dist.destroy_process_group(group)
 
 
+# ------------------------------------------------------ collective identity
+# per (op, group) sequence numbers stamped onto the timed collectives'
+# trace spans: every rank issues the same collectives in the same order,
+# so the k-th all_reduce over a group on rank 0 matches the k-th on rank 1
+_collective_trace_seq: dict = {}
+
+
+def _next_collective_seq(op: str, group: str) -> int:
+    key = (op, group)
+    n = _collective_trace_seq.get(key, 0)
+    _collective_trace_seq[key] = n + 1
+    return n
+
+
+def reset_collective_trace_seq() -> None:
+    """Restart the per-(op, group) seq counters. The telemetry session's
+    constructor calls it: a new session is a new trace file and clock, and
+    after an elastic restart a surviving rank and a replaced one must both
+    count from 0 or their identities never match again."""
+    _collective_trace_seq.clear()
+
+
+def group_desc(group=None) -> str:
+    """The name a collective's group goes by in its trace span, the same on
+    every rank of the group: ``world`` for the default group (or one of all
+    its ranks), else ``ranks:`` and the group's global ranks joined by
+    ``+``."""
+    if group is None or not is_initialized() or group is dist.group.WORLD:
+        return "world"
+    ranks = dist.get_process_group_ranks(group)
+    if len(ranks) == dist.get_world_size():
+        return "world"
+    return "ranks:" + "+".join(str(r) for r in ranks)
+
+
 # ------------------------------------------------------------- comms logging
 def _busbw_factor(op_name: str, n: int) -> float:
     """Bus-bandwidth correction (reference utils/comms_logging.py get_bw):
@@ -227,7 +284,17 @@ def _busbw_factor(op_name: str, n: int) -> float:
 class CommsLogger:
     """Per-op, per-size counts and latencies of the timed collectives, in
     the reference's 4-slot record: [count, latencies, algorithm GB/s, bus
-    GB/s]. ``prof_all`` logs every op, else only those in ``prof_ops``."""
+    GB/s]. ``prof_all`` logs every op, else only those in ``prof_ops``.
+
+    Besides, the last ``STRAGGLER_WINDOW`` latencies of each (op, size): a
+    collective waits for its last rank, so a slow participant stretches
+    every rank's latency of the same op, and the skew over the window
+    (max over mean) shows an intermittent straggler without a barrier
+    (:meth:`straggler_report`, :meth:`window_skew`); :meth:`straggler_excess`
+    is one call's latency past its window's fastest-half mean."""
+    STRAGGLER_WINDOW = 64       # recent latencies kept per (op, size)
+    STRAGGLER_SKEW = 3.0        # max / mean that log_all flags
+    STRAGGLER_MIN_SAMPLES = 8   # a colder window has no baseline worth trusting
 
     def __init__(self, verbose=False, debug=False, prof_all=True, prof_ops=None):
         self.verbose = verbose
@@ -235,6 +302,7 @@ class CommsLogger:
         self.prof_all = prof_all
         self.prof_ops = list(prof_ops or [])
         self.comms_dict = {}
+        self._recent = {}       # (op, size) -> deque of recent latencies
         self._lock = threading.Lock()
 
     def wants(self, op_name: str) -> bool:
@@ -250,9 +318,59 @@ class CommsLogger:
                 algbw = msg_size / latency / 1e9
                 sizes[2].append(algbw)
                 sizes[3].append(algbw * _busbw_factor(raw_name, n))
+            recent = self._recent.get((raw_name, msg_size))
+            if recent is None:
+                recent = self._recent[(raw_name, msg_size)] = collections.deque(
+                    maxlen=self.STRAGGLER_WINDOW)
+            recent.append(latency)
         if self.verbose:
             log_dist(f"comm op: {record_name} | msg size: {msg_size} | "
                      f"latency(ms): {latency * 1000:.2f}", ranks=[0])
+
+    def reset_straggler_windows(self) -> None:
+        """Drop the recent windows (the cumulative records stay): a
+        consumer baselining a new fleet starts them empty."""
+        with self._lock:
+            self._recent.clear()
+
+    def _window(self, raw_name, msg_size) -> list:
+        with self._lock:
+            return list(self._recent.get((raw_name, msg_size)) or ())
+
+    def straggler_report(self):
+        """[(op, size, calls in the window, mean, max, max / mean)] per
+        (op, size) over the recent window."""
+        with self._lock:
+            snap = {k: list(v) for k, v in self._recent.items()}
+        rows = []
+        for (op, size), lats in sorted(snap.items()):
+            if lats:
+                mean = sum(lats) / len(lats)
+                rows.append((op, size, len(lats), mean, max(lats),
+                             max(lats) / mean if mean > 0 else 0.0))
+        return rows
+
+    def window_skew(self, raw_name, msg_size) -> float:
+        """One (op, size)'s max over mean latency in its window."""
+        lats = self._window(raw_name, msg_size)
+        if not lats:
+            return 0.0
+        mean = sum(lats) / len(lats)
+        return max(lats) / mean if mean > 0 else 0.0
+
+    def straggler_excess(self, raw_name, msg_size, latency) -> float:
+        """Seconds ``latency`` lies past the mean of the fastest half of its
+        window, when the window holds ``STRAGGLER_MIN_SAMPLES`` and the call
+        took at least twice that mean; else 0.0 (a healthy rank's
+        ``straggler_wait`` stays empty)."""
+        lats = self._window(raw_name, msg_size)
+        if len(lats) < self.STRAGGLER_MIN_SAMPLES:
+            return 0.0
+        fastest = sorted(lats)[:max(1, len(lats) // 2)]
+        baseline = sum(fastest) / len(fastest)
+        if baseline <= 0.0 or latency < 2.0 * baseline:
+            return 0.0
+        return latency - baseline
 
     def totals(self) -> dict:
         """{op: {"calls", "bytes", "seconds"}} over everything logged."""
@@ -262,7 +380,7 @@ class CommsLogger:
                          "seconds": sum(sum(r[1]) for r in per.values())}
                     for op, per in self.comms_dict.items()}
 
-    def log_all(self, print_log=True):
+    def log_all(self, print_log=True, show_straggler=False):
         lines = ["Comms summary:"]
         with self._lock:
             snap = {op: {size: (r[0], list(r[1]), list(r[2]), list(r[3]))
@@ -273,6 +391,14 @@ class CommsLogger:
                 lines.append(f"  {op:26s} size={size:>12d} count={count:>6d} "
                              f"avg_lat={mean(lats) * 1e3:8.3f}ms "
                              f"algo_bw={mean(bws):8.2f}GB/s bus_bw={mean(busbws):8.2f}GB/s")
+        if show_straggler:
+            lines.append(f"Straggler skew (max vs mean latency, last "
+                         f"{self.STRAGGLER_WINDOW} calls per op/size):")
+            for op, size, cnt, mean, worst, skew in self.straggler_report():
+                flag = "  <-- straggler" if skew >= self.STRAGGLER_SKEW and cnt >= 4 else ""
+                lines.append(f"  {op:26s} size={size:>12d} window={cnt:>4d} "
+                             f"mean={mean * 1e3:8.3f}ms max={worst * 1e3:8.3f}ms "
+                             f"skew={skew:5.2f}x{flag}")
         if print_log:
             log_dist("\n".join(lines), ranks=[0])
         return self.comms_dict
@@ -306,9 +432,47 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size() if torch.is_tensor(t) else 0
 
 
+def _record(op: str, seconds: float, nbytes: int, group, n: int, log_name: str) -> None:
+    """One timed collective (or collective phase) into the comms logger and
+    the live telemetry session: the series, the straggler excess span and
+    the rank-matchable ``cat="comm"`` span."""
+    logger = comms_logger
+    registry = telemetry.get_registry()
+    tracer = telemetry.get_tracer()
+    if logger is not None and logger.wants(op):
+        logger.append(op, log_name, seconds, nbytes, n=n)
+        if registry.enabled:
+            registry.gauge("comm/skew", labels={"op": op, "size": str(nbytes)}).set(
+                logger.window_skew(op, nbytes))
+        excess = logger.straggler_excess(op, nbytes, seconds)
+        if excess > 0.0:
+            # the slice of the call past the recent baseline: it outranks
+            # exposed comm in the goodput taxonomy
+            tracer.complete("straggler_wait", excess * 1e6, cat="straggler", op=op)
+            if registry.enabled:
+                registry.counter("comm/straggler_excess_us").inc(excess * 1e6)
+    if registry.enabled:
+        registry.histogram("comm/op_latency_seconds",
+                           labels={"op": op, "size": str(nbytes)}).observe(seconds)
+        registry.counter("comm/op_calls", labels={"op": op}).inc()
+        registry.counter("comm/op_bytes", labels={"op": op}).inc(nbytes)
+    gd = group_desc(group)
+    tracer.complete(f"comm:{op}", seconds * 1e6, cat="comm", op=op,
+                    seq=_next_collective_seq(op, gd), group=gd, bytes=nbytes)
+
+
+def record_phase_span(op: str, seconds: float, group=None, nbytes: int = 0) -> None:
+    """Record a collective phase its caller dispatched and timed to
+    completion (a sequence of collectives counted as one) as a timed
+    collective is recorded: the logger's windows, the series and a
+    ``cat="comm"`` span with the same ``(op, seq, group)`` identity."""
+    _record(op, float(seconds), int(nbytes), group, get_world_size(group), op)
+
+
 def timed_op(size_arg: str = "tensor"):
-    """Time a collective into the comms logger; the message size is the
-    bytes of the argument ``size_arg``."""
+    """Time a collective into the comms logger and the telemetry session
+    (:func:`_record`); the message size is the bytes of the argument
+    ``size_arg``. Only the logger waits for a card collective to finish."""
     def wrap(func):
         params = inspect.signature(func).parameters
         names = list(params)
@@ -316,18 +480,21 @@ def timed_op(size_arg: str = "tensor"):
         @functools.wraps(func)
         def wrapper(*args, **kwargs):
             logger = comms_logger
-            if logger is None or not logger.wants(func.__name__):
+            waited = logger is not None and logger.wants(func.__name__)
+            if not waited and telemetry.get_session() is None:
                 return func(*args, **kwargs)
             bound = dict(zip(names, args), **kwargs)
             t0 = time.perf_counter()
             result = func(*args, **kwargs)
             msg = bound.get(size_arg)
-            if torch.is_tensor(msg) and msg.is_cuda:
+            if waited and torch.is_tensor(msg) and msg.is_cuda:
                 torch.cuda.synchronize(msg.device)
             latency = time.perf_counter() - t0
-            logger.append(func.__name__, bound.get("log_name", func.__name__), latency,
-                          sum(_nbytes(t) for t in msg) if isinstance(msg, (list, tuple))
-                          else _nbytes(msg), n=get_world_size(bound.get("group")))
+            size = sum(_nbytes(t) for t in msg) if isinstance(msg, (list, tuple)) \
+                else _nbytes(msg)
+            group = bound.get("group")
+            _record(func.__name__, latency, size, group, get_world_size(group),
+                    bound.get("log_name", func.__name__))
             return result
 
         return wrapper

@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import fnmatch
 import re
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -307,45 +307,67 @@ class CompressionTransform:
         return [name for leaf, plan in zip(self._leaves, self._plans) if plan
                 for _, name in leaf.members]
 
-    def _stack(self, leaf: _Leaf, params: Mapping[str, torch.Tensor]) -> torch.Tensor:
-        ts = [params[name].detach() for _, name in leaf.members]
-        return torch.stack(ts) if leaf.stacked else ts[0]
+    def armed_leaves(self) -> List[_Leaf]:
+        return [leaf for leaf, plan in zip(self._leaves, self._plans) if plan]
 
-    def _unstack(self, leaf: _Leaf, w: torch.Tensor, out: dict) -> None:
+    @staticmethod
+    def stack(leaf: _Leaf, read: Callable[[str], torch.Tensor]) -> torch.Tensor:
+        """The leaf's values, stacked (L, ...) for a stacked leaf, from
+        ``read(port name)``: one layer read at a time into the stack, so
+        beyond the stack at most one layer's read is held."""
+        first = read(leaf.members[0][1]).detach()
+        if not leaf.stacked:
+            return first
+        out = torch.empty((len(leaf.members),) + tuple(first.shape), dtype=first.dtype,
+                          device=first.device)
+        out[0].copy_(first)
+        del first
+        for layer, name in leaf.members[1:]:
+            out[layer].copy_(read(name))
+        return out
+
+    @staticmethod
+    def _unstack(leaf: _Leaf, w: torch.Tensor, out: dict) -> None:
         for layer, name in leaf.members:
             out[name] = w[layer] if leaf.stacked else w
+
+    @torch.no_grad()
+    def leaf_effective(self, leaf: _Leaf, w: torch.Tensor, step: int, masks: bool = True
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One leaf's values ``w`` (stacked) at ``step`` and, with
+        ``masks``, their gradient mask (None: the gradient passes
+        unchanged). Each technique applies inside its window ``[off, end)``;
+        a quant window may be per layer (the MoQ stretch)."""
+        gm = None
+        for e in self._plans[self._leaves.index(leaf)]:
+            off, end = self._stretched_window(e, leaf.shape, leaf.path)
+            active = np.asarray(step >= off if end is None else
+                                (step >= off) & (step < end))
+            if not active.any():
+                continue
+            new, mask = e["fn"](w)
+            if active.ndim:                          # (L,) per-layer gate
+                sel = torch.as_tensor(active, device=w.device).view(
+                    (-1,) + (1,) * (w.ndim - 1))
+                w = torch.where(sel, new, w)
+            else:
+                w = new
+            del new
+            if masks and mask is not None:
+                gm = mask if gm is None else gm * mask
+        if gm is not None:
+            gm = gm.expand(w.shape)
+        return w, gm
 
     @torch.no_grad()
     def effective(self, params: Mapping[str, torch.Tensor], step: int
                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Optional[torch.Tensor]]]:
         """The armed tensors' values at ``step`` and their gradient masks
-        (None: the gradient passes unchanged), by port name. Each technique
-        applies inside its window ``[off, end)``; a quant window may be per
-        layer (the MoQ stretch)."""
+        (None: the gradient passes unchanged), by port name."""
         eff, gmask = {}, {}
-        for leaf, plan in zip(self._leaves, self._plans):
-            if not plan:
-                continue
-            w = self._stack(leaf, params)
-            gm = None
-            for e in plan:
-                off, end = self._stretched_window(e, leaf.shape, leaf.path)
-                active = np.asarray(step >= off if end is None else
-                                    (step >= off) & (step < end))
-                if not active.any():
-                    continue
-                new, mask = e["fn"](w)
-                if active.ndim:                          # (L,) per-layer gate
-                    sel = torch.as_tensor(active, device=w.device).view(
-                        (-1,) + (1,) * (w.ndim - 1))
-                    w = torch.where(sel, new, w)
-                else:
-                    w = new
-                if mask is not None:
-                    gm = mask if gm is None else gm * mask
+        for leaf in self.armed_leaves():
+            w, gm = self.leaf_effective(leaf, self.stack(leaf, params.__getitem__), step)
             self._unstack(leaf, w, eff)
-            if gm is not None:
-                gm = gm.expand(w.shape)
             for layer, name in leaf.members:
                 gmask[name] = None if gm is None else (gm[layer] if leaf.stacked else gm)
         return eff, gmask
@@ -358,18 +380,33 @@ class CompressionTransform:
                 for name, t in params.items()}
 
     @torch.no_grad()
-    def finalize(self, params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def finalize(self, params: Mapping[str, torch.Tensor],
+                 read: Optional[Callable[[str], torch.Tensor]] = None,
+                 place: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                 ) -> Dict[str, torch.Tensor]:
         """Make compression permanent (reference redundancy_clean): the
-        terminal stage of every armed technique applied to ``params``."""
-        out = dict(params)
+        terminal stage of every armed technique applied to ``params``.
+        ``read(name)`` reads a tensor whole where ``params`` cannot (an
+        engine's fetched units), one leaf at a time; ``place`` moves each
+        result to where it is kept."""
+        place = place or (lambda t: t)
+        if read is None:
+            read, out = params.__getitem__, dict(params)
+        else:
+            armed = set(self.armed())
+            out = {name: place(read(name).detach().clone()) for name in params
+                   if name not in armed}
         for leaf, plan in zip(self._leaves, self._plans):
             if not plan:
                 continue
-            w = self._stack(leaf, params)
+            w = self.stack(leaf, read)
             for e in plan:
                 if e["end"] is None:
                     w = e["fn"](w)[0]
-            self._unstack(leaf, w, out)
+            cleaned = {}
+            self._unstack(leaf, w, cleaned)
+            out.update({name: place(t) for name, t in cleaned.items()})
+            del w, cleaned
         return out
 
 
@@ -395,32 +432,69 @@ class CompressedParams:
     that :meth:`refresh` rewrites for a step; the gradient of the value goes
     to the parameter unchanged (the JAX engine's gradient at the compressed
     params). ``inner``: the gatherer it composes with (None: the module's
-    own parameters)."""
+    own parameters).
 
-    def __init__(self, model: torch.nn.Module, transform: CompressionTransform, inner=None):
+    Under ZeRO stage 3 or ``offload_param`` the inner gatherer is the
+    engine's ``ZeroState`` (``zero``; ``index``: the engine's parameter
+    index by name). A fetched unit's armed parameters are then served by
+    its gathers: the refresh reads each stacked leaf whole, one leaf at a
+    time, and hands the rank's elements of its compressed values to the
+    unit (``ZeroState.serve``: kept on the card at stage 3, in host memory
+    under ``offload_param``), and the gathered views, whose gradients the unit's
+    buffer takes, hold them: straight-through, as at stage 1. Over several
+    ranks every rank gathers the same leaves and computes the same
+    statistics from them: the transform is deterministic (nearest rounding,
+    quantiles by sort, stochastic rounding hashed from the values), so the
+    ranks agree without a broadcast."""
+
+    def __init__(self, model: torch.nn.Module, transform: CompressionTransform, inner=None,
+                 zero=None, index: Optional[Mapping[str, int]] = None):
         self.inner = inner
+        self.zero = zero
         self._transform = transform
         self._model = model
+        self._index = dict(index or {})
         armed = set(transform.armed())
+        # armed parameters of fetched units: served by the unit's gathers
+        self._served = {} if zero is None else {
+            n: self._index[n] for n in armed
+            if n in self._index and zero.fetched[zero.plan.params[self._index[n]].unit]}
         self._owned: Dict[int, Dict[str, str]] = {}
         for mname, module in model.named_modules():
             prefix = f"{mname}." if mname else ""
-            own = {leaf: prefix + leaf for leaf in module._parameters if prefix + leaf in armed}
+            own = {leaf: prefix + leaf for leaf in module._parameters
+                   if prefix + leaf in armed and prefix + leaf not in self._served}
             if own:
                 self._owned[id(module)] = own
         self.eff: Dict[str, torch.Tensor] = {}
         self.refreshes = 0
 
+    def read(self, name: str) -> torch.Tensor:
+        """Parameter ``name``'s raw values, whole, on the card."""
+        i = self._index.get(name)
+        if self.zero is not None and i is not None:
+            return self.zero.whole_param(i)
+        return self._model.get_parameter(name).detach()
+
     @torch.no_grad()
     def refresh(self, step: int) -> None:
         """The compressed values at ``step`` into the static buffers
-        (allocated at the first refresh)."""
-        eff, _ = self._transform.effective(dict(self._model.named_parameters()), step)
-        for name, value in eff.items():
-            buf = self.eff.get(name)
-            if buf is None:
-                self.eff[name] = buf = torch.empty_like(value)
-            buf.copy_(value)
+        (allocated at the first refresh) and the served copies, one stacked
+        leaf at a time."""
+        tr = self._transform
+        for leaf in tr.armed_leaves():
+            w, _ = tr.leaf_effective(leaf, tr.stack(leaf, self.read), step, masks=False)
+            for layer, name in leaf.members:
+                value = w[layer] if leaf.stacked else w
+                i = self._served.get(name)
+                if i is not None:
+                    self.zero.serve(i, value)
+                    continue
+                buf = self.eff.get(name)
+                if buf is None:
+                    self.eff[name] = buf = torch.empty_like(value)
+                buf.copy_(value)
+            del w, value
         self.refreshes += 1
 
     def gather(self, module):
@@ -482,7 +556,7 @@ def redundancy_clean(model_or_params, deepspeed_config, mpu=None):
         tr = engine._compression
         if tr is None:
             tr = init_compression(engine.module, deepspeed_config)
-        engine.replace_params(tr.finalize(dict(engine.module.named_parameters())))
+        engine.replace_params(engine.finalize_params(tr))
         return engine
     tr = init_compression(model_or_params, deepspeed_config)
     if isinstance(model_or_params, torch.nn.Module):

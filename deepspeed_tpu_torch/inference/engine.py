@@ -68,6 +68,7 @@ with the rest of the step.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from collections import OrderedDict
 from typing import Any, List, Mapping, Optional
@@ -233,14 +234,26 @@ class DecodeLoop:
         graph = torch.cuda.CUDAGraph()
         if self.do_sample:
             graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, capture_error_mode=self.capture_error_mode):
-            self.step()
+        # a dead graph freed inside the capture (an abandoned loop left in a
+        # reference cycle, collected when the capture's allocations trigger
+        # the collector) is an operation a capture does not permit and
+        # invalidates it: collect before, and not during, the capture
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode=self.capture_error_mode):
+                self.step()
+        finally:
+            if collecting:
+                gc.enable()
         captured = op_builder.launch_counts()
         self.graph_launches = {key: n - warm[key] for key, n in captured.items() if n != warm[key]}
         op_builder.add_launches({key: -n for key, n in self.graph_launches.items()})
         self.graph = graph
         torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
+        op_builder.stamp_compile("cuda_graph_capture", self.capture_s)
 
     def start(self, logits, cache, seed: int) -> None:
         """:meth:`load` a run, capturing the step first on a CUDA device

@@ -15,6 +15,12 @@ source at once and waits for all of them; a failed build raises with
 Host libraries (:class:`HostLibrary`, the NVMe swap's ``csrc/aio/``) are
 C++ for the CPU, built the same way with ``g++`` and loaded with ctypes.
 
+Compile spans: once :func:`arm_compile_spans` has run (the goodput meter,
+``goodput/recorder.py``), each ``nvcc`` build and each library load is
+stamped as a ``cat="compile"`` span (``phase`` ``nvcc`` or ``load``) on the
+live telemetry tracer, and :func:`stamp_compile` stamps other sites' (a
+CUDA graph capture); unarmed, a site pays one flag check.
+
 Launch counts: each wrapper counts its launches on its :class:`CudaKernel`.
 A launch captured in a CUDA graph is counted at capture, where it does not
 run; whoever captures the graph takes that count back and credits it per
@@ -43,6 +49,22 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 
 _KERNELS: List["CudaKernel"] = []   # every CudaKernel made, for launch_counts
+_COMPILE_SPANS = [False]            # armed by the goodput meter, never disarmed
+
+
+def arm_compile_spans() -> None:
+    """Stamp every later build, load and capture as a compile span."""
+    _COMPILE_SPANS[0] = True
+
+
+def stamp_compile(phase: str, seconds: float) -> None:
+    """A ``cat="compile"`` span of ``seconds`` ending now on the live
+    tracer (the no-op one when telemetry is off), when armed."""
+    if not _COMPILE_SPANS[0]:
+        return
+    from deepspeed_tpu_torch import telemetry
+
+    telemetry.get_tracer().complete("compile", seconds * 1e6, cat="compile", phase=phase)
 
 
 def _nvcc() -> str:
@@ -76,6 +98,7 @@ class CudaKernel:
         self.entry_launches = dict.fromkeys(self.functions, 0)
         self.build_log = ""
         self.build_seconds: Optional[float] = None   # its nvcc's wall time, when built here
+        self.load_seconds: Optional[float] = None    # its library's load time
         self._lib: Optional[ctypes.CDLL] = None
         _KERNELS.append(self)
 
@@ -120,7 +143,13 @@ class CudaKernel:
 
     def load(self) -> ctypes.CDLL:
         if self._lib is None:
-            self.finish_build(self.start_build())
+            t0 = time.perf_counter()
+            proc = self.start_build()
+            if proc is not None:
+                self.finish_build(proc)
+                self.build_seconds = time.perf_counter() - t0
+                stamp_compile("nvcc", self.build_seconds)
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(self.library_path))
             for fn, argtypes in self.functions.items():
                 f = getattr(lib, fn)
@@ -129,6 +158,8 @@ class CudaKernel:
             err = getattr(lib, f"{self.name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
+            self.load_seconds = time.perf_counter() - t0
+            stamp_compile("load", self.load_seconds)
             self._lib = lib
         return self._lib
 
@@ -159,6 +190,7 @@ def build_all(kernels: Iterable[CudaKernel]) -> float:
             errors.append(str(e))
         if proc is not None:
             kern.build_seconds = time.perf_counter() - t0
+            stamp_compile("nvcc", kern.build_seconds)
 
     threads = [threading.Thread(target=finish, args=pair) for pair in zip(kernels, procs)]
     for t in threads:

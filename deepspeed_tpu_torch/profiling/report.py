@@ -2,20 +2,21 @@
 
 Counterpart of ``deepspeed_tpu/profiling/report.py``'s
 :func:`load_metrics_records` (the last record per series of a
-``metrics.jsonl``), :func:`format_bytes`, :func:`format_us`,
-:func:`render_memory_summary` (the ``profiling/*`` series) and
-:func:`render_serving_summary` (the ``serving/*`` series). Standard library
-only, so the views run on a box with no accelerator; the same records
-render to the same text as ``bin/ds_metrics --memory`` and ``bin/ds_serve
-status`` print. The fleet views (stragglers, exposed communication, the
-critical path) read the trace aggregation, which the port does not have
-yet.
+``metrics.jsonl``), :func:`format_bytes`, :func:`format_us`, the fleet
+views of ``profiling/aggregate.py``'s analyses
+(:func:`render_straggler_report`, :func:`render_exposed_comm`,
+:func:`render_critical_path`), :func:`render_memory_summary` (the
+``profiling/*`` series) and :func:`render_serving_summary` (the
+``serving/*`` series). Standard library only, so the views run on a box
+with no accelerator; the same records render to the same text as
+``bin/ds_metrics --memory``, ``bin/ds_prof merge`` and ``bin/ds_serve
+status`` print.
 """
 
 from __future__ import annotations
 
 import json
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 def load_metrics_records(path: str) -> Tuple[List[dict], int]:
@@ -69,6 +70,60 @@ def _table(rows: Sequence[Sequence[str]]) -> str:
         if i == 0:
             lines.append("  ".join("-" * w for w in widths))
     return "\n".join(lines)
+
+
+# ----------------------------------------------------------------- fleet views
+def render_straggler_report(rows, rank_cost: Dict[int, float],
+                            top_k: int = 10) -> str:
+    """The top-K straggler table (which rank, which collective, how many µs
+    the rest of the fleet waited for it) and the totals by rank."""
+    if not rows:
+        return ("straggler analysis: no cross-rank collective matches found "
+                "(need comm span events with (op, seq, group) args on >= 2 ranks)")
+    out = [f"straggler table (top {min(top_k, len(rows))} collectives by fleet cost):"]
+    table = [("straggler", "collective", "group", "arrival skew", "fleet cost")]
+    for r in rows[:top_k]:
+        table.append((f"rank {r.rank}", f"{r.op}#{r.seq}", r.group or "world",
+                      format_us(r.skew_us), format_us(r.fleet_cost_us)))
+    out.append(_table(table))
+    worst = sorted(rank_cost.items(), key=lambda kv: -kv[1])
+    total = sum(rank_cost.values())
+    out.append("")
+    out.append("fleet waiting time by straggling rank:")
+    for rank, cost in worst:
+        if cost <= 0:
+            continue
+        pct = 100.0 * cost / total if total else 0.0
+        out.append(f"  rank {rank:<4} {format_us(cost):>12}  ({pct:.0f}%)")
+    if total == 0:
+        out.append("  (no measurable skew)")
+    return "\n".join(out)
+
+
+def render_exposed_comm(summary: Optional[dict]) -> str:
+    """The exposed-communication line: comm time no compute covers,
+    averaged per step."""
+    if not summary or not summary.get("per_step"):
+        return ("exposed_comm_us_per_step: n/a (no comm spans matched to a "
+                "step window)")
+    per_step = summary["per_step"]
+    avg = summary["avg_us_per_step"]
+    worst_step = max(per_step, key=per_step.get)
+    return (f"exposed_comm_us_per_step: {avg:.0f} "
+            f"(avg over {len(per_step)} step(s); worst step {worst_step}: "
+            f"{format_us(per_step[worst_step])})")
+
+
+def render_critical_path(cp) -> str:
+    """One step's longest dependency chain, segment by segment."""
+    if cp is None:
+        return "critical path: no step spans found"
+    out = [f"critical path (step {cp.step}): {format_us(cp.total_us)} on-path "
+           f"of {format_us(cp.wall_us)} wall "
+           f"({100.0 * cp.total_us / cp.wall_us if cp.wall_us else 0.0:.0f}% serialized)"]
+    for rank, name, ts, dur in cp.segments:
+        out.append(f"  rank {rank:<4} {name:<24} {format_us(dur):>12}  @ {format_us(ts)}")
+    return "\n".join(out)
 
 
 # ------------------------------------------------------------- memory summary

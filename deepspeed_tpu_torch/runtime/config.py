@@ -17,7 +17,8 @@ as in JAX), ``curriculum_learning``, ``dataloader_drop_last``,
 session ``telemetry/`` installs, with the ``monitor`` fan-out), the monitor
 blocks ``tensorboard``, ``wandb`` and ``csv_monitor`` (``monitor/``),
 ``flops_profiler`` and ``profiling`` (``profiling/``; ``profiling_present``
-says whether the block is there), ``serving`` (the front-end of
+says whether the block is there), ``goodput`` (``goodput/``;
+``goodput_present``), ``serving`` (the front-end of
 ``serving/``; ``serving_present`` says whether the block is there),
 ``watchdog``, ``rewind`` (``rewind_present``), ``elasticity``
 (``elasticity/config.py``; None without the block), ``steps_per_print``,
@@ -61,7 +62,8 @@ SUPPORTED_KEYS = frozenset({
     "activation_checkpointing", "memory_breakdown", "dump_state",
     "hybrid_engine", "compression_training", "eigenvalue", "telemetry", "serving",
     "watchdog", "rewind", "elasticity", "tensorboard", "wandb", "csv_monitor",
-    "flops_profiler", "profiling", "train_batch_size", "train_micro_batch_size_per_gpu",
+    "flops_profiler", "profiling", "goodput", "train_batch_size",
+    "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
 
@@ -69,7 +71,7 @@ SUPPORTED_KEYS = frozenset({
 # each is a later slice of the port
 LATER_KEYS = frozenset({
     "pipeline", "gradient_compression", "autotuning", "analysis",
-    "perf", "goodput", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
+    "perf", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
 })
 
 # The JAX package's advisory keys that the port accepts at any value, each
@@ -79,11 +81,11 @@ ADVISORY_NOOP_KEYS = {
         "the port's embedding gradients are dense tensors: the lookup's backward "
         "scatter-adds into the embedding's dense gradient (models/gpt2.py:287 "
         "embed_stage, models/llama.py:223 _embed), which joins its ZeRO unit's flat "
-        "buffer and is reduced with the rest (runtime/zero/state.py:292 grad_hook); a "
+        "buffer and is reduced with the rest (runtime/zero/state.py:312 grad_hook); a "
         "sparse reduction would carry the same values",
     "prescale_gradients":
         "every gradient reduction is ReduceOp.AVG in data_types.grad_accum_dtype, fp32 "
-        "unless set (runtime/zero/state.py:337 and :382), and NCCL runs a floating-point "
+        "unless set (runtime/zero/state.py:351 and :396), and NCCL runs a floating-point "
         "average as a sum of each rank's gradient pre-multiplied by 1/world: the "
         "gradients are always prescaled",
     "nebula":
@@ -93,7 +95,7 @@ ADVISORY_NOOP_KEYS = {
         "nebula's tiers and storage paths have no counterpart",
     "zero_allow_untested_optimizer":
         "a client optimizer is a deepspeed_tpu_torch.ops.optimizers.Optimizer, which "
-        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:887 "
+        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:950 "
         "_configure_optimizer): there is no untested-optimizer gate to pass",
     "zero_force_ds_cpu_optimizer":
         "the port has no CPU Adam to force: offload_optimizer cpu keeps the state in "
@@ -102,7 +104,7 @@ ADVISORY_NOOP_KEYS = {
         "(runtime/swap_tensor/optimizer_swapper.py)",
     "timers":
         "throughput timing is always on (ThroughputTimer, utils/timer.py; the engine's "
-        "tput_timer, runtime/engine.py:355) and the synchronized breakdown is the "
+        "tput_timer, runtime/engine.py:389) and the synchronized breakdown is the "
         "wall_clock_breakdown knob: set that instead",
 }
 
@@ -114,13 +116,13 @@ ADVISORY_NOOP_KEYS = {
 ADVISORY_REFUSED_KEYS = {
     "gradient_predivide_factor": (
         1.0,
-        "the port divides by the world inside one ReduceOp.AVG (runtime/zero/state.py:337 "
+        "the port divides by the world inside one ReduceOp.AVG (runtime/zero/state.py:351 "
         "and :382), with no split of the division around the reduction; leave it at 1.0 "
         "(prescale_gradients is accepted)"),
     "disable_allgather": (
         False,
         "ZeRO stages 1-3 reassemble updated shards with all_gather_into_tensor "
-        "(runtime/zero/state.py:420) and have no broadcast path; leave it false"),
+        "(runtime/zero/state.py:434) and have no broadcast path; leave it false"),
     "graph_harvesting": (
         False,
         "the port does not capture the training step as a CUDA graph; only generate's "
@@ -131,7 +133,7 @@ ADVISORY_REFUSED_KEYS = {
         "(parallel/topology.py:8), with no reordered rank lists; leave it false"),
     "communication_data_type": (
         None,
-        "gradients are reduced in data_types.grad_accum_dtype (runtime/zero/state.py:288 "
+        "gradients are reduced in data_types.grad_accum_dtype (runtime/zero/state.py:302 "
         "_buffer); set that knob instead"),
 }
 
@@ -388,6 +390,29 @@ class ProfilingConfig(DeepSpeedConfigModel):
     def __post_init__(self):
         _check_min(self, sample_interval=(0, True), leak_window=(2, False),
                    leak_min_growth_bytes=(0, False))
+
+
+@dataclasses.dataclass
+class GoodputConfig(DeepSpeedConfigModel):
+    """The goodput block (``goodput/``): every wall-second of a step in the
+    closed taxonomy (compute, compile, exposed comm, data wait, checkpoint,
+    watchdog stall, straggler wait, restart, idle) from the telemetry
+    spans, exported as the ``goodput/*`` series one step behind.
+    ``compile_spans`` arms ``op_builder``'s flag, so ``nvcc`` builds,
+    library loads and CUDA graph captures land as ``compile`` spans
+    (process-wide, and it stays armed, as the JAX listener stays
+    registered). ``tolerance``: the fraction of a step's measured window
+    its buckets may miss by before ``goodput/closure_violations`` counts
+    it. Its presence arms it (``enabled`` false keeps it present and off);
+    without it the package is never imported."""
+    enabled: bool = True
+    compile_spans: bool = True
+    tolerance: float = 0.05
+
+    def __post_init__(self):
+        _check_min(self, tolerance=(0.0, True))
+        if self.tolerance > 1.0:
+            raise ValueError(f"GoodputConfig.tolerance must be <= 1.0, got {self.tolerance}")
 
 
 @dataclasses.dataclass
@@ -801,6 +826,10 @@ class DeepSpeedConfig:
         # is never imported and no census runs
         self.profiling = ProfilingConfig.from_dict(pd.get("profiling", {}))
         self.profiling_present = "profiling" in pd
+        # presence matters, as in JAX: without the block the goodput
+        # package is never imported and no compile span is stamped
+        self.goodput = GoodputConfig.from_dict(pd.get("goodput", {}))
+        self.goodput_present = "goodput" in pd
         self.serving = ServingConfig.from_dict(pd.get("serving", {}))
         self.serving_present = "serving" in pd
         self.watchdog = WatchdogConfig.from_dict(pd.get("watchdog", {}))

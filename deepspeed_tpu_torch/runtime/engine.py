@@ -108,8 +108,14 @@ block, after each ``train_batch`` at a gradient-accumulation boundary
 (outside the train-batch timer) the engine estimates each layer's Hessian
 eigenvalue on the first microbatch with the raw weights
 (``runtime/eigenvalue.py``) and stretches MoQ's per-layer quantization
-periods, as the JAX ``_maybe_update_eigenvalue`` does. Compression under
-ZeRO stage 3 or ``offload_param`` is a later slice and raises.
+periods, as the JAX ``_maybe_update_eigenvalue`` does. Under ZeRO stage 3
+or ``offload_param`` (fetched units) the transform reads each stacked leaf
+whole on the card, one leaf at a time, and keeps the rank's elements of
+its compressed values, on the card at stage 3 and in host memory under
+``offload_param``, which the units' gathers then hand out in place of the
+raw ones (``ZeroState.serve``); the eigenvalue reads whole raw copies.
+``offload_param: nvme`` is the layerwise ZeRO-Infinity engine, which
+refuses the block.
 
 The ``activation_checkpointing`` block configures
 ``runtime/activation_checkpointing/checkpointing.py`` when it asks for
@@ -145,6 +151,10 @@ EstTFLOPs and the ``train/flops_per_batch`` gauge; ``profiling`` samples the
 census of the card's memory by the engine's state after the telemetry step
 and wraps the telemetry tracer for per-span peaks
 (``profiling/memory.py``); ``memory_census()`` takes a census on demand.
+``goodput`` arms the goodput meter after telemetry (``goodput/recorder.py``):
+each step's wall time in the closed taxonomy, from the telemetry spans, as
+the ``goodput/*`` series one step behind, and the kernel builds, library
+loads and graph captures as compile spans.
 
 The engine runs on CUDA unless it is given ``device="cpu"``; without a card
 it raises. Its process group is the default one when one is initialized
@@ -162,6 +172,7 @@ import inspect
 import os
 import tempfile
 import time
+import types
 import weakref
 from typing import Any, List, Mapping, NamedTuple, Optional
 
@@ -205,6 +216,29 @@ def _resolve_stream_overlap(off_opt) -> bool:
     environment knob (also without an offload_optimizer block)."""
     cfg = off_opt.stream_overlap if off_opt is not None else None
     return env_flag("DS_TPU_OFFLOAD_OVERLAP") if cfg is None else bool(cfg)
+
+
+class _WholeParams:
+    """A ``param_gatherer`` handing each module the tensors of ``named``
+    (its parameters by full name) in place of its own."""
+
+    def __init__(self, model: torch.nn.Module, named: Mapping[str, torch.Tensor]):
+        self._of = {}
+        for mname, module in model.named_modules():
+            prefix = f"{mname}." if mname else ""
+            own = {a: named[prefix + a] for a in module._parameters if prefix + a in named}
+            if own:
+                self._of[id(module)] = own
+
+    def gather(self, module):
+        own = self._of.get(id(module))
+        if own is None:
+            return module
+        return types.SimpleNamespace(**{a: own.get(a, getattr(module, a))
+                                        for a in module._parameters})
+
+    def release(self, module) -> None:
+        pass
 
 
 class StepMetrics(NamedTuple):
@@ -363,6 +397,14 @@ class DeepSpeedEngine:
         # caller installs gets the same series
         self.telemetry = _telemetry.configure(self._config.telemetry, monitor=self.monitor)
         self._init_profiling()
+        # the goodput meter over the telemetry spans, and the compile spans
+        # (goodput/recorder.py): without the block the package is never
+        # imported and ``op_builder``'s flag stays as it is
+        self._goodput = None
+        if self._config.goodput_present and self._config.goodput.enabled:
+            from deepspeed_tpu_torch.goodput.recorder import GoodputMeter
+
+            self._goodput = GoodputMeter(self._config.goodput, engine=self)
         self._last_save = None
         self._last_recovery = None
         self._init_resilience()
@@ -683,9 +725,6 @@ class DeepSpeedEngine:
                                                               CompressionTransform,
                                                               stacked_layers_of)
 
-        if any(self._zero.fetched):
-            raise _later("compression training under ZeRO stage 3 or offload_param (the "
-                         "transform's statistics need each stacked leaf whole on the card)")
         if not hasattr(self.module, "param_gatherer"):
             raise NotImplementedError(
                 f"compression training of {type(self.module).__name__}: the model must "
@@ -696,8 +735,12 @@ class DeepSpeedEngine:
         inner = self.module.param_gatherer
         if isinstance(inner, CompressedParams):
             inner = inner.inner
+        self._zero.served.clear()             # an earlier arming's compressed values
+        fetched = any(self._zero.fetched)
         self._compression = transform
-        self._compressed = CompressedParams(self.module, transform, inner)
+        self._compressed = CompressedParams(
+            self.module, transform, inner, zero=self._zero if fetched else None,
+            index={n: i for i, n in enumerate(self._param_names)})
         self.module.param_gatherer = self._compressed
         self.invalidate_compiled()
         return self
@@ -720,15 +763,36 @@ class DeepSpeedEngine:
     @contextlib.contextmanager
     def _raw_params(self):
         """The model computing with its raw weights (the eigenvalue's
-        Hessian is of the raw loss, as in JAX)."""
-        if self._compressed is None:
-            yield
-            return
-        self.module.param_gatherer = self._compressed.inner
+        Hessian is of the raw loss, as in JAX); yields those weights by
+        name, leaves of the graph the loss is differentiated in. With
+        fetched units (ZeRO stage 3, ``offload_param``) they are whole
+        copies on the card that the model reads through a gatherer of its
+        own, outside the units' gathers and gradient buffers."""
+        gatherer = self.module.param_gatherer
+        named = dict(self.module.named_parameters())
+        if any(self._zero.fetched):
+            index = {n: i for i, n in enumerate(self._param_names)}
+            named = {n: self._zero.whole_param(index[n]).detach().clone().requires_grad_(True)
+                     if n in index else p for n, p in named.items()}
+            self.module.param_gatherer = _WholeParams(self.module, named)
+        elif self._compressed is not None:
+            self.module.param_gatherer = self._compressed.inner
         try:
-            yield
+            yield named
         finally:
-            self.module.param_gatherer = self._compressed
+            self.module.param_gatherer = gatherer
+
+    @torch.no_grad()
+    def finalize_params(self, transform) -> dict:
+        """Every trainable parameter, whole, with ``transform``'s terminal
+        compression made permanent (``redundancy_clean``), read one stacked
+        leaf at a time; in host memory under ``offload_param``."""
+        index = {n: i for i, n in enumerate(self._param_names)}
+        home = torch.device("cpu") if self._host_offload_param else self.device
+        return transform.finalize(
+            {n: None for n in self._param_names},
+            read=lambda n: self._zero.whole_param(index[n]),
+            place=lambda t: t.to(home))
 
     @torch.no_grad()
     def replace_params(self, values: Mapping[str, torch.Tensor]) -> None:
@@ -762,10 +826,9 @@ class DeepSpeedEngine:
         micro = next(self._split(batch, self._config.gradient_accumulation_steps))
         gen = torch.Generator(device=self.device).manual_seed(
             (self._config.seed * 1_000_003 + step) * 1_009 + 0xE1)
-        with self._raw_params(), plain_math(self.module):
+        with self._raw_params() as params, plain_math(self.module):
             self.block_eigenvalue = self.eigenvalue.compute_eigenvalue(
-                lambda: self.module.loss(micro), dict(self.module.named_parameters()),
-                generator=gen)
+                lambda: self.module.loss(micro), params, generator=gen)
         if not self.block_eigenvalue:
             return
         raw = [ev for ev, _ in self.block_eigenvalue.values()]
@@ -1099,6 +1162,10 @@ class DeepSpeedEngine:
         session = _telemetry.get_session()
         if session is not None:
             self._record_step_telemetry(session, metrics, step)
+        if self._goodput is not None:
+            # the previous step's ledger: this step's train_batch span is
+            # still open here, so the goodput/* series lag one step
+            self._goodput.on_step(step)
         if self._mem_profiler is not None:
             self._mem_profiler.maybe_sample(self, step)
 

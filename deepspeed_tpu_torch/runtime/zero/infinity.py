@@ -83,7 +83,10 @@ class ZeroInfinityEngine:
             ("wandb", ds_config.monitor_config.wandb.enabled),
             ("csv_monitor", ds_config.monitor_config.csv_monitor.enabled),
             ("flops_profiler", ds_config.flops_profiler_config.enabled),
-            ("profiling", ds_config.profiling_present and ds_config.profiling.enabled)) if on]
+            ("profiling", ds_config.profiling_present and ds_config.profiling.enabled),
+            ("goodput", ds_config.goodput_present and ds_config.goodput.enabled),
+            ("compression_training", bool(ds_config.compression_config)),
+            ("eigenvalue", ds_config.eigenvalue_enabled)) if on]
         if armed:
             raise NotImplementedError(f"the {armed} block(s) with param-NVMe training (the "
                                       "layerwise engine keeps its state in files and has no "

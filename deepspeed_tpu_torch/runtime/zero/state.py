@@ -43,6 +43,17 @@ the unit again when it unpacks one (keeping the last unit gathered in
 backward until another is asked for).
 A block under activation checkpointing gathers again when it is recomputed.
 
+Compression training over fetched units: ``whole_param(i)`` reads one
+parameter's values whole on the card (a slice of the rank's part, copied
+from host memory under ``offload_param``, or the unit all-gathered when it
+is partitioned over several ranks), so the transform can stack a leaf over
+its layers one leaf at a time; ``serve(i, values)`` keeps the rank's
+elements of a parameter's compressed values (``served``, where the part
+is: pinned host memory under ``offload_param``), and the unit's gathers
+then copy those in place of the part's raw elements of it, and the rest of
+the unit from the part. The raw part, which the optimizer updates and a
+checkpoint saves, stays as it is.
+
 Expert units (``partition.py``; an expert axis above 1): the unit of this
 rank's experts of a MoE layer stays whole on the rank at every stage, as
 its fp32 values and optimizer state do. Its gradient is summed over the
@@ -105,7 +116,7 @@ class _Gather(torch.autograd.Function):
     def forward(ctx, state, unit, *params):
         ctx.state, ctx.unit = state, unit
         ctx.set_materialize_grads(False)
-        return tuple(state._views(state._gather(unit, live=True), unit))
+        return tuple(state._views(state._gather(unit, live=True, served=True), unit))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -174,6 +185,10 @@ class ZeroState:
         self.fetched = [u.partitioned or (param_host and u.name != "persistent")
                         for u in plan.units]
         self.host_state = fp32_host or param_host
+        self.pin = pin
+        # compression: fetched param -> the rank's elements of its served
+        # (compressed) values, which the unit's gathers hand out
+        self.served: Dict[int, torch.Tensor] = {}
 
         self.fp32: List[Optional[torch.Tensor]] = [None] * len(plan.units)
         self.whole: Dict[int, torch.Tensor] = {}   # compute-type buffer of a whole unit
@@ -435,17 +450,25 @@ class ZeroState:
             torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------- stage 3: gather
-    def _gather(self, u: int, live: bool) -> torch.Tensor:
+    def _gather(self, u: int, live: bool, served: bool = False) -> torch.Tensor:
         """Fetched unit ``u``'s compute-type params, whole, on the card:
-        copied from the host and, where partitioned, all-gathered."""
+        copied from the host and, where partitioned, all-gathered. With
+        ``served``, from the unit's served copy when it has one (the
+        compressed values a model computes with)."""
         unit = self.plan.units[u]
-        src = self.parts[u]
+        part = self.parts[u]
         buf = torch.empty(unit.length, dtype=self.dtype, device=self.device)
-        if not unit.partitioned or self.group is None:
-            buf.copy_(src, non_blocking=True)
+        whole = not unit.partitioned or self.group is None
+        if served and any(i in self.served for i in unit.params):
+            src = buf if whole else torch.empty(part.numel(), dtype=self.dtype,
+                                                device=self.device)
+            self._copy_served(u, src)
+        elif whole:
+            buf.copy_(part, non_blocking=True)
         else:
-            comm.all_gather_into_tensor(buf, src.to(self.device, non_blocking=True),
-                                        group=self.group)
+            src = part.to(self.device, non_blocking=True)
+        if not whole:
+            comm.all_gather_into_tensor(buf, src, group=self.group)
         self.gathers += 1
         if live:
             self._live[buf.untyped_storage().data_ptr()] = (u, buf)
@@ -490,7 +513,7 @@ class ZeroState:
             # drop the previous unit before gathering the next; the views
             # autograd already unpacked keep it for as long as they need it
             self._bwd = None
-            self._bwd = (x.unit, self._gather(x.unit, live=False))
+            self._bwd = (x.unit, self._gather(x.unit, live=False, served=True))
         return self._bwd[1].as_strided(x.size, x.stride, x.offset)
 
     @contextlib.contextmanager
@@ -507,6 +530,66 @@ class ZeroState:
                 yield
         finally:
             self._forwarding = False
+
+    # ---------------------------------------------- compression: whole params
+    def _kept(self, u: int) -> Tuple[int, int]:
+        """(start, end) of fetched unit ``u``'s elements in the rank's part."""
+        base = self.rank * self.plan.units[u].shard if self.plan.units[u].partitioned else 0
+        return base, base + self.parts[u].numel()
+
+    def whole_param(self, i: int) -> torch.Tensor:
+        """Parameter ``i``'s raw compute-type values, whole, on the card: a
+        view of its whole unit; for a fetched unit, its elements of the
+        rank's part (copied up from host memory under ``offload_param``),
+        or, for a unit partitioned over several ranks, a view of the unit
+        all-gathered (a collective: every rank reads the same parameters in
+        the same order)."""
+        p = self.plan.params[i]
+        u = p.unit
+        if not self.fetched[u]:
+            return self._view(self.whole[u], i)
+        if self.plan.units[u].partitioned and self.group is not None and self.plan.world > 1:
+            return self._view(self._gather(u, live=False), i)
+        part = self.parts[u][p.offset:p.offset + p.numel]
+        return part.to(self.device, non_blocking=True).view(p.shape)
+
+    @torch.no_grad()
+    def serve(self, i: int, values: torch.Tensor) -> None:
+        """Fetched parameter ``i``'s gathers hand out ``values`` (whole, on
+        any device) in place of its own: the rank's elements of it are
+        kept in ``served[i]``, made at the first call where the part is.
+        Its raw values stay in the part."""
+        p = self.plan.params[i]
+        lo, hi = self._kept(p.unit)
+        a, b = max(p.offset, lo), min(p.offset + p.numel, hi)
+        if a >= b:
+            return
+        kept = self.served.get(i)
+        if kept is None:
+            part = self.parts[p.unit]
+            kept = host_zeros(b - a, part.dtype, self.pin) \
+                if part.device.type == "cpu" and self.device.type == "cuda" \
+                else torch.empty(b - a, dtype=part.dtype, device=part.device)
+            self.served[i] = kept
+        kept.copy_(values.reshape(-1)[a - p.offset:b - p.offset], non_blocking=True)
+
+    def _copy_served(self, u: int, dst: torch.Tensor) -> None:
+        """The rank's part of fetched unit ``u`` into ``dst`` on the card,
+        its served parameters' elements from ``served`` and the rest from
+        the part, each stretch in one copy."""
+        part, (lo, _) = self.parts[u], self._kept(u)
+        pos = 0
+        for i in sorted(self.plan.units[u].params, key=lambda i: self.plan.params[i].offset):
+            kept = self.served.get(i)
+            if kept is None:
+                continue
+            a = max(self.plan.params[i].offset, lo) - lo
+            if pos < a:
+                dst[pos:a].copy_(part[pos:a], non_blocking=True)
+            pos = a + kept.numel()
+            dst[a:pos].copy_(kept, non_blocking=True)
+        if pos < part.numel():
+            dst[pos:].copy_(part[pos:], non_blocking=True)
 
     # ------------------------------------------------ whole state (checkpoint)
     def _whole_unit(self, source: Source, u: int) -> torch.Tensor:

@@ -73,6 +73,12 @@ class TelemetrySession:
         rank = _process_rank()
         self.tracer = (StepTracer(max_events=cfg.max_trace_events, pid=rank)
                        if cfg.trace else NOOP_TRACER)
+        # a new session is a new trace file and clock: the comm layer's
+        # per-(op, group) collective seq counters restart with it, so every
+        # rank's (op, seq, group) identities stay matchable across restarts
+        from deepspeed_tpu_torch.comm import comm as _comm
+
+        _comm.reset_collective_trace_seq()
         self.output_dir = cfg.output_dir
         self.exporters = []
         self.trace_path = None

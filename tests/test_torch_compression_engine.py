@@ -5,7 +5,8 @@ Six fp32 steps of a 2-layer GPT-2 engine under ``compression_training``
 pruning of the fc leaves from step 3) across two stage boundaries and the
 start of pruning against the JAX engine from the same weights (losses rtol
 1e-5), then ``redundancy_clean`` and one more step on both; stage 3 with
-a partitioned unit refuses compression. One JAX engine trains in this file.
+a partitioned unit arms compression, and ``offload_param: nvme`` refuses it.
+One JAX engine trains in this file.
 """
 
 import jax
@@ -124,8 +125,20 @@ def test_redundancy_clean_and_the_next_step_match_jax(engine_runs, phase):
 
 
 def test_compression_refuses_stage_3():
-    with pytest.raises(NotImplementedError, match="stage 3"):
+    """Stage 3 with a partitioned unit no longer refuses compression: the
+    engine arms it, its compressed gatherer serves the fetched units'
+    armed weights through the ZeRO state's gathers, and a step trains
+    (``test_torch_compression_zero3.py`` holds it to JAX and to stage 1).
+    What still refuses is ``offload_param: nvme``, the layerwise
+    ZeRO-Infinity engine."""
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=tgpt2.GPT2Model(tgpt2.GPT2Config(**SMALL, dtype=torch.float32)),
+        device="cpu", config={**ENGINE_CFG, "zero_optimization": {
+            "stage": 3, "stage3_param_persistence_threshold": 0}})
+    assert all(engine._zero.fetched) and engine._compressed.zero is engine._zero
+    assert np.isfinite(float(engine.train_batch({"input_ids": np.zeros((8, 16), np.int32)})))
+    with pytest.raises(NotImplementedError, match="compression_training"):
         deepspeed_tpu_torch.initialize(
             model=tgpt2.GPT2Model(tgpt2.GPT2Config(**SMALL, dtype=torch.float32)),
             device="cpu", config={**ENGINE_CFG, "zero_optimization": {
-                "stage": 3, "stage3_param_persistence_threshold": 0}})
+                "stage": 3, "offload_param": {"device": "nvme"}}})

@@ -62,7 +62,10 @@ fake quantization and the pruning masks on the card equal the CPU's bit
 for bit; the eigenvalue estimate launches no K1 or K2. Monitoring and
 profiling: the flops profiler counts a step through K1/K2 on the card as
 it counts the plain step on the CPU, and the memory census's total is the
-allocator's.
+allocator's. Compression under ZeRO stage 3: the compressed values the
+stage-3 units' gathers hand out (from the card, or from pinned host memory
+under ``offload_param``) equal the stage-1 refresh's bit for bit; with the
+goodput meter's flag armed, a decode-graph capture is a compile span.
 """
 
 import dataclasses
@@ -228,6 +231,51 @@ def test_generate_replays_a_captured_decode_graph(gen, dtype):
     assert counts == [(2, 2 * 81), (2, 2 * 80)]
     assert graph is not None and loop.graph is graph and len(eng._decode_loops) == 1
     assert torch.equal(out, first) and torch.equal(out, _eager_loop(eng, ids, 80))
+
+
+def test_a_dead_graph_is_not_freed_inside_a_capture(gen, monkeypatch):
+    """A captured graph left in a reference cycle (a loop the serving
+    front-end abandoned) and collected while another capture runs would
+    invalidate that capture. Here the collector is off until the decode
+    step is being captured and then runs at almost every allocation: the
+    decode loop collects before it captures, so the dead graph is gone by
+    then, the capture succeeds and replays the eager loop's tokens."""
+    import gc
+
+    from deepspeed_tpu_torch.inference.engine import DecodeLoop
+
+    eng = _graph_engine(gen)
+    ids = torch.randint(0, 512, (2, 16), generator=gen, device="cuda")
+    step = DecodeLoop.step
+
+    def collecting_while_captured(self):
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1)
+            gc.enable()
+        return step(self)
+
+    monkeypatch.setattr(DecodeLoop, "step", collecting_while_captured)
+    enabled, threshold = gc.isenabled(), gc.get_threshold()
+    gc.disable()
+    try:
+        x = torch.zeros(8, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            x.add_(1)
+        torch.cuda.current_stream().wait_stream(side)
+        dead = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(dead):
+            x.add_(1)
+        cycle = {"graph": dead}
+        cycle["self"] = cycle
+        del dead, cycle
+        out = eng.generate(ids, max_new_tokens=8)
+    finally:
+        gc.set_threshold(*threshold)
+        (gc.enable if enabled else gc.disable)()
+    monkeypatch.undo()
+    assert torch.equal(out, _eager_loop(eng, ids, 8))
 
 
 def test_generate_refuses_a_side_stream(gen):
@@ -985,6 +1033,34 @@ def test_comm_collectives_over_nccl(nccl_world):
     comm.monitored_barrier(timeout=60)
     assert (comm.get_rank(), comm.get_world_size(), comm.get_backend()) == (0, 1, "nccl")
     assert deepspeed_tpu_torch.get_accelerator().communication_backend_name() == "nccl"
+
+
+def test_comm_spans_wait_for_the_card_only_under_the_logger(nccl_world, tmp_path, monkeypatch):
+    """A telemetry session alone records each card collective's span
+    without a synchronize; a CommsLogger waits for it, as before."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.runtime.config import TelemetryConfig
+
+    comm = nccl_world
+    waits = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: (waits.append(a), real(*a)))
+    x = torch.arange(8, dtype=torch.float32, device="cuda")
+    telemetry.configure(TelemetryConfig(enabled=True, output_dir=str(tmp_path)))
+    try:
+        comm.all_reduce(x.clone())
+        assert not waits
+        comm.configure(enabled=True)
+        try:
+            comm.all_reduce(x.clone())
+        finally:
+            comm.configure(enabled=False)
+        assert len(waits) == 1
+        spans = [e for e in telemetry.get_tracer().events if e.get("cat") == "comm"]
+        assert [(e["args"]["op"], e["args"]["seq"]) for e in spans] == [
+            ("all_reduce", 0), ("all_reduce", 1)]
+    finally:
+        telemetry.deconfigure()
 
 
 def test_functional_reduce_scatter_and_barrier_default_over_nccl(nccl_world):
@@ -1766,5 +1842,65 @@ def test_census_total_is_the_allocators_on_the_card(gen, tmp_path):
         peak = snap[("profiling/span_peak_bytes", (("span", "train_batch"),))]
         assert peak["count"] == 1 and peak["max"] > 0
         assert snap[("profiling/live_bytes_total", ())]["value"] > 0
+    finally:
+        telemetry.deconfigure()
+
+
+# ------------------------------------- compression under ZeRO-3 and goodput
+_PRUNED_MOQ = {**_MOQ, "sparse_pruning": {
+    "shared_parameters": {"enabled": True, "schedule_offset": 2, "method": "l1"},
+    "different_groups": {"p": {"params": {"dense_ratio": 0.5}, "modules": ["blocks"]}}}}
+
+
+@pytest.mark.parametrize("zero", [
+    {"stage": 3, "stage3_param_persistence_threshold": 0},
+    {"stage": 3, "stage3_param_persistence_threshold": 0, "offload_param": {"device": "cpu"}}],
+    ids=["stage3", "stage3_offload"])
+def test_stage3_refresh_serves_the_stage1_values_on_the_card(gen, zero):
+    """A bf16 GPT-2's compressed weights at a quantized and pruned step:
+    what the stage-3 units' gathers hand out (served from the card, or from
+    pinned host memory under offload_param) equals the stage-1 refresh's
+    buffers bit for bit."""
+    cfg = gpt2.GPT2Config(vocab_size=512, n_positions=128, n_embd=128, n_layer=2, n_head=2,
+                          remat=False, dtype=torch.bfloat16)
+    init = gpt2.GPT2Model(cfg).init_params(torch.Generator(device="cuda").manual_seed(3))
+    state = {n: t.detach().clone() for n, t in init.state_dict().items()}
+    engines = {}
+    for name, z in (("stage1", {"stage": 1}), ("fetched", zero)):
+        engines[name], *_ = deepspeed_tpu_torch.initialize(
+            model=gpt2.GPT2Model(cfg), model_parameters=dict(state), config={
+                "train_batch_size": 4, "steps_per_print": 0, "bf16": {"enabled": True},
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}},
+                "compression_training": _PRUNED_MOQ, "zero_optimization": z})
+        engines[name]._compressed.refresh(3)
+    ref, z3 = engines["stage1"]._compressed, engines["fetched"]._zero
+    assert z3.served and all(t.is_pinned() == ("offload_param" in zero)
+                             for t in z3.served.values())
+    index = {n: i for i, n in enumerate(engines["fetched"]._param_names)}
+    for name, want in ref.eff.items():
+        p = z3.plan.params[index[name]]
+        whole = z3._gather(p.unit, live=False, served=True)
+        got = whole[p.offset:p.offset + p.numel].view(p.shape)
+        assert torch.equal(got, want), name
+    assert len(ref.eff) == 2 * 12
+
+
+def test_graph_capture_stamps_a_compile_span(gen, tmp_path):
+    """With the goodput meter's flag armed, generate's decode-graph capture
+    lands on the live tracer as a compile span of the capture's time."""
+    from deepspeed_tpu_torch import telemetry
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.runtime.config import TelemetryConfig
+
+    op_builder.arm_compile_spans()
+    telemetry.configure(TelemetryConfig(enabled=True, output_dir=str(tmp_path)))
+    try:
+        eng = _graph_engine(gen)
+        ids = torch.randint(0, 512, (2, 16), generator=gen, device="cuda")
+        eng.generate(ids, max_new_tokens=8)
+        loop, = eng._decode_loops.values()
+        spans = [e for e in telemetry.get_tracer().events if e.get("cat") == "compile"
+                 and e["args"]["phase"] == "cuda_graph_capture"]
+        assert len(spans) == 1 and spans[0]["dur"] == pytest.approx(loop.capture_s * 1e6)
     finally:
         telemetry.deconfigure()

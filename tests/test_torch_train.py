@@ -195,8 +195,8 @@ def test_config_blocks_parse_like_jax_and_later_blocks_raise():
     # the monitor fan-out parses as in JAX; a block of a later slice raises
     monitored = {"train_batch_size": 8, "telemetry": {"enabled": True, "monitor": True}}
     assert TConfig(monitored).telemetry.monitor == JConfig(monitored).telemetry.monitor is True
-    with pytest.raises(NotImplementedError, match="goodput"):
-        TConfig({"train_batch_size": 8, "goodput": {"enabled": True}})
+    with pytest.raises(NotImplementedError, match="blackbox"):
+        TConfig({"train_batch_size": 8, "blackbox": {"enabled": True}})
     with pytest.raises(NotImplementedError, match="MiCS"):
         TConfig({"train_batch_size": 8, "zero_optimization": {"stage": 2, "mics_shard_size": 2}})
     offload = TConfig({"train_batch_size": 8, "zero_optimization": {
