@@ -27,19 +27,27 @@ front-end (``serving.from_ds_config`` with the ``serving`` and
 ``telemetry`` blocks; B = 1 a request, ticks of 16 tokens): 8 greedy
 requests counted and equal to ``generate`` bit for bit, a sampled one, a
 queue-full shed, a chaos hang on a decode tick, the circuit opening and
-closing, a drain with exit code 87; K1 and K3 are checked at its B = 1
-shapes.
+closing under an armed flight recorder (``blackbox.configure``: one
+``breaker_transition`` bundle, the sheds and transitions in its ring), a
+drain with exit code 87; K1 and K3 are checked at its B = 1 shapes.
 ``resilience gpt2-760m`` trains the dense cell again with the ``watchdog``
 block (a heartbeat file, the step agreement every step), the bad-step
-sentinel and the ``rewind`` ring (``ram_interval`` 4, ``keep`` 2): losses
-equal to the unarmed cell's bit for bit, K1 and each K2 entry once per
-layer a step, the snapshot ms, the host GB held and the heartbeat's
-advancing mtime; then three drills at 4 of its 24 layers, each under
-``DSElasticAgent``: a chaos hang on the ``train_step`` hook ends in the
-watchdog's ``WatchdogTimeout`` and a restart from the RAM tier whose losses
-equal an unfaulted run's bit for bit; a loss spike (one batch repeated
-until its loss falls, then fresh ones) is rewound in place from RAM with
-no disk, once; a chaos ``preempt`` stops the run with an
+sentinel, the ``rewind`` ring (``ram_interval`` 4, ``keep`` 2) and the
+``blackbox`` flight recorder: losses equal to the unarmed cell's bit for
+bit, K1 and each K2 entry once per layer a step, the snapshot ms, the host
+GB held and the heartbeat's advancing mtime, the recorder's µs a step and
+no bundle, then a forced bundle (its bytes, files and write ms) and the
+incident report over it; then three drills at 4 of its 24 layers, each
+under ``DSElasticAgent``: a chaos hang on the ``train_step`` hook ends in
+the watchdog's ``WatchdogTimeout`` and a restart from the RAM tier whose
+losses equal an unfaulted run's bit for bit, with the recorder armed (the
+``watchdog_timeout`` bundle, the restart's own rate-limited, one bundle
+for one SIGUSR1, the incident report naming the timeout as the first cause
+with the restart's recovery, ``ds_metrics``'s incident line and
+``ds_report``'s card line); a loss spike (one batch repeated until its
+loss falls, then fresh ones) is rewound in place from RAM with no disk,
+once, its ``sentinel_rewind`` the report's first cause; a chaos
+``preempt`` stops the run with an
 ``emergency_step<N>`` tag that an engine from another seed loads, in
 preference to the stale ``latest``, bit for bit (the save's seconds,
 bytes and host peak).
@@ -1160,6 +1168,26 @@ def _join_disowned_ticks(timeout: float) -> None:
                 raise AssertionError(f"disowned tick {rec.name} still alive after {timeout} s")
 
 
+def _breaker_forensics(rec, bb_dir) -> dict:
+    """The breaker drill's recorder: one bundle, the breaker's trip to
+    open; the admitted request's and the door's sheds, the serving
+    transitions and the breaker's recovery in the ring."""
+    ring = [(e["kind"], e["severity"], e["payload"].get("to") or e["payload"].get("reason"))
+            for e in rec.ring_snapshot()]
+    bundles = _bundles(bb_dir)
+    out = {"ring": ring, "bundles": _triggers(bb_dir),
+           "bundle": _bundle_summary(os.path.join(bb_dir, "incidents", bundles[0]))
+           if bundles else None}
+    want = [("breaker_transition", "error", "open"), ("shed_admitted", "warning", "circuit_open"),
+            ("serving_transition", "warning", "degraded"), ("shed", "warning", "circuit_open"),
+            ("breaker_transition", "info", "half_open"), ("breaker_transition", "info", "closed"),
+            ("serving_transition", "info", "ready")]
+    if out["bundles"] != ["breaker_transition"] or rec.bundles_written != 1 \
+            or [r for r in ring if r[0] != "chaos_injection"] != want:
+        raise AssertionError(f"breaker drill forensics: {out}")
+    return out
+
+
 def serve_frontend(engine, c, fa, da):
     """The serving front-end (``serving/``) over the serving phase's engine
     (llama3.2-1b, bf16, full width and depth, max_out_tokens PROMPT + GEN,
@@ -1172,16 +1200,20 @@ def serve_frontend(engine, c, fa, da):
     0.5 s warm tick cap (a partial with reason timeout, the server ready,
     the next request equal to ``generate``: the disowned tick wrote nothing
     of it); two failed ticks opening the circuit, a queued request shed
-    circuit_open, a probe after the cooldown closing it; a SIGTERM-style
-    drain mid-stream (a partial with reason drained, exit code 87). →
-    the counted requests' launches."""
-    from deepspeed_tpu_torch import telemetry
+    circuit_open, a probe after the cooldown closing it, under a flight
+    recorder armed with ``blackbox.configure`` (serving has no ds_config
+    key that arms it): one ``breaker_transition`` bundle, the sheds and the
+    serving transitions in its ring; a SIGTERM-style drain mid-stream (a
+    partial with reason drained, exit code 87). → the counted requests'
+    launches."""
+    from deepspeed_tpu_torch import blackbox, telemetry
     from deepspeed_tpu_torch.resilience.chaos import (ChaosInjector, install_chaos,
                                                       uninstall_chaos)
-    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.config import BlackboxConfig, DeepSpeedConfig
     from deepspeed_tpu_torch.serving import ServingFrontEnd, ShedError, from_ds_config
 
     out_dir = tempfile.mkdtemp(prefix="serve_frontend_", dir=_scratch_dir()[0])
+    bb_dir = os.path.join(out_dir, "blackbox")
     ds_cfg = DeepSpeedConfig({"serving": FRONTEND_SERVING,
                               "telemetry": {"enabled": True, "output_dir": out_dir,
                                             "trace": False, "flush_interval": 1000}})
@@ -1242,7 +1274,9 @@ def serve_frontend(engine, c, fa, da):
             raise AssertionError(f"hang drill: {hung.status}/{hung.reason} in {hung_s} s, "
                                  f"state {state_after_hang}, next {after_hang.status}")
         _join_disowned_ticks(FRONTEND_HANG_S + 5.0)
-        # two failed ticks open the circuit; the queued third is shed
+        # two failed ticks open the circuit; the queued third is shed; the
+        # flight recorder is armed for it
+        rec = blackbox.configure(BlackboxConfig(output_dir=bb_dir, signal_snap=False))
         install_chaos(ChaosInjector(fail_at={"decode_step": [1, 2]}))
         trio = [fe.submit(prompts[0], max_new_tokens=32, deadline_s=600) for _ in range(3)]
         for r in trio:
@@ -1263,6 +1297,7 @@ def serve_frontend(engine, c, fa, da):
             raise AssertionError(f"breaker drill: {[(r.status, r.reason) for r in trio]}, "
                                  f"{breaker_open}, {open_shed}, probe {probe.status}, "
                                  f"{fe.breaker.state}")
+        forensics = _breaker_forensics(rec, bb_dir)
         # the drain mid-stream
         streaming = threading.Event()
         long = fe.submit(prompts[0], max_new_tokens=PROMPT + GEN - 16, deadline_s=600,
@@ -1280,6 +1315,7 @@ def serve_frontend(engine, c, fa, da):
     finally:
         uninstall_chaos()
         fe.close()
+        blackbox.deconfigure()
         _join_disowned_ticks(FRONTEND_HANG_S + 5.0)
     # every served request against generate on the same prompt (main thread,
     # the front-end idle: no capture meets a tick)
@@ -1324,7 +1360,7 @@ def serve_frontend(engine, c, fa, da):
          breaker={"trio": [(x.status, x.reason.split(":")[0]) for x in trio],
                   "probe": probe.status, "state": "closed"},
          drain={"status": long.status, "reason": long.reason, "tokens": len(long.tokens),
-                "exit_code": code}, counts=counts)
+                "exit_code": code}, counts=counts, blackbox=forensics)
     shutil.rmtree(out_dir, ignore_errors=True)
     return launches
 
@@ -3231,6 +3267,7 @@ def offload_slices(initialize, GPT2Model, presets, accel, fa):
 # the armed training cell: the watchdog (a heartbeat file, the step
 # agreement every step), the sentinel and the RAM ring, 2 + 8 steps
 RESILIENCE_WARMUP, RESILIENCE_STEPS = 2, 8
+SNAP_SETTLE_S = 0.5     # after a SIGUSR1 bundle: the second handler's ask has come
 RESILIENCE_REWIND = {"ram_interval": 4, "keep": 2}
 # the drills, at the resume phase's depth, each under DSElasticAgent, with
 # one RAM slot (each engine page-locks its ring's slots when it is built)
@@ -3291,21 +3328,52 @@ def _held_bitwise(got, want, label) -> None:
         raise AssertionError(f"{label}: losses {got} differ from {want}")
 
 
+def _bundle_summary(path: str) -> dict:
+    """An incident bundle's trigger, bytes, budget and files."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    files = sorted(os.listdir(path))
+    return {"trigger": manifest["trigger"], "files": files,
+            "bytes": sum(os.path.getsize(os.path.join(path, n)) for n in files),
+            "budget_bytes": manifest["budget_bytes"], "notes": manifest["notes"]}
+
+
+def _bundles(base: str) -> list:
+    inc = os.path.join(base, "incidents")
+    return sorted(os.listdir(inc)) if os.path.isdir(inc) else []
+
+
+def _incident_report(base: str) -> tuple:
+    """``blackbox.incident report`` over ``base``, in this process: the
+    report, its text, and its seconds."""
+    from deepspeed_tpu_torch.blackbox import incident
+
+    t0 = time.perf_counter()
+    text = _port_tool(incident.main, "report", base)["stdout"]
+    seconds = time.perf_counter() - t0
+    return incident.build_report([base]), text, seconds
+
+
 def resilience_armed(initialize, GPT2Model, cfg, accel, fa, ref_losses, ref_step_ms, tmp):
     """The training cell, full width and depth, with the watchdog (a
-    heartbeat file, the step agreement every step), the sentinel and the
-    RAM ring: each of its losses must equal the unarmed run's at the same
-    step bit for bit (``ref_losses``, as many), and K1 and each K2 entry
-    launch once per layer a step."""
+    heartbeat file, the step agreement every step), the sentinel, the RAM
+    ring and the flight recorder: each of its losses must equal the unarmed
+    run's at the same step bit for bit (``ref_losses``, as many), K1 and
+    each K2 entry launch once per layer a step, the recorder sees every
+    step and writes no bundle; a forced one (``blackbox.snap``) is written
+    within its budget and the incident report over it exits 0 with no
+    first cause."""
+    from deepspeed_tpu_torch import blackbox
     from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
     from deepspeed_tpu_torch.resilience import rewind as rw
 
     c = dataclasses.replace(cfg, remat=False)
     hb = os.path.join(tmp, "heartbeat")
+    bb_dir = os.path.join(tmp, "blackbox")
     config = {**TRAIN_CONFIG,
               "watchdog": {"enabled": True, "heartbeat_file": hb, "consistency_interval": 1},
               "resilience": {"sentinel": {"enabled": True}},
-              "rewind": dict(RESILIENCE_REWIND)}
+              "rewind": dict(RESILIENCE_REWIND), "blackbox": {"output_dir": bb_dir}}
     engine, *_ = initialize(model=GPT2Model(c), config=config)
     mgr = engine._rewind
     batch = synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED, device="cuda")
@@ -3323,6 +3391,24 @@ def resilience_armed(initialize, GPT2Model, cfg, accel, fa, ref_losses, ref_step
             snaps[newest.step] = newest.capture_s * 1e3
     launches = _kernel_counts(fa)
     expect = dict.fromkeys(launches, c.n_layer * RESILIENCE_STEPS)
+    rec = engine._blackbox
+    steps = RESILIENCE_WARMUP + RESILIENCE_STEPS
+    recorder = {"steps_seen": rec.steps_seen(), "steps": steps,
+                "overhead_us": rec.overhead_us(),
+                "overhead_us_per_step": rec.overhead_us() / max(1, rec.steps_seen()),
+                "bundles_clean_run": _bundles(bb_dir), "ring": len(rec.ring_snapshot())}
+    if rec.steps_seen() != steps or recorder["bundles_clean_run"] or rec.bundles_written:
+        raise AssertionError(f"armed cell: recorder {recorder}")
+    t0 = time.perf_counter()
+    snap_path = blackbox.snap("chip")
+    snap_ms = (time.perf_counter() - t0) * 1e3
+    report, report_text, report_s = _incident_report(bb_dir)
+    recorder.update(snap=_bundle_summary(snap_path), snap_write_ms=snap_ms,
+                    incident_report_s=report_s, incident_report=report_text[:4],
+                    first_cause=report["first_cause"])
+    if _bundles(bb_dir) != [os.path.basename(snap_path)] or report["first_cause"] is not None \
+            or recorder["snap"]["bytes"] > recorder["snap"]["budget_bytes"]:
+        raise AssertionError(f"armed cell: forced bundle {recorder}")
     held = rw.ram_snapshots()
     ring_bytes = sum(s.nbytes for s in held)
     snap_steps = [s for s in range(RESILIENCE_WARMUP + 1, RESILIENCE_WARMUP + RESILIENCE_STEPS + 1)
@@ -3345,6 +3431,7 @@ def resilience_armed(initialize, GPT2Model, cfg, accel, fa, ref_losses, ref_step
              b > a for a, b in zip(mtimes, mtimes[1:])),
          watchdog_deadline_s=engine._watchdog.deadline_s(),
          watchdog_trips=engine._watchdog.trips, sentinel_trips=engine._bad_step_sentinel.trips,
+         blackbox=recorder, nvidia_smi=nvidia_smi_line(),
          launches=launches, launches_expected=expect)
     _held_bitwise(losses, list(ref_losses), "armed cell against the unarmed cell")
     if [s.step for s in held] != snap_steps[-RESILIENCE_REWIND["keep"]:] \
@@ -3354,7 +3441,8 @@ def resilience_armed(initialize, GPT2Model, cfg, accel, fa, ref_losses, ref_step
     if launches != expect:
         raise AssertionError(f"armed cell: launch counts {launches}, expected {expect}")
     engine._watchdog.close()
-    del engine, mgr, held
+    blackbox.deconfigure()
+    del engine, mgr, held, rec
     rw.clear_ram_snapshots()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3537,18 +3625,29 @@ def profiled_slice(initialize, GPT2Model, cfg, accel, fa, ref_losses, ref_step_m
     return launches
 
 
-def _drill_agent(initialize, GPT2Model, c, config, save_dir, batches, num_steps, **agent_kw):
+def _drill_agent(initialize, GPT2Model, c, config, save_dir, batches, num_steps,
+                 on_step=None, **agent_kw):
     """A DSElasticAgent run of ``num_steps`` over ``batches(agent)`` (one
-    batch per engine step): its status and every (step, loss) it saw."""
+    batch per engine step), ``on_step(agent)`` after each step: its status,
+    every (step, loss) it saw, and each engine's flight recorder."""
     from deepspeed_tpu_torch.elasticity import DSElasticAgent
 
-    seen = []
-    agent = DSElasticAgent(lambda: initialize(model=GPT2Model(c), config=dict(config))[0],
-                           save_dir, **{"checkpoint_interval": 0,
-                                        "install_signal_handlers": False, **agent_kw})
-    out = agent.run(lambda: batches(agent), num_steps=num_steps,
-                    step_callback=lambda step, loss: seen.append((step, float(loss))))
-    return agent, out, seen
+    seen, recorders = [], []
+
+    def factory():
+        engine = initialize(model=GPT2Model(c), config=dict(config))[0]
+        recorders.append(engine._blackbox)
+        return engine
+
+    def callback(step, loss):
+        seen.append((step, float(loss)))
+        if on_step is not None:
+            on_step(agent)
+
+    agent = DSElasticAgent(factory, save_dir, **{"checkpoint_interval": 0,
+                                                 "install_signal_handlers": False, **agent_kw})
+    out = agent.run(lambda: batches(agent), num_steps=num_steps, step_callback=callback)
+    return agent, out, seen, recorders
 
 
 def _by_step(seen) -> dict:
@@ -3557,14 +3656,82 @@ def _by_step(seen) -> dict:
     return {step: loss for step, loss in seen}
 
 
+def _sigusr1_snap(agent, state) -> None:
+    """Once the engine after the restart is up: one SIGUSR1 to this
+    process, and the wait for the live recorder's bundle."""
+    import signal
+
+    from deepspeed_tpu_torch import blackbox
+
+    if agent.restart_count != 1 or "ms" in state:
+        return
+    rec = blackbox.get_recorder()
+    t0 = time.perf_counter()
+    os.kill(os.getpid(), signal.SIGUSR1)
+    while rec.bundles_written < 1 and time.perf_counter() - t0 < 30.0:
+        time.sleep(0.005)
+    state["ms"] = (time.perf_counter() - t0) * 1e3
+    state["bundle"] = rec.last_bundle_dir
+    time.sleep(SNAP_SETTLE_S)           # the agent's chained handler has asked too
+
+
+def _triggers(base: str) -> list:
+    """The triggers of the bundles under ``base`` (``<ts>_<trigger>``)."""
+    return sorted(name.split("_", 1)[1] for name in _bundles(base))
+
+
+def _hang_forensics(recorders, snap, telemetry_dir, restart_record) -> dict:
+    """The hang drill's flight-recorder evidence, checked: the ring of the
+    engine that hung and of the one after the restart, the two bundles
+    (the timeout's and the SIGUSR1's), the main thread in the SIGUSR1
+    bundle's stacks, and the incident report over both."""
+    if len(recorders) != 2 or None in recorders:
+        raise AssertionError(f"hang drill: recorders {recorders}")
+    hung, after = recorders
+    kinds = [(e["kind"], e["severity"]) for e in hung.ring_snapshot()]
+    with open(os.path.join(snap.get("bundle") or "", "stacks.txt")) as f:
+        stacks = f.read()
+    report, text, report_s = _incident_report(telemetry_dir)
+    cause = report["first_cause"] or {}
+    recovery = (report.get("cost") or {}).get("recovery") or {}
+    out = {"ring_before_restart": kinds, "bundles": _triggers(telemetry_dir),
+           "bundles_written": [hung.bundles_written, after.bundles_written],
+           "sigusr1_bundle_ms": snap.get("ms"),
+           "sigusr1_bundle": _bundle_summary(snap["bundle"]),
+           "main_thread_in_stacks": os.path.basename(__file__) in stacks,
+           "first_cause": cause, "recovery": recovery, "incident_report_s": report_s,
+           "incident_report": [line for line in text if not line.startswith("  ")]}
+    order = [k for k in kinds if k in (("chaos_injection", "warning"),
+                                       ("watchdog_timeout", "error"), ("restart", "error"))]
+    if order != [("chaos_injection", "warning"), ("watchdog_timeout", "error"),
+                 ("restart", "error")] or hung.last_trigger != "watchdog_timeout" \
+            or out["bundles"] != ["sigusr1", "watchdog_timeout"] \
+            or out["bundles_written"] != [1, 1] or not out["main_thread_in_stacks"] \
+            or cause.get("kind") != "watchdog_timeout" \
+            or cause.get("step") != restart_record.get("step") or recovery.get("tier") != "ram":
+        raise AssertionError(f"hang drill forensics: {out}")
+    return out
+
+
 def drill_hang(initialize, GPT2Model, c, fa, tmp, telemetry_dir):
     """A hang on the ``train_step`` hook: the watchdog's WatchdogTimeout,
     the agent's restart from the RAM tier with steps_lost <= ram_interval,
     and the losses after the recovery equal to an unfaulted run's (the
-    same steps on an engine without the blocks, which change no bit)."""
+    same steps on an engine without the blocks, which change no bit). The
+    flight recorder is armed, and the agent's signal handlers installed:
+    the chaos warning comes before the timeout's error, whose bundle is
+    written; the restart's error lands in the ring and its bundle is
+    rate-limited; one SIGUSR1 after the restart gives one bundle whose
+    stacks hold the main thread; the incident report names the timeout at
+    the hang's step as the first cause, with the restart's recovery."""
+    import faulthandler
+    import signal
+
+    from deepspeed_tpu_torch import blackbox, env_report, telemetry
     from deepspeed_tpu_torch.models.gpt2 import synthetic_lm_batch
     from deepspeed_tpu_torch.resilience import chaos
     from deepspeed_tpu_torch.resilience import rewind as rw
+    from deepspeed_tpu_torch.telemetry import cli as metrics_cli
 
     rw.clear_ram_snapshots()            # the run starts with nothing to resume from
     feed = [synthetic_lm_batch(TRAIN_BATCH, TRAIN_SEQ, c.vocab_size, seed=SEED + 100 + i,
@@ -3579,31 +3746,51 @@ def drill_hang(initialize, GPT2Model, c, fa, tmp, telemetry_dir):
             yield feed[agent.engine.global_steps % DRILL_STEPS]
 
     config = {**TRAIN_CONFIG, "rewind": dict(DRILL_REWIND), "watchdog": DRILL_WATCHDOG,
-              "telemetry": {"enabled": True, "output_dir": telemetry_dir, "trace": False}}
+              "telemetry": {"enabled": True, "output_dir": telemetry_dir, "trace": False},
+              "blackbox": {}}
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT, signal.SIGUSR1)}
+    snap = {}
     _reset_counts(fa)
     chaos.install_chaos(chaos.ChaosInjector(hang_at={"train_step": [DRILL_HANG_AT]},
                                             hang_s=60.0))
     t0 = time.perf_counter()
     try:
-        agent, out, seen = _drill_agent(initialize, GPT2Model, c, config,
-                                        os.path.join(tmp, "hang"), batches, DRILL_STEPS,
-                                        max_restarts=1)
+        agent, out, seen, recorders = _drill_agent(
+            initialize, GPT2Model, c, config, os.path.join(tmp, "hang"), batches, DRILL_STEPS,
+            on_step=lambda a: _sigusr1_snap(a, snap), max_restarts=1,
+            install_signal_handlers=True)
     finally:
         chaos.uninstall_chaos()
+        blackbox.deconfigure()
+        faulthandler.unregister(signal.SIGUSR1)
+        for s, h in handlers.items():
+            signal.signal(s, h)
     wall_s = time.perf_counter() - t0
     launches = _kernel_counts(fa)
     expect = dict.fromkeys(launches, c.n_layer * len(seen))
     rec = out["restart_log"][0] if out["restart_log"] else {}
     got = _by_step(seen)
     restart_log = os.path.join(telemetry_dir, "restart_log.jsonl")
+    forensics = _hang_forensics(recorders, snap, telemetry_dir, rec)
+    telemetry.flush()
+    t_tools = time.perf_counter()
+    footer = [line for line in _port_tool(metrics_cli.main, telemetry_dir)["stdout"]
+              if line.startswith("incident:")]
+    report_lines = _port_tool(env_report.main)["stdout"]
+    card = [line for line in report_lines if "nvidia-smi name, power limit" in line]
+    forensics.update(ds_metrics_incident_line=footer, ds_report_card=card,
+                     tools_s=time.perf_counter() - t_tools)
+    if not footer or "BUNDLES" not in footer[0] or not card \
+            or nvidia_smi_line() not in card[0]:
+        raise AssertionError(f"hang drill tools: ds_metrics {footer}, ds_report {card}")
     emit(f"resilience {TRAIN_MODEL}", part="hang drill", layers=c.n_layer,
          status=out["status"], final_step=out["final_step"], restarts=out["restarts"],
          restart_record=rec, watchdog=DRILL_WATCHDOG, hang_at_call=DRILL_HANG_AT,
          ram_interval=RESILIENCE_REWIND["ram_interval"], wall_s=wall_s,
          restart_log_jsonl=[json.loads(line) for line in open(restart_log)]
          if os.path.isfile(restart_log) else None,
-         losses=got, losses_unfaulted=want, steps_trained=len(seen),
-         launches=launches, launches_expected=expect)
+         losses=got, losses_unfaulted=want, steps_trained=len(seen), blackbox=forensics,
+         nvidia_smi=nvidia_smi_line(), launches=launches, launches_expected=expect)
     if out["status"] != "complete" or out["restarts"] != 1 \
             or "WatchdogTimeout" not in rec.get("error", "") or rec.get("tier") != "ram" \
             or not 0 <= rec.get("steps_lost", -1) <= RESILIENCE_REWIND["ram_interval"]:
@@ -3612,6 +3799,23 @@ def drill_hang(initialize, GPT2Model, c, fa, tmp, telemetry_dir):
     if launches != expect:
         raise AssertionError(f"hang drill: launch counts {launches}, expected {expect}")
     return launches
+
+
+def _spike_forensics(rec, telemetry_dir) -> dict:
+    """The spike drill's recorder: the rewind's ``rewind_recovery`` and
+    ``sentinel_rewind`` events, one bundle, triggered by the latter, and
+    the incident report naming it as the first cause."""
+    ring = [(e["kind"], e["severity"], e["step"]) for e in rec.ring_snapshot()]
+    report, text, report_s = _incident_report(telemetry_dir)
+    cause = report["first_cause"] or {}
+    out = {"ring": ring, "bundles": _triggers(telemetry_dir),
+           "first_cause": cause, "incident_report_s": report_s,
+           "incident_report": [line for line in text if not line.startswith("  ")]}
+    kinds = [k for k, _, _ in ring]
+    if out["bundles"] != ["sentinel_rewind"] or kinds.count("sentinel_rewind") != 1 \
+            or "rewind_recovery" not in kinds or cause.get("kind") != "sentinel_rewind":
+        raise AssertionError(f"spike drill forensics: {out}")
+    return out
 
 
 def drill_spike(initialize, GPT2Model, c, fa, tmp, telemetry_dir):
@@ -3648,7 +3852,8 @@ def drill_spike(initialize, GPT2Model, c, fa, tmp, telemetry_dir):
         "lr": SPIKE_LR, "weight_decay": 0.01}},
               "rewind": {**DRILL_REWIND, "ram_interval": 1},
               "resilience": {"sentinel": dict(SPIKE_SENTINEL)},
-              "telemetry": {"enabled": True, "output_dir": telemetry_dir, "trace": False}}
+              "telemetry": {"enabled": True, "output_dir": telemetry_dir, "trace": False},
+              "blackbox": {"signal_snap": False}}
     from deepspeed_tpu_torch.elasticity import DSElasticAgent
 
     _reset_counts(fa)
@@ -3666,7 +3871,13 @@ def drill_spike(initialize, GPT2Model, c, fa, tmp, telemetry_dir):
             state["recovery"] = dict(eng._rewind.last_recovery)
             state["ckpt_dir"] = eng._ckpt_save_dir
 
-    out = agent.run(lambda: batches(agent), num_steps=10 ** 6, step_callback=callback)
+    from deepspeed_tpu_torch import blackbox
+
+    try:
+        out = agent.run(lambda: batches(agent), num_steps=10 ** 6, step_callback=callback)
+        forensics = _spike_forensics(agent.engine._blackbox, telemetry_dir)
+    finally:
+        blackbox.deconfigure()
     counts = {",".join(f"{k}={v}" for k, v in sorted((r.get("labels") or {}).items())):
               r["value"] for r in telemetry.get_registry().snapshot()
               if r["name"] == "resilience/sentinel_rewinds"}
@@ -3678,6 +3889,7 @@ def drill_spike(initialize, GPT2Model, c, fa, tmp, telemetry_dir):
          rewound_at_step=state["rewound_at"], recovery=state.get("recovery"),
          disk_at_rewind=state["disk"], ckpt_dir_at_rewind=state.get("ckpt_dir"),
          sentinel_rewinds=counts, status=out["status"], final_step=out["final_step"],
+         blackbox=forensics, nvidia_smi=nvidia_smi_line(),
          launches=launches, launches_expected=expect)
     if counts != {"tier=ram": 1} or state["disk"] or state.get("ckpt_dir") \
             or (state.get("recovery") or {}).get("tier") != "ram" or out["status"] != "complete":

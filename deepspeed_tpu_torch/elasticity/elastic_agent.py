@@ -104,7 +104,8 @@ class DSElasticAgent:
 
         Two layers, in chain order: a Python-level handler that only sets an
         Event (async-signal safe) whose sentinel thread appends the dump to
-        the watchdog's default dump file; then ``faulthandler.register``
+        the watchdog's default dump file and, with the flight recorder
+        armed, asks it for a bundle; then ``faulthandler.register``
         (``chain=True`` back to the Python handler), whose C-level dump to
         stderr still fires even when the main thread is wedged inside one C
         call and no Python handler could ever run."""
@@ -139,8 +140,12 @@ class DSElasticAgent:
             self._dump_event.wait()
             self._dump_event.clear()
             # stderr already got faulthandler's dump; this one goes to the
-            # default dump file
+            # default dump file, and the armed recorder writes a bundle (its
+            # own chained handler asks too: its debounce makes them one)
             dump_all_stacks(None, reason="SIGUSR1", to_stderr=False)
+            bb = sys.modules.get("deepspeed_tpu_torch.blackbox")
+            if bb is not None:
+                bb.snap("sigusr1")
 
     def _on_preempt(self, signum, frame):
         logger.warning(f"elastic agent: received signal {signum} — will "
@@ -408,6 +413,12 @@ class DSElasticAgent:
                     "ts": time.time(),
                 }, kind="restart", severity="error")
                 self.restart_log.append(record)
+                bb = sys.modules.get("deepspeed_tpu_torch.blackbox")
+                if bb is not None:
+                    bb.record("restart", "error",
+                              {"restart": self.restart_count, "error": record["error"],
+                               "backoff_s": record["backoff_s"]},
+                              step=record["step"])
                 # persistence is DEFERRED to the next successful bring-up
                 # (_stamp_recovery), so the on-disk record carries the
                 # recovery's {tier, snapshot_step, steps_lost, restore_s};

@@ -45,6 +45,7 @@ from __future__ import annotations
 import os
 import random
 import signal
+import sys
 import time
 from collections import defaultdict
 from typing import Dict, Iterable, Optional, Sequence
@@ -174,6 +175,11 @@ class ChaosInjector:
 
         telemetry.get_registry().counter(
             "resilience/chaos_injections", labels={"op": op, "action": action}).inc()
+        bb = sys.modules.get("deepspeed_tpu_torch.blackbox")
+        if bb is not None:
+            # chaos is self-inflicted: context for the timeline, never a
+            # trigger of its own
+            bb.record("chaos_injection", "warning", {"op": op, "action": action})
 
     def _hang(self, op: str, n: int, path: str):
         """Interruptible stall: sleep in 50 ms slices, so an asynchronous

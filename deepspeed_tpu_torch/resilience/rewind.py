@@ -46,6 +46,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import sys
 import time
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -341,6 +342,10 @@ class RewindManager:
 
         telemetry.get_tracer().instant("rewind_recovery", cat="resilience",
                                        **{k: v for k, v in info.items() if v is not None})
+        bb = sys.modules.get("deepspeed_tpu_torch.blackbox")
+        if bb is not None:
+            bb.record("rewind_recovery", "info", {k: v for k, v in info.items() if v is not None},
+                      step=info.get("snapshot_step"))
 
     # ---------------------------------------------------------- emergency
     def emergency_save(self, save_dir: str) -> Optional[str]:

@@ -110,6 +110,9 @@ def _count_timeout(kind: str, stall_s: Optional[float] = None) -> None:
     telemetry.get_registry().counter(
         "resilience/watchdog_timeouts", labels={"kind": kind}).inc()
     telemetry.get_tracer().instant("watchdog_timeout", cat="resilience", kind=kind)
+    bb = sys.modules.get("deepspeed_tpu_torch.blackbox")
+    if bb is not None:
+        bb.record("watchdog_timeout", "error", {"kind": kind, "stall_s": stall_s})
     if stall_s is not None and stall_s > 0:
         # the stall as a complete span ending now
         telemetry.get_tracer().complete("watchdog_stall", stall_s * 1e6, cat="stall", kind=kind)

@@ -18,7 +18,8 @@ session ``telemetry/`` installs, with the ``monitor`` fan-out), the monitor
 blocks ``tensorboard``, ``wandb`` and ``csv_monitor`` (``monitor/``),
 ``flops_profiler`` and ``profiling`` (``profiling/``; ``profiling_present``
 says whether the block is there), ``goodput`` (``goodput/``;
-``goodput_present``), ``serving`` (the front-end of
+``goodput_present``), ``blackbox`` (the flight recorder of ``blackbox/``;
+``blackbox_present``), ``serving`` (the front-end of
 ``serving/``; ``serving_present`` says whether the block is there),
 ``watchdog``, ``rewind`` (``rewind_present``), ``elasticity``
 (``elasticity/config.py``; None without the block), ``steps_per_print``,
@@ -62,7 +63,7 @@ SUPPORTED_KEYS = frozenset({
     "activation_checkpointing", "memory_breakdown", "dump_state",
     "hybrid_engine", "compression_training", "eigenvalue", "telemetry", "serving",
     "watchdog", "rewind", "elasticity", "tensorboard", "wandb", "csv_monitor",
-    "flops_profiler", "profiling", "goodput", "train_batch_size",
+    "flops_profiler", "profiling", "goodput", "blackbox", "train_batch_size",
     "train_micro_batch_size_per_gpu",
     "train_micro_batch_size_per_chip", "gradient_accumulation_steps",
 })
@@ -71,7 +72,7 @@ SUPPORTED_KEYS = frozenset({
 # each is a later slice of the port
 LATER_KEYS = frozenset({
     "pipeline", "gradient_compression", "autotuning", "analysis",
-    "perf", "overlap", "wire", "sdc", "roofline", "gray", "blackbox",
+    "perf", "overlap", "wire", "sdc", "roofline", "gray",
 })
 
 # The JAX package's advisory keys that the port accepts at any value, each
@@ -95,7 +96,7 @@ ADVISORY_NOOP_KEYS = {
         "nebula's tiers and storage paths have no counterpart",
     "zero_allow_untested_optimizer":
         "a client optimizer is a deepspeed_tpu_torch.ops.optimizers.Optimizer, which "
-        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:950 "
+        "updates one flat fp32 tensor per ZeRO unit at every stage (runtime/engine.py:988 "
         "_configure_optimizer): there is no untested-optimizer gate to pass",
     "zero_force_ds_cpu_optimizer":
         "the port has no CPU Adam to force: offload_optimizer cpu keeps the state in "
@@ -104,7 +105,7 @@ ADVISORY_NOOP_KEYS = {
         "(runtime/swap_tensor/optimizer_swapper.py)",
     "timers":
         "throughput timing is always on (ThroughputTimer, utils/timer.py; the engine's "
-        "tput_timer, runtime/engine.py:389) and the synchronized breakdown is the "
+        "tput_timer, runtime/engine.py:394) and the synchronized breakdown is the "
         "wall_clock_breakdown knob: set that instead",
 }
 
@@ -413,6 +414,37 @@ class GoodputConfig(DeepSpeedConfigModel):
         _check_min(self, tolerance=(0.0, True))
         if self.tolerance > 1.0:
             raise ValueError(f"GoodputConfig.tolerance must be <= 1.0, got {self.tolerance}")
+
+
+@dataclasses.dataclass
+class BlackboxConfig(DeepSpeedConfigModel):
+    """The blackbox block (``blackbox/``): the always-on flight recorder. A
+    bounded ring of incident events (watchdog timeouts, chaos injections,
+    rewind recoveries, restarts, sentinel rewinds, breaker and serving
+    transitions, sheds), each in the ``telemetry/events.py`` envelope, and
+    a rolling per-step tail. An event of ``trigger_severity`` or worse (or
+    SIGUSR1 with ``signal_snap``, or ``blackbox.snap``) writes an
+    ``incidents/<ts>_<trigger>/`` bundle under ``output_dir`` (else the
+    telemetry directory) within ``max_bundle_mb``; automatic bundles are at
+    least ``min_trigger_interval_s`` apart and the newest ``max_bundles``
+    are kept. Everything is on the host. Its presence arms it (``enabled``
+    false keeps it present and off); without it the package is never
+    imported. The JAX package's fields, defaults and bounds."""
+    enabled: bool = True
+    ring_size: int = 512
+    metric_tail: int = 256
+    span_tail: int = 256
+    max_bundle_mb: float = 16.0
+    max_bundles: int = 8
+    min_trigger_interval_s: float = 30.0
+    trigger_severity: str = "error"
+    signal_snap: bool = True
+    output_dir: Optional[str] = None
+
+    def __post_init__(self):
+        _check_min(self, ring_size=(1, False), metric_tail=(1, False), span_tail=(1, False),
+                   max_bundle_mb=(0.0, True), max_bundles=(1, False),
+                   min_trigger_interval_s=(0.0, False))
 
 
 @dataclasses.dataclass
@@ -830,6 +862,10 @@ class DeepSpeedConfig:
         # package is never imported and no compile span is stamped
         self.goodput = GoodputConfig.from_dict(pd.get("goodput", {}))
         self.goodput_present = "goodput" in pd
+        # presence matters, as in JAX: without the block the blackbox
+        # package is never imported (no ring, no signal handler, no bundles)
+        self.blackbox = BlackboxConfig.from_dict(pd.get("blackbox", {}))
+        self.blackbox_present = "blackbox" in pd
         self.serving = ServingConfig.from_dict(pd.get("serving", {}))
         self.serving_present = "serving" in pd
         self.watchdog = WatchdogConfig.from_dict(pd.get("watchdog", {}))

@@ -138,6 +138,10 @@ an enabled ``resilience.chaos`` installs the injector, whose
 timeout or a fault after its first launch) leaves the state half updated:
 the engine then refuses ``train_batch`` and ``step`` until a whole-state
 restore (``load_checkpoint``, which the sentinel's rewind also is).
+``blackbox`` arms the flight recorder (``blackbox/``): a ring of the
+producers' incident events (the sentinel's rewind is one), a per-step
+tail appended after the sentinel and the RAM snapshot, and an incident
+bundle on an error event or SIGUSR1; all on the host.
 
 Monitoring and profiling, each a strict no-op when its block is absent (as
 in JAX): the ``tensorboard``, ``wandb`` and ``csv_monitor`` blocks make the
@@ -170,6 +174,7 @@ import dataclasses
 import functools
 import inspect
 import os
+import sys
 import tempfile
 import time
 import types
@@ -408,6 +413,7 @@ class DeepSpeedEngine:
         self._last_save = None
         self._last_recovery = None
         self._init_resilience()
+        self._init_blackbox()
 
         # ---- data: the loader and the curricula --------------------------
         self.collate_fn = collate_fn
@@ -608,6 +614,29 @@ class DeepSpeedEngine:
         else:
             _chaos.uninstall_config_chaos()
 
+    def _init_blackbox(self) -> None:
+        """The flight recorder (``blackbox/``), armed only by a present and
+        enabled block: otherwise the package is never imported, and the
+        producers' ``sys.modules`` lookups find nothing. Its bundles are
+        per process, so the manifest's world size is the process count."""
+        self._blackbox = None
+        if not (self._config.blackbox_present and self._config.blackbox.enabled):
+            return
+        from deepspeed_tpu_torch import blackbox
+
+        self._blackbox = blackbox.configure(self._config.blackbox, rank=comm.get_rank())
+        fp = getattr(self, "_config_fingerprint", None)
+        if fp is None:
+            from deepspeed_tpu_torch.resilience.consistency import config_fingerprint
+
+            # the hash the startup agreement would take: the incident
+            # report tells runs apart by it
+            fp = config_fingerprint(self._config.to_dict(),
+                                    mesh={"data": self.dp_world_size,
+                                          "expert": self.ep_world_size})
+        self._blackbox.config_fingerprint = fp
+        self._blackbox.world_size = comm.get_world_size()
+
     def _mark_broken(self, e: BaseException) -> None:
         """A step stopped part way (a watchdog timeout, a fault): the flat
         params, masters, moments or gradient buffers may be half updated, so
@@ -633,6 +662,10 @@ class DeepSpeedEngine:
             self._check_bad_step(metrics)
         if self._rewind is not None:
             self._rewind.maybe_snapshot(self._global_step, metrics)
+        if self._blackbox is not None:
+            # the recorder's heartbeat: one locked append, no read of the
+            # loss and no wait for the card
+            self._blackbox.on_step(self._global_step)
 
     def _check_bad_step(self, metrics: "StepMetrics") -> None:
         """Feed the step's loss and overflow flag to the sentinel; when it
@@ -686,6 +719,11 @@ class DeepSpeedEngine:
                                           labels={"tier": tier}).inc()
         _telemetry.get_tracer().instant("sentinel_rewind", cat="resilience", reason=reason,
                                         tier=tier)
+        bb = sys.modules.get("deepspeed_tpu_torch.blackbox")
+        if bb is not None:
+            bb.record("sentinel_rewind", "error",
+                      {"reason": reason, "tier": tier, "rewind": self._sentinel_rewinds,
+                       "max_rewinds": sentinel.max_rewinds}, step=self._global_step)
         sentinel.reset()
 
     def _touch_heartbeat_now(self) -> None:

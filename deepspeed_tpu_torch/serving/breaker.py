@@ -16,13 +16,15 @@ machine, tuned for the serving tick loop:
   restarts the cooldown.
 
 Every transition reaches telemetry through ``on_transition`` (the
-front-end counts ``serving/circuit_transitions{from,to}``). Thread-safe;
-the clock is injectable for tests. The JAX package's flight-recorder
-(``blackbox``) record of a transition waits for that module's port.
+front-end counts ``serving/circuit_transitions{from,to}``) and, with the
+flight recorder armed, its ring as a ``breaker_transition`` event (error
+on a trip to open: a bundle). Thread-safe; the clock is injectable for
+tests.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from typing import Callable, Optional, Tuple
@@ -82,6 +84,12 @@ class CircuitBreaker:
         self.transitions.append((frm, to, self._clock()))
         logger.warning(f"serving circuit breaker: {frm} -> {to} "
                        f"(consecutive_failures={self._consecutive_failures})")
+        bb = sys.modules.get("deepspeed_tpu_torch.blackbox")
+        if bb is not None:
+            # tripping open is the incident; the recovering transitions are context
+            bb.record("breaker_transition", "error" if to == OPEN else "info",
+                      {"from": frm, "to": to,
+                       "consecutive_failures": self._consecutive_failures})
         if self.on_transition is not None:
             self.on_transition(frm, to)
 

@@ -41,8 +41,11 @@ holds the only reference to those buffers), forgets the key's warm ticks
 next request of that key. The tick body also checks its tick's abandoned
 flag after the chaos hook, before any launch.
 
-The JAX package's flight-recorder (``blackbox``) records of shed, drain
-and transition events wait for that module's port.
+With the flight recorder armed (``blackbox.configure``; serving has no
+ds_config key that arms it, as in JAX), every state transition, shed at
+the door and shed after admission is an event in its ring
+(``serving_transition``, ``shed``, ``shed_admitted``), recorded through
+``sys.modules`` so an unarmed server never imports the package.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import dataclasses
 import json
 import os
 import signal
+import sys
 import threading
 import time
 import uuid
@@ -176,6 +180,13 @@ class ServingFrontEnd:
             self._set_state_gauge()
             logger.info(f"serving state: {frm} -> {to}"
                         + (f" ({self._drain_reason})" if to == ServerState.DRAINING else ""))
+            bb = sys.modules.get("deepspeed_tpu_torch.blackbox")
+            if bb is not None:
+                degraded = to in (ServerState.DRAINING, ServerState.DEGRADED, ServerState.DEAD)
+                bb.record("serving_transition", "warning" if degraded else "info",
+                          {"from": frm, "to": to,
+                           "reason": self._drain_reason if to == ServerState.DRAINING
+                           else None})
         self._write_status()
 
     @property
@@ -295,6 +306,9 @@ class ServingFrontEnd:
 
     def _shed_count(self, reason: str) -> None:
         self._count("shed", labels={"reason": reason})
+        bb = sys.modules.get("deepspeed_tpu_torch.blackbox")
+        if bb is not None:
+            bb.record("shed", "warning", {"reason": reason})
 
     def _resolve_shed(self, req: Request, reason: str,
                       retry_after_s: float = 0.0) -> None:
@@ -305,6 +319,10 @@ class ServingFrontEnd:
         ledger reconciliation `admitted == completed + timed_out + drained
         + failed + Σ shed_admitted` stays checkable from the JSONL."""
         self._count("shed_admitted", labels={"reason": reason})
+        bb = sys.modules.get("deepspeed_tpu_torch.blackbox")
+        if bb is not None:
+            bb.record("shed_admitted", "warning",
+                      {"reason": reason, "retry_after_s": retry_after_s})
         req.retry_after_s = float(retry_after_s)
         self._resolve(req, "shed", reason)
 

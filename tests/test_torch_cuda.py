@@ -1904,3 +1904,21 @@ def test_graph_capture_stamps_a_compile_span(gen, tmp_path):
         assert len(spans) == 1 and spans[0]["dur"] == pytest.approx(loop.capture_s * 1e6)
     finally:
         telemetry.deconfigure()
+
+
+def test_hardware_report_names_the_card():
+    """``ds_report``'s hardware rows on the card: the CUDA backend, the
+    card's name as torch gives it, its memory, and nvidia-smi's name and
+    power limit."""
+    from deepspeed_tpu_torch import env_report
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    hw = dict(env_report.hardware_report())
+    name = torch.cuda.get_device_name(0)
+    assert hw["backend"] == "cuda" and hw["device name"] == name
+    assert hw["device count"] == torch.cuda.device_count() >= 1
+    assert "GiB" in hw["memory per device"]
+    smi = hw["nvidia-smi name, power limit"]
+    assert smi.split(",")[0].strip() in name or name in smi
+    assert smi.rstrip().endswith("W")

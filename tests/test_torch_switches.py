@@ -166,7 +166,7 @@ def test_communication_data_type_is_accepted_at_the_accumulation_type():
         tconfig.DeepSpeedConfig({"train_batch_size": 4, "communication_data_type": "bf16"})
 
 
-@pytest.mark.parametrize("later", ["gradient_compression", "blackbox", "autotuning",
+@pytest.mark.parametrize("later", ["gradient_compression", "gray", "autotuning",
                                    "perf", "pipeline", "analysis"])
 def test_later_keys_still_raise(later):
     with pytest.raises(NotImplementedError, match=later):

@@ -195,8 +195,11 @@ def test_config_blocks_parse_like_jax_and_later_blocks_raise():
     # the monitor fan-out parses as in JAX; a block of a later slice raises
     monitored = {"train_batch_size": 8, "telemetry": {"enabled": True, "monitor": True}}
     assert TConfig(monitored).telemetry.monitor == JConfig(monitored).telemetry.monitor is True
-    with pytest.raises(NotImplementedError, match="blackbox"):
-        TConfig({"train_batch_size": 8, "blackbox": {"enabled": True}})
+    # the blackbox block parses as in JAX; a block of a later slice raises
+    armed = {"train_batch_size": 8, "blackbox": {"ring_size": 64}}
+    assert TConfig(armed).blackbox.ring_size == JConfig(armed).blackbox.ring_size == 64
+    with pytest.raises(NotImplementedError, match="sdc"):
+        TConfig({"train_batch_size": 8, "sdc": {"enabled": True}})
     with pytest.raises(NotImplementedError, match="MiCS"):
         TConfig({"train_batch_size": 8, "zero_optimization": {"stage": 2, "mics_shard_size": 2}})
     offload = TConfig({"train_batch_size": 8, "zero_optimization": {
